@@ -1,0 +1,8 @@
+"""PyTorch + CUDA port of clique_tpu.
+
+A second package beside the JAX reference (clique_tpu/). It imports torch
+and never jax: host modules without jax are shared from clique_tpu by
+import, device code is PyTorch plus hand-written CUDA kernels (csrc/,
+built at first use by _build.py). Ported so far: the `align` verb with the
+dp engine and the kmer router (align/pipeline.py, cli.py).
+"""

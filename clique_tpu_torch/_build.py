@@ -1,0 +1,132 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+interface (route (b): no PyTorch headers, so a build takes seconds), which
+`ctypes` loads. The library lives under `clique_tpu_torch/_build/<hash>/`,
+keyed by a hash of the sources and the flags, so an edit rebuilds and an
+unchanged tree reuses the last build. A file lock serialises concurrent
+builds (several processes or test workers starting together).
+
+There is no fallback: if `nvcc` is missing or the build fails, `load()`
+raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import NamedTuple, Optional
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+LIB_NAME = "libclique_dp.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+
+class BuildInfo(NamedTuple):
+    path: str          # the loaded shared library
+    seconds: float     # wall time of the nvcc run (0.0 when reused)
+    log: str           # nvcc's output, -Xptxas -v lines included
+
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_info: Optional[BuildInfo] = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless this exact source tree was built already.
+    Returns where the library is, how long nvcc took and what it said."""
+    out_dir = os.path.join(BUILD_DIR, _source_hash())
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    log_path = os.path.join(out_dir, "nvcc.log")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "lock"), "w") as lock_fh:
+        fcntl.flock(lock_fh, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(lib_path) and os.path.exists(log_path):
+                with open(log_path) as fh:
+                    return BuildInfo(lib_path, 0.0, fh.read())
+            cus = [p for p in _sources() if p.endswith(".cu")]
+            tmp_path = lib_path + f".tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *cus]
+            t0 = time.time()
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=CSRC_DIR)
+            seconds = time.time() - t0
+            log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{log}")
+            os.replace(tmp_path, lib_path)
+            with open(log_path, "w") as fh:
+                fh.write(log)
+            return BuildInfo(lib_path, seconds, log)
+        finally:
+            fcntl.flock(lock_fh, fcntl.LOCK_UN)
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib, _info
+    with _lock:
+        if _lib is not None:
+            return _lib
+        info = build()
+        lib = ctypes.CDLL(info.path)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.clique_dp_fill.restype = ci
+        lib.clique_dp_fill.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp,
+                                       ci, ci, ci, ci, vp]
+        lib.clique_dp_fill_smem_bytes.restype = ci
+        lib.clique_dp_fill_smem_bytes.argtypes = [ci, ci]
+        lib.clique_dp_fill_max_n1.restype = ci
+        lib.clique_dp_fill_max_n1.argtypes = []
+        lib.clique_dp_walk.restype = ci
+        lib.clique_dp_walk.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        _lib, _info = lib, info
+        return lib
+
+
+def build_info() -> BuildInfo:
+    """How the loaded library was built (loads it if needed)."""
+    load()
+    return _info

@@ -1,0 +1,452 @@
+"""Batched 3-plane affine-gap DP (PyTorch), global full-band mode.
+
+Counterpart of clique_tpu/align/batch.py for the path the `align` verb
+runs: the global, full-band fill with per-element lengths, tie order
+up > left > diag (diag wins ties), the `both` and `ref_n_only` special-byte
+rules, the traceback walk from the (l1, l2) corner, and the op epilogue
+fused into one uint8 row per alignment.
+
+`fill_reference` and `walk_reference` are the plain PyTorch versions; the
+hand-written CUDA kernels (align/dp_kernels.py, csrc/) compute the same
+bytes. `align_batch` runs the kernels on CUDA tensors and the plain
+versions on CPU tensors.
+
+Exactness: every scoring constant is dyadic and every intermediate a sum
+of < 2^18-magnitude dyadics, so float32 decisions are exact on any backend
+(clique_tpu/align/batch.py:18-21) and results compare byte for byte.
+
+The host numpy helpers at the end are copies of clique_tpu/align/batch.py's
+(that module imports jax); each keeps its body and cites its source line.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from clique_tpu.align.scoring import MAX_NEG_SCORE, AffineScoring
+
+# direction codes (== source plane), same as align/cpu.py
+DIAG, UP, LEFT = 0, 1, 2
+# a packed traceback byte with all three planes set to UP (fresh-matrix value)
+_TB_FRESH = UP | (UP << 2) | (UP << 4)
+
+# op codes emitted by the traceback walk
+OP_MATCH, OP_DEL, OP_INS, OP_DONE = 0, 1, 2, 3
+
+SPECIAL_MODES = ("both", "ref_n_only")
+
+
+class BatchAlignment(NamedTuple):
+    """Result of a batched fill + traceback (clique_tpu batch.py:53-61)."""
+
+    score: torch.Tensor       # [B] f32 alignment score
+    start_z: torch.Tensor     # [B] i32 starting plane
+    ops: torch.Tensor         # [B, T] uint8 op codes, OP_DONE-padded
+    n_ops: torch.Tensor       # [B] i32 number of valid ops
+    ops_packed: torch.Tensor  # [B, ceil(T/4)] uint8, 4 ops per byte
+
+
+def scoring_to_params(scoring: AffineScoring, device) -> torch.Tensor:
+    """float32 [6] scoring vector (clique_tpu batch.py:655-661)."""
+    scoring.assert_dyadic()
+    return torch.tensor(
+        [scoring.match_score, scoring.mismatch_score,
+         scoring.special_character_score, scoring.gap_open,
+         scoring.gap_extend, scoring.final_gap_multiplier],
+        dtype=torch.float32, device=device)
+
+
+def params_from_jax(np_params, device) -> torch.Tensor:
+    """Carry the JAX package's scoring vector (as numpy) across."""
+    arr = np.asarray(np_params, dtype=np.float32)
+    if arr.shape != (6,):
+        raise ValueError(f"scoring params must have shape (6,), got "
+                         f"{arr.shape}")
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _check_lens(ref_lens, read_lens, n1: int, n2: int):
+    if ref_lens.numel() and (int(ref_lens.min()) < 0
+                             or int(ref_lens.max()) > n1 - 1):
+        raise ValueError(f"ref_lens must lie in [0, {n1 - 1}]")
+    if read_lens.numel() and (int(read_lens.min()) < 0
+                              or int(read_lens.max()) > n2 - 1):
+        raise ValueError(f"read_lens must lie in [0, {n2 - 1}]")
+
+
+def _three_way_max(up, left, diag):
+    """three_way_max_and_direction (clique_tpu batch.py:81-88): up on
+    strict >, then left on strict >, else diag (ties -> diag)."""
+    up_gt_left = up > left
+    up_wins = up_gt_left & (up > diag)
+    left_wins = ~up_gt_left & (left > diag)
+    val = torch.where(up_wins, up, torch.where(left_wins, left, diag))
+    direction = torch.where(up_wins, UP, torch.where(left_wins, LEFT, DIAG))
+    return val, direction.to(torch.uint8)
+
+
+def _shift_down(arr):
+    """[B, X] -> value at index x-1 (x axis), zero-filled at x=0."""
+    return torch.nn.functional.pad(arr[:, :-1], (1, 0))
+
+
+def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
+                   n2: int, special_mode: str):
+    """Plain anti-diagonal fill: the global branch of align_batch_device
+    (clique_tpu batch.py:221-330, tie_order="ref", no band, local=False).
+
+    refs [B|1, >= n1-1] uint8 (one row = uniform-reference batch), reads
+    [B, >= n2-1] uint8, lens [B] int32 (ref_lens <= n1-1, read_lens <=
+    n2-1), params f32 [6]. Returns tb uint8 [B, D, n1] (D = n1+n2-1; one
+    6-bit traceback byte per cell, _TB_FRESH outside the interior) and
+    corner f32 [B, 3] (the M/D/I scores at (l1, l2))."""
+    if special_mode not in SPECIAL_MODES:
+        raise ValueError(f"special_mode must be one of {SPECIAL_MODES}")
+    _check_lens(ref_lens, read_lens, n1, n2)
+    dev = reads.device
+    B = reads.shape[0]
+    D = n1 + n2 - 1
+    f32 = torch.float32
+    m_s, mm_s, sp_s, go, ge, fgm = (params[i] for i in range(6))
+    one = torch.ones((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    neg = torch.full((), MAX_NEG_SCORE, dtype=f32, device=dev)
+
+    xs = torch.arange(n1, dtype=torch.int64, device=dev)
+    x = xs[None, :]
+    l1 = ref_lens.to(torch.int64)[:, None]
+    l2 = read_lens.to(torch.int64)[:, None]
+    # ref byte per DP row, pre-shifted: row x scores ref[x-1]
+    rx = torch.nn.functional.pad(refs[:, :n1 - 1].to(torch.int32), (1, 0))
+    rx = rx.expand(B, n1)
+    reads_i = reads.to(torch.int32)
+    W = reads.shape[1]
+
+    zeros = torch.zeros((B, n1), dtype=f32, device=dev)
+    pm, pp1, pp2 = zeros, zeros, zeros          # diagonal d-1
+    p2m, p2p1, p2p2 = zeros, zeros, zeros       # diagonal d-2
+    tb = torch.empty((B, D, n1), dtype=torch.uint8, device=dev)
+    corner = torch.zeros((B, 3), dtype=f32, device=dev)
+    corner_d = (l1 + l2)[:, 0]
+    fresh = torch.tensor(_TB_FRESH, dtype=torch.uint8, device=dev)
+
+    for d in range(D):
+        y = d - x                                               # [1, n1]
+        # read byte at y-1 for every lane (only interior lanes use it)
+        ry = reads_i.index_select(1, (y[0] - 1).clamp(0, max(W - 1, 0)))
+        if special_mode == "ref_n_only":
+            # rust-bio-compat rule (alignment_functions.rs:55): only a
+            # reference-side N scores as a guaranteed match
+            special = rx == 78
+        else:
+            special = (rx == 78) | (ry == 78) | (rx < 58) | (ry < 58)
+        ms = torch.where(special, sp_s, torch.where(rx == ry, m_s, mm_s))
+
+        gm = torch.where((x == l1) | (y == l2), fgm, one)
+        lge = ge * gm
+        x1 = go + lge
+
+        m_val, m_dir = _three_way_max(_shift_down(p2p1) + ms,
+                                      _shift_down(p2p2) + ms,
+                                      _shift_down(p2m) + ms)
+        d_val, d_dir = _three_way_max(_shift_down(pp1) + lge,
+                                      _shift_down(pp2) + x1,
+                                      _shift_down(pm) + x1)
+        i_val, i_dir = _three_way_max(pp1 + x1, pp2 + lge, pm + x1)
+
+        interior = (x >= 1) & (x <= l1) & (y >= 1) & (y <= l2)
+        is_x_border = (x == 0) & (y >= 1) & (y <= l2)
+        is_y_border = (y == 0) & (x >= 1) & (x <= l1)
+        is_origin = (x == 0) & (y == 0)
+
+        xb = (go + y.to(f32) * ge) * fgm
+        yb = (go + x.to(f32) * ge) * fgm
+
+        m_out = torch.where(
+            interior, m_val,
+            torch.where(is_origin, zero,
+                        torch.where(is_x_border | is_y_border, neg, zero)))
+        gap_border = torch.where(
+            is_x_border, xb,
+            torch.where(is_y_border, yb, torch.where(is_origin, neg, zero)))
+        p1_out = torch.where(interior, d_val, gap_border)
+        p2_out = torch.where(interior, i_val, gap_border)
+
+        tb[:, d, :] = torch.where(
+            interior, m_dir | (d_dir << 2) | (i_dir << 4), fresh)
+
+        # capture the (l1, l2) corner when its diagonal comes by
+        corner_col = torch.cat([torch.gather(v, 1, l1)
+                                for v in (m_out, p1_out, p2_out)], dim=1)
+        corner = torch.where((corner_d == d)[:, None], corner_col, corner)
+
+        p2m, p2p1, p2p2 = pm, pp1, pp2
+        pm, pp1, pp2 = m_out, p1_out, p2_out
+    return tb, corner
+
+
+def corner_to_z0_score(corner):
+    """Starting plane = argmax over the corner, later plane wins ties
+    (Rust max_by keeps the last max; clique_tpu batch.py:495-501)."""
+    z0 = torch.where(
+        corner[:, 2] >= torch.maximum(corner[:, 0], corner[:, 1]), 2,
+        torch.where(corner[:, 1] >= corner[:, 0], 1, 0)).to(torch.int32)
+    score = torch.gather(corner, 1, z0[:, None].long())[:, 0]
+    return z0, score
+
+
+def fuse_result(ops_packed, n_ops, score):
+    """One uint8 row per alignment: n_ops i32 LE, score f32 LE, then the
+    packed ops (clique_tpu batch.py:504-515). Host side: unfuse_result."""
+    a = n_ops.to(torch.int32).contiguous().view(torch.uint8)
+    b = score.to(torch.float32).contiguous().view(torch.uint8)
+    B = n_ops.shape[0]
+    return torch.cat([a.reshape(B, 4), b.reshape(B, 4), ops_packed], dim=1)
+
+
+def _ops_epilogue(ops_d, score, z0, *, n1: int, n2: int):
+    """Stable left-compaction of the walked ops and 2-bit packing
+    (clique_tpu batch.py:610-635)."""
+    B, Dw = ops_d.shape
+    n_ops = (ops_d != OP_DONE).sum(dim=1).to(torch.int32)
+    T = n1 + n2
+    order = torch.argsort((ops_d == OP_DONE).to(torch.int32), dim=1,
+                          stable=True)
+    ops_compact = torch.gather(ops_d, 1, order)
+    if Dw < T:
+        ops_fwd = torch.nn.functional.pad(ops_compact, (0, T - Dw),
+                                          value=OP_DONE)
+    else:
+        ops_fwd = ops_compact[:, :T]
+    T4 = -(-T // 4) * 4
+    o = torch.nn.functional.pad(ops_fwd, (0, T4 - T), value=OP_DONE)
+    o = o.reshape(B, T4 // 4, 4)
+    ops_packed = (o[:, :, 0] | (o[:, :, 1] << 2) | (o[:, :, 2] << 4)
+                  | (o[:, :, 3] << 6)).to(torch.uint8)
+    return BatchAlignment(score=score, start_z=z0, ops=ops_fwd, n_ops=n_ops,
+                          ops_packed=ops_packed)
+
+
+def walk_reference(tb, corner, ref_lens, read_lens, *, n1: int, n2: int):
+    """Plain traceback walk + epilogue + fuse.
+
+    Walks every alignment from its (l1, l2) corner over the traceback tb
+    [B, D, n1], one diagonal per step from d = D-1 down to 0, with the
+    semantics of _finish_from_packed_traceback (clique_tpu
+    batch.py:565-607): in the core the op is the current plane and the
+    next plane is (tb >> 2z) & 3; along the borders it runs OP_DEL / OP_INS.
+    Returns (BatchAlignment, fused uint8 [B, 8 + ceil(T/4)]), T = n1+n2."""
+    _check_lens(ref_lens, read_lens, n1, n2)
+    dev = tb.device
+    B = tb.shape[0]
+    D = n1 + n2 - 1
+    z0, score = corner_to_z0_score(corner)
+    x = ref_lens.to(torch.int64)
+    y = read_lens.to(torch.int64)
+    z = z0.to(torch.int64)
+    ops_d = torch.full((B, D), OP_DONE, dtype=torch.uint8, device=dev)
+    for d in range(D - 1, -1, -1):
+        active = (x + y == d) & ((x > 0) | (y > 0))
+        in_core = (x > 0) & (y > 0)
+        step_core = active & in_core
+        on_x = active & (x > 0)
+        op = torch.where(step_core, z,
+                         torch.where(on_x, OP_DEL,
+                                     torch.where(active & (y > 0), OP_INS,
+                                                 OP_DONE)))
+        byte = torch.gather(tb[:, d, :], 1, x.clamp(0, n1 - 1)[:, None])
+        direction = (byte[:, 0].to(torch.int64) >> (2 * z)) & 3
+        dx = torch.where(step_core, (z != 2).to(torch.int64),
+                         on_x.to(torch.int64))
+        dy = torch.where(step_core, (z != 1).to(torch.int64),
+                         (active & (x <= 0) & (y > 0)).to(torch.int64))
+        z = torch.where(step_core, direction, z)
+        x = x - dx
+        y = y - dy
+        ops_d[:, d] = op.to(torch.uint8)
+    res = _ops_epilogue(ops_d, score, z0, n1=n1, n2=n2)
+    return res, fuse_result(res.ops_packed, res.n_ops, res.score)
+
+
+def align_batch(refs, reads, ref_lens, read_lens, params, *, n1: int,
+                n2: int, special_mode: str, return_traceback: bool = False,
+                stream=None):
+    """Fill + walk for one length bucket: the counterpart of
+    align_batch_device(use_pallas=True) in global full-band mode.
+
+    Inputs as fill_reference. On CUDA tensors the two hand-written kernels
+    run on `stream` (default: the current stream); on CPU tensors the plain
+    versions run. Returns (fused uint8 [B, 8 + ceil((n1+n2)/4)], tb or
+    None); unfuse_result recovers (ops_packed, n_ops, score) on the host,
+    and check_marked_rows(n_ops) raises for a row whose lengths lay
+    outside [0, n1-1] x [0, n2-1] (on CPU tensors the fill raises first)."""
+    from clique_tpu_torch.align import dp_kernels
+
+    tb, corner = dp_kernels.dp_fill(refs, reads, ref_lens, read_lens,
+                                    params, n1=n1, n2=n2,
+                                    special_mode=special_mode, stream=stream)
+    fused = dp_kernels.dp_walk(tb, corner, ref_lens, read_lens, n1=n1,
+                               n2=n2, stream=stream)
+    return fused, (tb if return_traceback else None)
+
+
+# --- host-side helpers (copies of clique_tpu/align/batch.py) -----------------
+
+def unfuse_result(buf: np.ndarray):
+    """Host inverse of fuse_result: (ops_packed, n_ops, score) views.
+    Copy of clique_tpu/align/batch.py:518."""
+    n_ops = np.ascontiguousarray(buf[..., 0:4]).view(np.int32)[..., 0]
+    score = np.ascontiguousarray(buf[..., 4:8]).view(np.float32)[..., 0]
+    return buf[..., 8:], n_ops, score
+
+
+def check_marked_rows(n_ops: np.ndarray):
+    """Raise for fused rows the CUDA walk marked with n_ops -1: their
+    lengths lay outside the bucket. The plain versions raise the same
+    ValueError at call time (_check_lens); the kernels cannot without a
+    device sync, so the host raises when it reads the row back."""
+    bad = np.flatnonzero(np.asarray(n_ops) < 0)
+    if len(bad):
+        raise ValueError(f"{len(bad)} alignment(s) had lengths outside "
+                         f"their bucket (first: row {int(bad[0])})")
+
+
+def unpack_ops(ops_packed: np.ndarray, T: int) -> np.ndarray:
+    """Host-side unpack of 2-bit op codes -> [B, T] uint8.
+    Copy of clique_tpu/align/batch.py:664."""
+    B = ops_packed.shape[0]
+    shifts = np.array([0, 2, 4, 6], dtype=np.uint8)
+    u = (ops_packed[:, :, None] >> shifts[None, None, :]) & 3
+    return u.reshape(B, -1)[:, :T].astype(np.uint8)
+
+
+def pad_batch(seqs, pad_to: Optional[int] = None):
+    """list[bytes] -> (uint8 array [B, L], int32 lens [B]).
+    Copy of clique_tpu/align/batch.py:674."""
+    lens = np.array([len(s) for s in seqs], dtype=np.int32)
+    L = int(pad_to if pad_to is not None else (max(lens) if len(lens) else 0))
+    out = np.zeros((len(seqs), max(L, 1)), dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        out[i, : len(s)] = np.frombuffer(
+            s if isinstance(s, bytes) else bytes(s), dtype=np.uint8)
+    return out, lens
+
+
+def ops_to_alignments_batch(ops: np.ndarray, n_ops: np.ndarray,
+                            refs_arr: np.ndarray, reads_arr: np.ndarray):
+    """Vectorized expansion of a whole batch of op sequences.
+    Copy of clique_tpu/align/batch.py:685.
+
+    ops [B, T] uint8 (OP_DONE-padded), n_ops [B], refs_arr [B, Lr],
+    reads_arr [B, Ld] -> (aligned_ref [B, T] uint8, aligned_read [B, T]
+    uint8, valid [B, T] bool). Rows are GAP/0-padded past n_ops; callers
+    slice row[:n_ops[b]].
+    """
+    from clique_tpu.utils.seq import GAP
+
+    B, T = ops.shape
+    valid = ops != OP_DONE
+    r_step = valid & (ops != OP_INS)
+    d_step = valid & (ops != OP_DEL)
+    r_idx = np.cumsum(r_step, axis=1, dtype=np.int32)
+    d_idx = np.cumsum(d_step, axis=1, dtype=np.int32)
+    np.subtract(r_idx, 1, out=r_idx)
+    np.subtract(d_idx, 1, out=d_idx)
+    np.clip(r_idx, 0, refs_arr.shape[1] - 1, out=r_idx)
+    np.clip(d_idx, 0, reads_arr.shape[1] - 1, out=d_idx)
+    # flat fancy gather is faster than take_along_axis at these shapes;
+    # int32 index arithmetic avoids an int64 upcast pass
+    rows = np.arange(B, dtype=np.int32)[:, None]
+    ref_g = refs_arr.ravel()[r_idx + rows * np.int32(refs_arr.shape[1])]
+    read_g = reads_arr.ravel()[d_idx + rows * np.int32(reads_arr.shape[1])]
+    aligned_ref = np.where(r_step, ref_g, GAP).astype(np.uint8)
+    aligned_read = np.where(d_step, read_g, GAP).astype(np.uint8)
+    aligned_ref[~valid] = 0
+    aligned_read[~valid] = 0
+    return aligned_ref, aligned_read, valid
+
+
+def cigar_from_ops_row(ops_row: np.ndarray, n: int):
+    """Run-length encode one op row into [(count, op)] (M/D/I).
+    Copy of clique_tpu/align/batch.py:718."""
+    from clique_tpu.align.cpu import simplify_cigar
+
+    ops_row = ops_row[:n]
+    if n == 0:
+        return []
+    change = np.nonzero(np.diff(ops_row))[0]
+    starts = np.concatenate(([0], change + 1))
+    ends = np.concatenate((change + 1, [n]))
+    return [(int(e - s), "MDI"[ops_row[s]]) for s, e in zip(starts, ends)]
+
+
+def cigar_runs_from_ops_batch(ops: np.ndarray, n_ops: np.ndarray):
+    """Flat run-length encoding of a whole [B, T] op matrix in one pass:
+    (counts int32 [R], opcodes uint8 [R] with 0=M 1=D 2=I, bounds int64
+    [B+1] into the run arrays). Copy of clique_tpu/align/batch.py:731."""
+    B, T = ops.shape
+    z64 = np.zeros(1, dtype=np.int64)
+    if B == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.uint8), z64)
+    j = np.arange(T, dtype=np.int64)
+    valid = j[None, :] < n_ops[:, None]
+    o = np.where(valid, ops, 255).astype(np.int16)
+    prev = np.empty_like(o)
+    prev[:, 0] = -1                       # row start always opens a run
+    prev[:, 1:] = o[:, :-1]
+    start = valid & (o != prev)
+    rows, cols = np.nonzero(start)
+    if len(rows) == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.uint8),
+                np.zeros(B + 1, dtype=np.int64))
+    ends = np.empty_like(cols)
+    ends[:-1] = cols[1:]
+    row_last = np.empty(len(rows), dtype=bool)
+    row_last[:-1] = rows[1:] != rows[:-1]
+    row_last[-1] = True
+    ends[row_last] = n_ops[rows[row_last]]
+    counts = (ends - cols).astype(np.int32)
+    opcodes = ops[rows, cols].astype(np.uint8)
+    bounds = np.searchsorted(rows, np.arange(B + 1)).astype(np.int64)
+    return counts, opcodes, bounds
+
+
+def cigars_from_runs(counts, opcodes, bounds):
+    """Per-row [(count, op)] tuple lists from cigar_runs_from_ops_batch
+    output. Copy of clique_tpu/align/batch.py:764."""
+    counts_l = counts.tolist()
+    ops_l = opcodes.tolist()
+    bounds_l = bounds.tolist()
+    sym = "MDI"
+    return [[(c, sym[v]) for c, v in
+             zip(counts_l[s:e], ops_l[s:e])]
+            for s, e in zip(bounds_l[:-1], bounds_l[1:])]
+
+
+def cigars_from_ops_batch(ops: np.ndarray, n_ops: np.ndarray):
+    """Run-length encode a whole [B, T] op matrix into per-row
+    [(count, op)] lists with one flat pass. Copy of
+    clique_tpu/align/batch.py:776."""
+    return cigars_from_runs(*cigar_runs_from_ops_batch(ops, n_ops))
+
+
+def ops_to_alignment(ops: np.ndarray, n_ops: int, ref: bytes, read: bytes):
+    """Expand a forward op sequence into (ref_aligned, read_aligned, cigar).
+    Copy of clique_tpu/align/batch.py:784."""
+    from clique_tpu.align.cpu import simplify_cigar
+    from clique_tpu.utils.seq import GAP
+
+    ops = ops[:n_ops]
+    r_idx = np.cumsum(ops != OP_INS)      # consumed ref bases after each op
+    d_idx = np.cumsum(ops != OP_DEL)      # consumed read bases
+    ref_a = np.frombuffer(ref, dtype=np.uint8)
+    read_a = np.frombuffer(read, dtype=np.uint8)
+
+    aln1 = np.where(ops != OP_INS, ref_a[np.clip(r_idx - 1, 0, None)], GAP).astype(np.uint8)
+    aln2 = np.where(ops != OP_DEL, read_a[np.clip(d_idx - 1, 0, None)], GAP).astype(np.uint8)
+
+    cigar = simplify_cigar([(1, "MDI"[o]) for o in ops])
+    return aln1.tobytes(), aln2.tobytes(), cigar

@@ -1,0 +1,1081 @@
+"""End-to-end `align` pipeline on PyTorch + CUDA: FASTQ -> merge ->
+batched DP on the card -> tag extraction -> tagged SAM/BAM.
+
+Counterpart of clique_tpu/align/pipeline.py, kept textually close to it so
+that a diff between the two reads easily. What differs:
+
+- BatchAligner dispatches each length bucket on one explicit CUDA stream
+  through the hand-written fill and walk kernels and copies the fused
+  result into pinned host memory; pulls() waits on a per-group event. On
+  a CPU device the plain PyTorch versions run instead. The TPU
+  workarounds (batch pad-up to a compiled shape, the wave, fetch-fuse,
+  the device mesh) are gone.
+- align_reads runs the dp engine with the kmer router (single reference,
+  kmer vote, exhaustive search). Options not ported yet raise
+  NotImplementedError naming their ROADMAP.md item: --engine wfa/convex,
+  --router hmm over several references, a partial band, a profiler trace,
+  read sharding across processes, and reads long enough for the anchored
+  path.
+
+Reference-selection semantics (align_to_reference_choices, :520-631):
+- single reference: orient by longest shared segment when !known_strand,
+  then global affine alignment with the rust-bio-compat scoring via the
+  `ref_n_only` special rule (single_ref_native=True for the engine's own
+  affine scoring instead).
+- multiple references: unique-kmer vote; if the top reference holds > 0.90
+  of votes align to it, else exhaustively align against every candidate and
+  keep the best score (quick/exhaustive_alignment_search, :693-827).
+
+SAM tags written per read (:193-226 and alignment_matrix.rs:741-771):
+e<sym> = extracted tag per UMI symbol, rc = 1, ar = read name,
+rm = reference alignment rate, as/rs = alignment score.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+from decimal import Decimal
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from clique_tpu.align.merge import MERGE_SCORING, alignment_rate_and_consensus, unify_read
+from clique_tpu.align.scoring import AffineScoring
+from clique_tpu.config.layout import (AlignedReadOrientation, MergeStrategy,
+                                      SequenceLayout)
+from clique_tpu.extract.extractor import (
+    alignment_rate_fast,
+    extract_digit_tags_fast,
+    extract_tagged_sequences,
+)
+from clique_tpu.io.fastq import ReadIterator
+from clique_tpu.io.sam import SamRecord, open_alignment_writer
+from clique_tpu.reference.manager import ReferenceManager, orient_by_longest_segment
+from clique_tpu.utils.seq import GAP, reverse_complement
+from clique_tpu_torch.align import batch as dbatch
+from clique_tpu_torch.align import dp_kernels
+
+log = logging.getLogger(__name__)
+
+
+# the ROADMAP.md Queue 1 item that ports each capability the JAX pipeline
+# has and this one refuses (the CLI names them too)
+ROADMAP_ITEMS = {
+    "profiling": "7 (bench.py and profiling on the port)",
+    "batch_modes": "8 (the rest of align/batch.py, align/anchored.py)",
+    "hmm": "9 (align/hmm.py)",
+    "wavefront": "10 (align/wavefront.py)",
+    "parallel": "11 (parallel/)",
+}
+
+
+def unported_message(what: str, item: str) -> str:
+    return (f"{what} is not ported to clique_tpu_torch yet (ROADMAP.md "
+            f"Queue 1 item {ROADMAP_ITEMS[item]}); use clique_tpu")
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(unported_message(what, item))
+
+# rust-bio-compatible scoring used by the reference's single-reference path
+# (alignment_functions.rs:48-61): match/ref-N = 1, mismatch = -1, gap -5/-1.
+RUST_BIO_COMPAT = AffineScoring(1.0, -1.0, 1.0, -5.0, -1.0, 1.0)
+
+# device batches accumulated before a flush, the JAX pipeline's default
+# (clique_tpu/align/pipeline.py, CLIQUE_TPU_FLUSH_FACTOR)
+FLUSH_FACTOR = 8
+
+
+def bam_codec() -> str:
+    """Which BAM codec the writer uses: "native C" (clique_tpu/native,
+    built with the C compiler and zlib at first use) or "pure Python"."""
+    from clique_tpu.native import get_lib
+
+    return "native C" if get_lib() is not None else "pure Python"
+
+
+@dataclass
+class AlignedRead:
+    """One aligned read ready for tag extraction / writing."""
+
+    read_name: str
+    reference_name: str
+    reference_aligned: bytes
+    read_aligned: bytes
+    quals: Optional[bytes]
+    cigar: List[Tuple[int, str]]
+    score: float
+    reference_start: int = 0
+
+    def to_sam_record(self, extra_tags: Dict[str, str]) -> SamRecord:
+        """AlignmentResult::to_sam_record (alignment_matrix.rs:741-771):
+        gap-stripped sequence, qual hardcoded 'H', pos = start+1, tags
+        rm/rs/ar/as + extras."""
+        arr = np.frombuffer(self.read_aligned, dtype=np.uint8)
+        seq = arr[arr != GAP].tobytes()
+        tags = dict(extra_tags)
+        tags["rm"] = _fmt(alignment_rate_fast(
+            self.reference_aligned, self.read_aligned))
+        tags["rs"] = _fmt(self.score)
+        tags["as"] = _fmt(self.score)
+        return SamRecord(
+            name=self.read_name,
+            flag=0,
+            reference_name=self.reference_name,
+            pos=self.reference_start + 1,
+            mapq=255,
+            cigar=list(self.cigar),
+            seq=seq,
+            qual=b"H" * len(seq),
+            tags=tags,
+        )
+
+
+def _fmt(x: float) -> str:
+    """Render a float exactly as Rust's f64 `Display` does (used for the
+    rm/as SAM tags, reference alignment_matrix.rs:741-771).
+
+    Rust Display prints the shortest decimal that round-trips and NEVER
+    uses scientific notation: 290.0 -> "290", 1e16 -> "10000000000000000",
+    1.5e-7 -> "0.00000015", -0.0 -> "-0". Python `repr` matches the
+    shortest-round-trip digits but switches to exponent form outside
+    ~[1e-4, 1e16); expand those through Decimal (exact, since Decimal is
+    constructed from repr's digit string, not the binary float)."""
+    if x != x:  # NaN
+        return "NaN"
+    if x == float("inf"):
+        return "inf"
+    if x == float("-inf"):
+        return "-inf"
+    s = repr(x)
+    if s.endswith(".0"):
+        return s[:-2]  # 290.0 -> "290", -0.0 -> "-0"
+    if "e" not in s and "E" not in s:
+        return s
+    return format(Decimal(s), "f")
+
+
+@dataclass
+class _Pending:
+    name: str
+    seq: bytes
+    quals: bytes
+    ref_id: int
+
+
+class BatchAligner:
+    """Length-bucketed batcher around align_batch, on one device.
+
+    On a CUDA device every group goes out on ONE explicit stream, in order:
+    the H2D copies of its reads (and of one reference row when the group
+    shares it), the fill and walk kernels, and a non-blocking copy of the
+    fused result into pinned host memory, followed by an event. pulls()
+    waits on each group's event, so it may run on any thread (the drain
+    thread does) without touching that thread's current stream. Only the
+    fused buffers outlive a dispatch: the traceback is freed on the stream
+    as soon as the walk is enqueued. On a CPU device the plain PyTorch
+    fill and walk run synchronously at dispatch."""
+
+    def __init__(self, scoring: AffineScoring, batch_size: int = 128,
+                 length_quantum: int = 128, special_mode: str = "both",
+                 device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.params = dbatch.scoring_to_params(scoring, self.device)
+        self.batch_size = batch_size
+        self.quantum = length_quantum
+        self.special_mode = special_mode
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            # the params were written on the current stream
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        self.device_seconds = 0.0   # dispatch + wait time
+        self.post_seconds = 0.0     # host-side expansion
+        # dispatch runs on the main thread while pulls/expansion run on
+        # the drain thread: the timing counters need a lock or the
+        # unsynchronized += interleaves and drops increments
+        import threading
+
+        self._t_lock = threading.Lock()
+        self.pairs_aligned = 0
+        self.cells_filled = 0
+        self.dispatches = 0
+
+    def _bucket_len(self, n: int) -> int:
+        q = self.quantum
+        return max(q, -(-n // q) * q)
+
+    def align_pairs_entries(self, refs: List[bytes], reads: List[bytes]):
+        """Dispatch + pull WITHOUT host expansion: returns pulled entries
+        (group metadata + the fused result bytes) for expand_entry. The
+        align_reads writer thread expands them off the critical path;
+        align_pairs_raw expands inline for everyone else.
+
+        Every group is dispatched before any result is pulled back (the
+        kernels and copies run asynchronously on the stream), so the
+        device works while the host expands earlier groups."""
+        i = 0
+        # precompute each pair's bucket shape once
+        shapes = [(self._bucket_len(len(refs[k]) + 1),
+                   self._bucket_len(len(reads[k]) + 1))
+                  for k in range(len(refs))]
+        idxs = sorted(range(len(refs)), key=shapes.__getitem__)
+        t0 = time.time()
+        buckets = []
+        while i < len(idxs):
+            n1, n2 = shapes[idxs[i]]
+            group = []
+            while i < len(idxs) and len(group) < self.batch_size and \
+                    shapes[idxs[i]] == (n1, n2):
+                group.append(idxs[i])
+                i += 1
+            buckets.append((group, n1, n2))
+            self.cells_filled += len(group) * (n1 - 1) * (n2 - 1)
+        self.pairs_aligned += len(idxs)
+
+        inflight = [self._dispatch_group(group, refs, reads, n1, n2)
+                    for group, n1, n2 in buckets]
+
+        with self._t_lock:
+            self.device_seconds += time.time() - t0
+
+        def pulls():
+            # lazy per-group pulls: align_pairs_raw expands one entry
+            # while the next group's copy completes
+            for entry in inflight:
+                t1 = time.time()
+                *head, host, event = entry
+                if event is not None:
+                    event.synchronize()
+                fused_np = host.numpy() if isinstance(host, torch.Tensor) \
+                    else host
+                dt = time.time() - t1
+                with self._t_lock:
+                    self.device_seconds += dt
+                yield tuple(head) + (fused_np,)
+        return pulls()
+
+    def expand_entry(self, entry):
+        """Expand one pulled entry (align_pairs_entries) into per-group
+        raw tuples (group, a_ref, a_read, valid, ops, n_ops, scores).
+        Pure host numpy — safe to run on the writer thread so expansion
+        overlaps the next chunk's parse + dispatch."""
+        t1 = time.time()
+        out = []
+
+        def expand(group, packed, n_ops, scores, refs_host, reads_host):
+            # trim to real rows and to the batch's longest op sequence:
+            # T is padded to the worst case n1+n2-1, but typical
+            # alignments use ~half — halves every expansion pass
+            g = len(group)
+            n_o = n_ops[:g]
+            P = max(1, (int(n_o.max(initial=0)) + 3) // 4)
+            ops = dbatch.unpack_ops(packed[:g, :P], P * 4)
+            a_ref, a_read, valid = dbatch.ops_to_alignments_batch(
+                ops, n_o, refs_host[:g], reads_host[:g])
+            out.append((group, a_ref, a_read, valid, ops, n_o,
+                        scores[:g]))
+
+        _tag, group, refs_arr, reads_arr, T, fused = entry
+        packed, n_ops, scores = dbatch.unfuse_result(fused)
+        dbatch.check_marked_rows(n_ops[:len(group)])
+        expand(group, packed, n_ops, scores, refs_arr, reads_arr)
+        dt = time.time() - t1
+        with self._t_lock:
+            self.post_seconds += dt
+        return out
+
+    def align_pairs_raw(self, refs: List[bytes], reads: List[bytes]):
+        """Expanded view of align_pairs_entries (see expand_entry)."""
+        out = []
+        for entry in self.align_pairs_entries(refs, reads):
+            out.extend(self.expand_entry(entry))
+        return out
+
+    def align_pairs(self, refs: List[bytes], reads: List[bytes]
+                    ) -> List[Tuple[bytes, bytes, List[Tuple[int, str]], float]]:
+        """Per-pair (ref_aligned, read_aligned, cigar, score) view of
+        align_pairs_raw, in input order."""
+        results: List = [None] * len(refs)
+        for group, a_ref, a_read, _valid, ops, n_ops, scores in \
+                self.align_pairs_raw(refs, reads):
+            t1 = time.time()
+            cigars = dbatch.cigars_from_ops_batch(ops, n_ops)
+            for j, k in enumerate(group):
+                n = int(n_ops[j])
+                results[k] = (a_ref[j, :n].tobytes(),
+                              a_read[j, :n].tobytes(),
+                              cigars[j],
+                              float(scores[j]))
+            dt = time.time() - t1
+            with self._t_lock:
+                self.post_seconds += dt
+        return results
+
+    def _dispatch_group(self, group, refs, reads, n1, n2):
+        """Enqueue one group; returns ("single", group, refs_arr,
+        reads_arr, T, host result, event or None)."""
+        B = len(group)
+        r0 = refs[group[0]]
+        uniform_ref = all(refs[k] is r0 for k in group)
+        refs_arr = np.zeros((B, n1 - 1), dtype=np.uint8)
+        reads_arr = np.zeros((B, n2 - 1), dtype=np.uint8)
+        ref_lens = np.zeros(B, dtype=np.int32)
+        read_lens = np.zeros(B, dtype=np.int32)
+        d0 = len(reads[group[0]])
+        if uniform_ref and all(len(reads[k]) == d0 for k in group):
+            # equal-length batch (the fixed-layout amplicon hot path):
+            # one C-speed join + reshape instead of a per-read copy loop
+            refs_arr[:, :len(r0)] = np.frombuffer(r0, dtype=np.uint8)
+            reads_arr[:, :d0] = np.frombuffer(
+                b"".join(reads[k] for k in group),
+                dtype=np.uint8).reshape(B, d0)
+            ref_lens[:] = len(r0)
+            read_lens[:] = d0
+        else:
+            for j, k in enumerate(group):
+                r, d = refs[k], reads[k]
+                refs_arr[j, :len(r)] = np.frombuffer(r, dtype=np.uint8)
+                reads_arr[j, :len(d)] = np.frombuffer(d, dtype=np.uint8)
+                ref_lens[j] = len(r)
+                read_lens[j] = len(d)
+        # uniform-reference batch (the single-amplicon hot path): ship ONE
+        # reference row; the fill reads it for every alignment
+        dev_refs = refs_arr[:1] if uniform_ref else refs_arr
+        host_args = (dev_refs, reads_arr, ref_lens, read_lens)
+        T = n1 + n2
+        self.dispatches += 1
+        if self.stream is None:
+            fused, _tb = dbatch.align_batch(
+                *(torch.from_numpy(a) for a in host_args), self.params,
+                n1=n1, n2=n2, special_mode=self.special_mode)
+            return "single", group, refs_arr, reads_arr, T, fused.numpy(), \
+                None
+        with torch.cuda.stream(self.stream):
+            args = [torch.from_numpy(a).to(self.device, non_blocking=True)
+                    for a in host_args]
+            fused, _tb = dbatch.align_batch(
+                *args, self.params, n1=n1, n2=n2,
+                special_mode=self.special_mode, stream=self.stream)
+            host = torch.empty(fused.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(fused, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return "single", group, refs_arr, reads_arr, T, host, event
+
+
+@dataclass
+class AlignStats:
+    total: int = 0
+    aligned: int = 0
+    dropped_length: int = 0
+    dropped_short: int = 0
+    failed: int = 0
+
+
+def align_reads(*args, **kwargs) -> AlignStats:
+    """GC-controlled wrapper (see _align_reads_impl for the pipeline and
+    the full signature): the align stage allocates millions of acyclic
+    record objects, and cyclic-GC heap scans made it superlinear in
+    dataset size (utils/gcctl.py)."""
+    from clique_tpu.utils.gcctl import hot_section
+
+    with hot_section():
+        return _align_reads_impl(*args, **kwargs)
+
+
+def _align_reads_impl(
+    layout: SequenceLayout,
+    rm: ReferenceManager,
+    output_path: str,
+    read1: str,
+    read2: Optional[str] = None,
+    index1: Optional[str] = None,
+    index2: Optional[str] = None,
+    max_reference_multiplier: int = 2,
+    min_read_length: int = 50,
+    batch_size: int = 256,
+    scoring: Optional[AffineScoring] = None,
+    single_ref_native: bool = False,
+    quick_match_threshold: float = 0.90,
+    mode: str = "ont",
+    router: str = "kmer",
+    engine: Optional[str] = None,
+    anchored_min_length: int = 2048,
+    metrics_path: Optional[str] = None,
+    profile_dir: Optional[str] = None,
+    bandwidth: Optional[int] = None,
+    read_shard: Optional[Tuple[int, int]] = None,
+    device="cuda",
+) -> AlignStats:
+    """The `clique align` equivalent (alignment_functions.rs:63-257).
+
+    mode: "ont" (reference-compatible scoring) or "hifi" (PacBio low-error
+    preset, BASELINE config 2). router: "kmer" (unique-kmer vote, the
+    reference's quick_alignment_search); "hmm" is accepted only with a
+    single reference, where no routing happens.
+
+    anchored_min_length: reads at least this long take the JAX package's
+    anchored seed-and-extend path, which is not ported: such a read
+    raises instead of being aligned by full DP.
+
+    engine: "dp" (or None), the exact 3-plane affine DP. "wfa" and
+    "convex" (align/wavefront.py) are not ported and raise, as do
+    profile_dir, bandwidth and read_shard.
+
+    The JAX version's `sink` tap (the fused chain's collapse input), its
+    single-threaded writer (pipeline_threads=False) and its environment
+    knobs are not carried over: the chain is not ported.
+
+    device: where the DP runs ("cuda", "cuda:N" or "cpu"); the metrics
+    JSON names it and counts the kernel launches."""
+    if engine is None:
+        engine = "dp"
+    if engine != "dp":
+        _unported(f"engine={engine!r}", "wavefront")
+    if router == "hmm" and len(rm.references) > 1:
+        _unported("router='hmm' over several references", "hmm")
+    elif router not in ("kmer", "hmm"):
+        raise ValueError(f"unknown router {router!r}")
+    if bandwidth is not None:
+        _unported("a partial band (bandwidth)", "batch_modes")
+    if profile_dir:
+        _unported("profile_dir", "profiling")
+    if read_shard is not None:
+        _unported("read_shard", "parallel")
+    if scoring is None:
+        scoring = AffineScoring.hifi_default() if mode == "hifi" \
+            else AffineScoring.aligner_default()
+    stats = AlignStats()
+    flush_factor = FLUSH_FACTOR
+    max_read_size = (rm.longest_ref + 1) * max_reference_multiplier
+    single_ref = len(rm.references) == 1
+
+    if single_ref and not single_ref_native:
+        aligner = BatchAligner(RUST_BIO_COMPAT, batch_size,
+                               special_mode="ref_n_only", device=device)
+        report_zero_score = True   # the reference reports 0.0 here (:579)
+    else:
+        aligner = BatchAligner(scoring, batch_size, device=device)
+        report_zero_score = False
+    merge_aligner = BatchAligner(MERGE_SCORING, batch_size, device=device)
+    launches0 = (dp_kernels.fill_launches, dp_kernels.walk_launches)
+
+    references = [(r.name, len(r.sequence)) for r in rm.references.values()]
+    writer = open_alignment_writer(output_path, references)
+    start = time.time()
+
+    # wall-clock phase accounting (written to metrics JSON): where the
+    # align stage's non-device time goes on the main thread, plus busy
+    # time of the build/writer pipeline threads
+    phase = {"reader_wall": 0.0, "flush_wall": 0.0, "drain_wall": 0.0,
+             "tail_wall": 0.0, "join_wall": 0.0}
+
+    # two-stage writer pipeline: a BUILD thread does record construction
+    # (numpy-heavy), feeding a WRITER thread doing BAM encode + BGZF
+    # compression (C paths that release the GIL). Both overlap the main
+    # thread's parse/dispatch, and construction of flush N overlaps
+    # compression of flush N-1 instead of serializing on one thread.
+    import queue
+    import threading
+
+    write_queue: "queue.Queue" = queue.Queue(maxsize=8)
+    encode_queue: "queue.Queue" = queue.Queue(maxsize=8)
+    writer_error: List[BaseException] = []
+    bam_ref_idx = {rid: i for i, rid in enumerate(rm.references.keys())}
+    writer_encoded_ok = hasattr(writer, "write_encoded")
+
+    def _build_loop():
+        while True:
+            item = write_queue.get()
+            if item is None:
+                encode_queue.put(None)
+                return
+            t_b = time.time()
+            try:
+                if item[0] == "raw":
+                    # deferred record construction, two forms. Fast path:
+                    # the native assembler builds the flush's BAM record
+                    # bytes straight from the batch blobs (no SamRecord
+                    # objects / tags dicts / per-record encode loop).
+                    # Falls back to per-record python construction for
+                    # extractor-zone symbols, mixed symbol orders, or no
+                    # C compiler.
+                    _tag, raws, pend = item
+                    data = None
+                    if writer_encoded_ok:
+                        syms = _flush_fastpath_syms(pend, layout, rm)
+                        if syms is not None:
+                            data = _encode_flush_fastpath(
+                                raws, pend, layout, rm, report_zero_score,
+                                bam_ref_idx, syms)
+                    if data is not None:
+                        phase["build_busy"] = \
+                            phase.get("build_busy", 0.0) + \
+                            (time.time() - t_b)
+                        encode_queue.put(("encoded", data, len(pend)))
+                        continue
+                    recs: List = [None] * len(pend)
+                    for raw in raws:
+                        _fill_records_from_raw(raw, pend, recs, layout,
+                                               rm, report_zero_score)
+                    item = recs
+                else:          # ("aligned", [AlignedRead]): exhaustive search
+                    item = [_make_record(alr, layout) for alr in item[1]]
+            except BaseException as exc:  # surfaced on close
+                writer_error.append(exc)
+                item = []
+            phase["build_busy"] = phase.get("build_busy", 0.0) + \
+                (time.time() - t_b)
+            encode_queue.put(item)
+
+    def _writer_loop():
+        while True:
+            item = encode_queue.get()
+            if item is None:
+                return
+            t_w = time.time()
+            try:
+                if isinstance(item, tuple) and item and \
+                        item[0] == "encoded":
+                    writer.write_encoded(item[1], item[2])
+                elif hasattr(writer, "write_batch"):
+                    writer.write_batch(item)
+                else:
+                    for rec in item:
+                        writer.write(rec)
+            except BaseException as exc:  # surfaced on close
+                writer_error.append(exc)
+            phase["write_busy"] = phase.get("write_busy", 0.0) + \
+                (time.time() - t_w)
+
+    # third pipeline stage: a DRAIN thread pulls device results (event
+    # waits) and runs the numpy expansion (expand_entry) off the main
+    # thread, so expansion overlaps the next chunk's parse + dispatch. A
+    # single FIFO queue preserves output record order; maxsize bounds
+    # undrained flushes (fused result buffers in flight).
+    drain_queue: "queue.Queue" = queue.Queue(maxsize=4)
+
+    def _drain_loop():
+        while True:
+            item = drain_queue.get()
+            if item is None:
+                write_queue.put(None)
+                return
+            t_d = time.time()
+            try:
+                if item[0] == "entries":
+                    _tag, entries, pend = item
+                    raws = []
+                    for entry in entries:
+                        raws.extend(aligner.expand_entry(entry))
+                    write_queue.put(("raw", raws, pend))
+                else:          # ("fwd", payload): ordered passthrough
+                    write_queue.put(item[1])
+            except BaseException as exc:  # surfaced on close
+                writer_error.append(exc)
+            phase["drain_busy"] = phase.get("drain_busy", 0.0) + \
+                (time.time() - t_d)
+
+    threads = [threading.Thread(target=fn, daemon=True)
+               for fn in (_build_loop, _writer_loop, _drain_loop)]
+    for t in threads:
+        t.start()
+
+    def emit_aligned(aligned_out):
+        """Emit AlignedReads; record construction runs on the build thread,
+        after every earlier flush (the drain queue keeps input order)."""
+        drain_queue.put(("fwd", ("aligned", aligned_out)))
+
+    reader = ReadIterator(read1, read2, index1, index2)
+    needs_align_merge = layout.merge == MergeStrategy.ALIGN
+
+    def flush(pending: List[_Pending]):
+        if not pending:
+            return
+        t_f = time.time()
+        _flush_inner(pending)
+        phase["flush_wall"] += time.time() - t_f
+
+    def _flush_inner(pending: List[_Pending]):
+        long_pending = [p for p in pending
+                        if len(p.seq) >= anchored_min_length]
+        if long_pending:
+            # the JAX package aligns these on its anchored path; full DP
+            # would give other alignments, so refuse them
+            _unported(f"read {long_pending[0].name} of length "
+                      f"{len(long_pending[0].seq)} >= anchored_min_length "
+                      f"({anchored_min_length}), the anchored path",
+                      "batch_modes")
+        refs = [rm.references[p.ref_id].sequence for p in pending]
+        reads = [p.seq for p in pending]
+        # dispatch here (align_pairs_entries is eager about dispatch + the
+        # async device->host copy, lazy about pulls), then hand the pulls
+        # to the drain thread: event waits AND numpy expansion leave the
+        # main thread. A full queue is backpressure (4 undrained flushes
+        # in flight); the wait is charged to drain_wall
+        entries = aligner.align_pairs_entries(refs, reads)
+        stats.aligned += len(pending)
+        t_d = time.time()
+        drain_queue.put(("entries", entries, list(pending)))
+        phase["drain_wall"] += time.time() - t_d
+        if stats.aligned % 1_000_000 < len(pending):
+            log.info("Time elapsed in aligning reads (%d) is: %.1fs",
+                     stats.aligned, time.time() - start)
+
+    pending: List[_Pending] = []
+    merge_pending: List[Tuple[str, bytes, bytes, bytes, bytes]] = []
+    exh_pending: List[Tuple[str, bytes, bytes, List[int]]] = []
+
+    def flush_exhaustive():
+        """Batched exhaustive search: every (candidate ref, read) pair of every
+        queued read goes through ONE align_pairs call; per read the best score
+        wins, Rust max_by keeping the LAST maximum on ties
+        (exhaustive_alignment_search)."""
+        if not exh_pending:
+            return
+        refs: List[bytes] = []
+        reads: List[bytes] = []
+        spans: List[Tuple[int, int]] = []  # (start, count) into outs per read
+        for _name, seq, _quals, cands in exh_pending:
+            spans.append((len(refs), len(cands)))
+            refs.extend(rm.references[i].sequence for i in cands)
+            reads.extend([seq] * len(cands))
+
+        outs = aligner.align_pairs(refs, reads)
+        aligned_out = []
+        for (name, seq, quals, cands), (start, count) in zip(
+                exh_pending, spans):
+            best = 0
+            for i in range(count):
+                if outs[start + i][3] >= outs[start + best][3]:
+                    best = i
+            a1, a2, cigar, score = outs[start + best]
+            aligned_out.append(AlignedRead(
+                read_name=name,
+                reference_name=rm.references[cands[best]].name,
+                reference_aligned=a1, read_aligned=a2,
+                quals=quals, cigar=cigar,
+                score=score))
+        emit_aligned(aligned_out)
+        stats.aligned += len(exh_pending)
+        exh_pending.clear()
+
+    def process_merged(name: str, seq: bytes, quals: bytes):
+        if len(seq) >= max_read_size:
+            log.warning(
+                "Dropped read %s as its length %d exceeds %dx the reference "
+                "length %d", name, len(seq), max_reference_multiplier,
+                rm.longest_ref)
+            stats.dropped_length += 1
+            return
+        if len(seq) < min_read_length:
+            # the reference parses --min-read-length (main.rs:183-185) but
+            # binds it `_min_read_length` and never gates on it
+            # (alignment_functions.rs:532) - we enforce the documented
+            # intent and drop short reads
+            log.warning(
+                "Dropped read %s as its length %d is below the minimum "
+                "read length %d", name, len(seq), min_read_length)
+            stats.dropped_short += 1
+            return
+        ref_id = _choose_reference(rm, layout, seq, quick_match_threshold)
+        if ref_id is None:
+            stats.failed += 1
+            return
+        if isinstance(ref_id, list):
+            # exhaustive search: batched below - align against every candidate,
+            # best score wins (see flush_exhaustive)
+            exh_pending.append((name, seq, quals, ref_id))
+            if sum(len(e[3]) for e in exh_pending) >= \
+                    batch_size * flush_factor:
+                flush_exhaustive()
+            return
+        # orientation for single reference without known strand
+        if single_ref and not layout.known_strand:
+            ref = rm.references[ref_id]
+            fwd, _f, _r = orient_by_longest_segment(
+                seq, ref.sequence, ref.index)
+            if not fwd:
+                seq = reverse_complement(seq)
+                quals = quals[::-1]
+        pending.append(_Pending(name, seq, quals, ref_id))
+        # accumulate several device batches so align_pairs can keep multiple
+        # dispatches in flight (overlapping transfer with compute)
+        if len(pending) >= batch_size * flush_factor:
+            flush(pending)
+            pending.clear()
+
+    def flush_merges():
+        if not merge_pending:
+            return
+        r1s = [m[1] for m in merge_pending]
+        r2s = [m[3] for m in merge_pending]
+        out = merge_aligner.align_pairs(r1s, r2s)
+        for (name, _r1, q1, _r2, q2), (a1, a2, _cigar, _score) in zip(
+                merge_pending, out):
+            seq, quals = alignment_rate_and_consensus(a1, q1, a2, q2)
+            process_merged(name, seq, quals)
+        merge_pending.clear()
+
+    # Fast path: with only a read1 stream, unify_read reduces to an
+    # orientation passthrough unless the layout concatenates Read1 with
+    # Spacers (merger.rs:278-294); for Forward orientation the container +
+    # decision-tree hop per read is pure overhead, so feed the records
+    # straight into process_merged. Semantics identical to the general
+    # loop (quals are NOT reversed in the R1-only branch either way).
+    declared_kinds = {p.kind for p in layout.reads if p.kind != "Spacer"}
+    concat_single = (layout.merge in (MergeStrategy.CONCATENATE,
+                                      MergeStrategy.CONCATENATE_BOTH_FORWARD)
+                     and declared_kinds <= {"Read1"})
+    r1_orientation = next(
+        (p.orientation for p in layout.reads if p.kind == "Read1"),
+        AlignedReadOrientation.FORWARD)
+
+    t_reader = time.time()
+    if (reader.single_stream and "Read1" in declared_kinds
+            and not concat_single
+            and r1_orientation == AlignedReadOrientation.FORWARD):
+        for rec in reader.read_one_records():
+            stats.total += 1
+            process_merged(rec.name, rec.seq, rec.qual)
+    else:
+        for rsc in reader:
+            stats.total += 1
+            merged = unify_read(rsc, layout,
+                                defer_align_merge=needs_align_merge)
+            if merged.pending_pair is not None:
+                r1, q1, r2, q2 = merged.pending_pair
+                merge_pending.append((merged.name, r1, q1, r2, q2))
+                if len(merge_pending) >= batch_size * flush_factor:
+                    flush_merges()
+            else:
+                process_merged(merged.name, merged.seq, merged.quals)
+    phase["reader_wall"] = time.time() - t_reader
+
+    t_tail = time.time()
+    flush_merges()
+    flush_exhaustive()
+    flush(pending)
+    phase["tail_wall"] = time.time() - t_tail
+    t_join = time.time()
+    # the drain thread forwards the None to the build thread, which
+    # forwards it to the writer thread
+    drain_queue.put(None)
+    for t in threads:
+        t.join()
+    if writer_error:
+        raise writer_error[0]
+    writer.close()
+    phase["join_wall"] = time.time() - t_join
+    if hasattr(writer, "chunk_offsets"):
+        # chunk-index sidecar: lets distributed collapse deal byte ranges
+        # of this BAM (each process inflates only its share)
+        from clique_tpu.io.sam import write_cqi
+
+        write_cqi(output_path, writer.chunk_offsets)
+    elapsed = time.time() - start
+    log.info("Aligned %d/%d reads in %.1fs", stats.aligned, stats.total,
+             elapsed)
+    if metrics_path:
+        import json
+
+        with open(metrics_path, "w") as fh:
+            json.dump({
+                "engine": engine,
+                "wfa_dp_fallbacks": None,      # no WFA engine in the port
+                "total_reads": stats.total,
+                "aligned": stats.aligned,
+                "dropped_length": stats.dropped_length,
+                "dropped_short": stats.dropped_short,
+                "failed": stats.failed,
+                "elapsed_s": round(elapsed, 3),
+                "reads_per_s": round(stats.aligned / elapsed, 1)
+                if elapsed else None,
+                "device_seconds": round(aligner.device_seconds, 3),
+                "host_post_seconds": round(aligner.post_seconds, 3),
+                # main-thread walls: reader_wall = parse loop incl. nested
+                # flushes; flush_wall = inside flush(); drain_wall = waits
+                # for room in the drain queue; tail/join = post-loop flush
+                # + pipeline-thread join; *_busy = each thread's busy time
+                "phase_walls": {k: round(v, 3) for k, v in phase.items()},
+                "wfa_phase_seconds": None,
+                "pairs_aligned": aligner.pairs_aligned,
+                "dp_cells_filled": aligner.cells_filled,
+                "dp_cells_per_s": round(
+                    aligner.cells_filled / aligner.device_seconds)
+                if aligner.device_seconds else None,
+                "device": torch.cuda.get_device_name(aligner.device)
+                if aligner.device.type == "cuda" else "cpu",
+                "bam_codec": bam_codec(),
+                # group dispatches of both aligners, and the kernel
+                # launches of this run (0 on a CPU device, where the plain
+                # PyTorch versions run)
+                "dispatches": aligner.dispatches + merge_aligner.dispatches,
+                "kernel_launches": {
+                    "dp_fill": dp_kernels.fill_launches - launches0[0],
+                    "dp_walk": dp_kernels.walk_launches - launches0[1]},
+            }, fh, indent=2)
+    return stats
+
+
+def _choose_reference(rm: ReferenceManager, layout: SequenceLayout,
+                      seq: bytes, threshold: float):
+    """Reference routing (align_to_reference_choices / quick_alignment_search).
+
+    Returns an int ref id, a list of candidate ids (exhaustive search), or
+    None when no reference exists."""
+    n = len(rm.references)
+    if n == 0:
+        return None
+    if n == 1:
+        return next(iter(rm.references))
+    votes = rm.vote_references(seq)
+    total = sum(votes.values())
+    if total == 0:
+        return list(rm.references.keys())
+    ref, count = votes.most_common(1)[0]
+    if count / total > threshold:
+        return ref
+    return list(votes.keys())
+
+
+def _fill_records_from_raw(raw, pending: List[_Pending], records: List,
+                           layout: SequenceLayout, rm: ReferenceManager,
+                           report_zero_score: bool) -> None:
+    """Build SamRecords for one align_pairs_raw group with batch-level
+    numpy (rates, gap-strips, digit-tag captures and cigars computed over
+    the whole [G, T] matrices at once). Semantics identical to
+    _make_record + AlignedRead.to_sam_record."""
+    group, a_ref, a_read, valid, ops, n_ops, scores = raw
+
+    # alignment rate over letter columns (consensus_builders.rs:288-307)
+    from clique_tpu.extract.extractor import alignment_rates_rows
+
+    rates = alignment_rates_rows(a_ref, a_read).tolist()
+
+    # gap-stripped read sequences (to_sam_record strips gaps, qual 'H')
+    keep = valid & (a_read != GAP)
+    seq_bounds = np.concatenate(
+        ([0], np.cumsum(keep.sum(axis=1)))).tolist()
+    seq_flat = a_read[keep]
+
+    cigars = dbatch.cigars_from_ops_batch(ops, n_ops)
+
+    # digit-wildcard captures, one flat mask pass per symbol present in any
+    # row's reference (a digit byte only occurs in the owning reference's
+    # aligned row, so the union mask is exact per row)
+    union_syms: set = set()
+    for rid in {pending[k].ref_id for k in group}:
+        ref_cfg = layout.references.get(rm.references[rid].name)
+        if ref_cfg is not None:
+            union_syms.update(u.symbol
+                              for u in ref_cfg.umi_configurations.values()
+                              if u.symbol.isdigit())
+    union_digit = sorted(union_syms)
+    digit_hits = {}
+    for sym in union_digit:
+        mask = (a_ref == ord(sym)) & valid
+        cnt = mask.sum(axis=1)
+        flat = a_read[mask]
+        bounds = np.concatenate(([0], np.cumsum(cnt)))
+        digit_hits[sym] = (cnt.tolist(), flat, bounds.tolist())
+
+    scores_l = scores.tolist()
+    for j, k in enumerate(group):
+        p = pending[k]
+        ref = rm.references[p.ref_id]
+        ref_cfg = layout.references.get(ref.name)
+        tags: Dict[str, str] = {}
+        if ref_cfg is not None:
+            for u in ref_cfg.umi_configurations.values():
+                sym = u.symbol
+                if sym.isdigit():
+                    cnt, flat, bounds = digit_hits[sym]
+                    if cnt[j]:
+                        tags[f"e{sym}"] = \
+                            flat[bounds[j]:bounds[j + 1]].tobytes().decode()
+                else:
+                    n = int(n_ops[j])
+                    extracted = extract_tagged_sequences(
+                        a_read[j, :n].tobytes(), a_ref[j, :n].tobytes())
+                    hit = extracted.get(ord(sym))
+                    if hit is not None:
+                        tags[f"e{sym}"] = hit
+        tags["rc"] = "1"
+        tags["ar"] = p.name
+        tags["rm"] = _fmt(rates[j])
+        score = 0.0 if report_zero_score else float(scores_l[j])
+        tags["rs"] = _fmt(score)
+        tags["as"] = _fmt(score)
+        seq = seq_flat[seq_bounds[j]:seq_bounds[j + 1]].tobytes()
+        records[k] = SamRecord(
+            name=p.name, flag=0, reference_name=ref.name, pos=1, mapq=255,
+            cigar=cigars[j], seq=seq, qual=b"H" * len(seq), tags=tags)
+
+
+def _flush_fastpath_syms(pend, layout: SequenceLayout,
+                         rm: ReferenceManager):
+    """Fast-path eligibility for a flush: every reference present must
+    share ONE ordered, all-digit UMI symbol tuple (or have no config).
+    Returns that tuple, or None when ineligible (mixed orders or
+    extractor-zone symbols need the per-record python path)."""
+    syms_tuple = None
+    for rid in {p.ref_id for p in pend}:
+        cfg = layout.references.get(rm.references[rid].name)
+        if cfg is None:
+            continue
+        t = tuple(u.symbol for u in cfg.umi_configurations.values())
+        if any(not s.isdigit() for s in t):
+            return None
+        if syms_tuple is None:
+            syms_tuple = t
+        elif t != syms_tuple:
+            return None
+    return syms_tuple or ()
+
+
+def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
+                           rm: ReferenceManager, report_zero_score: bool,
+                           bam_ref_idx: Dict[int, int], syms):
+    """Assemble a whole flush's BAM record-stream bytes through the native
+    fast-path encoder (encode_fastpath_records in native/bamcodec.c): no
+    SamRecord objects, no tags dicts, no per-record encode loop — the
+    byte output is identical to _fill_records_from_raw +
+    encode_records_bytes (pinned by the golden tests).
+
+    Returns the encoded bytes, or None when the native lib is unavailable (callers fall back to the
+    python record path)."""
+    import ctypes
+
+    from clique_tpu.native import get_lib
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    syms_b = "".join(syms).encode()
+    n_total = len(pend)
+    bufs = []                    # per group: (group, buffer, rec_off)
+    for raw in raws:
+        group, a_ref, a_read, valid, ops, n_ops, scores = raw
+        g = len(group)
+
+        from clique_tpu.extract.extractor import alignment_rates_rows
+
+        rates = alignment_rates_rows(a_ref, a_read).tolist()
+
+        keep = valid & (a_read != GAP)
+        seq_lens = keep.sum(axis=1)
+        seq_off = np.zeros(g + 1, dtype=np.int64)
+        np.cumsum(seq_lens, out=seq_off[1:])
+        seq_flat = np.ascontiguousarray(a_read[keep])
+
+        counts, opcodes, cbounds = dbatch.cigar_runs_from_ops_batch(
+            ops, n_ops)
+
+        cap_parts = []
+        cap_base = np.zeros(max(len(syms), 1), dtype=np.int64)
+        cap_bounds = np.zeros((max(len(syms), 1), g + 1), dtype=np.int64)
+        base = 0
+        for si, sym in enumerate(syms):
+            mask = (a_ref == ord(sym)) & valid
+            cnt = mask.sum(axis=1)
+            flat = np.ascontiguousarray(a_read[mask])
+            bounds = np.zeros(g + 1, dtype=np.int64)
+            np.cumsum(cnt, out=bounds[1:])
+            cap_parts.append(flat)
+            cap_base[si] = base
+            cap_bounds[si] = bounds
+            base += len(flat)
+        cap_blob = (b"".join(p.tobytes() for p in cap_parts)
+                    if cap_parts else b"")
+
+        names = [pend[k].name for k in group]
+        name_blob = "".join(names).encode()
+        name_off = np.zeros(g + 1, dtype=np.int64)
+        np.cumsum([len(nm) for nm in names], out=name_off[1:])
+
+        rm_strs = [_fmt(r) for r in rates]
+        rm_blob = "".join(rm_strs).encode()
+        rm_off = np.zeros(g + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in rm_strs], out=rm_off[1:])
+        if report_zero_score:
+            sc_strs = ["0"] * g
+        else:
+            sc_strs = [_fmt(float(s)) for s in scores.tolist()]
+        sc_blob = "".join(sc_strs).encode()
+        sc_off = np.zeros(g + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in sc_strs], out=sc_off[1:])
+
+        ref_ids = np.array([bam_ref_idx[pend[k].ref_id] for k in group],
+                           dtype=np.int32)
+
+        cap = int(48 * g + 2 * len(name_blob) + 4 * len(counts)
+                  + 2 * int(seq_off[-1]) + len(cap_blob) + len(rm_blob)
+                  + 2 * len(sc_blob) + (4 * len(syms) + 30) * g + 64)
+        out = ctypes.create_string_buffer(cap)
+        rec_off = np.zeros(g + 1, dtype=np.int64)
+        written = lib.encode_fastpath_records(
+            g, ref_ids.ctypes.data,
+            name_blob, name_off.ctypes.data,
+            counts.ctypes.data, opcodes.ctypes.data, cbounds.ctypes.data,
+            seq_flat.ctypes.data_as(ctypes.c_char_p), seq_off.ctypes.data,
+            len(syms), syms_b,
+            cap_blob, cap_base.ctypes.data, cap_bounds.ctypes.data,
+            rm_blob, rm_off.ctypes.data,
+            sc_blob, sc_off.ctypes.data,
+            out, cap, rec_off.ctypes.data)
+        if written < 0:
+            raise RuntimeError("fastpath encode capacity underestimated")
+        bufs.append((group, out.raw[:written], rec_off))
+
+    # assemble in pend (BAM write) order; groups are usually contiguous
+    # ascending (uniform-shape flushes), where a straight join suffices
+    order = np.concatenate([np.asarray(g_, dtype=np.int64)
+                            for g_, _b, _o in bufs])
+    if np.array_equal(order, np.arange(n_total, dtype=np.int64)):
+        data = b"".join(b for _g, b, _o in bufs)
+    else:
+        where = {}
+        for gi, (group, _b, _o) in enumerate(bufs):
+            for j, k in enumerate(group):
+                where[k] = (gi, j)
+        views = [memoryview(b) for _g, b, _o in bufs]
+        parts = []
+        for k in range(n_total):
+            gi, j = where[k]
+            off = bufs[gi][2]
+            parts.append(views[gi][int(off[j]):int(off[j + 1])])
+        data = b"".join(parts)
+    return data
+
+
+def _make_record(aligned: AlignedRead, layout: SequenceLayout) -> SamRecord:
+    ref_cfg = layout.references.get(aligned.reference_name)
+    tags: Dict[str, str] = {}
+    if ref_cfg is not None:
+        symbols = [u.symbol for u in ref_cfg.umi_configurations.values()]
+        digit_syms = [s for s in symbols if s.isdigit()]
+        extracted_fast = extract_digit_tags_fast(
+            aligned.read_aligned, aligned.reference_aligned, digit_syms)
+        for sym in digit_syms:
+            hit = extracted_fast.get(sym)
+            if hit is not None:
+                tags[f"e{sym}"] = hit
+        non_digit = [s for s in symbols if not s.isdigit()]
+        if non_digit:
+            extracted = extract_tagged_sequences(
+                aligned.read_aligned, aligned.reference_aligned)
+            for sym in non_digit:
+                hit = extracted.get(ord(sym))
+                if hit is not None:
+                    tags[f"e{sym}"] = hit
+    tags["rc"] = "1"
+    tags["ar"] = aligned.read_name
+    return aligned.to_sam_record(tags)

@@ -1,0 +1,226 @@
+"""The port's `align` verb (clique_tpu_torch.align.pipeline.align_reads and
+its CLI) on the CPU, held against the golden pins and the JAX package.
+
+The BAM bytes are deterministic and every DP decision is exact, so the
+inflated BAM payloads, the tag dumps and the AlignStats must be identical.
+"""
+
+import dataclasses
+import gzip
+import importlib.util
+import os
+import struct
+
+import numpy as np
+import pytest
+
+from clique_tpu.align.pipeline import align_reads as jax_align_reads
+from clique_tpu.config.layout import SequenceLayout
+from clique_tpu.reference.manager import ReferenceManager
+from clique_tpu_torch import cli
+from clique_tpu_torch.align.pipeline import align_reads
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = {
+    "golden": ("reads.fastq.gz", None),
+    "golden_pe": ("reads1.fastq.gz", "reads2.fastq.gz"),
+    "golden_ml": ("reads1.fastq.gz", "reads2.fastq.gz"),
+}
+
+
+def _load_make_golden():
+    spec = importlib.util.spec_from_file_location(
+        "make_golden", os.path.join(ROOT, "tools", "make_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _inflate_bgzf(path):
+    """Concatenated decompressed payload of every BGZF block."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    out, p = [], 0
+    while p < len(raw):
+        assert raw[p:p + 4] == b"\x1f\x8b\x08\x04", "not a BGZF block"
+        xlen = struct.unpack_from("<H", raw, p + 10)[0]
+        xp, bsize = p + 12, None
+        while xp < p + 12 + xlen:
+            si1, si2, slen = struct.unpack_from("<BBH", raw, xp)
+            if si1 == 66 and si2 == 67:
+                bsize = struct.unpack_from("<H", raw, xp + 4)[0] + 1
+            xp += 4 + slen
+        out.append(gzip.decompress(raw[p:p + bsize]))
+        p += bsize
+    return b"".join(out)
+
+
+def _golden_inputs(mg, name, workdir):
+    gd = os.path.join(ROOT, "tests", "data", name)
+    layout, rm = mg._load_layout(str(workdir), golden_dir=gd)
+    r1, r2 = GOLDEN[name]
+    return (gd, layout, rm, os.path.join(gd, r1),
+            os.path.join(gd, r2) if r2 else None)
+
+
+@pytest.fixture(scope="module")
+def golden_runs(tmp_path_factory):
+    """The port's align on each golden dataset, batch 16 as
+    tools/make_golden.py runs it, on the CPU."""
+    mg = _load_make_golden()
+    runs = {}
+    for name in GOLDEN:
+        wd = tmp_path_factory.mktemp(name)
+        gd, layout, rm, r1, r2 = _golden_inputs(mg, name, wd)
+        out = str(wd / "aligned.bam")
+        align_reads(layout, rm, out, read1=r1, read2=r2, batch_size=16,
+                    device="cpu")
+        runs[name] = (gd, out)
+    return mg, runs
+
+
+@pytest.mark.parametrize("name", list(GOLDEN))
+def test_golden_bam_payload_pinned(golden_runs, name):
+    _mg, runs = golden_runs
+    gd, out = runs[name]
+    assert _inflate_bgzf(out) == _inflate_bgzf(
+        os.path.join(gd, "aligned.bam")), f"{name} aligned BAM drifted"
+
+
+@pytest.mark.parametrize("name", list(GOLDEN))
+def test_golden_tag_dump_pinned(golden_runs, name, tmp_path):
+    mg, runs = golden_runs
+    gd, out = runs[name]
+    dump = tmp_path / "aligned.bam.tags.tsv"
+    mg.dump_tags(out, str(dump))
+    with open(os.path.join(gd, "aligned.bam.tags.tsv")) as fh:
+        assert dump.read_text() == fh.read(), f"{name} tag dump drifted"
+
+
+def test_cli_align_golden(tmp_path):
+    mg = _load_make_golden()
+    gd, _layout, _rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    out = tmp_path / "cli.bam"
+    rc = cli.main(["align", "--read-structure", str(tmp_path / "layout.yaml"),
+                   "--read1", r1, "--output-bam-file", str(out),
+                   "--batch-size", "16", "--device", "cpu"])
+    assert rc == 0
+    assert _inflate_bgzf(str(out)) == _inflate_bgzf(
+        os.path.join(gd, "aligned.bam"))
+
+
+def _bench_shaped(tmp_path, n_reads=256):
+    """bench.py:52-110's generator (seed 2026) with a few indels, plus a
+    second, shorter amplicon, some reads from it and some chimeras of the
+    two so the kmer vote falls back to the exhaustive search."""
+    rng = np.random.default_rng(2026)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    a5 = "TTCAGACGTGTGCTCTTCCGATCT"
+    a3 = "AGATCGGAAGAGCACACGTCTGAA"
+    targets = [rng.choice(bases, 20).tobytes().decode() + "TGG"
+               for _ in range(10)]
+    block = "GAAA".join(targets)
+    ref1 = f"{a5}{'0' * 16}{'1' * 12}{block}{a3}"
+    core2 = rng.choice(bases, 150).tobytes().decode()
+    ref2 = f"{a5}{'0' * 16}{'1' * 12}{core2}{a3}"
+    umi = """    umi_configurations:
+      cell_id: {symbol: '0', sort_type: "DegenerateTag", length: 16, order: 0, max_distance: 2}
+      cell_umi: {symbol: '1', sort_type: "DegenerateTag", length: 12, order: 1, max_distance: 2}"""
+    layout_path = tmp_path / "layout.yaml"
+    layout_path.write_text(f"""
+known_strand: true
+reads:
+  - !Read1
+    orientation: Forward
+references:
+  amplicon1:
+    sequence: "{ref1}"
+    targets: [{", ".join(f'"{t}"' for t in targets)}]
+    target_types: [{", ".join('"Cas9WT"' for _ in targets)}]
+{umi}
+  amplicon2:
+    sequence: "{ref2}"
+    targets: []
+    target_types: []
+{umi}
+""")
+    templates = [np.frombuffer((a5 + "N" * 28 + body + a3).encode(),
+                               dtype=np.uint8)
+                 for body in (block, core2, block[:120] + core2[60:])]
+    cells = rng.choice(bases, (16, 16))
+    umis = rng.choice(bases, (16, 4, 12))
+    fq = tmp_path / "reads.fastq"
+    with open(fq, "w") as fh:
+        for i in range(n_reads):
+            kind = 0 if i % 8 < 6 else (1 if i % 8 == 6 else 2)
+            read = templates[kind].copy()
+            read[24:40] = cells[i % 16]
+            read[40:52] = umis[i % 16, (i // 16) % 4]
+            subs = rng.random(len(read)) < 0.05
+            read[subs] = rng.choice(bases, int(subs.sum()))
+            seq = read.tobytes().decode()
+            if i % 5 == 0:                       # a deletion
+                p = int(rng.integers(60, len(seq) - 40))
+                seq = seq[:p] + seq[p + int(rng.integers(1, 6)):]
+            if i % 7 == 0:                       # an insertion
+                p = int(rng.integers(60, len(seq) - 40))
+                ins = rng.choice(bases, int(rng.integers(1, 5)))
+                seq = seq[:p] + ins.tobytes().decode() + seq[p:]
+            fh.write(f"@s{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    layout = SequenceLayout.from_yaml(str(layout_path))
+    return layout, ReferenceManager.from_layout(layout), str(fq)
+
+
+def test_bench_shaped_two_reference_matches_jax(tmp_path):
+    layout, rm, fq = _bench_shaped(tmp_path)
+    out_t = str(tmp_path / "torch.bam")
+    out_j = str(tmp_path / "jax.bam")
+    stats_t = align_reads(layout, rm, out_t, read1=fq, batch_size=64,
+                          device="cpu")
+    stats_j = jax_align_reads(layout, rm, out_j, read1=fq, batch_size=64)
+    assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
+    assert stats_t.aligned > 0.9 * stats_t.total
+    assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
+
+
+UNPORTED = {
+    "engine_wfa": dict(engine="wfa"),
+    "engine_convex": dict(engine="convex"),
+    "bandwidth": dict(bandwidth=8),
+    "profile_dir": dict(profile_dir="trace"),
+    "read_shard": dict(read_shard=(0, 2)),
+    "anchored_length": dict(anchored_min_length=100),
+}
+
+
+@pytest.mark.parametrize("option", list(UNPORTED))
+def test_unported_options_raise(option, tmp_path):
+    mg = _load_make_golden()
+    _gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        align_reads(layout, rm, str(tmp_path / "x.bam"), read1=r1,
+                    batch_size=16, device="cpu", **UNPORTED[option])
+
+
+def test_hmm_router_over_several_references_raises(tmp_path):
+    layout, rm, fq = _bench_shaped(tmp_path, n_reads=8)
+    with pytest.raises(NotImplementedError, match="hmm"):
+        align_reads(layout, rm, str(tmp_path / "x.bam"), read1=fq,
+                    router="hmm", device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--engine", "wfa"], ["--engine", "convex"], ["--router", "hmm"],
+    ["--distributed-world", "2"], ["--bandwidth", "10"],
+    ["--profile-dir", "trace"],
+], ids=lambda f: f[0].lstrip("-"))
+def test_cli_unported_flags_exit(flags, tmp_path, capsys):
+    mg = _load_make_golden()
+    _gd, _layout, _rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["align", "--read-structure",
+                  str(tmp_path / "layout.yaml"), "--read1", r1,
+                  "--output-bam-file", str(tmp_path / "x.bam"),
+                  "--device", "cpu", *flags])
+    assert exc.value.code != 0
+    assert "ROADMAP.md" in capsys.readouterr().err

@@ -1,0 +1,139 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+CUDA tensors. Needs an NVIDIA GPU with nvcc; run there with
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Elsewhere every test skips (the `cuda` fixture decides, at run time).
+Tolerance: exact equality of every byte (all DP decisions are exact).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from clique_tpu_torch.align import batch as tbatch
+from clique_tpu_torch.align import dp_kernels
+from clique_tpu_torch.align.pipeline import MERGE_SCORING, RUST_BIO_COMPAT
+
+pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ALPHABET = np.frombuffer(b"ACGTACGTACGTN0129", dtype=np.uint8)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _inputs(seed, B, n1, n2, uniform):
+    rng = np.random.default_rng(seed)
+    rows = 1 if uniform else B
+    refs = np.zeros((rows, n1 - 1), np.uint8)
+    reads = np.zeros((B, n2 - 1), np.uint8)
+    ref_lens = rng.integers(1, n1, B).astype(np.int32)
+    read_lens = rng.integers(1, n2, B).astype(np.int32)
+    ref_lens[0], read_lens[0] = 1, n2 - 1
+    ref_lens[1], read_lens[1] = n1 - 1, 1
+    if uniform:
+        ref_lens[:] = ref_lens[2]
+    for i in range(rows):
+        refs[i, :ref_lens[i]] = rng.choice(ALPHABET, ref_lens[i])
+    for i in range(B):
+        reads[i, :read_lens[i]] = rng.choice(ALPHABET, read_lens[i])
+    return refs, reads, ref_lens, read_lens
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["per_row", "uniform"])
+@pytest.mark.parametrize("shape", [(16, 128, 128), (12, 128, 384),
+                                   (8, 1536, 256), (4, 4096, 128)],
+                         ids=str)
+@pytest.mark.parametrize("special_mode", ["both", "ref_n_only"])
+def test_kernels_match_plain(cuda, special_mode, shape, uniform):
+    B, n1, n2 = shape
+    host = _inputs(sum(shape) + int(uniform), B, n1, n2, uniform)
+    args = [torch.from_numpy(a).to(cuda) for a in host]
+    scoring = MERGE_SCORING if special_mode == "both" else RUST_BIO_COMPAT
+    params = tbatch.scoring_to_params(scoring, cuda)
+    fills, walks = dp_kernels.fill_launches, dp_kernels.walk_launches
+    tb_k, corner_k = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2,
+                                        special_mode=special_mode)
+    fused_k = dp_kernels.dp_walk(tb_k, corner_k, args[2], args[3], n1=n1,
+                                 n2=n2)
+    torch.cuda.synchronize()
+    assert (dp_kernels.fill_launches, dp_kernels.walk_launches) == \
+        (fills + 1, walks + 1)
+    tb_p, corner_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2,
+                                           special_mode=special_mode)
+    _res, fused_p = tbatch.walk_reference(tb_p, corner_p, args[2], args[3],
+                                          n1=n1, n2=n2)
+    assert torch.equal(tb_k, tb_p)
+    assert torch.equal(corner_k, corner_p)
+    assert torch.equal(fused_k, fused_p)
+
+
+def test_wrappers_reject_mixed_devices(cuda):
+    host = _inputs(5, 4, 128, 128, False)
+    args = [torch.from_numpy(a).to(cuda) for a in host]
+    params = tbatch.scoring_to_params(RUST_BIO_COMPAT, "cpu")
+    with pytest.raises(ValueError):
+        dp_kernels.dp_fill(*args, params, n1=128, n2=128,
+                           special_mode="both")
+
+
+def test_align_reads_golden_on_cuda(cuda, tmp_path):
+    from test_torch_align_pipeline import _inflate_bgzf, _load_make_golden
+
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    mg = _load_make_golden()
+    gd = os.path.join(ROOT, "tests", "data", "golden")
+    layout, rm = mg._load_layout(str(tmp_path), golden_dir=gd)
+    out = str(tmp_path / "aligned.bam")
+    align_reads(layout, rm, out, read1=os.path.join(gd, "reads.fastq.gz"),
+                batch_size=16, device="cuda")
+    assert _inflate_bgzf(out) == _inflate_bgzf(os.path.join(gd,
+                                                            "aligned.bam"))
+
+
+def test_out_of_range_lengths_are_marked(cuda):
+    """The kernels mark a row whose lengths lie outside the bucket (NaN
+    corner, fresh traceback, n_ops -1, NaN score), check_marked_rows
+    raises on it as the plain versions raise at call time, and the other
+    rows equal the plain versions' bytes."""
+    n1 = n2 = 128
+    host = list(_inputs(11, 6, n1, n2, False))
+    bad_ref, bad_read = host[2].copy(), host[3].copy()
+    bad_ref[2], bad_read[4] = n1, -1
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (host[0], host[1], bad_ref, bad_read)]
+    params = tbatch.scoring_to_params(MERGE_SCORING, cuda)
+    tb, corner = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2,
+                                    special_mode="both")
+    fused = dp_kernels.dp_walk(tb, corner, args[2], args[3], n1=n1, n2=n2)
+    torch.cuda.synchronize()
+    _packed, n_ops, score = tbatch.unfuse_result(fused.cpu().numpy())
+    assert n_ops[2] == n_ops[4] == -1
+    assert np.isnan(score[2]) and np.isnan(score[4])
+    assert torch.isnan(corner[[2, 4]]).all()
+    assert (tb[[2, 4]] == tbatch._TB_FRESH).all()
+    with pytest.raises(ValueError, match="outside their bucket"):
+        tbatch.check_marked_rows(n_ops)
+    with pytest.raises(ValueError):
+        tbatch.fill_reference(*args, params, n1=n1, n2=n2,
+                              special_mode="both")
+
+    good = [0, 1, 3, 5]
+    ok = [t[good].contiguous() for t in args]
+    tb_p, corner_p = tbatch.fill_reference(ok[0] if ok[0].shape[0] > 1
+                                           else args[0], *ok[1:], params,
+                                           n1=n1, n2=n2, special_mode="both")
+    _res, fused_p = tbatch.walk_reference(tb_p, corner_p, ok[2], ok[3],
+                                          n1=n1, n2=n2)
+    assert torch.equal(tb[good], tb_p)
+    assert torch.equal(corner[good], corner_p)
+    assert torch.equal(fused[good], fused_p)

@@ -1,0 +1,54 @@
+"""The port runs with jax unavailable: a fresh interpreter with `jax` and
+`jaxlib` blocked imports clique_tpu_torch, aligns the golden reads on the
+CPU, reproduces the pinned BAM and never loads a jax module."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import gzip, os, sys
+    sys.modules["jax"] = None        # any `import jax` now raises
+    sys.modules["jaxlib"] = None
+    root, workdir = sys.argv[1], sys.argv[2]
+    sys.path.insert(0, root)
+    import clique_tpu_torch
+    from clique_tpu_torch import cli
+    from clique_tpu_torch.align import batch, dp_kernels, pipeline
+
+    gd = os.path.join(root, "tests", "data", "golden")
+    with open(os.path.join(gd, "layout.yaml.in")) as fh:
+        text = fh.read().replace("@ALLOWLIST@",
+                                 os.path.join(gd, "allowlist.txt"))
+    layout = os.path.join(workdir, "layout.yaml")
+    with open(layout, "w") as fh:
+        fh.write(text)
+    out = os.path.join(workdir, "aligned.bam")
+    rc = cli.main(["align", "--read-structure", layout, "--read1",
+                   os.path.join(gd, "reads.fastq.gz"), "--output-bam-file",
+                   out, "--batch-size", "16", "--device", "cpu"])
+    assert rc == 0
+    loaded = sorted(m for m, mod in sys.modules.items()
+                    if mod is not None and m.split(".")[0] in
+                    ("jax", "jaxlib"))
+    print("JAX_MODULES", loaded)
+    print("PORT_MODULES", sorted(m for m in sys.modules
+                                 if m.startswith("clique_tpu_torch")))
+""")
+
+
+def test_align_golden_without_jax(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-c", SCRIPT, ROOT, str(tmp_path)],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ""})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "JAX_MODULES []" in res.stdout, res.stdout
+    assert "clique_tpu_torch.align.pipeline" in res.stdout
+    from test_torch_align_pipeline import _inflate_bgzf
+
+    assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
+        os.path.join(ROOT, "tests", "data", "golden", "aligned.bam"))

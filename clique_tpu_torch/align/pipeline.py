@@ -69,6 +69,7 @@ ROADMAP_ITEMS = {
     "hmm": "9 (align/hmm.py)",
     "wavefront": "10 (align/wavefront.py)",
     "parallel": "11 (parallel/)",
+    "collapse_workers": "13 (collapse/workers.py)",
 }
 
 
@@ -412,6 +413,7 @@ def _align_reads_impl(
     profile_dir: Optional[str] = None,
     bandwidth: Optional[int] = None,
     read_shard: Optional[Tuple[int, int]] = None,
+    sink=None,
     device="cuda",
 ) -> AlignStats:
     """The `clique align` equivalent (alignment_functions.rs:63-257).
@@ -429,9 +431,12 @@ def _align_reads_impl(
     "convex" (align/wavefront.py) are not ported and raise, as do
     profile_dir, bandwidth and read_shard.
 
-    The JAX version's `sink` tap (the fused chain's collapse input), its
-    single-threaded writer (pipeline_threads=False) and its environment
-    knobs are not carried over: the chain is not ported.
+    sink: optional CollapseSink (clique_tpu/chain.py), the fused chain's
+    tap on the record stream: a sink thread feeds it every flush in BAM
+    record order (consume_flush, or consume_aligned for exhaustive-search
+    reads), so collapse ingestion is done when align_reads returns. The
+    JAX version's single-threaded writer (pipeline_threads=False) and its
+    environment knobs are not carried over.
 
     device: where the DP runs ("cuda", "cuda:N" or "cpu"); the metrics
     JSON names it and counts the kernel launches."""
@@ -491,6 +496,30 @@ def _align_reads_impl(
     bam_ref_idx = {rid: i for i, rid in enumerate(rm.references.keys())}
     writer_encoded_ok = hasattr(writer, "write_encoded")
 
+    # collapse ingestion (sink) on its own thread, fed by the build thread:
+    # one FIFO consumer, so the sink sees flushes in BAM record order and
+    # its state is touched only by this thread until the join
+    sink_queue: "queue.Queue" = queue.Queue(maxsize=8)
+
+    def _sink_loop():
+        while True:
+            item = sink_queue.get()
+            if item is None:
+                return
+            t_s = time.time()
+            try:
+                if item[0] == "flush":
+                    _t, raws_, pend_, recs_, caps_, cig_, slen_ = item
+                    sink.consume_flush(raws_, pend_, recs_, caps=caps_,
+                                       cigars_by_k=cig_,
+                                       seq_len_by_k=slen_)
+                else:          # ("aligned", aligned_out, recs)
+                    sink.consume_aligned(item[1], item[2])
+            except BaseException as exc:  # surfaced on close
+                writer_error.append(exc)
+            phase["sink_busy"] = phase.get("sink_busy", 0.0) + \
+                (time.time() - t_s)
+
     def _build_loop():
         while True:
             item = write_queue.get()
@@ -508,26 +537,41 @@ def _align_reads_impl(
                     # extractor-zone symbols, mixed symbol orders, or no
                     # C compiler.
                     _tag, raws, pend = item
-                    data = None
+                    fast = None
                     if writer_encoded_ok:
                         syms = _flush_fastpath_syms(pend, layout, rm)
                         if syms is not None:
-                            data = _encode_flush_fastpath(
+                            fast = _encode_flush_fastpath(
                                 raws, pend, layout, rm, report_zero_score,
-                                bam_ref_idx, syms)
-                    if data is not None:
+                                bam_ref_idx, syms,
+                                for_sink=sink is not None)
+                    if fast is not None:
+                        # native-encoder path: no SamRecords exist, the
+                        # sink takes the cigars and sequence lengths
+                        data, caps_g, cig_by_k, slen_by_k = fast
+                        if sink is not None:
+                            sink_queue.put(("flush", raws, pend, None,
+                                            caps_g, cig_by_k, slen_by_k))
                         phase["build_busy"] = \
                             phase.get("build_busy", 0.0) + \
                             (time.time() - t_b)
                         encode_queue.put(("encoded", data, len(pend)))
                         continue
                     recs: List = [None] * len(pend)
+                    caps: Optional[List] = [] if sink is not None else None
                     for raw in raws:
                         _fill_records_from_raw(raw, pend, recs, layout,
-                                               rm, report_zero_score)
+                                               rm, report_zero_score,
+                                               out_caps=caps)
+                    if sink is not None:
+                        sink_queue.put(("flush", raws, pend, recs, caps,
+                                        None, None))
                     item = recs
                 else:          # ("aligned", [AlignedRead]): exhaustive search
-                    item = [_make_record(alr, layout) for alr in item[1]]
+                    recs = [_make_record(alr, layout) for alr in item[1]]
+                    if sink is not None:
+                        sink_queue.put(("aligned", item[1], recs))
+                    item = recs
             except BaseException as exc:  # surfaced on close
                 writer_error.append(exc)
                 item = []
@@ -585,7 +629,9 @@ def _align_reads_impl(
 
     threads = [threading.Thread(target=fn, daemon=True)
                for fn in (_build_loop, _writer_loop, _drain_loop)]
-    for t in threads:
+    sink_thread = threading.Thread(target=_sink_loop, daemon=True) \
+        if sink is not None else None
+    for t in threads + ([sink_thread] if sink_thread else []):
         t.start()
 
     def emit_aligned(aligned_out):
@@ -770,6 +816,10 @@ def _align_reads_impl(
     drain_queue.put(None)
     for t in threads:
         t.join()
+    if sink_thread is not None:
+        # the build thread has exited: every sink item is enqueued
+        sink_queue.put(None)
+        sink_thread.join()
     if writer_error:
         raise writer_error[0]
     writer.close()
@@ -848,11 +898,14 @@ def _choose_reference(rm: ReferenceManager, layout: SequenceLayout,
 
 def _fill_records_from_raw(raw, pending: List[_Pending], records: List,
                            layout: SequenceLayout, rm: ReferenceManager,
-                           report_zero_score: bool) -> None:
+                           report_zero_score: bool,
+                           out_caps: Optional[List] = None) -> None:
     """Build SamRecords for one align_pairs_raw group with batch-level
     numpy (rates, gap-strips, digit-tag captures and cigars computed over
     the whole [G, T] matrices at once). Semantics identical to
-    _make_record + AlignedRead.to_sam_record."""
+    _make_record + AlignedRead.to_sam_record. `out_caps` receives the
+    group's digit-capture arrays {symbol: (cnt, flat, bounds)}, which the
+    CollapseSink reuses."""
     group, a_ref, a_read, valid, ops, n_ops, scores = raw
 
     # alignment rate over letter columns (consensus_builders.rs:288-307)
@@ -880,12 +933,16 @@ def _fill_records_from_raw(raw, pending: List[_Pending], records: List,
                               if u.symbol.isdigit())
     union_digit = sorted(union_syms)
     digit_hits = {}
+    caps_np = {}
     for sym in union_digit:
         mask = (a_ref == ord(sym)) & valid
         cnt = mask.sum(axis=1)
         flat = a_read[mask]
         bounds = np.concatenate(([0], np.cumsum(cnt)))
         digit_hits[sym] = (cnt.tolist(), flat, bounds.tolist())
+        caps_np[sym] = (cnt, flat, bounds)
+    if out_caps is not None:
+        out_caps.append(caps_np)
 
     scores_l = scores.tolist()
     for j, k in enumerate(group):
@@ -943,14 +1000,18 @@ def _flush_fastpath_syms(pend, layout: SequenceLayout,
 
 def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
                            rm: ReferenceManager, report_zero_score: bool,
-                           bam_ref_idx: Dict[int, int], syms):
+                           bam_ref_idx: Dict[int, int], syms,
+                           for_sink: bool = False):
     """Assemble a whole flush's BAM record-stream bytes through the native
     fast-path encoder (encode_fastpath_records in native/bamcodec.c): no
     SamRecord objects, no tags dicts, no per-record encode loop — the
     byte output is identical to _fill_records_from_raw +
     encode_records_bytes (pinned by the golden tests).
 
-    Returns the encoded bytes, or None when the native lib is unavailable (callers fall back to the
+    Returns (encoded bytes, digit captures per group, cigar per read, gap-
+    stripped length per read): with `for_sink` the last three are filled
+    for the CollapseSink, since no SamRecord exists on this path. Returns
+    None when the native lib is unavailable (callers fall back to the
     python record path)."""
     import ctypes
 
@@ -962,6 +1023,9 @@ def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
     syms_b = "".join(syms).encode()
     n_total = len(pend)
     bufs = []                    # per group: (group, buffer, rec_off)
+    caps_by_group = []
+    cigars_by_k: List = [None] * n_total
+    seq_len_by_k = [0] * n_total
     for raw in raws:
         group, a_ref, a_read, valid, ops, n_ops, scores = raw
         g = len(group)
@@ -978,7 +1042,13 @@ def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
 
         counts, opcodes, cbounds = dbatch.cigar_runs_from_ops_batch(
             ops, n_ops)
+        if for_sink:
+            for j, (k, cig) in enumerate(zip(group, dbatch.cigars_from_runs(
+                    counts, opcodes, cbounds))):
+                cigars_by_k[k] = cig
+                seq_len_by_k[k] = int(seq_lens[j])
 
+        caps_np = {}
         cap_parts = []
         cap_base = np.zeros(max(len(syms), 1), dtype=np.int64)
         cap_bounds = np.zeros((max(len(syms), 1), g + 1), dtype=np.int64)
@@ -993,6 +1063,8 @@ def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
             cap_base[si] = base
             cap_bounds[si] = bounds
             base += len(flat)
+            caps_np[sym] = (cnt, flat, bounds)
+        caps_by_group.append(caps_np)
         cap_blob = (b"".join(p.tobytes() for p in cap_parts)
                     if cap_parts else b"")
 
@@ -1053,7 +1125,7 @@ def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
             off = bufs[gi][2]
             parts.append(views[gi][int(off[j]):int(off[j + 1])])
         data = b"".join(parts)
-    return data
+    return data, caps_by_group, cigars_by_k, seq_len_by_k
 
 
 def _make_record(aligned: AlignedRead, layout: SequenceLayout) -> SamRecord:

@@ -1,8 +1,9 @@
 """Command-line interface of the PyTorch + CUDA port.
 
-`clique-tpu-torch align ...` takes the flags of `clique-tpu align`
-(clique_tpu/cli.py:25-95) plus `--device`. Options the port does not run
-yet exit with an error that names the ROADMAP.md item porting them.
+`clique-tpu-torch align|collapse|run ...` take the flags of the same verbs
+of `clique-tpu` (clique_tpu/cli.py:25-184) plus `--device`; `call` takes
+those of `clique-tpu call` and runs on the host. Options the port does not
+run yet exit with an error that names the ROADMAP.md item porting them.
 """
 
 from __future__ import annotations
@@ -11,8 +12,9 @@ import argparse
 import logging
 import sys
 
-# flag -> (is it set to an unported value?, key of pipeline.ROADMAP_ITEMS)
-_UNPORTED = {
+# per verb: flag -> (is it set to an unported value?, key of
+# align.pipeline.ROADMAP_ITEMS)
+_ALIGN_UNPORTED = {
     "--engine wfa|convex": (lambda a: a.engine in ("wfa", "convex"),
                             "wavefront"),
     "--router hmm": (lambda a: a.router == "hmm", "hmm"),
@@ -20,6 +22,16 @@ _UNPORTED = {
                                 "parallel"),
     "--bandwidth": (lambda a: a.bandwidth is not None, "batch_modes"),
     "--profile-dir": (lambda a: a.profile_dir is not None, "profiling"),
+}
+_UNPORTED = {
+    "align": _ALIGN_UNPORTED,
+    "run": {flag: _ALIGN_UNPORTED[flag]
+            for flag in ("--engine wfa|convex", "--router hmm")},
+    "collapse": {
+        "--threads > 1": (lambda a: a.threads > 1, "collapse_workers"),
+        "--distributed-world > 1": (lambda a: a.distributed_world > 1,
+                                    "parallel"),
+    },
 }
 
 
@@ -92,17 +104,111 @@ def main(argv=None) -> int:
                          help="torch device the DP runs on: cuda, cuda:N or "
                               "cpu")
 
+    p_collapse = sub.add_parser(
+        "collapse", help="hierarchically sort, correct and collapse tags")
+    p_collapse.add_argument("--output-bam-file", required=True)
+    p_collapse.add_argument("--read-structure", required=True)
+    p_collapse.add_argument("--threads", type=int, default=1,
+                            help="values above 1 (the worker pool) are not "
+                                 "ported")
+    p_collapse.add_argument("--temp-dir", default="NONE")
+    p_collapse.add_argument("--input-bam-file", required=True)
+    # accepted-and-ignored like the reference (main.rs:228)
+    p_collapse.add_argument("--find-inversions", action="store_true")
+    p_collapse.add_argument("--fast-reference-lookup", action="store_true")
+    p_collapse.add_argument("--max-deletion", type=int, default=0)
+    p_collapse.add_argument("--correct-only", action="store_true")
+    p_collapse.add_argument("--checkpoint", action="store_true",
+                            help="persist each correction level under "
+                                 "--temp-dir and resume interrupted runs")
+    p_collapse.add_argument("--out-of-core", action="store_true",
+                            help="stream reads through spill shards under "
+                                 "--temp-dir instead of holding them in RAM")
+    p_collapse.add_argument("--min-aligned-bases", type=int, default=45,
+                            help="AlignmentCheck: minimum alignable columns "
+                                 "(collapse.rs:455-459 hardcodes 45)")
+    p_collapse.add_argument("--min-identity", type=float, default=0.8,
+                            help="AlignmentCheck: minimum identity over "
+                                 "alignable columns (hardcoded 0.8 in the "
+                                 "reference)")
+    p_collapse.add_argument("--gap-call-threshold", type=float, default=0.75,
+                            help="consensus gap-call fraction "
+                                 "(consensus_builders.rs:235 hardcodes 0.75)")
+    p_collapse.add_argument("--downsample-cap", type=int, default=40,
+                            help="consensus group downsample cap / dc tag "
+                                 "(collapse.rs:128 hardcodes 40)")
+    p_collapse.add_argument("--shards", type=int, default=None,
+                            help="spill shard count for the out-of-core "
+                                 "path (default: sized from the input)")
+    p_collapse.add_argument("--distributed-world", type=int, default=1,
+                            help="values above 1 are not ported")
+    p_collapse.add_argument("--distributed-rank", type=int, default=0)
+    p_collapse.add_argument("--distributed-coordinator", default=None)
+    p_collapse.add_argument("--work-dir", default=None)
+    p_collapse.add_argument("--device", default="cuda",
+                            help="torch device the tag-distance kernels run "
+                                 "on: cuda, cuda:N or cpu")
+
+    p_run = sub.add_parser(
+        "run", help="fused align + collapse (+ call) in one job: collapse "
+                    "ingests align's in-memory results instead of "
+                    "re-parsing the BAM; outputs are byte-identical to "
+                    "running the stages separately")
+    p_run.add_argument("--read-structure", required=True)
+    p_run.add_argument("--read1", required=True)
+    p_run.add_argument("--read2", default="NONE")
+    p_run.add_argument("--index1", default="NONE")
+    p_run.add_argument("--index2", default="NONE")
+    p_run.add_argument("--aligned-bam-file", required=True,
+                       help="tagged align BAM artifact (still written)")
+    p_run.add_argument("--output-bam-file", required=True,
+                       help="collapsed consensus BAM")
+    p_run.add_argument("--alleles", default=None,
+                       help="also run call: allele table (.tsv) output")
+    p_run.add_argument("--vcf", default=None,
+                       help="also run call: VCF output")
+    p_run.add_argument("--batch-size", type=int, default=256)
+    p_run.add_argument("--mode", default="ont", choices=["ont", "hifi"])
+    p_run.add_argument("--engine", default="auto",
+                       choices=["auto", "dp", "wfa", "convex"],
+                       help="auto = dp; wfa and convex are not ported")
+    p_run.add_argument("--router", default="kmer", choices=["kmer", "hmm"],
+                       help="hmm is not ported")
+    p_run.add_argument("--correct-only", action="store_true")
+    p_run.add_argument("--downsample-cap", type=int, default=40)
+    p_run.add_argument("--min-aligned-bases", type=int, default=45)
+    p_run.add_argument("--min-identity", type=float, default=0.8)
+    p_run.add_argument("--gap-call-threshold", type=float, default=0.75)
+    p_run.add_argument("--min-read-count", type=int, default=1)
+    p_run.add_argument("--metrics", default=None,
+                       help="align metrics JSON path (collapse metrics go "
+                            "next to the collapsed BAM)")
+    p_run.add_argument("--device", default="cuda",
+                       help="torch device the kernels run on: cuda, cuda:N "
+                            "or cpu")
+
+    p_call = sub.add_parser(
+        "call", help="call editing events / lineage alleles from a tagged "
+                     "BAM (host code)")
+    p_call.add_argument("--read-structure", required=True)
+    p_call.add_argument("--input-bam-file", required=True)
+    p_call.add_argument("--output", required=True,
+                        help="output allele table (.tsv) or VCF (.vcf)")
+    p_call.add_argument("--min-alignment-rate", type=float, default=0.9)
+    p_call.add_argument("--min-read-count", type=int, default=1)
+
     args = parser.parse_args(argv)
 
-    if args.cmd == "align":
-        from clique_tpu.config.layout import SequenceLayout
-        from clique_tpu.reference.manager import ReferenceManager
-        from clique_tpu_torch.align.pipeline import (align_reads,
-                                                     unported_message)
+    from clique_tpu.config.layout import SequenceLayout
+    from clique_tpu.reference.manager import ReferenceManager
+    from clique_tpu_torch.align.pipeline import unported_message
 
-        for flag, (is_set, item) in _UNPORTED.items():
-            if is_set(args):
-                parser.error(unported_message(flag, item))
+    for flag, (is_set, item) in _UNPORTED.get(args.cmd, {}).items():
+        if is_set(args):
+            parser.error(unported_message(flag, item))
+
+    if args.cmd == "align":
+        from clique_tpu_torch.align.pipeline import align_reads
 
         layout = SequenceLayout.from_yaml(args.read_structure)
         rm = ReferenceManager.from_layout(layout, args.kmer_size,
@@ -124,6 +230,62 @@ def main(argv=None) -> int:
             device=args.device,
         )
         logging.info("align done: %s", stats)
+        return 0
+
+    if args.cmd == "collapse":
+        from clique_tpu_torch.collapse.pipeline import collapse
+
+        collapse(
+            output_path=args.output_bam_file,
+            layout=SequenceLayout.from_yaml(args.read_structure),
+            input_bam=args.input_bam_file,
+            temp_dir=None if args.temp_dir == "NONE" else args.temp_dir,
+            correct_only=args.correct_only,
+            checkpoint=args.checkpoint,
+            out_of_core=args.out_of_core,
+            min_aligned_bases=args.min_aligned_bases,
+            min_identical=args.min_identity,
+            gap_call_threshold=args.gap_call_threshold,
+            downsample_cap=args.downsample_cap,
+            shards=args.shards,
+            device=args.device,
+        )
+        return 0
+
+    if args.cmd == "run":
+        from clique_tpu_torch.chain import run_chain
+
+        layout = SequenceLayout.from_yaml(args.read_structure)
+        rm = ReferenceManager.from_layout(layout)
+        astats, cstats = run_chain(
+            layout, rm, args.aligned_bam_file, args.output_bam_file,
+            read1=args.read1,
+            read2=None if args.read2 == "NONE" else args.read2,
+            index1=None if args.index1 == "NONE" else args.index1,
+            index2=None if args.index2 == "NONE" else args.index2,
+            correct_only=args.correct_only,
+            downsample_cap=args.downsample_cap,
+            min_aligned_bases=args.min_aligned_bases,
+            min_identical=args.min_identity,
+            gap_call_threshold=args.gap_call_threshold,
+            align_metrics_path=args.metrics,
+            alleles_path=args.alleles, vcf_path=args.vcf,
+            min_read_count=args.min_read_count,
+            batch_size=args.batch_size, mode=args.mode,
+            engine=None if args.engine == "auto" else args.engine,
+            router=args.router, device=args.device)
+        logging.info("run done: align %s, collapse passing=%d",
+                     astats, cstats.passing)
+        return 0
+
+    if args.cmd == "call":
+        from clique_tpu.caller.events import call_events_from_bam
+
+        call_events_from_bam(
+            SequenceLayout.from_yaml(args.read_structure),
+            args.input_bam_file, args.output,
+            min_alignment_rate=args.min_alignment_rate,
+            min_read_count=args.min_read_count)
         return 0
 
     return 1

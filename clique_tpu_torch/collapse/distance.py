@@ -1,0 +1,624 @@
+"""Tag distances for collapse's correction: hand-written CUDA kernels with
+their plain PyTorch versions, and the host candidate generation.
+
+Counterpart of clique_tpu/collapse/distance.py, which imports jax:
+
+- `match_count` (csrc/tag_distance.cu::clique_match_count) replaces
+  `_match_count_kernel` (distance.py:240-252): per (tag, allowlist entry)
+  the number of columns whose bytes are equal, u8 capped at 255. Equal
+  bytes count whatever they are, so '-' == '-' and 'N' == 'N' are matches
+  as in FastaString::hamming_distance (known_list.rs:51-60).
+- `edit_distance` (csrc/tag_distance.cu::clique_edit_distance) replaces
+  `_edit_distance_kernel` (distance.py:36-91): Levenshtein distance per row
+  pair, exact byte equality, bytes beyond la/lb ignored, u8 capped at 255.
+
+On CUDA tensors each wrapper checks its inputs, allocates its output with
+torch.empty, launches its kernel on the current stream and raises if the
+launch fails. On CPU tensors it runs the plain PyTorch version
+(`match_count_reference`, `edit_distance_reference`). Any other device
+raises. `match_count_launches` / `edit_distance_launches` count kernel
+launches and nothing else.
+
+The host functions below them are jax-free copies of the JAX module's,
+without its power-of-two pad-up of U, K and P (an XLA compile-reuse
+device): the Myers bit-parallel Levenshtein, the pigeonhole candidate
+generation, and the dispatchers `hamming_hits`, `edit_distance_rows` and
+`edit_distance_pairs`, which take the torch device the kernels run on.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from clique_tpu_torch.align.dp_kernels import (_check, _device_of,
+                                               _launch_stream, _raise_on)
+
+# row pairs from which edit_distance_rows / edit_distance_pairs run the
+# device kernel instead of the host Myers code (the JAX package's default,
+# clique_tpu/collapse/distance.py:94-102)
+DEVICE_MIN_PAIRS = 2_000_000
+# widest row the host Myers code takes (one uint64 bit vector per pair)
+MYERS_MAX_LEN = 64
+# widest row the edit-distance kernel takes (kMaxEditLen in
+# csrc/tag_distance.cu); both devices refuse wider rows
+EDIT_MAX_LEN = 256
+# widest tag the match-count kernel takes (kMaxMatchLen)
+MATCH_MAX_LEN = 256
+# pairs per step of edit_distance_reference (bounds its temporaries)
+REFERENCE_CHUNK = 1 << 18
+
+match_count_launches = 0
+edit_distance_launches = 0
+
+
+def reset_counts() -> None:
+    global match_count_launches, edit_distance_launches
+    match_count_launches = 0
+    edit_distance_launches = 0
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device tag correction runs on: "cuda", "cuda:N" or "cpu".
+    A CUDA device without a usable GPU raises here, before any work, so a
+    run asked to use the card never silently runs on the host."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} was asked for, but no "
+                               "CUDA device is available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+# --- plain PyTorch versions --------------------------------------------------
+
+def match_count_reference(tags, allow):
+    """tags u8 [U, L], allow u8 [K, L] -> u8 [U, K]: per pair the number of
+    columns whose bytes are equal, capped at 255 (what
+    _match_count_kernel computes). One [U, K] compare per column."""
+    U, L = tags.shape
+    m = torch.zeros((U, allow.shape[0]), dtype=torch.int16,
+                    device=tags.device)
+    for c in range(L):
+        m += tags[:, c, None] == allow[None, :, c]
+    return m.clamp_(max=255).to(torch.uint8)
+
+
+def edit_distance_reference(a, b, la, lb):
+    """a, b u8 [P, L], la, lb i32 [P] (0 <= la, lb <= L) -> u8 [P]:
+    Levenshtein distance of a[p, :la[p]] and b[p, :lb[p]], capped at 255
+    (what _edit_distance_kernel computes; la = 0 gives lb).
+
+    Row i of the DP is built from row i-1 in three tensor ops: t[j] =
+    min(up + 1, diag + sub) and then the left moves, D(i, j) = min over
+    k <= j of t[k] + (j - k), as a cumulative minimum. Rows past la keep
+    their last value; only columns up to max(lb) are computed. Pairs go
+    in chunks of REFERENCE_CHUNK."""
+    P = a.shape[0]
+    out = torch.empty(P, dtype=torch.uint8, device=a.device)
+    for s in range(0, P, REFERENCE_CHUNK):
+        e = min(P, s + REFERENCE_CHUNK)
+        la_c, lb_c = la[s:e].long(), lb[s:e].long()
+        n = int(la_c.max())
+        m = int(lb_c.max())
+        ar = torch.arange(m + 1, dtype=torch.int32, device=a.device)
+        row = ar.expand(e - s, m + 1).clone()          # D(0, j) = j
+        bb = b[s:e, :m]
+        for i in range(1, n + 1):
+            sub = (a[s:e, i - 1, None] != bb).int()
+            t = torch.empty_like(row)
+            t[:, 0] = i
+            t[:, 1:] = torch.minimum(row[:, 1:] + 1, row[:, :-1] + sub)
+            new = torch.cummin(t - ar, dim=1).values + ar
+            row = torch.where((la_c >= i)[:, None], new, row)
+        d = row.gather(1, lb_c[:, None]).squeeze(1)
+        out[s:e] = d.clamp(max=255).to(torch.uint8)
+    return out
+
+
+# --- kernel wrappers ----------------------------------------------------------
+
+def match_count(tags, allow):
+    """tags u8 [U, L], allow u8 [K, L] -> u8 [U, K] (match_count_reference's
+    semantics); L <= MATCH_MAX_LEN."""
+    global match_count_launches
+    dev = _device_of(tags)
+    _check(tags, "tags", torch.uint8, 2, dev)
+    _check(allow, "allow", torch.uint8, 2, dev)
+    U, L = tags.shape
+    K = allow.shape[0]
+    if allow.shape[1] != L:
+        raise ValueError(f"tags are {L} wide, allowlist rows "
+                         f"{allow.shape[1]}")
+    if L > MATCH_MAX_LEN:
+        raise ValueError(f"tags of {L} bytes exceed the match-count "
+                         f"kernel's {MATCH_MAX_LEN}")
+    if dev.type == "cpu":
+        return match_count_reference(tags, allow)
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    s = _launch_stream(None, dev, (tags, allow))
+    with torch.cuda.stream(s):
+        if L == 0:
+            return torch.zeros((U, K), dtype=torch.uint8, device=dev)
+        out = torch.empty((U, K), dtype=torch.uint8, device=dev)
+    if U == 0 or K == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.clique_match_count(tags.data_ptr(), allow.data_ptr(),
+                                     out.data_ptr(), U, K, L, s.cuda_stream)
+    _raise_on(err, "match_count")
+    match_count_launches += 1
+    return out
+
+
+def edit_distance(a, b, la, lb):
+    """a, b u8 [P, L], la, lb i32 [P] -> u8 [P] (edit_distance_reference's
+    semantics). L <= EDIT_MAX_LEN, and every length must lie in [0, L]:
+    both are checked on either device (the length check reads the lengths
+    back once) and raise ValueError."""
+    global edit_distance_launches
+    dev = _device_of(a)
+    _check(a, "a", torch.uint8, 2, dev)
+    _check(b, "b", torch.uint8, 2, dev)
+    _check(la, "la", torch.int32, 1, dev)
+    _check(lb, "lb", torch.int32, 1, dev)
+    P, L = a.shape
+    if tuple(b.shape) != (P, L) or la.shape[0] != P or lb.shape[0] != P:
+        raise ValueError("a and b must be [P, L] and la, lb [P]")
+    if L > EDIT_MAX_LEN:
+        raise ValueError(f"rows of {L} bytes exceed the edit-distance "
+                         f"kernel's {EDIT_MAX_LEN}")
+    if P == 0:
+        return torch.empty(0, dtype=torch.uint8, device=dev)
+    lens = torch.stack((la, lb))
+    if bool(((lens < 0) | (lens > L)).any()):
+        raise ValueError(f"lengths must lie in [0, {L}]")
+    if dev.type == "cpu":
+        return edit_distance_reference(a, b, la, lb)
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    s = _launch_stream(None, dev, (a, b, la, lb))
+    with torch.cuda.stream(s):
+        out = torch.empty(P, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.clique_edit_distance(a.data_ptr(), b.data_ptr(),
+                                       la.data_ptr(), lb.data_ptr(),
+                                       out.data_ptr(), P, L, s.cuda_stream)
+    _raise_on(err, "edit_distance")
+    edit_distance_launches += 1
+    return out
+
+
+# --- Levenshtein dispatch -----------------------------------------------------
+
+def _edit_distance_myers_host(a: np.ndarray, b: np.ndarray,
+                              la: np.ndarray, lb: np.ndarray) -> np.ndarray:
+    """Bit-parallel Myers/Hyyro Levenshtein on the host: a/b [P, >=L] uint8
+    rows (content beyond la/lb ignored), lengths <= 64. One uint64 bit
+    vector per pair, vectorized across pairs; exact-byte equality like the
+    kernel. Mirrors clique_tpu/collapse/distance.py:105-158."""
+    P = a.shape[0]
+    out = np.empty(P, dtype=np.uint8)
+    if P == 0:
+        return out
+    la = la.astype(np.int64)
+    lb = lb.astype(np.int64)
+    L1 = int(la.max())
+    L2 = int(lb.max())
+    assert L1 <= 64 and L2 <= 255
+    one = np.uint64(1)
+    CH = 1 << 15  # chunk pairs to bound the per-chunk temporaries
+    for s in range(0, P, CH):
+        e = min(P, s + CH)
+        n = e - s
+        A = a[s:e, :max(L1, 1)]
+        B = b[s:e, :max(L2, 1)]
+        laa = la[s:e]
+        lbb = lb[s:e]
+        # Eq[p, j]: bitmask over pattern positions i < la with A[i] == B[j]
+        # (built position-by-position: the [n, L1, L2] cube is 10x slower)
+        Eq = np.zeros((n, max(L2, 1)), np.uint64)
+        for i in range(L1):
+            m = (A[:, i:i + 1] == B) & (i < laa)[:, None]
+            Eq |= m.astype(np.uint64) << np.uint64(i)
+        sh = np.where(laa < 64, laa, 0).astype(np.uint64)
+        VP = np.where(laa == 64, ~np.uint64(0), (one << sh) - one)
+        VP = np.where(laa == 0, np.uint64(0), VP)
+        VN = np.zeros(n, np.uint64)
+        score = laa.copy()
+        mbit = one << np.where(laa > 0, laa - 1, 0).astype(np.uint64)
+        for j in range(L2):
+            act = (j < lbb) & (laa > 0)
+            PM = Eq[:, j]
+            D0 = (((PM & VP) + VP) ^ VP) | PM | VN
+            HP = VN | ~(D0 | VP)
+            HN = VP & D0
+            score += (act & ((HP & mbit) != 0)).astype(np.int64)
+            score -= (act & ((HN & mbit) != 0)).astype(np.int64)
+            HP = (HP << one) | one
+            HN = HN << one
+            nVP = HN | ~(D0 | HP)
+            nVN = HP & D0
+            VP = np.where(act, nVP, VP)
+            VN = np.where(act, nVN, VN)
+        score = np.where(laa == 0, lbb, score)
+        out[s:e] = np.minimum(score, 255).astype(np.uint8)
+    return out
+
+
+def edit_distance_rows(a: np.ndarray, b: np.ndarray, la: np.ndarray,
+                       lb: np.ndarray, device="cuda") -> np.ndarray:
+    """Exact Levenshtein per row pair, already-marshalled inputs:
+    a/b [P, L] uint8 (content beyond la/lb ignored), la/lb [P] lengths.
+    Below DEVICE_MIN_PAIRS rows of at most MYERS_MAX_LEN bytes go to the
+    host Myers code; everything else to `edit_distance` on `device`.
+    Mirrors clique_tpu/collapse/distance.py:207-226."""
+    P, L = a.shape
+    if P == 0:
+        return np.zeros(0, dtype=np.uint8)
+    if L <= MYERS_MAX_LEN and P < DEVICE_MIN_PAIRS:
+        return _edit_distance_myers_host(a, b, la, lb)
+    dev = resolve_device(device)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (a, b, la.astype(np.int32), lb.astype(np.int32))]
+    return edit_distance(*args).cpu().numpy()
+
+
+def edit_distance_pairs(seqs_a: Sequence[bytes], seqs_b: Sequence[bytes],
+                        pad_to: int = 32, device="cuda") -> np.ndarray:
+    """Exact Levenshtein distance for each (seqs_a[i], seqs_b[i]) pair: the
+    pairs are marshalled into [P, max(pad_to, longest)] rows and go to
+    edit_distance_rows. Mirrors clique_tpu/collapse/distance.py:161-204."""
+    assert len(seqs_a) == len(seqs_b)
+    if not seqs_a:
+        return np.zeros(0, dtype=np.int32)
+    L = max(pad_to, max(max(len(s) for s in seqs_a),
+                        max(len(s) for s in seqs_b)))
+    P = len(seqs_a)
+
+    def marshal(seqs, lens):
+        if (lens == L).all():
+            # uniform-length fast path: one C-speed join, no per-string pad
+            return np.frombuffer(b"".join(seqs), dtype=np.uint8
+                                 ).reshape(P, L)
+        # mixed lengths: one join + block assignment per distinct length
+        # (typically 2-3 distinct values) instead of a per-string ljust
+        arr = np.zeros((P, L), dtype=np.uint8)
+        for g in np.unique(lens):
+            if g == 0:
+                continue
+            idx = np.flatnonzero(lens == g)
+            sub = np.frombuffer(b"".join([seqs[i] for i in idx]),
+                                dtype=np.uint8).reshape(len(idx), int(g))
+            arr[idx, :g] = sub
+        return arr
+
+    la = np.fromiter(map(len, seqs_a), np.int32, count=P)
+    lb = np.fromiter(map(len, seqs_b), np.int32, count=P)
+    return edit_distance_rows(marshal(seqs_a, la), marshal(seqs_b, lb), la,
+                              lb, device=device)
+
+
+# --- Hamming against an allowlist ---------------------------------------------
+
+def hamming_hits(tags: List[bytes], allowlist: List[bytes], max_distance: int,
+                 device="cuda", chunk_u: int = 2048, chunk_k: int = 16384
+                 ) -> List[List[int]]:
+    """For each equal-length tag, indices of allowlist entries within Hamming
+    radius max_distance (exact byte equality per column, as
+    FastaString::hamming_distance), ascending per tag.
+
+    Tags and allowlist go to `device` once; `match_count` runs per
+    (chunk_u x chunk_k) block, the radius test L - matches <= max_distance
+    runs beside it, and only the hits' indices come back to the host: a
+    full [U, K] u8 matrix does not fit at allowlist scale (26k tags x
+    737,280 entries is ~19 GB). Mirrors
+    clique_tpu/collapse/distance.py:255-300."""
+    if not tags or not allowlist:
+        return [[] for _ in tags]
+    L = len(allowlist[0])
+    assert all(len(t) == L for t in tags), "hamming requires equal lengths"
+    assert all(len(a) == L for a in allowlist)
+    dev = resolve_device(device)
+
+    def upload(seqs):
+        arr = np.frombuffer(b"".join(seqs), dtype=np.uint8).reshape(-1, L)
+        return torch.from_numpy(arr.copy()).to(dev)
+
+    tags_t = upload(tags)
+    allow_t = upload(allowlist)
+    # matches are capped at 255, as the JAX kernel's are
+    need = max(L - max_distance, 0)
+    out: List[List[int]] = [[] for _ in tags]
+    if need > 255:
+        return out
+    for u0 in range(0, len(tags), chunk_u):
+        t_chunk = tags_t[u0:u0 + chunk_u]
+        for k0 in range(0, len(allowlist), chunk_k):
+            matches = match_count(t_chunk, allow_t[k0:k0 + chunk_k])
+            uu, kk = torch.nonzero(matches >= need, as_tuple=True)
+            for u, k in zip(uu.tolist(), kk.tolist()):
+                out[u0 + u].append(k0 + k)
+    return out
+
+
+# --- pigeonhole candidate generation (host) ---------------------------------
+
+def _piece_keys(a: np.ndarray):
+    """Globally comparable scalar keys for byte-block rows: pieces of <= 8
+    bytes pack into uint64 (much faster to sort/group than row-wise
+    np.unique); wider pieces return None and callers fall back to
+    np.unique(axis=0) ids. Mirrors clique_tpu/collapse/distance.py:314-325."""
+    w = a.shape[1]
+    if w > 8:
+        return None
+    k = np.zeros(a.shape[0], dtype=np.uint64)
+    for c in range(w):
+        k = (k << np.uint64(8)) | a[:, c].astype(np.uint64)
+    return k
+
+
+def _join_pairs(keys0: np.ndarray, keys1: np.ndarray, sorted0=None):
+    """All (row0, row1) index pairs with keys0[row0] == keys1[row1], via
+    one sort + searchsorted join, with no per-bucket python loop.
+    `sorted0` lets callers reuse keys0's (order, sorted keys) across many
+    keys1 probes (int32 rows: candidate sets are unique-tag indices, far
+    below 2^31). Mirrors clique_tpu/collapse/distance.py:328-351."""
+    if sorted0 is None:
+        order0 = np.argsort(keys0, kind="stable").astype(np.int32)
+        k0s = keys0[order0]
+    else:
+        order0, k0s = sorted0
+    left = np.searchsorted(k0s, keys1, "left").astype(np.int32)
+    right = np.searchsorted(k0s, keys1, "right").astype(np.int32)
+    cnt = right - left
+    total = int(cnt.sum())
+    if total == 0:
+        return None
+    offs = np.cumsum(cnt, dtype=np.int64) - cnt
+    intra = (np.arange(total, dtype=np.int64)
+             - np.repeat(offs, cnt)).astype(np.int32)
+    rows0 = order0[np.repeat(left, cnt) + intra]
+    rows1 = np.repeat(np.arange(len(keys1), dtype=np.int32), cnt)
+    return rows0, rows1
+
+
+def _candidate_pairs_np(tags: List[bytes], max_distance: int,
+                        counts: "np.ndarray" = None,
+                        ratio: float = None) -> np.ndarray:
+    """Vectorized pigeonhole for equal-length tags: byte-block packed keys
+    + flat searchsorted joins. Mirrors
+    clique_tpu/collapse/distance.py:354-488.
+
+    With (counts, ratio): only pairs that can matter to ratio absorption
+    are generated. A qualifying pair needs max(ci, cj) >= ratio * min(ci,
+    cj) >= ratio * counts.min(), so one side always lies in the small
+    high-count set H = {i: counts[i] >= ratio * cmin}; joining ALL x H
+    (both unshifted/shifted directions) is an exact superset of
+    qualifying pairs while skipping the count-1 x count-1 mass. Callers
+    re-apply the exact (ci != cj) & ratio filter, so results are
+    identical to the unrestricted join."""
+    N = len(tags)
+    L = len(tags[0])
+    arr = np.frombuffer(b"".join(tags), dtype=np.uint8).reshape(N, L)
+    n_pieces = max_distance + 1
+    bounds = [round(i * L / n_pieces) for i in range(n_pieces + 1)]
+    enc_chunks: List[np.ndarray] = []
+
+    hmask = None
+    if counts is not None and ratio is not None and N:
+        counts = np.asarray(counts, dtype=np.int64)
+        hset = np.flatnonzero(counts >= ratio * counts.min()).astype(
+            np.int32)
+        # the restricted path pays two joins per probe; only worth it
+        # when H is genuinely sparse
+        if len(hset) * 4 <= N:
+            hmask = hset
+
+    def _emit(r0: np.ndarray, r1: np.ndarray) -> None:
+        # unordered (lo, hi) pairs packed straight into the int64 dedupe
+        # encoding, no [P, 2] stack per join
+        lo_i = np.minimum(r0, r1).astype(np.int64)
+        enc_chunks.append(lo_i * N + np.maximum(r0, r1))
+
+    for p in range(n_pieces):
+        lo, hi = bounds[p], bounds[p + 1]
+        if hi <= lo:
+            continue
+        a0 = arr[:, lo:hi]
+        k0 = _piece_keys(a0)
+        if k0 is None:
+            _u, k0 = np.unique(a0, axis=0, return_inverse=True)
+        order0 = np.argsort(k0, kind="stable").astype(np.int32)
+        sorted0 = (order0, k0[order0])      # reused across every probe
+        # same-piece buckets: self-join, keep each unordered pair once.
+        # Count-restricted: ALL x H covers every qualifying pair (the
+        # high side is in H by construction).
+        if hmask is not None:
+            j = _join_pairs(k0, k0[hmask], sorted0=sorted0)
+            if j is not None:
+                r0, r1 = j
+                r1 = hmask[r1]
+                keep = r0 != r1
+                if keep.any():
+                    _emit(r0[keep], r1[keep])
+        else:
+            j = _join_pairs(k0, k0, sorted0=sorted0)
+            if j is not None:
+                r0, r1 = j
+                keep = r0 < r1
+                if keep.any():
+                    _emit(r0[keep], r1[keep])
+        # shifted pieces join against the unshifted buckets. EQUAL-length
+        # strings at Levenshtein <= d pair every insertion with a
+        # deletion, so the alignment offset at any point is bounded by
+        # floor(d/2): shifts beyond that cannot witness a real pair
+        # (the ragged fallback path keeps the full +-d range)
+        max_shift = max_distance // 2
+        for s in range(-max_shift, max_shift + 1):
+            if s == 0 or lo + s < 0 or hi + s > L:
+                continue
+            a_s = arr[:, lo + s:hi + s]
+            k_s = _piece_keys(a_s)
+            if k_s is None:
+                _u, invb = np.unique(np.vstack([a0, a_s]), axis=0,
+                                     return_inverse=True)
+                kk0, kk1 = invb[:N], invb[N:]
+                if hmask is not None:
+                    # clean piece on either side: (ALL unshifted x H
+                    # shifted) + (H unshifted x ALL shifted)
+                    j = None
+                    ja = _join_pairs(kk0, kk1[hmask])
+                    if ja is not None:
+                        r0, r1 = ja
+                        r1 = hmask[r1]
+                        keep = r0 != r1
+                        if keep.any():
+                            _emit(r1[keep], r0[keep])
+                    jb = _join_pairs(kk0[hmask], kk1)
+                    if jb is not None:
+                        r0, r1 = jb
+                        r0 = hmask[r0]
+                        keep = r0 != r1
+                        if keep.any():
+                            _emit(r1[keep], r0[keep])
+                else:
+                    j = _join_pairs(kk0, kk1)
+            else:
+                # same width as a0, so k0 holds packed (comparable) keys
+                if hmask is not None:
+                    j = None
+                    ja = _join_pairs(k0, k_s[hmask], sorted0=sorted0)
+                    if ja is not None:
+                        r0, r1 = ja
+                        r1 = hmask[r1]
+                        keep = r0 != r1
+                        if keep.any():
+                            _emit(r1[keep], r0[keep])
+                    # H's unshifted pieces vs everyone's shifted windows:
+                    # sort the H-restricted keys once per probe
+                    jb = _join_pairs(k0[hmask], k_s)
+                    if jb is not None:
+                        r0, r1 = jb
+                        r0 = hmask[r0]
+                        keep = r0 != r1
+                        if keep.any():
+                            _emit(r1[keep], r0[keep])
+                else:
+                    j = _join_pairs(k0, k_s, sorted0=sorted0)
+            if j is not None:
+                r0, r1 = j
+                keep = r0 != r1
+                if keep.any():
+                    _emit(r1[keep], r0[keep])
+
+    if not enc_chunks:
+        return np.zeros((0, 2), dtype=np.int64)
+    enc = np.unique(np.concatenate(enc_chunks))
+    return np.stack([enc // N, enc % N], axis=1)
+
+
+def _pieces(seq: bytes, n_pieces: int) -> List[Tuple[int, bytes]]:
+    """The n_pieces (index, piece) cuts of seq. Mirrors
+    clique_tpu/collapse/distance.py:490-493."""
+    L = len(seq)
+    bounds = [round(i * L / n_pieces) for i in range(n_pieces + 1)]
+    return [(i, seq[bounds[i]:bounds[i + 1]]) for i in range(n_pieces)]
+
+
+def candidate_pairs_array(tags: List[bytes], max_distance: int,
+                          counts: "np.ndarray" = None,
+                          ratio: float = None) -> np.ndarray:
+    """candidate_pairs returning an [P, 2] i64 ndarray directly (no python
+    tuple round-trip), the form degenerate_prepare consumes. counts/ratio
+    (optional, equal-length path only) restrict the superset to pairs that
+    can pass ratio absorption (see _candidate_pairs_np). Mirrors
+    clique_tpu/collapse/distance.py:496-507."""
+    if tags and len({len(t) for t in tags}) == 1:
+        return _candidate_pairs_np(tags, max_distance, counts=counts,
+                                   ratio=ratio)
+    return np.array(candidate_pairs(tags, max_distance),
+                    dtype=np.int64).reshape(-1, 2)
+
+
+def candidate_pairs(tags: List[bytes], max_distance: int
+                    ) -> List[Tuple[int, int]]:
+    """Superset of all pairs within edit distance max_distance, via the
+    d+1-piece pigeonhole with +-d shifts (indel tolerance).
+
+    Equal-length tag sets (the common case: normalize_tag pads) take the
+    vectorized numpy path; ragged sets fall back to the dict build.
+    Mirrors clique_tpu/collapse/distance.py:510-550."""
+    if tags and len({len(t) for t in tags}) == 1:
+        arr = _candidate_pairs_np(tags, max_distance)
+        return list(zip(arr[:, 0].tolist(), arr[:, 1].tolist()))
+    n_pieces = max_distance + 1
+    buckets: Dict[Tuple[int, int, bytes], List[int]] = defaultdict(list)
+    for idx, t in enumerate(tags):
+        L = len(t)
+        bounds = [round(i * L / n_pieces) for i in range(n_pieces + 1)]
+        for p in range(n_pieces):
+            lo, hi = bounds[p], bounds[p + 1]
+            for shift in range(-max_distance, max_distance + 1):
+                s, e = lo + shift, hi + shift
+                if s < 0 or e > L:
+                    continue
+                buckets[(p, shift, t[s:e])].append(idx)
+    pairs = set()
+    for (p, shift, _piece), members in buckets.items():
+        if shift != 0:
+            continue
+        for i in members:
+            pairs.update((min(i, j), max(i, j)) for j in members if j != i)
+    # shifted pieces join against unshifted ones
+    unshifted: Dict[Tuple[int, bytes], List[int]] = defaultdict(list)
+    for (p, shift, piece), members in buckets.items():
+        if shift == 0:
+            unshifted[(p, piece)].extend(members)
+    for (p, shift, piece), members in buckets.items():
+        if shift == 0:
+            continue
+        base = unshifted.get((p, piece))
+        if not base:
+            continue
+        for i in members:
+            pairs.update((min(i, j), max(i, j)) for j in base if j != i)
+    return sorted(pairs)
+
+
+def candidates_to_allowlist(tags: List[bytes], allowlist: List[bytes],
+                            max_distance: int) -> List[List[int]]:
+    """For each tag, allowlist indices sharing a pigeonhole piece (candidate
+    superset for Levenshtein <= max_distance matching). Mirrors
+    clique_tpu/collapse/distance.py:553-575."""
+    n_pieces = max_distance + 1
+    index: Dict[Tuple[int, bytes], List[int]] = defaultdict(list)
+    for k, a in enumerate(allowlist):
+        for p, piece in _pieces(a, n_pieces):
+            index[(p, piece)].append(k)
+    out: List[List[int]] = []
+    for t in tags:
+        L = len(t)
+        bounds = [round(i * L / n_pieces) for i in range(n_pieces + 1)]
+        cands = set()
+        for p in range(n_pieces):
+            lo, hi = bounds[p], bounds[p + 1]
+            for shift in range(-max_distance, max_distance + 1):
+                s, e = lo + shift, hi + shift
+                if s < 0 or e > L:
+                    continue
+                cands.update(index.get((p, t[s:e]), ()))
+        out.append(sorted(cands))
+    return out

@@ -1,10 +1,12 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on
-CUDA tensors. Needs an NVIDIA GPU with nvcc; run there with
+"""The hand-written CUDA kernels (DP fill and walk, tag match count and
+edit distance) against their plain PyTorch versions, on CUDA tensors.
+Needs an NVIDIA GPU with nvcc; run there with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Elsewhere every test skips (the `cuda` fixture decides, at run time).
-Tolerance: exact equality of every byte (all DP decisions are exact).
+Tolerance: exact equality of every byte (all DP decisions are exact, and
+the tag distances are integers).
 """
 
 import os
@@ -137,3 +139,86 @@ def test_out_of_range_lengths_are_marked(cuda):
     assert torch.equal(tb[good], tb_p)
     assert torch.equal(corner[good], corner_p)
     assert torch.equal(fused[good], fused_p)
+
+
+TAG_ALPHABET = np.frombuffer(b"ACGTN-", dtype=np.uint8)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 16), (37, 91, 16), (2048, 300, 16),
+                                   (100, 1000, 12), (17, 33, 255),
+                                   (70000, 20, 8)], ids=str)
+def test_match_count_kernel_matches_plain(cuda, shape):
+    from clique_tpu_torch.collapse import distance as tdist
+
+    U, K, L = shape
+    rng = np.random.default_rng(sum(shape))
+    allow = rng.choice(TAG_ALPHABET, (K, L))
+    tags = rng.choice(TAG_ALPHABET, (U, L))
+    tags[::2] = allow[rng.integers(0, K, len(tags[::2]))]
+    t, a = torch.from_numpy(tags).to(cuda), torch.from_numpy(allow).to(cuda)
+    n = tdist.match_count_launches
+    got = tdist.match_count(t, a)
+    torch.cuda.synchronize()
+    assert tdist.match_count_launches == n + 1
+    assert torch.equal(got, tdist.match_count_reference(t, a))
+
+
+@pytest.mark.parametrize("L", [8, 16, 32, 33, 64, 65, 200, 256])
+def test_edit_distance_kernel_matches_plain(cuda, L):
+    from clique_tpu_torch.collapse import distance as tdist
+
+    rng = np.random.default_rng(L)
+    P = 3000
+    a = rng.choice(TAG_ALPHABET, (P, L))
+    b = a.copy()
+    b[rng.random((P, L)) < 0.1] = ord("A")
+    b[::7] = rng.choice(TAG_ALPHABET, b[::7].shape)
+    la = rng.integers(0, L + 1, P).astype(np.int32)
+    lb = np.clip(la + rng.integers(-3, 4, P), 0, L).astype(np.int32)
+    la[0], lb[1], la[2], lb[2] = 0, 0, 0, 0
+    la[3], lb[3] = L, L
+    args = [torch.from_numpy(x).to(cuda) for x in (a, b, la, lb)]
+    n = tdist.edit_distance_launches
+    got = tdist.edit_distance(*args)
+    torch.cuda.synchronize()
+    assert tdist.edit_distance_launches == n + 1
+    assert torch.equal(got, tdist.edit_distance_reference(*args))
+    if L <= 64:
+        assert np.array_equal(got.cpu().numpy(),
+                              tdist._edit_distance_myers_host(a, b, la, lb))
+
+
+def test_hamming_hits_on_cuda_equals_cpu(cuda):
+    from clique_tpu_torch.collapse import distance as tdist
+
+    rng = np.random.default_rng(4)
+    allow = [rng.choice(TAG_ALPHABET[:4], 16).tobytes() for _ in range(5000)]
+    tags = [bytes(bytearray(allow[i])[:15]) + b"N" for i in range(0, 5000, 7)]
+    tags += [rng.choice(TAG_ALPHABET, 16).tobytes() for _ in range(300)]
+    want = tdist.hamming_hits(tags, allow, 2, device="cpu", chunk_u=256,
+                              chunk_k=1024)
+    got = tdist.hamming_hits(tags, allow, 2, device="cuda", chunk_u=256,
+                             chunk_k=1024)
+    assert got == want
+
+
+def test_collapse_golden_on_cuda(cuda, tmp_path):
+    from test_torch_align_pipeline import _inflate_bgzf, _load_make_golden
+
+    from clique_tpu.caller.events import call_events_from_bam
+    from clique_tpu_torch.collapse import distance as tdist
+    from clique_tpu_torch.collapse.pipeline import collapse
+
+    mg = _load_make_golden()
+    gd = os.path.join(ROOT, "tests", "data", "golden")
+    layout, _rm = mg._load_layout(str(tmp_path), golden_dir=gd)
+    out = str(tmp_path / "collapsed.bam")
+    n = tdist.match_count_launches
+    collapse(out, layout, os.path.join(gd, "aligned.bam"), device="cuda")
+    assert tdist.match_count_launches > n
+    assert _inflate_bgzf(out) == _inflate_bgzf(os.path.join(gd,
+                                                            "collapsed.bam"))
+    tsv = str(tmp_path / "alleles.tsv")
+    call_events_from_bam(layout, out, tsv, min_read_count=1)
+    with open(tsv) as f1, open(os.path.join(gd, "alleles.tsv")) as f2:
+        assert f1.read() == f2.read()

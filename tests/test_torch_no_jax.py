@@ -1,6 +1,7 @@
 """The port runs with jax unavailable: a fresh interpreter with `jax` and
 `jaxlib` blocked imports clique_tpu_torch, aligns the golden reads on the
-CPU, reproduces the pinned BAM and never loads a jax module."""
+CPU (and runs the fused align + collapse + call), reproduces the pinned
+outputs and never loads a jax module."""
 
 import os
 import subprocess
@@ -8,6 +9,7 @@ import sys
 import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(ROOT, "tests", "data", "golden")
 
 SCRIPT = textwrap.dedent("""
     import gzip, os, sys
@@ -27,9 +29,20 @@ SCRIPT = textwrap.dedent("""
     with open(layout, "w") as fh:
         fh.write(text)
     out = os.path.join(workdir, "aligned.bam")
-    rc = cli.main(["align", "--read-structure", layout, "--read1",
-                   os.path.join(gd, "reads.fastq.gz"), "--output-bam-file",
-                   out, "--batch-size", "16", "--device", "cpu"])
+    verb = sys.argv[3]
+    if verb == "align":
+        argv = ["align", "--output-bam-file", out]
+    else:
+        from clique_tpu_torch import chain
+        from clique_tpu_torch.collapse import correct, distance
+        from clique_tpu_torch.collapse import pipeline as cpipeline
+
+        argv = ["run", "--aligned-bam-file", out, "--output-bam-file",
+                os.path.join(workdir, "collapsed.bam"), "--alleles",
+                os.path.join(workdir, "alleles.tsv")]
+    rc = cli.main(argv + ["--read-structure", layout, "--read1",
+                          os.path.join(gd, "reads.fastq.gz"),
+                          "--batch-size", "16", "--device", "cpu"])
     assert rc == 0
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in
@@ -40,15 +53,35 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_align_golden_without_jax(tmp_path):
+def _run_without_jax(verb, tmp_path):
     res = subprocess.run(
-        [sys.executable, "-c", SCRIPT, ROOT, str(tmp_path)],
+        [sys.executable, "-c", SCRIPT, ROOT, str(tmp_path), verb],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": ""})
     assert res.returncode == 0, res.stderr[-3000:]
     assert "JAX_MODULES []" in res.stdout, res.stdout
-    assert "clique_tpu_torch.align.pipeline" in res.stdout
+    return res.stdout
+
+
+def test_align_golden_without_jax(tmp_path):
+    out = _run_without_jax("align", tmp_path)
+    assert "clique_tpu_torch.align.pipeline" in out
     from test_torch_align_pipeline import _inflate_bgzf
 
     assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
-        os.path.join(ROOT, "tests", "data", "golden", "aligned.bam"))
+        os.path.join(GOLDEN, "aligned.bam"))
+
+
+def test_run_golden_without_jax(tmp_path):
+    """align + collapse + call, fused, with jax blocked: the collapsed BAM
+    and the allele table equal the golden pins."""
+    out = _run_without_jax("run", tmp_path)
+    assert "clique_tpu_torch.collapse.distance" in out
+    from test_torch_align_pipeline import _inflate_bgzf
+
+    for name in ("aligned.bam", "collapsed.bam"):
+        assert _inflate_bgzf(str(tmp_path / name)) == _inflate_bgzf(
+            os.path.join(GOLDEN, name))
+    with open(tmp_path / "alleles.tsv") as f1, \
+            open(os.path.join(GOLDEN, "alleles.tsv")) as f2:
+        assert f1.read() == f2.read()

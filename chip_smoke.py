@@ -17,7 +17,21 @@ before and read just after:
   correct_degenerate_groups takes the edit-distance kernel;
 - bench: the fused chain (align -> collapse -> call) over 80,000
   bench-shaped reads (the generator of bench.py, seed 2026), timed as
-  bench.py times it.
+  bench.py times it;
+- banded: the bench's first 2,048 reads aligned with a band of half-width
+  32, the same BAM on the card as on the CPU;
+- long reads: 1,000 reads of a 4 kb amplicon with ONT-like errors through
+  the anchored seed-and-extend path, the first 64 reads' BAM the same on
+  the card as on the CPU;
+- inversion: inversion_alignment_batch over 512 reads of a 1 kb
+  reference (the local screen, the keep-last fill); at the path's shape
+  the kernels' rows equal the plain versions', the first 64 reads' rows
+  are the same on the card as on the CPU, and a sample of the results
+  equals the host inversion_alignment.
+
+The CPU runs of the long-read and inversion phases go to a pool of
+spawned processes and run beside the card's; a script that imports these
+phases needs an `if __name__ == "__main__":` guard.
 
 It imports no jax. Every failure raises and the script exits non-zero;
 the last line of a run that passed is
@@ -28,11 +42,14 @@ and the line before it is a JSON object with one entry per kernel.
 """
 
 import json
+import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIRS = {
@@ -46,14 +63,32 @@ N_CPU_CHECK = 2048
 # 10x Chromium v2's public 737K-august-2016.txt holds this many 16 bp
 # barcodes; the known-list phase draws a seeded list of that size
 N_ALLOWLIST = 737_280
-KERNELS = ("dp_fill", "dp_walk", "match_count", "edit_distance")
+BAND = 32
+N_LONG_READS = 1000
+N_LONG_CPU = 64
+LONG_REF = 4000
+N_INV_READS = 512
+N_INV_BLOCKS = 10          # ~2% of the reads carry an inverted block
+N_INV_SAMPLE = 16
+N_INV_CPU = 64
+INV_REF = 1000
+# the pool that runs the CPU comparisons of the long-read and inversion
+# phases beside the card's runs: five workers of two torch threads each
+CPU_WORKERS = 5
+CPU_WORKER_THREADS = 2
+KERNELS = ("dp_fill", "dp_walk", "match_count", "edit_distance",
+           "dp_fill_local", "dp_walk_local")
 SOURCES = {"dp_fill": "dp_fill.cu", "dp_walk": "dp_walk.cu",
            "match_count": "tag_distance.cu",
-           "edit_distance": "tag_distance.cu"}
+           "edit_distance": "tag_distance.cu",
+           "dp_fill_local": "dp_fill_local.cu",
+           "dp_walk_local": "dp_walk_local.cu"}
 REPLACES = {"dp_fill": "clique_tpu/align/pallas_kernel.py:55",
             "dp_walk": "clique_tpu/align/batch.py:565",
             "match_count": "clique_tpu/collapse/distance.py:240",
-            "edit_distance": "clique_tpu/collapse/distance.py:36"}
+            "edit_distance": "clique_tpu/collapse/distance.py:36",
+            "dp_fill_local": "clique_tpu/align/batch.py:332",
+            "dp_walk_local": "clique_tpu/align/batch.py:450"}
 
 
 def check(cond, msg):
@@ -110,16 +145,26 @@ def phase_build():
     kernel = None
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("dp_fill", "dp_walk", "match_count",
+            kernel = next((k for k in ("dp_fill_local", "dp_walk_local",
+                                       "dp_fill", "dp_walk", "match_count",
                                        "edit_distance_reg",
                                        "edit_distance_local")
                            if k in line), line.strip())
+            # the fills' template flags (local, keep-last ties, register
+            # rows) from the mangled name
+            flags = re.search(r"fill_kernelILb(\d)ELb(\d)ELb(\d)E", line)
+            if flags:
+                kernel += "<tie_last={1},reg_rows={2}>".format(
+                    *flags.groups())
         elif kernel and ("registers" in line or "spill" in line):
             say(f"[build] {kernel}: {line.strip()}")
-    # both kernels use no static shared memory; the fill's is dynamic
+    lib = _build.load()
     say(f"[build] dp_fill: dynamic shared memory "
-        f"{_build.load().clique_dp_fill_smem_bytes(384, 384)} B per CTA at "
-        f"n1=n2=384; dp_walk: none")
+        f"{lib.clique_dp_fill_smem_bytes(384, 384)} B per CTA at n1=n2=384; "
+        f"at n1=6600, n2=1024 the ring moves to global memory "
+        f"({lib.clique_dp_fill_ring_bytes(6600, 1024)} B per CTA) and "
+        f"{lib.clique_dp_fill_smem_bytes(6600, 1024)} B stay shared; "
+        f"dp_walk: none")
 
 
 def _random_batch(rng, B, n1, n2, uniform, ragged):
@@ -148,10 +193,11 @@ def _random_batch(rng, B, n1, n2, uniform, ragged):
     return refs, reads, ref_lens, read_lens
 
 
-def _time_ms(fn, reps):
+def _time_ms(fn, reps, warm=True):
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -161,6 +207,44 @@ def _time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _turns(label, kern, plain, reps, plain_reps=1):
+    """A kernel and its plain version timed in turns (plain, kernel,
+    kernel, plain); returns (kernel ms, plain ms), each the mean of its two
+    turns."""
+    p1 = _time_ms(plain, plain_reps)
+    k1 = _time_ms(kern, reps)
+    k2 = _time_ms(kern, reps)
+    p2 = _time_ms(plain, plain_reps)
+    say(f"{label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.3f} / "
+        f"{p2:.3f} ms per call")
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _timed(fn):
+    """fn() and its time in ms (one call, CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _kernel_turns(label, kern, reps, plain_ms):
+    """For plain versions that take seconds a call: the kernel timed in two
+    turns beside the plain version's one comparison call; returns (kernel
+    ms, plain ms)."""
+    k1 = _time_ms(kern, reps)
+    k2 = _time_ms(kern, reps)
+    say(f"{label}: kernel {k1:.4f} / {k2:.4f} ms, plain {plain_ms:.3f} ms "
+        f"(its comparison call) per call")
+    return (k1 + k2) / 2, plain_ms
 
 
 def phase_kernels():
@@ -231,16 +315,148 @@ def phase_kernels():
         return tbatch.walk_reference(tb, corner, args[2], args[3], n1=n,
                                      n2=n)
 
+    times = {name: _turns(f"[kernels] {name} at B=1024 n1=n2=384", kern,
+                          plain, 20)
+             for name, kern, plain in (("dp_fill", fill_k, fill_p),
+                                       ("dp_walk", walk_k, walk_p))}
+    return err, times
+
+
+def _mode_batch(rng, B, n1, n2):
+    """One reference of n1 - 1 bases (a single row, as the inversion path
+    sends it) and B reads cut from it with 5% substitutions, of lengths 0
+    (the first read) to n2 - 1 (the last)."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(acgt, n1 - 1)
+    reads = np.zeros((B, n2 - 1), np.uint8)
+    read_lens = rng.integers(1, n2, B).astype(np.int32)
+    read_lens[0], read_lens[-1] = 0, n2 - 1
+    for i, n in enumerate(read_lens):
+        start = int(rng.integers(0, n1 - 1))
+        piece = np.concatenate([ref[start:], ref])[:n]
+        subs = rng.random(n) < 0.05
+        piece[subs] = rng.choice(acgt, int(subs.sum()))
+        reads[i, :n] = piece
+    return ref[None, :], reads, np.full(B, n1 - 1, np.int32), read_lens
+
+
+def phase_mode_kernels():
+    """The fill modes and local kernels of the rest of the DP engine
+    against their plain PyTorch versions on the card, byte for byte, then
+    the kernels timed in turns beside the plain version's comparison call
+    (seconds a call at these shapes): a band of half-width 32 at the bench shape (and a
+    ragged banded case), keep-last ties with special_mode "none" (the
+    inversion fill) and the local fill and walk (the inversion screen) at
+    B=64, n1=n2=3328 (the size of tests/data/big_inversion_ref.txt), and a
+    fill of 6,600 rows, whose ring lives in global memory."""
+    import numpy as np
+    import torch
+
+    from clique_tpu.align.scoring import AffineScoring, InversionScoring
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align.inversion import inversion_params
+    from clique_tpu_torch.align.pipeline import RUST_BIO_COMPAT
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(2028)
+    err = dict.fromkeys(("dp_fill", "dp_walk", "dp_fill_local",
+                         "dp_walk_local"), 0.0)
     times = {}
-    for name, kern, plain in (("dp_fill", fill_k, fill_p),
-                              ("dp_walk", walk_k, walk_p)):
-        p1 = _time_ms(plain, 1)
-        k1 = _time_ms(kern, 20)
-        k2 = _time_ms(kern, 20)
-        p2 = _time_ms(plain, 1)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        say(f"[kernels] {name} at B=1024 n1=n2=384: kernel {k1:.4f} / "
-            f"{k2:.4f} ms, plain {p1:.2f} / {p2:.2f} ms per call")
+
+    def held(label, pairs):
+        """pairs: (kernel name, kernel output, plain output)."""
+        same, worst = True, 0.0
+        for name, k, p in pairs:
+            e = (k.double() - p.double()).abs().max().item()
+            err[name] = max(err[name], e)
+            worst = max(worst, e)
+            same = same and torch.equal(k, p)
+        say(f"[mode kernels] {label}: "
+            f"{'byte-equal' if same else 'DIFFER'} (max abs err {worst})")
+        check(same, f"{label}: kernel and plain version disagree")
+
+    def global_case(label, host, params, reps, width=None, **kw):
+        """dp_fill + dp_walk held against the plain fill and the plain
+        walk (on the kernel's own fill), then the fill timed."""
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        n1, n2 = host[0].shape[1] + 1, host[1].shape[1] + 1
+        kw.update(n1=n1, n2=n2)
+        if width is not None:
+            bw = np.minimum(np.maximum(host[2], np.maximum(host[3], 1)),
+                            np.int32(width)).astype(np.int32)
+            kw.update(bandwidth=torch.from_numpy(bw).to(dev),
+                      band_centers=torch.from_numpy(
+                          tbatch.band_centers_f64(host[2], host[3], n1))
+                      .to(dev))
+
+        def fill_k():
+            return dp_kernels.dp_fill(*args, params, **kw)
+
+        def fill_p():
+            return tbatch.fill_reference(*args, params, **kw)
+
+        tb_k, corner_k = fill_k()
+        fused_k = dp_kernels.dp_walk(tb_k, corner_k, args[2], args[3],
+                                     n1=n1, n2=n2)
+        (tb_p, corner_p), plain_ms = _timed(fill_p)
+        _res, fused_p = tbatch.walk_reference(tb_k, corner_k, args[2],
+                                              args[3], n1=n1, n2=n2)
+        held(label, [("dp_fill", tb_k, tb_p), ("dp_fill", corner_k, corner_p),
+                     ("dp_walk", fused_k, fused_p)])
+        del tb_k, tb_p
+        if reps:
+            _kernel_turns(f"[mode kernels] dp_fill {label}", fill_k, reps,
+                          plain_ms)
+
+    rust = tbatch.scoring_to_params(RUST_BIO_COMPAT, dev)
+    global_case("banded (half-width 16) B=24 n1=128 n2=256 ragged",
+                _random_batch(rng, 24, 128, 256, False, True), rust, 0,
+                width=16, special_mode="ref_n_only")
+    global_case(f"banded (half-width {BAND}) B=1024 n1=n2=384",
+                _random_batch(rng, 1024, 384, 384, True, False), rust, 20,
+                width=BAND, special_mode="ref_n_only")
+    n = 3328
+    host = _mode_batch(rng, 64, n, n)
+    global_case(f"keep-last, special none, B=64 n1=n2={n}", host,
+                inversion_params(InversionScoring(), dev), 5,
+                special_mode="none", tie_order="last")
+
+    ring = dp_kernels.fill_mode_launches["global_ring"]
+    global_case("n1=6600 n2=1024 B=32 (global ring)",
+                _mode_batch(rng, 32, 6600, 1024),
+                tbatch.scoring_to_params(AffineScoring.aligner_default(),
+                                         dev), 3, special_mode="both")
+    check(dp_kernels.fill_mode_launches["global_ring"] > ring,
+          "the 6,600-row fill did not take the global-memory ring")
+
+    # the local pair on the keep-last case's inputs, the inversion screen's
+    # scoring
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    hifi = tbatch.scoring_to_params(AffineScoring.hifi_default(), dev)
+    kw = dict(n1=n, n2=n)
+
+    def fill_local_k():
+        return dp_kernels.dp_fill_local(*args, hifi, **kw)
+
+    out_k = fill_local_k()
+    fused_k = dp_kernels.dp_walk_local(*out_k, **kw)
+    out_p, fill_plain_ms = _timed(
+        lambda: tbatch.fill_local_reference(*args, hifi, **kw))
+    (_res, fused_p), walk_plain_ms = _timed(
+        lambda: tbatch.walk_local_reference(*out_k, **kw))
+    held(f"local B=64 n1=n2={n}",
+         [("dp_fill_local", k, p) for k, p in zip(out_k, out_p)]
+         + [("dp_walk_local", fused_k, fused_p)])
+    del out_p
+    times["dp_fill_local"] = _kernel_turns(
+        f"[mode kernels] dp_fill_local at B=64 n1=n2={n}", fill_local_k, 5,
+        fill_plain_ms)
+    times["dp_walk_local"] = _kernel_turns(
+        f"[mode kernels] dp_walk_local at B=64 n1=n2={n}",
+        lambda: dp_kernels.dp_walk_local(*out_k, **kw), 5, walk_plain_ms)
     return err, times
 
 
@@ -308,21 +524,15 @@ def phase_tag_kernels():
     t, a = match_case(2048, 16384, 16)
     host, args = edit_case(2_097_152, 32, la_val=16)
 
-    times = {}
-    for name, kern, plain in (
-            ("match_count", lambda: tdist.match_count(t, a),
-             lambda: tdist.match_count_reference(t, a)),
-            ("edit_distance", lambda: tdist.edit_distance(*args),
-             lambda: tdist.edit_distance_reference(*args))):
-        p1 = _time_ms(plain, 2)
-        k1 = _time_ms(kern, 20)
-        k2 = _time_ms(kern, 20)
-        p2 = _time_ms(plain, 2)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        shape = ("U=2048 K=16384 L=16" if name == "match_count"
-                 else "P=2097152 L=32 la=lb=16")
-        say(f"[tag kernels] {name} at {shape}: kernel {k1:.4f} / {k2:.4f} "
-            f"ms, plain {p1:.3f} / {p2:.3f} ms per call")
+    times = {
+        "match_count": _turns(
+            "[tag kernels] match_count at U=2048 K=16384 L=16",
+            lambda: tdist.match_count(t, a),
+            lambda: tdist.match_count_reference(t, a), 20, 2),
+        "edit_distance": _turns(
+            "[tag kernels] edit_distance at P=2097152 L=32 la=lb=16",
+            lambda: tdist.edit_distance(*args),
+            lambda: tdist.edit_distance_reference(*args), 20, 2)}
     t0 = time.time()
     myers = tdist._edit_distance_myers_host(*host)
     myers_ms = (time.time() - t0) * 1e3
@@ -381,7 +591,9 @@ def _counts():
     return {"dp_fill": dp_kernels.fill_launches,
             "dp_walk": dp_kernels.walk_launches,
             "match_count": distance.match_count_launches,
-            "edit_distance": distance.edit_distance_launches}
+            "edit_distance": distance.edit_distance_launches,
+            "dp_fill_local": dp_kernels.fill_local_launches,
+            "dp_walk_local": dp_kernels.walk_local_launches}
 
 
 def _read(path):
@@ -606,7 +818,328 @@ def phase_bench(workdir):
           "differ between cuda and cpu")
     say(f"[bench] first {N_CPU_CHECK} reads: cuda and cpu aligned BAMs, "
         "collapsed BAMs and allele tables identical")
-    return launches, (layout_text, aligned, cells, stats.aligned / chain_s)
+    return launches, (layout_text, aligned, cells, stats.aligned / chain_s,
+                      head)
+
+
+def phase_banded(workdir, bench):
+    """The bench's first 2,048 reads through align_reads with a band of
+    half-width 32: every group a banded dp_fill on the card, and the same
+    BAM as the plain versions give on the CPU."""
+    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    layout_text, _aligned, _cells, _rate, head = bench
+    wd = os.path.join(workdir, "banded")
+    os.makedirs(wd)
+    layout, rm = _layout_from_text(layout_text, wd)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(wd, f"{device}.bam")
+        _reset_counts()
+        t0 = time.time()
+        stats = align_reads(layout, rm, out, read1=head,
+                            batch_size=BENCH_BATCH, bandwidth=BAND,
+                            device=device)
+        seconds = time.time() - t0
+        if device == "cuda":
+            launches = _counts()
+            banded = dp_kernels.fill_mode_launches["banded"]
+        outs[device] = _inflate_bgzf(out)
+        say(f"[banded] {stats.aligned}/{stats.total} reads, half-width "
+            f"{BAND}, on {device}: {seconds:.3f} s")
+    same = outs["cuda"] == outs["cpu"]
+    full = outs["cuda"] == _inflate_bgzf(os.path.join(workdir,
+                                                      "head_cuda.bam"))
+    say(f"[banded] cuda and cpu aligned BAMs "
+        f"{'identical' if same else 'DIFFER'}; the banded BAM "
+        f"{'equals' if full else 'differs from'} the full-band one; "
+        f"launches {launches}, {banded} banded")
+    check(stats.aligned == N_CPU_CHECK, "not every read was aligned")
+    check(launches["dp_fill"] > 0 and banded == launches["dp_fill"],
+          "the banded path launched no banded fill")
+    check(same, "the banded BAMs differ between cuda and cpu")
+    return launches
+
+
+def _ont_read(rng, ref, bases):
+    """An ONT-like read of ref: a random base drawn at 3% of the
+    positions, and an indel of 1-3 bp at 2% (half deletions, half
+    insertions)."""
+    n = len(ref)
+    u = rng.random(n)
+    draw = rng.choice(bases, (n, 4))
+    span = rng.integers(1, 4, n)
+    out = bytearray()
+    i = 0
+    while i < n:
+        if u[i] < 0.03:
+            out.append(draw[i, 0])
+        elif u[i] < 0.04:
+            i += int(span[i])
+            continue
+        elif u[i] < 0.05:
+            out += draw[i, 1:1 + span[i]].tobytes()
+            out.append(ref[i])
+        else:
+            out.append(ref[i])
+        i += 1
+    return bytes(out)
+
+
+def _cpu_worker_init():
+    # the workers share the host's cores with the main process, whose
+    # card runs (and their host-bound walls) go on beside them
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+
+
+def _align_on_cpu(layout_text, fastq, workdir):
+    """align_reads with the plain versions on the CPU (run in the pool):
+    the inflated BAM payload and the seconds it took."""
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    os.makedirs(workdir)
+    layout, rm = _layout_from_text(layout_text, workdir)
+    out = os.path.join(workdir, "cpu.bam")
+    t0 = time.time()
+    align_reads(layout, rm, out, read1=fastq, batch_size=BENCH_BATCH,
+                device="cpu")
+    return _inflate_bgzf(out), time.time() - t0
+
+
+def phase_long_reads(workdir, pool):
+    """1,000 reads of a seeded 4 kb amplicon with ONT-like errors through
+    align_reads at the default anchored_min_length (2048): every read takes
+    the anchored seed-and-extend path, its inter-anchor sub-DPs batched
+    through dp_fill and dp_walk. The first 64 reads' BAM on the CPU is
+    computed in the pool after the card's runs; long_reads_head_check
+    holds it against the card's."""
+    import numpy as np
+
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    rng = np.random.default_rng(4000)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(bases, LONG_REF).tobytes()
+    wd = os.path.join(workdir, "long")
+    os.makedirs(wd)
+    layout_text = f"""
+known_strand: true
+reads:
+  - !Read1
+    orientation: Forward
+references:
+  longamp:
+    sequence: "{ref.decode()}"
+"""
+    layout, rm = _layout_from_text(layout_text, wd)
+    lines = []
+    for i in range(N_LONG_READS):
+        r = _ont_read(rng, ref, bases).decode()
+        lines.append(f"@long{i}\n{r}\n+\n{'I' * len(r)}\n")
+    fq, head = os.path.join(wd, "long.fastq"), os.path.join(wd, "head.fastq")
+    for path, part in ((fq, lines), (head, lines[:N_LONG_CPU])):
+        with open(path, "w") as fh:
+            fh.writelines(part)
+
+    out = os.path.join(wd, "head_cuda.bam")
+    t0 = time.time()
+    align_reads(layout, rm, out, read1=head, batch_size=BENCH_BATCH,
+                device="cuda")
+    head_cuda = _inflate_bgzf(out)
+    say(f"[long reads] first {N_LONG_CPU} reads on cuda: "
+        f"{time.time() - t0:.2f} s")
+
+    out = os.path.join(wd, "long.bam")
+    metrics_path = os.path.join(wd, "metrics.json")
+    _reset_counts()
+    t0 = time.time()
+    stats = align_reads(layout, rm, out, read1=fq, batch_size=BENCH_BATCH,
+                        device="cuda", metrics_path=metrics_path)
+    seconds = time.time() - t0
+    launches = _counts()
+    with open(metrics_path) as fh:
+        m = json.load(fh)
+    a = m["anchored"]
+    cells = a["dp_cells_filled"]
+    full = sum((LONG_REF + 1) * (len(line.split("\n")[1]) + 1)
+               for line in lines)
+    say(f"[long reads] {stats.aligned}/{stats.total} reads of ~{LONG_REF} "
+        f"bp on the card: {seconds:.3f} s, {stats.aligned / seconds:.1f} "
+        f"reads/s; {a['reads']} anchored, {a['sub_dps']} sub-DPs, {cells} "
+        f"DP cells filled ({cells / full:.4f} of the full DP), "
+        f"{a['dispatches']} dispatches, device_seconds "
+        f"{a['device_seconds']}; launches {launches}")
+    check(stats.aligned == N_LONG_READS, "not every long read was aligned")
+    check(a["reads"] == N_LONG_READS, "a long read missed the anchored path")
+    check(launches["dp_fill"] == launches["dp_walk"] == m["dispatches"] > 0,
+          "launch counts differ from the number of dispatches")
+    head_cpu = pool.submit(_align_on_cpu, layout_text, head,
+                           os.path.join(wd, "cpu"))
+    return launches, stats.aligned / seconds, (head_cuda, head_cpu)
+
+
+def long_reads_head_check(pending):
+    head_cuda, future = pending
+    head_cpu, seconds = future.result()
+    same = head_cuda == head_cpu
+    say(f"[long reads] first {N_LONG_CPU} reads on cpu (in the pool): "
+        f"{seconds:.2f} s; cuda and cpu aligned BAMs "
+        f"{'identical' if same else 'DIFFER'}")
+    check(same, "the long reads' BAMs differ between cuda and cpu")
+
+
+def _inversion_rows(ref, reads, inv, aff, device):
+    """The inversion path's device rows on `device`: the screen's fused
+    local rows, and the keep-last rows of its negatives."""
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align.inversion import (keep_last_rows,
+                                                  local_screen_rows)
+
+    screen = local_screen_rows(ref, reads, aff, device)
+    n_ops = tbatch.unfuse_result(screen, local=True)[1]
+    negatives = [r for r, n in zip(reads, n_ops)
+                 if n < inv.min_inversion_length]
+    return screen, keep_last_rows(ref, negatives, inv, device)
+
+
+def _plain_rows(ref, seqs, params, local):
+    """The plain PyTorch fill and walk on the card over `ref` against
+    `seqs`, padded as the inversion path pads them: the fused rows."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.align import batch as tbatch
+
+    dev = params.device
+    arr, lens = tbatch.pad_batch(seqs)
+    n1, n2 = len(ref) + 1, arr.shape[1] + 1
+    read_lens = torch.from_numpy(lens).to(dev)
+    ref_lens = torch.full_like(read_lens, len(ref))
+    args = (torch.from_numpy(np.frombuffer(ref, np.uint8)[None].copy())
+            .to(dev), torch.from_numpy(arr).to(dev), ref_lens, read_lens,
+            params)
+    if local:
+        out = tbatch.fill_local_reference(*args, n1=n1, n2=n2)
+        fused = tbatch.walk_local_reference(*out, n1=n1, n2=n2)[1]
+    else:
+        tb, corner = tbatch.fill_reference(*args, n1=n1, n2=n2,
+                                           special_mode="none",
+                                           tie_order="last")
+        fused = tbatch.walk_reference(tb, corner, ref_lens, read_lens,
+                                      n1=n1, n2=n2)[1]
+    return fused.cpu().numpy()
+
+
+def phase_inversion(pool):
+    """inversion_alignment_batch over 512 reads of a seeded 1 kb reference
+    with 1% substitutions, 10 of them (~2%) with an inverted block of
+    40-100 bp, under the default InversionScoring and the HiFi affine
+    scoring (its local screen keeps hits of random sequence short): the
+    screen and the keep-last fill on the card, the screen positives on
+    the host one after another. At the path's shape the kernels' rows
+    equal the plain versions' on the card; the first 64 reads' rows on
+    the card equal those on the CPU (in the pool); a 16-read sample of the
+    results equals the host inversion_alignment (in the pool)."""
+    import numpy as np
+    import torch
+
+    from clique_tpu.align.inversion import inversion_alignment
+    from clique_tpu.align.scoring import AffineScoring, InversionScoring
+    from clique_tpu.utils.seq import reverse_complement
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align.inversion import (inversion_alignment_batch,
+                                                  inversion_params)
+
+    rng = np.random.default_rng(1000)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(bases, INV_REF)
+    inverted = set(rng.choice(N_INV_READS, N_INV_BLOCKS,
+                              replace=False).tolist())
+    reads = []
+    for i in range(N_INV_READS):
+        r = ref.copy()
+        subs = rng.random(INV_REF) < 0.01
+        r[subs] = rng.choice(bases, int(subs.sum()))
+        r = r.tobytes()
+        if i in inverted:
+            n = int(rng.integers(40, 101))
+            p = int(rng.integers(50, INV_REF - n - 50))
+            r = r[:p] + reverse_complement(r[p:p + n]) + r[p + n:]
+        reads.append(r)
+    ref = ref.tobytes()
+    names = [f"inv{i}" for i in range(N_INV_READS)]
+    inv, aff = InversionScoring(), AffineScoring.hifi_default()
+    sample = sorted(rng.choice(N_INV_READS, N_INV_SAMPLE,
+                               replace=False).tolist())
+    head_cpu = pool.submit(_inversion_rows, ref, reads[:N_INV_CPU], inv, aff,
+                           "cpu")
+    host = [pool.submit(inversion_alignment, ref, reads[i], "inv_ref",
+                        names[i], inv, aff, False) for i in sample]
+
+    _reset_counts()
+    t0 = time.time()
+    got = inversion_alignment_batch(ref, reads, "inv_ref", names, inv, aff,
+                                    device="cuda")
+    cuda_s = time.time() - t0
+    launches = _counts()
+    modes = dict(dp_kernels.fill_mode_launches)
+    marked = sorted(i for i, res in enumerate(got)
+                    if any(op == "<" for _c, op in res.cigar))
+    say(f"[inversion] {N_INV_READS} reads of a {INV_REF} bp reference on "
+        f"the card: {cuda_s:.2f} s (the screen positives one after another "
+        f"on the host); {len(marked)} reads carry an inversion block "
+        f"({len(inverted)} were given one); launches {launches}, fill "
+        f"modes {modes}")
+    check(set(marked) == inverted, "the inversion blocks were not found")
+    check(launches["dp_fill_local"] > 0 and launches["dp_walk_local"] > 0,
+          "the inversion screen launched no local kernel")
+    check(launches["dp_fill"] > 0 and modes["tie_last"] > 0
+          and modes["special_none"] > 0,
+          "the inversion path launched no keep-last fill")
+
+    # the kernels' rows against the plain versions' at the path's shape
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    screen, last = _inversion_rows(ref, reads, inv, aff, "cuda")
+    kern_s = time.time() - t0
+    n_neg = last.shape[0]
+    negatives = [r for r, n in zip(reads,
+                                   tbatch.unfuse_result(screen, True)[1])
+                 if n < inv.min_inversion_length]
+    t0 = time.time()
+    screen_p = _plain_rows(ref, [reverse_complement(r) for r in reads],
+                           tbatch.scoring_to_params(aff, dev), True)
+    last_p = _plain_rows(ref, negatives, inversion_params(inv, dev), False)
+    plain_s = time.time() - t0
+    same_path = (np.array_equal(screen, screen_p)
+                 and np.array_equal(last, last_p))
+    say(f"[inversion] screen rows (B={N_INV_READS}, n1={INV_REF + 1}) and "
+        f"keep-last rows ({n_neg} negatives): kernels {kern_s:.3f} s, plain "
+        f"versions on the card {plain_s:.3f} s; "
+        f"{'byte-equal' if same_path else 'DIFFER'}")
+    check(same_path, "the inversion path's kernel rows differ from the "
+          "plain versions'")
+
+    head_k = _inversion_rows(ref, reads[:N_INV_CPU], inv, aff, "cuda")
+    head_p = head_cpu.result()
+    same_head = all(np.array_equal(k, p) for k, p in zip(head_k, head_p))
+    host = [f.result() for f in host]
+    sample_same = all(
+        (got[i].score, got[i].reference_aligned, got[i].read_aligned,
+         got[i].cigar) == (h.score, h.reference_aligned, h.read_aligned,
+                           h.cigar) for i, h in zip(sample, host))
+    say(f"[inversion] first {N_INV_CPU} reads' screen and keep-last rows: "
+        f"cuda and cpu {'identical' if same_head else 'DIFFER'}; the "
+        f"{N_INV_SAMPLE}-read sample "
+        f"{'equals' if sample_same else 'DIFFERS from'} the host "
+        f"inversion_alignment")
+    check(same_head, "the inversion rows differ between cuda and cpu")
+    check(sample_same, "the inversion batch differs from the host")
+    return launches
 
 
 def phase_known_list(workdir, bench):
@@ -620,7 +1153,7 @@ def phase_known_list(workdir, bench):
     from clique_tpu_torch.collapse.correct import correct_known_hamming
     from clique_tpu_torch.collapse.pipeline import collapse
 
-    layout_text, aligned, cells, _rate = bench
+    layout_text, aligned, cells, _rate, _head = bench
     rng = np.random.default_rng(737280)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     allow = rng.choice(bases, (N_ALLOWLIST, 16))
@@ -737,20 +1270,31 @@ def phase_device_levenshtein():
 
 
 def main():
+    t_start = time.time()
     phase_card()
     import torch
 
     phase_build()
     err, times = phase_kernels()
+    mode_err, mode_times = phase_mode_kernels()
+    for k, v in mode_err.items():
+        err[k] = max(err.get(k, 0.0), v)
+    times.update(mode_times)
     tag_err, tag_times, myers_ms = phase_tag_kernels()
     err.update(tag_err)
     times.update(tag_times)
     launches = dict.fromkeys(KERNELS, 0)
-    with tempfile.TemporaryDirectory() as workdir:
+    with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init) as pool:
         path_launches = [phase_golden(workdir)]
         bench_launches, bench = phase_bench(workdir)
-        path_launches += [bench_launches, phase_known_list(workdir, bench),
+        path_launches += [bench_launches, phase_banded(workdir, bench),
+                          phase_known_list(workdir, bench),
                           phase_device_levenshtein()]
+        long_launches, long_rate, long_head = phase_long_reads(workdir, pool)
+        path_launches += [long_launches, phase_inversion(pool)]
+        long_reads_head_check(long_head)
     for n in path_launches:
         for k in KERNELS:
             launches[k] += n[k]
@@ -763,7 +1307,9 @@ def main():
     check(all(launches[k] > 0 for k in KERNELS),
           f"a kernel was never launched on a path: {launches}")
     say(f"[summary] chain {bench[3]:.1f} reads/s over {N_BENCH_READS} "
-        f"bench-shaped reads; host Myers at 2M pairs {myers_ms:.1f} ms")
+        f"bench-shaped reads; long reads {long_rate:.1f} reads/s over "
+        f"{N_LONG_READS}; host Myers at 2M pairs {myers_ms:.1f} ms; "
+        f"script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"clique_tpu_torch/csrc/{SOURCES[name]}",

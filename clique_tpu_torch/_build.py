@@ -141,13 +141,20 @@ def load() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.clique_dp_fill.restype = ci
         lib.clique_dp_fill.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp,
-                                       ci, ci, ci, ci, vp]
-        lib.clique_dp_fill_smem_bytes.restype = ci
-        lib.clique_dp_fill_smem_bytes.argtypes = [ci, ci]
-        lib.clique_dp_fill_max_n1.restype = ci
-        lib.clique_dp_fill_max_n1.argtypes = []
+                                       vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.clique_dp_fill_local.restype = ci
+        lib.clique_dp_fill_local.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp,
+                                             vp, vp, vp, vp, ci, ci, ci, ci,
+                                             vp]
+        for fn in (lib.clique_dp_fill_smem_bytes,
+                   lib.clique_dp_fill_ring_bytes):
+            fn.restype = ci
+            fn.argtypes = [ci, ci]
         lib.clique_dp_walk.restype = ci
         lib.clique_dp_walk.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.clique_dp_walk_local.restype = ci
+        lib.clique_dp_walk_local.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                             ci, vp]
         lib.clique_match_count.restype = ci
         lib.clique_match_count.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.clique_edit_distance.restype = ci

@@ -1,15 +1,24 @@
-"""Batched 3-plane affine-gap DP (PyTorch), global full-band mode.
+"""Batched 3-plane affine-gap DP (PyTorch).
 
-Counterpart of clique_tpu/align/batch.py for the path the `align` verb
-runs: the global, full-band fill with per-element lengths, tie order
-up > left > diag (diag wins ties), the `both` and `ref_n_only` special-byte
-rules, the traceback walk from the (l1, l2) corner, and the op epilogue
-fused into one uint8 row per alignment.
+Counterpart of clique_tpu/align/batch.py::align_batch_device in every mode
+but the TPU-only ones (the Pallas route, the wave, fetch-fuse):
 
-`fill_reference` and `walk_reference` are the plain PyTorch versions; the
-hand-written CUDA kernels (align/dp_kernels.py, csrc/) compute the same
-bytes. `align_batch` runs the kernels on CUDA tensors and the plain
-versions on CPU tensors.
+- global fills with per-element lengths, the `both`, `ref_n_only` and
+  `none` special-byte rules, tie order up > left > diag (diag wins ties)
+  or keep-last (`tie_order="last"`, the inversion-aware fill's), a full
+  band or a band of half-width `bandwidth` around f64 band centers; the
+  traceback walk from the (l1, l2) corner and the op epilogue fused into
+  one uint8 row per alignment;
+- local (Waterman-Eggert) fills with the full band and tie order
+  up > left > diag (the inversion screen's), per-plane zero flags and the
+  running 3D argmax, walked from the argmax cell until a border or a zero
+  cell.
+
+`fill_reference`, `walk_reference`, `fill_local_reference` and
+`walk_local_reference` are the plain PyTorch versions; the hand-written
+CUDA kernels (align/dp_kernels.py, csrc/) compute the same bytes.
+`align_batch` and `align_batch_local` run the kernels on CUDA tensors and
+the plain versions on CPU tensors.
 
 Exactness: every scoring constant is dyadic and every intermediate a sum
 of < 2^18-magnitude dyadics, so float32 decisions are exact on any backend
@@ -36,7 +45,14 @@ _TB_FRESH = UP | (UP << 2) | (UP << 4)
 # op codes emitted by the traceback walk
 OP_MATCH, OP_DEL, OP_INS, OP_DONE = 0, 1, 2, 3
 
-SPECIAL_MODES = ("both", "ref_n_only")
+SPECIAL_MODES = ("both", "ref_n_only", "none")
+TIE_ORDERS = ("ref", "last")
+
+# the most traceback bytes (B * (n1 + n2 - 1) * n1; twice that for a local
+# fill, which stores zero flags beside it) one launch may hold: callers
+# split larger batches into groups. One long read's whole-read sub-DP at
+# n1 = n2 = 4096 takes 33.5 MB.
+MAX_TRACEBACK_BYTES = 2 << 30
 
 
 class BatchAlignment(NamedTuple):
@@ -47,6 +63,22 @@ class BatchAlignment(NamedTuple):
     ops: torch.Tensor         # [B, T] uint8 op codes, OP_DONE-padded
     n_ops: torch.Tensor       # [B] i32 number of valid ops
     ops_packed: torch.Tensor  # [B, ceil(T/4)] uint8, 4 ops per byte
+
+
+class LocalBatchAlignment(NamedTuple):
+    """Waterman-Eggert result (clique_tpu batch.py:64-78): the ops cover
+    the local segment from (ref_start, read_start), where the walk stopped,
+    to (ref_end, read_end), the 3D argmax cell."""
+
+    score: torch.Tensor       # [B] f32
+    start_z: torch.Tensor     # [B] i32 starting plane at the argmax cell
+    ops: torch.Tensor         # [B, T] uint8
+    n_ops: torch.Tensor       # [B] i32
+    ops_packed: torch.Tensor  # [B, ceil(T/4)] uint8
+    ref_start: torch.Tensor   # [B] i32
+    read_start: torch.Tensor  # [B] i32
+    ref_end: torch.Tensor     # [B] i32
+    read_end: torch.Tensor    # [B] i32
 
 
 def scoring_to_params(scoring: AffineScoring, device) -> torch.Tensor:
@@ -77,6 +109,16 @@ def _check_lens(ref_lens, read_lens, n1: int, n2: int):
         raise ValueError(f"read_lens must lie in [0, {n2 - 1}]")
 
 
+def check_modes(special_mode: str, tie_order: str, bandwidth,
+                band_centers):
+    if special_mode not in SPECIAL_MODES:
+        raise ValueError(f"special_mode must be one of {SPECIAL_MODES}")
+    if tie_order not in TIE_ORDERS:
+        raise ValueError(f"tie_order must be one of {TIE_ORDERS}")
+    if (bandwidth is None) != (band_centers is None):
+        raise ValueError("a band needs both bandwidth and band_centers")
+
+
 def _three_way_max(up, left, diag):
     """three_way_max_and_direction (clique_tpu batch.py:81-88): up on
     strict >, then left on strict >, else diag (ties -> diag)."""
@@ -88,23 +130,27 @@ def _three_way_max(up, left, diag):
     return val, direction.to(torch.uint8)
 
 
+def _max_last3(a, b, c, dir_a, dir_b, dir_c):
+    """Rust `max_by` keep-LAST over the candidate list [a, b, c]: c wins
+    ties against everything, b against a (clique_tpu batch.py:91-100)."""
+    ab = torch.maximum(a, b)
+    val = torch.maximum(ab, c)
+    direction = torch.where(c >= ab, dir_c,
+                            torch.where(b >= a, dir_b, dir_a))
+    return val, direction.to(torch.uint8)
+
+
 def _shift_down(arr):
     """[B, X] -> value at index x-1 (x axis), zero-filled at x=0."""
     return torch.nn.functional.pad(arr[:, :-1], (1, 0))
 
 
-def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
-                   n2: int, special_mode: str):
-    """Plain anti-diagonal fill: the global branch of align_batch_device
-    (clique_tpu batch.py:221-330, tie_order="ref", no band, local=False).
-
-    refs [B|1, >= n1-1] uint8 (one row = uniform-reference batch), reads
-    [B, >= n2-1] uint8, lens [B] int32 (ref_lens <= n1-1, read_lens <=
-    n2-1), params f32 [6]. Returns tb uint8 [B, D, n1] (D = n1+n2-1; one
-    6-bit traceback byte per cell, _TB_FRESH outside the interior) and
-    corner f32 [B, 3] (the M/D/I scores at (l1, l2))."""
-    if special_mode not in SPECIAL_MODES:
-        raise ValueError(f"special_mode must be one of {SPECIAL_MODES}")
+def _fill(refs, reads, ref_lens, read_lens, params, *, n1, n2,
+          special_mode, tie_order, bandwidth, band_centers, local):
+    """The anti-diagonal scan of align_batch_device (clique_tpu
+    batch.py:221-374) in every non-Pallas mode. Returns (tb, corner) for a
+    global fill, (tb, zflags, best, best_xd) for a local one."""
+    check_modes(special_mode, tie_order, bandwidth, band_centers)
     _check_lens(ref_lens, read_lens, n1, n2)
     dev = reads.device
     B = reads.shape[0]
@@ -124,6 +170,15 @@ def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
     rx = rx.expand(B, n1)
     reads_i = reads.to(torch.int32)
     W = reads.shape[1]
+    if bandwidth is not None:
+        # band rows are constant across diagonals (clique_tpu batch.py
+        # :287-290): interior cells lie in [lo, hi)
+        c = band_centers[:, :n1].to(torch.int64)
+        bw = bandwidth.to(torch.int64)[:, None]
+        band_lo = torch.clamp(c - bw, min=1)
+        band_hi = torch.minimum(l2 + 1, c + bw)
+    else:
+        band_lo, band_hi = 1, l2 + 1
 
     zeros = torch.zeros((B, n1), dtype=f32, device=dev)
     pm, pp1, pp2 = zeros, zeros, zeros          # diagonal d-1
@@ -132,6 +187,14 @@ def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
     corner = torch.zeros((B, 3), dtype=f32, device=dev)
     corner_d = (l1 + l2)[:, 0]
     fresh = torch.tensor(_TB_FRESH, dtype=torch.uint8, device=dev)
+    if local:
+        zflags = torch.empty((B, D, n1), dtype=torch.uint8, device=dev)
+        best_val = torch.full((B,), 4.0 * MAX_NEG_SCORE, dtype=f32,
+                              device=dev)
+        best_x = torch.zeros((B,), dtype=torch.int64, device=dev)
+        best_d = torch.zeros((B,), dtype=torch.int64, device=dev)
+        best_col = torch.zeros((B, 3), dtype=f32, device=dev)
+        far_neg = torch.full((), 2.0 * MAX_NEG_SCORE, dtype=f32, device=dev)
 
     for d in range(D):
         y = d - x                                               # [1, n1]
@@ -141,6 +204,9 @@ def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
             # rust-bio-compat rule (alignment_functions.rs:55): only a
             # reference-side N scores as a guaranteed match
             special = rx == 78
+        elif special_mode == "none":
+            # InversionScoring has no wildcard rule
+            special = torch.zeros_like(rx, dtype=torch.bool)
         else:
             special = (rx == 78) | (ry == 78) | (rx < 58) | (ry < 58)
         ms = torch.where(special, sp_s, torch.where(rx == ry, m_s, mm_s))
@@ -149,15 +215,33 @@ def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
         lge = ge * gm
         x1 = go + lge
 
-        m_val, m_dir = _three_way_max(_shift_down(p2p1) + ms,
-                                      _shift_down(p2p2) + ms,
-                                      _shift_down(p2m) + ms)
-        d_val, d_dir = _three_way_max(_shift_down(pp1) + lge,
+        mm_val = _shift_down(p2m) + ms
+        if local:
+            mm_val = torch.maximum(torch.maximum(zero, mm_val), ms)
+        if tie_order == "last":
+            # inversion-aware fill (clique_tpu batch.py:265-277), global
+            # only: keep-last ties, each plane with its own candidate order;
+            # the m plane is floored at MAX_NEG_SCORE
+            mm_val = torch.maximum(mm_val, neg)
+            m_val, m_dir = _max_last3(mm_val, _shift_down(p2p1) + ms,
+                                      _shift_down(p2p2) + ms, DIAG, UP, LEFT)
+            d_val, d_dir = _max_last3(_shift_down(pp1) + lge,
                                       _shift_down(pp2) + x1,
-                                      _shift_down(pm) + x1)
-        i_val, i_dir = _three_way_max(pp1 + x1, pp2 + lge, pm + x1)
+                                      _shift_down(pm) + x1, UP, LEFT, DIAG)
+            i_val, i_dir = _max_last3(pp1 + x1, pp2 + lge, pm + x1,
+                                      UP, LEFT, DIAG)
+        else:
+            # local gap planes extend with the unscaled ge but open with
+            # x1, which keeps the terminal-gap multiplier (:279-281)
+            ext = ge if local else lge
+            m_val, m_dir = _three_way_max(_shift_down(p2p1) + ms,
+                                          _shift_down(p2p2) + ms, mm_val)
+            d_val, d_dir = _three_way_max(_shift_down(pp1) + ext,
+                                          _shift_down(pp2) + x1,
+                                          _shift_down(pm) + x1)
+            i_val, i_dir = _three_way_max(pp1 + x1, pp2 + ext, pm + x1)
 
-        interior = (x >= 1) & (x <= l1) & (y >= 1) & (y <= l2)
+        interior = (x >= 1) & (x <= l1) & (y >= band_lo) & (y < band_hi)
         is_x_border = (x == 0) & (y >= 1) & (y <= l2)
         is_y_border = (y == 0) & (x >= 1) & (x <= l1)
         is_origin = (x == 0) & (y == 0)
@@ -178,14 +262,74 @@ def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
         tb[:, d, :] = torch.where(
             interior, m_dir | (d_dir << 2) | (i_dir << 4), fresh)
 
-        # capture the (l1, l2) corner when its diagonal comes by
-        corner_col = torch.cat([torch.gather(v, 1, l1)
-                                for v in (m_out, p1_out, p2_out)], dim=1)
-        corner = torch.where((corner_d == d)[:, None], corner_col, corner)
+        if local:
+            # per-plane zero flags on every cell's output value (:336-338)
+            zflags[:, d, :] = ((m_out == 0).to(torch.uint8)
+                               | ((p1_out == 0).to(torch.uint8) << 1)
+                               | ((p2_out == 0).to(torch.uint8) << 2))
+            # running 3D argmax (:339-358): strictly greater replaces, so
+            # ties keep the earlier diagonal, then the smaller x (argmax
+            # returns the first maximal lane)
+            valid = (x <= l1) & (y >= 0) & (y <= l2)
+            cell = torch.maximum(m_out, torch.maximum(p1_out, p2_out))
+            cell = torch.where(valid, cell, far_neg)
+            lane = torch.argmax(cell, dim=1)
+            dmax = torch.gather(cell, 1, lane[:, None])[:, 0]
+            dcol = torch.cat([torch.gather(v, 1, lane[:, None])
+                              for v in (m_out, p1_out, p2_out)], dim=1)
+            replace = dmax > best_val
+            best_val = torch.where(replace, dmax, best_val)
+            best_x = torch.where(replace, lane, best_x)
+            best_d = torch.where(replace, d, best_d)
+            best_col = torch.where(replace[:, None], dcol, best_col)
+        else:
+            # capture the (l1, l2) corner when its diagonal comes by
+            corner_col = torch.cat([torch.gather(v, 1, l1)
+                                    for v in (m_out, p1_out, p2_out)], dim=1)
+            corner = torch.where((corner_d == d)[:, None], corner_col,
+                                 corner)
 
         p2m, p2p1, p2p2 = pm, pp1, pp2
         pm, pp1, pp2 = m_out, p1_out, p2_out
+    if local:
+        best = torch.cat([best_val[:, None], best_col], dim=1)
+        best_xd = torch.stack([best_x, best_d], dim=1).to(torch.int32)
+        return tb, zflags, best, best_xd
     return tb, corner
+
+
+def fill_reference(refs, reads, ref_lens, read_lens, params, *, n1: int,
+                   n2: int, special_mode: str, tie_order: str = "ref",
+                   bandwidth=None, band_centers=None):
+    """Plain anti-diagonal fill: the global branches of align_batch_device
+    (clique_tpu batch.py:221-330, local=False).
+
+    refs [B|1, >= n1-1] uint8 (one row = uniform-reference batch), reads
+    [B, >= n2-1] uint8, lens [B] int32 (ref_lens <= n1-1, read_lens <=
+    n2-1), params f32 [6]. special_mode "both", "ref_n_only" or "none";
+    tie_order "ref" (up > left > diag) or "last" (keep-last). A partial
+    band takes bandwidth int32 [B] (half-width per row) and band_centers
+    int32 [B, >= n1] (band_centers_f64); None for both is the full band.
+    Returns tb uint8 [B, D, n1] (D = n1+n2-1; one 6-bit traceback byte per
+    cell, _TB_FRESH outside the interior and the band) and corner f32
+    [B, 3] (the M/D/I scores at (l1, l2))."""
+    return _fill(refs, reads, ref_lens, read_lens, params, n1=n1, n2=n2,
+                 special_mode=special_mode, tie_order=tie_order,
+                 bandwidth=bandwidth, band_centers=band_centers, local=False)
+
+
+def fill_local_reference(refs, reads, ref_lens, read_lens, params, *,
+                         n1: int, n2: int, special_mode: str = "both"):
+    """Plain Waterman-Eggert fill: the local branch of align_batch_device
+    (clique_tpu batch.py:221-374, local=True) with the full band and tie
+    order up > left > diag. Inputs as fill_reference.
+    Returns tb uint8 [B, D, n1], zflags uint8 [B, D, n1] (bit z set where
+    plane z's value is 0.0), best f32 [B, 4] (the argmax value, then the
+    M/D/I values at the argmax cell) and best_xd int32 [B, 2] (its x and
+    its diagonal)."""
+    return _fill(refs, reads, ref_lens, read_lens, params, n1=n1, n2=n2,
+                 special_mode=special_mode, tie_order="ref", bandwidth=None,
+                 band_centers=None, local=True)
 
 
 def corner_to_z0_score(corner):
@@ -198,13 +342,18 @@ def corner_to_z0_score(corner):
     return z0, score
 
 
-def fuse_result(ops_packed, n_ops, score):
+def fuse_result(ops_packed, n_ops, score, coords=None):
     """One uint8 row per alignment: n_ops i32 LE, score f32 LE, then the
-    packed ops (clique_tpu batch.py:504-515). Host side: unfuse_result."""
-    a = n_ops.to(torch.int32).contiguous().view(torch.uint8)
-    b = score.to(torch.float32).contiguous().view(torch.uint8)
+    packed ops (clique_tpu batch.py:504-515); a local result carries its
+    four coordinates (ref_start, read_start, ref_end, read_end, i32 LE)
+    between the score and the ops. Host side: unfuse_result."""
     B = n_ops.shape[0]
-    return torch.cat([a.reshape(B, 4), b.reshape(B, 4), ops_packed], dim=1)
+    parts = [n_ops.to(torch.int32).contiguous().view(torch.uint8),
+             score.to(torch.float32).contiguous().view(torch.uint8)]
+    if coords is not None:
+        parts.append(coords.to(torch.int32).contiguous().view(torch.uint8))
+    return torch.cat([p.reshape(B, -1) for p in parts] + [ops_packed],
+                     dim=1)
 
 
 def _ops_epilogue(ops_d, score, z0, *, n1: int, n2: int):
@@ -271,11 +420,55 @@ def walk_reference(tb, corner, ref_lens, read_lens, *, n1: int, n2: int):
     return res, fuse_result(res.ops_packed, res.n_ops, res.score)
 
 
+def walk_local_reference(tb, zflags, best, best_xd, *, n1: int, n2: int):
+    """Plain local walk + epilogue + fuse: _finish_local (clique_tpu
+    batch.py:450-492). Walks from the argmax cell (best_xd) in the plane
+    that wins the argmax cell's values (later plane wins ties), emitting
+    the current plane as the op, until the walk leaves the core (x = 0 or
+    y = 0) or meets a cell whose current plane is 0.0 (zflags); no
+    trailing D/I runs. Returns (LocalBatchAlignment, fused uint8
+    [B, 24 + ceil(T/4)]) with the coordinates in the fused row."""
+    dev = tb.device
+    B = tb.shape[0]
+    D = n1 + n2 - 1
+    z0, score = corner_to_z0_score(best[:, 1:4])
+    end_x = best_xd[:, 0].to(torch.int64)
+    end_y = best_xd[:, 1].to(torch.int64) - end_x
+    x, y, z = end_x, end_y, z0.to(torch.int64)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    ops_d = torch.full((B, D), OP_DONE, dtype=torch.uint8, device=dev)
+    for d in range(D - 1, -1, -1):
+        on_diag = (x + y == d) & ~done
+        in_core = (x > 0) & (y > 0)
+        xi = x.clamp(0, n1 - 1)[:, None]
+        zb = torch.gather(zflags[:, d, :], 1, xi)[:, 0].to(torch.int64)
+        at_zero = ((zb >> z) & 1) == 1
+        emit = on_diag & in_core & ~at_zero
+        stop = on_diag & (~in_core | at_zero)
+        byte = torch.gather(tb[:, d, :], 1, xi)[:, 0].to(torch.int64)
+        direction = (byte >> (2 * z)) & 3
+        ops_d[:, d] = torch.where(emit, z, OP_DONE).to(torch.uint8)
+        x = x - (emit & (z != 2)).to(torch.int64)
+        y = y - (emit & (z != 1)).to(torch.int64)
+        z = torch.where(emit, direction, z)
+        done = done | stop
+    res = _ops_epilogue(ops_d, score, z0, n1=n1, n2=n2)
+    i32 = torch.int32
+    local = LocalBatchAlignment(
+        score=res.score, start_z=res.start_z, ops=res.ops, n_ops=res.n_ops,
+        ops_packed=res.ops_packed, ref_start=x.to(i32),
+        read_start=y.to(i32), ref_end=end_x.to(i32), read_end=end_y.to(i32))
+    coords = torch.stack([local.ref_start, local.read_start, local.ref_end,
+                          local.read_end], dim=1)
+    return local, fuse_result(res.ops_packed, res.n_ops, res.score, coords)
+
+
 def align_batch(refs, reads, ref_lens, read_lens, params, *, n1: int,
-                n2: int, special_mode: str, return_traceback: bool = False,
-                stream=None):
+                n2: int, special_mode: str, tie_order: str = "ref",
+                bandwidth=None, band_centers=None,
+                return_traceback: bool = False, stream=None):
     """Fill + walk for one length bucket: the counterpart of
-    align_batch_device(use_pallas=True) in global full-band mode.
+    align_batch_device(local=False) in every non-Pallas mode.
 
     Inputs as fill_reference. On CUDA tensors the two hand-written kernels
     run on `stream` (default: the current stream); on CPU tensors the plain
@@ -287,19 +480,42 @@ def align_batch(refs, reads, ref_lens, read_lens, params, *, n1: int,
 
     tb, corner = dp_kernels.dp_fill(refs, reads, ref_lens, read_lens,
                                     params, n1=n1, n2=n2,
-                                    special_mode=special_mode, stream=stream)
+                                    special_mode=special_mode,
+                                    tie_order=tie_order, bandwidth=bandwidth,
+                                    band_centers=band_centers, stream=stream)
     fused = dp_kernels.dp_walk(tb, corner, ref_lens, read_lens, n1=n1,
                                n2=n2, stream=stream)
     return fused, (tb if return_traceback else None)
 
 
+def align_batch_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
+                      n2: int, special_mode: str = "both", stream=None):
+    """Local fill + walk for one length bucket: the counterpart of
+    align_batch_device(local=True). Inputs as fill_local_reference.
+    Returns the fused uint8 [B, 24 + ceil((n1+n2)/4)] rows;
+    unfuse_result(..., local=True) recovers (ops_packed, n_ops, score,
+    coords) on the host."""
+    from clique_tpu_torch.align import dp_kernels
+
+    tb, zflags, best, best_xd = dp_kernels.dp_fill_local(
+        refs, reads, ref_lens, read_lens, params, n1=n1, n2=n2,
+        special_mode=special_mode, stream=stream)
+    return dp_kernels.dp_walk_local(tb, zflags, best, best_xd, n1=n1, n2=n2,
+                                    stream=stream)
+
+
 # --- host-side helpers (copies of clique_tpu/align/batch.py) -----------------
 
-def unfuse_result(buf: np.ndarray):
-    """Host inverse of fuse_result: (ops_packed, n_ops, score) views.
-    Copy of clique_tpu/align/batch.py:518."""
+def unfuse_result(buf: np.ndarray, local: bool = False):
+    """Host inverse of fuse_result: (ops_packed, n_ops, score) views, and
+    with `local` also the coordinates int32 [..., 4] (ref_start,
+    read_start, ref_end, read_end). The global form is a copy of
+    clique_tpu/align/batch.py:518."""
     n_ops = np.ascontiguousarray(buf[..., 0:4]).view(np.int32)[..., 0]
     score = np.ascontiguousarray(buf[..., 4:8]).view(np.float32)[..., 0]
+    if local:
+        coords = np.ascontiguousarray(buf[..., 8:24]).view(np.int32)
+        return buf[..., 24:], n_ops, score, coords
     return buf[..., 8:], n_ops, score
 
 
@@ -333,6 +549,18 @@ def pad_batch(seqs, pad_to: Optional[int] = None):
         out[i, : len(s)] = np.frombuffer(
             s if isinstance(s, bytes) else bytes(s), dtype=np.uint8)
     return out, lens
+
+
+def band_centers_f64(ref_lens: np.ndarray, read_lens: np.ndarray,
+                     n1: int) -> np.ndarray:
+    """Reference-exact band centers int32 [B, n1]: the f64 truncation
+    `((x / (len1+1)) * (len2+1)) as i64` of alignment_matrix.rs:414, which
+    can land one below the exact quotient (x=1, len1=48, len2=146 gives 2,
+    not 3). Copy of clique_tpu/align/batch.py:638."""
+    x = np.arange(n1, dtype=np.float64)[None, :]
+    d1 = ref_lens.astype(np.float64)[:, None] + 1.0
+    d2 = read_lens.astype(np.float64)[:, None] + 1.0
+    return ((x / d1) * d2).astype(np.int32)
 
 
 def ops_to_alignments_batch(ops: np.ndarray, n_ops: np.ndarray,

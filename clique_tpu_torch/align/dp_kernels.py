@@ -1,23 +1,28 @@
-"""Wrappers of the hand-written DP kernels (csrc/dp_fill.cu, dp_walk.cu).
+"""Wrappers of the hand-written DP kernels (csrc/dp_fill.cu,
+dp_fill_local.cu, dp_walk.cu, dp_walk_local.cu).
 
-Counterpart of clique_tpu/align/pallas_kernel.py: `dp_fill` replaces the
-Pallas fill (`_fill_kernel` via `pallas_fill`), `dp_walk` the XLA walk,
-epilogue and result fusion that follow it in clique_tpu/align/batch.py.
+Counterpart of clique_tpu/align/pallas_kernel.py and the XLA modes of
+clique_tpu/align/batch.py::align_batch_device: `dp_fill` replaces the
+Pallas fill (`_fill_kernel` via `pallas_fill`) and the banded, keep-last
+and `special_mode="none"` branches of the XLA scan; `dp_fill_local` its
+Waterman-Eggert branch; `dp_walk` the XLA walk, epilogue and result fusion
+that follow a global fill, `dp_walk_local` those of `_finish_local`.
 
 On CUDA tensors each wrapper checks its inputs, allocates its outputs with
 torch.empty, launches its kernel on the given stream (default: the current
 stream of the tensors' device) and raises if the launch fails. On CPU
 tensors it runs the plain PyTorch version from align/batch.py. Any other
-device raises. `fill_launches` / `walk_launches` count kernel launches and
-nothing else.
+device raises. `fill_launches`, `walk_launches`, `fill_local_launches` and
+`walk_local_launches` count kernel launches and nothing else;
+`fill_mode_launches` splits the launches of both fills by mode.
 
 Lengths are data, not shape. The plain versions check them and raise
 ValueError when one lies outside [0, n1-1] / [0, n2-1]. A kernel cannot
 raise without a device sync per launch, so it marks such a row instead:
-the fill stores a NaN corner and a fresh traceback row, the walk a fused
-row with n_ops -1, a NaN score and no ops. batch.check_marked_rows raises
-the same ValueError when the host reads the fused rows back, and
-BatchAligner calls it on every group it pulls.
+the fill stores a NaN corner (a NaN best value, local) and a fresh
+traceback row, the walk a fused row with n_ops -1, a NaN score and no ops.
+batch.check_marked_rows raises the same ValueError when the host reads the
+fused rows back, and BatchAligner calls it on every group it pulls.
 """
 
 from __future__ import annotations
@@ -28,12 +33,27 @@ from clique_tpu_torch.align import batch as _batch
 
 fill_launches = 0
 walk_launches = 0
+fill_local_launches = 0
+walk_local_launches = 0
+# launches by mode: dp_fill's with a partial band, keep-last ties and
+# special_mode "none", and those of both fills whose ring lives in global
+# memory (n1 or n2 too large for the shared-memory ring)
+FILL_MODES = ("banded", "tie_last", "special_none", "global_ring")
+fill_mode_launches = dict.fromkeys(FILL_MODES, 0)
+_SPECIAL_CODES = {"none": 0, "ref_n_only": 1, "both": 2}
+# shared memory an H100 block may use (dynamic + static)
+_SMEM_LIMIT = 232448
 
 
 def reset_counts() -> None:
-    global fill_launches, walk_launches
+    global fill_launches, walk_launches, fill_local_launches
+    global walk_local_launches
     fill_launches = 0
     walk_launches = 0
+    fill_local_launches = 0
+    walk_local_launches = 0
+    for k in FILL_MODES:
+        fill_mode_launches[k] = 0
 
 
 def _check(t, name, dtype, ndim, device):
@@ -73,12 +93,8 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} launch failed with CUDA error {err}")
 
 
-def dp_fill(refs, reads, ref_lens, read_lens, params, *, n1: int, n2: int,
-            special_mode: str, stream=None):
-    """Fill one length bucket: refs [B|1, >= n1-1] u8, reads [B, >= n2-1]
-    u8, lens [B] i32, params [6] f32 -> (tb u8 [B, n1+n2-1, n1], corner
-    f32 [B, 3]). Semantics of align/batch.py::fill_reference."""
-    global fill_launches
+def _check_fill_inputs(refs, reads, ref_lens, read_lens, params, n1, n2,
+                       special_mode, tie_order, bandwidth, band_centers):
     dev = _device_of(reads)
     _check(reads, "reads", torch.uint8, 2, dev)
     B = reads.shape[0]
@@ -97,41 +113,128 @@ def dp_fill(refs, reads, ref_lens, read_lens, params, *, n1: int, n2: int,
         raise ValueError("ref_lens/read_lens must have one entry per read")
     if params.shape[0] != 6:
         raise ValueError("params must have 6 entries")
-    if special_mode not in _batch.SPECIAL_MODES:
-        raise ValueError(f"special_mode must be one of {_batch.SPECIAL_MODES}")
+    _batch.check_modes(special_mode, tie_order, bandwidth, band_centers)
+    if bandwidth is not None:
+        _check(bandwidth, "bandwidth", torch.int32, 1, dev)
+        _check(band_centers, "band_centers", torch.int32, 2, dev)
+        if bandwidth.shape[0] != B or band_centers.shape[0] != B:
+            raise ValueError("bandwidth/band_centers need one row per read")
+        if band_centers.shape[1] != n1:
+            raise ValueError(f"band_centers must be [{B}, {n1}], got "
+                             f"{list(band_centers.shape)}")
+    return dev, B
+
+
+def _fill_stream(lib, dev, n1, n2, stream, inputs):
+    """The fill's launch stream, after the shared-memory check."""
+    smem = lib.clique_dp_fill_smem_bytes(n1, n2)
+    if smem > _SMEM_LIMIT - 1024:
+        raise ValueError(f"n2={n2} needs {smem} B of shared memory for the "
+                         "read, more than an H100 block has")
+    return _launch_stream(stream, dev, [t for t in inputs if t is not None])
+
+
+def _launch_fill(lib, name, s, dev, B, n1, n2, refs, reads, ref_lens,
+                 read_lens, params, band, outs, modes):
+    """Shared launch of both fills on stream s (outs allocated on it): the
+    ring scratch when the ring does not fit in shared memory, the error
+    check, the global_ring count. `band` holds the band's pointers (the
+    global fill's), `modes` the mode codes after the shape."""
+    ring = None
+    ring_bytes = lib.clique_dp_fill_ring_bytes(n1, n2)
+    if ring_bytes:
+        with torch.cuda.stream(s):
+            ring = torch.empty((B, ring_bytes // 4), dtype=torch.float32,
+                               device=dev)
+    ref_stride = 0 if refs.shape[0] == 1 else refs.shape[1]
+    with torch.cuda.device(dev):      # the launch goes to the current device
+        err = getattr(lib, name)(
+            refs.data_ptr(), ref_stride, reads.data_ptr(), reads.shape[1],
+            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
+            *band, *(o.data_ptr() for o in outs),
+            ring.data_ptr() if ring is not None else None,
+            B, n1, n2, *modes, s.cuda_stream)
+    _raise_on(err, name)
+    if ring is not None:
+        fill_mode_launches["global_ring"] += 1
+
+
+def dp_fill(refs, reads, ref_lens, read_lens, params, *, n1: int, n2: int,
+            special_mode: str, tie_order: str = "ref", bandwidth=None,
+            band_centers=None, stream=None):
+    """Fill one length bucket: refs [B|1, >= n1-1] u8, reads [B, >= n2-1]
+    u8, lens [B] i32, params [6] f32, and for a partial band bandwidth
+    [B] i32 and band_centers [B, n1] i32 -> (tb u8 [B, n1+n2-1, n1],
+    corner f32 [B, 3]). Semantics of align/batch.py::fill_reference."""
+    global fill_launches
+    dev, B = _check_fill_inputs(refs, reads, ref_lens, read_lens, params,
+                                n1, n2, special_mode, tie_order, bandwidth,
+                                band_centers)
     if dev.type == "cpu":
         return _batch.fill_reference(refs, reads, ref_lens, read_lens,
                                      params, n1=n1, n2=n2,
-                                     special_mode=special_mode)
+                                     special_mode=special_mode,
+                                     tie_order=tie_order, bandwidth=bandwidth,
+                                     band_centers=band_centers)
 
     from clique_tpu_torch import _build
 
     lib = _build.load()
     D = n1 + n2 - 1
-    if n1 > lib.clique_dp_fill_max_n1():
-        raise ValueError(f"n1={n1} exceeds the fill kernel's "
-                         f"{lib.clique_dp_fill_max_n1()} rows")
-    smem = lib.clique_dp_fill_smem_bytes(n1, n2)
-    if smem > 232448:
-        raise ValueError(f"n1={n1}, n2={n2} need {smem} B of shared memory, "
-                         "more than an H100 block has")
-    s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens,
-                                     params))
+    s = _fill_stream(lib, dev, n1, n2, stream, (refs, reads, ref_lens,
+                                                read_lens, params, bandwidth,
+                                                band_centers))
     with torch.cuda.stream(s):
         tb = torch.empty((B, D, n1), dtype=torch.uint8, device=dev)
         corner = torch.empty((B, 3), dtype=torch.float32, device=dev)
     if B == 0:
         return tb, corner
-    ref_stride = 0 if refs.shape[0] == 1 else refs.shape[1]
-    with torch.cuda.device(dev):      # the launch goes to the current device
-        err = lib.clique_dp_fill(
-            refs.data_ptr(), ref_stride, reads.data_ptr(), reads.shape[1],
-            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
-            tb.data_ptr(), corner.data_ptr(), B, n1, n2,
-            1 if special_mode == "both" else 0, s.cuda_stream)
-    _raise_on(err, "dp_fill")
+    band = (bandwidth.data_ptr() if bandwidth is not None else None,
+            band_centers.data_ptr() if band_centers is not None else None)
+    _launch_fill(lib, "clique_dp_fill", s, dev, B, n1, n2, refs, reads,
+                 ref_lens, read_lens, params, band, (tb, corner),
+                 (_SPECIAL_CODES[special_mode], int(tie_order == "last")))
     fill_launches += 1
+    for mode, on in (("banded", bandwidth is not None),
+                     ("tie_last", tie_order == "last"),
+                     ("special_none", special_mode == "none")):
+        if on:
+            fill_mode_launches[mode] += 1
     return tb, corner
+
+
+def dp_fill_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
+                  n2: int, special_mode: str = "both", stream=None):
+    """Waterman-Eggert fill of one length bucket (full band, tie order
+    up > left > diag). Inputs as dp_fill without the band -> (tb u8
+    [B, D, n1], zflags u8 [B, D, n1], best f32 [B, 4], best_xd i32 [B, 2]).
+    Semantics of align/batch.py::fill_local_reference."""
+    global fill_local_launches
+    dev, B = _check_fill_inputs(refs, reads, ref_lens, read_lens, params,
+                                n1, n2, special_mode, "ref", None, None)
+    if dev.type == "cpu":
+        return _batch.fill_local_reference(
+            refs, reads, ref_lens, read_lens, params, n1=n1, n2=n2,
+            special_mode=special_mode)
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    D = n1 + n2 - 1
+    s = _fill_stream(lib, dev, n1, n2, stream, (refs, reads, ref_lens,
+                                                read_lens, params))
+    with torch.cuda.stream(s):
+        outs = (torch.empty((B, D, n1), dtype=torch.uint8, device=dev),
+                torch.empty((B, D, n1), dtype=torch.uint8, device=dev),
+                torch.empty((B, 4), dtype=torch.float32, device=dev),
+                torch.empty((B, 2), dtype=torch.int32, device=dev))
+    if B == 0:
+        return outs
+    _launch_fill(lib, "clique_dp_fill_local", s, dev, B, n1, n2, refs,
+                 reads, ref_lens, read_lens, params, (), outs,
+                 (_SPECIAL_CODES[special_mode],))
+    fill_local_launches += 1
+    return outs
 
 
 def dp_walk(tb, corner, ref_lens, read_lens, *, n1: int, n2: int,
@@ -177,4 +280,49 @@ def dp_walk(tb, corner, ref_lens, read_lens, *, n1: int, n2: int,
             B, n1, n2, s.cuda_stream)
     _raise_on(err, "dp_walk")
     walk_launches += 1
+    return fused
+
+
+def dp_walk_local(tb, zflags, best, best_xd, *, n1: int, n2: int,
+                  stream=None):
+    """Local walk + epilogue + fuse: tb and zflags u8 [B, n1+n2-1, n1],
+    best f32 [B, 4], best_xd i32 [B, 2] -> fused u8 [B, 24 + ceil((n1+n2)
+    /4)]. Semantics of align/batch.py::walk_local_reference (its fused
+    output)."""
+    global walk_local_launches
+    dev = _device_of(tb)
+    _check(tb, "tb", torch.uint8, 3, dev)
+    B = tb.shape[0]
+    _check(zflags, "zflags", torch.uint8, 3, dev)
+    _check(best, "best", torch.float32, 2, dev)
+    _check(best_xd, "best_xd", torch.int32, 2, dev)
+    D = n1 + n2 - 1
+    if tuple(tb.shape) != (B, D, n1) or tuple(zflags.shape) != (B, D, n1):
+        raise ValueError(f"tb and zflags must be [{B}, {D}, {n1}], got "
+                         f"{list(tb.shape)} and {list(zflags.shape)}")
+    if tuple(best.shape) != (B, 4) or tuple(best_xd.shape) != (B, 2):
+        raise ValueError(f"best must be [{B}, 4] and best_xd [{B}, 2]")
+    if dev.type == "cpu":
+        _res, fused = _batch.walk_local_reference(tb, zflags, best, best_xd,
+                                                  n1=n1, n2=n2)
+        return fused
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    T = n1 + n2
+    s = _launch_stream(stream, dev, (tb, zflags, best, best_xd))
+    with torch.cuda.stream(s):
+        fused = torch.empty((B, 24 + -(-T // 4)), dtype=torch.uint8,
+                            device=dev)
+        scratch = torch.empty((T, max(B, 1)), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return fused
+    with torch.cuda.device(dev):
+        err = lib.clique_dp_walk_local(
+            tb.data_ptr(), zflags.data_ptr(), best.data_ptr(),
+            best_xd.data_ptr(), scratch.data_ptr(), fused.data_ptr(),
+            B, n1, n2, s.cuda_stream)
+    _raise_on(err, "dp_walk_local")
+    walk_local_launches += 1
     return fused

@@ -11,11 +11,14 @@ that a diff between the two reads easily. What differs:
   workarounds (batch pad-up to a compiled shape, the wave, fetch-fuse,
   the device mesh) are gone.
 - align_reads runs the dp engine with the kmer router (single reference,
-  kmer vote, exhaustive search). Options not ported yet raise
+  kmer vote, exhaustive search), a full or partial band, and the anchored
+  seed-and-extend path for long reads. Options not ported yet raise
   NotImplementedError naming their ROADMAP.md item: --engine wfa/convex,
-  --router hmm over several references, a partial band, a profiler trace,
-  read sharding across processes, and reads long enough for the anchored
-  path.
+  --router hmm over several references, a profiler trace and read
+  sharding across processes.
+- BatchAligner splits a length bucket into groups whose traceback stays
+  within batch.MAX_TRACEBACK_BYTES (the JAX package pads groups up
+  instead); outputs do not change.
 
 Reference-selection semantics (align_to_reference_choices, :520-631):
 - single reference: orient by longest shared segment when !known_strand,
@@ -65,7 +68,6 @@ log = logging.getLogger(__name__)
 # has and this one refuses (the CLI names them too)
 ROADMAP_ITEMS = {
     "profiling": "7 (bench.py and profiling on the port)",
-    "batch_modes": "8 (the rest of align/batch.py, align/anchored.py)",
     "hmm": "9 (align/hmm.py)",
     "wavefront": "10 (align/wavefront.py)",
     "parallel": "11 (parallel/)",
@@ -178,11 +180,16 @@ class BatchAligner:
     thread does) without touching that thread's current stream. Only the
     fused buffers outlive a dispatch: the traceback is freed on the stream
     as soon as the walk is enqueued. On a CPU device the plain PyTorch
-    fill and walk run synchronously at dispatch."""
+    fill and walk run synchronously at dispatch.
+
+    bandwidth: the half-width of a partial band around the f64 band
+    centers (perform_affine_alignment_bandwidth, alignment_matrix.rs
+    :376-425); each group then sends its [B] widths and [B, n1] centers
+    table. None is the full band."""
 
     def __init__(self, scoring: AffineScoring, batch_size: int = 128,
                  length_quantum: int = 128, special_mode: str = "both",
-                 device="cuda"):
+                 device="cuda", bandwidth: Optional[int] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -190,6 +197,7 @@ class BatchAligner:
         self.batch_size = batch_size
         self.quantum = length_quantum
         self.special_mode = special_mode
+        self.bandwidth = bandwidth
         self.stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
@@ -230,8 +238,10 @@ class BatchAligner:
         buckets = []
         while i < len(idxs):
             n1, n2 = shapes[idxs[i]]
+            cap = min(self.batch_size, max(
+                1, dbatch.MAX_TRACEBACK_BYTES // ((n1 + n2 - 1) * n1)))
             group = []
-            while i < len(idxs) and len(group) < self.batch_size and \
+            while i < len(idxs) and len(group) < cap and \
                     shapes[idxs[i]] == (n1, n2):
                 group.append(idxs[i])
                 i += 1
@@ -348,27 +358,40 @@ class BatchAligner:
         # uniform-reference batch (the single-amplicon hot path): ship ONE
         # reference row; the fill reads it for every alignment
         dev_refs = refs_arr[:1] if uniform_ref else refs_arr
-        host_args = (dev_refs, reads_arr, ref_lens, read_lens)
+        host_args = [dev_refs, reads_arr, ref_lens, read_lens]
+        if self.bandwidth is not None:
+            bw = np.minimum(np.maximum(ref_lens, np.maximum(read_lens, 1)),
+                            np.int32(self.bandwidth)).astype(np.int32)
+            host_args += [bw, dbatch.band_centers_f64(ref_lens, read_lens,
+                                                      n1)]
         T = n1 + n2
         self.dispatches += 1
         if self.stream is None:
-            fused, _tb = dbatch.align_batch(
-                *(torch.from_numpy(a) for a in host_args), self.params,
-                n1=n1, n2=n2, special_mode=self.special_mode)
+            fused = self._launch([torch.from_numpy(a) for a in host_args],
+                                 n1, n2)
             return "single", group, refs_arr, reads_arr, T, fused.numpy(), \
                 None
         with torch.cuda.stream(self.stream):
-            args = [torch.from_numpy(a).to(self.device, non_blocking=True)
-                    for a in host_args]
-            fused, _tb = dbatch.align_batch(
-                *args, self.params, n1=n1, n2=n2,
-                special_mode=self.special_mode, stream=self.stream)
+            fused = self._launch(
+                [torch.from_numpy(a).to(self.device, non_blocking=True)
+                 for a in host_args], n1, n2)
             host = torch.empty(fused.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(fused, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.stream)
         return "single", group, refs_arr, reads_arr, T, host, event
+
+    def _launch(self, args, n1, n2):
+        """align_batch on (refs, reads, ref_lens, read_lens[, bandwidth,
+        band_centers]) tensors; returns the fused rows."""
+        refs, reads, ref_lens, read_lens, *band = args
+        bandwidth, band_centers = band or (None, None)
+        fused, _tb = dbatch.align_batch(
+            refs, reads, ref_lens, read_lens, self.params, n1=n1, n2=n2,
+            special_mode=self.special_mode, bandwidth=bandwidth,
+            band_centers=band_centers, stream=self.stream)
+        return fused
 
 
 @dataclass
@@ -423,13 +446,20 @@ def _align_reads_impl(
     reference's quick_alignment_search); "hmm" is accepted only with a
     single reference, where no routing happens.
 
-    anchored_min_length: reads at least this long take the JAX package's
-    anchored seed-and-extend path, which is not ported: such a read
-    raises instead of being aligned by full DP.
+    anchored_min_length: reads at least this long (and passing the
+    max_reference_multiplier gate) take the anchored seed-and-extend path:
+    exact anchors from the reference's seed index on the host
+    (clique_tpu.align.anchored.AnchoredBatchAligner), every inter-anchor
+    sub-DP of a flush batched through one full-band BatchAligner with the
+    engine's own scoring, written after the flush's other reads.
+
+    bandwidth: half-width of a partial band around the f64 band centers
+    (alignment_matrix.rs:376-425) for the main aligner; None is the full
+    band, as every reference call site passes.
 
     engine: "dp" (or None), the exact 3-plane affine DP. "wfa" and
     "convex" (align/wavefront.py) are not ported and raise, as do
-    profile_dir, bandwidth and read_shard.
+    profile_dir and read_shard.
 
     sink: optional CollapseSink (clique_tpu/chain.py), the fused chain's
     tap on the record stream: a sink thread feeds it every flush in BAM
@@ -448,8 +478,6 @@ def _align_reads_impl(
         _unported("router='hmm' over several references", "hmm")
     elif router not in ("kmer", "hmm"):
         raise ValueError(f"unknown router {router!r}")
-    if bandwidth is not None:
-        _unported("a partial band (bandwidth)", "batch_modes")
     if profile_dir:
         _unported("profile_dir", "profiling")
     if read_shard is not None:
@@ -464,13 +492,16 @@ def _align_reads_impl(
 
     if single_ref and not single_ref_native:
         aligner = BatchAligner(RUST_BIO_COMPAT, batch_size,
-                               special_mode="ref_n_only", device=device)
+                               special_mode="ref_n_only", device=device,
+                               bandwidth=bandwidth)
         report_zero_score = True   # the reference reports 0.0 here (:579)
     else:
-        aligner = BatchAligner(scoring, batch_size, device=device)
+        aligner = BatchAligner(scoring, batch_size, device=device,
+                               bandwidth=bandwidth)
         report_zero_score = False
     merge_aligner = BatchAligner(MERGE_SCORING, batch_size, device=device)
-    launches0 = (dp_kernels.fill_launches, dp_kernels.walk_launches)
+    launches0 = (dp_kernels.fill_launches, dp_kernels.walk_launches,
+                 dict(dp_kernels.fill_mode_launches))
 
     references = [(r.name, len(r.sequence)) for r in rm.references.values()]
     writer = open_alignment_writer(output_path, references)
@@ -642,6 +673,17 @@ def _align_reads_impl(
     reader = ReadIterator(read1, read2, index1, index2)
     needs_align_merge = layout.merge == MergeStrategy.ALIGN
 
+    anchored_state: List = [None]
+    n_anchored = [0]
+
+    def _anchored_aligner():
+        if anchored_state[0] is None:
+            from clique_tpu.align.anchored import AnchoredBatchAligner
+
+            anchored_state[0] = AnchoredBatchAligner(
+                BatchAligner(scoring, batch_size, device=device), scoring)
+        return anchored_state[0]
+
     def flush(pending: List[_Pending]):
         if not pending:
             return
@@ -653,25 +695,39 @@ def _align_reads_impl(
         long_pending = [p for p in pending
                         if len(p.seq) >= anchored_min_length]
         if long_pending:
-            # the JAX package aligns these on its anchored path; full DP
-            # would give other alignments, so refuse them
-            _unported(f"read {long_pending[0].name} of length "
-                      f"{len(long_pending[0].seq)} >= anchored_min_length "
-                      f"({anchored_min_length}), the anchored path",
-                      "batch_modes")
-        refs = [rm.references[p.ref_id].sequence for p in pending]
-        reads = [p.seq for p in pending]
-        # dispatch here (align_pairs_entries is eager about dispatch + the
-        # async device->host copy, lazy about pulls), then hand the pulls
-        # to the drain thread: event waits AND numpy expansion leave the
-        # main thread. A full queue is backpressure (4 undrained flushes
-        # in flight); the wait is charged to drain_wall
-        entries = aligner.align_pairs_entries(refs, reads)
-        stats.aligned += len(pending)
-        t_d = time.time()
-        drain_queue.put(("entries", entries, list(pending)))
-        phase["drain_wall"] += time.time() - t_d
-        if stats.aligned % 1_000_000 < len(pending):
+            pending = [p for p in pending
+                       if len(p.seq) < anchored_min_length]
+        if pending:
+            refs = [rm.references[p.ref_id].sequence for p in pending]
+            reads = [p.seq for p in pending]
+            # dispatch here (align_pairs_entries is eager about dispatch +
+            # the async device->host copy, lazy about pulls), then hand the
+            # pulls to the drain thread: event waits AND numpy expansion
+            # leave the main thread. A full queue is backpressure (4
+            # undrained flushes in flight); the wait is charged to
+            # drain_wall
+            entries = aligner.align_pairs_entries(refs, reads)
+            stats.aligned += len(pending)
+            t_d = time.time()
+            drain_queue.put(("entries", entries, list(pending)))
+            phase["drain_wall"] += time.time() - t_d
+        if long_pending:
+            out = zip(long_pending, _anchored_aligner().align_pairs(
+                [rm.references[p.ref_id].sequence for p in long_pending],
+                [p.seq for p in long_pending],
+                indexes=[rm.references[p.ref_id].index
+                         for p in long_pending]))
+            # after the flush's other reads: the drain queue keeps order,
+            # so the BAM holds the fast part, then the anchored part
+            emit_aligned([AlignedRead(
+                read_name=p.name,
+                reference_name=rm.references[p.ref_id].name,
+                reference_aligned=a1, read_aligned=a2, quals=p.quals,
+                cigar=cigar, score=0.0 if report_zero_score else score,
+            ) for p, (a1, a2, cigar, score) in out])
+            stats.aligned += len(long_pending)
+            n_anchored[0] += len(long_pending)
+        if stats.aligned % 1_000_000 < len(pending) + len(long_pending):
             log.info("Time elapsed in aligning reads (%d) is: %.1fs",
                      stats.aligned, time.time() - start)
 
@@ -836,6 +892,7 @@ def _align_reads_impl(
     if metrics_path:
         import json
 
+        inner = anchored_state[0].inner if anchored_state[0] else None
         with open(metrics_path, "w") as fh:
             json.dump({
                 "engine": engine,
@@ -867,10 +924,24 @@ def _align_reads_impl(
                 # group dispatches of both aligners, and the kernel
                 # launches of this run (0 on a CPU device, where the plain
                 # PyTorch versions run)
-                "dispatches": aligner.dispatches + merge_aligner.dispatches,
+                "dispatches": aligner.dispatches + merge_aligner.dispatches
+                + (inner.dispatches if inner else 0),
                 "kernel_launches": {
                     "dp_fill": dp_kernels.fill_launches - launches0[0],
-                    "dp_walk": dp_kernels.walk_launches - launches0[1]},
+                    "dp_walk": dp_kernels.walk_launches - launches0[1],
+                    "dp_fill_modes": {
+                        k: v - launches0[2][k] for k, v in
+                        dp_kernels.fill_mode_launches.items()}},
+                "bandwidth": bandwidth,
+                # the anchored path: its reads, their inter-anchor sub-DPs,
+                # the DP cells those filled and its aligner's device wait
+                "anchored": {
+                    "reads": n_anchored[0],
+                    "sub_dps": inner.pairs_aligned if inner else 0,
+                    "dp_cells_filled": inner.cells_filled if inner else 0,
+                    "dispatches": inner.dispatches if inner else 0,
+                    "device_seconds": round(inner.device_seconds, 3)
+                    if inner else 0.0},
             }, fh, indent=2)
     return stats
 

@@ -20,7 +20,6 @@ _ALIGN_UNPORTED = {
     "--router hmm": (lambda a: a.router == "hmm", "hmm"),
     "--distributed-world > 1": (lambda a: a.distributed_world > 1,
                                 "parallel"),
-    "--bandwidth": (lambda a: a.bandwidth is not None, "batch_modes"),
     "--profile-dir": (lambda a: a.profile_dir is not None, "profiling"),
 }
 _UNPORTED = {
@@ -91,15 +90,17 @@ def main(argv=None) -> int:
                               "picked without exhaustive search "
                               "(alignment_functions.rs:613 hardcodes 0.90)")
     p_align.add_argument("--anchored-min-length", type=int, default=2048,
-                         help="reads at least this long need the anchored "
-                              "path, which is not ported: they raise")
+                         help="reads at least this long route through the "
+                              "anchored seed-and-extend path (DP engine)")
     p_align.add_argument("--distributed-world", type=int, default=1,
                          help="values above 1 are not ported")
     p_align.add_argument("--distributed-rank", type=int, default=0)
     p_align.add_argument("--distributed-coordinator", default=None)
     p_align.add_argument("--work-dir", default=None)
     p_align.add_argument("--bandwidth", type=int, default=None,
-                         help="banded DP half-width (not ported)")
+                         help="banded DP half-width around the length-"
+                              "proportional diagonal (alignment_matrix.rs"
+                              ":376-425); default full band")
     p_align.add_argument("--device", default="cuda",
                          help="torch device the DP runs on: cuda, cuda:N or "
                               "cpu")
@@ -227,6 +228,7 @@ def main(argv=None) -> int:
             quick_match_threshold=args.quick_match_threshold,
             anchored_min_length=args.anchored_min_length,
             metrics_path=args.metrics,
+            bandwidth=args.bandwidth,
             device=args.device,
         )
         logging.info("align done: %s", stats)

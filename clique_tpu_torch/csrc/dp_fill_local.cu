@@ -1,0 +1,45 @@
+// Waterman-Eggert (local) 3-plane affine DP fill for Hopper (sm_90a).
+//
+// Replaces: the local branch of clique_tpu/align/batch.py::
+// align_batch_device (:221-374, local=True): the m plane floored at 0
+// (max(0, diag + ms, ms)), the gap planes extended with the unscaled gap
+// extension, the per-plane zero flags of every cell's output value and the
+// running 3D argmax. The kernel and its design are in dp_fill.cuh; this
+// file instantiates it with kLocal.
+
+#include "dp_fill.cuh"
+
+// Launch the local fill on `stream`: the full band, tie order
+// up > left > diag. Inputs as clique_dp_fill without the band and the tie
+// order. Outputs tb and zflags [B, n1 + n2 - 1, n1] u8 (bit z of a
+// zero-flag byte set where plane z holds 0.0), best [B, 4] f32 (the argmax
+// value, then the M/D/I values at the argmax cell) and best_xd [B, 2] i32
+// (its x and its diagonal). Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int clique_dp_fill_local(const void* refs, int ref_stride,
+                                    const void* reads, int read_stride,
+                                    const void* ref_lens,
+                                    const void* read_lens,
+                                    const void* params, void* tb,
+                                    void* zflags, void* best, void* best_xd,
+                                    void* ring, int B, int n1, int n2,
+                                    int special, void* stream) {
+  using namespace clique_dp;
+  FillArgs a{};
+  a.refs = static_cast<const uint8_t*>(refs);
+  a.ref_stride = ref_stride;
+  a.reads = static_cast<const uint8_t*>(reads);
+  a.read_stride = read_stride;
+  a.ref_lens = static_cast<const int*>(ref_lens);
+  a.read_lens = static_cast<const int*>(read_lens);
+  a.params = static_cast<const float*>(params);
+  a.tb = static_cast<uint8_t*>(tb);
+  a.zflags = static_cast<uint8_t*>(zflags);
+  a.corner = static_cast<float*>(best);
+  a.best_xd = static_cast<int*>(best_xd);
+  a.ring = static_cast<float*>(ring);
+  a.n1 = n1;
+  a.n2 = n2;
+  a.special = special;
+  return launch_fill<true, false>(a, B, stream);
+}

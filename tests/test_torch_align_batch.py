@@ -220,7 +220,7 @@ def test_dp_fill_rejects_bad_inputs(bad):
     elif bad == "narrow_reads":
         reads = reads[:, :N2 - 2].contiguous()
     elif bad == "special_mode":
-        kw["special_mode"] = "none"
+        kw["special_mode"] = "wildcards"
     elif bad == "noncontiguous":
         reads = torch.cat([reads, reads], dim=1)[:, ::2]
     elif bad == "lens_range":

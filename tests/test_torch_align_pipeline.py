@@ -186,9 +186,13 @@ def test_bench_shaped_two_reference_matches_jax(tmp_path):
 UNPORTED = {
     "engine_wfa": dict(engine="wfa"),
     "engine_convex": dict(engine="convex"),
-    "bandwidth": dict(bandwidth=8),
     "profile_dir": dict(profile_dir="trace"),
     "read_shard": dict(read_shard=(0, 2)),
+}
+# options the port once refused and now runs: their parity with the JAX
+# package on the golden reads (a narrow band; every read anchored)
+PORTED = {
+    "bandwidth": dict(bandwidth=8),
     "anchored_length": dict(anchored_min_length=100),
 }
 
@@ -202,6 +206,22 @@ def test_unported_options_raise(option, tmp_path):
                     batch_size=16, device="cpu", **UNPORTED[option])
 
 
+@pytest.mark.parametrize("option", list(PORTED))
+def test_ported_options_match_jax(option, tmp_path):
+    mg = _load_make_golden()
+    gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    out_t, out_j = str(tmp_path / "t.bam"), str(tmp_path / "j.bam")
+    stats_t = align_reads(layout, rm, out_t, read1=r1, batch_size=16,
+                          device="cpu", **PORTED[option])
+    stats_j = jax_align_reads(layout, rm, out_j, read1=r1, batch_size=16,
+                              **PORTED[option])
+    assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
+    assert stats_t.aligned == stats_t.total > 0
+    assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
+    assert _inflate_bgzf(out_t) != _inflate_bgzf(
+        os.path.join(gd, "aligned.bam"))
+
+
 def test_hmm_router_over_several_references_raises(tmp_path):
     layout, rm, fq = _bench_shaped(tmp_path, n_reads=8)
     with pytest.raises(NotImplementedError, match="hmm"):
@@ -211,8 +231,7 @@ def test_hmm_router_over_several_references_raises(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--engine", "wfa"], ["--engine", "convex"], ["--router", "hmm"],
-    ["--distributed-world", "2"], ["--bandwidth", "10"],
-    ["--profile-dir", "trace"],
+    ["--distributed-world", "2"], ["--profile-dir", "trace"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_unported_flags_exit(flags, tmp_path, capsys):
     mg = _load_make_golden()
@@ -224,3 +243,19 @@ def test_cli_unported_flags_exit(flags, tmp_path, capsys):
                   "--device", "cpu", *flags])
     assert exc.value.code != 0
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_cli_bandwidth_matches_jax(tmp_path):
+    """`--bandwidth` on the port's align: the BAM equals the JAX package's
+    align_reads with the same band."""
+    mg = _load_make_golden()
+    _gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    out = tmp_path / "cli.bam"
+    rc = cli.main(["align", "--read-structure", str(tmp_path / "layout.yaml"),
+                   "--read1", r1, "--output-bam-file", str(out),
+                   "--batch-size", "16", "--device", "cpu",
+                   "--bandwidth", "10"])
+    assert rc == 0
+    out_j = str(tmp_path / "j.bam")
+    jax_align_reads(layout, rm, out_j, read1=r1, batch_size=16, bandwidth=10)
+    assert _inflate_bgzf(str(out)) == _inflate_bgzf(out_j)

@@ -1,5 +1,7 @@
-"""The hand-written CUDA kernels (DP fill and walk, tag match count and
-edit distance) against their plain PyTorch versions, on CUDA tensors.
+"""The hand-written CUDA kernels (DP fill in every mode, local fill, both
+walks, tag match count and edit distance) against their plain PyTorch
+versions, on CUDA tensors, and the paths that run them (align_reads with a
+band and with long reads, the inversion batch) against the CPU.
 Needs an NVIDIA GPU with nvcc; run there with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from clique_tpu.align.scoring import AffineScoring
 from clique_tpu_torch.align import batch as tbatch
 from clique_tpu_torch.align import dp_kernels
 from clique_tpu_torch.align.pipeline import MERGE_SCORING, RUST_BIO_COMPAT
@@ -76,6 +79,186 @@ def test_kernels_match_plain(cuda, special_mode, shape, uniform):
     assert torch.equal(tb_k, tb_p)
     assert torch.equal(corner_k, corner_p)
     assert torch.equal(fused_k, fused_p)
+
+
+def _modes_inputs(seed, B, n1, n2, uniform):
+    """_inputs with a zero-length read and a zero-length reference row."""
+    refs, reads, ref_lens, read_lens = _inputs(seed, B, n1, n2, uniform)
+    read_lens[2] = 0
+    reads[2] = 0
+    if not uniform and B > 3:
+        ref_lens[3] = 0
+        refs[3] = 0
+    return refs, reads, ref_lens, read_lens
+
+
+def _band_args(ref_lens, read_lens, n1, width, dev):
+    bw = np.minimum(np.maximum(ref_lens, np.maximum(read_lens, 1)),
+                    np.int32(width)).astype(np.int32)
+    centers = tbatch.band_centers_f64(ref_lens, read_lens, n1)
+    return dict(bandwidth=torch.from_numpy(bw).to(dev),
+                band_centers=torch.from_numpy(centers).to(dev))
+
+
+FILL_MODES = {
+    "banded": dict(special_mode="ref_n_only", width=16),
+    "none_last": dict(special_mode="none", tie_order="last"),
+    "both_last": dict(special_mode="both", tie_order="last"),
+    "banded_none_last": dict(special_mode="none", tie_order="last",
+                             width=7),
+}
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["per_row", "uniform"])
+@pytest.mark.parametrize("shape", [(16, 128, 128), (12, 128, 384),
+                                   (6, 1536, 256)], ids=str)
+@pytest.mark.parametrize("mode", list(FILL_MODES))
+def test_fill_modes_match_plain(cuda, mode, shape, uniform):
+    """dp_fill's banded, keep-last and "none" modes, then dp_walk."""
+    B, n1, n2 = shape
+    kw = dict(FILL_MODES[mode])
+    width = kw.pop("width", None)
+    host = _modes_inputs(sum(shape) + 3, B, n1, n2, uniform)
+    args = [torch.from_numpy(a).to(cuda) for a in host]
+    if width is not None:
+        kw.update(_band_args(host[2], host[3], n1, width, cuda))
+    params = tbatch.scoring_to_params(MERGE_SCORING, cuda)
+    modes = dict(dp_kernels.fill_mode_launches)
+    tb_k, corner_k = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2, **kw)
+    fused_k = dp_kernels.dp_walk(tb_k, corner_k, args[2], args[3], n1=n1,
+                                 n2=n2)
+    torch.cuda.synchronize()
+    assert (dp_kernels.fill_mode_launches["banded"] - modes["banded"]
+            == int(width is not None))
+    tb_p, corner_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2, **kw)
+    _res, fused_p = tbatch.walk_reference(tb_p, corner_p, args[2], args[3],
+                                          n1=n1, n2=n2)
+    assert torch.equal(tb_k, tb_p)
+    assert torch.equal(corner_k, corner_p)
+    assert torch.equal(fused_k, fused_p)
+
+
+@pytest.mark.parametrize("uniform", [False, True], ids=["per_row", "uniform"])
+@pytest.mark.parametrize("shape", [(16, 128, 128), (12, 128, 384),
+                                   (6, 1536, 256), (4, 3328, 3328)], ids=str)
+@pytest.mark.parametrize("special_mode", ["both", "ref_n_only"])
+def test_local_kernels_match_plain(cuda, special_mode, shape, uniform):
+    """dp_fill_local and dp_walk_local: traceback, zero flags, the argmax
+    cell and the fused rows with their coordinates; a uniform batch sends
+    one reference row, as the inversion screen does."""
+    B, n1, n2 = shape
+    host = _modes_inputs(sum(shape) + 5 + int(uniform), B, n1, n2, uniform)
+    args = [torch.from_numpy(a).to(cuda) for a in host]
+    params = tbatch.scoring_to_params(AffineScoring(10.0, -11.0, 8.0, -15.0,
+                                                    -5.0, 1.0), cuda)
+    fills, walks = (dp_kernels.fill_local_launches,
+                    dp_kernels.walk_local_launches)
+    out_k = dp_kernels.dp_fill_local(*args, params, n1=n1, n2=n2,
+                                     special_mode=special_mode)
+    fused_k = dp_kernels.dp_walk_local(*out_k, n1=n1, n2=n2)
+    torch.cuda.synchronize()
+    assert (dp_kernels.fill_local_launches,
+            dp_kernels.walk_local_launches) == (fills + 1, walks + 1)
+    out_p = tbatch.fill_local_reference(*args, params, n1=n1, n2=n2,
+                                        special_mode=special_mode)
+    _res, fused_p = tbatch.walk_local_reference(*out_p, n1=n1, n2=n2)
+    for name, k, p in zip(("tb", "zflags", "best", "best_xd"), out_k, out_p):
+        assert torch.equal(k, p), name
+    assert torch.equal(fused_k, fused_p)
+
+
+@pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
+def test_fill_beyond_6144_rows(cuda, local):
+    """n1 = 6,600 DP rows: the ring moves to a per-CTA global scratch and
+    the fill still equals its plain version (the fill refused n1 > 6144
+    before)."""
+    B, n1, n2 = 3, 6600, 700
+    host = _modes_inputs(6600, B, n1, n2, False)
+    args = [torch.from_numpy(a).to(cuda) for a in host]
+    params = tbatch.scoring_to_params(MERGE_SCORING, cuda)
+    ring = dp_kernels.fill_mode_launches["global_ring"]
+    if local:
+        out_k = dp_kernels.dp_fill_local(*args, params, n1=n1, n2=n2)
+        fused_k = dp_kernels.dp_walk_local(*out_k, n1=n1, n2=n2)
+        out_p = tbatch.fill_local_reference(*args, params, n1=n1, n2=n2)
+        _res, fused_p = tbatch.walk_local_reference(*out_p, n1=n1, n2=n2)
+    else:
+        out_k = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2,
+                                   special_mode="both")
+        fused_k = dp_kernels.dp_walk(*out_k, args[2], args[3], n1=n1, n2=n2)
+        out_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2,
+                                      special_mode="both")
+        _res, fused_p = tbatch.walk_reference(*out_p, args[2], args[3],
+                                              n1=n1, n2=n2)
+    torch.cuda.synchronize()
+    assert dp_kernels.fill_mode_launches["global_ring"] == ring + 1
+    for k, p in zip(out_k, out_p):
+        assert torch.equal(k, p)
+    assert torch.equal(fused_k, fused_p)
+
+
+def test_inversion_batch_on_cuda_equals_cpu(cuda):
+    from clique_tpu.align.scoring import InversionScoring
+    from clique_tpu.utils.seq import reverse_complement
+    from clique_tpu_torch.align.inversion import inversion_alignment_batch
+
+    rng = np.random.default_rng(12)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(bases, 300).tobytes()
+    reads = []
+    for i in range(40):
+        r = bytearray(ref)
+        for _k in range(6):
+            r[int(rng.integers(0, len(r)))] = int(rng.choice(bases))
+        reads.append(bytes(r))
+    reads[7] = ref[:100] + reverse_complement(ref[100:150]) + ref[150:]
+    names = [f"r{i}" for i in range(len(reads))]
+    inv = InversionScoring(10.0, -11.0, -15.0, -5.0, -2.0, 30)
+    # the HiFi scoring keeps local hits of unrelated sequence short: read 7
+    # is the one screen positive, the others take the keep-last fill
+    aff = AffineScoring.hifi_default()
+    fills = dp_kernels.fill_local_launches
+    keep_last = dp_kernels.fill_mode_launches["tie_last"]
+    got = inversion_alignment_batch(ref, reads, "ref", names, inv, aff,
+                                    device="cuda")
+    assert dp_kernels.fill_local_launches == fills + 1
+    assert dp_kernels.fill_mode_launches["tie_last"] == keep_last + 1
+    want = inversion_alignment_batch(ref, reads, "ref", names, inv, aff,
+                                     device="cpu")
+    assert got == want
+    assert "<" in [op for _c, op in got[7].cigar]
+
+
+@pytest.mark.parametrize("option", ["bandwidth", "anchored"])
+def test_align_reads_modes_on_cuda_equal_cpu(cuda, option, tmp_path):
+    """align_reads with a partial band, and with long reads on the
+    anchored path, gives the same BAM on the card as on the CPU."""
+    from test_torch_align_anchored import _long_layout, _mutate
+    from test_torch_align_pipeline import _bench_shaped, _inflate_bgzf
+
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    if option == "bandwidth":
+        layout, rm, fq = _bench_shaped(tmp_path, n_reads=128)
+        kw = dict(bandwidth=12)
+    else:
+        rng = np.random.default_rng(44)
+        ref, layout, rm = _long_layout(tmp_path, 2600, rng)
+        fq = str(tmp_path / "long.fastq")
+        with open(fq, "w") as fh:
+            for i in range(6):
+                r = _mutate(rng, ref.encode(), 40, 8).decode()
+                fh.write(f"@long{i}\n{r}\n+\n{'I' * len(r)}\n")
+        kw = dict(anchored_min_length=1024)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.bam")
+        fills = dp_kernels.fill_launches
+        align_reads(layout, rm, out, read1=fq, batch_size=32, device=device,
+                    **kw)
+        assert (dp_kernels.fill_launches > fills) == (device == "cuda")
+        outs[device] = _inflate_bgzf(out)
+    assert outs["cuda"] == outs["cpu"]
 
 
 def test_wrappers_reject_mixed_devices(cuda):

@@ -1,12 +1,15 @@
 """The port runs with jax unavailable: a fresh interpreter with `jax` and
 `jaxlib` blocked imports clique_tpu_torch, aligns the golden reads on the
-CPU (and runs the fused align + collapse + call), reproduces the pinned
-outputs and never loads a jax module."""
+CPU (full band, a partial band, every read on the anchored path, and the
+fused align + collapse + call), reproduces the pinned outputs or the JAX
+package's, and never loads a jax module."""
 
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden")
@@ -42,7 +45,8 @@ SCRIPT = textwrap.dedent("""
                 os.path.join(workdir, "alleles.tsv")]
     rc = cli.main(argv + ["--read-structure", layout, "--read1",
                           os.path.join(gd, "reads.fastq.gz"),
-                          "--batch-size", "16", "--device", "cpu"])
+                          "--batch-size", "16", "--device", "cpu"]
+                  + sys.argv[4:])
     assert rc == 0
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in
@@ -53,9 +57,9 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def _run_without_jax(verb, tmp_path):
+def _run_without_jax(verb, tmp_path, *flags):
     res = subprocess.run(
-        [sys.executable, "-c", SCRIPT, ROOT, str(tmp_path), verb],
+        [sys.executable, "-c", SCRIPT, ROOT, str(tmp_path), verb, *flags],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": ""})
     assert res.returncode == 0, res.stderr[-3000:]
@@ -85,3 +89,29 @@ def test_run_golden_without_jax(tmp_path):
     with open(tmp_path / "alleles.tsv") as f1, \
             open(os.path.join(GOLDEN, "alleles.tsv")) as f2:
         assert f1.read() == f2.read()
+
+
+@pytest.mark.parametrize("flags", [
+    ("--bandwidth", "10"), ("--anchored-min-length", "100"),
+], ids=["banded", "anchored"])
+def test_align_modes_without_jax(flags, tmp_path):
+    """The banded and the anchored `align` paths with jax blocked: the BAM
+    equals the JAX package's align_reads with the same option, run here."""
+    out = _run_without_jax("align", tmp_path, *flags)
+    assert "clique_tpu_torch.align.pipeline" in out
+    from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
+                                           _load_make_golden)
+
+    from clique_tpu.align.pipeline import align_reads as jax_align_reads
+
+    wd = tmp_path / "jax"
+    wd.mkdir()
+    _gd, layout, rm, r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
+                                              wd)
+    out_j = str(wd / "aligned.bam")
+    key = {"--bandwidth": "bandwidth",
+           "--anchored-min-length": "anchored_min_length"}[flags[0]]
+    jax_align_reads(layout, rm, out_j, read1=r1, batch_size=16,
+                    **{key: int(flags[1])})
+    assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
+        out_j)

@@ -29,6 +29,14 @@ before and read just after:
   are the same on the card as on the CPU, and a sample of the results
   equals the host inversion_alignment.
 
+The kernel phases hold every kernel against its plain version (for the
+fused global fill + walk, dp_align, its fused rows and its traceback laid
+out as the plain fill's, in every global mode, with ragged and marked rows,
+at the bench, inversion and anchored shapes and at 6,600 rows), time each
+in turns with its plain version at the main path's shape, time a PyTorch
+library call that computes the same function where there is one, and
+work out each kernel's bound from the timed inputs.
+
 The CPU runs of the long-read and inversion phases go to a pool of
 spawned processes and run beside the card's; a script that imports these
 phases needs an `if __name__ == "__main__":` guard.
@@ -76,19 +84,47 @@ INV_REF = 1000
 # phases beside the card's runs: five workers of two torch threads each
 CPU_WORKERS = 5
 CPU_WORKER_THREADS = 2
-KERNELS = ("dp_fill", "dp_walk", "match_count", "edit_distance",
-           "dp_fill_local", "dp_walk_local")
-SOURCES = {"dp_fill": "dp_fill.cu", "dp_walk": "dp_walk.cu",
+KERNELS = ("dp_align", "match_count", "edit_distance", "dp_fill_local",
+           "dp_walk_local")
+SOURCES = {"dp_align": "dp_align.cu",
            "match_count": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
            "dp_fill_local": "dp_fill_local.cu",
            "dp_walk_local": "dp_walk_local.cu"}
-REPLACES = {"dp_fill": "clique_tpu/align/pallas_kernel.py:55",
-            "dp_walk": "clique_tpu/align/batch.py:565",
+REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_count": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
             "dp_fill_local": "clique_tpu/align/batch.py:332",
             "dp_walk_local": "clique_tpu/align/batch.py:450"}
+# the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
+# its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
+# float32 outside the tensor cores counts an FMA as two, so one lane
+# instruction a lane a clock); int8 tensor-core operations/s
+PEAK_BYTES = 3.35e12
+PEAK_LANE_OPS = 67e12 / 2
+PEAK_INT8_OPS = 1979e12
+# lane operations a DP cell needs: the three candidate sums of each plane,
+# their compares and selects, the special and terminal-gap selects, the
+# byte pack (global); the zero flags and the running argmax besides
+# (local); a Levenshtein cell's three candidates, their minimum and the
+# match test
+OPS_GLOBAL_CELL = 30
+OPS_LOCAL_CELL = 36
+OPS_EDIT_CELL = 8
+OPS_WALK_STEP = 10
+
+
+def bound(nbytes, ops, op_rate=PEAK_LANE_OPS):
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    over the memory rate and its operations over the peak rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / op_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timing(kernel_ms, plain_ms, bound_pair, library_ms=None):
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_pair[0],
+            "bound_by": bound_pair[1], "library_ms": library_ms}
 
 
 def check(cond, msg):
@@ -145,26 +181,32 @@ def phase_build():
     kernel = None
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("dp_fill_local", "dp_walk_local",
-                                       "dp_fill", "dp_walk", "match_count",
+            kernel = next((k for k in ("align_kernel", "fill_kernel",
+                                       "dp_walk_local", "match_count",
                                        "edit_distance_reg",
                                        "edit_distance_local")
                            if k in line), line.strip())
-            # the fills' template flags (local, keep-last ties, register
-            # rows) from the mangled name
-            flags = re.search(r"fill_kernelILb(\d)ELb(\d)ELb(\d)E", line)
+            # the template flags from the mangled name: dp_align's
+            # keep-last ties and band, the local fill's register rows
+            flags = re.search(r"align_kernelILb(\d)ELb(\d)E", line)
             if flags:
-                kernel += "<tie_last={1},reg_rows={2}>".format(
+                kernel = "dp_align<tie_last={0},banded={1}>".format(
                     *flags.groups())
+            flags = re.search(r"fill_kernelILb(\d)E", line)
+            if flags:
+                kernel = "dp_fill_local<reg_rows={0}>".format(*flags.groups())
         elif kernel and ("registers" in line or "spill" in line):
             say(f"[build] {kernel}: {line.strip()}")
     lib = _build.load()
-    say(f"[build] dp_fill: dynamic shared memory "
-        f"{lib.clique_dp_fill_smem_bytes(384, 384)} B per CTA at n1=n2=384; "
-        f"at n1=6600, n2=1024 the ring moves to global memory "
-        f"({lib.clique_dp_fill_ring_bytes(6600, 1024)} B per CTA) and "
-        f"{lib.clique_dp_fill_smem_bytes(6600, 1024)} B stay shared; "
-        f"dp_walk: none")
+    say(f"[build] dp_align: dynamic shared memory "
+        f"{lib.clique_dp_align_smem_bytes(384, 384)} B per CTA of 4 warps at "
+        f"n1=n2=384, {lib.clique_dp_align_smem_bytes(6600, 1024)} B at "
+        f"n1=6600, n2=1024; traceback {lib.clique_dp_align_tb_bytes(384, 384)}"
+        f" B an alignment at n1=n2=384 (the old layout: {767 * 384} B); "
+        f"row-band scratch {lib.clique_dp_align_scratch_floats(6600, 1024)} "
+        f"floats an alignment at n1=6600. dp_fill_local: "
+        f"{lib.clique_dp_fill_smem_bytes(3328, 3328)} B per CTA at "
+        f"n1=n2=3328")
 
 
 def _random_batch(rng, B, n1, n2, uniform, ragged):
@@ -247,8 +289,101 @@ def _kernel_turns(label, kern, reps, plain_ms):
     return (k1 + k2) / 2, plain_ms
 
 
+def _interior_cells(ref_lens, read_lens):
+    """Interior DP cells of the rows whose lengths lie in the bucket."""
+    import numpy as np
+
+    return int(np.sum(np.asarray(ref_lens, np.int64)
+                      * np.asarray(read_lens, np.int64)))
+
+
+def _band_cells(ref_lens, read_lens, bw, centers):
+    """Interior cells inside the band: row x of an alignment computes
+    columns [max(1, c - bw), min(l2 + 1, c + bw)), c its band center."""
+    import numpy as np
+
+    n1 = centers.shape[1]
+    x = np.arange(n1)[None, :]
+    c = centers.astype(np.int64)
+    w = np.asarray(bw, np.int64)[:, None]
+    lo = np.maximum(1, c - w)
+    hi = np.minimum(np.asarray(read_lens, np.int64)[:, None] + 1, c + w)
+    rows = (x >= 1) & (x <= np.asarray(ref_lens, np.int64)[:, None])
+    return int(np.sum(np.where(rows, np.maximum(hi - lo, 0), 0)))
+
+
+def _align_bound(host, n1, n2, cells=None):
+    """dp_align's bound on these inputs: it reads refs, reads, lens and
+    params once and writes one fused row an alignment (the traceback is its
+    own scratch); OPS_GLOBAL_CELL lane operations a cell it must compute
+    (every interior cell, or `cells`, those inside a band)."""
+    refs, reads, ref_lens, read_lens = host[:4]
+    B = reads.shape[0]
+    nbytes = (refs.nbytes + reads.nbytes + 8 * B + 24
+              + B * (8 + -(-(n1 + n2) // 4)))
+    if cells is None:
+        cells = _interior_cells(ref_lens, read_lens)
+    return bound(nbytes, OPS_GLOBAL_CELL * cells)
+
+
+def _hold_align(label, args, params, err, **kw):
+    """dp_align on the card against walk_reference(fill_reference(...)):
+    the fused rows, and the kernel's traceback laid out as the plain
+    fill's (interior cells from the kernel, fresh elsewhere), byte for
+    byte. Rows marked for lengths outside the bucket are held to n_ops -1,
+    a NaN score and no ops; the plain versions run on the other rows.
+    Returns the plain call's time in ms."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align import dp_kernels
+
+    n1, n2 = kw["n1"], kw["n2"]
+    fused_k, strips = dp_kernels.dp_align(*args, params, return_traceback=True,
+                                          **kw)
+    torch.cuda.synchronize()
+    ref_lens, read_lens = args[2], args[3]
+    ok = ((ref_lens >= 0) & (ref_lens <= n1 - 1) & (read_lens >= 0)
+          & (read_lens <= n2 - 1))
+    rows = torch.nonzero(ok)[:, 0]
+    sub = [t if t.shape[0] == 1 else t[rows].contiguous()
+           for t in args]
+    band = {k: v[rows].contiguous() for k, v in kw.items()
+            if k in ("bandwidth", "band_centers")}
+    rest = {k: v for k, v in kw.items() if k not in band}
+    def plain():
+        tb, corner = tbatch.fill_reference(*sub, params, **band, **rest)
+        return tb, tbatch.walk_reference(tb, corner, sub[2], sub[3], n1=n1,
+                                         n2=n2)[1]
+
+    (tb_p, fused_p), plain_ms = _timed(plain)
+    relaid = tbatch.wavefront_to_tb(strips, ref_lens, read_lens, n1=n1, n2=n2)
+    torch.cuda.synchronize()
+    e_fused = (fused_k[rows].int() - fused_p.int()).abs().max().item()
+    e_tb = (relaid[rows].int() - tb_p.int()).abs().max().item()
+    same = torch.equal(fused_k[rows], fused_p) and torch.equal(relaid[rows],
+                                                               tb_p)
+    marked = torch.nonzero(~ok)[:, 0]
+    if len(marked):
+        m = fused_k[marked].cpu().numpy()
+        n_ops = tbatch.unfuse_result(m)[1]
+        same = same and bool((n_ops == -1).all()
+                             and np.isnan(tbatch.unfuse_result(m)[2]).all()
+                             and (m[:, 8:] == 0xFF).all()
+                             and (relaid[marked] == tbatch._TB_FRESH).all())
+    err["dp_align"] = max(err["dp_align"], e_fused, e_tb)
+    say(f"[kernels] dp_align {label}: fused rows and relaid traceback "
+        f"{'byte-equal' if same else 'DIFFER'} (max abs err fused {e_fused}, "
+        f"traceback {e_tb}; {len(marked)} marked rows)")
+    check(same, f"dp_align {label}: kernel and plain version disagree")
+    del strips, relaid, tb_p
+    return plain_ms
+
+
 def phase_kernels():
-    """Each kernel against its plain PyTorch version on the card."""
+    """dp_align against its plain versions on the card in the full band,
+    then timed in turns with them at the bench shape."""
     import numpy as np
     import torch
 
@@ -259,67 +394,46 @@ def phase_kernels():
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2026)
-    err = {"dp_fill": 0.0, "dp_walk": 0.0}
+    err = {"dp_align": 0.0}
 
-    def run_case(B, n1, n2, mode, scoring, uniform, ragged):
+    def run_case(B, n1, n2, mode, scoring, uniform, ragged, marked=False):
         host = _random_batch(rng, B, n1, n2, uniform, ragged)
+        if marked:                  # lengths outside the bucket
+            host[2][2], host[3][3], host[2][4] = n1, n2, -1
         args = [torch.from_numpy(a).to(dev) for a in host]
         params = tbatch.scoring_to_params(scoring, dev)
-        tb_k, corner_k = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2,
-                                            special_mode=mode)
-        fused_k = dp_kernels.dp_walk(tb_k, corner_k, args[2], args[3],
-                                     n1=n1, n2=n2)
-        torch.cuda.synchronize()
-        tb_p, corner_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2,
-                                               special_mode=mode)
-        # the walk is held against the plain walk on the kernel's own fill
-        _res, fused_p = tbatch.walk_reference(tb_k, corner_k, args[2],
-                                              args[3], n1=n1, n2=n2)
-        torch.cuda.synchronize()
-        e_fill = max((tb_k.int() - tb_p.int()).abs().max().item(),
-                     (corner_k - corner_p).abs().max().item())
-        e_walk = (fused_k.int() - fused_p.int()).abs().max().item()
-        err["dp_fill"] = max(err["dp_fill"], e_fill)
-        err["dp_walk"] = max(err["dp_walk"], e_walk)
-        same = (torch.equal(tb_k, tb_p) and torch.equal(corner_k, corner_p)
-                and torch.equal(fused_k, fused_p))
-        say(f"[kernels] B={B} n1={n1} n2={n2} {mode} "
-            f"{'uniform' if uniform else 'per-row'} ref: tb, corner, fused "
-            f"{'byte-equal' if same else 'DIFFER'} (max abs err fill "
-            f"{e_fill}, walk {e_walk})")
-        check(same, "kernel and plain version disagree")
-        return args, params
+        label = (f"B={B} n1={n1} n2={n2} {mode} "
+                 f"{'uniform' if uniform else 'per-row'} ref")
+        _hold_align(label, args, params, err, n1=n1, n2=n2,
+                    special_mode=mode)
+        return host, args, params
 
     run_case(24, 128, 256, "both", MERGE_SCORING, False, True)
     run_case(24, 256, 128, "ref_n_only", RUST_BIO_COMPAT, False, True)
     run_case(16, 128, 128, "both", MERGE_SCORING, True, True)
+    run_case(24, 200, 150, "both", MERGE_SCORING, False, True, marked=True)
     n = 384
-    args, params = run_case(1024, n, n, "ref_n_only", RUST_BIO_COMPAT,
-                            True, False)
+    host, args, params = run_case(1024, n, n, "ref_n_only", RUST_BIO_COMPAT,
+                                  True, False)
 
     # timing at the bench shape, in turns: plain, kernel, kernel, plain
-    def fill_k():
-        return dp_kernels.dp_fill(*args, params, n1=n, n2=n,
-                                  special_mode="ref_n_only")
+    def align_k():
+        return dp_kernels.dp_align(*args, params, n1=n, n2=n,
+                                   special_mode="ref_n_only")
 
-    def fill_p():
-        return tbatch.fill_reference(*args, params, n1=n, n2=n,
-                                     special_mode="ref_n_only")
-
-    tb, corner = fill_k()
-
-    def walk_k():
-        return dp_kernels.dp_walk(tb, corner, args[2], args[3], n1=n, n2=n)
-
-    def walk_p():
+    def align_p():
+        tb, corner = tbatch.fill_reference(*args, params, n1=n, n2=n,
+                                           special_mode="ref_n_only")
         return tbatch.walk_reference(tb, corner, args[2], args[3], n1=n,
                                      n2=n)
 
-    times = {name: _turns(f"[kernels] {name} at B=1024 n1=n2=384", kern,
-                          plain, 20)
-             for name, kern, plain in (("dp_fill", fill_k, fill_p),
-                                       ("dp_walk", walk_k, walk_p))}
-    return err, times
+    k_ms, p_ms = _turns(f"[kernels] dp_align at B=1024 n1=n2={n}", align_k,
+                        align_p, 20)
+    b = _align_bound(host, n, n)
+    say(f"[kernels] dp_align bound at B=1024 n1=n2={n} "
+        f"(l1=l2=342): {b[0]:.4f} ms, by {b[1]}; the kernel at "
+        f"{b[0] / k_ms:.3f} of it")
+    return err, {"dp_align": _timing(k_ms, p_ms, b)}
 
 
 def _mode_batch(rng, B, n1, n2):
@@ -343,27 +457,29 @@ def _mode_batch(rng, B, n1, n2):
 
 
 def phase_mode_kernels():
-    """The fill modes and local kernels of the rest of the DP engine
-    against their plain PyTorch versions on the card, byte for byte, then
-    the kernels timed in turns beside the plain version's comparison call
-    (seconds a call at these shapes): a band of half-width 32 at the bench shape (and a
-    ragged banded case), keep-last ties with special_mode "none" (the
-    inversion fill) and the local fill and walk (the inversion screen) at
-    B=64, n1=n2=3328 (the size of tests/data/big_inversion_ref.txt), and a
-    fill of 6,600 rows, whose ring lives in global memory."""
+    """dp_align's other modes and shapes, and the local kernels, against
+    their plain PyTorch versions on the card, byte for byte, then timed
+    beside the plain version's comparison call (seconds a call at these
+    shapes): a band of half-width 32 at the bench shape (and a ragged
+    banded case); keep-last ties with special_mode "none" (the inversion
+    fill) at B=64, n1=n2=3328 (the size of tests/data/big_inversion_ref.txt)
+    and at the inversion path's B=502, n1=n2=1001; the anchored path's long,
+    thin buckets (128 x 3968 both ways); 6,600 rows, which take 18 row
+    bands; and the local fill and walk (the inversion screen) at B=64,
+    n1=n2=3328."""
     import numpy as np
     import torch
 
-    from clique_tpu.align.scoring import AffineScoring, InversionScoring
     from clique_tpu_torch.align import batch as tbatch
     from clique_tpu_torch.align import dp_kernels
     from clique_tpu_torch.align.inversion import inversion_params
     from clique_tpu_torch.align.pipeline import RUST_BIO_COMPAT
+    from clique_tpu_torch.align.scoring import (AffineScoring,
+                                                InversionScoring)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2028)
-    err = dict.fromkeys(("dp_fill", "dp_walk", "dp_fill_local",
-                         "dp_walk_local"), 0.0)
+    err = dict.fromkeys(("dp_align", "dp_fill_local", "dp_walk_local"), 0.0)
     times = {}
 
     def held(label, pairs):
@@ -379,58 +495,59 @@ def phase_mode_kernels():
         check(same, f"{label}: kernel and plain version disagree")
 
     def global_case(label, host, params, reps, width=None, **kw):
-        """dp_fill + dp_walk held against the plain fill and the plain
-        walk (on the kernel's own fill), then the fill timed."""
+        """dp_align held against the plain fill + walk (fused rows and the
+        relaid traceback), then timed beside one plain call."""
         args = [torch.from_numpy(a).to(dev) for a in host]
         n1, n2 = host[0].shape[1] + 1, host[1].shape[1] + 1
         kw.update(n1=n1, n2=n2)
+        cells = None
         if width is not None:
             bw = np.minimum(np.maximum(host[2], np.maximum(host[3], 1)),
                             np.int32(width)).astype(np.int32)
+            centers = tbatch.band_centers_f64(host[2], host[3], n1)
+            cells = _band_cells(host[2], host[3], bw, centers)
             kw.update(bandwidth=torch.from_numpy(bw).to(dev),
-                      band_centers=torch.from_numpy(
-                          tbatch.band_centers_f64(host[2], host[3], n1))
-                      .to(dev))
-
-        def fill_k():
-            return dp_kernels.dp_fill(*args, params, **kw)
-
-        def fill_p():
-            return tbatch.fill_reference(*args, params, **kw)
-
-        tb_k, corner_k = fill_k()
-        fused_k = dp_kernels.dp_walk(tb_k, corner_k, args[2], args[3],
-                                     n1=n1, n2=n2)
-        (tb_p, corner_p), plain_ms = _timed(fill_p)
-        _res, fused_p = tbatch.walk_reference(tb_k, corner_k, args[2],
-                                              args[3], n1=n1, n2=n2)
-        held(label, [("dp_fill", tb_k, tb_p), ("dp_fill", corner_k, corner_p),
-                     ("dp_walk", fused_k, fused_p)])
-        del tb_k, tb_p
+                      band_centers=torch.from_numpy(centers).to(dev))
+        plain_ms = _hold_align(label, args, params, err, **kw)
         if reps:
-            _kernel_turns(f"[mode kernels] dp_fill {label}", fill_k, reps,
-                          plain_ms)
+            k_ms, _p = _kernel_turns(
+                f"[mode kernels] dp_align {label}",
+                lambda: dp_kernels.dp_align(*args, params, **kw), reps,
+                plain_ms)
+            b = _align_bound(host, n1, n2, cells)
+            say(f"[mode kernels] dp_align {label} bound {b[0]:.4f} ms, by "
+                f"{b[1]}; the kernel at {b[0] / k_ms:.3f} of it")
 
     rust = tbatch.scoring_to_params(RUST_BIO_COMPAT, dev)
+    aligner = tbatch.scoring_to_params(AffineScoring.aligner_default(), dev)
+    keep_last = inversion_params(InversionScoring(), dev)
     global_case("banded (half-width 16) B=24 n1=128 n2=256 ragged",
                 _random_batch(rng, 24, 128, 256, False, True), rust, 0,
                 width=16, special_mode="ref_n_only")
     global_case(f"banded (half-width {BAND}) B=1024 n1=n2=384",
                 _random_batch(rng, 1024, 384, 384, True, False), rust, 20,
                 width=BAND, special_mode="ref_n_only")
+    global_case("banded keep-last, special none, B=24 n1=200 n2=256 ragged",
+                _random_batch(rng, 24, 200, 256, False, True), keep_last, 0,
+                width=12, special_mode="none", tie_order="last")
     n = 3328
     host = _mode_batch(rng, 64, n, n)
     global_case(f"keep-last, special none, B=64 n1=n2={n}", host,
-                inversion_params(InversionScoring(), dev), 5,
+                keep_last, 5, special_mode="none", tie_order="last")
+    global_case(f"keep-last, special none, B=502 n1=n2={INV_REF + 1} "
+                "(the inversion path)",
+                _mode_batch(rng, 502, INV_REF + 1, INV_REF + 1), keep_last, 5,
                 special_mode="none", tie_order="last")
-
-    ring = dp_kernels.fill_mode_launches["global_ring"]
-    global_case("n1=6600 n2=1024 B=32 (global ring)",
-                _mode_batch(rng, 32, 6600, 1024),
-                tbatch.scoring_to_params(AffineScoring.aligner_default(),
-                                         dev), 3, special_mode="both")
-    check(dp_kernels.fill_mode_launches["global_ring"] > ring,
-          "the 6,600-row fill did not take the global-memory ring")
+    for n1, n2 in ((128, 3968), (3968, 128)):
+        global_case(f"anchored bucket B=64 n1={n1} n2={n2}",
+                    _random_batch(rng, 64, n1, n2, False, True), aligner, 5,
+                    special_mode="both")
+    bands = dp_kernels.fill_mode_launches["row_bands"]
+    global_case("n1=6600 n2=1024 B=32 (row bands)",
+                _mode_batch(rng, 32, 6600, 1024), aligner, 3,
+                special_mode="both")
+    check(dp_kernels.fill_mode_launches["row_bands"] > bands,
+          "the 6,600-row case did not take the row bands")
 
     # the local pair on the keep-last case's inputs, the inversion screen's
     # scoring
@@ -441,6 +558,7 @@ def phase_mode_kernels():
     def fill_local_k():
         return dp_kernels.dp_fill_local(*args, hifi, **kw)
 
+    ring = dp_kernels.fill_mode_launches["global_ring"]
     out_k = fill_local_k()
     fused_k = dp_kernels.dp_walk_local(*out_k, **kw)
     out_p, fill_plain_ms = _timed(
@@ -451,12 +569,29 @@ def phase_mode_kernels():
          [("dp_fill_local", k, p) for k, p in zip(out_k, out_p)]
          + [("dp_walk_local", fused_k, fused_p)])
     del out_p
-    times["dp_fill_local"] = _kernel_turns(
+    check(dp_kernels.fill_mode_launches["global_ring"] == ring,
+          "the local fill at n1=3328 left its shared-memory ring")
+    B = host[1].shape[0]
+    in_bytes = host[0].nbytes + host[1].nbytes + 8 * B + 24
+    # the local fill writes its traceback and zero flags whole
+    b_fill = bound(in_bytes + 2 * B * (2 * n - 1) * n + 24 * B,
+                   OPS_LOCAL_CELL * _interior_cells(host[2], host[3]))
+    # the walk reads the two bytes of each cell on its paths
+    n_ops = tbatch.unfuse_result(fused_k.cpu().numpy(), local=True)[1]
+    steps = int(np.maximum(n_ops, 0).sum())
+    b_walk = bound(2 * steps + 24 * B + B * (24 + -(-2 * n // 4)),
+                   OPS_WALK_STEP * steps)
+    k_ms, p_ms = _kernel_turns(
         f"[mode kernels] dp_fill_local at B=64 n1=n2={n}", fill_local_k, 5,
         fill_plain_ms)
-    times["dp_walk_local"] = _kernel_turns(
+    times["dp_fill_local"] = _timing(k_ms, p_ms, b_fill)
+    k_ms, p_ms = _kernel_turns(
         f"[mode kernels] dp_walk_local at B=64 n1=n2={n}",
         lambda: dp_kernels.dp_walk_local(*out_k, **kw), 5, walk_plain_ms)
+    times["dp_walk_local"] = _timing(k_ms, p_ms, b_walk)
+    for name in ("dp_fill_local", "dp_walk_local"):
+        say(f"[mode kernels] {name} bound {times[name]['bound_ms']:.4f} ms, "
+            f"by {times[name]['bound_by']}")
     return err, times
 
 
@@ -524,15 +659,38 @@ def phase_tag_kernels():
     t, a = match_case(2048, 16384, 16)
     host, args = edit_case(2_097_152, 32, la_val=16)
 
+    mc = _turns("[tag kernels] match_count at U=2048 K=16384 L=16",
+                lambda: tdist.match_count(t, a),
+                lambda: tdist.match_count_reference(t, a), 20, 2)
+    # the library yardstick: torch.cdist with p=0 counts the differing
+    # columns (L - matches) of every tag against every allowlist row
+    lib_d = torch.cdist(t.float(), a.float(), p=0)
+    same = torch.equal(lib_d.round().to(torch.int32),
+                       16 - tdist.match_count(t, a).to(torch.int32))
+    check(same, "torch.cdist(p=0) and match_count disagree")
+    lib_ms = _time_ms(lambda: torch.cdist(t.float(), a.float(), p=0), 20)
+    say(f"[tag kernels] library yardstick torch.cdist(p=0) at U=2048 "
+        f"K=16384 L=16: {lib_ms:.4f} ms per call (equals 16 - match_count)")
+    del lib_d
+    U, K, L = t.shape[0], a.shape[0], t.shape[1]
+    ed = _turns("[tag kernels] edit_distance at P=2097152 L=32 la=lb=16",
+                lambda: tdist.edit_distance(*args),
+                lambda: tdist.edit_distance_reference(*args), 20, 2)
+    P, Le = host[0].shape
     times = {
-        "match_count": _turns(
-            "[tag kernels] match_count at U=2048 K=16384 L=16",
-            lambda: tdist.match_count(t, a),
-            lambda: tdist.match_count_reference(t, a), 20, 2),
-        "edit_distance": _turns(
-            "[tag kernels] edit_distance at P=2097152 L=32 la=lb=16",
-            lambda: tdist.edit_distance(*args),
-            lambda: tdist.edit_distance_reference(*args), 20, 2)}
+        # reads both tag sets once, writes one byte a pair; U*K*L byte
+        # comparisons at the int8 tensor-core rate (the one-hot product the
+        # JAX kernel runs)
+        "match_count": _timing(*mc, bound(U * L + K * L + U * K, U * K * L,
+                                          PEAK_INT8_OPS), lib_ms),
+        # both rows and lengths once, one byte out a pair; OPS_EDIT_CELL lane
+        # operations a DP cell
+        "edit_distance": _timing(*ed, bound(
+            2 * P * Le + 8 * P + P,
+            OPS_EDIT_CELL * _interior_cells(host[2], host[3])))}
+    for name in ("match_count", "edit_distance"):
+        say(f"[tag kernels] {name} bound {times[name]['bound_ms']:.4f} ms, "
+            f"by {times[name]['bound_by']}")
     t0 = time.time()
     myers = tdist._edit_distance_myers_host(*host)
     myers_ms = (time.time() - t0) * 1e3
@@ -588,8 +746,7 @@ def _counts():
     from clique_tpu_torch.align import dp_kernels
     from clique_tpu_torch.collapse import distance
 
-    return {"dp_fill": dp_kernels.fill_launches,
-            "dp_walk": dp_kernels.walk_launches,
+    return {"dp_align": dp_kernels.align_launches,
             "match_count": distance.match_count_launches,
             "edit_distance": distance.edit_distance_launches,
             "dp_fill_local": dp_kernels.fill_local_launches,
@@ -604,8 +761,8 @@ def _read(path):
 def phase_golden(workdir):
     """align -> collapse -> call and the fused run_chain on the card,
     against the pins. Returns the kernel launches of the collapse runs."""
-    from clique_tpu.caller.events import call_events_from_bam
     from clique_tpu_torch.align.pipeline import align_reads
+    from clique_tpu_torch.caller.events import call_events_from_bam
     from clique_tpu_torch.chain import run_chain
     from clique_tpu_torch.collapse.pipeline import collapse
 
@@ -737,10 +894,10 @@ def phase_bench(workdir):
     bench.py:126-181 times it: a warm-up run, then align (with the sink),
     collapse_from_reads and the fused call, each on the host clock; chain
     reads/s = aligned reads / (align + collapse + call)."""
-    from clique_tpu.caller.events import call_events_from_records
-    from clique_tpu.chain import CollapseSink
     from clique_tpu_torch.align.pipeline import align_reads
-    from clique_tpu_torch.chain import collapse_from_reads, run_chain
+    from clique_tpu_torch.caller.events import call_events_from_records
+    from clique_tpu_torch.chain import (CollapseSink, collapse_from_reads,
+                                        run_chain)
 
     t0 = time.time()
     layout_text, fq, head, cells = _bench_dataset(workdir, N_BENCH_READS)
@@ -795,9 +952,8 @@ def phase_bench(workdir):
         f"wall), levels {cm['levels_s']} s, outputs {cm['outputs_s']} s, "
         f"levels {json.dumps(cm['references']['amplicon1']['levels'])}")
     check(stats.aligned == N_BENCH_READS, "not every read was aligned")
-    check(launches["dp_fill"] > 0 and launches["dp_walk"] > 0,
-          "the main path launched no kernel")
-    check(launches["dp_fill"] == launches["dp_walk"] == m["dispatches"],
+    check(launches["dp_align"] > 0, "the main path launched no kernel")
+    check(launches["dp_align"] == m["dispatches"],
           "launch counts differ from the number of dispatches")
     check(cstats.passing > 0.9 * N_BENCH_READS and n_rows > 0,
           "the chain lost its reads")
@@ -824,7 +980,7 @@ def phase_bench(workdir):
 
 def phase_banded(workdir, bench):
     """The bench's first 2,048 reads through align_reads with a band of
-    half-width 32: every group a banded dp_fill on the card, and the same
+    half-width 32: every group a banded dp_align on the card, and the same
     BAM as the plain versions give on the CPU."""
     from clique_tpu_torch.align import dp_kernels
     from clique_tpu_torch.align.pipeline import align_reads
@@ -856,7 +1012,7 @@ def phase_banded(workdir, bench):
         f"{'equals' if full else 'differs from'} the full-band one; "
         f"launches {launches}, {banded} banded")
     check(stats.aligned == N_CPU_CHECK, "not every read was aligned")
-    check(launches["dp_fill"] > 0 and banded == launches["dp_fill"],
+    check(launches["dp_align"] > 0 and banded == launches["dp_align"],
           "the banded path launched no banded fill")
     check(same, "the banded BAMs differ between cuda and cpu")
     return launches
@@ -913,7 +1069,7 @@ def phase_long_reads(workdir, pool):
     """1,000 reads of a seeded 4 kb amplicon with ONT-like errors through
     align_reads at the default anchored_min_length (2048): every read takes
     the anchored seed-and-extend path, its inter-anchor sub-DPs batched
-    through dp_fill and dp_walk. The first 64 reads' BAM on the CPU is
+    through dp_align. The first 64 reads' BAM on the CPU is
     computed in the pool after the card's runs; long_reads_head_check
     holds it against the card's."""
     import numpy as np
@@ -974,7 +1130,7 @@ references:
         f"{a['device_seconds']}; launches {launches}")
     check(stats.aligned == N_LONG_READS, "not every long read was aligned")
     check(a["reads"] == N_LONG_READS, "a long read missed the anchored path")
-    check(launches["dp_fill"] == launches["dp_walk"] == m["dispatches"] > 0,
+    check(launches["dp_align"] == m["dispatches"] > 0,
           "launch counts differ from the number of dispatches")
     head_cpu = pool.submit(_align_on_cpu, layout_text, head,
                            os.path.join(wd, "cpu"))
@@ -1046,13 +1202,14 @@ def phase_inversion(pool):
     import numpy as np
     import torch
 
-    from clique_tpu.align.inversion import inversion_alignment
-    from clique_tpu.align.scoring import AffineScoring, InversionScoring
-    from clique_tpu.utils.seq import reverse_complement
     from clique_tpu_torch.align import batch as tbatch
     from clique_tpu_torch.align import dp_kernels
-    from clique_tpu_torch.align.inversion import (inversion_alignment_batch,
+    from clique_tpu_torch.align.inversion import (inversion_alignment,
+                                                  inversion_alignment_batch,
                                                   inversion_params)
+    from clique_tpu_torch.align.scoring import (AffineScoring,
+                                                InversionScoring)
+    from clique_tpu_torch.utils.seq import reverse_complement
 
     rng = np.random.default_rng(1000)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -1097,7 +1254,7 @@ def phase_inversion(pool):
     check(set(marked) == inverted, "the inversion blocks were not found")
     check(launches["dp_fill_local"] > 0 and launches["dp_walk_local"] > 0,
           "the inversion screen launched no local kernel")
-    check(launches["dp_fill"] > 0 and modes["tie_last"] > 0
+    check(launches["dp_align"] > 0 and modes["tie_last"] > 0
           and modes["special_none"] > 0,
           "the inversion path launched no keep-last fill")
 
@@ -1148,7 +1305,6 @@ def phase_known_list(workdir, bench):
     holds the bench's 500 cell barcodes."""
     import numpy as np
 
-    from clique_tpu.io.sam import BamReader
     from clique_tpu_torch.collapse import distance as tdist
     from clique_tpu_torch.collapse.correct import correct_known_hamming
     from clique_tpu_torch.collapse.pipeline import collapse
@@ -1188,6 +1344,8 @@ def phase_known_list(workdir, bench):
           "match_count")
     check(levels[0]["reads_out"] > 0.5 * levels[0]["reads_in"],
           "the known-list level corrected almost nothing")
+
+    from clique_tpu_torch.io.sam import BamReader
 
     observed = {}
     with BamReader(aligned) as reader:
@@ -1299,11 +1457,11 @@ def main():
         for k in KERNELS:
             launches[k] += n[k]
     loaded = sorted(m for m, mod in sys.modules.items()
-                    if mod is not None and (m == "jax" or m == "jaxlib"
-                                            or m.startswith(("jax.",
-                                                             "jaxlib."))))
-    check(not loaded, f"jax modules were loaded: {loaded[:5]}")
-    say("[jax] no jax module loaded")
+                    if mod is not None and m.split(".")[0] in
+                    ("jax", "jaxlib", "clique_tpu"))
+    check(not loaded, f"jax or JAX-package modules were loaded: "
+          f"{loaded[:5]}")
+    say("[jax] no jax module and no module of the JAX package loaded")
     check(all(launches[k] > 0 for k in KERNELS),
           f"a kernel was never launched on a path: {launches}")
     say(f"[summary] chain {bench[3]:.1f} reads/s over {N_BENCH_READS} "
@@ -1314,8 +1472,7 @@ def main():
         {"name": name, "route": "cuda",
          "source": f"clique_tpu_torch/csrc/{SOURCES[name]}",
          "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "max_abs_err": err[name], **times[name]}
         for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -106,8 +106,8 @@ def build() -> BuildInfo:
 def _compile_and_link(nvcc, cus, objs, lib_path):
     """One nvcc per source, all started together, then one link into
     lib_path. Returns the wall seconds and nvcc's output. On the 8-core
-    host of an H100 80GB HBM3 this takes 2.95-3.35 s for the three
-    sources, against 6.96 s for one nvcc call over all of them."""
+    host of an H100 80GB HBM3 this took 2.95-3.35 s for three sources,
+    against 6.96 s for one nvcc call over all of them."""
     t0 = time.time()
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True,
@@ -139,9 +139,15 @@ def load() -> ctypes.CDLL:
         info = build()
         lib = ctypes.CDLL(info.path)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.clique_dp_fill.restype = ci
-        lib.clique_dp_fill.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp,
-                                       vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        ll = ctypes.c_longlong
+        lib.clique_dp_align.restype = ci
+        lib.clique_dp_align.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp,
+                                        vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        for fn, res in ((lib.clique_dp_align_tb_bytes, ll),
+                        (lib.clique_dp_align_scratch_floats, ll),
+                        (lib.clique_dp_align_smem_bytes, ci)):
+            fn.restype = res
+            fn.argtypes = [ci, ci]
         lib.clique_dp_fill_local.restype = ci
         lib.clique_dp_fill_local.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp,
                                              vp, vp, vp, vp, ci, ci, ci, ci,
@@ -150,8 +156,6 @@ def load() -> ctypes.CDLL:
                    lib.clique_dp_fill_ring_bytes):
             fn.restype = ci
             fn.argtypes = [ci, ci]
-        lib.clique_dp_walk.restype = ci
-        lib.clique_dp_walk.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.clique_dp_walk_local.restype = ci
         lib.clique_dp_walk_local.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                              ci, vp]

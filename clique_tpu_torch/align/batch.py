@@ -16,9 +16,11 @@ but the TPU-only ones (the Pallas route, the wave, fetch-fuse):
 
 `fill_reference`, `walk_reference`, `fill_local_reference` and
 `walk_local_reference` are the plain PyTorch versions; the hand-written
-CUDA kernels (align/dp_kernels.py, csrc/) compute the same bytes.
-`align_batch` and `align_batch_local` run the kernels on CUDA tensors and
-the plain versions on CPU tensors.
+CUDA kernels (align/dp_kernels.py, csrc/) compute the same bytes. The
+global kernel fuses the fill and the walk and keeps its traceback in a
+wavefront layout of interior cells (`traceback_bytes`); `wavefront_to_tb`
+lays it out as fill_reference's. `align_batch` and `align_batch_local` run
+the kernels on CUDA tensors and the plain versions on CPU tensors.
 
 Exactness: every scoring constant is dyadic and every intermediate a sum
 of < 2^18-magnitude dyadics, so float32 decisions are exact on any backend
@@ -35,7 +37,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from clique_tpu.align.scoring import MAX_NEG_SCORE, AffineScoring
+from clique_tpu_torch.align.scoring import MAX_NEG_SCORE, AffineScoring
 
 # direction codes (== source plane), same as align/cpu.py
 DIAG, UP, LEFT = 0, 1, 2
@@ -48,11 +50,84 @@ OP_MATCH, OP_DEL, OP_INS, OP_DONE = 0, 1, 2, 3
 SPECIAL_MODES = ("both", "ref_n_only", "none")
 TIE_ORDERS = ("ref", "last")
 
-# the most traceback bytes (B * (n1 + n2 - 1) * n1; twice that for a local
-# fill, which stores zero flags beside it) one launch may hold: callers
-# split larger batches into groups. One long read's whole-read sub-DP at
-# n1 = n2 = 4096 takes 33.5 MB.
+# the most traceback bytes (B * traceback_bytes(n1, n2) for a global
+# fill; B * 2 * (n1 + n2 - 1) * n1 for a local one, which stores zero flags
+# beside its diagonal-major traceback) one launch may hold: callers split
+# larger batches into groups. One long read's whole-read sub-DP at
+# n1 = n2 = 4096 takes 16.8 MB.
 MAX_TRACEBACK_BYTES = 2 << 30
+
+# The global kernel's traceback layout (csrc/dp_align.cu), which stores
+# interior cells only, in wavefront order: lane k of a warp owns the strip of
+# STRIP_ROWS rows 12k+1..12k+12 of a row band of 32 strips and computes
+# column y at step t = y + k - 1; a band's step is one row of the lanes'
+# 12-byte strips side by side, padded to 16 bytes, and band j of nl strips
+# holds n2 - 2 + nl steps.
+STRIP_ROWS = 12
+BAND_STRIPS = 32
+
+
+def _strips(n1: int) -> int:
+    return -(-(n1 - 1) // STRIP_ROWS)
+
+
+def _row_bytes(nl):
+    return (nl * STRIP_ROWS + 15) // 16 * 16
+
+
+def traceback_bytes(n1: int, n2: int) -> int:
+    """Traceback bytes of one global alignment in the kernel's layout."""
+    nb = -(-_strips(n1) // BAND_STRIPS)
+    nl = _strips(n1) - BAND_STRIPS * (nb - 1)
+    return ((nb - 1) * (n2 + 30) * _row_bytes(BAND_STRIPS)
+            + (n2 - 2 + nl) * _row_bytes(nl))
+
+
+def _wavefront_index(ref_lens, read_lens, n1: int, n2: int):
+    """For every interior cell (1 <= x <= l1, 1 <= y <= l2) of rows whose
+    lengths lie in the bucket: (b, x, y, byte offset in the row's layout)."""
+    dev = ref_lens.device
+    l1 = ref_lens.to(torch.int64)[:, None, None]
+    l2 = read_lens.to(torch.int64)[:, None, None]
+    ok = (l1 >= 0) & (l1 <= n1 - 1) & (l2 >= 0) & (l2 <= n2 - 1)
+    x = torch.arange(1, n1, device=dev)[None, :, None]
+    y = torch.arange(1, n2, device=dev)[None, None, :]
+    bi, xi, yi = torch.nonzero(ok & (x <= l1) & (y <= l2), as_tuple=True)
+    xi, yi = xi + 1, yi + 1
+    rows = BAND_STRIPS * STRIP_ROWS
+    j, xr = (xi - 1) // rows, (xi - 1) % rows
+    nl = torch.clamp(_strips(n1) - BAND_STRIPS * j, max=BAND_STRIPS)
+    t = yi + xr // STRIP_ROWS - 1
+    off = j * (n2 + 30) * _row_bytes(BAND_STRIPS) + t * _row_bytes(nl) + xr
+    return bi, xi, yi, off
+
+
+def tb_to_wavefront(tb, ref_lens, read_lens, *, n1: int, n2: int):
+    """fill_reference's traceback [B, n1+n2-1, n1] -> the global kernel's
+    layout [B, traceback_bytes(n1, n2)]: interior cells at their wavefront
+    offsets; every other byte is 0 (the kernel leaves them unwritten)."""
+    out = torch.zeros((tb.shape[0], traceback_bytes(n1, n2)),
+                      dtype=torch.uint8, device=tb.device)
+    bi, xi, yi, off = _wavefront_index(ref_lens, read_lens, n1, n2)
+    out[bi, off] = tb[bi, xi + yi, xi]
+    return out
+
+
+def wavefront_to_tb(wave, ref_lens, read_lens, *, n1: int, n2: int):
+    """The global kernel's traceback [B, traceback_bytes(n1, n2)] laid out
+    as fill_reference's [B, n1+n2-1, n1]: interior cells from the kernel,
+    _TB_FRESH everywhere else (rows whose lengths lie outside the bucket are
+    fresh throughout), so it compares with fill_reference cell by cell."""
+    B = wave.shape[0]
+    if tuple(wave.shape) != (B, traceback_bytes(n1, n2)):
+        raise ValueError(f"the traceback must be [{B}, "
+                         f"{traceback_bytes(n1, n2)}], got "
+                         f"{list(wave.shape)}")
+    tb = torch.full((B, n1 + n2 - 1, n1), _TB_FRESH, dtype=torch.uint8,
+                    device=wave.device)
+    bi, xi, yi, off = _wavefront_index(ref_lens, read_lens, n1, n2)
+    tb[bi, xi + yi, xi] = wave[bi, off]
+    return tb
 
 
 class BatchAlignment(NamedTuple):
@@ -470,22 +545,21 @@ def align_batch(refs, reads, ref_lens, read_lens, params, *, n1: int,
     """Fill + walk for one length bucket: the counterpart of
     align_batch_device(local=False) in every non-Pallas mode.
 
-    Inputs as fill_reference. On CUDA tensors the two hand-written kernels
-    run on `stream` (default: the current stream); on CPU tensors the plain
-    versions run. Returns (fused uint8 [B, 8 + ceil((n1+n2)/4)], tb or
-    None); unfuse_result recovers (ops_packed, n_ops, score) on the host,
-    and check_marked_rows(n_ops) raises for a row whose lengths lay
-    outside [0, n1-1] x [0, n2-1] (on CPU tensors the fill raises first)."""
+    Inputs as fill_reference. On CUDA tensors the fused fill + walk kernel
+    runs on `stream` (default: the current stream); on CPU tensors the
+    plain versions run. Returns (fused uint8 [B, 8 + ceil((n1+n2)/4)], tb
+    or None), tb in the kernel's wavefront layout (wavefront_to_tb);
+    unfuse_result recovers (ops_packed, n_ops, score) on the host, and
+    check_marked_rows(n_ops) raises for a row whose lengths lay outside
+    [0, n1-1] x [0, n2-1] (on CPU tensors the fill raises first)."""
     from clique_tpu_torch.align import dp_kernels
 
-    tb, corner = dp_kernels.dp_fill(refs, reads, ref_lens, read_lens,
-                                    params, n1=n1, n2=n2,
-                                    special_mode=special_mode,
-                                    tie_order=tie_order, bandwidth=bandwidth,
-                                    band_centers=band_centers, stream=stream)
-    fused = dp_kernels.dp_walk(tb, corner, ref_lens, read_lens, n1=n1,
-                               n2=n2, stream=stream)
-    return fused, (tb if return_traceback else None)
+    return dp_kernels.dp_align(refs, reads, ref_lens, read_lens, params,
+                               n1=n1, n2=n2, special_mode=special_mode,
+                               tie_order=tie_order, bandwidth=bandwidth,
+                               band_centers=band_centers,
+                               return_traceback=return_traceback,
+                               stream=stream)
 
 
 def align_batch_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
@@ -573,7 +647,7 @@ def ops_to_alignments_batch(ops: np.ndarray, n_ops: np.ndarray,
     uint8, valid [B, T] bool). Rows are GAP/0-padded past n_ops; callers
     slice row[:n_ops[b]].
     """
-    from clique_tpu.utils.seq import GAP
+    from clique_tpu_torch.utils.seq import GAP
 
     B, T = ops.shape
     valid = ops != OP_DONE
@@ -600,7 +674,7 @@ def ops_to_alignments_batch(ops: np.ndarray, n_ops: np.ndarray,
 def cigar_from_ops_row(ops_row: np.ndarray, n: int):
     """Run-length encode one op row into [(count, op)] (M/D/I).
     Copy of clique_tpu/align/batch.py:718."""
-    from clique_tpu.align.cpu import simplify_cigar
+    from clique_tpu_torch.align.cpu import simplify_cigar
 
     ops_row = ops_row[:n]
     if n == 0:
@@ -664,8 +738,8 @@ def cigars_from_ops_batch(ops: np.ndarray, n_ops: np.ndarray):
 def ops_to_alignment(ops: np.ndarray, n_ops: int, ref: bytes, read: bytes):
     """Expand a forward op sequence into (ref_aligned, read_aligned, cigar).
     Copy of clique_tpu/align/batch.py:784."""
-    from clique_tpu.align.cpu import simplify_cigar
-    from clique_tpu.utils.seq import GAP
+    from clique_tpu_torch.align.cpu import simplify_cigar
+    from clique_tpu_torch.utils.seq import GAP
 
     ops = ops[:n_ops]
     r_idx = np.cumsum(ops != OP_INS)      # consumed ref bases after each op

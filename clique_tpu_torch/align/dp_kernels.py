@@ -1,28 +1,30 @@
-"""Wrappers of the hand-written DP kernels (csrc/dp_fill.cu,
-dp_fill_local.cu, dp_walk.cu, dp_walk_local.cu).
+"""Wrappers of the hand-written DP kernels (csrc/dp_align.cu,
+dp_fill_local.cu, dp_walk_local.cu).
 
 Counterpart of clique_tpu/align/pallas_kernel.py and the XLA modes of
-clique_tpu/align/batch.py::align_batch_device: `dp_fill` replaces the
-Pallas fill (`_fill_kernel` via `pallas_fill`) and the banded, keep-last
-and `special_mode="none"` branches of the XLA scan; `dp_fill_local` its
-Waterman-Eggert branch; `dp_walk` the XLA walk, epilogue and result fusion
-that follow a global fill, `dp_walk_local` those of `_finish_local`.
+clique_tpu/align/batch.py::align_batch_device: `dp_align` replaces the
+Pallas fill (`_fill_kernel` via `pallas_fill`), the banded, keep-last and
+`special_mode="none"` branches of the XLA scan, and the XLA walk, epilogue
+and result fusion that follow a global fill, in one kernel;
+`dp_fill_local` the scan's Waterman-Eggert branch and `dp_walk_local`
+the walk, epilogue and fusion of `_finish_local`.
 
 On CUDA tensors each wrapper checks its inputs, allocates its outputs with
 torch.empty, launches its kernel on the given stream (default: the current
 stream of the tensors' device) and raises if the launch fails. On CPU
-tensors it runs the plain PyTorch version from align/batch.py. Any other
-device raises. `fill_launches`, `walk_launches`, `fill_local_launches` and
+tensors it runs the plain PyTorch versions from align/batch.py. Any other
+device raises. `align_launches`, `fill_local_launches` and
 `walk_local_launches` count kernel launches and nothing else;
-`fill_mode_launches` splits the launches of both fills by mode.
+`fill_mode_launches` splits the launches of the fills by mode.
 
 Lengths are data, not shape. The plain versions check them and raise
 ValueError when one lies outside [0, n1-1] / [0, n2-1]. A kernel cannot
 raise without a device sync per launch, so it marks such a row instead:
-the fill stores a NaN corner (a NaN best value, local) and a fresh
-traceback row, the walk a fused row with n_ops -1, a NaN score and no ops.
-batch.check_marked_rows raises the same ValueError when the host reads the
-fused rows back, and BatchAligner calls it on every group it pulls.
+`dp_align` writes a fused row with n_ops -1, a NaN score and no ops (and
+no traceback), the local fill a NaN best value and a fresh traceback row,
+walked into the same marked row. batch.check_marked_rows raises the same
+ValueError when the host reads the fused rows back, and BatchAligner calls
+it on every group it pulls.
 """
 
 from __future__ import annotations
@@ -31,14 +33,14 @@ import torch
 
 from clique_tpu_torch.align import batch as _batch
 
-fill_launches = 0
-walk_launches = 0
+align_launches = 0
 fill_local_launches = 0
 walk_local_launches = 0
-# launches by mode: dp_fill's with a partial band, keep-last ties and
-# special_mode "none", and those of both fills whose ring lives in global
-# memory (n1 or n2 too large for the shared-memory ring)
-FILL_MODES = ("banded", "tie_last", "special_none", "global_ring")
+# launches by mode: dp_align's with a partial band, keep-last ties,
+# special_mode "none" and more than one band of rows (n1 - 1 > 384), and
+# those of the local fill whose ring lives in global memory
+FILL_MODES = ("banded", "tie_last", "special_none", "row_bands",
+              "global_ring")
 fill_mode_launches = dict.fromkeys(FILL_MODES, 0)
 _SPECIAL_CODES = {"none": 0, "ref_n_only": 1, "both": 2}
 # shared memory an H100 block may use (dynamic + static)
@@ -46,10 +48,8 @@ _SMEM_LIMIT = 232448
 
 
 def reset_counts() -> None:
-    global fill_launches, walk_launches, fill_local_launches
-    global walk_local_launches
-    fill_launches = 0
-    walk_launches = 0
+    global align_launches, fill_local_launches, walk_local_launches
+    align_launches = 0
     fill_local_launches = 0
     walk_local_launches = 0
     for k in FILL_MODES:
@@ -125,90 +125,85 @@ def _check_fill_inputs(refs, reads, ref_lens, read_lens, params, n1, n2,
     return dev, B
 
 
-def _fill_stream(lib, dev, n1, n2, stream, inputs):
-    """The fill's launch stream, after the shared-memory check."""
-    smem = lib.clique_dp_fill_smem_bytes(n1, n2)
-    if smem > _SMEM_LIMIT - 1024:
-        raise ValueError(f"n2={n2} needs {smem} B of shared memory for the "
-                         "read, more than an H100 block has")
-    return _launch_stream(stream, dev, [t for t in inputs if t is not None])
-
-
-def _launch_fill(lib, name, s, dev, B, n1, n2, refs, reads, ref_lens,
-                 read_lens, params, band, outs, modes):
-    """Shared launch of both fills on stream s (outs allocated on it): the
-    ring scratch when the ring does not fit in shared memory, the error
-    check, the global_ring count. `band` holds the band's pointers (the
-    global fill's), `modes` the mode codes after the shape."""
-    ring = None
-    ring_bytes = lib.clique_dp_fill_ring_bytes(n1, n2)
-    if ring_bytes:
-        with torch.cuda.stream(s):
-            ring = torch.empty((B, ring_bytes // 4), dtype=torch.float32,
-                               device=dev)
-    ref_stride = 0 if refs.shape[0] == 1 else refs.shape[1]
-    with torch.cuda.device(dev):      # the launch goes to the current device
-        err = getattr(lib, name)(
-            refs.data_ptr(), ref_stride, reads.data_ptr(), reads.shape[1],
-            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
-            *band, *(o.data_ptr() for o in outs),
-            ring.data_ptr() if ring is not None else None,
-            B, n1, n2, *modes, s.cuda_stream)
-    _raise_on(err, name)
-    if ring is not None:
-        fill_mode_launches["global_ring"] += 1
-
-
-def dp_fill(refs, reads, ref_lens, read_lens, params, *, n1: int, n2: int,
-            special_mode: str, tie_order: str = "ref", bandwidth=None,
-            band_centers=None, stream=None):
-    """Fill one length bucket: refs [B|1, >= n1-1] u8, reads [B, >= n2-1]
-    u8, lens [B] i32, params [6] f32, and for a partial band bandwidth
-    [B] i32 and band_centers [B, n1] i32 -> (tb u8 [B, n1+n2-1, n1],
-    corner f32 [B, 3]). Semantics of align/batch.py::fill_reference."""
-    global fill_launches
+def dp_align(refs, reads, ref_lens, read_lens, params, *, n1: int, n2: int,
+             special_mode: str, tie_order: str = "ref", bandwidth=None,
+             band_centers=None, return_traceback: bool = False, stream=None):
+    """Global fill + walk + epilogue + fuse of one length bucket in one
+    kernel: refs [B|1, >= n1-1] u8, reads [B, >= n2-1] u8, lens [B] i32,
+    params [6] f32, and for a partial band bandwidth [B] i32 and
+    band_centers [B, n1] i32 -> (fused u8 [B, 8 + ceil((n1+n2)/4)], tb or
+    None). Semantics of align/batch.py::walk_reference(fill_reference(...))
+    (its fused output). With return_traceback the traceback comes back in
+    the kernel's wavefront layout, u8 [B, batch.traceback_bytes(n1, n2)];
+    the kernel stores interior cells only, and batch.wavefront_to_tb lays
+    them out as fill_reference's [B, n1+n2-1, n1]."""
+    global align_launches
     dev, B = _check_fill_inputs(refs, reads, ref_lens, read_lens, params,
                                 n1, n2, special_mode, tie_order, bandwidth,
                                 band_centers)
     if dev.type == "cpu":
-        return _batch.fill_reference(refs, reads, ref_lens, read_lens,
-                                     params, n1=n1, n2=n2,
-                                     special_mode=special_mode,
-                                     tie_order=tie_order, bandwidth=bandwidth,
-                                     band_centers=band_centers)
+        tb, corner = _batch.fill_reference(
+            refs, reads, ref_lens, read_lens, params, n1=n1, n2=n2,
+            special_mode=special_mode, tie_order=tie_order,
+            bandwidth=bandwidth, band_centers=band_centers)
+        _res, fused = _batch.walk_reference(tb, corner, ref_lens, read_lens,
+                                            n1=n1, n2=n2)
+        return fused, (_batch.tb_to_wavefront(tb, ref_lens, read_lens,
+                                              n1=n1, n2=n2)
+                       if return_traceback else None)
 
     from clique_tpu_torch import _build
 
     lib = _build.load()
-    D = n1 + n2 - 1
-    s = _fill_stream(lib, dev, n1, n2, stream, (refs, reads, ref_lens,
-                                                read_lens, params, bandwidth,
-                                                band_centers))
+    smem = lib.clique_dp_align_smem_bytes(n1, n2)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"n1 + n2 = {n1 + n2} needs {smem} B of shared "
+                         "memory for the walk, more than an H100 block has")
+    s = _launch_stream(stream, dev, [t for t in (
+        refs, reads, ref_lens, read_lens, params, bandwidth, band_centers)
+        if t is not None])
+    tb_bytes = lib.clique_dp_align_tb_bytes(n1, n2)
+    if tb_bytes != _batch.traceback_bytes(n1, n2):
+        raise RuntimeError("the kernel's traceback layout and batch.py's "
+                           "differ")
+    scratch_floats = lib.clique_dp_align_scratch_floats(n1, n2)
     with torch.cuda.stream(s):
-        tb = torch.empty((B, D, n1), dtype=torch.uint8, device=dev)
-        corner = torch.empty((B, 3), dtype=torch.float32, device=dev)
+        fused = torch.empty((B, 8 + -(-(n1 + n2) // 4)), dtype=torch.uint8,
+                            device=dev)
+        tb = torch.empty((B, tb_bytes), dtype=torch.uint8, device=dev)
+        scratch = torch.empty((B, scratch_floats), dtype=torch.float32,
+                              device=dev) if scratch_floats else None
     if B == 0:
-        return tb, corner
-    band = (bandwidth.data_ptr() if bandwidth is not None else None,
-            band_centers.data_ptr() if band_centers is not None else None)
-    _launch_fill(lib, "clique_dp_fill", s, dev, B, n1, n2, refs, reads,
-                 ref_lens, read_lens, params, band, (tb, corner),
-                 (_SPECIAL_CODES[special_mode], int(tie_order == "last")))
-    fill_launches += 1
+        return fused, (tb if return_traceback else None)
+    ref_stride = 0 if refs.shape[0] == 1 else refs.shape[1]
+    with torch.cuda.device(dev):      # the launch goes to the current device
+        err = lib.clique_dp_align(
+            refs.data_ptr(), ref_stride, reads.data_ptr(), reads.shape[1],
+            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
+            bandwidth.data_ptr() if bandwidth is not None else None,
+            band_centers.data_ptr() if band_centers is not None else None,
+            tb.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            fused.data_ptr(), B, n1, n2, _SPECIAL_CODES[special_mode],
+            int(tie_order == "last"), s.cuda_stream)
+    _raise_on(err, "dp_align")
+    align_launches += 1
     for mode, on in (("banded", bandwidth is not None),
                      ("tie_last", tie_order == "last"),
-                     ("special_none", special_mode == "none")):
+                     ("special_none", special_mode == "none"),
+                     ("row_bands", scratch is not None)):
         if on:
             fill_mode_launches[mode] += 1
-    return tb, corner
+    return fused, (tb if return_traceback else None)
 
 
 def dp_fill_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
                   n2: int, special_mode: str = "both", stream=None):
     """Waterman-Eggert fill of one length bucket (full band, tie order
-    up > left > diag). Inputs as dp_fill without the band -> (tb u8
-    [B, D, n1], zflags u8 [B, D, n1], best f32 [B, 4], best_xd i32 [B, 2]).
-    Semantics of align/batch.py::fill_local_reference."""
+    up > left > diag): refs, reads, lens and params as dp_align without the
+    band -> (tb u8 [B, D, n1], zflags u8 [B, D, n1], best f32 [B, 4],
+    best_xd i32 [B, 2]), D = n1+n2-1. Semantics of
+    align/batch.py::fill_local_reference."""
     global fill_local_launches
     dev, B = _check_fill_inputs(refs, reads, ref_lens, read_lens, params,
                                 n1, n2, special_mode, "ref", None, None)
@@ -221,66 +216,35 @@ def dp_fill_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
 
     lib = _build.load()
     D = n1 + n2 - 1
-    s = _fill_stream(lib, dev, n1, n2, stream, (refs, reads, ref_lens,
-                                                read_lens, params))
+    smem = lib.clique_dp_fill_smem_bytes(n1, n2)
+    if smem > _SMEM_LIMIT - 1024:
+        raise ValueError(f"n2={n2} needs {smem} B of shared memory for the "
+                         "read, more than an H100 block has")
+    s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens,
+                                     params))
+    ring_bytes = lib.clique_dp_fill_ring_bytes(n1, n2)
     with torch.cuda.stream(s):
         outs = (torch.empty((B, D, n1), dtype=torch.uint8, device=dev),
                 torch.empty((B, D, n1), dtype=torch.uint8, device=dev),
                 torch.empty((B, 4), dtype=torch.float32, device=dev),
                 torch.empty((B, 2), dtype=torch.int32, device=dev))
+        ring = torch.empty((B, ring_bytes // 4), dtype=torch.float32,
+                           device=dev) if ring_bytes else None
     if B == 0:
         return outs
-    _launch_fill(lib, "clique_dp_fill_local", s, dev, B, n1, n2, refs,
-                 reads, ref_lens, read_lens, params, (), outs,
-                 (_SPECIAL_CODES[special_mode],))
-    fill_local_launches += 1
-    return outs
-
-
-def dp_walk(tb, corner, ref_lens, read_lens, *, n1: int, n2: int,
-            stream=None):
-    """Walk + epilogue + fuse: tb u8 [B, n1+n2-1, n1], corner f32 [B, 3],
-    lens [B] i32 -> fused u8 [B, 8 + ceil((n1+n2)/4)]. Semantics of
-    align/batch.py::walk_reference (its fused output)."""
-    global walk_launches
-    dev = _device_of(tb)
-    _check(tb, "tb", torch.uint8, 3, dev)
-    B = tb.shape[0]
-    _check(corner, "corner", torch.float32, 2, dev)
-    _check(ref_lens, "ref_lens", torch.int32, 1, dev)
-    _check(read_lens, "read_lens", torch.int32, 1, dev)
-    D = n1 + n2 - 1
-    if tuple(tb.shape) != (B, D, n1):
-        raise ValueError(f"tb must be [{B}, {D}, {n1}], got "
-                         f"{list(tb.shape)}")
-    if tuple(corner.shape) != (B, 3):
-        raise ValueError(f"corner must be [{B}, 3]")
-    if ref_lens.shape[0] != B or read_lens.shape[0] != B:
-        raise ValueError("ref_lens/read_lens must have one entry per row")
-    if dev.type == "cpu":
-        _res, fused = _batch.walk_reference(tb, corner, ref_lens, read_lens,
-                                            n1=n1, n2=n2)
-        return fused
-
-    from clique_tpu_torch import _build
-
-    lib = _build.load()
-    T = n1 + n2
-    s = _launch_stream(stream, dev, (tb, corner, ref_lens, read_lens))
-    with torch.cuda.stream(s):
-        fused = torch.empty((B, 8 + -(-T // 4)), dtype=torch.uint8,
-                            device=dev)
-        scratch = torch.empty((T, max(B, 1)), dtype=torch.uint8, device=dev)
-    if B == 0:
-        return fused
+    ref_stride = 0 if refs.shape[0] == 1 else refs.shape[1]
     with torch.cuda.device(dev):
-        err = lib.clique_dp_walk(
-            tb.data_ptr(), corner.data_ptr(), ref_lens.data_ptr(),
-            read_lens.data_ptr(), scratch.data_ptr(), fused.data_ptr(),
-            B, n1, n2, s.cuda_stream)
-    _raise_on(err, "dp_walk")
-    walk_launches += 1
-    return fused
+        err = lib.clique_dp_fill_local(
+            refs.data_ptr(), ref_stride, reads.data_ptr(), reads.shape[1],
+            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            ring.data_ptr() if ring is not None else None,
+            B, n1, n2, _SPECIAL_CODES[special_mode], s.cuda_stream)
+    _raise_on(err, "dp_fill_local")
+    fill_local_launches += 1
+    if ring is not None:
+        fill_mode_launches["global_ring"] += 1
+    return outs
 
 
 def dp_walk_local(tb, zflags, best, best_xd, *, n1: int, n2: int,

@@ -5,7 +5,7 @@ Counterpart of clique_tpu/align/pipeline.py, kept textually close to it so
 that a diff between the two reads easily. What differs:
 
 - BatchAligner dispatches each length bucket on one explicit CUDA stream
-  through the hand-written fill and walk kernels and copies the fused
+  through the hand-written fused fill + walk kernel and copies the fused
   result into pinned host memory; pulls() waits on a per-group event. On
   a CPU device the plain PyTorch versions run instead. The TPU
   workarounds (batch pad-up to a compiled shape, the wave, fetch-fuse,
@@ -45,19 +45,19 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from clique_tpu.align.merge import MERGE_SCORING, alignment_rate_and_consensus, unify_read
-from clique_tpu.align.scoring import AffineScoring
-from clique_tpu.config.layout import (AlignedReadOrientation, MergeStrategy,
+from clique_tpu_torch.align.merge import MERGE_SCORING, alignment_rate_and_consensus, unify_read
+from clique_tpu_torch.align.scoring import AffineScoring
+from clique_tpu_torch.config.layout import (AlignedReadOrientation, MergeStrategy,
                                       SequenceLayout)
-from clique_tpu.extract.extractor import (
+from clique_tpu_torch.extract.extractor import (
     alignment_rate_fast,
     extract_digit_tags_fast,
     extract_tagged_sequences,
 )
-from clique_tpu.io.fastq import ReadIterator
-from clique_tpu.io.sam import SamRecord, open_alignment_writer
-from clique_tpu.reference.manager import ReferenceManager, orient_by_longest_segment
-from clique_tpu.utils.seq import GAP, reverse_complement
+from clique_tpu_torch.io.fastq import ReadIterator
+from clique_tpu_torch.io.sam import SamRecord, open_alignment_writer
+from clique_tpu_torch.reference.manager import ReferenceManager, orient_by_longest_segment
+from clique_tpu_torch.utils.seq import GAP, reverse_complement
 from clique_tpu_torch.align import batch as dbatch
 from clique_tpu_torch.align import dp_kernels
 
@@ -93,9 +93,9 @@ FLUSH_FACTOR = 8
 
 
 def bam_codec() -> str:
-    """Which BAM codec the writer uses: "native C" (clique_tpu/native,
+    """Which BAM codec the writer uses: "native C" (native/bamcodec.c,
     built with the C compiler and zlib at first use) or "pure Python"."""
-    from clique_tpu.native import get_lib
+    from clique_tpu_torch.native import get_lib
 
     return "native C" if get_lib() is not None else "pure Python"
 
@@ -174,12 +174,12 @@ class BatchAligner:
 
     On a CUDA device every group goes out on ONE explicit stream, in order:
     the H2D copies of its reads (and of one reference row when the group
-    shares it), the fill and walk kernels, and a non-blocking copy of the
-    fused result into pinned host memory, followed by an event. pulls()
+    shares it), the fused fill + walk kernel, and a non-blocking copy of
+    the fused result into pinned host memory, followed by an event. pulls()
     waits on each group's event, so it may run on any thread (the drain
     thread does) without touching that thread's current stream. Only the
     fused buffers outlive a dispatch: the traceback is freed on the stream
-    as soon as the walk is enqueued. On a CPU device the plain PyTorch
+    as soon as the kernel is enqueued. On a CPU device the plain PyTorch
     fill and walk run synchronously at dispatch.
 
     bandwidth: the half-width of a partial band around the f64 band
@@ -239,7 +239,8 @@ class BatchAligner:
         while i < len(idxs):
             n1, n2 = shapes[idxs[i]]
             cap = min(self.batch_size, max(
-                1, dbatch.MAX_TRACEBACK_BYTES // ((n1 + n2 - 1) * n1)))
+                1, dbatch.MAX_TRACEBACK_BYTES
+                // dbatch.traceback_bytes(n1, n2)))
             group = []
             while i < len(idxs) and len(group) < cap and \
                     shapes[idxs[i]] == (n1, n2):
@@ -408,7 +409,7 @@ def align_reads(*args, **kwargs) -> AlignStats:
     the full signature): the align stage allocates millions of acyclic
     record objects, and cyclic-GC heap scans made it superlinear in
     dataset size (utils/gcctl.py)."""
-    from clique_tpu.utils.gcctl import hot_section
+    from clique_tpu_torch.utils.gcctl import hot_section
 
     with hot_section():
         return _align_reads_impl(*args, **kwargs)
@@ -449,7 +450,7 @@ def _align_reads_impl(
     anchored_min_length: reads at least this long (and passing the
     max_reference_multiplier gate) take the anchored seed-and-extend path:
     exact anchors from the reference's seed index on the host
-    (clique_tpu.align.anchored.AnchoredBatchAligner), every inter-anchor
+    (align/anchored.py::AnchoredBatchAligner), every inter-anchor
     sub-DP of a flush batched through one full-band BatchAligner with the
     engine's own scoring, written after the flush's other reads.
 
@@ -461,7 +462,7 @@ def _align_reads_impl(
     "convex" (align/wavefront.py) are not ported and raise, as do
     profile_dir and read_shard.
 
-    sink: optional CollapseSink (clique_tpu/chain.py), the fused chain's
+    sink: optional CollapseSink (chain.py), the fused chain's
     tap on the record stream: a sink thread feeds it every flush in BAM
     record order (consume_flush, or consume_aligned for exhaustive-search
     reads), so collapse ingestion is done when align_reads returns. The
@@ -500,7 +501,7 @@ def _align_reads_impl(
                                bandwidth=bandwidth)
         report_zero_score = False
     merge_aligner = BatchAligner(MERGE_SCORING, batch_size, device=device)
-    launches0 = (dp_kernels.fill_launches, dp_kernels.walk_launches,
+    launches0 = (dp_kernels.align_launches,
                  dict(dp_kernels.fill_mode_launches))
 
     references = [(r.name, len(r.sequence)) for r in rm.references.values()]
@@ -678,7 +679,7 @@ def _align_reads_impl(
 
     def _anchored_aligner():
         if anchored_state[0] is None:
-            from clique_tpu.align.anchored import AnchoredBatchAligner
+            from clique_tpu_torch.align.anchored import AnchoredBatchAligner
 
             anchored_state[0] = AnchoredBatchAligner(
                 BatchAligner(scoring, batch_size, device=device), scoring)
@@ -883,7 +884,7 @@ def _align_reads_impl(
     if hasattr(writer, "chunk_offsets"):
         # chunk-index sidecar: lets distributed collapse deal byte ranges
         # of this BAM (each process inflates only its share)
-        from clique_tpu.io.sam import write_cqi
+        from clique_tpu_torch.io.sam import write_cqi
 
         write_cqi(output_path, writer.chunk_offsets)
     elapsed = time.time() - start
@@ -927,10 +928,9 @@ def _align_reads_impl(
                 "dispatches": aligner.dispatches + merge_aligner.dispatches
                 + (inner.dispatches if inner else 0),
                 "kernel_launches": {
-                    "dp_fill": dp_kernels.fill_launches - launches0[0],
-                    "dp_walk": dp_kernels.walk_launches - launches0[1],
+                    "dp_align": dp_kernels.align_launches - launches0[0],
                     "dp_fill_modes": {
-                        k: v - launches0[2][k] for k, v in
+                        k: v - launches0[1][k] for k, v in
                         dp_kernels.fill_mode_launches.items()}},
                 "bandwidth": bandwidth,
                 # the anchored path: its reads, their inter-anchor sub-DPs,
@@ -980,7 +980,7 @@ def _fill_records_from_raw(raw, pending: List[_Pending], records: List,
     group, a_ref, a_read, valid, ops, n_ops, scores = raw
 
     # alignment rate over letter columns (consensus_builders.rs:288-307)
-    from clique_tpu.extract.extractor import alignment_rates_rows
+    from clique_tpu_torch.extract.extractor import alignment_rates_rows
 
     rates = alignment_rates_rows(a_ref, a_read).tolist()
 
@@ -1086,7 +1086,7 @@ def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
     python record path)."""
     import ctypes
 
-    from clique_tpu.native import get_lib
+    from clique_tpu_torch.native import get_lib
 
     lib = get_lib()
     if lib is None:
@@ -1101,7 +1101,7 @@ def _encode_flush_fastpath(raws, pend, layout: SequenceLayout,
         group, a_ref, a_read, valid, ops, n_ops, scores = raw
         g = len(group)
 
-        from clique_tpu.extract.extractor import alignment_rates_rows
+        from clique_tpu_torch.extract.extractor import alignment_rates_rows
 
         rates = alignment_rates_rows(a_ref, a_read).tolist()
 

@@ -200,8 +200,8 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
 
-    from clique_tpu.config.layout import SequenceLayout
-    from clique_tpu.reference.manager import ReferenceManager
+    from clique_tpu_torch.config.layout import SequenceLayout
+    from clique_tpu_torch.reference.manager import ReferenceManager
     from clique_tpu_torch.align.pipeline import unported_message
 
     for flag, (is_set, item) in _UNPORTED.get(args.cmd, {}).items():
@@ -281,7 +281,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "call":
-        from clique_tpu.caller.events import call_events_from_bam
+        from clique_tpu_torch.caller.events import call_events_from_bam
 
         call_events_from_bam(
             SequenceLayout.from_yaml(args.read_structure),

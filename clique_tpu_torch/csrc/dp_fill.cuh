@@ -1,24 +1,18 @@
-// The 3-plane affine DP fill, templated over its modes, shared by
-// dp_fill.cu (global fills) and dp_fill_local.cu (Waterman-Eggert fills).
+// The Waterman-Eggert (local) 3-plane affine DP fill, instantiated by
+// dp_fill_local.cu and walked by dp_walk_local.cu.
 //
-// Replaces: clique_tpu/align/pallas_kernel.py::_fill_kernel (the global,
-// full-band fill; the only pl.pallas_call in the JAX package) and the XLA
-// branches of clique_tpu/align/batch.py::align_batch_device that the
-// Pallas route does not take: a partial band around f64 band centers
-// (:287-290), special_mode "none" (:242-245), keep-last ties (:265-277)
-// and the local mode with its zero flags and running 3D argmax
-// (:332-374; full band, ties up > left > diag, as the inversion screen
-// runs it). Every mode reproduces the XLA scan bit for bit.
+// Replaces: the local branch of clique_tpu/align/batch.py::
+// align_batch_device (:221-374, local=True) with the full band and tie
+// order up > left > diag, as the inversion screen runs it: the m plane
+// floored at 0 (max(0, diag + ms, ms)), the gap planes extended with the
+// unscaled gap extension, the per-plane zero flags of every cell's output
+// value and the running 3D argmax. It reproduces the XLA scan bit for bit.
 //
 // What bounds it on an H100: the fill is a recurrence that is sequential in
 // the anti-diagonal d. Every diagonal needs the two before it, so each
 // alignment pays one __syncthreads() and one round trip through its ring
-// per diagonal: it is bound by latency, not by arithmetic. The traceback it
-// stores is B * D * n1 bytes (the local fill stores as many zero-flag
-// bytes beside it), ~302 MB per dispatch at the bench shape (B=1024,
-// n1=n2=384): at the H100 SXM's 3.35 TB/s datasheet peak that is a floor
-// of ~0.09 ms (a bound, not a measurement), far below the diagonal-serial
-// latency.
+// per diagonal: it is bound by latency, not by arithmetic. The traceback and
+// the zero flags it stores are 2 * B * D * n1 bytes.
 //
 // What the design does about it: one CTA per alignment, threads over the
 // DP row x, so hundreds of alignments run their diagonals concurrently
@@ -36,11 +30,11 @@
 // threads on neighbouring bytes (the batch-major [B, D, n1] layout that
 // align_batch_device(return_traceback=True) returns), so stores coalesce.
 // Diagonals past l1 + l2 hold no interior cell and are written as the
-// fresh byte (and all-zero flags) without being computed. The local
-// argmax is a running best per thread (strictly greater replaces, and a
-// thread visits its cells in (d, x) order), reduced once at the end with
-// the order highest value, then smallest diagonal, then smallest x, which
-// is the XLA scan's winner, with no extra barrier per diagonal.
+// fresh byte and all-zero flags without being computed. The argmax is a
+// running best per thread (strictly greater replaces, and a thread visits
+// its cells in (d, x) order), reduced once at the end with the order
+// highest value, then smallest diagonal, then smallest x, which is the
+// XLA scan's winner, with no extra barrier per diagonal.
 //
 // Exactness: all scores are dyadic f32 sums (batch.py:18-21); the build
 // passes --fmad=false so every add and multiply rounds as the reference's.
@@ -63,12 +57,10 @@ struct FillArgs {
   const int* ref_lens;      // [B]
   const int* read_lens;     // [B]
   const float* params;      // [6]
-  const int* bandwidth;     // [B] band half-width; null for the full band
-  const int* centers;       // [B, n1] band centers; null for the full band
   uint8_t* tb;              // [B, D, n1]
-  uint8_t* zflags;          // [B, D, n1], local fills only
-  float* corner;            // global: [B, 3] corner; local: [B, 4] best
-  int* best_xd;             // local: [B, 2] argmax x and diagonal
+  uint8_t* zflags;          // [B, D, n1]
+  float* best;              // [B, 4] the argmax value, then its M/D/I
+  int* best_xd;             // [B, 2] argmax x and diagonal
   float* ring;              // [B, 9, n1] when the ring is in global memory
   int n1;
   int n2;
@@ -105,20 +97,6 @@ __device__ __forceinline__ float three_way(float up, float left, float diag,
   return up_wins ? up : (left_wins ? left : diag);
 }
 
-// Rust max_by keep-LAST over [a, b, c]: c wins ties against everything, b
-// against a (batch.py:91-100); the value is the chosen candidate
-__device__ __forceinline__ float max_last(float a, float b, float c,
-                                          uint8_t da, uint8_t db, uint8_t dc,
-                                          uint8_t* dir) {
-  const float ab = fmaxf(a, b);
-  if (c >= ab) {
-    *dir = dc;
-    return c;
-  }
-  *dir = (b >= a) ? db : da;
-  return (b >= a) ? b : a;
-}
-
 // (v1, d1, x1) beats (v2, d2, x2): higher value, then earlier diagonal,
 // then smaller x (find_max_value_3d_array, alignment_matrix.rs:868-899)
 __device__ __forceinline__ bool better(float v1, int d1, int x1, float v2,
@@ -126,10 +104,9 @@ __device__ __forceinline__ bool better(float v1, int d1, int x1, float v2,
   return v1 > v2 || (v1 == v2 && (d1 < d2 || (d1 == d2 && x1 < x2)));
 }
 
-template <bool kLocal, bool kTieLast, bool kRegRows>
+template <bool kRegRows>
 __global__ void __launch_bounds__(kMaxFillThreads)
 fill_kernel(const FillArgs a) {
-  static_assert(!(kLocal && kTieLast), "keep-last ties are global only");
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -140,26 +117,21 @@ fill_kernel(const FillArgs a) {
   const int l2 = a.read_lens[b];
   const size_t plane = static_cast<size_t>(D) * n1;
   uint8_t* tbb = a.tb + static_cast<size_t>(b) * plane;
-  uint8_t* zfb = kLocal ? a.zflags + static_cast<size_t>(b) * plane
-                        : nullptr;
+  uint8_t* zfb = a.zflags + static_cast<size_t>(b) * plane;
   // ring[slot][plane][x], slot = d % 3, plane 0 = M, 1 = D (up), 2 = I
   float* ring = kRegRows ? smem : a.ring + static_cast<size_t>(b) * 9 * n1;
   uint8_t* sread = reinterpret_cast<uint8_t*>(kRegRows ? smem + 9 * n1
                                                        : smem);
 
   if (l1 < 0 || l1 > n1 - 1 || l2 < 0 || l2 > a.n2 - 1) {
-    // lengths outside the bucket: mark the row (NaN corner or best) and
-    // store no computed cell; the walk marks its fused row with n_ops -1
+    // lengths outside the bucket: mark the row (NaN best) and store no
+    // computed cell; the walk marks its fused row with n_ops -1
     for (size_t i = tid; i < plane; i += nt) {
       tbb[i] = kTbFresh;
-      if (kLocal) zfb[i] = kZeroAll;
+      zfb[i] = kZeroAll;
     }
-    if (kLocal) {
-      if (tid < 4) a.corner[4 * b + tid] = nanf("");
-      if (tid < 2) a.best_xd[2 * b + tid] = 0;
-    } else if (tid < 3) {
-      a.corner[3 * b + tid] = nanf("");
-    }
+    if (tid < 4) a.best[4 * b + tid] = nanf("");
+    if (tid < 2) a.best_xd[2 * b + tid] = 0;
     return;
   }
 
@@ -169,10 +141,6 @@ fill_kernel(const FillArgs a) {
   const uint8_t* ref = a.refs + static_cast<size_t>(b) * a.ref_stride;
   const uint8_t* read = a.reads + static_cast<size_t>(b) * a.read_stride;
   for (int i = tid; i < l2; i += nt) sread[i] = read[i];
-  const bool banded = a.centers != nullptr;
-  const int bw = banded ? a.bandwidth[b] : 0;
-  const int* centers = banded ? a.centers + static_cast<size_t>(b) * n1
-                              : nullptr;
 
   // reference byte per register row, pre-shifted: row x scores ref[x - 1]
   int rx[kRegRows ? kMaxRowsPerThread : 1];
@@ -185,7 +153,7 @@ fill_kernel(const FillArgs a) {
   }
   __syncthreads();
 
-  // local: this thread's best valid cell so far
+  // this thread's best valid cell so far
   float bv = -INFINITY, bc0 = 0.0f, bc1 = 0.0f, bc2 = 0.0f;
   int bd = INT_MAX, bx = INT_MAX;
 
@@ -199,11 +167,7 @@ fill_kernel(const FillArgs a) {
       const int y = d - x;
       float m_out, p1_out, p2_out;
       uint8_t byte = kTbFresh;
-      bool interior = x >= 1 && x <= l1 && y >= 1 && y <= l2;
-      if (banded && interior) {
-        const int c = centers[x];
-        interior = y >= max(1, c - bw) && y < min(l2 + 1, c + bw);
-      }
+      const bool interior = x >= 1 && x <= l1 && y >= 1 && y <= l2;
       if (interior) {
         const int ry = sread[y - 1];
         const bool is_special =
@@ -214,29 +178,16 @@ fill_kernel(const FillArgs a) {
         const float lge = ge * gm;
         const float x1 = go + lge;
         float mm = p2[x - 1] + ms;
-        if (kLocal) mm = fmaxf(fmaxf(0.0f, mm), ms);
+        mm = fmaxf(fmaxf(0.0f, mm), ms);
         uint8_t m_dir, d_dir, i_dir;
-        if (kTieLast) {
-          // inversion-aware fill: keep-last ties, each plane with its own
-          // candidate order; the m plane is floored at MAX_NEG
-          mm = fmaxf(mm, kMaxNegScore);
-          m_out = max_last(mm, p2[n1 + x - 1] + ms, p2[2 * n1 + x - 1] + ms,
-                           kDiag, kUp, kLeft, &m_dir);
-          p1_out = max_last(p1[n1 + x - 1] + lge, p1[2 * n1 + x - 1] + x1,
-                            p1[x - 1] + x1, kUp, kLeft, kDiag, &d_dir);
-          p2_out = max_last(p1[n1 + x] + x1, p1[2 * n1 + x] + lge,
-                            p1[x] + x1, kUp, kLeft, kDiag, &i_dir);
-        } else {
-          // local gap planes extend with the unscaled ge but open with
-          // x1, which keeps the terminal-gap multiplier
-          const float ext = kLocal ? ge : lge;
-          m_out = three_way(p2[n1 + x - 1] + ms, p2[2 * n1 + x - 1] + ms, mm,
-                            &m_dir);
-          p1_out = three_way(p1[n1 + x - 1] + ext, p1[2 * n1 + x - 1] + x1,
-                             p1[x - 1] + x1, &d_dir);
-          p2_out = three_way(p1[n1 + x] + x1, p1[2 * n1 + x] + ext,
-                             p1[x] + x1, &i_dir);
-        }
+        // the gap planes extend with the unscaled ge but open with x1,
+        // which keeps the terminal-gap multiplier
+        m_out = three_way(p2[n1 + x - 1] + ms, p2[2 * n1 + x - 1] + ms, mm,
+                          &m_dir);
+        p1_out = three_way(p1[n1 + x - 1] + ge, p1[2 * n1 + x - 1] + x1,
+                           p1[x - 1] + x1, &d_dir);
+        p2_out = three_way(p1[n1 + x] + x1, p1[2 * n1 + x] + ge,
+                           p1[x] + x1, &i_dir);
         byte = static_cast<uint8_t>(m_dir | (d_dir << 2) | (i_dir << 4));
       } else if (x == 0 && y == 0) {
         m_out = 0.0f;
@@ -255,25 +206,19 @@ fill_kernel(const FillArgs a) {
       cur[2 * n1 + x] = p2_out;
       const size_t at = static_cast<size_t>(d) * n1 + x;
       tbb[at] = byte;
-      if (kLocal) {
-        zfb[at] = static_cast<uint8_t>((m_out == 0.0f) |
-                                       ((p1_out == 0.0f) << 1) |
-                                       ((p2_out == 0.0f) << 2));
-        if (x <= l1 && y >= 0 && y <= l2) {
-          const float v = fmaxf(m_out, fmaxf(p1_out, p2_out));
-          if (v > bv) {
-            bv = v;
-            bd = d;
-            bx = x;
-            bc0 = m_out;
-            bc1 = p1_out;
-            bc2 = p2_out;
-          }
+      zfb[at] = static_cast<uint8_t>((m_out == 0.0f) |
+                                     ((p1_out == 0.0f) << 1) |
+                                     ((p2_out == 0.0f) << 2));
+      if (x <= l1 && y >= 0 && y <= l2) {
+        const float v = fmaxf(m_out, fmaxf(p1_out, p2_out));
+        if (v > bv) {
+          bv = v;
+          bd = d;
+          bx = x;
+          bc0 = m_out;
+          bc1 = p1_out;
+          bc2 = p2_out;
         }
-      } else if (d == dend && x == l1) {
-        a.corner[3 * b + 0] = m_out;
-        a.corner[3 * b + 1] = p1_out;
-        a.corner[3 * b + 2] = p2_out;
       }
     };
 
@@ -295,10 +240,10 @@ fill_kernel(const FillArgs a) {
   for (size_t i = static_cast<size_t>(dend + 1) * n1 + tid; i < plane;
        i += nt) {
     tbb[i] = kTbFresh;
-    if (kLocal) zfb[i] = kZeroAll;
+    zfb[i] = kZeroAll;
   }
 
-  if constexpr (kLocal) {
+  {
     // the CTA's argmax: warp shuffles, then thread 0 over the warps
     __shared__ float s_v[32], s_c[32][3];
     __shared__ int s_d[32], s_x[32];
@@ -332,10 +277,10 @@ fill_kernel(const FillArgs a) {
       int w = 0;
       for (int i = 1; i < nt / 32; ++i)
         if (better(s_v[i], s_d[i], s_x[i], s_v[w], s_d[w], s_x[w])) w = i;
-      a.corner[4 * b + 0] = s_v[w];
-      a.corner[4 * b + 1] = s_c[w][0];
-      a.corner[4 * b + 2] = s_c[w][1];
-      a.corner[4 * b + 3] = s_c[w][2];
+      a.best[4 * b + 0] = s_v[w];
+      a.best[4 * b + 1] = s_c[w][0];
+      a.best[4 * b + 2] = s_c[w][1];
+      a.best[4 * b + 3] = s_c[w][2];
       a.best_xd[2 * b + 0] = s_x[w];
       a.best_xd[2 * b + 1] = s_d[w];
     }
@@ -345,19 +290,15 @@ fill_kernel(const FillArgs a) {
 // Launch one fill CTA per alignment on `stream`; returns the CUDA error of
 // the launch (0 on success). The caller passes a.ring when
 // fill_ring_bytes(n1, n2) is not 0.
-template <bool kLocal, bool kTieLast>
-int launch_fill(const FillArgs& a, int B, void* stream) {
+inline int launch_fill(const FillArgs& a, int B, void* stream) {
   if (B <= 0 || a.n1 < 1 || a.n2 < 1) return cudaErrorInvalidValue;
   const bool reg_rows = fill_ring_bytes(a.n1, a.n2) == 0;
   if (!reg_rows && a.ring == nullptr) return cudaErrorInvalidValue;
-  if ((a.centers == nullptr) != (a.bandwidth == nullptr))
-    return cudaErrorInvalidValue;
   const int smem = fill_smem_bytes(a.n1, a.n2);
   if (smem > kFillSmemLimit) return cudaErrorInvalidValue;
   int threads = ((a.n1 + 31) / 32) * 32;
   if (threads > kMaxFillThreads) threads = kMaxFillThreads;
-  void (*kern)(FillArgs) = reg_rows ? fill_kernel<kLocal, kTieLast, true>
-                                    : fill_kernel<kLocal, kTieLast, false>;
+  void (*kern)(FillArgs) = reg_rows ? fill_kernel<true> : fill_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -5,13 +5,29 @@
 // (max(0, diag + ms, ms)), the gap planes extended with the unscaled gap
 // extension, the per-plane zero flags of every cell's output value and the
 // running 3D argmax. The kernel and its design are in dp_fill.cuh; this
-// file instantiates it with kLocal.
+// file launches it.
 
 #include "dp_fill.cuh"
 
+// Bytes of ring one CTA keeps in global memory: 0 when the ring fits in
+// shared memory, else 36 * n1 (the caller allocates B times that).
+extern "C" int clique_dp_fill_ring_bytes(int n1, int n2) {
+  return clique_dp::fill_ring_bytes(n1, n2);
+}
+
+// Dynamic shared memory one fill CTA needs (the ring when it is there, and
+// the read bytes).
+extern "C" int clique_dp_fill_smem_bytes(int n1, int n2) {
+  return clique_dp::fill_smem_bytes(n1, n2);
+}
+
 // Launch the local fill on `stream`: the full band, tie order
-// up > left > diag. Inputs as clique_dp_fill without the band and the tie
-// order. Outputs tb and zflags [B, n1 + n2 - 1, n1] u8 (bit z of a
+// up > left > diag. refs [R, ref_stride] u8 with R == 1 (uniform reference,
+// ref_stride passed as 0) or R == B; reads [B, read_stride] u8; lens [B]
+// i32; params [6] f32 (match, mismatch, special, gap_open, gap_extend,
+// final_gap_multiplier); ring [B, 9 * n1] f32 when
+// clique_dp_fill_ring_bytes is not 0, else null; special: 0 none,
+// 1 ref_n_only, 2 both. Outputs tb and zflags [B, n1 + n2 - 1, n1] u8 (bit z of a
 // zero-flag byte set where plane z holds 0.0), best [B, 4] f32 (the argmax
 // value, then the M/D/I values at the argmax cell) and best_xd [B, 2] i32
 // (its x and its diagonal). Returns the CUDA error of the launch (0 on
@@ -35,11 +51,11 @@ extern "C" int clique_dp_fill_local(const void* refs, int ref_stride,
   a.params = static_cast<const float*>(params);
   a.tb = static_cast<uint8_t*>(tb);
   a.zflags = static_cast<uint8_t*>(zflags);
-  a.corner = static_cast<float*>(best);
+  a.best = static_cast<float*>(best);
   a.best_xd = static_cast<int*>(best_xd);
   a.ring = static_cast<float*>(ring);
   a.n1 = n1;
   a.n2 = n2;
   a.special = special;
-  return launch_fill<true, false>(a, B, stream);
+  return launch_fill(a, B, stream);
 }

@@ -76,7 +76,7 @@ def main():
 
     card = cs.phase_card()
     with tempfile.TemporaryDirectory() as wd:
-        text, fq, head = cs._bench_dataset(wd, args.reads)
+        text, fq, head, _cells = cs._bench_dataset(wd, args.reads)
         layout, rm = cs._layout_from_text(text, wd)
         kw = dict(batch_size=cs.BENCH_BATCH, device="cuda")
         align_reads(layout, rm, os.path.join(wd, "warm.bam"), read1=head,

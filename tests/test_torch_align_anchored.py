@@ -1,9 +1,10 @@
 """The port's anchored (seed-and-extend) path and banded `align_reads` on
 the CPU, held against the host golden model and the JAX package.
 
-The shared jax-free AnchoredBatchAligner wraps the port's BatchAligner as
-its inner aligner, as clique_tpu/align/pipeline.py:938-944 wraps the JAX
-one. Every DP decision is exact, so aligned strings, CIGARs, scores and
+The port's AnchoredBatchAligner (a copy of the JAX package's) wraps the
+port's BatchAligner as its inner aligner, as
+clique_tpu/align/pipeline.py:938-944 wraps the JAX one; the host golden
+model is the JAX package's align_string_with_anchors. Every DP decision is exact, so aligned strings, CIGARs, scores and
 inflated BAM payloads must be identical.
 """
 
@@ -13,23 +14,28 @@ import gzip
 import numpy as np
 import pytest
 
-from clique_tpu.align.anchored import (AnchoredBatchAligner,
-                                       align_string_with_anchors)
+from clique_tpu.align.anchored import align_string_with_anchors
 from clique_tpu.align.pipeline import align_reads as jax_align_reads
-from clique_tpu.align.scoring import AffineScoring
+from clique_tpu.align.scoring import AffineScoring as JaxAffineScoring
 from clique_tpu.collapse.pipeline import collapse as jax_collapse
-from clique_tpu.config.layout import SequenceLayout
-from clique_tpu.io.sam import BamReader
-from clique_tpu.reference.manager import (ReferenceManager, SeedIndex,
+from clique_tpu.reference.manager import (SeedIndex,
                                           find_greedy_non_overlapping_segments)
 from clique_tpu_torch.align import dp_kernels
+from clique_tpu_torch.align.anchored import AnchoredBatchAligner
 from clique_tpu_torch.align.pipeline import BatchAligner, align_reads
+from clique_tpu_torch.align.scoring import AffineScoring
 from clique_tpu_torch.chain import run_chain
+from clique_tpu_torch.io.sam import BamReader
+from clique_tpu_torch.reference.manager import (
+    find_greedy_non_overlapping_segments as port_segments)
+from clique_tpu_torch.reference.manager import SeedIndex as PortSeedIndex
 from test_torch_align_pipeline import (_bench_shaped, _golden_inputs,
-                                       _inflate_bgzf, _load_make_golden)
+                                       _inflate_bgzf, _load_make_golden,
+                                       load_jax_layout, load_layout)
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 SCORING = AffineScoring.aligner_default()
+JAX_SCORING = JaxAffineScoring.aligner_default()
 
 
 def _mutate(rng, seq, subs, indels, margin=100):
@@ -49,7 +55,7 @@ def _golden(read, ref, name="read", index=None):
     segs = find_greedy_non_overlapping_segments(
         read, ref, index if index is not None else SeedIndex(ref, 12))
     return align_string_with_anchors(name, "ref", read, ref, segs, None,
-                                     SCORING)
+                                     JAX_SCORING)
 
 
 def test_anchored_batch_with_port_inner_matches_host_golden():
@@ -67,8 +73,8 @@ def test_anchored_batch_with_port_inner_matches_host_golden():
     inner = BatchAligner(SCORING, batch_size=64, device="cpu")
     aligner = AnchoredBatchAligner(inner, SCORING, seed_size=12)
     out = aligner.align_pairs([p[0] for p in pairs], [p[1] for p in pairs])
-    assert not find_greedy_non_overlapping_segments(
-        b"A" * 200, ref, SeedIndex(ref, 12)).alignment_segments
+    assert not port_segments(
+        b"A" * 200, ref, PortSeedIndex(ref, 12)).alignment_segments
     for (ref, read), (a1, a2, cigar, score) in zip(pairs, out):
         golden = _golden(read, ref)
         assert (a1, a2, cigar, score) == (golden.reference_aligned,
@@ -90,8 +96,7 @@ references:
   longamp:
     sequence: "{ref}"
 """)
-    layout = SequenceLayout.from_yaml(str(layout_path))
-    return ref, layout, ReferenceManager.from_layout(layout)
+    return (ref, *load_layout(layout_path))
 
 
 def test_align_reads_long_reads_match_jax(tmp_path):
@@ -113,8 +118,9 @@ def test_align_reads_long_reads_match_jax(tmp_path):
     stats_t = align_reads(layout, rm, out_t, read1=str(fq), batch_size=8,
                           anchored_min_length=1024, device="cpu",
                           metrics_path=str(metrics))
-    stats_j = jax_align_reads(layout, rm, out_j, read1=str(fq), batch_size=8,
-                              anchored_min_length=1024)
+    j_layout, j_rm = load_jax_layout(tmp_path / "layout.yaml")
+    stats_j = jax_align_reads(j_layout, j_rm, out_j, read1=str(fq),
+                              batch_size=8, anchored_min_length=1024)
     assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
     assert stats_t.aligned == 4
     assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
@@ -123,7 +129,7 @@ def test_align_reads_long_reads_match_jax(tmp_path):
     assert [r.name for r in records] == ["long1", "long0", "long2", "long3"]
     for rec in records[1:]:
         golden = _golden(reads[int(rec.name[4:])], ref.encode(), rec.name,
-                         rm.references[0].index)
+                         j_rm.references[0].index)
         assert rec.seq == golden.read_aligned.replace(b"-", b"")
         assert rec.cigar_string == "".join(f"{c}{op}"
                                            for c, op in golden.cigar)
@@ -142,9 +148,10 @@ def test_fused_chain_with_anchored_reads_matches_jax(tmp_path):
     _gd, layout, rm, r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
                                               tmp_path)
     a_j, c_j = str(tmp_path / "aj.bam"), str(tmp_path / "cj.bam")
-    jax_align_reads(layout, rm, a_j, read1=r1, batch_size=16,
+    j_layout, j_rm = load_jax_layout(tmp_path / "layout.yaml")
+    jax_align_reads(j_layout, j_rm, a_j, read1=r1, batch_size=16,
                     anchored_min_length=100)
-    s_j = jax_collapse(c_j, layout, a_j)
+    s_j = jax_collapse(c_j, j_layout, a_j)
     a_f, c_f = str(tmp_path / "af.bam"), str(tmp_path / "cf.bam")
     stats, s_f = run_chain(layout, rm, a_f, c_f, read1=r1, batch_size=16,
                            device="cpu", anchored_min_length=100)
@@ -166,7 +173,8 @@ def test_align_reads_banded_matches_jax(tmp_path, bandwidth):
     fills = dict(dp_kernels.fill_mode_launches)
     stats_t = align_reads(layout, rm, out_t, read1=fq, batch_size=32,
                           bandwidth=bandwidth, device="cpu")
-    stats_j = jax_align_reads(layout, rm, out_j, read1=fq, batch_size=32,
+    stats_j = jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"),
+                              out_j, read1=fq, batch_size=32,
                               bandwidth=bandwidth)
     assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
     assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
@@ -187,7 +195,8 @@ def test_batch_aligner_splits_groups_by_traceback_memory(monkeypatch):
     reads = [_mutate(rng, r, 3, 1, margin=10) for r in refs]
     whole = BatchAligner(SCORING, batch_size=16, device="cpu")
     want = whole.align_pairs(refs, reads)
-    monkeypatch.setattr(tbatch, "MAX_TRACEBACK_BYTES", 2 * 255 * 128)
+    monkeypatch.setattr(tbatch, "MAX_TRACEBACK_BYTES",
+                        2 * tbatch.traceback_bytes(128, 128))
     split = BatchAligner(SCORING, batch_size=16, device="cpu")
     assert split.align_pairs(refs, reads) == want
     assert (whole.dispatches, split.dispatches) == (1, 3)

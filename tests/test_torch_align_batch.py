@@ -12,19 +12,25 @@ import pytest
 import torch
 
 from clique_tpu.align import batch as jbatch
-from clique_tpu.align.merge import MERGE_SCORING
+from clique_tpu.align.merge import MERGE_SCORING as JAX_MERGE_SCORING
 from clique_tpu.align.pallas_kernel import pallas_fill, unpack_words
-from clique_tpu.align.pipeline import RUST_BIO_COMPAT
-from clique_tpu.align.scoring import AffineScoring
+from clique_tpu.align.pipeline import RUST_BIO_COMPAT as JAX_RUST_BIO_COMPAT
+from clique_tpu.align.scoring import AffineScoring as JaxAffineScoring
 from clique_tpu_torch.align import batch as tbatch
 from clique_tpu_torch.align import dp_kernels
+from clique_tpu_torch.align.merge import MERGE_SCORING
+from clique_tpu_torch.align.pipeline import RUST_BIO_COMPAT
+from clique_tpu_torch.align.scoring import AffineScoring
 
 B, N1, N2 = 8, 128, 128
+# each side's own scoring objects, by name
 SCORINGS = {
-    "rust_bio_compat": RUST_BIO_COMPAT,
-    "merge": MERGE_SCORING,
-    "aligner_default": AffineScoring.aligner_default(),
-    "default_dna": AffineScoring.default_dna(),
+    "rust_bio_compat": (JAX_RUST_BIO_COMPAT, RUST_BIO_COMPAT),
+    "merge": (JAX_MERGE_SCORING, MERGE_SCORING),
+    "aligner_default": (JaxAffineScoring.aligner_default(),
+                        AffineScoring.aligner_default()),
+    "default_dna": (JaxAffineScoring.default_dna(),
+                    AffineScoring.default_dna()),
 }
 # bases, N and digit bytes (< 58): both special-byte rules get exercised
 ALPHABET = np.frombuffer(b"ACGTACGTACGTN0129", dtype=np.uint8)
@@ -80,7 +86,7 @@ def test_fill_walk_match_align_batch_device(special_mode, scoring, uniform):
     seed = 100 + 10 * list(SCORINGS).index(scoring) + int(uniform)
     refs, reads, ref_lens, read_lens = _inputs(seed, uniform)
     jparams, jres, jtb, jfused = _jax_run(refs, reads, ref_lens, read_lens,
-                                          SCORINGS[scoring], special_mode)
+                                          SCORINGS[scoring][0], special_mode)
     params = tbatch.params_from_jax(np.asarray(jparams), "cpu")
     tb, corner, res, fused = _torch_run(refs, reads, ref_lens, read_lens,
                                         params, special_mode)
@@ -96,15 +102,17 @@ def test_fill_walk_match_align_batch_device(special_mode, scoring, uniform):
         np.testing.assert_array_equal(got, want, err_msg=field)
     np.testing.assert_array_equal(fused.numpy(), jfused)
 
-    # the wrappers take the plain versions for CPU tensors: same bytes,
-    # and no kernel launch is counted
-    before = (dp_kernels.fill_launches, dp_kernels.walk_launches)
+    # the wrapper takes the plain versions for CPU tensors: same bytes, the
+    # traceback in the kernel's strip layout, and no kernel launch counted
+    before = dp_kernels.align_launches
     t = [torch.from_numpy(a) for a in (refs, reads, ref_lens, read_lens)]
     fused_w, tb_w = tbatch.align_batch(*t, params, n1=N1, n2=N2,
                                        special_mode=special_mode,
                                        return_traceback=True)
-    assert torch.equal(fused_w, fused) and torch.equal(tb_w, tb)
-    assert (dp_kernels.fill_launches, dp_kernels.walk_launches) == before
+    assert torch.equal(fused_w, fused)
+    assert torch.equal(tbatch.wavefront_to_tb(tb_w, t[2], t[3], n1=N1, n2=N2),
+                       tb)
+    assert dp_kernels.align_launches == before
 
 
 @pytest.mark.parametrize("special_mode", ["both", "ref_n_only"])
@@ -112,15 +120,14 @@ def test_fill_matches_pallas_interpret(special_mode):
     """Mirror of tests/test_pallas_kernel.py: the port's traceback and
     corner equal the Pallas kernel run in interpret mode."""
     refs, reads, ref_lens, read_lens = _inputs(7, uniform=False)
-    scoring = AffineScoring.aligner_default()
-    jparams = jbatch.scoring_to_params(scoring)
+    jparams = jbatch.scoring_to_params(JaxAffineScoring.aligner_default())
     refs_p = np.zeros((B, N1), np.uint8)      # pre-shifted: ref[x - 1]
     refs_p[:, 1:] = refs
     words, jcorner = pallas_fill(refs_p, reads, ref_lens, read_lens, jparams,
                                  n1=N1, n2=N2, special_mode=special_mode,
                                  packed=True, interpret=True)
     jtb = np.asarray(unpack_words(words, N1 + N2 - 1))
-    params = tbatch.scoring_to_params(scoring, "cpu")
+    params = tbatch.scoring_to_params(AffineScoring.aligner_default(), "cpu")
     tb, corner, _res, _fused = _torch_run(refs, reads, ref_lens, read_lens,
                                           params, special_mode)
     np.testing.assert_array_equal(tb.numpy(), jtb)
@@ -129,9 +136,9 @@ def test_fill_matches_pallas_interpret(special_mode):
 
 @pytest.mark.parametrize("scoring", list(SCORINGS))
 def test_params_from_jax_equals_scoring_to_params(scoring):
-    jparams = np.asarray(jbatch.scoring_to_params(SCORINGS[scoring]))
+    jparams = np.asarray(jbatch.scoring_to_params(SCORINGS[scoring][0]))
     got = tbatch.params_from_jax(jparams, "cpu")
-    want = tbatch.scoring_to_params(SCORINGS[scoring], "cpu")
+    want = tbatch.scoring_to_params(SCORINGS[scoring][1], "cpu")
     assert got.dtype == want.dtype == torch.float32
     assert torch.equal(got, want)
 
@@ -227,22 +234,57 @@ def test_dp_fill_rejects_bad_inputs(bad):
         ref_lens = ref_lens.clone()
         ref_lens[0] = N1
     with pytest.raises((TypeError, ValueError)):
-        dp_kernels.dp_fill(refs, reads, ref_lens, read_lens, params, **kw)
+        dp_kernels.dp_align(refs, reads, ref_lens, read_lens, params, **kw)
 
 
-def test_dp_walk_rejects_bad_inputs():
+@pytest.mark.parametrize("n1,n2", [(2, 2), (13, 5), (14, 40), (128, 128),
+                                   (400, 9), (800, 30)])
+def test_traceback_wavefront_layout(n1, n2):
+    """The kernel's traceback layout: its size (the traceback-memory caps
+    use it) stays under the old [D, n1] layout for square buckets, every
+    interior cell has a byte of its own, and every interior cell of
+    fill_reference's traceback, and nothing else, survives
+    tb_to_wavefront -> wavefront_to_tb."""
+    size = tbatch.traceback_bytes(n1, n2)
+    S = -(-(n1 - 1) // 12)
+    assert size % 16 == 0 and size >= S * 12 * (n2 - 1)
+    if n1 == n2 and n1 > 100:
+        assert size < (n1 + n2 - 1) * n1
+    rng = np.random.default_rng(n1 * 1000 + n2)
+    refs = rng.choice(ALPHABET, (3, n1 - 1)).astype(np.uint8)
+    reads = rng.choice(ALPHABET, (3, n2 - 1)).astype(np.uint8)
+    t = [torch.from_numpy(a) for a in (
+        refs, reads, np.array([n1 - 1, 0, (n1 - 1) // 2], np.int32),
+        np.array([n2 - 1, n2 - 1, 0], np.int32))]
+    _b, _x, _y, off = tbatch._wavefront_index(t[2][:1], t[3][:1], n1, n2)
+    assert len(set(off.tolist())) == (n1 - 1) * (n2 - 1)
+    assert not len(off) or int(off.max()) < size
+    params = tbatch.scoring_to_params(RUST_BIO_COMPAT, "cpu")
+    tb, _corner = tbatch.fill_reference(*t, params, n1=n1, n2=n2,
+                                        special_mode="both")
+    wave = tbatch.tb_to_wavefront(tb, t[2], t[3], n1=n1, n2=n2)
+    assert tuple(wave.shape) == (3, size)
+    assert int(wave[1].count_nonzero()) == int(wave[2].count_nonzero()) == 0
+    assert torch.equal(tbatch.wavefront_to_tb(wave, t[2], t[3], n1=n1,
+                                              n2=n2), tb)
+
+
+def test_wavefront_to_tb_rejects_bad_shapes():
     (refs, reads, ref_lens, read_lens), params = _wrapper_args()
-    tb, corner = dp_kernels.dp_fill(refs, reads, ref_lens, read_lens, params,
-                                    n1=N1, n2=N2, special_mode="both")
+    _fused, wave = dp_kernels.dp_align(refs, reads, ref_lens, read_lens,
+                                       params, n1=N1, n2=N2,
+                                       special_mode="both",
+                                       return_traceback=True)
     with pytest.raises(ValueError):
-        dp_kernels.dp_walk(tb[:, :-1].contiguous(), corner, ref_lens,
-                           read_lens, n1=N1, n2=N2)
-    with pytest.raises(TypeError):
-        dp_kernels.dp_walk(tb, corner.double(), ref_lens, read_lens, n1=N1,
-                           n2=N2)
+        tbatch.wavefront_to_tb(wave[:, :-16], ref_lens, read_lens, n1=N1,
+                               n2=N2)
     with pytest.raises(ValueError):
-        dp_kernels.dp_walk(tb, corner, ref_lens[:-1].contiguous(),
-                           read_lens, n1=N1, n2=N2)
+        tbatch.wavefront_to_tb(wave, ref_lens, read_lens, n1=N1 + 12, n2=N2)
+    # a marked row (lengths outside the bucket) lays out fresh throughout
+    bad = ref_lens.clone()
+    bad[0] = N1
+    tb = tbatch.wavefront_to_tb(wave, bad, read_lens, n1=N1, n2=N2)
+    assert bool((tb[0] == tbatch._TB_FRESH).all())
 
 
 def test_marked_rows_raise_when_read_back():

@@ -8,6 +8,8 @@ clique_tpu/align/batch.py:18-21), so the tolerance is exact equality of
 every traceback byte, score, plane, op and coordinate.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,9 @@ from clique_tpu.align.pipeline import RUST_BIO_COMPAT
 from clique_tpu.align.scoring import AffineScoring, InversionScoring
 from clique_tpu_torch.align import batch as tbatch
 from clique_tpu_torch.align import dp_kernels
+from clique_tpu_torch.align import scoring as tscoring
+from clique_tpu_torch.align.pipeline import \
+    RUST_BIO_COMPAT as PORT_RUST_BIO_COMPAT
 
 B, N1, N2 = 8, 64, 72
 SCORINGS = {
@@ -30,6 +35,15 @@ SCORINGS = {
 ALPHABET = np.frombuffer(b"ACGTACGTACGTN0129", dtype=np.uint8)
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 INV = InversionScoring(10.0, -11.0, -15.0, -5.0, -2.0, 8)
+PORT_INV = tscoring.InversionScoring(10.0, -11.0, -15.0, -5.0, -2.0, 8)
+
+
+def _port_scoring(sc):
+    """The port's AffineScoring with the values of the JAX one `sc`: each
+    side calls its own package with its own objects."""
+    return tscoring.AffineScoring(
+        sc.match_score, sc.mismatch_score, sc.special_character_score,
+        sc.gap_open, sc.gap_extend, sc.final_gap_multiplier)
 
 
 def _inputs(seed, uniform=False, alphabet=ALPHABET):
@@ -125,12 +139,15 @@ def test_global_modes_match_align_batch_device(mode, scoring, uniform):
     _same_fields(res, jres, GLOBAL_FIELDS)
     np.testing.assert_array_equal(fused.numpy(), jfused)
 
-    # the wrapper takes the plain versions for CPU tensors, counting nothing
-    before = (dp_kernels.fill_launches, dict(dp_kernels.fill_mode_launches))
+    # the wrapper takes the plain versions for CPU tensors, counting
+    # nothing; its traceback comes in the kernel's strip layout
+    before = (dp_kernels.align_launches, dict(dp_kernels.fill_mode_launches))
     fused_w, tb_w = tbatch.align_batch(*t, params, n1=N1, n2=N2,
                                        return_traceback=True, **kw, **band)
-    assert torch.equal(fused_w, fused) and torch.equal(tb_w, tb)
-    assert (dp_kernels.fill_launches,
+    assert torch.equal(fused_w, fused)
+    assert torch.equal(tbatch.wavefront_to_tb(tb_w, t[2], t[3], n1=N1, n2=N2),
+                       tb)
+    assert (dp_kernels.align_launches,
             dp_kernels.fill_mode_launches) == before
 
 
@@ -198,7 +215,8 @@ def _local_pairs(pairs, scoring):
     n1, n2 = refs_arr.shape[1] + 1, reads_arr.shape[1] + 1
     t = _t(refs_arr, reads_arr, ref_lens, read_lens)
     out = tbatch.fill_local_reference(
-        *t, tbatch.scoring_to_params(scoring, "cpu"), n1=n1, n2=n2)
+        *t, tbatch.scoring_to_params(_port_scoring(scoring), "cpu"), n1=n1,
+        n2=n2)
     return tbatch.walk_local_reference(*out, n1=n1, n2=n2)[0]
 
 
@@ -278,7 +296,7 @@ def test_banded_matches_host_affine_align(case):
     bw = np.full(len(pairs), width, np.int32)
     centers = tbatch.band_centers_f64(ref_lens, read_lens, n1)
     t = _t(refs_arr, reads_arr, ref_lens, read_lens, bw, centers)
-    params = tbatch.scoring_to_params(scoring, "cpu")
+    params = tbatch.scoring_to_params(_port_scoring(scoring), "cpu")
     fused, _tb = tbatch.align_batch(*t[:4], params, n1=n1, n2=n2,
                                     special_mode="both", bandwidth=t[4],
                                     band_centers=t[5])
@@ -323,11 +341,11 @@ def test_inversion_batch_matches_jax():
     names = [f"r{i}" for i in range(len(reads))]
 
     want = jax_inversion_batch(ref, reads, "ref", names, INV, aff)
-    got = inversion_alignment_batch(ref, reads, "ref", names, INV, aff,
-                                    device="cpu")
+    got = inversion_alignment_batch(ref, reads, "ref", names, PORT_INV,
+                                    _port_scoring(aff), device="cpu")
     assert len(got) == len(want) == len(reads)
     for i, (g, w) in enumerate(zip(got, want)):
-        assert g == w, i
+        assert dataclasses.asdict(g) == dataclasses.asdict(w), i
     ops = [op for _c, op in got[14].cigar]
     assert "<" in ops and ">" in ops
 
@@ -341,7 +359,7 @@ def test_inversion_batch_splits_by_memory(monkeypatch):
     ref = rng.choice(BASES, 40).tobytes()
     reads = [_mutate(ref, rng) for _ in range(6)]
     names = [f"q{i}" for i in range(6)]
-    aff = AffineScoring(10.0, -11.0, 8.0, -15.0, -5.0, 1.0)
+    aff = tscoring.AffineScoring(10.0, -11.0, 8.0, -15.0, -5.0, 1.0)
     calls = []
 
     def counted(fn):
@@ -353,12 +371,12 @@ def test_inversion_batch_splits_by_memory(monkeypatch):
     for name in ("align_batch", "align_batch_local"):
         monkeypatch.setattr(tbatch, name, counted(getattr(tbatch, name)))
     whole = inversion.inversion_alignment_batch(ref, reads, "ref", names,
-                                                INV, aff, device="cpu")
+                                                PORT_INV, aff, device="cpu")
     n_whole = len(calls)
     # room for about two screen alignments (n1 = 41, n2 <= 47) a launch
     monkeypatch.setattr(tbatch, "MAX_TRACEBACK_BYTES", 2 * 2 * 90 * 41)
     split = inversion.inversion_alignment_batch(
-        ref, reads, "ref", names, INV, aff, device="cpu")
+        ref, reads, "ref", names, PORT_INV, aff, device="cpu")
     assert split == whole
     assert len(calls) - n_whole > n_whole
 
@@ -381,9 +399,9 @@ def test_mode_arguments_are_checked(bad):
         kw.update(bandwidth=bw_t, band_centers=c_t[:, :-1].contiguous())
     else:
         kw.update(bandwidth=bw_t, band_centers=c_t.to(torch.int64))
-    params = tbatch.scoring_to_params(RUST_BIO_COMPAT, "cpu")
+    params = tbatch.scoring_to_params(PORT_RUST_BIO_COMPAT, "cpu")
     with pytest.raises((TypeError, ValueError)):
-        dp_kernels.dp_fill(*t, params, **kw)
+        dp_kernels.dp_align(*t, params, **kw)
     if bad == "special_mode":
         # the local fill takes no band and no tie order
         with pytest.raises(ValueError):
@@ -393,7 +411,7 @@ def test_mode_arguments_are_checked(bad):
 def test_walk_local_rejects_bad_inputs():
     refs, reads, ref_lens, read_lens = _inputs(4)
     t = _t(refs, reads, ref_lens, read_lens)
-    params = tbatch.scoring_to_params(RUST_BIO_COMPAT, "cpu")
+    params = tbatch.scoring_to_params(PORT_RUST_BIO_COMPAT, "cpu")
     tb, zflags, best, best_xd = dp_kernels.dp_fill_local(*t, params, n1=N1,
                                                          n2=N2)
     with pytest.raises(ValueError):

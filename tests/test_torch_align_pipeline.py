@@ -15,10 +15,12 @@ import numpy as np
 import pytest
 
 from clique_tpu.align.pipeline import align_reads as jax_align_reads
-from clique_tpu.config.layout import SequenceLayout
-from clique_tpu.reference.manager import ReferenceManager
+from clique_tpu.config.layout import SequenceLayout as JaxSequenceLayout
+from clique_tpu.reference.manager import ReferenceManager as JaxReferenceManager
 from clique_tpu_torch import cli
 from clique_tpu_torch.align.pipeline import align_reads
+from clique_tpu_torch.config.layout import SequenceLayout
+from clique_tpu_torch.reference.manager import ReferenceManager
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = {
@@ -55,9 +57,26 @@ def _inflate_bgzf(path):
     return b"".join(out)
 
 
+def load_layout(path):
+    """The port's (layout, ReferenceManager) from a layout YAML."""
+    layout = SequenceLayout.from_yaml(str(path))
+    return layout, ReferenceManager.from_layout(layout)
+
+
+def load_jax_layout(path):
+    """The JAX package's (layout, ReferenceManager) from the same YAML:
+    each side builds its inputs from its own package."""
+    layout = JaxSequenceLayout.from_yaml(str(path))
+    return layout, JaxReferenceManager.from_layout(layout)
+
+
 def _golden_inputs(mg, name, workdir):
+    """The golden dataset's directory, the port's layout and reference
+    manager (from workdir/layout.yaml, templated by make_golden) and the
+    FASTQ paths."""
     gd = os.path.join(ROOT, "tests", "data", name)
-    layout, rm = mg._load_layout(str(workdir), golden_dir=gd)
+    mg._load_layout(str(workdir), golden_dir=gd)
+    layout, rm = load_layout(os.path.join(str(workdir), "layout.yaml"))
     r1, r2 = GOLDEN[name]
     return (gd, layout, rm, os.path.join(gd, r1),
             os.path.join(gd, r2) if r2 else None)
@@ -167,8 +186,7 @@ references:
                 ins = rng.choice(bases, int(rng.integers(1, 5)))
                 seq = seq[:p] + ins.tobytes().decode() + seq[p:]
             fh.write(f"@s{i}\n{seq}\n+\n{'I' * len(seq)}\n")
-    layout = SequenceLayout.from_yaml(str(layout_path))
-    return layout, ReferenceManager.from_layout(layout), str(fq)
+    return (*load_layout(layout_path), str(fq))
 
 
 def test_bench_shaped_two_reference_matches_jax(tmp_path):
@@ -177,7 +195,8 @@ def test_bench_shaped_two_reference_matches_jax(tmp_path):
     out_j = str(tmp_path / "jax.bam")
     stats_t = align_reads(layout, rm, out_t, read1=fq, batch_size=64,
                           device="cpu")
-    stats_j = jax_align_reads(layout, rm, out_j, read1=fq, batch_size=64)
+    stats_j = jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"),
+                              out_j, read1=fq, batch_size=64)
     assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
     assert stats_t.aligned > 0.9 * stats_t.total
     assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
@@ -213,7 +232,8 @@ def test_ported_options_match_jax(option, tmp_path):
     out_t, out_j = str(tmp_path / "t.bam"), str(tmp_path / "j.bam")
     stats_t = align_reads(layout, rm, out_t, read1=r1, batch_size=16,
                           device="cpu", **PORTED[option])
-    stats_j = jax_align_reads(layout, rm, out_j, read1=r1, batch_size=16,
+    stats_j = jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"),
+                              out_j, read1=r1, batch_size=16,
                               **PORTED[option])
     assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
     assert stats_t.aligned == stats_t.total > 0
@@ -249,7 +269,7 @@ def test_cli_bandwidth_matches_jax(tmp_path):
     """`--bandwidth` on the port's align: the BAM equals the JAX package's
     align_reads with the same band."""
     mg = _load_make_golden()
-    _gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    _gd, _layout, _rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
     out = tmp_path / "cli.bam"
     rc = cli.main(["align", "--read-structure", str(tmp_path / "layout.yaml"),
                    "--read1", r1, "--output-bam-file", str(out),
@@ -257,5 +277,6 @@ def test_cli_bandwidth_matches_jax(tmp_path):
                    "--bandwidth", "10"])
     assert rc == 0
     out_j = str(tmp_path / "j.bam")
-    jax_align_reads(layout, rm, out_j, read1=r1, batch_size=16, bandwidth=10)
+    jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"), out_j,
+                    read1=r1, batch_size=16, bandwidth=10)
     assert _inflate_bgzf(str(out)) == _inflate_bgzf(out_j)

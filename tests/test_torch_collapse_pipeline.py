@@ -13,18 +13,17 @@ import numpy as np
 import pytest
 
 from clique_tpu.align.pipeline import align_reads as jax_align_reads
-from clique_tpu.caller.events import call_events_from_bam
 from clique_tpu.collapse.pipeline import collapse as jax_collapse
-from clique_tpu.config.layout import SequenceLayout
-from clique_tpu.reference.manager import ReferenceManager
 from clique_tpu_torch import cli
 from clique_tpu_torch.align.pipeline import align_reads
+from clique_tpu_torch.caller.events import call_events_from_bam
 from clique_tpu_torch.chain import run_chain
 from clique_tpu_torch.collapse import pipeline as tpipeline
 from clique_tpu_torch.collapse.pipeline import collapse
 
 from test_torch_align_pipeline import (GOLDEN, _golden_inputs,
-                                       _inflate_bgzf, _load_make_golden)
+                                       _inflate_bgzf, _load_make_golden,
+                                       load_jax_layout, load_layout)
 
 
 def _stats(s):
@@ -34,7 +33,7 @@ def _stats(s):
 @pytest.fixture(scope="module")
 def golden_chains(tmp_path_factory):
     """Per golden dataset on the CPU: the two-stage chain (port align ->
-    port collapse -> shared call) and the fused run_chain."""
+    port collapse -> port call) and the fused run_chain."""
     mg = _load_make_golden()
     runs = {}
     for name in GOLDEN:
@@ -122,8 +121,8 @@ def test_out_of_core_matches_jax_out_of_core(name, tmp_path):
     out_t, out_j = str(tmp_path / "t.bam"), str(tmp_path / "j.bam")
     s_t = collapse(out_t, layout, aligned, temp_dir=str(tmp_path),
                    out_of_core=True, device="cpu")
-    s_j = jax_collapse(out_j, layout, aligned, temp_dir=str(tmp_path),
-                       out_of_core=True)
+    s_j = jax_collapse(out_j, load_jax_layout(tmp_path / "layout.yaml")[0],
+                       aligned, temp_dir=str(tmp_path), out_of_core=True)
     assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
     assert _stats(s_t) == _stats(s_j)
 
@@ -141,7 +140,8 @@ def test_maximum_subsequences_switches_to_out_of_core(tmp_path, monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     out_t, out_j = str(tmp_path / "t.bam"), str(tmp_path / "j.bam")
     collapse(out_t, layout, aligned, temp_dir=str(tmp_path), device="cpu")
-    jax_collapse(out_j, layout, aligned, temp_dir=str(tmp_path))
+    jax_collapse(out_j, load_jax_layout(tmp_path / "layout.yaml")[0],
+                 aligned, temp_dir=str(tmp_path))
     assert len(calls) == 3
     assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
 
@@ -186,9 +186,10 @@ def test_collapse_matches_jax_on_bench_shaped_reads(tmp_path):
     from test_torch_align_pipeline import _bench_shaped
 
     layout, rm, fq = _bench_shaped(tmp_path, n_reads=192)
+    j_layout, j_rm = load_jax_layout(tmp_path / "layout.yaml")
     a_j, c_j = str(tmp_path / "aj.bam"), str(tmp_path / "cj.bam")
-    jax_align_reads(layout, rm, a_j, read1=fq, batch_size=64)
-    s_j = jax_collapse(c_j, layout, a_j)
+    jax_align_reads(j_layout, j_rm, a_j, read1=fq, batch_size=64)
+    s_j = jax_collapse(c_j, j_layout, a_j)
     c_t = str(tmp_path / "ct.bam")
     s_t = collapse(c_t, layout, a_j, device="cpu")
     assert _inflate_bgzf(c_t) == _inflate_bgzf(c_j)
@@ -223,8 +224,7 @@ references:
       umi: {{symbol: '0', sort_type: "DegenerateTag", length: 12,
             order: 0, max_distance: 2}}
 """)
-    layout = SequenceLayout.from_yaml(str(layout_path))
-    rm = ReferenceManager.from_layout(layout)
+    layout, rm = load_layout(layout_path)
     umis = [rng.choice(bases, 12).tobytes().decode() for _ in range(4)]
     fq = tmp_path / "reads.fastq"
     with open(fq, "w") as fh:
@@ -249,7 +249,7 @@ references:
     assert _inflate_bgzf(c1) == _inflate_bgzf(c2)
     assert _stats(s1) == _stats(s2)
     c_j = str(tmp_path / "cj.bam")
-    jax_collapse(c_j, layout, a2)
+    jax_collapse(c_j, load_jax_layout(layout_path)[0], a2)
     assert _inflate_bgzf(c2) == _inflate_bgzf(c_j)
 
 

@@ -1,7 +1,9 @@
-"""The hand-written CUDA kernels (DP fill in every mode, local fill, both
-walks, tag match count and edit distance) against their plain PyTorch
-versions, on CUDA tensors, and the paths that run them (align_reads with a
-band and with long reads, the inversion batch) against the CPU.
+"""The hand-written CUDA kernels (the fused global fill + walk in every
+mode, the local fill and walk, tag match count and edit distance) against
+their plain PyTorch versions, on CUDA tensors, and the paths that run them
+(align_reads with a band and with long reads, the inversion batch) against
+the CPU. The fused kernel is held to walk_reference(fill_reference(...)):
+its fused rows, and its traceback laid out as fill_reference's.
 Needs an NVIDIA GPU with nvcc; run there with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -17,10 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from clique_tpu.align.scoring import AffineScoring
 from clique_tpu_torch.align import batch as tbatch
 from clique_tpu_torch.align import dp_kernels
 from clique_tpu_torch.align.pipeline import MERGE_SCORING, RUST_BIO_COMPAT
+from clique_tpu_torch.align.scoring import AffineScoring
 
 pytestmark = pytest.mark.cuda
 
@@ -53,32 +55,43 @@ def _inputs(seed, B, n1, n2, uniform):
     return refs, reads, ref_lens, read_lens
 
 
+def _check_align(args, params, n1, n2, **kw):
+    """One dp_align launch against the plain fill + walk: the fused rows,
+    and the kernel's traceback laid out as fill_reference's, byte for
+    byte. Returns the kernel's outputs."""
+    launches = dp_kernels.align_launches
+    fused_k, wave = dp_kernels.dp_align(*args, params, n1=n1, n2=n2,
+                                        return_traceback=True, **kw)
+    torch.cuda.synchronize()
+    assert dp_kernels.align_launches == launches + 1
+    tb_p, corner_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2, **kw)
+    _res, fused_p = tbatch.walk_reference(tb_p, corner_p, args[2], args[3],
+                                          n1=n1, n2=n2)
+    assert torch.equal(tbatch.wavefront_to_tb(wave, args[2], args[3], n1=n1,
+                                              n2=n2), tb_p)
+    assert torch.equal(fused_k, fused_p)
+    return fused_k, wave
+
+
 @pytest.mark.parametrize("uniform", [False, True], ids=["per_row", "uniform"])
 @pytest.mark.parametrize("shape", [(16, 128, 128), (12, 128, 384),
-                                   (8, 1536, 256), (4, 4096, 128)],
+                                   (8, 1536, 256), (4, 4096, 128),
+                                   (6, 128, 3968), (6, 3968, 128),
+                                   (1024, 384, 384)],
                          ids=str)
 @pytest.mark.parametrize("special_mode", ["both", "ref_n_only"])
 def test_kernels_match_plain(cuda, special_mode, shape, uniform):
+    """dp_align in the full band: ragged rows, one reference row or one a
+    read, row bands (n1 > 385), the anchored path's long, thin buckets and
+    the bench shape."""
     B, n1, n2 = shape
     host = _inputs(sum(shape) + int(uniform), B, n1, n2, uniform)
     args = [torch.from_numpy(a).to(cuda) for a in host]
     scoring = MERGE_SCORING if special_mode == "both" else RUST_BIO_COMPAT
     params = tbatch.scoring_to_params(scoring, cuda)
-    fills, walks = dp_kernels.fill_launches, dp_kernels.walk_launches
-    tb_k, corner_k = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2,
-                                        special_mode=special_mode)
-    fused_k = dp_kernels.dp_walk(tb_k, corner_k, args[2], args[3], n1=n1,
-                                 n2=n2)
-    torch.cuda.synchronize()
-    assert (dp_kernels.fill_launches, dp_kernels.walk_launches) == \
-        (fills + 1, walks + 1)
-    tb_p, corner_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2,
-                                           special_mode=special_mode)
-    _res, fused_p = tbatch.walk_reference(tb_p, corner_p, args[2], args[3],
-                                          n1=n1, n2=n2)
-    assert torch.equal(tb_k, tb_p)
-    assert torch.equal(corner_k, corner_p)
-    assert torch.equal(fused_k, fused_p)
+    bands = dp_kernels.fill_mode_launches["row_bands"]
+    _check_align(args, params, n1, n2, special_mode=special_mode)
+    assert dp_kernels.fill_mode_launches["row_bands"] - bands == int(n1 > 385)
 
 
 def _modes_inputs(seed, B, n1, n2, uniform):
@@ -111,10 +124,12 @@ FILL_MODES = {
 
 @pytest.mark.parametrize("uniform", [False, True], ids=["per_row", "uniform"])
 @pytest.mark.parametrize("shape", [(16, 128, 128), (12, 128, 384),
-                                   (6, 1536, 256)], ids=str)
+                                   (6, 1536, 256), (40, 1001, 1001)],
+                         ids=str)
 @pytest.mark.parametrize("mode", list(FILL_MODES))
 def test_fill_modes_match_plain(cuda, mode, shape, uniform):
-    """dp_fill's banded, keep-last and "none" modes, then dp_walk."""
+    """dp_align's banded, keep-last and "none" modes (the inversion path's
+    keep-last shape, n1 = n2 = 1001, among them), with zero-length rows."""
     B, n1, n2 = shape
     kw = dict(FILL_MODES[mode])
     width = kw.pop("width", None)
@@ -124,18 +139,12 @@ def test_fill_modes_match_plain(cuda, mode, shape, uniform):
         kw.update(_band_args(host[2], host[3], n1, width, cuda))
     params = tbatch.scoring_to_params(MERGE_SCORING, cuda)
     modes = dict(dp_kernels.fill_mode_launches)
-    tb_k, corner_k = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2, **kw)
-    fused_k = dp_kernels.dp_walk(tb_k, corner_k, args[2], args[3], n1=n1,
-                                 n2=n2)
-    torch.cuda.synchronize()
-    assert (dp_kernels.fill_mode_launches["banded"] - modes["banded"]
-            == int(width is not None))
-    tb_p, corner_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2, **kw)
-    _res, fused_p = tbatch.walk_reference(tb_p, corner_p, args[2], args[3],
-                                          n1=n1, n2=n2)
-    assert torch.equal(tb_k, tb_p)
-    assert torch.equal(corner_k, corner_p)
-    assert torch.equal(fused_k, fused_p)
+    _check_align(args, params, n1, n2, **kw)
+    for mode_name, on in (("banded", width is not None),
+                          ("tie_last", kw.get("tie_order") == "last"),
+                          ("special_none", kw["special_mode"] == "none")):
+        assert (dp_kernels.fill_mode_launches[mode_name] - modes[mode_name]
+                == int(on)), mode_name
 
 
 @pytest.mark.parametrize("uniform", [False, True], ids=["per_row", "uniform"])
@@ -169,27 +178,23 @@ def test_local_kernels_match_plain(cuda, special_mode, shape, uniform):
 
 @pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
 def test_fill_beyond_6144_rows(cuda, local):
-    """n1 = 6,600 DP rows: the ring moves to a per-CTA global scratch and
-    the fill still equals its plain version (the fill refused n1 > 6144
-    before)."""
+    """n1 = 6,600 DP rows: the global kernel takes 18 row bands handed on
+    through its scratch, the local fill's ring moves to a per-CTA global
+    scratch, and both still equal their plain versions."""
     B, n1, n2 = 3, 6600, 700
     host = _modes_inputs(6600, B, n1, n2, False)
     args = [torch.from_numpy(a).to(cuda) for a in host]
     params = tbatch.scoring_to_params(MERGE_SCORING, cuda)
+    if not local:
+        bands = dp_kernels.fill_mode_launches["row_bands"]
+        _check_align(args, params, n1, n2, special_mode="both")
+        assert dp_kernels.fill_mode_launches["row_bands"] == bands + 1
+        return
     ring = dp_kernels.fill_mode_launches["global_ring"]
-    if local:
-        out_k = dp_kernels.dp_fill_local(*args, params, n1=n1, n2=n2)
-        fused_k = dp_kernels.dp_walk_local(*out_k, n1=n1, n2=n2)
-        out_p = tbatch.fill_local_reference(*args, params, n1=n1, n2=n2)
-        _res, fused_p = tbatch.walk_local_reference(*out_p, n1=n1, n2=n2)
-    else:
-        out_k = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2,
-                                   special_mode="both")
-        fused_k = dp_kernels.dp_walk(*out_k, args[2], args[3], n1=n1, n2=n2)
-        out_p = tbatch.fill_reference(*args, params, n1=n1, n2=n2,
-                                      special_mode="both")
-        _res, fused_p = tbatch.walk_reference(*out_p, args[2], args[3],
-                                              n1=n1, n2=n2)
+    out_k = dp_kernels.dp_fill_local(*args, params, n1=n1, n2=n2)
+    fused_k = dp_kernels.dp_walk_local(*out_k, n1=n1, n2=n2)
+    out_p = tbatch.fill_local_reference(*args, params, n1=n1, n2=n2)
+    _res, fused_p = tbatch.walk_local_reference(*out_p, n1=n1, n2=n2)
     torch.cuda.synchronize()
     assert dp_kernels.fill_mode_launches["global_ring"] == ring + 1
     for k, p in zip(out_k, out_p):
@@ -198,9 +203,9 @@ def test_fill_beyond_6144_rows(cuda, local):
 
 
 def test_inversion_batch_on_cuda_equals_cpu(cuda):
-    from clique_tpu.align.scoring import InversionScoring
-    from clique_tpu.utils.seq import reverse_complement
     from clique_tpu_torch.align.inversion import inversion_alignment_batch
+    from clique_tpu_torch.align.scoring import InversionScoring
+    from clique_tpu_torch.utils.seq import reverse_complement
 
     rng = np.random.default_rng(12)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -253,10 +258,10 @@ def test_align_reads_modes_on_cuda_equal_cpu(cuda, option, tmp_path):
     outs = {}
     for device in ("cuda", "cpu"):
         out = str(tmp_path / f"{device}.bam")
-        fills = dp_kernels.fill_launches
+        launches = dp_kernels.align_launches
         align_reads(layout, rm, out, read1=fq, batch_size=32, device=device,
                     **kw)
-        assert (dp_kernels.fill_launches > fills) == (device == "cuda")
+        assert (dp_kernels.align_launches > launches) == (device == "cuda")
         outs[device] = _inflate_bgzf(out)
     assert outs["cuda"] == outs["cpu"]
 
@@ -266,18 +271,18 @@ def test_wrappers_reject_mixed_devices(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in host]
     params = tbatch.scoring_to_params(RUST_BIO_COMPAT, "cpu")
     with pytest.raises(ValueError):
-        dp_kernels.dp_fill(*args, params, n1=128, n2=128,
-                           special_mode="both")
+        dp_kernels.dp_align(*args, params, n1=128, n2=128,
+                            special_mode="both")
 
 
 def test_align_reads_golden_on_cuda(cuda, tmp_path):
-    from test_torch_align_pipeline import _inflate_bgzf, _load_make_golden
+    from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
+                                           _load_make_golden)
 
     from clique_tpu_torch.align.pipeline import align_reads
 
-    mg = _load_make_golden()
-    gd = os.path.join(ROOT, "tests", "data", "golden")
-    layout, rm = mg._load_layout(str(tmp_path), golden_dir=gd)
+    gd, layout, rm, _r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
+                                              tmp_path)
     out = str(tmp_path / "aligned.bam")
     align_reads(layout, rm, out, read1=os.path.join(gd, "reads.fastq.gz"),
                 batch_size=16, device="cuda")
@@ -286,10 +291,10 @@ def test_align_reads_golden_on_cuda(cuda, tmp_path):
 
 
 def test_out_of_range_lengths_are_marked(cuda):
-    """The kernels mark a row whose lengths lie outside the bucket (NaN
-    corner, fresh traceback, n_ops -1, NaN score), check_marked_rows
-    raises on it as the plain versions raise at call time, and the other
-    rows equal the plain versions' bytes."""
+    """The kernel marks a row whose lengths lie outside the bucket (n_ops
+    -1, NaN score, no ops, no traceback), check_marked_rows raises on it as
+    the plain versions raise at call time, and the other rows equal the
+    plain versions' bytes."""
     n1 = n2 = 128
     host = list(_inputs(11, 6, n1, n2, False))
     bad_ref, bad_read = host[2].copy(), host[3].copy()
@@ -297,14 +302,15 @@ def test_out_of_range_lengths_are_marked(cuda):
     args = [torch.from_numpy(a).to(cuda)
             for a in (host[0], host[1], bad_ref, bad_read)]
     params = tbatch.scoring_to_params(MERGE_SCORING, cuda)
-    tb, corner = dp_kernels.dp_fill(*args, params, n1=n1, n2=n2,
-                                    special_mode="both")
-    fused = dp_kernels.dp_walk(tb, corner, args[2], args[3], n1=n1, n2=n2)
+    fused, wave = dp_kernels.dp_align(*args, params, n1=n1, n2=n2,
+                                      special_mode="both",
+                                      return_traceback=True)
     torch.cuda.synchronize()
-    _packed, n_ops, score = tbatch.unfuse_result(fused.cpu().numpy())
+    packed, n_ops, score = tbatch.unfuse_result(fused.cpu().numpy())
     assert n_ops[2] == n_ops[4] == -1
     assert np.isnan(score[2]) and np.isnan(score[4])
-    assert torch.isnan(corner[[2, 4]]).all()
+    assert (packed[[2, 4]] == 0xFF).all()
+    tb = tbatch.wavefront_to_tb(wave, args[2], args[3], n1=n1, n2=n2)
     assert (tb[[2, 4]] == tbatch._TB_FRESH).all()
     with pytest.raises(ValueError, match="outside their bucket"):
         tbatch.check_marked_rows(n_ops)
@@ -320,7 +326,6 @@ def test_out_of_range_lengths_are_marked(cuda):
     _res, fused_p = tbatch.walk_reference(tb_p, corner_p, ok[2], ok[3],
                                           n1=n1, n2=n2)
     assert torch.equal(tb[good], tb_p)
-    assert torch.equal(corner[good], corner_p)
     assert torch.equal(fused[good], fused_p)
 
 
@@ -386,15 +391,15 @@ def test_hamming_hits_on_cuda_equals_cpu(cuda):
 
 
 def test_collapse_golden_on_cuda(cuda, tmp_path):
-    from test_torch_align_pipeline import _inflate_bgzf, _load_make_golden
+    from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
+                                           _load_make_golden)
 
-    from clique_tpu.caller.events import call_events_from_bam
+    from clique_tpu_torch.caller.events import call_events_from_bam
     from clique_tpu_torch.collapse import distance as tdist
     from clique_tpu_torch.collapse.pipeline import collapse
 
-    mg = _load_make_golden()
-    gd = os.path.join(ROOT, "tests", "data", "golden")
-    layout, _rm = mg._load_layout(str(tmp_path), golden_dir=gd)
+    gd, layout, _rm, _r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
+                                               tmp_path)
     out = str(tmp_path / "collapsed.bam")
     n = tdist.match_count_launches
     collapse(out, layout, os.path.join(gd, "aligned.bam"), device="cuda")

@@ -1,14 +1,22 @@
-"""The port runs with jax unavailable: a fresh interpreter with `jax` and
-`jaxlib` blocked imports clique_tpu_torch, aligns the golden reads on the
-CPU (full band, a partial band, every read on the anchored path, and the
-fused align + collapse + call), reproduces the pinned outputs or the JAX
-package's, and never loads a jax module."""
+"""The port runs without jax and without the JAX package: a fresh
+interpreter with `jax`, `jaxlib` and `clique_tpu` blocked imports
+clique_tpu_torch, aligns the golden reads on the CPU (full band, a partial
+band, every read on the anchored path, and the fused align + collapse +
+call), reproduces the pinned outputs or the JAX package's, and loads
+neither a jax module nor one of the JAX package. An AST scan holds every
+source of the port, chip_smoke.py and profile_align.py to importing
+nothing of the JAX package, and the port's copy of the host
+inversion_alignment is held equal to the JAX package's."""
 
+import ast
+import dataclasses
+import glob
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -18,6 +26,7 @@ SCRIPT = textwrap.dedent("""
     import gzip, os, sys
     sys.modules["jax"] = None        # any `import jax` now raises
     sys.modules["jaxlib"] = None
+    sys.modules["clique_tpu"] = None     # and any import of the JAX package
     root, workdir = sys.argv[1], sys.argv[2]
     sys.path.insert(0, root)
     import clique_tpu_torch
@@ -50,7 +59,7 @@ SCRIPT = textwrap.dedent("""
     assert rc == 0
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in
-                    ("jax", "jaxlib"))
+                    ("jax", "jaxlib", "clique_tpu"))
     print("JAX_MODULES", loaded)
     print("PORT_MODULES", sorted(m for m in sys.modules
                                  if m.startswith("clique_tpu_torch")))
@@ -100,14 +109,16 @@ def test_align_modes_without_jax(flags, tmp_path):
     out = _run_without_jax("align", tmp_path, *flags)
     assert "clique_tpu_torch.align.pipeline" in out
     from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
-                                           _load_make_golden)
+                                           _load_make_golden,
+                                           load_jax_layout)
 
     from clique_tpu.align.pipeline import align_reads as jax_align_reads
 
     wd = tmp_path / "jax"
     wd.mkdir()
-    _gd, layout, rm, r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
-                                              wd)
+    _gd, _layout, _rm, r1, _r2 = _golden_inputs(_load_make_golden(),
+                                                "golden", wd)
+    layout, rm = load_jax_layout(wd / "layout.yaml")
     out_j = str(wd / "aligned.bam")
     key = {"--bandwidth": "bandwidth",
            "--anchored-min-length": "anchored_min_length"}[flags[0]]
@@ -115,3 +126,85 @@ def test_align_modes_without_jax(flags, tmp_path):
                     **{key: int(flags[1])})
     assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
         out_j)
+
+
+SCANNED = sorted(
+    os.path.relpath(p, ROOT) for p in
+    glob.glob(os.path.join(ROOT, "clique_tpu_torch", "**", "*.py"),
+              recursive=True)
+    + [os.path.join(ROOT, "chip_smoke.py"),
+       os.path.join(ROOT, "profile_align.py")])
+
+
+def _imported_modules(tree):
+    """Every module an `import` or `from ... import` names, at any depth
+    (lazy imports inside functions included)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", SCANNED)
+def test_source_imports_nothing_of_the_jax_package(path):
+    with open(os.path.join(ROOT, path)) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    bad = sorted(m for m in _imported_modules(tree)
+                 if m.split(".")[0] in ("clique_tpu", "jax", "jaxlib"))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_scan_sees_the_port():
+    assert "chip_smoke.py" in SCANNED and "profile_align.py" in SCANNED
+    assert os.path.join("clique_tpu_torch", "align", "pipeline.py") in SCANNED
+    assert len(SCANNED) > 30
+
+
+def _inversion_reads(seed, n):
+    """Seeded reads of a 70 bp reference with a few substitutions, some
+    with an inverted block (the reverse complement of a middle slice)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(bases, 70).tobytes()
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    reads = []
+    for i in range(n):
+        r = bytearray(ref)
+        for _k in range(2):
+            r[int(rng.integers(0, len(r)))] = int(rng.choice(bases))
+        if i % 2 == 1:
+            a = int(rng.integers(10, 30))
+            b = a + int(rng.integers(14, 24))
+            r[a:b] = bytes(r[a:b]).translate(comp)[::-1]
+        reads.append(bytes(r))
+    return ref, reads
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_port_inversion_alignment_equals_jax(seed):
+    """The port's copy of the host inversion_alignment (path zeroing,
+    secondary extraction, the inversion-aware fill) gives the JAX
+    package's result field for field; odd reads carry an inverted block."""
+    from clique_tpu.align.inversion import \
+        inversion_alignment as jax_inversion_alignment
+    from clique_tpu.align.scoring import AffineScoring as JaxAffine
+    from clique_tpu.align.scoring import InversionScoring as JaxInversion
+    from clique_tpu_torch.align.inversion import inversion_alignment
+    from clique_tpu_torch.align.scoring import (AffineScoring,
+                                                InversionScoring)
+
+    values = ((10.0, -11.0, 8.0, -15.0, -5.0, 1.0),
+              (10.0, -11.0, -15.0, -5.0, -2.0, 8))
+    ref, reads = _inversion_reads(seed, 4)
+    blocks = 0
+    for i, read in enumerate(reads):
+        want = jax_inversion_alignment(ref, read, "ref", f"r{i}",
+                                       JaxInversion(*values[1]),
+                                       JaxAffine(*values[0]), False)
+        got = inversion_alignment(ref, read, "ref", f"r{i}",
+                                  InversionScoring(*values[1]),
+                                  AffineScoring(*values[0]), False)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), i
+        blocks += "<" in [op for _c, op in got.cigar]
+    assert blocks >= 1

@@ -12,7 +12,10 @@ before and read just after:
   reproduces the pinned BAMs and allele tables, and the fused run_chain
   gives the same bytes;
 - known list: the bench-shaped reads collapsed against a 737,280-entry
-  allowlist (KnownTag Hamming at the size of 10x Chromium v2's list);
+  allowlist (KnownTag Hamming at the size of 10x Chromium v2's list): one
+  match_hits launch for the level's one hamming_hits call, the collapse
+  wall split into allowlist read, upload, packing, kernel and host hit
+  assembly, and the kernel timed on that call's own tags;
 - device Levenshtein: one DegenerateTag group with 4M candidate pairs, so
   correct_degenerate_groups takes the edit-distance kernel;
 - bench: the fused chain (align -> collapse -> call) over 80,000
@@ -84,15 +87,15 @@ INV_REF = 1000
 # phases beside the card's runs: five workers of two torch threads each
 CPU_WORKERS = 5
 CPU_WORKER_THREADS = 2
-KERNELS = ("dp_align", "match_count", "edit_distance", "dp_fill_local",
+KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_fill_local",
            "dp_walk_local")
 SOURCES = {"dp_align": "dp_align.cu",
-           "match_count": "tag_distance.cu",
+           "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
            "dp_fill_local": "dp_fill_local.cu",
            "dp_walk_local": "dp_walk_local.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
-            "match_count": "clique_tpu/collapse/distance.py:240",
+            "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
             "dp_fill_local": "clique_tpu/align/batch.py:332",
             "dp_walk_local": "clique_tpu/align/batch.py:450"}
@@ -103,6 +106,10 @@ REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
 PEAK_BYTES = 3.35e12
 PEAK_LANE_OPS = 67e12 / 2
 PEAK_INT8_OPS = 1979e12
+# 32-bit integer lane operations/s: an SM issues 64 a clock against 128
+# float32 (NVIDIA's arithmetic-instruction throughput table, compute
+# capability 9.0)
+PEAK_INT32_OPS = PEAK_LANE_OPS / 2
 # lane operations a DP cell needs: the three candidate sums of each plane,
 # their compares and selects, the special and terminal-gap selects, the
 # byte pack (global); the zero flags and the running argmax besides
@@ -112,6 +119,12 @@ OPS_GLOBAL_CELL = 30
 OPS_LOCAL_CELL = 36
 OPS_EDIT_CELL = 8
 OPS_WALK_STEP = 10
+# integer lane operations match_hits spends on a pair of one-word rows:
+# XOR, the shift of the fold, the lop3 of fold and live mask, popc and
+# the budget compare
+OPS_HIT_PAIR = 5
+# the known-list phase's radius (cell_id's max_distance)
+KNOWN_D = 1
 
 
 def bound(nbytes, ops, op_rate=PEAK_LANE_OPS):
@@ -182,9 +195,10 @@ def phase_build():
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("align_kernel", "fill_kernel",
-                                       "dp_walk_local", "match_count",
-                                       "edit_distance_reg",
-                                       "edit_distance_local")
+                                       "dp_walk_local", "match_hits_wide",
+                                       "match_hits", "edit_distance_reg",
+                                       "edit_distance_local",
+                                       "edit_distance_scratch")
                            if k in line), line.strip())
             # the template flags from the mangled name: dp_align's
             # keep-last ties and band, the local fill's register rows
@@ -195,6 +209,14 @@ def phase_build():
             flags = re.search(r"fill_kernelILb(\d)E", line)
             if flags:
                 kernel = "dp_fill_local<reg_rows={0}>".format(*flags.groups())
+            # the fused Hamming search's code width and row words
+            flags = re.search(r"match_hits_kernelILi(\d)ELi(\d)E", line)
+            if flags:
+                kernel = "match_hits<bits={0},words={1}>".format(
+                    *flags.groups())
+            flags = re.search(r"match_hits_wide_kernelILi(\d)E", line)
+            if flags:
+                kernel = "match_hits_wide<bits={0}>".format(*flags.groups())
         elif kernel and ("registers" in line or "spill" in line):
             say(f"[build] {kernel}: {line.strip()}")
     lib = _build.load()
@@ -595,11 +617,94 @@ def phase_mode_kernels():
     return err, times
 
 
+def _hit_inputs(rng, U, K, L, d, letters, noise):
+    """Seeded tags u8 [U, L] and allowlist u8 [K, L] from `letters`: every
+    other tag is an allowlist row with about (d + 1) / 2 substitutions
+    from `noise`, so some pairs lie inside the radius and some just past
+    it."""
+    import numpy as np
+
+    letters = np.frombuffer(letters, np.uint8)
+    allow = rng.choice(letters, (K, L))
+    tags = rng.choice(letters, (U, L))
+    tags[::2] = allow[rng.integers(0, K, len(tags[::2]))]
+    sub = rng.random(tags.shape) < (d + 1) / (2 * L)
+    sub[1::2] = False
+    tags[sub] = rng.choice(np.frombuffer(noise, np.uint8), int(sub.sum()))
+    return tags, allow
+
+
+def _hold_hits(label, t, a, d):
+    """match_hits on the card against match_hits_reference on the same
+    tensors: one launch (none where L - d > 255) and the same pairs.
+    Returns the size of the two hit sets' symmetric difference and the
+    hit count."""
+    import torch
+
+    from clique_tpu_torch.collapse import distance as tdist
+
+    n = tdist.match_hits_launches
+    u, k = tdist.match_hits(t, a, d)
+    torch.cuda.synchronize()
+    launches = tdist.match_hits_launches - n
+    want_u, want_k = tdist.match_hits_reference(t, a, d)
+    K = a.shape[0]
+    got = set((u * K + k).tolist())
+    want = set((want_u * K + want_k).tolist())
+    e = len(got ^ want)
+    L = t.shape[1]
+    say(f"{label} d={d}: {len(got)} hits, {launches} launch(es); "
+        f"{'equal' if e == 0 else 'DIFFER'} to the plain version "
+        f"({e} pairs differ)")
+    check(e == 0, f"{label}: match_hits and its plain version disagree")
+    check(launches == (0 if L - d > 255 else 1),
+          f"{label}: {launches} launches, expected one a call")
+    return e, len(got)
+
+
+def _hit_kernel_call(t, a, d):
+    """A call of the fused kernel alone on packed inputs (for timing: the
+    wrapper's packing, count read-back and sort are left out, and the
+    launch is not counted)."""
+    import torch
+
+    from clique_tpu_torch import _build
+    from clique_tpu_torch.collapse import distance as tdist
+
+    lib = _build.load()
+    tw, tm, budgets, aw, bits = tdist.pack_hit_inputs(t, a, d)
+    U, K = t.shape[0], a.shape[0]
+    count = torch.zeros(1, dtype=torch.int64, device=t.device)
+    cap = max(4 * U, 1 << 16)
+    out = torch.empty((cap, 2), dtype=torch.int32, device=t.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        # count is not reset between timed calls: hits past the buffer
+        # are counted and not written, a few bytes out of the work
+        err = lib.clique_match_hits(
+            tw.data_ptr(), tm.data_ptr(), budgets.data_ptr(), aw.data_ptr(),
+            U, K, tw.shape[1], bits, count.data_ptr(), out.data_ptr(), cap,
+            stream)
+        check(err == 0, f"match_hits launch failed with CUDA error {err}")
+    return call, bits, tw.shape[1]
+
+
+def _hit_bound(U, K, L, hits):
+    """match_hits's bound as the table counts it (both tag sets read once,
+    8 bytes a hit written; U*K*L byte comparisons at the int8 tensor-core
+    rate, the one-hot product the JAX kernel runs) and the design's own
+    integer-pipe time (OPS_HIT_PAIR a pair of one-word rows)."""
+    return (bound(U * L + K * L + 8 * hits, U * K * L, PEAK_INT8_OPS),
+            OPS_HIT_PAIR * U * K / PEAK_INT32_OPS * 1e3)
+
+
 def phase_tag_kernels():
-    """match_count and edit_distance against their plain PyTorch versions
+    """match_hits and edit_distance against their plain PyTorch versions
     on the card, then timed in turns (plain, kernel, kernel, plain) at the
-    JAX chunk shape and at 2M bench-shaped pairs, beside the host Myers
-    code on the same pairs."""
+    JAX chunk shape (2048 tags x 16384 entries) and at 2M bench-shaped
+    pairs, beside torch.cdist(p=0) and the host Myers code on the same
+    inputs."""
     import numpy as np
     import torch
 
@@ -608,23 +713,23 @@ def phase_tag_kernels():
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2027)
     alphabet = np.frombuffer(b"ACGTN-", dtype=np.uint8)
-    err = {"match_count": 0, "edit_distance": 0}
+    err = {"match_hits": 0, "edit_distance": 0}
+    six, acgt, many = b"ACGTN-", b"ACGT", b"ACGTNRYKMSWBDHVacgtn"
 
-    def match_case(U, K, L):
-        allow = rng.choice(alphabet, (K, L))
-        tags = rng.choice(alphabet, (U, L))
-        tags[::2] = allow[rng.integers(0, K, len(tags[::2]))]
-        t = torch.from_numpy(tags).to(dev)
-        a = torch.from_numpy(allow).to(dev)
-        got = tdist.match_count(t, a)
-        torch.cuda.synchronize()
-        want = tdist.match_count_reference(t, a)
-        e = (got.int() - want.int()).abs().max().item()
-        err["match_count"] = max(err["match_count"], e)
-        say(f"[tag kernels] match_count U={U} K={K} L={L}: "
-            f"{'equal' if e == 0 else 'DIFFER'} (max abs err {e})")
-        check(e == 0, "match_count and its plain version disagree")
-        return t, a
+    for U, K, L, d, letters, noise in (
+            (37, 91, 16, 1, six, six), (2047, 16383, 16, 1, acgt, b"ACGTN"),
+            (300, 1001, 12, 2, six, six), (129, 515, 255, 30, six, six),
+            (200, 1001, 300, 50, six, six), (200, 1001, 300, 20, six, six),
+            (2048, 16384, 16, 2, acgt, b"N-"), (500, 4001, 16, 2, many, many),
+            (300, 2001, 24, 3, many, many), (300, 1001, 20, 2, acgt, acgt),
+            (300, 1001, 64, 3, acgt, acgt), (130, 777, 129, 4, acgt, b"ACGTN")):
+        tags, allow = _hit_inputs(rng, U, K, L, d, letters, noise)
+        e, _n = _hold_hits(
+            f"[tag kernels] match_hits U={U} K={K} L={L} "
+            f"{len(set(allow.ravel().tolist()))} classes",
+            torch.from_numpy(tags).to(dev), torch.from_numpy(allow).to(dev),
+            d)
+        err["match_hits"] = max(err["match_hits"], e)
 
     def edit_case(P, L, la_val=None):
         a = rng.choice(alphabet, (P, L))
@@ -650,45 +755,63 @@ def phase_tag_kernels():
         check(e == 0, "edit_distance and its plain version disagree")
         return host, args
 
-    for U, K, L in ((37, 91, 16), (2047, 16383, 16), (300, 1001, 12),
-                    (129, 515, 255)):
-        match_case(U, K, L)
     for P, L in ((3001, 16), (3001, 32), (3001, 64), (3001, 100),
-                 (3001, 256)):
+                 (3001, 256), (3001, 300), (3001, 1000)):
         edit_case(P, L)
-    t, a = match_case(2048, 16384, 16)
+    pairs = tdist.edit_distance_pairs([b"A" * 300, b"ACGT" * 70],
+                                      [b"C" * 300, b"ACGA" * 70],
+                                      device="cuda")
+    say(f"[tag kernels] edit_distance_pairs of 300-byte rows on the card: "
+        f"{pairs.tolist()} (the JAX package gives [255, 70])")
+    check(pairs.tolist() == [255, 70], "edit_distance_pairs at L=300")
     host, args = edit_case(2_097_152, 32, la_val=16)
 
-    mc = _turns("[tag kernels] match_count at U=2048 K=16384 L=16",
-                lambda: tdist.match_count(t, a),
-                lambda: tdist.match_count_reference(t, a), 20, 2)
+    # the block shape of the matrix formulation (hamming_hits's chunk_u x
+    # chunk_k defaults): an ACGT list, tags one or two
+    # substitutions off it, the known-list radius
+    tags, allow = _hit_inputs(rng, 2048, 16384, 16, KNOWN_D, acgt, acgt)
+    t = torch.from_numpy(tags).to(dev)
+    a = torch.from_numpy(allow).to(dev)
+    _e, hits = _hold_hits("[tag kernels] match_hits U=2048 K=16384 L=16",
+                          t, a, KNOWN_D)
+    kernel, bits, words = _hit_kernel_call(t, a, KNOWN_D)
+    mc = _turns(f"[tag kernels] match_hits kernel (bits={bits}, "
+                f"words={words}) at U=2048 K=16384 L=16",
+                kernel, lambda: tdist.match_hits_reference(t, a, KNOWN_D),
+                50, 2)
+    wrap_ms = _time_ms(lambda: tdist.match_hits(t, a, KNOWN_D), 20)
+    say(f"[tag kernels] match_hits wrapper (packing, launch, count "
+        f"read-back, sort) at U=2048 K=16384 L=16: {wrap_ms:.4f} ms per "
+        f"call")
     # the library yardstick: torch.cdist with p=0 counts the differing
-    # columns (L - matches) of every tag against every allowlist row
+    # columns of every tag against every allowlist row (the distance
+    # matrix only; the radius test and the hits are not in it)
     lib_d = torch.cdist(t.float(), a.float(), p=0)
-    same = torch.equal(lib_d.round().to(torch.int32),
-                       16 - tdist.match_count(t, a).to(torch.int32))
-    check(same, "torch.cdist(p=0) and match_count disagree")
+    uu, kk = torch.nonzero(lib_d.round() <= KNOWN_D, as_tuple=True)
+    want_u, want_k = tdist.match_hits_reference(t, a, KNOWN_D)
+    check(torch.equal(uu, want_u) and torch.equal(kk, want_k),
+          "torch.cdist(p=0) and match_hits disagree")
     lib_ms = _time_ms(lambda: torch.cdist(t.float(), a.float(), p=0), 20)
     say(f"[tag kernels] library yardstick torch.cdist(p=0) at U=2048 "
-        f"K=16384 L=16: {lib_ms:.4f} ms per call (equals 16 - match_count)")
+        f"K=16384 L=16: {lib_ms:.4f} ms per call (its matrix thresholded "
+        f"gives match_hits's pairs)")
     del lib_d
     U, K, L = t.shape[0], a.shape[0], t.shape[1]
+    b_hits, int_ms = _hit_bound(U, K, L, hits)
+    say(f"[tag kernels] match_hits integer-pipe time at U=2048 K=16384: "
+        f"{int_ms:.4f} ms ({OPS_HIT_PAIR} lane operations a pair)")
     ed = _turns("[tag kernels] edit_distance at P=2097152 L=32 la=lb=16",
                 lambda: tdist.edit_distance(*args),
                 lambda: tdist.edit_distance_reference(*args), 20, 2)
     P, Le = host[0].shape
     times = {
-        # reads both tag sets once, writes one byte a pair; U*K*L byte
-        # comparisons at the int8 tensor-core rate (the one-hot product the
-        # JAX kernel runs)
-        "match_count": _timing(*mc, bound(U * L + K * L + U * K, U * K * L,
-                                          PEAK_INT8_OPS), lib_ms),
+        "match_hits": _timing(*mc, b_hits, lib_ms),
         # both rows and lengths once, one byte out a pair; OPS_EDIT_CELL lane
         # operations a DP cell
         "edit_distance": _timing(*ed, bound(
             2 * P * Le + 8 * P + P,
             OPS_EDIT_CELL * _interior_cells(host[2], host[3])))}
-    for name in ("match_count", "edit_distance"):
+    for name in ("match_hits", "edit_distance"):
         say(f"[tag kernels] {name} bound {times[name]['bound_ms']:.4f} ms, "
             f"by {times[name]['bound_by']}")
     t0 = time.time()
@@ -747,7 +870,7 @@ def _counts():
     from clique_tpu_torch.collapse import distance
 
     return {"dp_align": dp_kernels.align_launches,
-            "match_count": distance.match_count_launches,
+            "match_hits": distance.match_hits_launches,
             "edit_distance": distance.edit_distance_launches,
             "dp_fill_local": dp_kernels.fill_local_launches,
             "dp_walk_local": dp_kernels.walk_local_launches}
@@ -793,18 +916,18 @@ def phase_golden(workdir):
         _reset_counts()
         cstats = collapse(collapsed, layout, aligned, device="cuda")
         n = _counts()
-        for k in ("match_count", "edit_distance"):
+        for k in ("match_hits", "edit_distance"):
             launches[k] += n[k]
         same = _inflate_bgzf(collapsed) == _inflate_bgzf(
             os.path.join(gd, "collapsed.bam"))
         say(f"[golden] {name}: collapse on the card, {cstats.passing} "
-            f"passing reads, launches match_count {n['match_count']} "
+            f"passing reads, launches match_hits {n['match_hits']} "
             f"edit_distance {n['edit_distance']}; collapsed BAM payload "
             f"{'equals' if same else 'DIFFERS from'} its pin")
         check(same, f"{name} collapsed BAM differs from its pin")
         if name in ("golden", "golden_pe"):
-            check(n["match_count"] > 0,
-                  f"{name}: the KnownTag level launched no match_count")
+            check(n["match_hits"] > 0,
+                  f"{name}: the KnownTag level launched no match_hits")
         alleles = os.path.join(wd, "alleles.tsv")
         if has_alleles:
             call_events_from_bam(layout, collapsed, alleles,
@@ -823,7 +946,7 @@ def phase_golden(workdir):
                                     batch_size=16, alleles_path=f_alleles,
                                     device="cuda", **reads)
         n = _counts()
-        for k in ("match_count", "edit_distance"):
+        for k in ("match_hits", "edit_distance"):
             launches[k] += n[k]
         same = (_inflate_bgzf(f_aligned) == _inflate_bgzf(aligned)
                 and _inflate_bgzf(f_collapsed) == _inflate_bgzf(collapsed)
@@ -1299,13 +1422,54 @@ def phase_inversion(pool):
     return launches
 
 
+class _CallTimer:
+    """Wall seconds and calls of module functions, wrapped for the length
+    of a with-block (each call ends in torch.cuda.synchronize(), so its
+    device work is inside it); `args` keeps each label's last arguments."""
+
+    def __init__(self, targets):
+        self.targets = targets            # (module, function name, label)
+        self.seconds = {label: 0.0 for _m, _f, label in targets}
+        self.calls = {label: 0 for _m, _f, label in targets}
+        self.args = {}
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+
+        for mod, name, label in self.targets:
+            orig = getattr(mod, name)
+
+            def timed(*args, _orig=orig, _label=label, **kw):
+                t0 = time.perf_counter()
+                out = _orig(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_label] += time.perf_counter() - t0
+                self.calls[_label] += 1
+                self.args[_label] = args
+                return out
+            self._saved.append((mod, name, orig))
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in reversed(self._saved):
+            setattr(mod, name, orig)
+
+
 def phase_known_list(workdir, bench):
     """The bench-shaped reads collapsed with cell_id as KnownTag Hamming
     (max_distance 1) against a seeded 737,280-entry 16 bp allowlist that
-    holds the bench's 500 cell barcodes."""
+    holds the bench's 500 cell barcodes: one match_hits launch for the
+    level's one hamming_hits call, the collapse wall split into its parts,
+    and the fused kernel held against its plain version and timed on that
+    call's own tags."""
     import numpy as np
+    import torch
 
+    from clique_tpu_torch.collapse import correct as tcorrect
     from clique_tpu_torch.collapse import distance as tdist
+    from clique_tpu_torch.collapse import pipeline as tpipeline
     from clique_tpu_torch.collapse.correct import correct_known_hamming
     from clique_tpu_torch.collapse.pipeline import collapse
 
@@ -1321,29 +1485,81 @@ def phase_known_list(workdir, bench):
     old = ("cell_id: {symbol: '0', sort_type: \"DegenerateTag\", length: 16, "
            "order: 0, max_distance: 2}")
     new = (f"cell_id: {{symbol: '0', sort_type: \"KnownTag\", file: "
-           f"\"{allow_path}\", length: 16, order: 0, max_distance: 1, "
-           f"levenshtein_distance: false}}")
+           f"\"{allow_path}\", length: 16, order: 0, max_distance: "
+           f"{KNOWN_D}, levenshtein_distance: false}}")
     check(old in layout_text, "bench layout changed shape")
     wd = os.path.join(workdir, "known")
     os.makedirs(wd)
     layout, _rm = _layout_from_text(layout_text.replace(old, new), wd)
 
     out = os.path.join(wd, "collapsed.bam")
+    timer = _CallTimer([
+        (tpipeline, "load_known_lists", "allowlist read"),
+        (tpipeline, "correct_known_hamming", "known level correction"),
+        (tcorrect, "hamming_hits", "hamming_hits"),
+        (tdist, "upload_rows", "upload"),
+        (tdist, "match_hits", "match_hits"),
+        (tdist, "pack_hit_inputs", "packing")])
     _reset_counts()
     t0 = time.time()
-    cstats = collapse(out, layout, aligned, device="cuda")
+    with timer:
+        cstats = collapse(out, layout, aligned, device="cuda")
     seconds = time.time() - t0
     launches = _counts()
     with open(out + ".collapse_metrics.json") as fh:
-        levels = json.load(fh)["references"]["amplicon1"]["levels"]
+        metrics = json.load(fh)
+    levels = metrics["references"]["amplicon1"]["levels"]
     say(f"[known list] collapse of {cstats.total_reads} reads against "
         f"{N_ALLOWLIST} entries on the card: {seconds:.3f} s, "
         f"{cstats.passing} passing, levels {json.dumps(levels)}, "
         f"launches {launches}")
-    check(launches["match_count"] > 0, "the known-list level launched no "
-          "match_count")
+    sec, calls = timer.seconds, timer.calls
+    check(calls["hamming_hits"] >= 1, "the known-list level ran no "
+          "hamming_hits")
+    check(launches["match_hits"] == calls["hamming_hits"],
+          f"{launches['match_hits']} match_hits launches for "
+          f"{calls['hamming_hits']} hamming_hits calls: expected one each")
     check(levels[0]["reads_out"] > 0.5 * levels[0]["reads_in"],
           "the known-list level corrected almost nothing")
+    split = {
+        "allowlist read": sec["allowlist read"],
+        "upload": sec["upload"],
+        "packing": sec["packing"],
+        "kernel, count read-back and sort": sec["match_hits"]
+        - sec["packing"],
+        "host hit assembly": sec["hamming_hits"] - sec["upload"]
+        - sec["match_hits"],
+        "correction map": sec["known level correction"]
+        - sec["hamming_hits"],
+        "rest of collapse": seconds - sec["allowlist read"]
+        - sec["known level correction"]}
+    say("[known list] collapse wall split (s): " + json.dumps(
+        {k: round(v, 4) for k, v in split.items()})
+        + f"; collapse metrics ingest_s {metrics.get('ingest_s')} "
+        f"levels_s {metrics.get('levels_s')} outputs_s "
+        f"{metrics.get('outputs_s')}")
+
+    # the fused kernel on the level's own tags and the whole allowlist
+    tags_k, allow_k, d = timer.args["hamming_hits"][:3]
+    dev = torch.device("cuda", 0)
+    t = tdist.upload_rows(tags_k, 16, dev)
+    a = tdist.upload_rows(allow_k, 16, dev)
+    U, K = t.shape[0], a.shape[0]
+    _e, hits = _hold_hits(f"[known list] match_hits U={U} K={K} L=16", t, a,
+                          d)
+    kernel, bits, words = _hit_kernel_call(t, a, d)
+    k_ms, p_ms = _turns(f"[known list] match_hits kernel (bits={bits}, "
+                        f"words={words}) at U={U} K={K} L=16", kernel,
+                        lambda: tdist.match_hits_reference(t, a, d), 10, 1)
+    wrap_ms = _time_ms(lambda: tdist.match_hits(t, a, d), 5)
+    hh_ms = _time_ms(lambda: tdist.hamming_hits(tags_k, allow_k, d,
+                                                device="cuda"), 3)
+    (b_ms, b_by), int_ms = _hit_bound(U, K, 16, hits)
+    say(f"[known list] match_hits at U={U} K={K}: kernel {k_ms:.4f} ms, "
+        f"wrapper {wrap_ms:.4f} ms, hamming_hits {hh_ms:.4f} ms per call; "
+        f"plain {p_ms:.3f} ms; bound {b_ms:.4f} ms (by {b_by}), "
+        f"integer-pipe time {int_ms:.4f} ms ({OPS_HIT_PAIR} lane operations "
+        f"a pair); {hits} hits")
 
     from clique_tpu_torch.io.sam import BamReader
 
@@ -1357,19 +1573,22 @@ def phase_known_list(workdir, bench):
     pick = rng.choice(len(keys), 256, replace=False)
     sample = {keys[i]: observed[keys[i]] for i in pick}
     allow_list = [r.tobytes() for r in allow]
+    n = tdist.match_hits_launches
     t0 = time.time()
-    got = correct_known_hamming(sample, allow_list, 1, 16, device="cuda")
+    got = correct_known_hamming(sample, allow_list, KNOWN_D, 16,
+                                device="cuda")
     cuda_s = time.time() - t0
     t0 = time.time()
-    want = correct_known_hamming(sample, allow_list, 1, 16, device="cpu")
+    want = correct_known_hamming(sample, allow_list, KNOWN_D, 16,
+                                 device="cpu")
     cpu_s = time.time() - t0
     say(f"[known list] correction map of {len(sample)} observed tags of "
         f"{len(keys)}: cuda ({cuda_s:.2f} s) "
         f"{'equals' if got == want else 'DIFFERS from'} the plain version "
         f"on the cpu ({cpu_s:.2f} s); {len(got)} tags corrected")
     check(got == want, "known-list correction maps differ")
-    check(tdist.match_count_launches > launches["match_count"],
-          "the sample check launched no kernel")
+    check(tdist.match_hits_launches == n + 1,
+          "the sample check did not launch the kernel once")
     return launches
 
 

@@ -159,10 +159,14 @@ def load() -> ctypes.CDLL:
         lib.clique_dp_walk_local.restype = ci
         lib.clique_dp_walk_local.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                              ci, vp]
-        lib.clique_match_count.restype = ci
-        lib.clique_match_count.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        lib.clique_match_hits.restype = ci
+        lib.clique_match_hits.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp,
+                                          vp, ll, vp]
+        lib.clique_edit_distance_scratch_bytes.restype = ll
+        lib.clique_edit_distance_scratch_bytes.argtypes = [ci, ci]
         lib.clique_edit_distance.restype = ci
-        lib.clique_edit_distance.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.clique_edit_distance.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                             vp]
         _lib, _info = lib, info
         return lib
 

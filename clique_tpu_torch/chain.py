@@ -338,7 +338,7 @@ def collapse_from_reads(output_path: str, layout: SequenceLayout,
     from clique_tpu_torch.utils.gcctl import hot_section
 
     dev = distance.resolve_device(device)
-    launches0 = (distance.match_count_launches,
+    launches0 = (distance.match_hits_launches,
                  distance.edit_distance_launches)
     with hot_section():
         known_lists = load_known_lists(layout)

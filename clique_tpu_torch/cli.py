@@ -3,7 +3,9 @@
 `clique-tpu-torch align|collapse|run ...` take the flags of the same verbs
 of `clique-tpu` (clique_tpu/cli.py:25-184) plus `--device`; `call` takes
 those of `clique-tpu call` and runs on the host. Options the port does not
-run yet exit with an error that names the ROADMAP.md item porting them.
+run yet exit with code 2 and an error that names the ROADMAP.md item
+porting them, whether the CLI sees them in the flags or `align_reads`
+refuses them on the layout (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -13,19 +15,19 @@ import logging
 import sys
 
 # per verb: flag -> (is it set to an unported value?, key of
-# align.pipeline.ROADMAP_ITEMS)
+# align.pipeline.ROADMAP_ITEMS). `--router hmm` is not here: it is ported
+# for a single reference, where no routing happens, and align_reads
+# refuses it over several once it has read the layout.
 _ALIGN_UNPORTED = {
     "--engine wfa|convex": (lambda a: a.engine in ("wfa", "convex"),
                             "wavefront"),
-    "--router hmm": (lambda a: a.router == "hmm", "hmm"),
     "--distributed-world > 1": (lambda a: a.distributed_world > 1,
                                 "parallel"),
     "--profile-dir": (lambda a: a.profile_dir is not None, "profiling"),
 }
 _UNPORTED = {
     "align": _ALIGN_UNPORTED,
-    "run": {flag: _ALIGN_UNPORTED[flag]
-            for flag in ("--engine wfa|convex", "--router hmm")},
+    "run": {"--engine wfa|convex": _ALIGN_UNPORTED["--engine wfa|convex"]},
     "collapse": {
         "--threads > 1": (lambda a: a.threads > 1, "collapse_workers"),
         "--distributed-world > 1": (lambda a: a.distributed_world > 1,
@@ -74,7 +76,8 @@ def main(argv=None) -> int:
                               "hifi (PacBio low-error)")
     p_align.add_argument("--router", default="kmer", choices=["kmer", "hmm"],
                          help="multi-reference routing: unique-kmer vote "
-                              "(hmm is not ported)")
+                              "(hmm over several references is not "
+                              "ported)")
     p_align.add_argument("--metrics", default=None,
                          help="write per-stage JSON metrics to this path")
     p_align.add_argument("--profile-dir", default=None,
@@ -174,7 +177,7 @@ def main(argv=None) -> int:
                        choices=["auto", "dp", "wfa", "convex"],
                        help="auto = dp; wfa and convex are not ported")
     p_run.add_argument("--router", default="kmer", choices=["kmer", "hmm"],
-                       help="hmm is not ported")
+                       help="hmm over several references is not ported")
     p_run.add_argument("--correct-only", action="store_true")
     p_run.add_argument("--downsample-cap", type=int, default=40)
     p_run.add_argument("--min-aligned-bases", type=int, default=45)
@@ -200,13 +203,21 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
 
-    from clique_tpu_torch.config.layout import SequenceLayout
-    from clique_tpu_torch.reference.manager import ReferenceManager
     from clique_tpu_torch.align.pipeline import unported_message
 
     for flag, (is_set, item) in _UNPORTED.get(args.cmd, {}).items():
         if is_set(args):
             parser.error(unported_message(flag, item))
+
+    try:
+        return _run(args)
+    except NotImplementedError as exc:
+        parser.error(str(exc))
+
+
+def _run(args) -> int:
+    from clique_tpu_torch.config.layout import SequenceLayout
+    from clique_tpu_torch.reference.manager import ReferenceManager
 
     if args.cmd == "align":
         from clique_tpu_torch.align.pipeline import align_reads

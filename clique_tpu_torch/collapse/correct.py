@@ -6,7 +6,7 @@ distance module (collapse/distance.py), with the torch `device` the
 distance kernels run on threaded through:
 
 - correct_known_hamming: accept iff exactly one allowlist entry lies
-  within Hamming max_distance (match_count kernel).
+  within Hamming max_distance (match_hits kernel).
 - correct_known_levenshtein: pigeonhole candidates + Levenshtein; unique
   hit accepted, multi-hit accepted iff a unique minimum distance.
 - correct_degenerate_groups: candidate pairs + Levenshtein + greedy

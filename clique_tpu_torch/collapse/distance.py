@@ -3,21 +3,26 @@ their plain PyTorch versions, and the host candidate generation.
 
 Counterpart of clique_tpu/collapse/distance.py, which imports jax:
 
-- `match_count` (csrc/tag_distance.cu::clique_match_count) replaces
-  `_match_count_kernel` (distance.py:240-252): per (tag, allowlist entry)
-  the number of columns whose bytes are equal, u8 capped at 255. Equal
-  bytes count whatever they are, so '-' == '-' and 'N' == 'N' are matches
-  as in FastaString::hamming_distance (known_list.rs:51-60).
+- `match_hits` (csrc/tag_distance.cu::clique_match_hits) replaces
+  `_match_count_kernel` (distance.py:240-252) together with hamming_hits's
+  radius test (:295-296): every (tag, allowlist entry) pair whose Hamming
+  distance L - min(matches, 255) is at most max_distance, as (u, k)
+  indices sorted by (u, k). Equal bytes count whatever they are, so
+  '-' == '-' and 'N' == 'N' are matches as in
+  FastaString::hamming_distance (known_list.rs:51-60). The kernel never
+  forms the [U, K] count matrix; `match_count_reference` is that matrix's
+  plain version.
 - `edit_distance` (csrc/tag_distance.cu::clique_edit_distance) replaces
   `_edit_distance_kernel` (distance.py:36-91): Levenshtein distance per row
-  pair, exact byte equality, bytes beyond la/lb ignored, u8 capped at 255.
+  pair, exact byte equality, bytes beyond la/lb ignored, u8 capped at 255,
+  rows of any width.
 
-On CUDA tensors each wrapper checks its inputs, allocates its output with
-torch.empty, launches its kernel on the current stream and raises if the
-launch fails. On CPU tensors it runs the plain PyTorch version
-(`match_count_reference`, `edit_distance_reference`). Any other device
-raises. `match_count_launches` / `edit_distance_launches` count kernel
-launches and nothing else.
+On CUDA tensors each wrapper checks its inputs, allocates its outputs and
+scratch with torch.empty, launches its kernel on the current stream and
+raises if the launch fails. On CPU tensors it runs the plain PyTorch
+version (`match_hits_reference`, `edit_distance_reference`). Any other
+device raises. `match_hits_launches` / `edit_distance_launches` count
+kernel launches and nothing else.
 
 The host functions below them are jax-free copies of the JAX module's,
 without its power-of-two pad-up of U, K and P (an XLA compile-reuse
@@ -43,21 +48,20 @@ from clique_tpu_torch.align.dp_kernels import (_check, _device_of,
 DEVICE_MIN_PAIRS = 2_000_000
 # widest row the host Myers code takes (one uint64 bit vector per pair)
 MYERS_MAX_LEN = 64
-# widest row the edit-distance kernel takes (kMaxEditLen in
-# csrc/tag_distance.cu); both devices refuse wider rows
-EDIT_MAX_LEN = 256
-# widest tag the match-count kernel takes (kMaxMatchLen)
-MATCH_MAX_LEN = 256
 # pairs per step of edit_distance_reference (bounds its temporaries)
 REFERENCE_CHUNK = 1 << 18
+# row widths in 32-bit words that match_hits's register kernel is built
+# for (kHitTagWords in csrc/tag_distance.cu); wider rows take its wide
+# kernel
+HIT_ROW_WORDS = (1, 2, 4, 8)
 
-match_count_launches = 0
+match_hits_launches = 0
 edit_distance_launches = 0
 
 
 def reset_counts() -> None:
-    global match_count_launches, edit_distance_launches
-    match_count_launches = 0
+    global match_hits_launches, edit_distance_launches
+    match_hits_launches = 0
     edit_distance_launches = 0
 
 
@@ -89,6 +93,36 @@ def match_count_reference(tags, allow):
     for c in range(L):
         m += tags[:, c, None] == allow[None, :, c]
     return m.clamp_(max=255).to(torch.uint8)
+
+
+def _sorted_pairs(u, k, K):
+    """(u, k) i64 index tensors sorted by (u, k)."""
+    order = torch.argsort(u * K + k)
+    return u[order], k[order]
+
+
+def match_hits_reference(tags, allow, max_distance, chunk_u=2048,
+                         chunk_k=16384):
+    """tags u8 [U, L], allow u8 [K, L] -> (u, k) i64 [H], sorted by (u, k):
+    the pairs whose Hamming distance L - min(matches, 255) is at most
+    max_distance. The JAX formulation (distance.py:279-296):
+    match_count_reference per (chunk_u x chunk_k) block and the radius
+    test beside it; the chunks only bound the temporaries."""
+    U, L = tags.shape
+    K = allow.shape[0]
+    us, ks = [], []
+    for u0 in range(0, U, chunk_u):
+        for k0 in range(0, K, chunk_k):
+            m = match_count_reference(tags[u0:u0 + chunk_u],
+                                      allow[k0:k0 + chunk_k])
+            uu, kk = torch.nonzero(L - m.int() <= max_distance,
+                                   as_tuple=True)
+            us.append(uu + u0)
+            ks.append(kk + k0)
+    if not us:
+        empty = torch.zeros(0, dtype=torch.int64, device=tags.device)
+        return empty, empty.clone()
+    return _sorted_pairs(torch.cat(us), torch.cat(ks), K)
 
 
 def edit_distance_reference(a, b, la, lb):
@@ -125,10 +159,64 @@ def edit_distance_reference(a, b, la, lb):
 
 # --- kernel wrappers ----------------------------------------------------------
 
-def match_count(tags, allow):
-    """tags u8 [U, L], allow u8 [K, L] -> u8 [U, K] (match_count_reference's
-    semantics); L <= MATCH_MAX_LEN."""
-    global match_count_launches
+def _as_words(v):
+    """i64 values in [0, 2^32) -> the i32 tensor with the same bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def pack_hit_inputs(tags, allow, max_distance):
+    """match_hits's encoding, built by torch ops on the tensors' device.
+
+    Bytes map to class codes over the allowlist's distinct bytes (sorted),
+    `bits` = 2, 4 or 8 a column for up to 4, 16 or 256 classes, packed
+    32 // bits columns a word from the low bits up, rows S words wide (the
+    next of HIT_ROW_WORDS at or above the words needed, or that count past
+    8). A tag byte no allowlist row holds mismatches every row: it is
+    counted out of the tag's budget (max_distance minus such bytes, capped
+    to [-1, L]) and its column left out of the tag's live mask, which
+    holds the top bit of every other field. Columns past L are code 0 on
+    both sides. Returns (tag_words i32 [U, S], tag_masks i32 [U, S],
+    budgets i32 [U], allow_words i32 [Kp, S] with Kp = K rounded up to a
+    multiple of 4 and zero rows past K, bits). A pair (u, k) is a hit iff
+    popcount(fold(tag_words[u] ^ allow_words[k]) & tag_masks[u]) <=
+    budgets[u], fold setting each field's top bit iff the field is not 0."""
+    dev = tags.device
+    U, L = tags.shape
+    K = allow.shape[0]
+    vals = torch.unique(allow)
+    n = vals.numel()
+    bits = 2 if n <= 4 else 4 if n <= 16 else 8
+    per = 32 // bits
+    words = -(-L // per)
+    S = next((w for w in HIT_ROW_WORDS if w >= words), words)
+    lut = torch.full((256,), -1, dtype=torch.int64, device=dev)
+    lut[vals.long()] = torch.arange(n, device=dev)
+    shifts = torch.arange(per, device=dev) * bits
+
+    def pack(codes, rows):
+        full = torch.zeros((rows, S * per), dtype=torch.int64, device=dev)
+        full[:codes.shape[0], :L] = codes
+        return _as_words((full.view(rows, S, per) << shifts).sum(-1))
+
+    tag_codes = lut[tags.long()]
+    foreign = tag_codes < 0
+    d = min(max(max_distance, -1), L)
+    budgets = (d - foreign.sum(1)).clamp_(min=-1).to(torch.int32)
+    tag_words = pack(tag_codes.clamp(min=0), U)
+    tag_masks = pack((~foreign).long() << (bits - 1), U)
+    allow_words = pack(lut[allow.long()], -(-K // 4) * 4)
+    return tag_words, tag_masks, budgets, allow_words, bits
+
+
+def match_hits(tags, allow, max_distance, chunk_u=2048, chunk_k=16384):
+    """tags u8 [U, L], allow u8 [K, L] -> (u, k) i64, sorted by (u, k)
+    (match_hits_reference's semantics, any L >= 1). Where L - max_distance
+    exceeds 255 no pair can pass the capped count and nothing is launched.
+    On the card: pack_hit_inputs, one launch into a hit buffer, the hit
+    count read back once; a count past the buffer relaunches once with a
+    buffer of that size. chunk_u / chunk_k bound the plain version's
+    temporaries only."""
+    global match_hits_launches
     dev = _device_of(tags)
     _check(tags, "tags", torch.uint8, 2, dev)
     _check(allow, "allow", torch.uint8, 2, dev)
@@ -137,35 +225,47 @@ def match_count(tags, allow):
     if allow.shape[1] != L:
         raise ValueError(f"tags are {L} wide, allowlist rows "
                          f"{allow.shape[1]}")
-    if L > MATCH_MAX_LEN:
-        raise ValueError(f"tags of {L} bytes exceed the match-count "
-                         f"kernel's {MATCH_MAX_LEN}")
+    if L == 0:
+        raise ValueError("tags must be at least one byte wide")
     if dev.type == "cpu":
-        return match_count_reference(tags, allow)
+        return match_hits_reference(tags, allow, max_distance, chunk_u,
+                                    chunk_k)
 
     from clique_tpu_torch import _build
 
     lib = _build.load()
     s = _launch_stream(None, dev, (tags, allow))
-    with torch.cuda.stream(s):
-        if L == 0:
-            return torch.zeros((U, K), dtype=torch.uint8, device=dev)
-        out = torch.empty((U, K), dtype=torch.uint8, device=dev)
-    if U == 0 or K == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = lib.clique_match_count(tags.data_ptr(), allow.data_ptr(),
-                                     out.data_ptr(), U, K, L, s.cuda_stream)
-    _raise_on(err, "match_count")
-    match_count_launches += 1
-    return out
+    with torch.cuda.stream(s), torch.cuda.device(dev):
+        if U == 0 or K == 0 or L - max_distance > 255:
+            empty = torch.zeros(0, dtype=torch.int64, device=dev)
+            return empty, empty.clone()
+        tw, tm, budgets, aw, bits = pack_hit_inputs(tags, allow,
+                                                    max_distance)
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        cap = min(U * K, max(4 * U, 1 << 16))
+        while True:
+            out = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+            err = lib.clique_match_hits(
+                tw.data_ptr(), tm.data_ptr(), budgets.data_ptr(),
+                aw.data_ptr(), U, K, tw.shape[1], bits, count.data_ptr(),
+                out.data_ptr(), cap, s.cuda_stream)
+            _raise_on(err, "match_hits")
+            match_hits_launches += 1
+            n = int(count.item())
+            if n <= cap:
+                break
+            cap = n
+            count.zero_()
+        pairs = out[:n].long()
+        return _sorted_pairs(pairs[:, 0], pairs[:, 1], K)
 
 
 def edit_distance(a, b, la, lb):
     """a, b u8 [P, L], la, lb i32 [P] -> u8 [P] (edit_distance_reference's
-    semantics). L <= EDIT_MAX_LEN, and every length must lie in [0, L]:
-    both are checked on either device (the length check reads the lengths
-    back once) and raise ValueError."""
+    semantics), any L. Every length must lie in [0, L]: that is checked on
+    either device (the check reads the lengths back once) and raises
+    ValueError. Rows past the kernel's local-memory row take a device
+    scratch row of clique_edit_distance_scratch_bytes."""
     global edit_distance_launches
     dev = _device_of(a)
     _check(a, "a", torch.uint8, 2, dev)
@@ -175,9 +275,6 @@ def edit_distance(a, b, la, lb):
     P, L = a.shape
     if tuple(b.shape) != (P, L) or la.shape[0] != P or lb.shape[0] != P:
         raise ValueError("a and b must be [P, L] and la, lb [P]")
-    if L > EDIT_MAX_LEN:
-        raise ValueError(f"rows of {L} bytes exceed the edit-distance "
-                         f"kernel's {EDIT_MAX_LEN}")
     if P == 0:
         return torch.empty(0, dtype=torch.uint8, device=dev)
     lens = torch.stack((la, lb))
@@ -190,12 +287,15 @@ def edit_distance(a, b, la, lb):
 
     lib = _build.load()
     s = _launch_stream(None, dev, (a, b, la, lb))
+    nscratch = lib.clique_edit_distance_scratch_bytes(P, L)
     with torch.cuda.stream(s):
         out = torch.empty(P, dtype=torch.uint8, device=dev)
+        scratch = torch.empty(nscratch, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        err = lib.clique_edit_distance(a.data_ptr(), b.data_ptr(),
-                                       la.data_ptr(), lb.data_ptr(),
-                                       out.data_ptr(), P, L, s.cuda_stream)
+        err = lib.clique_edit_distance(
+            a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            out.data_ptr(), scratch.data_ptr() if nscratch else None, P, L,
+            s.cuda_stream)
     _raise_on(err, "edit_distance")
     edit_distance_launches += 1
     return out
@@ -318,40 +418,32 @@ def hamming_hits(tags: List[bytes], allowlist: List[bytes], max_distance: int,
                  ) -> List[List[int]]:
     """For each equal-length tag, indices of allowlist entries within Hamming
     radius max_distance (exact byte equality per column, as
-    FastaString::hamming_distance), ascending per tag.
+    FastaString::hamming_distance, matches capped at 255), ascending per
+    tag.
 
-    Tags and allowlist go to `device` once; `match_count` runs per
-    (chunk_u x chunk_k) block, the radius test L - matches <= max_distance
-    runs beside it, and only the hits' indices come back to the host: a
-    full [U, K] u8 matrix does not fit at allowlist scale (26k tags x
-    737,280 entries is ~19 GB). Mirrors
+    Tags and allowlist go to `device` once and `match_hits` runs once over
+    all of them; only the hits' indices come back to the host, and one
+    split of them by tag builds the lists. chunk_u / chunk_k bound the
+    plain version's temporaries on the CPU. Mirrors
     clique_tpu/collapse/distance.py:255-300."""
     if not tags or not allowlist:
         return [[] for _ in tags]
     L = len(allowlist[0])
-    assert all(len(t) == L for t in tags), "hamming requires equal lengths"
-    assert all(len(a) == L for a in allowlist)
+    assert set(map(len, tags)) == {L}, "hamming requires equal lengths"
+    assert set(map(len, allowlist)) == {L}
     dev = resolve_device(device)
+    u, k = match_hits(upload_rows(tags, L, dev),
+                      upload_rows(allowlist, L, dev), max_distance, chunk_u,
+                      chunk_k)
+    ends = np.searchsorted(u.cpu().numpy(), np.arange(len(tags) + 1)).tolist()
+    ks = k.tolist()
+    return [ks[a:b] for a, b in zip(ends, ends[1:])]
 
-    def upload(seqs):
-        arr = np.frombuffer(b"".join(seqs), dtype=np.uint8).reshape(-1, L)
-        return torch.from_numpy(arr.copy()).to(dev)
 
-    tags_t = upload(tags)
-    allow_t = upload(allowlist)
-    # matches are capped at 255, as the JAX kernel's are
-    need = max(L - max_distance, 0)
-    out: List[List[int]] = [[] for _ in tags]
-    if need > 255:
-        return out
-    for u0 in range(0, len(tags), chunk_u):
-        t_chunk = tags_t[u0:u0 + chunk_u]
-        for k0 in range(0, len(allowlist), chunk_k):
-            matches = match_count(t_chunk, allow_t[k0:k0 + chunk_k])
-            uu, kk = torch.nonzero(matches >= need, as_tuple=True)
-            for u, k in zip(uu.tolist(), kk.tolist()):
-                out[u0 + u].append(k0 + k)
-    return out
+def upload_rows(seqs: List[bytes], L: int, dev) -> torch.Tensor:
+    """Equal-length byte strings as a u8 [N, L] tensor on `dev`."""
+    arr = np.frombuffer(b"".join(seqs), dtype=np.uint8).reshape(-1, L)
+    return torch.from_numpy(arr.copy()).to(dev)
 
 
 # --- pigeonhole candidate generation (host) ---------------------------------

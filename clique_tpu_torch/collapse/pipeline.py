@@ -1018,7 +1018,7 @@ def _collapse_impl(output_path: str, layout: SequenceLayout, input_bam: str,
         raise NotImplementedError(unported_message(
             "n_workers > 1 (collapse --threads > 1)", "collapse_workers"))
     dev = distance.resolve_device(device)
-    launches0 = (distance.match_count_launches,
+    launches0 = (distance.match_hits_launches,
                  distance.edit_distance_launches)
 
     rm = ReferenceManager.from_layout(layout)
@@ -1161,7 +1161,7 @@ def add_device_metrics(metrics: dict, dev, launches0) -> None:
     metrics["device"] = torch.cuda.get_device_name(dev) \
         if dev.type == "cuda" else "cpu"
     metrics["kernel_launches"] = {
-        "match_count": distance.match_count_launches - launches0[0],
+        "match_hits": distance.match_hits_launches - launches0[0],
         "edit_distance": distance.edit_distance_launches - launches0[1]}
 
 

@@ -2,25 +2,37 @@
 // tag correction.
 //
 // Replaces, in clique_tpu/collapse/distance.py:
-// - _match_count_kernel: per (tag, allowlist entry) the number of columns
-//   whose bytes are equal (KnownTag Hamming). The XLA version one-hot
-//   encodes byte classes and contracts them on the matrix unit; here the
-//   bytes are compared directly, four at a time (__vcmpeq4), so '-' == '-'
-//   and 'N' == 'N' count as matches exactly as the byte classes did.
-// - _edit_distance_kernel: Levenshtein distance per row pair. The XLA
-//   version sweeps anti-diagonals over [P, L+1] lanes with a scan; here one
-//   thread owns one pair and keeps a rolling DP row in registers.
+// - _match_count_kernel (:240-252) fused with hamming_hits's radius test
+//   (:295-296): every (tag, allowlist entry) pair whose Hamming distance,
+//   L - min(matches, 255), is at most d. The XLA version one-hot encodes
+//   byte classes, contracts them on the matrix unit into a [U, K] count
+//   matrix and thresholds it on the host; the port's earlier kernel wrote
+//   the u8 matrix too, 2048 x 16384 at a time, and two torch passes read it
+//   back to find about one hit per tag. Here no matrix exists: the kernel tests
+//   the radius itself and writes only the hits.
+// - _edit_distance_kernel (:36-91): Levenshtein distance per row pair. The
+//   XLA version sweeps anti-diagonals over [P, L+1] lanes with a scan; here
+//   one thread owns one pair and keeps a rolling DP row.
 //
-// What bounds them on an H100:
-// - match count: at the chunk shape (U=2048 tags x K=16384 entries, L=16)
-//   it writes U*K output bytes (33.5 MB) and does U*K*ceil(L/4) word
-//   compares; the inputs (32 KB + 256 KB) stay in L2. The output write and
-//   the integer pipe bound it. Design: a CTA keeps 128 allowlist rows,
-//   transposed to words in shared memory (thread t reads word w of its own
-//   row at [w][t]: no bank conflicts), and walks tiles of 16 tags whose
-//   words every thread reads at the same address (a broadcast); 16 counts
-//   stay in registers, and each tag's 128 output bytes are stored by
-//   neighbouring threads at neighbouring addresses.
+// What bounds them on an H100, and what the design does about it:
+// - match hits: at the known-list shape (~25,000 tags x 737,280 entries,
+//   L = 16) the inputs are 12 MB and the hits a few hundred KB, so the
+//   integer pipe bounds it: one test per pair, 1.8e10 pairs. The wrapper
+//   (distance.py::pack_hit_inputs) maps bytes to class codes over the
+//   allowlist's distinct bytes, 2 bits a column for an ACGT list (4 up to
+//   16 classes, 8 beyond), so a 16 bp row is one 32-bit word. A tag byte
+//   no allowlist row holds mismatches every row: it is counted once into
+//   the tag's budget (d minus such bytes) and masked out of its column.
+//   One pair is then XOR, a shift-or that folds each code's bits onto its
+//   top bit, an AND with the tag's live mask (one lop3), a popc and a
+//   compare. Each lane holds 8 / words tags in registers; every lane of a
+//   warp reads the same 16 bytes of the packed allowlist (one broadcast
+//   load of 4 rows at 1 word a row), which sits in L2 (2.9 MB at the 10x
+//   shape). A warp that finds any hit among its 32 x 8 tags x 4 rows
+//   recomputes them, ballots, and reserves space with one atomicAdd per
+//   ballot; hits go out as (u, k) i32 pairs in no order. One launch covers
+//   the whole U x K. Rows wider than 8 words (L > 128 at 2 bits) take a
+//   kernel with one tag a lane whose words stay in L1.
 // - edit distance: la*L cells of a few integer ops per pair, no reuse
 //   between pairs; at 2M pairs of 16 bp in 32-byte rows it reads 134 MB
 //   once. The integer pipe bounds it. Design: one thread per pair, the
@@ -28,84 +40,200 @@
 //   for L <= 32, the rows of collapse's 16 bp cell barcodes (fully
 //   unrolled inner loop: 0.26 ms at 2M pairs against 0.80 ms for the
 //   local-memory row on an H100 80GB HBM3 at 700 W), a local-memory row
-//   up to kMaxEditLen beyond that.
+//   up to kLocalEditLen beyond that, and past it a row of u8 cells in a
+//   device scratch the wrapper allocates, laid out [L + 1][P] so that
+//   neighbouring threads touch neighbouring bytes. Cells are capped at 255
+//   as they are computed: min and +1 are monotone, so the capped DP gives
+//   exactly min(d, 255).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace clique_tag {
 
-constexpr int kMatchThreads = 128;   // allowlist rows per CTA
-constexpr int kMatchTile = 16;       // tags per tile (counts in registers)
-constexpr int kMaxMatchLen = 256;    // L: 64 words a row, 36,864 B smem
-                                     // (MATCH_MAX_LEN in distance.py)
+constexpr int kHitThreads = 128;     // 4 warps a CTA
+constexpr int kHitTagWords = 8;      // tag words a lane holds (tags x words)
+constexpr int kHitWaves = 4;         // CTAs per SM the grid aims for, x 4
 constexpr int kEditThreads = 128;
 constexpr int kRegEditLen = 32;      // widest row the register kernel takes
-constexpr int kMaxEditLen = 256;     // row width L (EDIT_MAX_LEN)
+constexpr int kLocalEditLen = 256;   // widest row kept in local memory
+constexpr unsigned kFull = 0xffffffffu;
 
 namespace {
 
-__device__ __forceinline__ uint32_t load_word(const uint8_t* row, int w,
-                                              int L, bool live) {
-  uint32_t word = 0;
-  if (!live) return word;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int c = 4 * w + k;
-    if (c < L) word |= static_cast<uint32_t>(row[c]) << (8 * k);
-  }
-  return word;
+// Fold each BITS-wide code of x onto its top bit: the top bit of a field
+// is set iff the field is not zero (the other bits are garbage, masked
+// by the caller).
+template <int BITS>
+__device__ __forceinline__ uint32_t fold(uint32_t x) {
+  x |= x << 1;
+  if (BITS >= 4) x |= x << 2;
+  if (BITS >= 8) x |= x << 4;
+  return x;
 }
 
-// matches [U, K] u8 = min(255, #columns c with tags[u, c] == allow[k, c]).
-// Columns past L are zero on both sides of every word, so they always
-// compare equal: the count subtracts them (pad = 4 * Lw - L).
-__global__ void __launch_bounds__(kMatchThreads)
-match_count_kernel(const uint8_t* __restrict__ tags,
-                   const uint8_t* __restrict__ allow,
-                   uint8_t* __restrict__ out, int U, int K, int L) {
-  extern __shared__ uint32_t smem[];
-  const int Lw = (L + 3) / 4;
-  uint32_t* allow_t = smem;                        // [Lw][kMatchThreads]
-  uint32_t* tag_w = smem + Lw * kMatchThreads;     // [kMatchTile][Lw]
-  const int t = threadIdx.x;
-  const int k = blockIdx.x * kMatchThreads + t;
-  const bool k_live = k < K;
-  const uint8_t* arow = allow + static_cast<size_t>(k_live ? k : 0) * L;
-  for (int w = 0; w < Lw; ++w)
-    allow_t[w * kMatchThreads + t] = load_word(arow, w, L, k_live);
-  const int pad = 4 * Lw - L;
-  const int tiles = (U + kMatchTile - 1) / kMatchTile;
-  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
-    const int u0 = tile * kMatchTile;
-    __syncthreads();   // allow_t written / the previous tile's tag_w read
-    for (int i = t; i < kMatchTile * Lw; i += kMatchThreads) {
-      const int r = i / Lw, w = i - r * Lw;
-      const bool live = u0 + r < U;
-      tag_w[i] = load_word(tags + static_cast<size_t>(live ? u0 + r : 0) * L,
-                           w, L, live);
-    }
-    __syncthreads();
-    uint32_t acc[kMatchTile];
+// Mismatched columns of one tag against one allowlist row of WT words.
+template <int BITS, int WT>
+__device__ __forceinline__ int mismatches(const uint32_t* t, const uint32_t* m,
+                                          const uint32_t* a) {
+  int cnt = 0;
 #pragma unroll
-    for (int r = 0; r < kMatchTile; ++r) acc[r] = 0;
-    for (int w = 0; w < Lw; ++w) {
-      const uint32_t aw = allow_t[w * kMatchThreads + t];
+  for (int w = 0; w < WT; ++w) cnt += __popc(fold<BITS>(t[w] ^ a[w]) & m[w]);
+  return cnt;
+}
+
+// Append the lanes' hits (h) as (u, k) pairs: one atomicAdd per warp.
+// Hits past `cap` are counted and not written; the wrapper relaunches.
+__device__ __forceinline__ void emit(bool h, int u, int k,
+                                     unsigned long long* count, int2* out,
+                                     unsigned long long cap) {
+  const unsigned b = __ballot_sync(kFull, h);
+  if (b == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(b) - 1;
+  unsigned long long base = 0;
+  if (lane == leader) base = atomicAdd(count, (unsigned long long)__popc(b));
+  base = __shfl_sync(kFull, base, leader);
+  if (h) {
+    const unsigned long long i = base + __popc(b & ((1u << lane) - 1u));
+    if (i < cap) out[i] = make_int2(u, k);
+  }
+}
+
+// Hits for rows of WT words (WT in 1, 2, 4, 8). Lane `lane` of warp g
+// holds tags g*32*T + 32*j + lane, j < T. The allowlist is [Kp][WT]
+// words, Kp a multiple of 4; rows past K are read and never emitted.
+// CTA (x, y) covers tag block x against rows [y*kchunk, (y+1)*kchunk).
+template <int BITS, int WT>
+__global__ void __launch_bounds__(kHitThreads)
+match_hits_kernel(const uint32_t* __restrict__ tw,
+                  const uint32_t* __restrict__ tm,
+                  const int* __restrict__ tr,
+                  const uint32_t* __restrict__ aw, int U, int K, int Kp,
+                  int kchunk, unsigned long long* __restrict__ count,
+                  int2* __restrict__ out, unsigned long long cap) {
+  constexpr int T = kHitTagWords / WT;   // tags a lane
+  constexpr int G = WT >= 4 ? 1 : 4 / WT; // rows a 16-byte group
+  constexpr int V = (G * WT) / 4;        // 16-byte loads a group
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * (kHitThreads / 32) + (threadIdx.x >> 5);
+  uint32_t t[T][WT], m[T][WT];
+  int r[T], u[T];
+  bool live = false;
 #pragma unroll
-      for (int r = 0; r < kMatchTile; ++r)
-        acc[r] += __popc(__vcmpeq4(aw, tag_w[r * Lw + w]));
-    }
-    if (k_live) {
+  for (int j = 0; j < T; ++j) {
+    u[j] = warp * 32 * T + 32 * j + lane;
+    const bool in = u[j] < U;
+    r[j] = in ? tr[u[j]] : -1;
+    live |= r[j] >= 0;
 #pragma unroll
-      for (int r = 0; r < kMatchTile; ++r) {
-        if (u0 + r < U) {
-          const uint32_t m = (acc[r] >> 3) - pad;   // 8 bits per equal byte
-          out[static_cast<size_t>(u0 + r) * K + k] =
-              static_cast<uint8_t>(m < 255u ? m : 255u);
-        }
-      }
+    for (int w = 0; w < WT; ++w) {
+      t[j][w] = in ? tw[static_cast<size_t>(u[j]) * WT + w] : 0u;
+      m[j][w] = in ? tm[static_cast<size_t>(u[j]) * WT + w] : 0u;
     }
   }
+  if (!__any_sync(kFull, live)) return;   // warp-uniform
+  const int k0 = blockIdx.y * kchunk;
+  const int k1 = min(Kp, k0 + kchunk);
+  const uint4* src = reinterpret_cast<const uint4*>(aw);
+  for (int k = k0; k < k1; k += G) {
+    uint32_t a[G * WT];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const uint4 q = __ldg(src + static_cast<size_t>(k) * WT / 4 + v);
+      a[4 * v] = q.x;
+      a[4 * v + 1] = q.y;
+      a[4 * v + 2] = q.z;
+      a[4 * v + 3] = q.w;
+    }
+    bool any = false;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < T; ++j)
+        any |= mismatches<BITS, WT>(t[j], m[j], a + g * WT) <= r[j];
+    if (__any_sync(kFull, any)) {         // rare: recompute and emit
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < T; ++j)
+          emit(k + g < K &&
+                   mismatches<BITS, WT>(t[j], m[j], a + g * WT) <= r[j],
+               u[j], k + g, count, out, cap);
+    }
+  }
+}
+
+// Hits for rows of any width W words (W > 8): one tag a lane, its words
+// read from tw (L1-resident across the row loop).
+template <int BITS>
+__global__ void __launch_bounds__(kHitThreads)
+match_hits_wide_kernel(const uint32_t* __restrict__ tw,
+                       const uint32_t* __restrict__ tm,
+                       const int* __restrict__ tr,
+                       const uint32_t* __restrict__ aw, int U, int K, int W,
+                       int kchunk, unsigned long long* __restrict__ count,
+                       int2* __restrict__ out, unsigned long long cap) {
+  const int u = blockIdx.x * kHitThreads + threadIdx.x;
+  const int r = u < U ? tr[u] : -1;
+  if (!__any_sync(kFull, r >= 0)) return;
+  const size_t row = static_cast<size_t>(u < U ? u : U - 1) * W;
+  const uint32_t* t = tw + row;
+  const uint32_t* m = tm + row;
+  const int k0 = blockIdx.y * kchunk;
+  const int k1 = min(K, k0 + kchunk);
+  for (int k = k0; k < k1; ++k) {
+    const uint32_t* a = aw + static_cast<size_t>(k) * W;
+    int cnt = 0;
+    for (int w = 0; w < W; ++w)
+      cnt += __popc(fold<BITS>(t[w] ^ __ldg(a + w)) & m[w]);
+    emit(cnt <= r, u, k, count, out, cap);
+  }
+}
+
+template <int BITS>
+int launch_hits(const uint32_t* tw, const uint32_t* tm, const int* tr,
+                const uint32_t* aw, int U, int K, int Kp, int S,
+                unsigned long long* count, int2* out,
+                unsigned long long cap, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tags_cta = S <= kHitTagWords
+                           ? (kHitThreads / 32) * 32 * (kHitTagWords / S)
+                           : kHitThreads;
+  const int xblocks = (U + tags_cta - 1) / tags_cta;
+  // enough CTAs to fill every SM kHitWaves times over, in chunks of
+  // whole 4-row groups
+  const int target = sms * 16 * kHitWaves;
+  int ychunks = (target + xblocks - 1) / xblocks;
+  ychunks = max(1, min(ychunks, min((Kp + 3) / 4, 65535)));
+  int kchunk = (Kp + ychunks - 1) / ychunks;
+  kchunk = (kchunk + 3) / 4 * 4;
+  ychunks = (Kp + kchunk - 1) / kchunk;
+  const dim3 grid(xblocks, ychunks);
+  switch (S) {
+    case 1:
+      match_hits_kernel<BITS, 1><<<grid, kHitThreads, 0, s>>>(
+          tw, tm, tr, aw, U, K, Kp, kchunk, count, out, cap);
+      break;
+    case 2:
+      match_hits_kernel<BITS, 2><<<grid, kHitThreads, 0, s>>>(
+          tw, tm, tr, aw, U, K, Kp, kchunk, count, out, cap);
+      break;
+    case 4:
+      match_hits_kernel<BITS, 4><<<grid, kHitThreads, 0, s>>>(
+          tw, tm, tr, aw, U, K, Kp, kchunk, count, out, cap);
+      break;
+    case 8:
+      match_hits_kernel<BITS, 8><<<grid, kHitThreads, 0, s>>>(
+          tw, tm, tr, aw, U, K, Kp, kchunk, count, out, cap);
+      break;
+    default:
+      match_hits_wide_kernel<BITS><<<grid, kHitThreads, 0, s>>>(
+          tw, tm, tr, aw, U, K, S, kchunk, count, out, cap);
+  }
+  return cudaGetLastError();
 }
 
 // Levenshtein distance of a[p, :la[p]] and b[p, :lb[p]], min(d, 255).
@@ -127,8 +255,15 @@ edit_distance_reg_kernel(const uint8_t* __restrict__ a,
   const int m = min(max(lb[p], 0), L);
   uint32_t bw[kRegEditLen / 4];
 #pragma unroll
-  for (int w = 0; w < kRegEditLen / 4; ++w)
-    bw[w] = load_word(brow, w, L, true);
+  for (int w = 0; w < kRegEditLen / 4; ++w) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = 4 * w + k;
+      if (c < L) word |= static_cast<uint32_t>(brow[c]) << (8 * k);
+    }
+    bw[w] = word;
+  }
   int row[kRegEditLen + 1];
 #pragma unroll
   for (int j = 0; j <= kRegEditLen; ++j) row[j] = j;
@@ -152,7 +287,7 @@ edit_distance_reg_kernel(const uint8_t* __restrict__ a,
   out[p] = static_cast<uint8_t>(d < 255 ? d : 255);
 }
 
-// The same DP for kRegEditLen < L <= kMaxEditLen, with the row in local
+// The same DP for kRegEditLen < L <= kLocalEditLen, with the row in local
 // memory.
 __global__ void __launch_bounds__(kEditThreads)
 edit_distance_local_kernel(const uint8_t* __restrict__ a,
@@ -166,7 +301,7 @@ edit_distance_local_kernel(const uint8_t* __restrict__ a,
   const uint8_t* brow = b + static_cast<size_t>(p) * L;
   const int n = min(max(la[p], 0), L);
   const int m = min(max(lb[p], 0), L);
-  uint16_t row[kMaxEditLen + 1];
+  uint16_t row[kLocalEditLen + 1];
   for (int j = 0; j <= m; ++j) row[j] = static_cast<uint16_t>(j);
   for (int i = 1; i <= n; ++i) {
     const uint8_t ai = arow[i - 1];
@@ -184,37 +319,94 @@ edit_distance_local_kernel(const uint8_t* __restrict__ a,
   out[p] = static_cast<uint8_t>(d < 255 ? d : 255);
 }
 
+// The same DP for L > kLocalEditLen: the row is u8 cells capped at 255 in
+// scratch[j * P + p].
+__global__ void __launch_bounds__(kEditThreads)
+edit_distance_scratch_kernel(const uint8_t* __restrict__ a,
+                             const uint8_t* __restrict__ b,
+                             const int* __restrict__ la,
+                             const int* __restrict__ lb,
+                             uint8_t* __restrict__ out,
+                             uint8_t* __restrict__ scratch, int P, int L) {
+  const int p = blockIdx.x * kEditThreads + threadIdx.x;
+  if (p >= P) return;
+  const uint8_t* arow = a + static_cast<size_t>(p) * L;
+  const uint8_t* brow = b + static_cast<size_t>(p) * L;
+  uint8_t* row = scratch + p;
+  const size_t step = static_cast<size_t>(P);
+  const int n = min(max(la[p], 0), L);
+  const int m = min(max(lb[p], 0), L);
+  for (int j = 0; j <= m; ++j) row[j * step] = static_cast<uint8_t>(min(j, 255));
+  for (int i = 1; i <= n; ++i) {
+    const uint8_t ai = arow[i - 1];
+    int diag = row[0];
+    int left = min(i, 255);
+    row[0] = static_cast<uint8_t>(left);
+    for (int j = 1; j <= m; ++j) {
+      const int up = row[j * step];
+      const int v = min(min(min(up, left) + 1,
+                            diag + (ai != brow[j - 1] ? 1 : 0)), 255);
+      diag = up;
+      left = v;
+      row[j * step] = static_cast<uint8_t>(v);
+    }
+  }
+  out[p] = row[m * step];
+}
+
 }  // namespace
 }  // namespace clique_tag
 
-// Launch the match count on `stream`: tags [U, L] u8, allow [K, L] u8,
-// out [U, K] u8, all contiguous. Returns the CUDA error of the launch.
-extern "C" int clique_match_count(const void* tags, const void* allow,
-                                  void* out, int U, int K, int L,
-                                  void* stream) {
+// Launch the fused Hamming hit search on `stream`. tag_words / tag_masks
+// [U][S] u32 (codes of `bits` bits; the top bit of each live field set in
+// the mask), budgets [U] i32 (max_distance minus the tag's bytes no
+// allowlist row holds), allow_words [Kp][S] u32 with Kp = K rounded up to
+// a multiple of 4 (rows past K zero), count one u64 set to 0, out [cap]
+// (u, k) i32 pairs. S is 1, 2, 4, 8 or above 8. Returns the CUDA error of
+// the launch.
+extern "C" int clique_match_hits(const void* tag_words, const void* tag_masks,
+                                 const void* budgets, const void* allow_words,
+                                 int U, int K, int S, int bits, void* count,
+                                 void* out, long long cap, void* stream) {
   using namespace clique_tag;
-  if (U <= 0 || K <= 0 || L <= 0 || L > kMaxMatchLen)
+  const int Kp = (K + 3) / 4 * 4;
+  if (U <= 0 || K <= 0 || S <= 0 || cap < 0 ||
+      (S <= kHitTagWords && (S & (S - 1)) != 0))
     return cudaErrorInvalidValue;
-  const int Lw = (L + 3) / 4;
-  const size_t smem = sizeof(uint32_t) * Lw * (kMatchThreads + kMatchTile);
-  const int tiles = (U + kMatchTile - 1) / kMatchTile;
-  const dim3 grid((K + kMatchThreads - 1) / kMatchThreads,
-                  tiles < 65535 ? tiles : 65535);
-  match_count_kernel<<<grid, kMatchThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(tags), static_cast<const uint8_t*>(allow),
-      static_cast<uint8_t*>(out), U, K, L);
-  return cudaGetLastError();
+  const auto* tw = static_cast<const uint32_t*>(tag_words);
+  const auto* tm = static_cast<const uint32_t*>(tag_masks);
+  const auto* tr = static_cast<const int*>(budgets);
+  const auto* aw = static_cast<const uint32_t*>(allow_words);
+  auto* c = static_cast<unsigned long long*>(count);
+  auto* o = static_cast<int2*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto n = static_cast<unsigned long long>(cap);
+  switch (bits) {
+    case 2: return launch_hits<2>(tw, tm, tr, aw, U, K, Kp, S, c, o, n, s);
+    case 4: return launch_hits<4>(tw, tm, tr, aw, U, K, Kp, S, c, o, n, s);
+    case 8: return launch_hits<8>(tw, tm, tr, aw, U, K, Kp, S, c, o, n, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Bytes of device scratch clique_edit_distance needs for P pairs of rows
+// L wide (0 where the row fits the registers or local memory).
+extern "C" long long clique_edit_distance_scratch_bytes(int P, int L) {
+  using namespace clique_tag;
+  return L > kLocalEditLen ? static_cast<long long>(P) * (L + 1) : 0;
 }
 
 // Launch the edit distance on `stream`: a, b [P, L] u8, la, lb [P] i32
-// (0 <= la, lb <= L, checked by the caller), out [P] u8. Returns the CUDA
-// error of the launch.
+// (0 <= la, lb <= L, checked by the caller), out [P] u8, scratch of
+// clique_edit_distance_scratch_bytes(P, L) bytes (null where that is 0).
+// Returns the CUDA error of the launch.
 extern "C" int clique_edit_distance(const void* a, const void* b,
                                     const void* la, const void* lb,
-                                    void* out, int P, int L, void* stream) {
+                                    void* out, void* scratch, int P, int L,
+                                    void* stream) {
   using namespace clique_tag;
-  if (P <= 0 || L <= 0 || L > kMaxEditLen) return cudaErrorInvalidValue;
+  if (P <= 0 || L <= 0 || (L > kLocalEditLen && scratch == nullptr))
+    return cudaErrorInvalidValue;
   const int blocks = (P + kEditThreads - 1) / kEditThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* pa = static_cast<const uint8_t*>(a);
@@ -225,8 +417,11 @@ extern "C" int clique_edit_distance(const void* a, const void* b,
   if (L <= kRegEditLen)
     edit_distance_reg_kernel<<<blocks, kEditThreads, 0, s>>>(
         pa, pb, pla, plb, po, P, L);
-  else
+  else if (L <= kLocalEditLen)
     edit_distance_local_kernel<<<blocks, kEditThreads, 0, s>>>(
         pa, pb, pla, plb, po, P, L);
+  else
+    edit_distance_scratch_kernel<<<blocks, kEditThreads, 0, s>>>(
+        pa, pb, pla, plb, po, static_cast<uint8_t*>(scratch), P, L);
   return cudaGetLastError();
 }

@@ -43,14 +43,17 @@ def test_match_count_reference_matches_jax(shape):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_match_count_wrapper_on_cpu_runs_the_plain_version():
+def test_match_hits_wrapper_on_cpu_runs_the_plain_version():
     rng = np.random.default_rng(3)
     tags = torch.from_numpy(rng.choice(ALPHABET, (20, 16)))
     allow = torch.from_numpy(rng.choice(ALPHABET, (50, 16)))
-    n = tdist.match_count_launches
-    got = tdist.match_count(tags, allow)
-    assert tdist.match_count_launches == n       # no kernel launched
-    assert torch.equal(got, tdist.match_count_reference(tags, allow))
+    tags[::3] = allow[:7]
+    n = tdist.match_hits_launches
+    u, k = tdist.match_hits(tags, allow, 2)
+    assert tdist.match_hits_launches == n       # no kernel launched
+    want = tdist.match_hits_reference(tags, allow, 2)
+    assert torch.equal(u, want[0]) and torch.equal(k, want[1])
+    assert u.dtype == k.dtype == torch.int64 and len(u) >= 7
 
 
 def _edit_inputs(seed, P, L, zero_lens=True):
@@ -101,16 +104,27 @@ def test_edit_distance_caps_at_255():
     assert got.tolist() == [255, 10]
 
 
-def test_edit_distance_wrapper_refuses_rows_past_its_bound():
-    L = tdist.EDIT_MAX_LEN + 1
-    a = torch.zeros((2, L), dtype=torch.uint8)
-    lens = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="exceed"):
-        tdist.edit_distance(a, a.clone(), lens, lens)
-    # edit_distance_rows sends such rows to the wrapper, never to Myers
-    with pytest.raises(ValueError, match="exceed"):
-        tdist.edit_distance_rows(a.numpy(), a.numpy(), lens.numpy(),
-                                 lens.numpy(), device="cpu")
+@pytest.mark.parametrize("L", [300, 1000])
+def test_edit_distance_wide_rows_match_jax_kernel(L):
+    """Rows past the kernel's local-memory row: the wrapper, and the
+    device path of edit_distance_rows, equal the JAX kernel at any width,
+    distances capped at 255."""
+    a, b, la, lb = _edit_inputs(L, 6, L)
+    a[4], b[4], la[4], lb[4] = ord("A"), ord("C"), L, L     # d = L > 255
+    la[5], lb[5] = L, L - 40
+    want = np.asarray(jdist._edit_distance_kernel(a, b, la, lb, L1=L, L2=L))
+    got = tdist.edit_distance(*(torch.from_numpy(x) for x in (a, b, la, lb)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[4] == 255
+    np.testing.assert_array_equal(
+        tdist.edit_distance_rows(a, b, la, lb, device="cpu"), want)
+
+
+def test_edit_distance_pairs_past_256_bytes_matches_jax():
+    seqs_a, seqs_b = [b"A" * 300, b"ACGT" * 70], [b"C" * 300, b"ACGA" * 70]
+    want = jdist.edit_distance_pairs(seqs_a, seqs_b)
+    got = tdist.edit_distance_pairs(seqs_a, seqs_b, device="cpu")
+    assert want.tolist() == got.tolist() == [255, 70]
 
 
 @pytest.mark.parametrize("bad", [(-1, 3), (3, 33)], ids=["negative", "long"])
@@ -121,41 +135,129 @@ def test_edit_distance_wrapper_refuses_lengths_out_of_range(bad):
                             torch.tensor([bad[1]], dtype=torch.int32))
 
 
-def test_match_count_wrapper_refuses_bad_shapes():
+def test_match_hits_wrapper_refuses_bad_shapes():
     with pytest.raises(ValueError, match="wide"):
-        tdist.match_count(torch.zeros((2, 16), dtype=torch.uint8),
-                          torch.zeros((2, 15), dtype=torch.uint8))
-    with pytest.raises(ValueError, match="exceed"):
-        L = tdist.MATCH_MAX_LEN + 1
-        tdist.match_count(torch.zeros((2, L), dtype=torch.uint8),
-                          torch.zeros((2, L), dtype=torch.uint8))
+        tdist.match_hits(torch.zeros((2, 16), dtype=torch.uint8),
+                         torch.zeros((2, 15), dtype=torch.uint8), 1)
+    with pytest.raises(ValueError, match="one byte"):
+        tdist.match_hits(torch.zeros((2, 0), dtype=torch.uint8),
+                         torch.zeros((2, 0), dtype=torch.uint8), 1)
     with pytest.raises(TypeError):
-        tdist.match_count(torch.zeros((2, 16), dtype=torch.int32),
-                          torch.zeros((2, 16), dtype=torch.int32))
+        tdist.match_hits(torch.zeros((2, 16), dtype=torch.int32),
+                         torch.zeros((2, 16), dtype=torch.int32), 1)
 
 
-@pytest.mark.parametrize("case", [
-    dict(U=50, K=40, L=16, d=1, cu=2048, ck=16384),
-    dict(U=200, K=300, L=16, d=2, cu=64, ck=100),
-    dict(U=77, K=129, L=12, d=0, cu=32, ck=33),
-    dict(U=30, K=30, L=8, d=3, cu=7, ck=11),
-], ids=["one_chunk", "chunked", "exact", "wide_radius"])
-def test_hamming_hits_matches_jax(case):
+# allowlist alphabets past 4 and past 16 byte classes
+MANY = np.frombuffer(b"ACGTNRYKMSWBDHVacgtn", dtype=np.uint8)
+HAMMING_CASES = {
+    "one_chunk": dict(U=50, K=40, L=16, d=1, cu=2048, ck=16384),
+    "chunked": dict(U=200, K=300, L=16, d=2, cu=64, ck=100),
+    "exact": dict(U=77, K=129, L=12, d=0, cu=32, ck=33),
+    "wide_radius": dict(U=30, K=30, L=8, d=3, cu=7, ck=11),
+    # ACGT allowlist, tags carrying bytes no entry holds
+    "foreign_tag_bytes": dict(U=120, K=200, L=16, d=2, cu=64, ck=64,
+                              noise=b"N-"),
+    "allowlist_with_n_gap": dict(U=80, K=150, L=16, d=1, cu=32, ck=64,
+                                 allow=ALPHABET),
+    "many_classes": dict(U=80, K=150, L=24, d=3, cu=32, ck=64, allow=MANY,
+                         noise=MANY),
+    "l300_d50": dict(U=40, K=60, L=300, d=50, cu=16, ck=32, mut=60),
+    # need = L - d = 280 > 255: the capped count passes no pair
+    "l300_d20_need_over_255": dict(U=40, K=60, L=300, d=20, cu=16, ck=32),
+}
+
+
+def _hamming_case(case):
+    """Seeded allowlist and tags: entries from `allow` (ACGT by default)
+    with a near-duplicate pair, tags copied from entries with up to `mut`
+    substitutions drawn from `noise` (ACGTN- by default)."""
     rng = np.random.default_rng(case["U"] * 7 + case["K"])
     L = case["L"]
-    allow = [rng.choice(BASES, L).tobytes() for _ in range(case["K"])]
+    letters = case.get("allow", BASES)
+    noise = np.frombuffer(case["noise"], np.uint8) \
+        if isinstance(case.get("noise"), bytes) \
+        else case.get("noise", ALPHABET)
+    allow = [rng.choice(letters, L).tobytes() for _ in range(case["K"])]
     allow[1] = allow[0][:-1] + b"N"          # near-duplicate entries
     tags = [allow[0]]
     for u in range(case["U"]):
         t = bytearray(allow[rng.integers(len(allow))])
-        for _ in range(int(rng.integers(0, 4))):
-            t[rng.integers(L)] = int(rng.choice(ALPHABET))
+        for _ in range(int(rng.integers(0, case.get("mut", 3) + 1))):
+            t[rng.integers(L)] = int(rng.choice(noise))
         tags.append(bytes(t))
-    want = jdist.hamming_hits(tags, allow, case["d"])
+    return tags, allow
+
+
+def _jax_hamming_hits(tags, allow, d):
+    """jdist.hamming_hits; past 255 columns its `L - matches`
+    (distance.py:295) is a uint8 subtraction that NumPy 2 refuses, so there
+    the same kernel (_match_count_kernel over _byte_classes) and the same
+    radius test run here in int64."""
+    L = len(allow[0])
+    if L <= 255:
+        return jdist.hamming_hits(tags, allow, d)
+    t = np.frombuffer(b"".join(tags), np.uint8).reshape(-1, L)
+    a = np.frombuffer(b"".join(allow), np.uint8).reshape(-1, L)
+    m = _jax_match_count(t, a).astype(np.int64)
+    return [np.flatnonzero(L - row <= d).tolist() for row in m]
+
+
+@pytest.mark.parametrize("name", list(HAMMING_CASES))
+def test_hamming_hits_matches_jax(name):
+    case = HAMMING_CASES[name]
+    tags, allow = _hamming_case(case)
+    want = _jax_hamming_hits(tags, allow, case["d"])
     got = tdist.hamming_hits(tags, allow, case["d"], device="cpu",
                              chunk_u=case["cu"], chunk_k=case["ck"])
     assert got == want
-    assert any(len(h) > 1 for h in got) or case["d"] == 0
+    if case["L"] - case["d"] > 255:
+        assert not any(got)
+    else:
+        assert any(len(h) > 1 for h in got) or case["d"] == 0
+
+
+def _popcount(x):
+    return sum((x >> i) & 1 for i in range(32))
+
+
+def _packed_test_hits(tags, allow, d):
+    """The kernel's per-pair test in torch, on pack_hit_inputs's encoding:
+    XOR of the words, each field folded onto its top bit, AND with the
+    tag's live mask, popcount against the budget; nothing where L - d
+    exceeds 255, as the wrapper launches nothing there."""
+    U, L = tags.shape
+    K = allow.shape[0]
+    if L - d > 255:
+        return torch.zeros(0, dtype=torch.int64), torch.zeros(
+            0, dtype=torch.int64)
+    tw, tm, budgets, aw, bits = tdist.pack_hit_inputs(tags, allow, d)
+    assert tw.dtype == tm.dtype == aw.dtype == torch.int32
+    assert aw.shape[0] % 4 == 0 and not aw[K:].any()
+    low = (1 << 32) - 1
+    x = (tw.long()[:, None, :] ^ aw[:K].long()[None, :, :]) & low
+    for s in (1, 2, 4)[:{2: 1, 4: 2, 8: 3}[bits]]:
+        x = (x | (x << s)) & low
+    cnt = _popcount(x & (tm.long() & low)[:, None, :]).sum(-1)
+    return torch.nonzero(cnt <= budgets[:, None].long(), as_tuple=True)
+
+
+@pytest.mark.parametrize("name", list(HAMMING_CASES))
+def test_packed_hit_test_matches_reference(name):
+    """Holds the fused kernel's encoding here, where the kernel cannot run:
+    the packed test gives match_count_reference's radius test's pairs."""
+    case = HAMMING_CASES[name]
+    tags, allow = _hamming_case(case)
+    L = case["L"]
+    t = torch.from_numpy(np.frombuffer(b"".join(tags), np.uint8)
+                         .reshape(-1, L).copy())
+    a = torch.from_numpy(np.frombuffer(b"".join(allow), np.uint8)
+                         .reshape(-1, L).copy())
+    got = _packed_test_hits(t, a, case["d"])
+    want = tdist.match_hits_reference(t, a, case["d"])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _tw, _tm, _b, _aw, bits = tdist.pack_hit_inputs(t, a, case["d"])
+    classes = len(set(b"".join(allow)))
+    assert bits == (2 if classes <= 4 else 4 if classes <= 16 else 8)
 
 
 @pytest.mark.parametrize("L", [16, 32, 70])

@@ -21,9 +21,10 @@ from clique_tpu_torch.chain import run_chain
 from clique_tpu_torch.collapse import pipeline as tpipeline
 from clique_tpu_torch.collapse.pipeline import collapse
 
-from test_torch_align_pipeline import (GOLDEN, _golden_inputs,
-                                       _inflate_bgzf, _load_make_golden,
-                                       load_jax_layout, load_layout)
+from test_torch_align_pipeline import (GOLDEN, _bench_shaped,
+                                       _golden_inputs, _inflate_bgzf,
+                                       _load_make_golden, load_jax_layout,
+                                       load_layout)
 
 
 def _stats(s):
@@ -105,7 +106,7 @@ def test_collapse_metrics_name_the_device(golden_chains, name):
         with open(c + ".collapse_metrics.json") as fh:
             m = json.load(fh)
         assert m["device"] == "cpu"
-        assert m["kernel_launches"] == {"match_count": 0,
+        assert m["kernel_launches"] == {"match_hits": 0,
                                         "edit_distance": 0}
         assert m["read_stats"]["passing"] > 0
 
@@ -287,14 +288,18 @@ def test_cli_collapse_and_call_golden(tmp_path):
         assert f1.read() == f2.read()
 
 
-def test_cli_run_golden(tmp_path):
+@pytest.mark.parametrize("flags", [[], ["--router", "hmm"]],
+                         ids=["kmer", "router_hmm"])
+def test_cli_run_golden(flags, tmp_path):
+    """`run` on golden; `--router hmm` on its single reference routes
+    nothing and gives the same pins."""
     gd, layout, r1 = _cli_golden(tmp_path)
     aligned, out = str(tmp_path / "a.bam"), str(tmp_path / "c.bam")
     tsv = str(tmp_path / "alleles.tsv")
     assert cli.main(["run", "--read-structure", layout, "--read1", r1,
                      "--aligned-bam-file", aligned, "--output-bam-file", out,
                      "--alleles", tsv, "--batch-size", "16",
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", *flags]) == 0
     for got, pin in ((aligned, "aligned.bam"), (out, "collapsed.bam")):
         assert _inflate_bgzf(got) == _inflate_bgzf(os.path.join(gd, pin))
     with open(tsv) as f1, open(os.path.join(gd, "alleles.tsv")) as f2:
@@ -314,12 +319,18 @@ def test_cli_unported_flags_exit(verb, flags, item, tmp_path, capsys):
                 os.path.join(gd, "aligned.bam"), "--output-bam-file",
                 str(tmp_path / "c.bam")]
     else:
+        if "hmm" in flags:
+            # the HMM router is unported over several references only
+            wd = tmp_path / "two_refs"
+            wd.mkdir()
+            _layout, _rm, r1 = _bench_shaped(wd, n_reads=8)
+            layout = str(wd / "layout.yaml")
         argv = ["run", "--read-structure", layout, "--read1", r1,
                 "--aligned-bam-file", str(tmp_path / "a.bam"),
                 "--output-bam-file", str(tmp_path / "c.bam")]
     with pytest.raises(SystemExit) as exc:
         cli.main(argv + ["--device", "cpu", *flags])
-    assert exc.value.code != 0
+    assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
     assert not os.path.exists(tmp_path / "c.bam")

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (the fused global fill + walk in every
-mode, the local fill and walk, tag match count and edit distance) against
+mode, the local fill and walk, the fused Hamming hit search and edit
+distance) against
 their plain PyTorch versions, on CUDA tensors, and the paths that run them
 (align_reads with a band and with long reads, the inversion batch) against
 the CPU. The fused kernel is held to walk_reference(fill_reference(...)):
@@ -332,26 +333,69 @@ def test_out_of_range_lengths_are_marked(cuda):
 TAG_ALPHABET = np.frombuffer(b"ACGTN-", dtype=np.uint8)
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 16), (37, 91, 16), (2048, 300, 16),
-                                   (100, 1000, 12), (17, 33, 255),
-                                   (70000, 20, 8)], ids=str)
-def test_match_count_kernel_matches_plain(cuda, shape):
+MANY = b"ACGTNRYKMSWBDHVacgtn"       # 20 byte classes
+# name: (U, K, L, d, allowlist letters, substitution letters); the names
+# give the code width and the row words pack_hit_inputs picks
+HIT_CASES = {
+    "one_pair": (1, 1, 16, 1, b"ACGT", b"ACGT"),
+    "acgt_l16_1word": (2048, 3000, 16, 1, b"ACGT", b"ACGT"),
+    "acgt_foreign_tag_bytes": (700, 5000, 16, 2, b"ACGT", b"N-"),
+    "acgt_l20_2words": (300, 1001, 20, 2, b"ACGT", b"ACGTN"),
+    "acgt_l64_4words": (300, 1001, 64, 3, b"ACGT", b"ACGT-"),
+    "acgt_l128_8words": (130, 777, 128, 4, b"ACGT", b"ACGT"),
+    "acgt_l129_wide": (130, 777, 129, 4, b"ACGT", b"ACGTN"),
+    "six_l16_4bit": (500, 3001, 16, 1, b"ACGTN-", b"ACGTN-"),
+    "six_l12_exact": (37, 91, 12, 0, b"ACGTN-", b"ACGTN-"),
+    "many_l16_8bit": (500, 2000, 16, 2, MANY, MANY),
+    "many_l24_8words": (200, 999, 24, 3, MANY, MANY),
+    "many_l255_wide": (129, 515, 255, 30, MANY, MANY),
+    "six_l300_d50": (60, 300, 300, 50, b"ACGTN-", b"ACGTN-"),
+    "six_l300_d20_need_over_255": (60, 300, 300, 20, b"ACGTN-", b"ACGTN-"),
+    "many_tags": (70000, 20, 8, 1, b"ACGT", b"ACGTN"),
+    "every_pair_relaunch": (300, 1000, 8, 8, b"ACGT", b"ACGT"),
+}
+
+
+def _hit_inputs(name, device):
+    U, K, L, d, letters, noise = HIT_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    letters = np.frombuffer(letters, np.uint8)
+    noise = np.frombuffer(noise, np.uint8)
+    allow = rng.choice(letters, (K, L))
+    tags = rng.choice(letters, (U, L))
+    pick = rng.integers(0, K, len(tags[::2]))
+    tags[::2] = allow[pick]
+    for u in range(0, U, 2):           # 0 to d + 1 substitutions
+        cols = rng.integers(0, L, int(rng.integers(0, d + 2)))
+        tags[u, cols] = rng.choice(noise, len(cols))
+    return (torch.from_numpy(tags).to(device),
+            torch.from_numpy(allow).to(device), d)
+
+
+@pytest.mark.parametrize("name", list(HIT_CASES))
+def test_match_hits_kernel_matches_plain(cuda, name):
     from clique_tpu_torch.collapse import distance as tdist
 
-    U, K, L = shape
-    rng = np.random.default_rng(sum(shape))
-    allow = rng.choice(TAG_ALPHABET, (K, L))
-    tags = rng.choice(TAG_ALPHABET, (U, L))
-    tags[::2] = allow[rng.integers(0, K, len(tags[::2]))]
-    t, a = torch.from_numpy(tags).to(cuda), torch.from_numpy(allow).to(cuda)
-    n = tdist.match_count_launches
-    got = tdist.match_count(t, a)
+    t, a, d = _hit_inputs(name, cuda)
+    U, L = t.shape
+    K = a.shape[0]
+    n = tdist.match_hits_launches
+    u, k = tdist.match_hits(t, a, d)
     torch.cuda.synchronize()
-    assert tdist.match_count_launches == n + 1
-    assert torch.equal(got, tdist.match_count_reference(t, a))
+    launches = tdist.match_hits_launches - n
+    want_u, want_k = tdist.match_hits_reference(t, a, d)
+    assert torch.equal(u, want_u) and torch.equal(k, want_k)
+    if L - d > 255:
+        assert launches == 0 and len(u) == 0
+    elif U * K > max(4 * U, 1 << 16) and len(u) > max(4 * U, 1 << 16):
+        assert launches == 2                  # the hit buffer overflowed
+    else:
+        assert launches == 1
+    if name == "every_pair_relaunch":
+        assert len(u) == U * K
 
 
-@pytest.mark.parametrize("L", [8, 16, 32, 33, 64, 65, 200, 256])
+@pytest.mark.parametrize("L", [8, 16, 32, 33, 64, 65, 200, 256, 300, 1000])
 def test_edit_distance_kernel_matches_plain(cuda, L):
     from clique_tpu_torch.collapse import distance as tdist
 
@@ -385,9 +429,12 @@ def test_hamming_hits_on_cuda_equals_cpu(cuda):
     tags += [rng.choice(TAG_ALPHABET, 16).tobytes() for _ in range(300)]
     want = tdist.hamming_hits(tags, allow, 2, device="cpu", chunk_u=256,
                               chunk_k=1024)
+    n = tdist.match_hits_launches
     got = tdist.hamming_hits(tags, allow, 2, device="cuda", chunk_u=256,
                              chunk_k=1024)
+    assert tdist.match_hits_launches == n + 1      # one launch a call
     assert got == want
+    assert sum(map(len, got)) >= 5000 // 7
 
 
 def test_collapse_golden_on_cuda(cuda, tmp_path):
@@ -401,9 +448,9 @@ def test_collapse_golden_on_cuda(cuda, tmp_path):
     gd, layout, _rm, _r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
                                                tmp_path)
     out = str(tmp_path / "collapsed.bam")
-    n = tdist.match_count_launches
+    n = tdist.match_hits_launches
     collapse(out, layout, os.path.join(gd, "aligned.bam"), device="cuda")
-    assert tdist.match_count_launches > n
+    assert tdist.match_hits_launches > n
     assert _inflate_bgzf(out) == _inflate_bgzf(os.path.join(gd,
                                                             "collapsed.bam"))
     tsv = str(tmp_path / "alleles.tsv")

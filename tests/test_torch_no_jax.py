@@ -4,7 +4,7 @@ clique_tpu_torch, aligns the golden reads on the CPU (full band, a partial
 band, every read on the anchored path, and the fused align + collapse +
 call), reproduces the pinned outputs or the JAX package's, and loads
 neither a jax module nor one of the JAX package. An AST scan holds every
-source of the port, chip_smoke.py and profile_align.py to importing
+source of the port, chip_smoke.py and the profile scripts to importing
 nothing of the JAX package, and the port's copy of the host
 inversion_alignment is held equal to the JAX package's."""
 
@@ -128,12 +128,27 @@ def test_align_modes_without_jax(flags, tmp_path):
         out_j)
 
 
+@pytest.mark.parametrize("verb", ["align", "run"])
+def test_router_hmm_golden_without_jax(verb, tmp_path):
+    """`--router hmm` on golden's single reference, with jax blocked: no
+    routing happens and the outputs equal the pins."""
+    _run_without_jax(verb, tmp_path, "--router", "hmm")
+    from test_torch_align_pipeline import _inflate_bgzf
+
+    names = ("aligned.bam",) if verb == "align" else ("aligned.bam",
+                                                      "collapsed.bam")
+    for name in names:
+        assert _inflate_bgzf(str(tmp_path / name)) == _inflate_bgzf(
+            os.path.join(GOLDEN, name))
+
+
 SCANNED = sorted(
     os.path.relpath(p, ROOT) for p in
     glob.glob(os.path.join(ROOT, "clique_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(ROOT, "chip_smoke.py"),
-       os.path.join(ROOT, "profile_align.py")])
+       os.path.join(ROOT, "profile_align.py"),
+       os.path.join(ROOT, "profile_hamming.py")])
 
 
 def _imported_modules(tree):
@@ -157,6 +172,7 @@ def test_source_imports_nothing_of_the_jax_package(path):
 
 def test_scan_sees_the_port():
     assert "chip_smoke.py" in SCANNED and "profile_align.py" in SCANNED
+    assert "profile_hamming.py" in SCANNED
     assert os.path.join("clique_tpu_torch", "align", "pipeline.py") in SCANNED
     assert len(SCANNED) > 30
 

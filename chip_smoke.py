@@ -87,18 +87,15 @@ INV_REF = 1000
 # phases beside the card's runs: five workers of two torch threads each
 CPU_WORKERS = 5
 CPU_WORKER_THREADS = 2
-KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_fill_local",
-           "dp_walk_local")
+KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local")
 SOURCES = {"dp_align": "dp_align.cu",
            "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
-           "dp_fill_local": "dp_fill_local.cu",
-           "dp_walk_local": "dp_walk_local.cu"}
+           "dp_align_local": "dp_align_local.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
-            "dp_fill_local": "clique_tpu/align/batch.py:332",
-            "dp_walk_local": "clique_tpu/align/batch.py:450"}
+            "dp_align_local": "clique_tpu/align/batch.py:363 and :450"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
 # float32 outside the tensor cores counts an FMA as two, so one lane
@@ -112,19 +109,20 @@ PEAK_INT8_OPS = 1979e12
 PEAK_INT32_OPS = PEAK_LANE_OPS / 2
 # lane operations a DP cell needs: the three candidate sums of each plane,
 # their compares and selects, the special and terminal-gap selects, the
-# byte pack (global); the zero flags and the running argmax besides
+# byte pack (global); the zero fields and the running argmax besides
 # (local); a Levenshtein cell's three candidates, their minimum and the
 # match test
 OPS_GLOBAL_CELL = 30
 OPS_LOCAL_CELL = 36
 OPS_EDIT_CELL = 8
-OPS_WALK_STEP = 10
 # integer lane operations match_hits spends on a pair of one-word rows:
 # XOR, the shift of the fold, the lop3 of fold and live mask, popc and
 # the budget compare
 OPS_HIT_PAIR = 5
 # the known-list phase's radius (cell_id's max_distance)
 KNOWN_D = 1
+# ptxas's register and spill lines of each kernel, read from the build log
+PTXAS = {}
 
 
 def bound(nbytes, ops, op_rate=PEAK_LANE_OPS):
@@ -194,21 +192,20 @@ def phase_build():
     kernel = None
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("align_kernel", "fill_kernel",
-                                       "dp_walk_local", "match_hits_wide",
-                                       "match_hits", "edit_distance_reg",
+            kernel = next((k for k in ("align_local_kernel", "align_kernel",
+                                       "match_hits_wide", "match_hits",
+                                       "edit_distance_reg",
                                        "edit_distance_local",
                                        "edit_distance_scratch")
                            if k in line), line.strip())
+            if kernel == "align_local_kernel":
+                kernel = "dp_align_local"
             # the template flags from the mangled name: dp_align's
-            # keep-last ties and band, the local fill's register rows
+            # keep-last ties and band
             flags = re.search(r"align_kernelILb(\d)ELb(\d)E", line)
             if flags:
                 kernel = "dp_align<tie_last={0},banded={1}>".format(
                     *flags.groups())
-            flags = re.search(r"fill_kernelILb(\d)E", line)
-            if flags:
-                kernel = "dp_fill_local<reg_rows={0}>".format(*flags.groups())
             # the fused Hamming search's code width and row words
             flags = re.search(r"match_hits_kernelILi(\d)ELi(\d)E", line)
             if flags:
@@ -219,6 +216,7 @@ def phase_build():
                 kernel = "match_hits_wide<bits={0}>".format(*flags.groups())
         elif kernel and ("registers" in line or "spill" in line):
             say(f"[build] {kernel}: {line.strip()}")
+            PTXAS.setdefault(kernel, []).append(line.strip())
     lib = _build.load()
     say(f"[build] dp_align: dynamic shared memory "
         f"{lib.clique_dp_align_smem_bytes(384, 384)} B per CTA of 4 warps at "
@@ -226,9 +224,16 @@ def phase_build():
         f"n1=6600, n2=1024; traceback {lib.clique_dp_align_tb_bytes(384, 384)}"
         f" B an alignment at n1=n2=384 (the old layout: {767 * 384} B); "
         f"row-band scratch {lib.clique_dp_align_scratch_floats(6600, 1024)} "
-        f"floats an alignment at n1=6600. dp_fill_local: "
-        f"{lib.clique_dp_fill_smem_bytes(3328, 3328)} B per CTA at "
-        f"n1=n2=3328")
+        f"floats an alignment at n1=6600. dp_align_local: "
+        f"{lib.clique_dp_align_local_warps(3328)} warps a CTA and "
+        f"{lib.clique_dp_align_local_smem_bytes(3328, 3328)} B of dynamic "
+        f"shared memory at n1=n2=3328, "
+        f"{lib.clique_dp_align_local_warps(1001)} warps at n1=1001, "
+        f"{lib.clique_dp_align_local_warps(6600)} at n1=6600; hand-off "
+        f"scratch {lib.clique_dp_align_local_scratch_floats(3328, 3328)} "
+        f"floats an alignment at n1=n2=3328 (the old layout's traceback "
+        f"and zero flags: {2 * 6655 * 3328} B an alignment, now "
+        f"{lib.clique_dp_align_tb_bytes(3328, 3328)} B)")
 
 
 def _random_batch(rng, B, n1, n2, uniform, ragged):
@@ -487,8 +492,9 @@ def phase_mode_kernels():
     fill) at B=64, n1=n2=3328 (the size of tests/data/big_inversion_ref.txt)
     and at the inversion path's B=502, n1=n2=1001; the anchored path's long,
     thin buckets (128 x 3968 both ways); 6,600 rows, which take 18 row
-    bands; and the local fill and walk (the inversion screen) at B=64,
-    n1=n2=3328."""
+    bands; and the fused local kernel (the inversion screen) at B=64,
+    n1=n2=3328, on the inversion phase's own screen inputs (B=512,
+    n1=n2=1001) and at 6,600 rows."""
     import numpy as np
     import torch
 
@@ -501,20 +507,8 @@ def phase_mode_kernels():
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2028)
-    err = dict.fromkeys(("dp_align", "dp_fill_local", "dp_walk_local"), 0.0)
+    err = dict.fromkeys(("dp_align", "dp_align_local"), 0.0)
     times = {}
-
-    def held(label, pairs):
-        """pairs: (kernel name, kernel output, plain output)."""
-        same, worst = True, 0.0
-        for name, k, p in pairs:
-            e = (k.double() - p.double()).abs().max().item()
-            err[name] = max(err[name], e)
-            worst = max(worst, e)
-            same = same and torch.equal(k, p)
-        say(f"[mode kernels] {label}: "
-            f"{'byte-equal' if same else 'DIFFER'} (max abs err {worst})")
-        check(same, f"{label}: kernel and plain version disagree")
 
     def global_case(label, host, params, reps, width=None, **kw):
         """dp_align held against the plain fill + walk (fused rows and the
@@ -565,56 +559,98 @@ def phase_mode_kernels():
                     _random_batch(rng, 64, n1, n2, False, True), aligner, 5,
                     special_mode="both")
     bands = dp_kernels.fill_mode_launches["row_bands"]
-    global_case("n1=6600 n2=1024 B=32 (row bands)",
-                _mode_batch(rng, 32, 6600, 1024), aligner, 3,
+    host6600 = _mode_batch(rng, 32, 6600, 1024)
+    global_case("n1=6600 n2=1024 B=32 (row bands)", host6600, aligner, 3,
                 special_mode="both")
     check(dp_kernels.fill_mode_launches["row_bands"] > bands,
           "the 6,600-row case did not take the row bands")
 
-    # the local pair on the keep-last case's inputs, the inversion screen's
-    # scoring
-    args = [torch.from_numpy(a).to(dev) for a in host]
+    # the fused local kernel (the inversion screen) under the screen's
+    # scoring: on the keep-last case's inputs (the table's shape), on the
+    # inversion phase's screen inputs, and at 6,600 rows (bands 10-17 wrap)
     hifi = tbatch.scoring_to_params(AffineScoring.hifi_default(), dev)
-    kw = dict(n1=n, n2=n)
-
-    def fill_local_k():
-        return dp_kernels.dp_fill_local(*args, hifi, **kw)
-
-    ring = dp_kernels.fill_mode_launches["global_ring"]
-    out_k = fill_local_k()
-    fused_k = dp_kernels.dp_walk_local(*out_k, **kw)
-    out_p, fill_plain_ms = _timed(
-        lambda: tbatch.fill_local_reference(*args, hifi, **kw))
-    (_res, fused_p), walk_plain_ms = _timed(
-        lambda: tbatch.walk_local_reference(*out_k, **kw))
-    held(f"local B=64 n1=n2={n}",
-         [("dp_fill_local", k, p) for k, p in zip(out_k, out_p)]
-         + [("dp_walk_local", fused_k, fused_p)])
-    del out_p
-    check(dp_kernels.fill_mode_launches["global_ring"] == ring,
-          "the local fill at n1=3328 left its shared-memory ring")
-    B = host[1].shape[0]
-    in_bytes = host[0].nbytes + host[1].nbytes + 8 * B + 24
-    # the local fill writes its traceback and zero flags whole
-    b_fill = bound(in_bytes + 2 * B * (2 * n - 1) * n + 24 * B,
-                   OPS_LOCAL_CELL * _interior_cells(host[2], host[3]))
-    # the walk reads the two bytes of each cell on its paths
-    n_ops = tbatch.unfuse_result(fused_k.cpu().numpy(), local=True)[1]
-    steps = int(np.maximum(n_ops, 0).sum())
-    b_walk = bound(2 * steps + 24 * B + B * (24 + -(-2 * n // 4)),
-                   OPS_WALK_STEP * steps)
-    k_ms, p_ms = _kernel_turns(
-        f"[mode kernels] dp_fill_local at B=64 n1=n2={n}", fill_local_k, 5,
-        fill_plain_ms)
-    times["dp_fill_local"] = _timing(k_ms, p_ms, b_fill)
-    k_ms, p_ms = _kernel_turns(
-        f"[mode kernels] dp_walk_local at B=64 n1=n2={n}",
-        lambda: dp_kernels.dp_walk_local(*out_k, **kw), 5, walk_plain_ms)
-    times["dp_walk_local"] = _timing(k_ms, p_ms, b_walk)
-    for name in ("dp_fill_local", "dp_walk_local"):
-        say(f"[mode kernels] {name} bound {times[name]['bound_ms']:.4f} ms, "
-            f"by {times[name]['bound_by']}")
+    for label, lhost, reps in (
+            (f"B=64 n1=n2={n}", host, 5),
+            (f"B={N_INV_READS} n1=n2={INV_REF + 1} (the inversion screen's "
+             "own inputs)", _screen_host(*_inversion_data()[:2]), 5),
+            ("B=32 n1=6600 n2=1024", host6600, 0)):
+        timing = _local_case(label, lhost, hifi, reps, err)
+        if timing is not None:
+            # the JSON line carries the main path's shape (B=512)
+            times["dp_align_local"] = timing
     return err, times
+
+
+def _local_bound(host, n1, n2):
+    """dp_align_local's bound on these inputs, as dp_align's: it reads
+    refs, reads, lens and params once, writes one traceback byte an
+    interior cell and one fused row an alignment; OPS_LOCAL_CELL lane
+    operations an interior cell. Also the old layout's bytes bound (the
+    traceback and zero flags of every cell of [B, n1 + n2 - 1, n1])."""
+    refs, reads, ref_lens, read_lens = host[:4]
+    B = reads.shape[0]
+    cells = _interior_cells(ref_lens, read_lens)
+    rows = B * (24 + -(-(n1 + n2) // 4))
+    inputs = refs.nbytes + reads.nbytes + 8 * B + 24
+    old = (inputs + 2 * B * (n1 + n2 - 1) * n1 + rows) / PEAK_BYTES * 1e3
+    return bound(inputs + cells + rows, OPS_LOCAL_CELL * cells), cells, old
+
+
+def _local_case(label, host, params, reps, err):
+    """dp_align_local on the card against walk_local_reference(
+    fill_local_reference(...)): the fused rows, and the traceback bytes of
+    every interior cell against the plain fill's traceback and zero flags
+    in the one-byte encoding, byte for byte; then (reps > 0) timed beside
+    the plain version's comparison call. Returns its timing entry."""
+    import torch
+
+    from clique_tpu_torch import _build
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align import dp_kernels
+
+    args = [torch.from_numpy(a).to(params.device) for a in host]
+    n1, n2 = host[0].shape[1] + 1, host[1].shape[1] + 1
+    kw = dict(n1=n1, n2=n2)
+    lib = _build.load()
+    warps = lib.clique_dp_align_local_warps(n1)
+    bands = dp_kernels.fill_mode_launches["local_row_bands"]
+    fused_k, wave = dp_kernels.dp_align_local(*args, params,
+                                              return_traceback=True, **kw)
+    torch.cuda.synchronize()
+    check(dp_kernels.fill_mode_launches["local_row_bands"] - bands
+          == int(warps > 1), f"dp_align_local {label}: W = {warps} warps, "
+          "but the row-band count disagrees")
+
+    def plain():
+        tb, zf, best, xd = tbatch.fill_local_reference(*args, params, **kw)
+        return tb, zf, tbatch.walk_local_reference(tb, zf, best, xd, **kw)[1]
+
+    (tb_p, zf_p, fused_p), plain_ms = _timed(plain)
+    wave_p = tbatch.local_tb_to_wavefront(tb_p, zf_p, args[2], args[3], **kw)
+    del tb_p, zf_p
+    bi, _x, _y, off = tbatch._wavefront_index(args[2], args[3], n1, n2)
+    pairs = [(fused_k, fused_p), (wave[bi, off], wave_p[bi, off])]
+    del wave, wave_p, bi, off
+    e = max((k.double() - p.double()).abs().max().item() for k, p in pairs)
+    same = all(torch.equal(k, p) for k, p in pairs)
+    err["dp_align_local"] = max(err.get("dp_align_local", 0.0), e)
+    say(f"[mode kernels] dp_align_local {label}: fused rows and interior "
+        f"traceback bytes {'byte-equal' if same else 'DIFFER'} (max abs err "
+        f"{e}); W = {warps} warps a CTA; "
+        f"ptxas: {'; '.join(PTXAS.get('dp_align_local', ['not read']))}")
+    check(same, f"dp_align_local {label}: kernel and plain version disagree")
+    del pairs
+    if not reps:
+        return None
+    k_ms, _p = _kernel_turns(
+        f"[mode kernels] dp_align_local {label}",
+        lambda: dp_kernels.dp_align_local(*args, params, **kw), reps,
+        plain_ms)
+    b, cells, old = _local_bound(host, n1, n2)
+    say(f"[mode kernels] dp_align_local {label} bound {b[0]:.4f} ms, by "
+        f"{b[1]} ({cells} interior cells); the kernel at "
+        f"{b[0] / k_ms:.3f} of it; the old layout's bytes {old:.4f} ms")
+    return _timing(k_ms, plain_ms, b)
 
 
 def _hit_inputs(rng, U, K, L, d, letters, noise):
@@ -872,8 +908,7 @@ def _counts():
     return {"dp_align": dp_kernels.align_launches,
             "match_hits": distance.match_hits_launches,
             "edit_distance": distance.edit_distance_launches,
-            "dp_fill_local": dp_kernels.fill_local_launches,
-            "dp_walk_local": dp_kernels.walk_local_launches}
+            "dp_align_local": dp_kernels.align_local_launches}
 
 
 def _read(path):
@@ -1284,6 +1319,31 @@ def _inversion_rows(ref, reads, inv, aff, device):
     return screen, keep_last_rows(ref, negatives, inv, device)
 
 
+def _screen_host(ref, reads):
+    """The inversion screen's kernel inputs, as inversion._fused_rows
+    builds them, in host arrays: the reference row, the reverse
+    complements of the reads padded to the longest, and both lengths."""
+    import numpy as np
+
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.utils.seq import reverse_complement
+
+    arr, lens = tbatch.pad_batch([reverse_complement(r) for r in reads])
+    return (np.frombuffer(ref, np.uint8)[None].copy(), arr,
+            np.full(len(reads), len(ref), np.int32), lens)
+
+
+def _screen_args(ref, reads, aff):
+    """_screen_host's arrays on the card, and the affine scoring."""
+    import torch
+
+    from clique_tpu_torch.align import batch as tbatch
+
+    dev = torch.device("cuda", 0)
+    return (*(torch.from_numpy(a).to(dev) for a in _screen_host(ref, reads)),
+            tbatch.scoring_to_params(aff, dev))
+
+
 def _plain_rows(ref, seqs, params, local):
     """The plain PyTorch fill and walk on the card over `ref` against
     `seqs`, padded as the inversion path pads them: the fused rows."""
@@ -1312,6 +1372,33 @@ def _plain_rows(ref, seqs, params, local):
     return fused.cpu().numpy()
 
 
+def _inversion_data():
+    """The inversion phase's seeded data: a 1 kb reference, 512 reads of
+    it with 1% substitutions, 10 of them with an inverted block of 40-100
+    bp, the set of those 10, and the generator, to draw on."""
+    import numpy as np
+
+    from clique_tpu_torch.utils.seq import reverse_complement
+
+    rng = np.random.default_rng(1000)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(bases, INV_REF)
+    inverted = set(rng.choice(N_INV_READS, N_INV_BLOCKS,
+                              replace=False).tolist())
+    reads = []
+    for i in range(N_INV_READS):
+        r = ref.copy()
+        subs = rng.random(INV_REF) < 0.01
+        r[subs] = rng.choice(bases, int(subs.sum()))
+        r = r.tobytes()
+        if i in inverted:
+            n = int(rng.integers(40, 101))
+            p = int(rng.integers(50, INV_REF - n - 50))
+            r = r[:p] + reverse_complement(r[p:p + n]) + r[p + n:]
+        reads.append(r)
+    return ref.tobytes(), reads, inverted, rng
+
+
 def phase_inversion(pool):
     """inversion_alignment_batch over 512 reads of a seeded 1 kb reference
     with 1% substitutions, 10 of them (~2%) with an inverted block of
@@ -1334,23 +1421,7 @@ def phase_inversion(pool):
                                                 InversionScoring)
     from clique_tpu_torch.utils.seq import reverse_complement
 
-    rng = np.random.default_rng(1000)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    ref = rng.choice(bases, INV_REF)
-    inverted = set(rng.choice(N_INV_READS, N_INV_BLOCKS,
-                              replace=False).tolist())
-    reads = []
-    for i in range(N_INV_READS):
-        r = ref.copy()
-        subs = rng.random(INV_REF) < 0.01
-        r[subs] = rng.choice(bases, int(subs.sum()))
-        r = r.tobytes()
-        if i in inverted:
-            n = int(rng.integers(40, 101))
-            p = int(rng.integers(50, INV_REF - n - 50))
-            r = r[:p] + reverse_complement(r[p:p + n]) + r[p + n:]
-        reads.append(r)
-    ref = ref.tobytes()
+    ref, reads, inverted, rng = _inversion_data()
     names = [f"inv{i}" for i in range(N_INV_READS)]
     inv, aff = InversionScoring(), AffineScoring.hifi_default()
     sample = sorted(rng.choice(N_INV_READS, N_INV_SAMPLE,
@@ -1375,8 +1446,20 @@ def phase_inversion(pool):
         f"({len(inverted)} were given one); launches {launches}, fill "
         f"modes {modes}")
     check(set(marked) == inverted, "the inversion blocks were not found")
-    check(launches["dp_fill_local"] > 0 and launches["dp_walk_local"] > 0,
-          "the inversion screen launched no local kernel")
+    # one dp_align_local launch a screen split (inversion._fused_rows)
+    screen_args = _screen_args(ref, reads, aff)
+    n1, n2 = len(ref) + 1, screen_args[1].shape[1] + 1
+    rows = max(1, tbatch.MAX_TRACEBACK_BYTES
+               // tbatch.local_traceback_bytes(n1, n2, "cuda"))
+    splits = -(-N_INV_READS // rows)
+    check(launches["dp_align_local"] == splits,
+          f"the inversion screen made {launches['dp_align_local']} "
+          f"dp_align_local launches for {splits} split(s)")
+    screen_ms = _time_ms(lambda: dp_kernels.dp_align_local(
+        *screen_args, n1=n1, n2=n2), 5)
+    say(f"[inversion] the screen's device time: {screen_ms:.4f} ms a "
+        f"dp_align_local launch over its {N_INV_READS} rows (n1={n1}, "
+        f"n2={n2}), {splits} launch(es) a call")
     check(launches["dp_align"] > 0 and modes["tie_last"] > 0
           and modes["special_none"] > 0,
           "the inversion path launched no keep-last fill")

@@ -148,17 +148,15 @@ def load() -> ctypes.CDLL:
                         (lib.clique_dp_align_smem_bytes, ci)):
             fn.restype = res
             fn.argtypes = [ci, ci]
-        lib.clique_dp_fill_local.restype = ci
-        lib.clique_dp_fill_local.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp,
-                                             vp, vp, vp, vp, ci, ci, ci, ci,
-                                             vp]
-        for fn in (lib.clique_dp_fill_smem_bytes,
-                   lib.clique_dp_fill_ring_bytes):
-            fn.restype = ci
+        lib.clique_dp_align_local.restype = ci
+        lib.clique_dp_align_local.argtypes = [vp, ci, vp, ci, vp, vp, vp,
+                                              vp, vp, vp, ci, ci, ci, ci, vp]
+        for fn, res in ((lib.clique_dp_align_local_scratch_floats, ll),
+                        (lib.clique_dp_align_local_smem_bytes, ci)):
+            fn.restype = res
             fn.argtypes = [ci, ci]
-        lib.clique_dp_walk_local.restype = ci
-        lib.clique_dp_walk_local.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                             ci, vp]
+        lib.clique_dp_align_local_warps.restype = ci
+        lib.clique_dp_align_local_warps.argtypes = [ci]
         lib.clique_match_hits.restype = ci
         lib.clique_match_hits.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp,
                                           vp, ll, vp]

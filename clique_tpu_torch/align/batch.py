@@ -16,11 +16,13 @@ but the TPU-only ones (the Pallas route, the wave, fetch-fuse):
 
 `fill_reference`, `walk_reference`, `fill_local_reference` and
 `walk_local_reference` are the plain PyTorch versions; the hand-written
-CUDA kernels (align/dp_kernels.py, csrc/) compute the same bytes. The
-global kernel fuses the fill and the walk and keeps its traceback in a
-wavefront layout of interior cells (`traceback_bytes`); `wavefront_to_tb`
-lays it out as fill_reference's. `align_batch` and `align_batch_local` run
-the kernels on CUDA tensors and the plain versions on CPU tensors.
+CUDA kernels (align/dp_kernels.py, csrc/) compute the same bytes. Each
+kernel fuses its fill and its walk and keeps its traceback in a wavefront
+layout of interior cells (`traceback_bytes`); `wavefront_to_tb` lays the
+global one out as fill_reference's, `local_wavefront_to_tb` the local one
+(one byte a cell, the zero flags inside it) as fill_local_reference's.
+`align_batch` and `align_batch_local` run the kernels on CUDA tensors and
+the plain versions on CPU tensors.
 
 Exactness: every scoring constant is dyadic and every intermediate a sum
 of < 2^18-magnitude dyadics, so float32 decisions are exact on any backend
@@ -51,20 +53,22 @@ SPECIAL_MODES = ("both", "ref_n_only", "none")
 TIE_ORDERS = ("ref", "last")
 
 # the most traceback bytes (B * traceback_bytes(n1, n2) for a global
-# fill; B * 2 * (n1 + n2 - 1) * n1 for a local one, which stores zero flags
-# beside its diagonal-major traceback) one launch may hold: callers split
-# larger batches into groups. One long read's whole-read sub-DP at
-# n1 = n2 = 4096 takes 16.8 MB.
+# fill, B * local_traceback_bytes(n1, n2, device) for a local one) one
+# launch may hold: callers split larger batches into groups. One long
+# read's whole-read sub-DP at n1 = n2 = 4096 takes 16.8 MB.
 MAX_TRACEBACK_BYTES = 2 << 30
 
-# The global kernel's traceback layout (csrc/dp_align.cu), which stores
-# interior cells only, in wavefront order: lane k of a warp owns the strip of
+# The kernels' traceback layout (csrc/dp_common.cuh), which stores interior
+# cells only, in wavefront order: lane k of a warp owns the strip of
 # STRIP_ROWS rows 12k+1..12k+12 of a row band of 32 strips and computes
 # column y at step t = y + k - 1; a band's step is one row of the lanes'
 # 12-byte strips side by side, padded to 16 bytes, and band j of nl strips
-# holds n2 - 2 + nl steps.
+# holds n2 - 2 + nl steps. A global byte holds the three planes'
+# directions; a local byte holds, for each plane z, the direction where
+# plane z is not 0.0 and LOCAL_ZERO where it is.
 STRIP_ROWS = 12
 BAND_STRIPS = 32
+LOCAL_ZERO = 3
 
 
 def _strips(n1: int) -> int:
@@ -83,6 +87,25 @@ def traceback_bytes(n1: int, n2: int) -> int:
             + (n2 - 2 + nl) * _row_bytes(nl))
 
 
+def local_traceback_bytes(n1: int, n2: int, device) -> int:
+    """Traceback bytes of one local alignment on `device`: the kernel's
+    layout on the card (one byte an interior cell, the zero flags inside
+    it); fill_local_reference's traceback and zero flags on the CPU."""
+    if torch.device(device).type == "cuda":
+        return traceback_bytes(n1, n2)
+    return 2 * (n1 + n2 - 1) * n1
+
+
+def wavefront_offset(x, y, *, n1: int, n2: int):
+    """Byte offset of interior cell (x, y) in the kernels' layout (int64
+    tensors of equal shape, x >= 1, y >= 1)."""
+    rows = BAND_STRIPS * STRIP_ROWS
+    j, xr = (x - 1) // rows, (x - 1) % rows
+    nl = torch.clamp(_strips(n1) - BAND_STRIPS * j, max=BAND_STRIPS)
+    t = y + xr // STRIP_ROWS - 1
+    return j * (n2 + 30) * _row_bytes(BAND_STRIPS) + t * _row_bytes(nl) + xr
+
+
 def _wavefront_index(ref_lens, read_lens, n1: int, n2: int):
     """For every interior cell (1 <= x <= l1, 1 <= y <= l2) of rows whose
     lengths lie in the bucket: (b, x, y, byte offset in the row's layout)."""
@@ -94,12 +117,15 @@ def _wavefront_index(ref_lens, read_lens, n1: int, n2: int):
     y = torch.arange(1, n2, device=dev)[None, None, :]
     bi, xi, yi = torch.nonzero(ok & (x <= l1) & (y <= l2), as_tuple=True)
     xi, yi = xi + 1, yi + 1
-    rows = BAND_STRIPS * STRIP_ROWS
-    j, xr = (xi - 1) // rows, (xi - 1) % rows
-    nl = torch.clamp(_strips(n1) - BAND_STRIPS * j, max=BAND_STRIPS)
-    t = yi + xr // STRIP_ROWS - 1
-    off = j * (n2 + 30) * _row_bytes(BAND_STRIPS) + t * _row_bytes(nl) + xr
-    return bi, xi, yi, off
+    return bi, xi, yi, wavefront_offset(xi, yi, n1=n1, n2=n2)
+
+
+def _check_wave(wave, n1: int, n2: int):
+    B = wave.shape[0]
+    if tuple(wave.shape) != (B, traceback_bytes(n1, n2)):
+        raise ValueError(f"the traceback must be [{B}, "
+                         f"{traceback_bytes(n1, n2)}], got "
+                         f"{list(wave.shape)}")
 
 
 def tb_to_wavefront(tb, ref_lens, read_lens, *, n1: int, n2: int):
@@ -118,16 +144,57 @@ def wavefront_to_tb(wave, ref_lens, read_lens, *, n1: int, n2: int):
     as fill_reference's [B, n1+n2-1, n1]: interior cells from the kernel,
     _TB_FRESH everywhere else (rows whose lengths lie outside the bucket are
     fresh throughout), so it compares with fill_reference cell by cell."""
-    B = wave.shape[0]
-    if tuple(wave.shape) != (B, traceback_bytes(n1, n2)):
-        raise ValueError(f"the traceback must be [{B}, "
-                         f"{traceback_bytes(n1, n2)}], got "
-                         f"{list(wave.shape)}")
-    tb = torch.full((B, n1 + n2 - 1, n1), _TB_FRESH, dtype=torch.uint8,
-                    device=wave.device)
+    _check_wave(wave, n1, n2)
+    tb = torch.full((wave.shape[0], n1 + n2 - 1, n1), _TB_FRESH,
+                    dtype=torch.uint8, device=wave.device)
     bi, xi, yi, off = _wavefront_index(ref_lens, read_lens, n1, n2)
     tb[bi, xi + yi, xi] = wave[bi, off]
     return tb
+
+
+def local_tb_to_wavefront(tb, zflags, ref_lens, read_lens, *, n1: int,
+                          n2: int):
+    """fill_local_reference's traceback and zero flags [B, n1+n2-1, n1] ->
+    the local kernel's layout [B, traceback_bytes(n1, n2)]: an interior
+    cell's byte holds, for each plane z, (tb >> 2z) & 3 where bit z of its
+    zero flags is clear and LOCAL_ZERO where it is set; every other byte is
+    0 (the kernel leaves them unwritten)."""
+    out = torch.zeros((tb.shape[0], traceback_bytes(n1, n2)),
+                      dtype=torch.uint8, device=tb.device)
+    bi, xi, yi, off = _wavefront_index(ref_lens, read_lens, n1, n2)
+    t = tb[bi, xi + yi, xi].to(torch.int64)
+    zf = zflags[bi, xi + yi, xi].to(torch.int64)
+    byte = torch.zeros_like(t)
+    for z in range(3):
+        field = torch.where((zf >> z) & 1 == 1, LOCAL_ZERO, (t >> 2 * z) & 3)
+        byte |= field << 2 * z
+    out[bi, off] = byte.to(torch.uint8)
+    return out
+
+
+def local_wavefront_to_tb(wave, ref_lens, read_lens, *, n1: int, n2: int):
+    """The local kernel's traceback [B, traceback_bytes(n1, n2)] -> (tb,
+    zflags) [B, n1+n2-1, n1] laid out as fill_local_reference's. On
+    interior cells the zero flags are exact, and so is each plane's
+    direction where its flag is clear (a plane that holds 0.0 reads UP).
+    Every other cell is _TB_FRESH with all three flags set (rows whose
+    lengths lie outside the bucket throughout)."""
+    _check_wave(wave, n1, n2)
+    shape = (wave.shape[0], n1 + n2 - 1, n1)
+    tb = torch.full(shape, _TB_FRESH, dtype=torch.uint8, device=wave.device)
+    zflags = torch.full(shape, 7, dtype=torch.uint8, device=wave.device)
+    bi, xi, yi, off = _wavefront_index(ref_lens, read_lens, n1, n2)
+    byte = wave[bi, off].to(torch.int64)
+    t = torch.zeros_like(byte)
+    zf = torch.zeros_like(byte)
+    for z in range(3):
+        field = (byte >> 2 * z) & 3
+        zero = field == LOCAL_ZERO
+        t |= torch.where(zero, UP, field) << 2 * z
+        zf |= zero.to(torch.int64) << z
+    tb[bi, xi + yi, xi] = t.to(torch.uint8)
+    zflags[bi, xi + yi, xi] = zf.to(torch.uint8)
+    return tb, zflags
 
 
 class BatchAlignment(NamedTuple):
@@ -565,17 +632,17 @@ def align_batch(refs, reads, ref_lens, read_lens, params, *, n1: int,
 def align_batch_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
                       n2: int, special_mode: str = "both", stream=None):
     """Local fill + walk for one length bucket: the counterpart of
-    align_batch_device(local=True). Inputs as fill_local_reference.
-    Returns the fused uint8 [B, 24 + ceil((n1+n2)/4)] rows;
-    unfuse_result(..., local=True) recovers (ops_packed, n_ops, score,
-    coords) on the host."""
+    align_batch_device(local=True). Inputs as fill_local_reference. On
+    CUDA tensors the fused local kernel runs on `stream`; on CPU tensors
+    the plain versions run. Returns the fused uint8
+    [B, 24 + ceil((n1+n2)/4)] rows; unfuse_result(..., local=True) recovers
+    (ops_packed, n_ops, score, coords) on the host, and check_marked_rows
+    raises for a row whose lengths lay outside the bucket."""
     from clique_tpu_torch.align import dp_kernels
 
-    tb, zflags, best, best_xd = dp_kernels.dp_fill_local(
-        refs, reads, ref_lens, read_lens, params, n1=n1, n2=n2,
-        special_mode=special_mode, stream=stream)
-    return dp_kernels.dp_walk_local(tb, zflags, best, best_xd, n1=n1, n2=n2,
-                                    stream=stream)
+    return dp_kernels.dp_align_local(refs, reads, ref_lens, read_lens, params,
+                                     n1=n1, n2=n2, special_mode=special_mode,
+                                     stream=stream)[0]
 
 
 # --- host-side helpers (copies of clique_tpu/align/batch.py) -----------------

@@ -1,30 +1,28 @@
 """Wrappers of the hand-written DP kernels (csrc/dp_align.cu,
-dp_fill_local.cu, dp_walk_local.cu).
+dp_align_local.cu).
 
 Counterpart of clique_tpu/align/pallas_kernel.py and the XLA modes of
 clique_tpu/align/batch.py::align_batch_device: `dp_align` replaces the
 Pallas fill (`_fill_kernel` via `pallas_fill`), the banded, keep-last and
 `special_mode="none"` branches of the XLA scan, and the XLA walk, epilogue
 and result fusion that follow a global fill, in one kernel;
-`dp_fill_local` the scan's Waterman-Eggert branch and `dp_walk_local`
-the walk, epilogue and fusion of `_finish_local`.
+`dp_align_local` the scan's Waterman-Eggert branch and the walk, epilogue
+and fusion of `_finish_local`, in another.
 
 On CUDA tensors each wrapper checks its inputs, allocates its outputs with
 torch.empty, launches its kernel on the given stream (default: the current
 stream of the tensors' device) and raises if the launch fails. On CPU
 tensors it runs the plain PyTorch versions from align/batch.py. Any other
-device raises. `align_launches`, `fill_local_launches` and
-`walk_local_launches` count kernel launches and nothing else;
-`fill_mode_launches` splits the launches of the fills by mode.
+device raises. `align_launches` and `align_local_launches` count kernel
+launches and nothing else; `fill_mode_launches` splits the launches by
+mode.
 
 Lengths are data, not shape. The plain versions check them and raise
 ValueError when one lies outside [0, n1-1] / [0, n2-1]. A kernel cannot
-raise without a device sync per launch, so it marks such a row instead:
-`dp_align` writes a fused row with n_ops -1, a NaN score and no ops (and
-no traceback), the local fill a NaN best value and a fresh traceback row,
-walked into the same marked row. batch.check_marked_rows raises the same
-ValueError when the host reads the fused rows back, and BatchAligner calls
-it on every group it pulls.
+raise without a device sync per launch, so it marks such a row instead: a
+fused row with n_ops -1, a NaN score and no ops (and no traceback).
+batch.check_marked_rows raises the same ValueError when the host reads the
+fused rows back, and BatchAligner calls it on every group it pulls.
 """
 
 from __future__ import annotations
@@ -34,13 +32,12 @@ import torch
 from clique_tpu_torch.align import batch as _batch
 
 align_launches = 0
-fill_local_launches = 0
-walk_local_launches = 0
+align_local_launches = 0
 # launches by mode: dp_align's with a partial band, keep-last ties,
 # special_mode "none" and more than one band of rows (n1 - 1 > 384), and
-# those of the local fill whose ring lives in global memory
+# dp_align_local's with more than one band, on the warps of its CTA
 FILL_MODES = ("banded", "tie_last", "special_none", "row_bands",
-              "global_ring")
+              "local_row_bands")
 fill_mode_launches = dict.fromkeys(FILL_MODES, 0)
 _SPECIAL_CODES = {"none": 0, "ref_n_only": 1, "both": 2}
 # shared memory an H100 block may use (dynamic + static)
@@ -48,10 +45,9 @@ _SMEM_LIMIT = 232448
 
 
 def reset_counts() -> None:
-    global align_launches, fill_local_launches, walk_local_launches
+    global align_launches, align_local_launches
     align_launches = 0
-    fill_local_launches = 0
-    walk_local_launches = 0
+    align_local_launches = 0
     for k in FILL_MODES:
         fill_mode_launches[k] = 0
 
@@ -197,96 +193,63 @@ def dp_align(refs, reads, ref_lens, read_lens, params, *, n1: int, n2: int,
     return fused, (tb if return_traceback else None)
 
 
-def dp_fill_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
-                  n2: int, special_mode: str = "both", stream=None):
-    """Waterman-Eggert fill of one length bucket (full band, tie order
-    up > left > diag): refs, reads, lens and params as dp_align without the
-    band -> (tb u8 [B, D, n1], zflags u8 [B, D, n1], best f32 [B, 4],
-    best_xd i32 [B, 2]), D = n1+n2-1. Semantics of
-    align/batch.py::fill_local_reference."""
-    global fill_local_launches
+def dp_align_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
+                   n2: int, special_mode: str = "both",
+                   return_traceback: bool = False, stream=None):
+    """Waterman-Eggert fill + argmax + walk + epilogue + fuse of one length
+    bucket in one kernel (full band, tie order up > left > diag): refs,
+    reads, lens and params as dp_align without the band -> (fused u8
+    [B, 24 + ceil((n1+n2)/4)], tb or None). Semantics of
+    align/batch.py::walk_local_reference(fill_local_reference(...)) (its
+    fused output). With return_traceback the traceback comes back in the
+    kernel's wavefront layout, u8 [B, batch.traceback_bytes(n1, n2)], one
+    byte an interior cell with the zero flags inside it;
+    batch.local_wavefront_to_tb decodes it."""
+    global align_local_launches
     dev, B = _check_fill_inputs(refs, reads, ref_lens, read_lens, params,
                                 n1, n2, special_mode, "ref", None, None)
     if dev.type == "cpu":
-        return _batch.fill_local_reference(
+        tb, zflags, best, best_xd = _batch.fill_local_reference(
             refs, reads, ref_lens, read_lens, params, n1=n1, n2=n2,
             special_mode=special_mode)
-
-    from clique_tpu_torch import _build
-
-    lib = _build.load()
-    D = n1 + n2 - 1
-    smem = lib.clique_dp_fill_smem_bytes(n1, n2)
-    if smem > _SMEM_LIMIT - 1024:
-        raise ValueError(f"n2={n2} needs {smem} B of shared memory for the "
-                         "read, more than an H100 block has")
-    s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens,
-                                     params))
-    ring_bytes = lib.clique_dp_fill_ring_bytes(n1, n2)
-    with torch.cuda.stream(s):
-        outs = (torch.empty((B, D, n1), dtype=torch.uint8, device=dev),
-                torch.empty((B, D, n1), dtype=torch.uint8, device=dev),
-                torch.empty((B, 4), dtype=torch.float32, device=dev),
-                torch.empty((B, 2), dtype=torch.int32, device=dev))
-        ring = torch.empty((B, ring_bytes // 4), dtype=torch.float32,
-                           device=dev) if ring_bytes else None
-    if B == 0:
-        return outs
-    ref_stride = 0 if refs.shape[0] == 1 else refs.shape[1]
-    with torch.cuda.device(dev):
-        err = lib.clique_dp_fill_local(
-            refs.data_ptr(), ref_stride, reads.data_ptr(), reads.shape[1],
-            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
-            *(o.data_ptr() for o in outs),
-            ring.data_ptr() if ring is not None else None,
-            B, n1, n2, _SPECIAL_CODES[special_mode], s.cuda_stream)
-    _raise_on(err, "dp_fill_local")
-    fill_local_launches += 1
-    if ring is not None:
-        fill_mode_launches["global_ring"] += 1
-    return outs
-
-
-def dp_walk_local(tb, zflags, best, best_xd, *, n1: int, n2: int,
-                  stream=None):
-    """Local walk + epilogue + fuse: tb and zflags u8 [B, n1+n2-1, n1],
-    best f32 [B, 4], best_xd i32 [B, 2] -> fused u8 [B, 24 + ceil((n1+n2)
-    /4)]. Semantics of align/batch.py::walk_local_reference (its fused
-    output)."""
-    global walk_local_launches
-    dev = _device_of(tb)
-    _check(tb, "tb", torch.uint8, 3, dev)
-    B = tb.shape[0]
-    _check(zflags, "zflags", torch.uint8, 3, dev)
-    _check(best, "best", torch.float32, 2, dev)
-    _check(best_xd, "best_xd", torch.int32, 2, dev)
-    D = n1 + n2 - 1
-    if tuple(tb.shape) != (B, D, n1) or tuple(zflags.shape) != (B, D, n1):
-        raise ValueError(f"tb and zflags must be [{B}, {D}, {n1}], got "
-                         f"{list(tb.shape)} and {list(zflags.shape)}")
-    if tuple(best.shape) != (B, 4) or tuple(best_xd.shape) != (B, 2):
-        raise ValueError(f"best must be [{B}, 4] and best_xd [{B}, 2]")
-    if dev.type == "cpu":
         _res, fused = _batch.walk_local_reference(tb, zflags, best, best_xd,
                                                   n1=n1, n2=n2)
-        return fused
+        return fused, (_batch.local_tb_to_wavefront(
+            tb, zflags, ref_lens, read_lens, n1=n1, n2=n2)
+            if return_traceback else None)
 
     from clique_tpu_torch import _build
 
     lib = _build.load()
-    T = n1 + n2
-    s = _launch_stream(stream, dev, (tb, zflags, best, best_xd))
+    smem = lib.clique_dp_align_local_smem_bytes(n1, n2)
+    if smem > _SMEM_LIMIT - 1024:
+        raise ValueError(f"n1 + n2 = {n1 + n2} needs {smem} B of shared "
+                         "memory for the walk, more than an H100 block has")
+    s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens,
+                                     params))
+    tb_bytes = lib.clique_dp_align_tb_bytes(n1, n2)
+    if tb_bytes != _batch.traceback_bytes(n1, n2):
+        raise RuntimeError("the kernel's traceback layout and batch.py's "
+                           "differ")
+    scratch_floats = lib.clique_dp_align_local_scratch_floats(n1, n2)
     with torch.cuda.stream(s):
-        fused = torch.empty((B, 24 + -(-T // 4)), dtype=torch.uint8,
+        fused = torch.empty((B, 24 + -(-(n1 + n2) // 4)), dtype=torch.uint8,
                             device=dev)
-        scratch = torch.empty((T, max(B, 1)), dtype=torch.uint8, device=dev)
+        tb = torch.empty((B, tb_bytes), dtype=torch.uint8, device=dev)
+        scratch = torch.empty((B, scratch_floats), dtype=torch.float32,
+                              device=dev) if scratch_floats else None
     if B == 0:
-        return fused
+        return fused, (tb if return_traceback else None)
+    ref_stride = 0 if refs.shape[0] == 1 else refs.shape[1]
     with torch.cuda.device(dev):
-        err = lib.clique_dp_walk_local(
-            tb.data_ptr(), zflags.data_ptr(), best.data_ptr(),
-            best_xd.data_ptr(), scratch.data_ptr(), fused.data_ptr(),
-            B, n1, n2, s.cuda_stream)
-    _raise_on(err, "dp_walk_local")
-    walk_local_launches += 1
-    return fused
+        err = lib.clique_dp_align_local(
+            refs.data_ptr(), ref_stride, reads.data_ptr(), reads.shape[1],
+            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
+            tb.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            fused.data_ptr(), B, n1, n2, _SPECIAL_CODES[special_mode],
+            s.cuda_stream)
+    _raise_on(err, "dp_align_local")
+    align_local_launches += 1
+    if scratch is not None:
+        fill_mode_launches["local_row_bands"] += 1
+    return fused, (tb if return_traceback else None)

@@ -21,10 +21,11 @@ perform_inversion_aware_alignment :429-466, update_inversion_alignment
 :469-560, convert_inverted_path :838-865.
 
 The traceback of a launch is B * batch.traceback_bytes(n1, n2) bytes for
-the keep-last fill and B * 2 * (n1 + n2 - 1) * n1 for the local screen,
-which stores zero flags beside its traceback; the batch is split so that
-no launch holds more than batch.MAX_TRACEBACK_BYTES. Splitting does not
-change any result.
+the keep-last fill and B * batch.local_traceback_bytes(n1, n2, device) for
+the local screen (the same layout on the card, zero flags inside it; the
+plain version's traceback and zero flags on the CPU); the batch is split
+so that no launch holds more than batch.MAX_TRACEBACK_BYTES. Splitting
+does not change any result.
 """
 
 from __future__ import annotations
@@ -277,7 +278,7 @@ def _fused_rows(s1: bytes, seqs: List[bytes], local: bool, params,
     uint8 [len(seqs), W], checked for marked rows."""
     L1, L2 = len(s1), max(len(r) for r in seqs)
     n1, n2 = L1 + 1, L2 + 1
-    cell_bytes = 2 * (n1 + n2 - 1) * n1 if local \
+    cell_bytes = dbatch.local_traceback_bytes(n1, n2, dev) if local \
         else dbatch.traceback_bytes(n1, n2)
     rows = max(1, dbatch.MAX_TRACEBACK_BYTES // cell_bytes)
     ref_row = torch.from_numpy(

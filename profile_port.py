@@ -1,0 +1,310 @@
+#!/usr/bin/env python3
+"""Time one workload of the port on one GPU, for one checkout or several
+in turns.
+
+    python3 profile_port.py align [--runs 3] [--reads 80000] [ROOT ...]
+    python3 profile_port.py hamming [--tags 25000] [--reps 3] [ROOT ...]
+    python3 profile_port.py local [--reps 5] [ROOT ...]
+
+Each ROOT (default: this checkout) is the root of a checkout of the repo;
+its clique_tpu_torch is imported and its kernels built in a process of its
+own. With several roots the runs go in turns, the list and then the list
+reversed (A B B A for two), so that a comparison lies inside one call on
+one card. It prints the card's name and power limit, each run's lines and
+one JSON line per run, then every timing side by side by root; the runs'
+results must agree between roots. Imports no jax. The workloads:
+
+- align: the bench-shaped dataset of the root's chip_smoke.py (the
+  generator of bench.py, seed 2026). Aligns its first 2,048 reads once to
+  warm up, then all of it `--runs` times without the profiler (wall,
+  reads/s and the metrics JSON's phase walls per run), then once under
+  torch.profiler. From the profiled run it prints the device activities
+  only (kernels and memory copies/sets, as the CUDA tracer records them on
+  the card) with their total device time and count, and the device busy
+  share: the union of those activities' intervals over the run's wall.
+  Rows of the host side (aten ops, CUDA runtime calls) are not device
+  time and are left out, so a copy is counted once, as its Memcpy
+  activity.
+- hamming: the known-list Hamming search at 10x scale. A 737,280-entry
+  16 bp ACGT allowlist (the size of 10x Chromium v2's
+  737K-august-2016.txt) and `--tags` observed tags (40% allowlist entries,
+  40% one substitution off one, 10% with an N, 10% random);
+  hamming_hits(tags, allowlist, 1, device="cuda") once to warm up, then
+  `--reps` times, each on the host clock (the call ends with host lists).
+- local: the local (Waterman-Eggert) DP of one length bucket,
+  batch.align_batch_local, whatever kernels it launches, at B=64,
+  n1=n2=3328 and B=512, n1=n2=1001 (one reference row, reads cut from it
+  with 5% substitutions, of 0 to n2 - 1 bases, as chip_smoke.py's
+  _mode_batch makes them), under AffineScoring.hifi_default(), the
+  inversion screen's scoring. CUDA events around `--reps` calls after one
+  warm-up call.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+N_ALLOWLIST = 737_280
+LOCAL_SHAPES = ((64, 3328), (512, 1001))
+
+
+def device_activities(prof):
+    """(name, start_us, end_us) of every activity that ran on the card."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out.append((e.name, e.time_range.start, e.time_range.end))
+    if not out:
+        # versions that attach device activities to their host op only
+        for k in prof.profiler.kineto_results.events():
+            if k.device_type() == DeviceType.CUDA:
+                s = k.start_ns() / 1e3
+                out.append((k.name(), s, s + k.duration_ns() / 1e3))
+    return out
+
+
+def union_us(intervals):
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def run_align(root, args):
+    """The bench-shaped align: warm walls, then the device breakdown."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    walls = []
+    with tempfile.TemporaryDirectory() as wd:
+        text, fq, head, _cells = cs._bench_dataset(wd, args.reads)
+        layout, rm = cs._layout_from_text(text, wd)
+        kw = dict(batch_size=cs.BENCH_BATCH, device="cuda")
+        align_reads(layout, rm, os.path.join(wd, "warm.bam"), read1=head,
+                    **kw)
+        for i in range(args.runs):
+            mpath = os.path.join(wd, f"m{i}.json")
+            t0 = time.time()
+            st = align_reads(layout, rm, os.path.join(wd, "o.bam"),
+                             read1=fq, metrics_path=mpath, **kw)
+            walls.append(time.time() - t0)
+            with open(mpath) as fh:
+                m = json.load(fh)
+            print(f"run {i}: wall {walls[-1]} s, {st.aligned / walls[-1]} "
+                  f"reads/s, device_seconds {m['device_seconds']}, "
+                  f"host_post_seconds {m['host_post_seconds']}, phase walls "
+                  f"{json.dumps(m['phase_walls'])}", flush=True)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            st = align_reads(layout, rm, os.path.join(wd, "p.bam"),
+                             read1=fq, **kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    acts = device_activities(prof)
+    if not acts:
+        raise SystemExit("the profiler recorded no device activity; time "
+                         "with CUDA events instead")
+    by_name = {}
+    for name, s, e in acts:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + (e - s), n + 1)
+    print(f"profiled run: wall {wall} s, {st.aligned} reads")
+    for name, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"  device {tot / 1e3} ms  x{n}  {name[:100]}")
+    device_ms = sum(t for t, _n in by_name.values()) / 1e3
+    busy = union_us([(s, e) for _n, s, e in acts])
+    print(f"device activity: {device_ms} ms summed, {busy / 1e3} ms as a "
+          f"union of intervals; busy share of the wall {busy / 1e6 / wall}")
+    return {"times": {"align wall s": walls, "device ms": [device_ms],
+                      "busy share": [busy / 1e6 / wall]},
+            "check": st.aligned}
+
+
+def _hamming_inputs(n_tags):
+    import numpy as np
+
+    rng = np.random.default_rng(737280)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    allow = rng.choice(bases, (N_ALLOWLIST, 16))
+    tags = allow[rng.integers(0, N_ALLOWLIST, n_tags)]
+    kind = rng.random(n_tags)
+    rows = np.arange(n_tags)
+    cols = rng.integers(0, 16, n_tags)
+    one_off = (kind >= 0.4) & (kind < 0.8)
+    tags[rows[one_off], cols[one_off]] = rng.choice(bases, int(one_off.sum()))
+    with_n = (kind >= 0.8) & (kind < 0.9)
+    tags[rows[with_n], cols[with_n]] = ord("N")
+    rand = kind >= 0.9
+    tags[rand] = rng.choice(bases, (int(rand.sum()), 16))
+    return ([r.tobytes() for r in tags], [r.tobytes() for r in allow])
+
+
+def run_hamming(root, args):
+    """hamming_hits at 10x scale, on the host clock."""
+    import torch
+
+    from clique_tpu_torch.collapse import distance
+
+    tags, allow = _hamming_inputs(args.tags)
+    hits = distance.hamming_hits(tags, allow, 1, device="cuda")
+    seconds = []
+    for _ in range(args.reps):
+        n0 = distance.match_hits_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits = distance.hamming_hits(tags, allow, 1, device="cuda")
+        seconds.append(time.perf_counter() - t0)
+        launches = distance.match_hits_launches - n0
+    print(f"{args.tags} tags x {len(allow)} allowlist entries: "
+          f"{sum(map(len, hits))} hits, {launches} launches a call")
+    digest = sum((u + 1) * sum(h) + len(h) for u, h in enumerate(hits))
+    return {"times": {"hamming_hits s": seconds}, "check": digest}
+
+
+def _local_inputs(B, n):
+    import numpy as np
+
+    rng = np.random.default_rng(n)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref = rng.choice(acgt, n - 1)
+    reads = np.zeros((B, n - 1), np.uint8)
+    read_lens = rng.integers(1, n, B).astype(np.int32)
+    read_lens[0], read_lens[-1] = 0, n - 1
+    for i, m in enumerate(read_lens):
+        start = int(rng.integers(0, n - 1))
+        piece = np.concatenate([ref[start:], ref])[:m]
+        subs = rng.random(m) < 0.05
+        piece[subs] = rng.choice(acgt, int(subs.sum()))
+        reads[i, :m] = piece
+    return ref[None, :], reads, np.full(B, n - 1, np.int32), read_lens
+
+
+def _event_ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run_local(root, args):
+    """align_batch_local at both shapes, CUDA events."""
+    import torch
+
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align.scoring import AffineScoring
+
+    dev = torch.device("cuda", 0)
+    params = tbatch.scoring_to_params(AffineScoring.hifi_default(), dev)
+    times, digests = {}, []
+    for B, n in LOCAL_SHAPES:
+        inputs = [torch.from_numpy(a).to(dev) for a in _local_inputs(B, n)]
+
+        def call():
+            return tbatch.align_batch_local(*inputs, params, n1=n, n2=n)
+
+        key = f"B={B} n1=n2={n} ms"
+        times[key] = [_event_ms(call, args.reps)]
+        fused = call().cpu().numpy()
+        digests.append(hashlib.sha256(fused.tobytes()).hexdigest()[:16])
+        print(f"{key}: {times[key][0]}, fused rows {digests[-1]}")
+        del inputs
+        torch.cuda.empty_cache()
+    return {"times": times, "check": digests}
+
+
+WORKLOADS = {"align": run_align, "hamming": run_hamming, "local": run_local}
+
+
+def child(root, args):
+    """One run: import `root`'s package, run the workload, print JSON."""
+    sys.path.insert(0, root)
+    import torch
+
+    import clique_tpu_torch
+    from clique_tpu_torch import _build
+
+    got = os.path.dirname(os.path.dirname(clique_tpu_torch.__file__))
+    if os.path.realpath(got) != os.path.realpath(root):
+        raise SystemExit(f"imported the package of {got}, expected {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    _build.load()
+    out = WORKLOADS[args.workload](root, args)
+    print(json.dumps({"root": root, **out}), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("workload", choices=sorted(WORKLOADS))
+    ap.add_argument("--runs", type=int, default=3, help="align: warm runs")
+    ap.add_argument("--reads", type=int, default=80_000, help="align")
+    ap.add_argument("--tags", type=int, default=25_000, help="hamming")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="hamming (default 3), local (default 5)")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("roots", nargs="*", default=[HERE])
+    args = ap.parse_intermixed_args()
+    if args.reps is None:
+        args.reps = 3 if args.workload == "hamming" else 5
+    roots = [os.path.abspath(r) for r in args.roots]
+    if args.child:
+        child(roots[0], args)
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    if smi.returncode != 0:
+        raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    flags = [args.workload, "--child", "--runs", str(args.runs), "--reads",
+             str(args.reads), "--tags", str(args.tags), "--reps",
+             str(args.reps)]
+    order = roots + roots[::-1] if len(roots) > 1 else roots
+    runs = []
+    for root in order:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              *flags, root], capture_output=True, text=True,
+                             env={**os.environ, "PYTHONPATH": ""})
+        if res.returncode != 0:
+            raise SystemExit(f"{root} failed:\n{res.stderr[-3000:]}")
+        print(f"== {root}\n{res.stdout.rstrip()}", flush=True)
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    checks = {json.dumps(r["check"]) for r in runs}
+    if len(checks) != 1:
+        raise SystemExit(f"the roots' results differ: {checks}")
+    print(json.dumps({root: {k: [v for r in runs if r["root"] == root
+                                 for v in r["times"][k]]
+                             for k in runs[0]["times"]}
+                      for root in roots}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -193,6 +193,169 @@ def test_local_matches_align_batch_device(uniform, special_mode, scoring):
     assert torch.equal(fused_w, fused)
 
 
+# inputs that hold the local kernel's one-byte traceback encoding: each
+# (refs, reads, ref_lens, read_lens, params) with numpy arrays and a params
+# list; n1 and n2 follow from the widths
+LOCAL_CASES = ("random_per_row", "random_uniform", "gap_plane_zero",
+               "all_mismatch", "empty_rows", "tied_hits")
+_LOCAL_PARAMS = [10.0, -11.0, 8.0, -15.0, -5.0, 1.0]
+
+
+def local_case(case):
+    rng = np.random.default_rng(500 + LOCAL_CASES.index(case))
+    if case.startswith("random"):
+        refs, reads, ref_lens, read_lens = _inputs(
+            510 + LOCAL_CASES.index(case), case.endswith("uniform"),
+            alphabet=BASES)
+        return refs, reads, ref_lens, read_lens, _LOCAL_PARAMS
+    if case == "gap_plane_zero":
+        # a positive gap extension: along a gap the D and I planes climb
+        # from below 0.0 and cross it, so some walks stop in D or I
+        refs = rng.choice(BASES, (48, 39))
+        reads = rng.choice(BASES, (48, 39))
+        ref_lens = rng.integers(1, 40, 48).astype(np.int32)
+        read_lens = rng.integers(1, 40, 48).astype(np.int32)
+        return refs, reads, ref_lens, read_lens, [2.0, -3.0, 2.0, -4.0, 1.0,
+                                                  1.0]
+    if case == "all_mismatch":
+        # no cell beats the (0, 0) cell's 0.0: n_ops 0 at (0, 0)
+        refs = np.full((4, 30), ord("A"), np.uint8)
+        reads = np.full((4, 25), ord("C"), np.uint8)
+        return (refs, reads, np.array([30, 1, 17, 30], np.int32),
+                np.array([25, 25, 1, 9], np.int32), _LOCAL_PARAMS)
+    if case == "empty_rows":
+        refs = rng.choice(BASES, (4, 20))
+        reads = rng.choice(BASES, (4, 20))
+        reads[3, :12] = refs[3, 4:16]
+        return (refs, reads, np.array([0, 20, 0, 20], np.int32),
+                np.array([20, 0, 0, 20], np.int32), _LOCAL_PARAMS)
+    # tied_hits: two hits of equal score. Row 0: ref P + Q, read Q + P, so
+    # both end on one diagonal and the smaller x wins; row 1: a motif
+    # twice in the reference, so the earlier diagonal wins.
+    p, q, m = (rng.choice(BASES, 12) for _ in range(3))
+    refs = np.zeros((2, 40), np.uint8)
+    reads = np.zeros((2, 24), np.uint8)
+    refs[0, :24] = np.concatenate([p, q])
+    reads[0] = np.concatenate([q, p])
+    refs[1] = rng.choice(BASES, 40)
+    refs[1, 3:15] = refs[1, 25:37] = m
+    reads[1, :12] = m
+    return (refs, reads, np.array([24, 40], np.int32),
+            np.array([24, 12], np.int32), _LOCAL_PARAMS)
+
+
+def _local_plain(case):
+    refs, reads, ref_lens, read_lens, params = local_case(case)
+    n1, n2 = refs.shape[1] + 1, reads.shape[1] + 1
+    t = _t(refs, reads, ref_lens, read_lens)
+    p = torch.tensor(params, dtype=torch.float32)
+    out = tbatch.fill_local_reference(*t, p, n1=n1, n2=n2)
+    return t, p, n1, n2, out
+
+
+def _walk_packed(wave, best, best_xd, n1, n2):
+    """The local kernel's walk over its one-byte layout, in torch: from the
+    argmax cell, in the plane that wins its three values; each step reads
+    one byte and stops on a field of LOCAL_ZERO, else emits the plane and
+    follows the field, until a border. Returns the fused rows and the
+    plane each walk stopped in on a zero field (-1 where it met a
+    border)."""
+    B, T = wave.shape[0], n1 + n2
+    z0, score = tbatch.corner_to_z0_score(best[:, 1:4])
+    ex = best_xd[:, 0].long()
+    ey = best_xd[:, 1].long() - ex
+    x, y, z = ex.clone(), ey.clone(), z0.long()
+    rows = torch.arange(B)
+    live = torch.ones(B, dtype=torch.bool)
+    stop = torch.full((B,), -1)
+    walk = torch.full((B, T), tbatch.OP_DONE, dtype=torch.uint8)
+    n = torch.zeros(B, dtype=torch.long)
+    for _ in range(T):
+        live &= (x > 0) & (y > 0)
+        off = tbatch.wavefront_offset(x.clamp(min=1), y.clamp(min=1), n1=n1,
+                                      n2=n2)
+        field = (wave[rows, off].long() >> (2 * z)) & 3
+        zero = live & (field == tbatch.LOCAL_ZERO)
+        stop = torch.where(zero, z, stop)
+        live &= ~zero
+        walk[rows[live], n[live]] = z[live].to(torch.uint8)
+        n += live.long()
+        x -= (live & (z != 2)).long()
+        y -= (live & (z != 1)).long()
+        z = torch.where(live, field, z)
+    j = torch.arange(T)[None, :]
+    back = torch.gather(walk, 1, (n[:, None] - 1 - j).clamp(min=0))
+    fwd = torch.where(j < n[:, None], back, tbatch.OP_DONE).to(torch.uint8)
+    res = tbatch._ops_epilogue(fwd, score, z0, n1=n1, n2=n2)
+    coords = torch.stack([x, y, ex, ey], dim=1)
+    return tbatch.fuse_result(res.ops_packed, res.n_ops, res.score,
+                              coords), stop
+
+
+@pytest.mark.parametrize("case", LOCAL_CASES)
+def test_local_wavefront_round_trip(case):
+    """local_tb_to_wavefront then local_wavefront_to_tb gives back the
+    plain fill's zero flags on interior cells and its directions where a
+    plane's flag is clear; the CPU wrapper returns that layout and counts
+    no launch."""
+    t, p, n1, n2, (tb, zflags, best, best_xd) = _local_plain(case)
+    wave = tbatch.local_tb_to_wavefront(tb, zflags, t[2], t[3], n1=n1, n2=n2)
+    tb2, zf2 = tbatch.local_wavefront_to_tb(wave, t[2], t[3], n1=n1, n2=n2)
+    x = torch.arange(n1)[None, None, :]
+    y = torch.arange(n1 + n2 - 1)[None, :, None] - x
+    interior = ((x >= 1) & (x <= t[2][:, None, None])
+                & (y >= 1) & (y <= t[3][:, None, None]))
+    assert torch.equal(zf2[interior], zflags[interior])
+    assert bool((zf2[~interior] == 7).all())
+    assert bool((tb2[~interior] == tbatch._TB_FRESH).all())
+    for z in range(3):
+        clear = interior & ((zflags >> z) & 1 == 0)
+        assert torch.equal((tb2[clear] >> 2 * z) & 3, (tb[clear] >> 2 * z) & 3)
+    bi, _xi, _yi, off = tbatch._wavefront_index(t[2], t[3], n1, n2)
+    outside = torch.ones_like(wave, dtype=torch.bool)
+    outside[bi, off] = False
+    assert bool((wave[outside] == 0).all())
+
+    before = (dp_kernels.align_local_launches,
+              dict(dp_kernels.fill_mode_launches))
+    fused_w, wave_w = dp_kernels.dp_align_local(*t, p, n1=n1, n2=n2,
+                                                return_traceback=True)
+    assert torch.equal(wave_w, wave)
+    assert torch.equal(fused_w, tbatch.walk_local_reference(
+        tb, zflags, best, best_xd, n1=n1, n2=n2)[1])
+    assert (dp_kernels.align_local_launches,
+            dp_kernels.fill_mode_launches) == before
+
+
+@pytest.mark.parametrize("case", LOCAL_CASES)
+def test_packed_walk_matches_walk_local_reference(case):
+    """A walk over the one-byte layout (stop on a field of 3, else follow
+    it) gives walk_local_reference's fused rows byte for byte: walks that
+    stop in D or I, an all-mismatch batch whose argmax is (0, 0), empty
+    reads and references, and equal best hits in (diagonal, x) order."""
+    t, _p, n1, n2, (tb, zflags, best, best_xd) = _local_plain(case)
+    _res, want = tbatch.walk_local_reference(tb, zflags, best, best_xd,
+                                             n1=n1, n2=n2)
+    wave = tbatch.local_tb_to_wavefront(tb, zflags, t[2], t[3], n1=n1, n2=n2)
+    got, stop = _walk_packed(wave, best, best_xd, n1, n2)
+    assert torch.equal(got, want)
+    _packed, n_ops, score, coords = tbatch.unfuse_result(got.numpy(),
+                                                         local=True)
+    if case == "gap_plane_zero":
+        assert bool(((stop == 1) | (stop == 2)).any())
+    elif case == "all_mismatch":
+        assert (n_ops == 0).all() and (score == 0).all()
+        assert (coords == 0).all()
+    elif case == "empty_rows":
+        assert (n_ops[:3] == 0).all() and n_ops[3] > 0
+    elif case == "tied_hits":
+        # equal scores; row 0 ends at (12, 24) before (24, 12) on diagonal
+        # 36, row 1 at x = 15 (diagonal 27) before x = 37 (diagonal 49)
+        assert score[0] == score[1] == 12 * _LOCAL_PARAMS[0]
+        assert coords[0].tolist() == [0, 12, 12, 24]
+        assert coords[1].tolist() == [3, 0, 15, 12]
+
+
 def _expand_local(local, i, ref, read):
     """Aligned strings of row i, as tests/test_local_device.py expands."""
     ops = local.ops[i].numpy()
@@ -374,7 +537,8 @@ def test_inversion_batch_splits_by_memory(monkeypatch):
                                                 PORT_INV, aff, device="cpu")
     n_whole = len(calls)
     # room for about two screen alignments (n1 = 41, n2 <= 47) a launch
-    monkeypatch.setattr(tbatch, "MAX_TRACEBACK_BYTES", 2 * 2 * 90 * 41)
+    monkeypatch.setattr(tbatch, "MAX_TRACEBACK_BYTES",
+                        2 * tbatch.local_traceback_bytes(41, 50, "cpu"))
     split = inversion.inversion_alignment_batch(
         ref, reads, "ref", names, PORT_INV, aff, device="cpu")
     assert split == whole
@@ -403,23 +567,22 @@ def test_mode_arguments_are_checked(bad):
     with pytest.raises((TypeError, ValueError)):
         dp_kernels.dp_align(*t, params, **kw)
     if bad == "special_mode":
-        # the local fill takes no band and no tie order
+        # the local kernel takes no band and no tie order
         with pytest.raises(ValueError):
-            dp_kernels.dp_fill_local(*t, params, **kw)
+            dp_kernels.dp_align_local(*t, params, **kw)
 
 
 def test_walk_local_rejects_bad_inputs():
+    """dp_align_local, which now walks inside the fused local kernel,
+    rejects a bad shape, a bad dtype and a bad row count."""
     refs, reads, ref_lens, read_lens = _inputs(4)
     t = _t(refs, reads, ref_lens, read_lens)
     params = tbatch.scoring_to_params(PORT_RUST_BIO_COMPAT, "cpu")
-    tb, zflags, best, best_xd = dp_kernels.dp_fill_local(*t, params, n1=N1,
-                                                         n2=N2)
     with pytest.raises(ValueError):
-        dp_kernels.dp_walk_local(tb, zflags[:, :-1].contiguous(), best,
-                                 best_xd, n1=N1, n2=N2)
+        dp_kernels.dp_align_local(*t[:3], t[3][:-1].contiguous(), params,
+                                  n1=N1, n2=N2)
     with pytest.raises(TypeError):
-        dp_kernels.dp_walk_local(tb, zflags, best.double(), best_xd, n1=N1,
-                                 n2=N2)
+        dp_kernels.dp_align_local(*t, params.double(), n1=N1, n2=N2)
     with pytest.raises(ValueError):
-        dp_kernels.dp_walk_local(tb, zflags, best, best_xd[:, :1].contiguous(),
-                                 n1=N1, n2=N2)
+        dp_kernels.dp_align_local(t[0][:2].contiguous(), *t[1:], params,
+                                  n1=N1, n2=N2)

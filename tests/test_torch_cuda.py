@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels (the fused global fill + walk in every
-mode, the local fill and walk, the fused Hamming hit search and edit
+mode, the fused local fill + walk, the fused Hamming hit search and edit
 distance) against
 their plain PyTorch versions, on CUDA tensors, and the paths that run them
 (align_reads with a band and with long reads, the inversion batch) against
@@ -148,40 +148,97 @@ def test_fill_modes_match_plain(cuda, mode, shape, uniform):
                 == int(on)), mode_name
 
 
+def _check_local(args, params, n1, n2, **kw):
+    """One dp_align_local launch against the plain fill + walk: the fused
+    rows, and the kernel's one-byte traceback decoded as
+    fill_local_reference's (zero flags on interior cells, directions where
+    a plane's flag is clear), byte for byte."""
+    launches = dp_kernels.align_local_launches
+    fused_k, wave = dp_kernels.dp_align_local(*args, params, n1=n1, n2=n2,
+                                              return_traceback=True, **kw)
+    torch.cuda.synchronize()
+    assert dp_kernels.align_local_launches == launches + 1
+    tb_p, zf_p, best_p, xd_p = tbatch.fill_local_reference(
+        *args, params, n1=n1, n2=n2, **kw)
+    _res, fused_p = tbatch.walk_local_reference(tb_p, zf_p, best_p, xd_p,
+                                                n1=n1, n2=n2)
+    lens = dict(ref_lens=args[2], read_lens=args[3], n1=n1, n2=n2)
+    got = tbatch.local_wavefront_to_tb(wave, **lens)
+    want = tbatch.local_wavefront_to_tb(
+        tbatch.local_tb_to_wavefront(tb_p, zf_p, **lens), **lens)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(fused_k, fused_p)
+
+
 @pytest.mark.parametrize("uniform", [False, True], ids=["per_row", "uniform"])
 @pytest.mark.parametrize("shape", [(16, 128, 128), (12, 128, 384),
-                                   (6, 1536, 256), (4, 3328, 3328)], ids=str)
+                                   (6, 1536, 256), (4, 3328, 3328),
+                                   (1, 3328, 3328)], ids=str)
 @pytest.mark.parametrize("special_mode", ["both", "ref_n_only"])
 def test_local_kernels_match_plain(cuda, special_mode, shape, uniform):
-    """dp_fill_local and dp_walk_local: traceback, zero flags, the argmax
-    cell and the fused rows with their coordinates; a uniform batch sends
-    one reference row, as the inversion screen does."""
+    """dp_align_local (the fused local fill and walk): the fused rows with
+    their coordinates, the traceback and the zero flags; a uniform batch
+    sends one reference row, as the inversion screen does; one CTA at
+    n1 = n2 = 3328."""
     B, n1, n2 = shape
-    host = _modes_inputs(sum(shape) + 5 + int(uniform), B, n1, n2, uniform)
+    seed = sum(shape) + 5 + int(uniform)
+    if B == 1:
+        # one full-length read that copies its reference with 2%
+        # substitutions: a walk through every band of the CTA
+        rng = np.random.default_rng(seed)
+        refs = rng.choice(ALPHABET[:4], (1, n1 - 1))
+        reads = refs.copy()
+        subs = rng.random(n2 - 1) < 0.02
+        reads[0, subs] = rng.choice(ALPHABET[:4], int(subs.sum()))
+        host = (refs, reads, np.array([n1 - 1], np.int32),
+                np.array([n2 - 1], np.int32))
+    else:
+        host = _modes_inputs(seed, B, n1, n2, uniform)
     args = [torch.from_numpy(a).to(cuda) for a in host]
     params = tbatch.scoring_to_params(AffineScoring(10.0, -11.0, 8.0, -15.0,
                                                     -5.0, 1.0), cuda)
-    fills, walks = (dp_kernels.fill_local_launches,
-                    dp_kernels.walk_local_launches)
-    out_k = dp_kernels.dp_fill_local(*args, params, n1=n1, n2=n2,
-                                     special_mode=special_mode)
-    fused_k = dp_kernels.dp_walk_local(*out_k, n1=n1, n2=n2)
-    torch.cuda.synchronize()
-    assert (dp_kernels.fill_local_launches,
-            dp_kernels.walk_local_launches) == (fills + 1, walks + 1)
-    out_p = tbatch.fill_local_reference(*args, params, n1=n1, n2=n2,
-                                        special_mode=special_mode)
-    _res, fused_p = tbatch.walk_local_reference(*out_p, n1=n1, n2=n2)
-    for name, k, p in zip(("tb", "zflags", "best", "best_xd"), out_k, out_p):
-        assert torch.equal(k, p), name
-    assert torch.equal(fused_k, fused_p)
+    bands = dp_kernels.fill_mode_launches["local_row_bands"]
+    _check_local(args, params, n1, n2, special_mode=special_mode)
+    assert (dp_kernels.fill_mode_launches["local_row_bands"] - bands
+            == int(n1 > 385))
+
+
+@pytest.mark.parametrize("case", ["gap_plane_zero", "all_mismatch",
+                                  "empty_rows", "tied_hits"])
+def test_local_kernel_encoding_cases(cuda, case):
+    """The one-byte encoding's cases of the CPU tests on the card: walks
+    that stop in D or I, an argmax at (0, 0), empty rows, tied hits."""
+    from test_torch_align_modes import local_case
+
+    *host, params = local_case(case)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in host]
+    n1, n2 = host[0].shape[1] + 1, host[1].shape[1] + 1
+    _check_local(args, torch.tensor(params, device=cuda), n1, n2)
+
+
+def test_local_kernel_empty_batch(cuda):
+    """B = 0: empty fused rows and traceback of the right widths, and no
+    launch."""
+    n1, n2 = 1001, 900
+    refs = torch.zeros((1, n1 - 1), dtype=torch.uint8, device=cuda)
+    reads = torch.zeros((0, n2 - 1), dtype=torch.uint8, device=cuda)
+    lens = torch.zeros(0, dtype=torch.int32, device=cuda)
+    params = tbatch.scoring_to_params(MERGE_SCORING, cuda)
+    launches = dp_kernels.align_local_launches
+    fused, wave = dp_kernels.dp_align_local(refs, reads, lens, lens, params,
+                                            n1=n1, n2=n2,
+                                            return_traceback=True)
+    assert tuple(fused.shape) == (0, 24 + -(-(n1 + n2) // 4))
+    assert tuple(wave.shape) == (0, tbatch.traceback_bytes(n1, n2))
+    assert dp_kernels.align_local_launches == launches
 
 
 @pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
 def test_fill_beyond_6144_rows(cuda, local):
-    """n1 = 6,600 DP rows: the global kernel takes 18 row bands handed on
-    through its scratch, the local fill's ring moves to a per-CTA global
-    scratch, and both still equal their plain versions."""
+    """n1 = 6,600 DP rows: 18 row bands, handed on through a scratch row
+    band to band (the global kernel one after another on one warp, the
+    local one on the 10 warps of its CTA, bands 10-17 wrapping to the
+    first warps), and both still equal their plain versions."""
     B, n1, n2 = 3, 6600, 700
     host = _modes_inputs(6600, B, n1, n2, False)
     args = [torch.from_numpy(a).to(cuda) for a in host]
@@ -191,16 +248,9 @@ def test_fill_beyond_6144_rows(cuda, local):
         _check_align(args, params, n1, n2, special_mode="both")
         assert dp_kernels.fill_mode_launches["row_bands"] == bands + 1
         return
-    ring = dp_kernels.fill_mode_launches["global_ring"]
-    out_k = dp_kernels.dp_fill_local(*args, params, n1=n1, n2=n2)
-    fused_k = dp_kernels.dp_walk_local(*out_k, n1=n1, n2=n2)
-    out_p = tbatch.fill_local_reference(*args, params, n1=n1, n2=n2)
-    _res, fused_p = tbatch.walk_local_reference(*out_p, n1=n1, n2=n2)
-    torch.cuda.synchronize()
-    assert dp_kernels.fill_mode_launches["global_ring"] == ring + 1
-    for k, p in zip(out_k, out_p):
-        assert torch.equal(k, p)
-    assert torch.equal(fused_k, fused_p)
+    bands = dp_kernels.fill_mode_launches["local_row_bands"]
+    _check_local(args, params, n1, n2)
+    assert dp_kernels.fill_mode_launches["local_row_bands"] == bands + 1
 
 
 def test_inversion_batch_on_cuda_equals_cpu(cuda):
@@ -223,11 +273,11 @@ def test_inversion_batch_on_cuda_equals_cpu(cuda):
     # the HiFi scoring keeps local hits of unrelated sequence short: read 7
     # is the one screen positive, the others take the keep-last fill
     aff = AffineScoring.hifi_default()
-    fills = dp_kernels.fill_local_launches
+    screens = dp_kernels.align_local_launches
     keep_last = dp_kernels.fill_mode_launches["tie_last"]
     got = inversion_alignment_batch(ref, reads, "ref", names, inv, aff,
                                     device="cuda")
-    assert dp_kernels.fill_local_launches == fills + 1
+    assert dp_kernels.align_local_launches == screens + 1
     assert dp_kernels.fill_mode_launches["tie_last"] == keep_last + 1
     want = inversion_alignment_batch(ref, reads, "ref", names, inv, aff,
                                      device="cpu")

@@ -16,8 +16,15 @@ before and read just after:
   match_hits launch for the level's one hamming_hits call, the collapse
   wall split into allowlist read, upload, packing, kernel and host hit
   assembly, and the kernel timed on that call's own tags;
-- device Levenshtein: one DegenerateTag group with 4M candidate pairs, so
-  correct_degenerate_groups takes the edit-distance kernel;
+- device Levenshtein: one DegenerateTag group with 3.66M ratio-filtered
+  pairs and one of 80-byte tags: correct_degenerate_groups sends the
+  first to the edit-hits kernel and the second to the edit-distance
+  kernel, in turns with the route before edit hits (host preparation and
+  edit_distance), both maps equal to the host Myers code's;
+- threshold: correct_degenerate_groups's host route (pair preparation and
+  Myers) and its edit-hits route in turns on batches of 10^3 to 4 x 10^6
+  candidate pairs and on the bench chain's two degenerate levels, the
+  measurements that set EDIT_HITS_MIN_PAIRS;
 - bench: the fused chain (align -> collapse -> call) over 80,000
   bench-shaped reads (the generator of bench.py, seed 2026), timed as
   bench.py times it;
@@ -87,15 +94,19 @@ INV_REF = 1000
 # phases beside the card's runs: five workers of two torch threads each
 CPU_WORKERS = 5
 CPU_WORKER_THREADS = 2
-KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local")
+KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local",
+           "edit_hits")
 SOURCES = {"dp_align": "dp_align.cu",
            "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
-           "dp_align_local": "dp_align_local.cu"}
+           "dp_align_local": "dp_align_local.cu",
+           "edit_hits": "tag_distance.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
-            "dp_align_local": "clique_tpu/align/batch.py:363 and :450"}
+            "dp_align_local": "clique_tpu/align/batch.py:363 and :450",
+            "edit_hits": "clique_tpu/collapse/distance.py:36 and "
+                         "clique_tpu/collapse/correct.py:273"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
 # float32 outside the tensor cores counts an FMA as two, so one lane
@@ -119,6 +130,15 @@ OPS_EDIT_CELL = 8
 # XOR, the shift of the fold, the lop3 of fold and live mask, popc and
 # the budget compare
 OPS_HIT_PAIR = 5
+# lane operations of one column step of the Myers/Hyyro recurrence in one
+# 32-bit word (edit_hits, tags of up to 32 bytes): the Peq load, the four
+# of D0, HP and HN, the score's two tests and two adds, the two shifts,
+# the new VP and VN, the byte's extraction
+OPS_MYERS_COL = 17
+# the device-Levenshtein group's radius and ratio (a 16 bp DegenerateTag
+# at max_distance 2, the default minimum_collapsing_difference)
+LEV_D = 2
+LEV_RATIO = 5.0
 # the known-list phase's radius (cell_id's max_distance)
 KNOWN_D = 1
 # ptxas's register and spill lines of each kernel, read from the build log
@@ -194,6 +214,7 @@ def phase_build():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("align_local_kernel", "align_kernel",
                                        "match_hits_wide", "match_hits",
+                                       "edit_hits_group", "edit_hits_pairs",
                                        "edit_distance_reg",
                                        "edit_distance_local",
                                        "edit_distance_scratch")
@@ -214,6 +235,13 @@ def phase_build():
             flags = re.search(r"match_hits_wide_kernelILi(\d)E", line)
             if flags:
                 kernel = "match_hits_wide<bits={0}>".format(*flags.groups())
+            # the edit-hit search's bit-vector word and code-row words
+            flags = re.search(r"edit_hits_(group|pairs)_kernelI([jy])Li(\d+)E",
+                              line)
+            if flags:
+                mode, word, words = flags.groups()
+                kernel = "edit_hits_{0}<{1} bits,words={2}>".format(
+                    mode, 32 if word == "j" else 64, words)
         elif kernel and ("registers" in line or "spill" in line):
             say(f"[build] {kernel}: {line.strip()}")
             PTXAS.setdefault(kernel, []).append(line.strip())
@@ -860,6 +888,256 @@ def phase_tag_kernels():
     return err, times, myers_ms
 
 
+def _lev_group():
+    """The device-Levenshtein group: 2,000 random 16 bp tags of count 10
+    and up to 2,000 of count 1, each 1-4 substitutions from a count-10
+    tag (seed 4000)."""
+    from collections import Counter
+
+    import numpy as np
+
+    rng = np.random.default_rng(4000)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    hi = [r.tobytes() for r in rng.choice(bases, (2000, 16))]
+    lo = []
+    for i in range(2000):
+        t = bytearray(hi[i % 2000])
+        for _ in range(1 + i % 4):          # 1-4 edits: some absorb
+            t[rng.integers(16)] = int(rng.choice(bases))
+        lo.append(bytes(t))
+    counts = Counter({t: 10 for t in hi})
+    for t in lo:
+        if t not in counts:
+            counts[t] = 1
+    return counts
+
+
+def _hit_groups(rng, sizes, w, letters=b"ACGT", noise=b"ACGTN-",
+                narrow_every=3):
+    """Seeded edit_hits inputs (numpy): groups of `sizes` tags drawn from
+    64 base tags of w bytes with 8% substitutions from `noise`; one tag in
+    ten of count 5-59, the rest 1-4; every `narrow_every`-th group 3 bytes
+    narrower than w."""
+    import numpy as np
+
+    letters = np.frombuffer(letters, np.uint8)
+    T = int(sum(sizes))
+    base = rng.choice(letters, (64, w))
+    tags = base[rng.integers(0, 64, T)]
+    sub = rng.random((T, w)) < 0.08
+    tags[sub] = rng.choice(np.frombuffer(noise, np.uint8), int(sub.sum()))
+    cnt = np.where(rng.random(T) < 0.1, rng.integers(5, 60, T),
+                   rng.integers(1, 5, T)).astype(np.int64)
+    offs = np.concatenate(([0], np.cumsum(sizes))).astype(np.int32)
+    widths = np.full(len(sizes), w, np.int32)
+    widths[1::narrow_every] = w - 3
+    return tags, cnt, offs, widths
+
+
+def _counts_matrix(counts):
+    """One group's Counter as edit_hits's numpy inputs."""
+    import numpy as np
+
+    tags = list(counts)
+    w = len(tags[0])
+    mat = np.frombuffer(b"".join(tags), np.uint8).reshape(-1, w).copy()
+    return (mat, np.array([counts[t] for t in tags], np.int64),
+            np.array([0, len(tags)], np.int32), np.array([w], np.int32))
+
+
+def _hold_edit_hits(label, host, d, ratio, pairs=None, launches=1):
+    """edit_hits on the card against edit_hits_reference on the same
+    tensors: equal hit lists and `launches` launches. Returns the size of
+    the two hit sets' symmetric difference, the hit count and the
+    tensors."""
+    import torch
+
+    from clique_tpu_torch.collapse import distance as tdist
+
+    dev = torch.device("cuda", 0)
+    args = [torch.from_numpy(x).to(dev) for x in host]
+    pr = torch.from_numpy(pairs).to(dev) if pairs is not None else None
+    n = tdist.edit_hits_launches
+    h, j = tdist.edit_hits(*args, d, ratio, pr)
+    torch.cuda.synchronize()
+    got_launches = tdist.edit_hits_launches - n
+    want_h, want_j = tdist.edit_hits_reference(*args, d, ratio, pr)
+    T = args[0].shape[0]
+    got = set((h * T + j).tolist())
+    want = set((want_h * T + want_j).tolist())
+    e = len(got ^ want)
+    say(f"{label}: {len(got)} hits, {got_launches} launch(es); "
+        f"{'equal' if e == 0 else 'DIFFER'} to the plain version "
+        f"({e} pairs differ)")
+    check(e == 0 and torch.equal(h, want_h) and torch.equal(j, want_j),
+          f"{label}: edit_hits and its plain version disagree")
+    check(got_launches == launches,
+          f"{label}: {got_launches} launches, expected {launches}")
+    return e, len(got), args
+
+
+def _myers_columns(a, b, w, d):
+    """The column steps each pair (rows a, b u8 [P, w] on the card, w <=
+    62) needs before its fate is known, as edit_hits's recurrence runs
+    it: the first column c with score + c > d + w, else w; and each
+    pair's distance. Torch int64 bit vectors, one column a step."""
+    import torch
+
+    full = (1 << w) - 1
+    eq = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+    for i in range(w):
+        eq |= (a[:, i:i + 1] == b).long() << i
+    P = a.shape[0]
+    vp = torch.full((P,), full, dtype=torch.int64, device=a.device)
+    vn = torch.zeros_like(vp)
+    score = torch.full_like(vp, w)
+    need = torch.full_like(vp, w)
+    for c in range(w):
+        pm = eq[:, c]
+        d0 = ((((pm & vp) + vp) & full) ^ vp) | pm | vn
+        hp = vn | (~(d0 | vp) & full)
+        hn = vp & d0
+        score += ((hp >> (w - 1)) & 1) - ((hn >> (w - 1)) & 1)
+        hp = ((hp << 1) | 1) & full
+        hn = (hn << 1) & full
+        vp = hn | (~(d0 | hp) & full)
+        vn = hp & d0
+        need = torch.where((need == w) & (score + c + 1 > d + w),
+                           torch.full_like(need, c + 1), need)
+    return need, score
+
+
+def _edit_hits_kernel_call(args, d, ratio, reps):
+    """A call of the group kernel alone on prepared inputs (for timing:
+    the wrapper's sort, encoding, count read-back and hit sort are left
+    out, and the launch is not counted). The hit buffer holds every
+    timed call's hits, so no call skips a store."""
+    import torch
+
+    from clique_tpu_torch import _build
+    from clique_tpu_torch.collapse import distance as tdist
+
+    lib = _build.load()
+    tags, counts, offsets, widths = args
+    codes, cnt, high, bstart, _perm, K = tdist.edit_hit_groups(
+        tags, counts, offsets, ratio, int(widths.max()),
+        lib.clique_edit_hits_warps())
+    G = widths.shape[0]
+    h, _j = tdist.edit_hits(*args, d, ratio)
+    count = torch.zeros(1, dtype=torch.int64, device=tags.device)
+    cap = (reps + 4) * max(len(h), 1)
+    out = torch.empty((cap, 2), dtype=torch.int32, device=tags.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = lib.clique_edit_hits(
+            codes.data_ptr(), cnt.data_ptr(), offsets.data_ptr(), G,
+            widths.data_ptr(), high.data_ptr(), bstart.data_ptr(),
+            bstart.numel() - 1, None, 0, codes.shape[1], K, d, ratio,
+            count.data_ptr(), out.data_ptr(), cap, stream)
+        check(err == 0, f"edit_hits launch failed with CUDA error {err}")
+    return call, codes.shape[1], K, high.numel()
+
+
+def phase_edit_hits():
+    """edit_hits against its plain PyTorch version on the card (group mode
+    at the widths and radii of the tests, many groups, tiles of a 4,000-tag
+    group, many byte classes; pairs mode on pigeonhole candidates; a hit
+    buffer overflow), then timed in turns with its plain version on the
+    device-Levenshtein group, beside edit_distance on that group's
+    ratio-filtered pairs gathered into rows. Bound: the recurrence's
+    operations for the column steps this run's pairs need."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.collapse import distance as tdist
+
+    rng = np.random.default_rng(2028)
+    err = 0
+    many = b"ACGTNRYKMSWBDHVacgtn"
+    for sizes, w, d, ratio, letters in (
+            ([4000] + rng.integers(2, 21, 300).tolist(), 16, 2, 5.0, b"ACGT"),
+            (rng.integers(20, 150, 500).tolist(), 12, 2, 5.0, b"ACGT"),
+            ([3000, 40, 700], 33, 3, 5.0, b"ACGT"),
+            ([2500, 90, 600], 64, 3, 2.5, b"ACGT"),
+            ([1500, 30], 20, 2, 5.0, many)):
+        host = _hit_groups(rng, sizes, w, letters,
+                           letters if letters == many else b"ACGTN-")
+        e, _n, _a = _hold_edit_hits(
+            f"[edit hits] group mode {len(sizes)} groups, {sum(sizes)} "
+            f"tags, w={w} d={d} ratio={ratio}", host, d, ratio)
+        err = max(err, e)
+    for T, w, d in ((5000, 16, 2), (4500, 64, 3)):
+        tags, cnt, offs, widths = _hit_groups(rng, [T], w, narrow_every=2)
+        cand = tdist.candidate_pairs_array(
+            [r.tobytes() for r in tags], d, counts=cnt, ratio=5.0)
+        e, _n, _a = _hold_edit_hits(
+            f"[edit hits] pairs mode, {len(cand)} pigeonhole candidates of "
+            f"{T} tags, w={w} d={d}", (tags, cnt, offs, widths), d, 5.0,
+            cand.astype(np.int32))
+        err = max(err, e)
+    tags = rng.choice(np.frombuffer(b"ACGT", np.uint8), (1200, 16))
+    e, n, _a = _hold_edit_hits(
+        "[edit hits] 360,000 hits past the first buffer", (
+            tags, np.array([10] * 600 + [1] * 600, np.int64),
+            np.array([0, 1200], np.int32), np.array([16], np.int32)),
+        16, 5.0, launches=2)
+    check(n == 360_000, "the overflow case lost hits")
+    err = max(err, e)
+
+    counts = _lev_group()
+    e, hits, args = _hold_edit_hits(
+        f"[edit hits] the device-Levenshtein group ({len(counts)} tags)",
+        _counts_matrix(counts), LEV_D, LEV_RATIO)
+    err = max(err, e)
+    tags_d, cnt_d = args[0], args[1]
+    T, w = tags_d.shape
+    ii, jj = torch.triu_indices(T, T, 1, device=tags_d.device)
+    keep = tdist._ratio_pass(cnt_d[ii], cnt_d[jj], LEV_RATIO)
+    ii, jj = ii[keep], jj[keep]
+    P = ii.numel()
+    up = cnt_d[ii] > cnt_d[jj]
+    hh, lo = torch.where(up, ii, jj), torch.where(up, jj, ii)
+    need, dist = _myers_columns(tags_d[hh], tags_d[lo], w, LEV_D)
+    check(int((dist <= LEV_D).sum()) == hits,
+          "the bound's recurrence and edit_hits disagree")
+    cols = int(need.sum())
+    del ii, jj, keep, up, need, dist
+    reps = 50
+    kern, words, K, n_high = _edit_hits_kernel_call(args, LEV_D, LEV_RATIO,
+                                                     reps)
+    k_ms, p_ms = _turns(
+        f"[edit hits] kernel (words={words}, {K} classes, {n_high} patterns)"
+        f" on the device-Levenshtein group, {P} ratio-filtered pairs",
+        kern, lambda: tdist.edit_hits_reference(*args, LEV_D, LEV_RATIO),
+        reps, 2)
+    wrap_ms = _time_ms(lambda: tdist.edit_hits(*args, LEV_D, LEV_RATIO), 20)
+    say(f"[edit hits] wrapper (count sort, encoding, launch, count "
+        f"read-back, hit sort) on that group: {wrap_ms:.4f} ms per call")
+    b = bound(T * w + 8 * T + 8 * hits, OPS_MYERS_COL * cols)
+    all_ms = OPS_MYERS_COL * w * P / PEAK_LANE_OPS * 1e3
+    say(f"[edit hits] bound {b[0]:.4f} ms, by {b[1]} (the recurrence's "
+        f"{OPS_MYERS_COL} lane operations for each of the {cols} column "
+        f"steps its pairs need, {cols / max(P, 1):.2f} a pair of {w}; all "
+        f"{w} columns would be {all_ms:.4f} ms); the kernel at "
+        f"{b[0] / k_ms:.3f} of it")
+    # today's kernel on the same pairs: rows gathered as the host route
+    # gathers them (32 bytes a row, la = lb = 16)
+    a = torch.zeros((P, 32), dtype=torch.uint8, device=tags_d.device)
+    bb = torch.zeros_like(a)
+    a[:, :w] = tags_d[hh]
+    bb[:, :w] = tags_d[lo]
+    la = torch.full((P,), w, dtype=torch.int32, device=tags_d.device)
+    ed = tdist.edit_distance(a, bb, la, la)
+    check(int((ed.int() <= LEV_D).sum()) == hits,
+          "edit_distance and edit_hits disagree on the group")
+    ed_ms = _time_ms(lambda: tdist.edit_distance(a, bb, la, la), 20)
+    say(f"[edit hits] edit_distance on the same {P} pairs in 32-byte rows: "
+        f"{ed_ms:.4f} ms per call (its rows gathered beforehand)")
+    del a, bb, la, ed, hh, lo
+    return err, _timing(k_ms, p_ms, b)
+
+
 def _inflate_bgzf(path):
     """Decompressed payload of every BGZF block of a BAM."""
     import gzip
@@ -908,7 +1186,8 @@ def _counts():
     return {"dp_align": dp_kernels.align_launches,
             "match_hits": distance.match_hits_launches,
             "edit_distance": distance.edit_distance_launches,
-            "dp_align_local": dp_kernels.align_local_launches}
+            "dp_align_local": dp_kernels.align_local_launches,
+            "edit_hits": distance.edit_hits_launches}
 
 
 def _read(path):
@@ -951,7 +1230,7 @@ def phase_golden(workdir):
         _reset_counts()
         cstats = collapse(collapsed, layout, aligned, device="cuda")
         n = _counts()
-        for k in ("match_hits", "edit_distance"):
+        for k in ("match_hits", "edit_distance", "edit_hits"):
             launches[k] += n[k]
         same = _inflate_bgzf(collapsed) == _inflate_bgzf(
             os.path.join(gd, "collapsed.bam"))
@@ -981,7 +1260,7 @@ def phase_golden(workdir):
                                     batch_size=16, alleles_path=f_alleles,
                                     device="cuda", **reads)
         n = _counts()
-        for k in ("match_hits", "edit_distance"):
+        for k in ("match_hits", "edit_distance", "edit_hits"):
             launches[k] += n[k]
         same = (_inflate_bgzf(f_aligned) == _inflate_bgzf(aligned)
                 and _inflate_bgzf(f_collapsed) == _inflate_bgzf(collapsed)
@@ -1071,6 +1350,23 @@ def phase_bench(workdir):
     metrics_path = os.path.join(workdir, "metrics.json")
     aligned = os.path.join(workdir, "bench.bam")
     collapsed = os.path.join(workdir, "bench_collapsed.bam")
+    from clique_tpu_torch.collapse import distance as tdist
+    from clique_tpu_torch.collapse import pipeline as cpipeline
+
+    # each degenerate level's correct_degenerate_groups call: its batch,
+    # wall and edit_hits launches
+    levels = []
+    real_correct = cpipeline.correct_degenerate_groups
+
+    def recorded(group_counts, d, length, ratio, device):
+        n = tdist.edit_hits_launches
+        t0 = time.time()
+        out = real_correct(group_counts, d, length, ratio, device=device)
+        levels.append(((group_counts, d, length, ratio), time.time() - t0,
+                       tdist.edit_hits_launches - n))
+        return out
+
+    cpipeline.correct_degenerate_groups = recorded
     _reset_counts()
     t0 = time.time()
     sink = CollapseSink(layout, rm)
@@ -1085,6 +1381,7 @@ def phase_bench(workdir):
                                  ingest_seconds=sink.seconds,
                                  record_tap=tap, device="cuda")
     collapse_s = time.time() - t0
+    cpipeline.correct_degenerate_groups = real_correct
     t0 = time.time()
     n_rows = call_events_from_records(layout, tap,
                                       os.path.join(workdir, "alleles.tsv"),
@@ -1109,6 +1406,19 @@ def phase_bench(workdir):
     say(f"[bench] collapse: ingest {cm['ingest_s']} s (inside the align "
         f"wall), levels {cm['levels_s']} s, outputs {cm['outputs_s']} s, "
         f"levels {json.dumps(cm['references']['amplicon1']['levels'])}")
+    from clique_tpu_torch.collapse import correct as tcorrect
+
+    level_batches = []
+    for k, (batch, secs, n) in enumerate(levels):
+        pairs = tcorrect.candidate_pair_count(*batch)
+        say(f"[bench] degenerate level {k} (length {batch[2]}): "
+            f"{len(batch[0])} groups, {sum(map(len, batch[0]))} tags, "
+            f"{pairs} candidate pairs: correct_degenerate_groups "
+            f"{secs:.4f} s, edit_hits launches {n}")
+        level_batches.append((f"bench level {k}", batch))
+        check(n > 0 or pairs < tcorrect.EDIT_HITS_MIN_PAIRS,
+              f"bench level {k} launched no edit_hits")
+    check(len(levels) == 2, f"{len(levels)} degenerate levels, expected 2")
     check(stats.aligned == N_BENCH_READS, "not every read was aligned")
     check(launches["dp_align"] > 0, "the main path launched no kernel")
     check(launches["dp_align"] == m["dispatches"],
@@ -1133,7 +1443,7 @@ def phase_bench(workdir):
     say(f"[bench] first {N_CPU_CHECK} reads: cuda and cpu aligned BAMs, "
         "collapsed BAMs and allele tables identical")
     return launches, (layout_text, aligned, cells, stats.aligned / chain_s,
-                      head)
+                      head, level_batches)
 
 
 def phase_banded(workdir, bench):
@@ -1143,7 +1453,7 @@ def phase_banded(workdir, bench):
     from clique_tpu_torch.align import dp_kernels
     from clique_tpu_torch.align.pipeline import align_reads
 
-    layout_text, _aligned, _cells, _rate, head = bench
+    layout_text, _aligned, _cells, _rate, head, _levels = bench
     wd = os.path.join(workdir, "banded")
     os.makedirs(wd)
     layout, rm = _layout_from_text(layout_text, wd)
@@ -1556,7 +1866,7 @@ def phase_known_list(workdir, bench):
     from clique_tpu_torch.collapse.correct import correct_known_hamming
     from clique_tpu_torch.collapse.pipeline import collapse
 
-    layout_text, aligned, cells, _rate, _head = bench
+    layout_text, aligned, cells, _rate, _head, _levels = bench
     rng = np.random.default_rng(737280)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     allow = rng.choice(bases, (N_ALLOWLIST, 16))
@@ -1675,58 +1985,200 @@ def phase_known_list(workdir, bench):
     return launches
 
 
-def phase_device_levenshtein():
-    """One DegenerateTag group of 2,000 tags of count 10 and 2,000 of count
-    1: the ratio filter leaves 4M pairs, so correct_degenerate_groups sends
-    them to the edit-distance kernel; the map must equal the one computed
-    from host Myers distances on the same rows."""
+class _Routes:
+    """Context of correct_degenerate_groups's routing constants: `hits`
+    sets EDIT_HITS_MIN_PAIRS to 0 (the edit-hits route), `rows` to above
+    any call (the host route, edit_distance from DEVICE_MIN_PAIRS pairs),
+    `myers` sets DEVICE_MIN_PAIRS above any call as well (host Myers);
+    None keeps both."""
+
+    def __init__(self, route):
+        self.route = route
+
+    def __enter__(self):
+        from clique_tpu_torch.collapse import correct as tcorrect
+        from clique_tpu_torch.collapse import distance as tdist
+
+        self.saved = tcorrect.EDIT_HITS_MIN_PAIRS, tdist.DEVICE_MIN_PAIRS
+        if self.route == "hits":
+            tcorrect.EDIT_HITS_MIN_PAIRS = 0
+        elif self.route in ("rows", "myers"):
+            tcorrect.EDIT_HITS_MIN_PAIRS = 1 << 62
+        if self.route == "myers":
+            tdist.DEVICE_MIN_PAIRS = 1 << 62
+
+    def __exit__(self, *exc):
+        from clique_tpu_torch.collapse import correct as tcorrect
+        from clique_tpu_torch.collapse import distance as tdist
+
+        tcorrect.EDIT_HITS_MIN_PAIRS, tdist.DEVICE_MIN_PAIRS = self.saved
+
+
+def _correct_wall(batch, route=None):
+    """correct_degenerate_groups over batch = (group_counts, d, length,
+    ratio) on the card with the given route; (maps, seconds)."""
+    from clique_tpu_torch.collapse.correct import correct_degenerate_groups
+
+    groups, d, length, ratio = batch
+    with _Routes(route):
+        t0 = time.time()
+        got = correct_degenerate_groups(groups, d, length, ratio,
+                                        device="cuda")
+        return got, time.time() - t0
+
+
+def _wide_lev_group():
+    """A DegenerateTag group of 80-byte tags (they keep their length past
+    the configured 16): 8 of count 10, 40 of count 1 one to three
+    substitutions from them. Its pairs go to edit_distance."""
     from collections import Counter
 
     import numpy as np
 
-    from clique_tpu_torch.collapse import distance as tdist
-    from clique_tpu_torch.collapse.correct import correct_degenerate_groups
-
-    rng = np.random.default_rng(4000)
+    rng = np.random.default_rng(80)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    hi = [r.tobytes() for r in rng.choice(bases, (2000, 16))]
-    lo = []
-    for i in range(2000):
-        t = bytearray(hi[i % 2000])
-        for _ in range(1 + i % 4):          # 1-4 edits: some absorb
-            t[rng.integers(16)] = int(rng.choice(bases))
-        lo.append(bytes(t))
+    hi = [r.tobytes() for r in rng.choice(bases, (8, 80))]
     counts = Counter({t: 10 for t in hi})
-    for t in lo:
-        if t not in counts:
-            counts[t] = 1
+    while len(counts) < 48:
+        t = bytearray(hi[int(rng.integers(8))])
+        for _ in range(int(rng.integers(1, 4))):
+            t[rng.integers(80)] = int(rng.choice(bases))
+        counts.setdefault(bytes(t), 1)
+    return counts
+
+
+def phase_device_levenshtein():
+    """The device-Levenshtein group (2,000 tags of count 10, ~2,000 of
+    count 1: 3,656,000 ratio-filtered pairs) and a group of 80-byte tags
+    in one correct_degenerate_groups call, the path run: edit_hits for the
+    first, edit_distance for the second. Then the 16 bp group alone: the
+    edit-hits route in turns with the route before it (host pair
+    preparation and edit_distance, A B B A), the edit-hits route's wall
+    split into the edit_hits calls, the absorption and the rest, and the
+    host Myers route. The 16 bp group's maps must equal the host Myers
+    map, the 80-byte group's the plain version's on the CPU."""
+    import torch
+
+    from clique_tpu_torch.collapse import correct as tcorrect
+    from clique_tpu_torch.collapse import distance as tdist
+
+    counts, wide = _lev_group(), _wide_lev_group()
+    path = ([counts, wide], LEV_D, 16, LEV_RATIO)
+    alone = ([counts], LEV_D, 16, LEV_RATIO)
+    n_pairs = tcorrect.candidate_pair_count(*alone)
     _reset_counts()
-    t0 = time.time()
-    got = correct_degenerate_groups([counts], 2, 16, 5.0, device="cuda")[0]
-    seconds = time.time() - t0
+    got, path_s = _correct_wall(path)
     launches = _counts()
-    n_hi = sum(1 for c in counts.values() if c == 10)
-    n_pairs = n_hi * (len(counts) - n_hi)
-    min_pairs = tdist.DEVICE_MIN_PAIRS
-    tdist.DEVICE_MIN_PAIRS = 1 << 62        # the host Myers code, once
+    hits, hits_s = _correct_wall(alone)
+    rows, rows_s = _correct_wall(alone, "rows")
+    rows2, rows2_s = _correct_wall(alone, "rows")
+    spent = {"edit_hits": 0.0, "degenerate_finish": 0.0}
+    real = {k: getattr(tcorrect, k) for k in spent}
+
+    def timed(name):
+        def run(*a, **k):
+            t0 = time.time()
+            out = real[name](*a, **k)
+            if name == "edit_hits":
+                torch.cuda.synchronize()
+            spent[name] += time.time() - t0
+            return out
+        return run
+
+    for k in spent:
+        setattr(tcorrect, k, timed(k))
     try:
-        t0 = time.time()
-        want = correct_degenerate_groups([counts], 2, 16, 5.0,
-                                         device="cuda")[0]
-        myers_s = time.time() - t0
+        hits2, hits2_s = _correct_wall(alone)
     finally:
-        tdist.DEVICE_MIN_PAIRS = min_pairs
-    absorbed = sum(1 for k, v in got.items() if k != v)
-    say(f"[device levenshtein] {len(counts)} tags, {n_pairs} ratio-filtered "
-        f"pairs: correct_degenerate_groups on the card {seconds:.3f} s "
-        f"(launches {launches}), with host Myers {myers_s:.3f} s; maps "
-        f"{'equal' if got == want else 'DIFFER'}, {absorbed} tags absorbed")
-    check(n_pairs >= tdist.DEVICE_MIN_PAIRS, "too few pairs for the kernel")
-    check(launches["edit_distance"] > 0,
-          "correct_degenerate_groups launched no edit_distance")
-    check(got == want, "device and host Myers correction maps differ")
+        for k, f in real.items():
+            setattr(tcorrect, k, f)
+    want, myers_s = _correct_wall(alone, "myers")
+    want_wide = tcorrect.correct_degenerate_groups(
+        [wide], LEV_D, 16, LEV_RATIO, device="cpu")[0]
+    absorbed = sum(1 for k, v in got[0].items() if k != v)
+    same = (got[0] == want[0] and hits == hits2 == rows == rows2 == want
+            and got[1] == want_wide)
+    say(f"[device levenshtein] {len(counts)} tags ({n_pairs} candidate "
+        f"pairs) and 48 of 80 bytes: correct_degenerate_groups on the card "
+        f"{path_s:.3f} s (launches {launches}); the 16 bp group alone with "
+        f"edit_hits {hits_s:.4f} / {hits2_s:.4f} s, before it (host "
+        f"preparation, edit_distance) {rows_s:.3f} / {rows2_s:.3f} s, with "
+        f"host Myers {myers_s:.3f} s; maps {'equal' if same else 'DIFFER'}"
+        f", {absorbed} tags absorbed")
+    say(f"[device levenshtein] split of the second edit-hits run: edit_hits "
+        f"{spent['edit_hits']:.4f} s, degenerate_finish "
+        f"{spent['degenerate_finish']:.4f} s, the rest (normalization, "
+        f"matrix, upload) "
+        f"{hits2_s - spent['edit_hits'] - spent['degenerate_finish']:.4f} s")
+    check(n_pairs >= tcorrect.EDIT_HITS_MIN_PAIRS,
+          "too few pairs for the edit-hits route")
+    check(launches["edit_hits"] >= 1,
+          "correct_degenerate_groups launched no edit_hits")
+    check(launches["edit_distance"] >= 1,
+          "the 80-byte group launched no edit_distance")
+    check(same, "edit-hits, edit-distance and host Myers (or, for the "
+          "80-byte group, CPU) correction maps differ")
     check(absorbed > 0, "no tag was absorbed")
     return launches
+
+
+def _umi_batch(n_groups, seed):
+    """n_groups groups of 12 bp UMIs as the bench chain's second level
+    has them: 8 tags of count 10 and 56 of count 1, one to three
+    substitutions from one of the 8 (512 candidate pairs a group)."""
+    from collections import Counter
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    groups = []
+    for _ in range(n_groups):
+        hi = [r.tobytes() for r in rng.choice(bases, (8, 12))]
+        g = Counter({t: 10 for t in hi})
+        while len(g) < 64:
+            t = bytearray(hi[int(rng.integers(8))])
+            for _ in range(int(rng.integers(1, 4))):
+                t[rng.integers(12)] = int(rng.choice(bases))
+            g.setdefault(bytes(t), 1)
+        groups.append(g)
+    return groups
+
+
+def phase_threshold(level_batches):
+    """correct_degenerate_groups's host route (pair preparation and host
+    Myers) and its edit-hits route in turns (host, card, card, host) on
+    batches of 2 to 8,192 UMI groups (1,024 to 4,194,304 candidate pairs)
+    and on the bench chain's degenerate level batches; the maps must be
+    equal. Prints each batch's walls and where the card's route starts to
+    win (the place for EDIT_HITS_MIN_PAIRS)."""
+    from clique_tpu_torch.collapse import correct as tcorrect
+
+    batches = [(f"{g} UMI groups", (_umi_batch(g, g), 2, 12, 5.0))
+               for g in (2, 4, 8, 16, 32, 128, 512, 2048, 8192)]
+    batches += level_batches
+    rows = []
+    for label, batch in batches:
+        n = tcorrect.candidate_pair_count(*batch)
+        want, h1 = _correct_wall(batch, "myers")
+        got, c1 = _correct_wall(batch, "hits")
+        got2, c2 = _correct_wall(batch, "hits")
+        want2, h2 = _correct_wall(batch, "myers")
+        check(got == want == got2 == want2,
+              f"threshold {label}: the routes' maps differ")
+        rows.append((n, h1, h2, c1, c2))
+        say(f"[threshold] {label}: {n} candidate pairs, host route "
+            f"{h1 * 1e3:.1f} / {h2 * 1e3:.1f} ms, edit-hits route "
+            f"{c1 * 1e3:.1f} / {c2 * 1e3:.1f} ms (maps equal)")
+    wins = sorted((n, max(c1, c2) < min(h1, h2))
+                  for n, h1, h2, c1, c2 in rows)
+    first = next((n for k, (n, _w) in enumerate(wins)
+                  if all(w for _n, w in wins[k:])), None)
+    last_loss = max((n for n, w in wins if not w), default=None)
+    say(f"[threshold] the edit-hits route wins from {first} candidate pairs "
+        f"on (last host win {last_loss}); EDIT_HITS_MIN_PAIRS = "
+        f"{tcorrect.EDIT_HITS_MIN_PAIRS}")
+    return rows
 
 
 def main():
@@ -1743,6 +2195,7 @@ def main():
     tag_err, tag_times, myers_ms = phase_tag_kernels()
     err.update(tag_err)
     times.update(tag_times)
+    err["edit_hits"], times["edit_hits"] = phase_edit_hits()
     launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
@@ -1750,8 +2203,9 @@ def main():
         path_launches = [phase_golden(workdir)]
         bench_launches, bench = phase_bench(workdir)
         path_launches += [bench_launches, phase_banded(workdir, bench),
-                          phase_known_list(workdir, bench),
-                          phase_device_levenshtein()]
+                          phase_known_list(workdir, bench)]
+        path_launches.append(phase_device_levenshtein())
+        phase_threshold(bench[5])
         long_launches, long_rate, long_head = phase_long_reads(workdir, pool)
         path_launches += [long_launches, phase_inversion(pool)]
         long_reads_head_check(long_head)

@@ -165,6 +165,12 @@ def load() -> ctypes.CDLL:
         lib.clique_edit_distance.restype = ci
         lib.clique_edit_distance.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                              vp]
+        lib.clique_edit_hits_warps.restype = ci
+        lib.clique_edit_hits_warps.argtypes = []
+        lib.clique_edit_hits.restype = ci
+        lib.clique_edit_hits.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, vp,
+                                         ci, ci, ci, ci, ctypes.c_double, vp,
+                                         vp, ll, vp]
         _lib, _info = lib, info
         return lib
 

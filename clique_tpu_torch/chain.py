@@ -339,7 +339,8 @@ def collapse_from_reads(output_path: str, layout: SequenceLayout,
 
     dev = distance.resolve_device(device)
     launches0 = (distance.match_hits_launches,
-                 distance.edit_distance_launches)
+                 distance.edit_distance_launches,
+                 distance.edit_hits_launches)
     with hot_section():
         known_lists = load_known_lists(layout)
         references = [(r.name, len(r.sequence))

@@ -12,7 +12,10 @@ distance kernels run on threaded through:
 - correct_degenerate_groups: candidate pairs + Levenshtein + greedy
   count-ratio absorption (bigger cluster absorbs smaller when
   count_big/count_small >= minimum_collapsing_difference, default 5.0)
-  with swallowed-link transitivity.
+  with swallowed-link transitivity. From EDIT_HITS_MIN_PAIRS candidate
+  pairs a call, groups of tags of at most 64 bytes go to one tag matrix on
+  `device` and the edit_hits kernel enumerates, filters and tests their
+  pairs there; only the close pairs come back.
 
 All corrections key on the gap-stripped tag padded with '-' to the
 configured length. `correct_degenerate` (correct.py:402), which no
@@ -25,16 +28,30 @@ from collections import Counter, defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from clique_tpu_torch.collapse.distance import (
+    EDIT_HITS_MAX_LEN,
     candidate_pairs_array,
     candidates_to_allowlist,
     edit_distance_pairs,
     edit_distance_rows,
+    edit_hits,
     hamming_hits,
+    resolve_device,
 )
 
 GAP = ord("-")
+# candidate pairs a correct_degenerate_groups call needs before its groups
+# of tags of at most 64 bytes go to the edit_hits kernel instead of the
+# host pair preparation and Myers code: where the two routes took the same
+# time on an H100 80GB HBM3 at 700 W (5.5-6.0 ms at 4,096 pairs of 12 bp
+# UMIs; the host 2.7-2.8 ms against 4.3-4.8 at 1,024, 20.4-21.7 against
+# 8.1-8.9 at 16,384), chip_smoke.py's threshold phase
+EDIT_HITS_MIN_PAIRS = 4_096
+# groups above this many tags take the pigeonhole candidates instead of
+# every pair (clique_tpu/collapse/correct.py:200)
+PIGEONHOLE_MIN_TAGS = 4096
 
 
 def tag_consensus(seqs) -> bytes:
@@ -179,37 +196,53 @@ def degenerate_prepare(counts: Dict[bytes, int], max_distance: int,
 
 
 def _prepare_pairs(norm_counts, tags, max_distance: int,
-                   collapse_ratio: float):
+                   collapse_ratio: float, candidates=None):
     """Tag matrix + count-ratio-filtered candidate pairs for an
-    already-normalized multi-tag group, in the caller's tag ordering.
+    already-normalized multi-tag group, in the caller's tag ordering
+    (`candidates`: the pigeonhole pairs of a group past
+    PIGEONHOLE_MIN_TAGS tags, where the caller has them already).
     Mirrors clique_tpu/collapse/correct.py:186-218."""
-    lens = np.fromiter(map(len, tags), np.int64, count=len(tags))
-    max_len = int(lens.max())
-    if (lens == max_len).all():
-        mat = np.frombuffer(b"".join(tags), dtype=np.uint8
-                            ).reshape(len(tags), max_len)
-    else:
-        mat = np.full((len(tags), max_len), GAP, dtype=np.uint8)
-        for g in np.unique(lens):
-            idx = np.flatnonzero(lens == g)
-            mat[idx, :g] = np.frombuffer(
-                b"".join([tags[i] for i in idx]), dtype=np.uint8
-            ).reshape(len(idx), int(g))
-    cnt = np.fromiter((norm_counts[t] for t in tags), np.int64,
-                      count=len(tags))
-    if len(tags) <= 4096:
+    mat = _padded_matrix(tags)
+    cnt = _counts_of(norm_counts, tags)
+    if len(tags) <= PIGEONHOLE_MIN_TAGS:
         pairs = _count_filtered_pairs(cnt, collapse_ratio)
         if pairs is None:
             pairs = _triu_pairs(len(tags))
+    elif candidates is not None:
+        pairs = candidates
     else:
-        padded = [t + b"-" * (max_len - len(t)) for t in tags]
-        pairs = candidate_pairs_array(padded, max_distance, counts=cnt,
-                                      ratio=collapse_ratio)
+        pairs = _pigeonhole_pairs(tags, cnt, max_distance, collapse_ratio)
     ci, cj = cnt[pairs[:, 0]], cnt[pairs[:, 1]]
     hi = np.maximum(ci, cj)
     lo = np.minimum(ci, cj)
     pairs = pairs[(ci != cj) & (hi >= collapse_ratio * lo)]
     return mat, pairs
+
+
+def _padded_matrix(tags) -> np.ndarray:
+    """u8 [T, longest] rows of the tags, each padded with '-' (one join
+    and block copy per distinct length)."""
+    lens = np.fromiter(map(len, tags), np.int64, count=len(tags))
+    max_len = int(lens.max())
+    if (lens == max_len).all():
+        return np.frombuffer(bytearray(b"".join(tags)), dtype=np.uint8
+                             ).reshape(len(tags), max_len)
+    mat = np.full((len(tags), max_len), GAP, dtype=np.uint8)
+    for g in np.unique(lens):
+        idx = np.flatnonzero(lens == g)
+        mat[idx, :g] = np.frombuffer(
+            b"".join([tags[i] for i in idx]), dtype=np.uint8
+        ).reshape(len(idx), int(g))
+    return mat
+
+
+def _pigeonhole_pairs(tags, cnt, max_distance: int, collapse_ratio: float):
+    """The pigeonhole candidate pairs [P, 2] i64 of one group's tags, each
+    padded with '-' to the longest."""
+    max_len = max(map(len, tags))
+    padded = [t + b"-" * (max_len - len(t)) for t in tags]
+    return candidate_pairs_array(padded, max_distance, counts=cnt,
+                                 ratio=collapse_ratio)
 
 
 def _count_filtered_pairs(cnt: np.ndarray,
@@ -265,17 +298,51 @@ def degenerate_finish(norm_counts, tags, pairs, dists, max_distance: int,
 
 def correct_degenerate_groups(group_counts, max_distance: int, length: int,
                               collapse_ratio: float = 5.0, device="cuda"):
-    """Degenerate correction over many groups with one distance call for
-    every group's candidate pairs combined, and one flat preparation pass:
-    groups whose normalized tags all have the standard length share a
-    single tag matrix, cached-triu pair index array and count-ratio
-    pre-filter. Mirrors clique_tpu/collapse/correct.py:273-399."""
+    """Degenerate correction over many groups. Every group is normalized;
+    groups of more than one tag then take one of two routes:
+
+    - the host route (`_rows_route`), the JAX package's: one flat
+      preparation pass builds every candidate pair and its two rows, and
+      one distance call (host Myers, or edit_distance where
+      edit_distance_rows sends it) tests them all;
+    - the edit-hits route (`_hits_route`), for the groups of tags of at
+      most EDIT_HITS_MAX_LEN bytes once the call's candidate pairs reach
+      EDIT_HITS_MIN_PAIRS: their tags go to `device` as one matrix and
+      edit_hits returns only the close pairs.
+
+    Candidate pairs are counted as the host route would build them: a
+    group's count-filtered or triu pairs, or its pigeonhole candidates
+    past PIGEONHOLE_MIN_TAGS tags. Both routes feed degenerate_finish the
+    same close pairs, so the maps are equal. Mirrors
+    clique_tpu/collapse/correct.py:273-399."""
+    results, norm_list, tag_lists, multi = _normalize_groups(group_counts,
+                                                             length)
+    narrow, candidates, n_pairs = _plan(multi, norm_list, tag_lists,
+                                        max_distance, collapse_ratio)
+    rows = multi
+    if narrow and n_pairs >= EDIT_HITS_MIN_PAIRS:
+        small = [gi for gi in narrow if gi not in candidates]
+        _hits_route(small, list(candidates), candidates, norm_list,
+                    tag_lists, results, max_distance, collapse_ratio,
+                    device)
+        done = set(narrow)
+        rows = [gi for gi in multi if gi not in done]
+    if rows:
+        _rows_route(rows, candidates, norm_list, tag_lists, results,
+                    max_distance, length, collapse_ratio, device)
+    return results
+
+
+def _normalize_groups(group_counts, length: int):
+    """Each group's tags normalized (counts of tags equal after
+    normalize_tag summed). Returns (results with the maps of empty and
+    one-tag groups filled in, normalized Counters, tag lists, the indices
+    of the groups of more than one tag)."""
     n_groups = len(group_counts)
     results: List[Optional[Dict[bytes, bytes]]] = [None] * n_groups
     norm_list: List[Optional[Counter]] = [None] * n_groups
     tag_lists: List[Optional[List[bytes]]] = [None] * n_groups
-    flat: List[int] = []       # uniform-length multi-tag groups
-    odd: List[int] = []        # per-group preparation
+    multi: List[int] = []
     for gi, counts in enumerate(group_counts):
         if not counts:
             results[gi] = {}
@@ -288,7 +355,126 @@ def correct_degenerate_groups(group_counts, max_distance: int, length: int,
         tag_lists[gi] = tags
         if len(tags) == 1:
             results[gi] = {tags[0]: tags[0]}
-        elif len(tags) <= 4096 and all(len(t) == length for t in tags):
+        else:
+            multi.append(gi)
+    return results, norm_list, tag_lists, multi
+
+
+def _plan(multi, norm_list, tag_lists, max_distance: int,
+          collapse_ratio: float):
+    """The groups the edit-hits route could take (tags of at most
+    EDIT_HITS_MAX_LEN bytes), the pigeonhole candidates of those past
+    PIGEONHOLE_MIN_TAGS tags, and the call's candidate pairs."""
+    narrow = [gi for gi in multi
+              if max(map(len, tag_lists[gi])) <= EDIT_HITS_MAX_LEN]
+    candidates = {gi: _pigeonhole_pairs(
+        tag_lists[gi], _counts_of(norm_list[gi], tag_lists[gi]),
+        max_distance, collapse_ratio)
+        for gi in narrow if len(tag_lists[gi]) > PIGEONHOLE_MIN_TAGS}
+    small = [norm_list[gi] for gi in narrow if gi not in candidates]
+    n_pairs = (_prefiltered_pairs(small, collapse_ratio)
+               + sum(len(p) for p in candidates.values()))
+    return narrow, candidates, n_pairs
+
+
+def candidate_pair_count(group_counts, max_distance: int, length: int,
+                         collapse_ratio: float = 5.0) -> int:
+    """The candidate pairs correct_degenerate_groups compares with
+    EDIT_HITS_MIN_PAIRS for these arguments."""
+    _r, norm_list, tag_lists, multi = _normalize_groups(group_counts, length)
+    return _plan(multi, norm_list, tag_lists, max_distance,
+                 collapse_ratio)[2]
+
+
+def _counts_of(norm_counts, tags) -> np.ndarray:
+    return np.fromiter((norm_counts[t] for t in tags), np.int64,
+                       count=len(tags))
+
+
+def _prefiltered_pairs(norm_lists, collapse_ratio: float) -> int:
+    """The pairs the host route builds for groups of at most
+    PIGEONHOLE_MIN_TAGS tags before its ratio filter: h * T where
+    _count_filtered_pairs applies (h tags of count >= ratio * least), else
+    the T (T - 1) / 2 of _triu_pairs. O(T), no per-group numpy call."""
+    if not norm_lists:
+        return 0
+    sizes = np.fromiter(map(len, norm_lists), np.int64,
+                        count=len(norm_lists))
+    cnt = np.fromiter((c for nc in norm_lists for c in nc.values()),
+                      np.int64, count=int(sizes.sum()))
+    starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
+    least = np.minimum.reduceat(cnt, starts)
+    h = np.add.reduceat(cnt >= collapse_ratio * np.repeat(least, sizes),
+                        starts)
+    triu = sizes * (sizes - 1) // 2
+    return int(np.where(h * 2 >= sizes - 1, triu, h * sizes).sum())
+
+
+def _hits_route(small, big, candidates, norm_list, tag_lists, results,
+                max_distance: int, collapse_ratio: float, device) -> None:
+    """Close pairs from edit_hits for groups of tags of at most
+    EDIT_HITS_MAX_LEN bytes: `small` groups (at most PIGEONHOLE_MIN_TAGS
+    tags) have every pair enumerated on the device, `big` groups have
+    their pigeonhole `candidates` tested. One tag matrix holds both, the
+    small groups first, each tag padded with '-' to its group's longest
+    (as _prepare_pairs pads); it, the counts and the offsets are the only
+    O(T) uploads, and only the close pairs come back."""
+    dev = resolve_device(device)
+    order = small + big
+    tags = [t for gi in order for t in tag_lists[gi]]
+    sizes = np.fromiter((len(tag_lists[gi]) for gi in order), np.int64,
+                        count=len(order))
+    offs = np.concatenate(([0], np.cumsum(sizes))).astype(np.int32)
+    lens = np.fromiter(map(len, tags), np.int64, count=len(tags))
+    widths = np.maximum.reduceat(lens, offs[:-1]).astype(np.int32)
+    cnt = np.fromiter((norm_list[gi][t] for gi in order
+                       for t in tag_lists[gi]), np.int64, count=len(tags))
+    mat_d, cnt_d, offs_d, widths_d = (
+        torch.from_numpy(x).to(dev)
+        for x in (_padded_matrix(tags), cnt, offs, widths))
+    none = torch.zeros(0, dtype=torch.int64)
+    hits = [(none, none)]
+    if small:
+        n_small = int(offs[len(small)])
+        hits.append(edit_hits(mat_d[:n_small], cnt_d[:n_small],
+                              offs_d[:len(small) + 1],
+                              widths_d[:len(small)], max_distance,
+                              collapse_ratio))
+    if big:
+        pairs = np.concatenate(
+            [candidates[gi] + offs[len(small) + k]
+             for k, gi in enumerate(big)]).astype(np.int32)
+        if len(pairs):
+            hits.append(edit_hits(mat_d, cnt_d, offs_d, widths_d,
+                                  max_distance, collapse_ratio,
+                                  torch.from_numpy(pairs).to(dev)))
+    h = np.concatenate([x[0].cpu().numpy() for x in hits])
+    j = np.concatenate([x[1].cpu().numpy() for x in hits])
+    # both calls return hits sorted by h, the small groups' below the big
+    # groups' tags
+    bounds = np.searchsorted(h, offs)
+    for k, gi in enumerate(order):
+        s, e = int(bounds[k]), int(bounds[k + 1])
+        close = np.stack([h[s:e], j[s:e]], axis=1) - int(offs[k])
+        results[gi] = degenerate_finish(
+            norm_list[gi], tag_lists[gi], close,
+            np.zeros(e - s, np.uint8), max_distance, collapse_ratio)
+
+
+def _rows_route(groups, candidates, norm_list, tag_lists, results,
+                max_distance: int, length: int, collapse_ratio: float,
+                device) -> None:
+    """The host route over `groups`: one distance call for every group's
+    candidate pairs combined, and one flat preparation pass: groups whose
+    normalized tags all have the standard length share a single tag
+    matrix, cached-triu pair index array and count-ratio pre-filter.
+    Fills `results`."""
+    flat: List[int] = []       # uniform-length multi-tag groups
+    odd: List[int] = []        # per-group preparation
+    for gi in groups:
+        tags = tag_lists[gi]
+        if len(tags) <= PIGEONHOLE_MIN_TAGS and all(len(t) == length
+                                                     for t in tags):
             flat.append(gi)
         else:
             odd.append(gi)
@@ -337,7 +523,8 @@ def correct_degenerate_groups(group_counts, max_distance: int, length: int,
     odd_rows: List[Tuple[int, np.ndarray, np.ndarray, int]] = []
     for gi in odd:
         mat_g, pairs_g = _prepare_pairs(norm_list[gi], tag_lists[gi],
-                                        max_distance, collapse_ratio)
+                                        max_distance, collapse_ratio,
+                                        candidates.get(gi))
         if len(pairs_g) == 0:
             results[gi] = {t: t for t in tag_lists[gi]}
         else:
@@ -385,4 +572,3 @@ def correct_degenerate_groups(group_counts, max_distance: int, length: int,
         results[gi] = degenerate_finish(
             norm_list[gi], tag_lists[gi], pairs_g, dists[s:e],
             max_distance, collapse_ratio)
-    return results

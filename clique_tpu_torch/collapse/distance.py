@@ -16,13 +16,22 @@ Counterpart of clique_tpu/collapse/distance.py, which imports jax:
   `_edit_distance_kernel` (distance.py:36-91): Levenshtein distance per row
   pair, exact byte equality, bytes beyond la/lb ignored, u8 capped at 255,
   rows of any width.
+- `edit_hits` (csrc/tag_distance.cu::clique_edit_hits) replaces the same
+  kernel where degenerate correction calls it, together with that
+  correction's pair preparation (clique_tpu/collapse/correct.py:273-399:
+  pair enumeration, the count-ratio pre-filter, `dists <= max_distance`):
+  from one tag matrix of many groups, every pair of one group whose counts
+  differ and pass max >= ratio * min and whose Levenshtein distance over
+  the group's width is at most max_distance, as (h, j) indices with h the
+  higher count, sorted by (h, j). Tags of at most EDIT_HITS_MAX_LEN bytes.
 
 On CUDA tensors each wrapper checks its inputs, allocates its outputs and
 scratch with torch.empty, launches its kernel on the current stream and
 raises if the launch fails. On CPU tensors it runs the plain PyTorch
-version (`match_hits_reference`, `edit_distance_reference`). Any other
-device raises. `match_hits_launches` / `edit_distance_launches` count
-kernel launches and nothing else.
+version (`match_hits_reference`, `edit_distance_reference`,
+`edit_hits_reference`). Any other device raises. `match_hits_launches`,
+`edit_distance_launches` and `edit_hits_launches` count kernel launches
+and nothing else.
 
 The host functions below them are jax-free copies of the JAX module's,
 without its power-of-two pad-up of U, K and P (an XLA compile-reuse
@@ -54,15 +63,21 @@ REFERENCE_CHUNK = 1 << 18
 # for (kHitTagWords in csrc/tag_distance.cu); wider rows take its wide
 # kernel
 HIT_ROW_WORDS = (1, 2, 4, 8)
+# widest tag edit_hits takes (one uint64 bit vector a pattern), and the
+# code-row widths in 32-bit words its kernels are built for
+EDIT_HITS_MAX_LEN = 64
+EDIT_HIT_ROW_WORDS = (4, 8, 16)
 
 match_hits_launches = 0
 edit_distance_launches = 0
+edit_hits_launches = 0
 
 
 def reset_counts() -> None:
-    global match_hits_launches, edit_distance_launches
+    global match_hits_launches, edit_distance_launches, edit_hits_launches
     match_hits_launches = 0
     edit_distance_launches = 0
+    edit_hits_launches = 0
 
 
 def resolve_device(device) -> torch.device:
@@ -155,6 +170,46 @@ def edit_distance_reference(a, b, la, lb):
         d = row.gather(1, lb_c[:, None]).squeeze(1)
         out[s:e] = d.clamp(max=255).to(torch.uint8)
     return out
+
+
+def _ratio_pass(ci, cj, ratio):
+    """(ci != cj) & (max >= ratio * min) on i64 count tensors, in float64
+    as numpy computes it (correct.py's pre-filter)."""
+    hi = torch.maximum(ci, cj)
+    lo = torch.minimum(ci, cj)
+    return (ci != cj) & (hi.double() >= ratio * lo.double())
+
+
+def edit_hits_reference(tags, counts, offsets, widths, max_distance,
+                        collapse_ratio, pairs=None):
+    """tags u8 [T, W], counts i64 [T], offsets i32 [G + 1] (group g holds
+    tags offsets[g] .. offsets[g + 1]), widths i32 [G] (<= W) -> (h, j)
+    i64, sorted by (h, j): every pair of one group with counts[h] >
+    counts[j], counts[h] >= collapse_ratio * counts[j] (float64) and
+    Levenshtein distance of tags[h, :w] and tags[j, :w] at most
+    max_distance, w the group's width. With pairs (i32 [P, 2], both ends of
+    one group) only those pairs are tested. The pairs are enumerated with
+    torch.triu_indices a group, filtered, gathered, and their distances
+    taken by edit_distance_reference."""
+    dev = tags.device
+    T = tags.shape[0]
+    if pairs is None:
+        offs = offsets.tolist()
+        chunks = [torch.triu_indices(e - s, e - s, 1, device=dev).T + s
+                  for s, e in zip(offs, offs[1:]) if e - s > 1]
+        pairs = torch.cat(chunks) if chunks else torch.zeros(
+            (0, 2), dtype=torch.int64, device=dev)
+    pairs = pairs.long()
+    i, j = pairs[:, 0], pairs[:, 1]
+    ci, cj = counts[i], counts[j]
+    keep = _ratio_pass(ci, cj, collapse_ratio)
+    h = torch.where(ci > cj, i, j)[keep]
+    j = torch.where(ci > cj, j, i)[keep]
+    group = torch.searchsorted(offsets[1:].long(), h, right=True)
+    w = widths.long()[group].int()
+    dist = edit_distance_reference(tags[h], tags[j], w, w)
+    close = dist.int() <= max_distance
+    return _sorted_pairs(h[close], j[close], T)
 
 
 # --- kernel wrappers ----------------------------------------------------------
@@ -299,6 +354,164 @@ def edit_distance(a, b, la, lb):
     _raise_on(err, "edit_distance")
     edit_distance_launches += 1
     return out
+
+
+def _check_edit_hit_inputs(tags, counts, offsets, widths, pairs):
+    """Checks edit_hits's inputs on either device; the value checks read
+    back one small tensor. Returns the widest group's width."""
+    dev = _device_of(tags)
+    _check(tags, "tags", torch.uint8, 2, dev)
+    _check(counts, "counts", torch.int64, 1, dev)
+    _check(offsets, "offsets", torch.int32, 1, dev)
+    _check(widths, "widths", torch.int32, 1, dev)
+    T, W = tags.shape
+    G = widths.shape[0]
+    if counts.shape[0] != T or offsets.shape[0] != G + 1:
+        raise ValueError("counts must be [T], offsets [G + 1], widths [G]")
+    if pairs is not None:
+        _check(pairs, "pairs", torch.int32, 2, dev)
+        if pairs.shape[1] != 2:
+            raise ValueError("pairs must be [P, 2]")
+    cap = min(W, EDIT_HITS_MAX_LEN)
+    bad = ((offsets[0] != 0) | (offsets[-1] != T)
+           | (offsets[1:] < offsets[:-1]).any()
+           | ((widths < 0) | (widths > cap)).any())
+    if pairs is not None and pairs.shape[0]:
+        p = pairs.long()
+        ends = offsets[1:].long()
+        bad = bad | ((p < 0) | (p >= T)).any()
+        pc = p.clamp(0, max(T - 1, 0)).T.contiguous()
+        bad = bad | (torch.searchsorted(ends, pc[0], right=True)
+                     != torch.searchsorted(ends, pc[1], right=True)).any()
+    wmax = widths.max() if G else torch.zeros((), dtype=torch.int32,
+                                                device=dev)
+    bad, wmax = torch.stack((bad.int(), wmax.int())).tolist()
+    if bad:
+        raise ValueError(
+            f"edit_hits needs offsets rising from 0 to {T}, widths in "
+            f"[0, {cap}] and pairs of tags of one group")
+    return wmax
+
+
+def edit_hit_codes(tags, wmax):
+    """edit_hits's encoding, built by torch ops on the tensors' device:
+    each byte's class code over the distinct bytes of the first wmax
+    columns (sorted), in rows of S words (the first of EDIT_HIT_ROW_WORDS
+    that holds wmax bytes), zero past wmax. Returns (codes i32 [T, S], K
+    classes)."""
+    T = tags.shape[0]
+    S = next(s for s in EDIT_HIT_ROW_WORDS if 4 * s >= wmax)
+    head = tags[:, :wmax]
+    vals = torch.unique(head)
+    K = max(int(vals.numel()), 1)
+    lut = torch.zeros(256, dtype=torch.uint8, device=tags.device)
+    lut[vals.long()] = torch.arange(vals.numel(), dtype=torch.uint8,
+                                    device=tags.device)
+    codes = torch.zeros((T, 4 * S), dtype=torch.uint8, device=tags.device)
+    codes[:, :wmax] = lut[head.long()]
+    return codes.view(torch.int32), K
+
+
+def edit_hit_groups(tags, counts, offsets, collapse_ratio, wmax, warps):
+    """The group mode's inputs, built by torch ops on the tensors' device:
+    the tags' codes (edit_hit_codes) and counts sorted by (group, count,
+    index) with two stable sorts; the sorted tags that have a partner (a
+    count above the group's least and at least ratio times it, so the
+    least is one); and the cuts of that list into blocks of at most
+    `warps` tags of one group. Returns (codes i32 [T, S], counts i64 [T],
+    high i32 [H], bstart i32 [NB + 1] or None where H = 0, perm i64 [T]
+    (sorted index -> the caller's), K)."""
+    dev = tags.device
+    T = tags.shape[0]
+    G = offsets.shape[0] - 1
+    codes, K = edit_hit_codes(tags, wmax)
+    sizes = (offsets[1:] - offsets[:-1]).long()
+    gid = torch.repeat_interleave(torch.arange(G, device=dev), sizes,
+                                  output_size=T)
+    by_count = torch.argsort(counts, stable=True)
+    perm = by_count[torch.argsort(gid[by_count], stable=True)]
+    cnt = counts[perm]
+    least = cnt[offsets[:-1].long()[gid]]
+    high = torch.nonzero(
+        (cnt > least) & (cnt.double() >= collapse_ratio * least.double())
+    ).flatten()
+    H = high.numel()
+    bstart = None
+    if H:
+        hg = gid[high]
+        idx = torch.arange(H, device=dev)
+        first = torch.ones(H, dtype=torch.bool, device=dev)
+        first[1:] = hg[1:] != hg[:-1]
+        rank = idx - torch.cummax(torch.where(first, idx, 0), 0).values
+        bstart = torch.cat((torch.nonzero(rank % warps == 0).flatten(),
+                            torch.tensor([H], device=dev))).int()
+    return codes[perm], cnt, high.int(), bstart, perm, K
+
+
+def edit_hits(tags, counts, offsets, widths, max_distance, collapse_ratio,
+              pairs=None):
+    """edit_hits_reference's semantics (widths at most EDIT_HITS_MAX_LEN);
+    checked on either device. On the card: the group mode sorts each
+    group's tags by count (two stable sorts), finds the tags with a partner
+    and launches one CTA for every 8 of them; the pairs mode tests the
+    given pairs, one a lane. One launch into a hit buffer, the hit count
+    read back once; a count past the buffer relaunches once with a buffer
+    of that size. Hits map back to the caller's tag order and are sorted
+    by (h, j)."""
+    global edit_hits_launches
+    wmax = _check_edit_hit_inputs(tags, counts, offsets, widths, pairs)
+    dev = tags.device
+    if dev.type == "cpu":
+        return edit_hits_reference(tags, counts, offsets, widths,
+                                   max_distance, collapse_ratio, pairs)
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    T = tags.shape[0]
+    G = widths.shape[0]
+    ins = (tags, counts, offsets, widths) + (() if pairs is None
+                                             else (pairs,))
+    s = _launch_stream(None, dev, ins)
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    with torch.cuda.stream(s), torch.cuda.device(dev):
+        if T == 0 or G == 0 or (pairs is not None and pairs.shape[0] == 0):
+            return empty, empty.clone()
+        if pairs is None:
+            codes, cnt, high, bstart, perm, K = edit_hit_groups(
+                tags, counts, offsets, collapse_ratio, wmax,
+                lib.clique_edit_hits_warps())
+            if bstart is None:
+                return empty, empty.clone()
+            NB, P = bstart.numel() - 1, 0
+            cap = max(4 * T, 1 << 16)
+        else:
+            codes, K = edit_hit_codes(tags, wmax)
+            cnt, high, bstart, NB = counts, None, None, 0
+            P = pairs.shape[0]
+            cap = min(P, max(4 * T, 1 << 16))
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        while True:
+            out = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+            err = lib.clique_edit_hits(
+                codes.data_ptr(), cnt.data_ptr(), offsets.data_ptr(), G,
+                widths.data_ptr(),
+                high.data_ptr() if high is not None else None,
+                bstart.data_ptr() if bstart is not None else None, NB,
+                pairs.data_ptr() if pairs is not None else None, P,
+                codes.shape[1], K, max_distance, float(collapse_ratio),
+                count.data_ptr(), out.data_ptr(), cap, s.cuda_stream)
+            _raise_on(err, "edit_hits")
+            edit_hits_launches += 1
+            n = int(count.item())
+            if n <= cap:
+                break
+            cap = n
+            count.zero_()
+        hj = out[:n].long()
+        if pairs is None:
+            hj = perm[hj]
+        return _sorted_pairs(hj[:, 0], hj[:, 1], T)
 
 
 # --- Levenshtein dispatch -----------------------------------------------------

@@ -1019,7 +1019,8 @@ def _collapse_impl(output_path: str, layout: SequenceLayout, input_bam: str,
             "n_workers > 1 (collapse --threads > 1)", "collapse_workers"))
     dev = distance.resolve_device(device)
     launches0 = (distance.match_hits_launches,
-                 distance.edit_distance_launches)
+                 distance.edit_distance_launches,
+                 distance.edit_hits_launches)
 
     rm = ReferenceManager.from_layout(layout)
     known_lists = load_known_lists(layout)
@@ -1162,7 +1163,8 @@ def add_device_metrics(metrics: dict, dev, launches0) -> None:
         if dev.type == "cuda" else "cpu"
     metrics["kernel_launches"] = {
         "match_hits": distance.match_hits_launches - launches0[0],
-        "edit_distance": distance.edit_distance_launches - launches0[1]}
+        "edit_distance": distance.edit_distance_launches - launches0[1],
+        "edit_hits": distance.edit_hits_launches - launches0[2]}
 
 
 def run_ref_levels_and_outputs(reads: List[SortingRead], ref_name: str,

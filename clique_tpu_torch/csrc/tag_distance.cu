@@ -13,6 +13,12 @@
 // - _edit_distance_kernel (:36-91): Levenshtein distance per row pair. The
 //   XLA version sweeps anti-diagonals over [P, L+1] lanes with a scan; here
 //   one thread owns one pair and keeps a rolling DP row.
+// - the same kernel where collapse's degenerate correction calls it, fused
+//   with the pair preparation of clique_tpu/collapse/correct.py:273-399
+//   (triu or count-filtered pair enumeration, the count-ratio test) and
+//   the radius test: clique_edit_hits takes one tag matrix for many groups
+//   and writes only the pairs of one group whose counts differ by the
+//   ratio and whose Levenshtein distance is at most d.
 //
 // What bounds them on an H100, and what the design does about it:
 // - match hits: at the known-list shape (~25,000 tags x 737,280 entries,
@@ -45,7 +51,30 @@
 //   neighbouring threads touch neighbouring bytes. Cells are capped at 255
 //   as they are computed: min and +1 are monotone, so the capped DP gives
 //   exactly min(d, 255).
+// - edit hits: the host used to enumerate every candidate pair, gather two
+//   32-byte rows a pair and read every distance back (1.0-1.4 s of host
+//   work for 3.66M pairs against 0.4 ms of kernel). Here the host uploads
+//   one code matrix (O(T) bytes) and the kernel enumerates the pairs
+//   itself. Operations bound it: a pair of w-byte tags is w column steps
+//   of the Myers/Hyyro bit-vector recurrence (about 17 lane operations a
+//   step in one 32-bit word for w <= 32, twice that in 64 bits up to 64),
+//   instead of w x 32 DP cells. Bytes map to class codes over the matrix's
+//   distinct bytes; a warp holds one high-count tag as the pattern and
+//   its Peq masks (one word a class) in shared memory, and its lanes take
+//   the partners. Tags are sorted by count within their group (by the
+//   wrapper), so a pattern's partners, the tags of lower count that pass
+//   c_h >= ratio * c_j, are a prefix of its group: the lanes sweep 32 at a
+//   time and stop at the first 32 with no partner, so the ratio test
+//   costs no divergence. The CTA's 8 warps hold 8 patterns of one group
+//   and stage the group's codes in shared memory, 32 KB a tile, with
+//   cp.async. A lane leaves a pair once score - (columns left) > d: the
+//   score moves by at most 1 a column, so that pair cannot end within d.
+//   Hits leave through emit() as (h, j) pairs, h the higher count. Pairs
+//   the host chose (the pigeonhole candidates of groups past 4,096 tags)
+//   take a second kernel, one pair a lane with the lane's Peq masks in
+//   shared memory, on the same matrix.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,6 +86,9 @@ constexpr int kHitWaves = 4;         // CTAs per SM the grid aims for, x 4
 constexpr int kEditThreads = 128;
 constexpr int kRegEditLen = 32;      // widest row the register kernel takes
 constexpr int kLocalEditLen = 256;   // widest row kept in local memory
+constexpr int kEditHitWarps = 8;     // patterns (warps) a CTA of edit hits
+constexpr int kEditHitTileBytes = 32768;  // shared tile of partner codes
+constexpr int kEditHitPairSmem = 48 * 1024;  // Peq budget a pairs CTA
 constexpr unsigned kFull = 0xffffffffu;
 
 namespace {
@@ -354,6 +386,234 @@ edit_distance_scratch_kernel(const uint8_t* __restrict__ a,
   out[p] = row[m * step];
 }
 
+
+// Whether the Levenshtein distance of two w-byte code strings is at most
+// d: the pattern's Peq masks (bit i of peq[c * STRIDE] set iff pattern
+// byte i has code c) against the text's codes, TW words of four bytes, by
+// the Myers/Hyyro recurrence of distance.py::_edit_distance_myers_host.
+// Stops once score + columns done > d + w (no pair can end within d).
+template <typename Word, int TW, int STRIDE>
+__device__ __forceinline__ bool within_radius(const Word* peq,
+                                              const uint32_t (&text)[TW],
+                                              int w, int d) {
+  constexpr int kBits = 8 * sizeof(Word);
+  if (w <= 0) return 0 <= d;
+  Word vp = w >= kBits ? ~Word(0) : (Word(1) << w) - Word(1);
+  Word vn = 0;
+  const Word mbit = Word(1) << (w - 1);
+  int score = w;
+  const int lim = d + w;
+#pragma unroll
+  for (int k = 0; k < TW; ++k) {
+    if (4 * k >= w) break;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (4 * k + b < w) {
+        const Word pm = peq[((text[k] >> (8 * b)) & 0xffu) * STRIDE];
+        const Word d0 = (((pm & vp) + vp) ^ vp) | pm | vn;
+        Word hp = vn | ~(d0 | vp);
+        Word hn = vp & d0;
+        score += (hp & mbit) ? 1 : 0;
+        score -= (hn & mbit) ? 1 : 0;
+        hp = (hp << 1) | Word(1);
+        hn <<= 1;
+        vp = hn | ~(d0 | hp);
+        vn = hp & d0;
+      }
+    }
+    if (score + min(4 * k + 4, w) > lim) return false;
+  }
+  return score <= d;
+}
+
+// The group of tag t: g with goff[g] <= t < goff[g + 1] (goff [G + 1],
+// goff[0] = 0 <= t < goff[G]).
+__device__ __forceinline__ int group_of(const int* goff, int G, int t) {
+  int lo = 0, hi = G;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(goff + mid) <= t) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// Every pair of one group within radius d whose counts pass the ratio
+// test. codes [T][TW] words (a tag's class codes, one byte a column),
+// sorted by count within each group; cnt [T]; goff [G + 1]; gw [G] widths
+// (<= 4 * TW, and <= bits of Word). high [H] are the tags that have a
+// partner, in the matrix's order; CTA b (counted from the last) takes
+// high[bstart[b] .. bstart[b + 1]), at most kEditHitWarps tags of one
+// group, one a warp. Hits (h, j) in the matrix's (sorted) indices.
+template <typename Word, int TW>
+__global__ void __launch_bounds__(kEditHitWarps * 32)
+edit_hits_group_kernel(const uint32_t* __restrict__ codes,
+                       const long long* __restrict__ cnt,
+                       const int* __restrict__ goff, int G,
+                       const int* __restrict__ gw,
+                       const int* __restrict__ high,
+                       const int* __restrict__ bstart, int NB, int d,
+                       double ratio, int K,
+                       unsigned long long* __restrict__ count,
+                       int2* __restrict__ out, unsigned long long cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kRows = kEditHitTileBytes / (4 * TW);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  uint32_t* tile = reinterpret_cast<uint32_t*>(smem);
+  Word* peq = reinterpret_cast<Word*>(smem + kEditHitTileBytes) + warp * K;
+  // the last blocks hold the highest counts, whose sweeps are longest:
+  // they start first
+  const int blk = NB - 1 - static_cast<int>(blockIdx.x);
+  const int h0 = bstart[blk];
+  const int h1 = bstart[blk + 1];
+  const int g = group_of(goff, G, high[h0]);
+  const int gs = goff[g], ge = goff[g + 1], w = gw[g];
+  const bool active = h0 + warp < h1;
+  const int h = active ? high[h0 + warp] : 0;
+  const long long ch = active ? cnt[h] : 0;
+  uint32_t pw[TW];
+#pragma unroll
+  for (int t = 0; t < TW; ++t)
+    pw[t] = active ? codes[static_cast<size_t>(h) * TW + t] : 0u;
+  for (int k = lane; k < K; k += 32) {
+    Word m = 0;
+#pragma unroll
+    for (int i = 0; i < 4 * TW; ++i)
+      if (i < w && ((pw[i >> 2] >> (8 * (i & 3))) & 0xffu) ==
+                       static_cast<uint32_t>(k))
+        m |= Word(1) << i;
+    peq[k] = m;
+  }
+  __syncwarp();
+  bool going = active;
+  for (int t0 = gs; t0 < ge; t0 += kRows) {
+    // a barrier too: every warp is done with the last tile
+    if (!__syncthreads_or(going)) break;
+    const int rows = min(kRows, ge - t0);
+    const uint4* src = reinterpret_cast<const uint4*>(
+        codes + static_cast<size_t>(t0) * TW);
+    uint4* dst = reinterpret_cast<uint4*>(tile);
+    for (int i = threadIdx.x; i < rows * (TW / 4); i += blockDim.x)
+      __pipeline_memcpy_async(dst + i, src + i, 16);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (!going) continue;
+    for (int r0 = 0; r0 < rows; r0 += 32) {
+      const int r = r0 + lane;
+      const int j = t0 + r;
+      const long long cj = r < rows ? cnt[j] : 0;
+      const bool pass = r < rows && cj < ch &&
+                        static_cast<double>(ch) >=
+                            ratio * static_cast<double>(cj);
+      // partners are a prefix of the sorted group: none here, none later
+      if (!__any_sync(kFull, pass)) {
+        going = false;
+        break;
+      }
+      bool hit = false;
+      if (pass) {
+        uint32_t text[TW];
+        const uint4* row = reinterpret_cast<const uint4*>(tile + r * TW);
+#pragma unroll
+        for (int v = 0; v < TW / 4; ++v) {
+          const uint4 q = row[v];
+          text[4 * v] = q.x;
+          text[4 * v + 1] = q.y;
+          text[4 * v + 2] = q.z;
+          text[4 * v + 3] = q.w;
+        }
+        hit = within_radius<Word, TW, 1>(peq, text, w, d);
+      }
+      emit(hit, h, j, count, out, cap);
+    }
+  }
+}
+
+// The pairs the host chose: pairs [P] (a, b) tag indices of one group
+// each, one a lane; the same tests. Each lane keeps its pattern's Peq
+// masks in shared memory at [warp][code][lane].
+template <typename Word, int TW>
+__global__ void edit_hits_pairs_kernel(const uint32_t* __restrict__ codes,
+                                       const long long* __restrict__ cnt,
+                                       const int* __restrict__ goff, int G,
+                                       const int* __restrict__ gw,
+                                       const int2* __restrict__ pairs, int P,
+                                       int d, double ratio, int K,
+                                       unsigned long long* __restrict__ count,
+                                       int2* __restrict__ out,
+                                       unsigned long long cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  Word* peq = reinterpret_cast<Word*>(smem) + (threadIdx.x >> 5) * K * 32 +
+              lane;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  bool hit = false;
+  int h = 0, j = 0;
+  if (p < P) {
+    const int2 pr = pairs[p];
+    const long long ca = cnt[pr.x], cb = cnt[pr.y];
+    h = ca > cb ? pr.x : pr.y;
+    j = ca > cb ? pr.y : pr.x;
+    const long long hi = ca > cb ? ca : cb;
+    const long long lo = ca > cb ? cb : ca;
+    if (ca != cb &&
+        static_cast<double>(hi) >= ratio * static_cast<double>(lo)) {
+      const int w = gw[group_of(goff, G, h)];
+      uint32_t pw[TW], text[TW];
+      const uint4* hrow = reinterpret_cast<const uint4*>(
+          codes + static_cast<size_t>(h) * TW);
+      const uint4* jrow = reinterpret_cast<const uint4*>(
+          codes + static_cast<size_t>(j) * TW);
+#pragma unroll
+      for (int v = 0; v < TW / 4; ++v) {
+        const uint4 a = __ldg(hrow + v), b = __ldg(jrow + v);
+        pw[4 * v] = a.x; pw[4 * v + 1] = a.y;
+        pw[4 * v + 2] = a.z; pw[4 * v + 3] = a.w;
+        text[4 * v] = b.x; text[4 * v + 1] = b.y;
+        text[4 * v + 2] = b.z; text[4 * v + 3] = b.w;
+      }
+      for (int k = 0; k < K; ++k) peq[k * 32] = 0;
+#pragma unroll
+      for (int i = 0; i < 4 * TW; ++i)
+        if (i < w) peq[((pw[i >> 2] >> (8 * (i & 3))) & 0xffu) * 32] |=
+            Word(1) << i;
+      hit = within_radius<Word, TW, 32>(peq, text, w, d);
+    }
+  }
+  emit(hit, h, j, count, out, cap);
+}
+
+template <typename Word, int TW>
+int launch_edit_hits(const uint32_t* codes, const long long* cnt,
+                     const int* goff, int G, const int* gw, const int* high,
+                     const int* bstart, int NB, const int2* pairs, int P,
+                     int K, int d, double ratio, unsigned long long* count,
+                     int2* out, unsigned long long cap, cudaStream_t s) {
+  if (pairs == nullptr) {
+    const int smem = kEditHitTileBytes + kEditHitWarps * K * sizeof(Word);
+    auto kern = edit_hits_group_kernel<Word, TW>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<NB, kEditHitWarps * 32, smem, s>>>(codes, cnt, goff, G, gw, high,
+                                              bstart, NB, d, ratio, K, count,
+                                              out, cap);
+  } else {
+    const int per_warp = K * 32 * static_cast<int>(sizeof(Word));
+    const int warps = max(1, min(kEditHitWarps, kEditHitPairSmem / per_warp));
+    const int smem = warps * per_warp;
+    auto kern = edit_hits_pairs_kernel<Word, TW>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int threads = 32 * warps;
+    kern<<<(P + threads - 1) / threads, threads, smem, s>>>(
+        codes, cnt, goff, G, gw, pairs, P, d, ratio, K, count, out, cap);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace clique_tag
 
@@ -424,4 +684,58 @@ extern "C" int clique_edit_distance(const void* a, const void* b,
     edit_distance_scratch_kernel<<<blocks, kEditThreads, 0, s>>>(
         pa, pb, pla, plb, po, static_cast<uint8_t*>(scratch), P, L);
   return cudaGetLastError();
+}
+
+// Patterns a CTA of the group mode of clique_edit_hits takes (the block
+// size of its high-tag list).
+extern "C" int clique_edit_hits_warps() { return clique_tag::kEditHitWarps; }
+
+// Launch the edit-hit search on `stream`. codes [T][words] u32: each
+// tag's class codes, one byte a column (words 4, 8 or 16: tags of up to
+// 16, 32 or 64 bytes), every code below K (1 <= K <= 256); counts [T]
+// i64; offsets [G + 1] i32 (0 = offsets[0] <= ... <= offsets[G] = T);
+// widths [G] i32 (at most 4 * words and 64). With pairs null (group mode)
+// the tags are sorted by count within each group, high [H] i32 holds the
+// tags with a partner and bstart [NB + 1] i32 cuts it into blocks of at
+// most clique_edit_hits_warps() tags of one group. Otherwise pairs [P]
+// (a, b) i32 are the pairs to test, both of one group. count one u64 set
+// to 0, out [cap] (h, j) i32 pairs. Returns the CUDA error of the launch.
+extern "C" int clique_edit_hits(const void* codes, const void* counts,
+                                const void* offsets, int G,
+                                const void* widths, const void* high,
+                                const void* bstart, int NB, const void* pairs,
+                                int P, int words, int K, int max_distance,
+                                double ratio, void* count, void* out,
+                                long long cap, void* stream) {
+  using namespace clique_tag;
+  if (G <= 0 || K < 1 || K > 256 || cap < 0 ||
+      (pairs == nullptr ? NB <= 0 : P <= 0))
+    return cudaErrorInvalidValue;
+  const auto* c = static_cast<const uint32_t*>(codes);
+  const auto* n = static_cast<const long long*>(counts);
+  const auto* go = static_cast<const int*>(offsets);
+  const auto* gw = static_cast<const int*>(widths);
+  const auto* hi = static_cast<const int*>(high);
+  const auto* bs = static_cast<const int*>(bstart);
+  const auto* pr = static_cast<const int2*>(pairs);
+  auto* cnt = static_cast<unsigned long long*>(count);
+  auto* o = static_cast<int2*>(out);
+  const auto cp = static_cast<unsigned long long>(cap);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (words) {
+    case 4:
+      return launch_edit_hits<uint32_t, 4>(c, n, go, G, gw, hi, bs, NB, pr, P,
+                                           K, max_distance, ratio, cnt, o, cp,
+                                           s);
+    case 8:
+      return launch_edit_hits<uint32_t, 8>(c, n, go, G, gw, hi, bs, NB, pr, P,
+                                           K, max_distance, ratio, cnt, o, cp,
+                                           s);
+    case 16:
+      return launch_edit_hits<unsigned long long, 16>(
+          c, n, go, G, gw, hi, bs, NB, pr, P, K, max_distance, ratio, cnt, o,
+          cp, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

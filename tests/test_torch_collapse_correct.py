@@ -89,10 +89,11 @@ def test_correct_degenerate_groups_large_group_matches_jax():
 
 
 def test_correct_degenerate_across_the_device_threshold(monkeypatch):
-    """One group whose ratio-filtered pairs reach DEVICE_MIN_PAIRS: the
-    port sends them to the edit-distance wrapper (here its plain version),
-    never to the host Myers code, and the map equals the JAX package's
-    computed with host Myers distances on the same rows."""
+    """One group whose ratio-filtered pairs reach DEVICE_MIN_PAIRS (and
+    EDIT_HITS_MIN_PAIRS): the port sends them to the device route (the
+    edit-hits wrapper, here its plain version), never to the host Myers
+    code, and the map equals the JAX package's computed with host Myers
+    distances on the same rows."""
     rng = np.random.default_rng(2)
     hi = {rng.choice(BASES, 16).tobytes() for _ in range(1000)}
     lo = set()

@@ -107,7 +107,8 @@ def test_collapse_metrics_name_the_device(golden_chains, name):
             m = json.load(fh)
         assert m["device"] == "cpu"
         assert m["kernel_launches"] == {"match_hits": 0,
-                                        "edit_distance": 0}
+                                        "edit_distance": 0,
+                                        "edit_hits": 0}
         assert m["read_stats"]["passing"] > 0
 
 

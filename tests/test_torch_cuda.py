@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (the fused global fill + walk in every
-mode, the fused local fill + walk, the fused Hamming hit search and edit
-distance) against
+mode, the fused local fill + walk, the fused Hamming hit search, edit
+distance and the edit-hit search) against
 their plain PyTorch versions, on CUDA tensors, and the paths that run them
 (align_reads with a band and with long reads, the inversion batch) against
 the CPU. The fused kernel is held to walk_reference(fill_reference(...)):
@@ -468,6 +468,95 @@ def test_edit_distance_kernel_matches_plain(cuda, L):
     if L <= 64:
         assert np.array_equal(got.cpu().numpy(),
                               tdist._edit_distance_myers_host(a, b, la, lb))
+
+
+@pytest.mark.parametrize("source", ["triu", "count_filtered", "explicit"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("w", [12, 16, 33, 64])
+def test_edit_hits_kernel_matches_plain(cuda, w, d, source):
+    from test_torch_collapse_edit_hits import _matrix, edit_hit_case
+
+    from clique_tpu_torch.collapse import distance as tdist
+
+    groups, pairs = edit_hit_case(source, w, d)
+    args = [x.to(cuda) for x in _matrix(groups)]
+    pairs = pairs.to(cuda) if pairs is not None else None
+    n = tdist.edit_hits_launches
+    h, j = tdist.edit_hits(*args, d, 5.0, pairs)
+    torch.cuda.synchronize()
+    assert tdist.edit_hits_launches == n + 1
+    want_h, want_j = tdist.edit_hits_reference(*args, d, 5.0, pairs)
+    assert torch.equal(h, want_h) and torch.equal(j, want_j)
+    assert len(h) >= 10
+
+
+@pytest.mark.parametrize("w", [16, 40])
+def test_edit_hits_kernel_tiles_and_many_groups(cuda, w):
+    """A group of 4,000 tags (2 to 8 shared-memory tiles of partners) and
+    300 groups of 2-20 tags in one launch."""
+    from clique_tpu_torch.collapse import distance as tdist
+
+    rng = np.random.default_rng(w)
+    sizes = [4000] + rng.integers(2, 21, 300).tolist()
+    T = sum(sizes)
+    base = rng.choice(TAG_ALPHABET[:4], (64, w))
+    tags = base[rng.integers(0, 64, T)]
+    sub = rng.random((T, w)) < 0.08
+    tags[sub] = rng.choice(TAG_ALPHABET, int(sub.sum()))
+    cnt = np.where(rng.random(T) < 0.1, rng.integers(5, 60, T),
+                   rng.integers(1, 5, T)).astype(np.int64)
+    offs = np.concatenate(([0], np.cumsum(sizes))).astype(np.int32)
+    widths = np.full(len(sizes), w, np.int32)
+    widths[1::3] = w - 3
+    args = [torch.from_numpy(x).to(cuda) for x in (tags, cnt, offs, widths)]
+    n = tdist.edit_hits_launches
+    h, j = tdist.edit_hits(*args, 2, 5.0)
+    torch.cuda.synchronize()
+    assert tdist.edit_hits_launches == n + 1
+    want_h, want_j = tdist.edit_hits_reference(*args, 2, 5.0)
+    assert torch.equal(h, want_h) and torch.equal(j, want_j)
+    assert len(h) >= 100
+
+
+def test_edit_hits_kernel_relaunches_past_its_buffer(cuda):
+    """600 tags of count 10 and 600 of count 1 with the radius at the
+    width: all 360,000 ratio pairs are hits, past the first buffer of
+    max(4 T, 65,536) pairs, so the wrapper launches twice."""
+    from clique_tpu_torch.collapse import distance as tdist
+
+    rng = np.random.default_rng(13)
+    tags = torch.from_numpy(rng.choice(TAG_ALPHABET[:4], (1200, 16))).to(cuda)
+    cnt = torch.tensor([10] * 600 + [1] * 600, device=cuda)
+    offs = torch.tensor([0, 1200], dtype=torch.int32, device=cuda)
+    widths = torch.tensor([16], dtype=torch.int32, device=cuda)
+    n = tdist.edit_hits_launches
+    h, j = tdist.edit_hits(tags, cnt, offs, widths, 16, 5.0)
+    torch.cuda.synchronize()
+    assert tdist.edit_hits_launches == n + 2
+    assert len(h) == 360_000
+    want_h, want_j = tdist.edit_hits_reference(tags, cnt, offs, widths, 16,
+                                               5.0)
+    assert torch.equal(h, want_h) and torch.equal(j, want_j)
+
+
+def test_correct_degenerate_groups_edit_hits_on_cuda_equals_cpu(
+        cuda, monkeypatch):
+    from test_torch_collapse_edit_hits import _correction_groups, _wide_group
+
+    from clique_tpu_torch.collapse import correct as tcorrect
+    from clique_tpu_torch.collapse import distance as tdist
+
+    groups = _correction_groups(32, 16, 2) + [_wide_group(18, 2)]
+    monkeypatch.setattr(tcorrect, "EDIT_HITS_MIN_PAIRS", 0)
+    want = tcorrect.correct_degenerate_groups(groups, 2, 16, 5.0,
+                                              device="cpu")
+    n = tdist.edit_hits_launches, tdist.edit_distance_launches
+    got = tcorrect.correct_degenerate_groups(groups, 2, 16, 5.0,
+                                             device="cuda")
+    # the small groups, the big group's candidates, the 80-byte group
+    assert (tdist.edit_hits_launches - n[0],
+            tdist.edit_distance_launches - n[1]) == (2, 1)
+    assert got == want
 
 
 def test_hamming_hits_on_cuda_equals_cpu(cuda):

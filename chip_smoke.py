@@ -37,7 +37,18 @@ before and read just after:
   reference (the local screen, the keep-last fill); at the path's shape
   the kernels' rows equal the plain versions', the first 64 reads' rows
   are the same on the card as on the CPU, and a sample of the results
-  equals the host inversion_alignment.
+  equals the host inversion_alignment;
+- panel: align --router hmm over a 180-reference panel (a seeded stand-in
+  for the JAX package's config-5 CRISPR library: one backbone, a 20 bp
+  guide apart), 7,200 reads: hmm_forward scores every read against every
+  reference, dp_align aligns the routed reads; routing accuracy, and the
+  first 64 reads' BAM the same on the card as on the CPU apart from
+  routes tied within the kernel's tolerance;
+- workers: collapse --threads N on the bench's aligned BAM in turns with
+  one process (and once out of core): the same records, no worker with a
+  CUDA context; golden and golden_ml with two workers give their pins;
+- profile: align --profile-dir on golden writes a torch.profiler trace
+  that holds dp_align's kernel events.
 
 The kernel phases hold every kernel against its plain version (for the
 fused global fill + walk, dp_align, its fused rows and its traceback laid
@@ -45,9 +56,10 @@ out as the plain fill's, in every global mode, with ragged and marked rows,
 at the bench, inversion and anchored shapes and at 6,600 rows), time each
 in turns with its plain version at the main path's shape, time a PyTorch
 library call that computes the same function where there is one, and
-work out each kernel's bound from the timed inputs.
+work out each kernel's bound from the timed inputs (hmm_forward's from
+the MUFU and FP32-pipe instructions of a cell in its SASS).
 
-The CPU runs of the long-read and inversion phases go to a pool of
+The CPU runs of the long-read, inversion and panel phases go to a pool of
 spawned processes and run beside the card's; a script that imports these
 phases needs an `if __name__ == "__main__":` guard.
 
@@ -94,19 +106,41 @@ INV_REF = 1000
 # phases beside the card's runs: five workers of two torch threads each
 CPU_WORKERS = 5
 CPU_WORKER_THREADS = 2
+# the panel phase: a stand-in for the JAX package's config-5 panel
+# (bench_extra.py:368-476: 180 guides of one CRISPR library, 40 reads a
+# reference at SCALE 1, 5% substitutions, batch_size 512)
+N_PANEL_REFS = 180
+PANEL_PER_REF = 40
+PANEL_BACKBONE = 230
+PANEL_GUIDE = (80, 100)           # the 20 bp guide's span in the backbone
+PANEL_BATCH = 512
+N_PANEL_CPU = 64
+# the hmm_forward kernel's tolerance against its plain version: both take
+# the same f32 terms and order of operations; CUDA's precise expf / logf
+# are within 1-2 ulp of PyTorch's, accumulated over a pair's cells
+HMM_RTOL, HMM_ATOL = 1e-5, 1e-3
+# an H100 SM's throughput a clock: MUFU (ex2, lg2) and FP32 lanes (NVIDIA's
+# arithmetic-instruction throughput table, compute capability 9.0)
+MUFU_PER_SM_CLOCK = 16
+FP32_PER_SM_CLOCK = 128
+SMS = 132
+FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
+                "FRND", "FCHK")
 KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local",
-           "edit_hits")
+           "edit_hits", "hmm_forward")
 SOURCES = {"dp_align": "dp_align.cu",
            "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
            "dp_align_local": "dp_align_local.cu",
-           "edit_hits": "tag_distance.cu"}
+           "edit_hits": "tag_distance.cu",
+           "hmm_forward": "hmm_forward.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
             "dp_align_local": "clique_tpu/align/batch.py:363 and :450",
             "edit_hits": "clique_tpu/collapse/distance.py:36 and "
-                         "clique_tpu/collapse/correct.py:273"}
+                         "clique_tpu/collapse/correct.py:273",
+            "hmm_forward": "clique_tpu/align/hmm.py:39"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
 # float32 outside the tensor cores counts an FMA as two, so one lane
@@ -212,7 +246,9 @@ def phase_build():
     kernel = None
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("align_local_kernel", "align_kernel",
+            kernel = next((k for k in ("hmm_forward_kernel",
+                                       "clique_hmm_cell_probe",
+                                       "align_local_kernel", "align_kernel",
                                        "match_hits_wide", "match_hits",
                                        "edit_hits_group", "edit_hits_pairs",
                                        "edit_distance_reg",
@@ -1171,23 +1207,36 @@ def _layout_from_text(text, workdir):
     return layout, ReferenceManager.from_layout(layout)
 
 
+def _golden_layout(name, workdir):
+    """tests/data/<name> with its layout's @ALLOWLIST@ filled in, under a
+    new directory workdir: (data directory, layout, reference manager)."""
+    gd = os.path.join(HERE, "tests", "data", name)
+    with open(os.path.join(gd, "layout.yaml.in")) as fh:
+        text = fh.read().replace("@ALLOWLIST@",
+                                 os.path.join(gd, "allowlist.txt"))
+    os.makedirs(workdir)
+    return (gd, *_layout_from_text(text, workdir))
+
+
 def _reset_counts():
-    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align import dp_kernels, hmm
     from clique_tpu_torch.collapse import distance
 
     dp_kernels.reset_counts()
     distance.reset_counts()
+    hmm.reset_counts()
 
 
 def _counts():
-    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align import dp_kernels, hmm
     from clique_tpu_torch.collapse import distance
 
     return {"dp_align": dp_kernels.align_launches,
             "match_hits": distance.match_hits_launches,
             "edit_distance": distance.edit_distance_launches,
             "dp_align_local": dp_kernels.align_local_launches,
-            "edit_hits": distance.edit_hits_launches}
+            "edit_hits": distance.edit_hits_launches,
+            "hmm_forward": hmm.hmm_forward_launches}
 
 
 def _read(path):
@@ -1205,13 +1254,8 @@ def phase_golden(workdir):
 
     launches = dict.fromkeys(KERNELS, 0)
     for name, (r1, r2) in GOLDEN_DIRS.items():
-        gd = os.path.join(HERE, "tests", "data", name)
-        with open(os.path.join(gd, "layout.yaml.in")) as fh:
-            text = fh.read().replace("@ALLOWLIST@",
-                                     os.path.join(gd, "allowlist.txt"))
         wd = os.path.join(workdir, name)
-        os.makedirs(wd)
-        layout, rm = _layout_from_text(text, wd)
+        gd, layout, rm = _golden_layout(name, wd)
         reads = dict(read1=os.path.join(gd, r1),
                      read2=os.path.join(gd, r2) if r2 else None)
         pin_alleles = os.path.join(gd, "alleles.tsv")
@@ -1350,13 +1394,13 @@ def phase_bench(workdir):
     metrics_path = os.path.join(workdir, "metrics.json")
     aligned = os.path.join(workdir, "bench.bam")
     collapsed = os.path.join(workdir, "bench_collapsed.bam")
+    from clique_tpu_torch.collapse import correct as tcorrect
     from clique_tpu_torch.collapse import distance as tdist
-    from clique_tpu_torch.collapse import pipeline as cpipeline
 
     # each degenerate level's correct_degenerate_groups call: its batch,
     # wall and edit_hits launches
     levels = []
-    real_correct = cpipeline.correct_degenerate_groups
+    real_correct = tcorrect.correct_degenerate_groups
 
     def recorded(group_counts, d, length, ratio, device):
         n = tdist.edit_hits_launches
@@ -1366,7 +1410,7 @@ def phase_bench(workdir):
                        tdist.edit_hits_launches - n))
         return out
 
-    cpipeline.correct_degenerate_groups = recorded
+    tcorrect.correct_degenerate_groups = recorded
     _reset_counts()
     t0 = time.time()
     sink = CollapseSink(layout, rm)
@@ -1381,7 +1425,7 @@ def phase_bench(workdir):
                                  ingest_seconds=sink.seconds,
                                  record_tap=tap, device="cuda")
     collapse_s = time.time() - t0
-    cpipeline.correct_degenerate_groups = real_correct
+    tcorrect.correct_degenerate_groups = real_correct
     t0 = time.time()
     n_rows = call_events_from_records(layout, tap,
                                       os.path.join(workdir, "alleles.tsv"),
@@ -1406,8 +1450,6 @@ def phase_bench(workdir):
     say(f"[bench] collapse: ingest {cm['ingest_s']} s (inside the align "
         f"wall), levels {cm['levels_s']} s, outputs {cm['outputs_s']} s, "
         f"levels {json.dumps(cm['references']['amplicon1']['levels'])}")
-    from clique_tpu_torch.collapse import correct as tcorrect
-
     level_batches = []
     for k, (batch, secs, n) in enumerate(levels):
         pairs = tcorrect.candidate_pair_count(*batch)
@@ -1519,7 +1561,8 @@ def _cpu_worker_init():
     torch.set_num_threads(CPU_WORKER_THREADS)
 
 
-def _align_on_cpu(layout_text, fastq, workdir):
+def _align_on_cpu(layout_text, fastq, workdir, batch_size=BENCH_BATCH,
+                  router="kmer"):
     """align_reads with the plain versions on the CPU (run in the pool):
     the inflated BAM payload and the seconds it took."""
     from clique_tpu_torch.align.pipeline import align_reads
@@ -1528,8 +1571,8 @@ def _align_on_cpu(layout_text, fastq, workdir):
     layout, rm = _layout_from_text(layout_text, workdir)
     out = os.path.join(workdir, "cpu.bam")
     t0 = time.time()
-    align_reads(layout, rm, out, read1=fastq, batch_size=BENCH_BATCH,
-                device="cpu")
+    align_reads(layout, rm, out, read1=fastq, batch_size=batch_size,
+                router=router, device="cpu")
     return _inflate_bgzf(out), time.time() - t0
 
 
@@ -1888,7 +1931,7 @@ def phase_known_list(workdir, bench):
     out = os.path.join(wd, "collapsed.bam")
     timer = _CallTimer([
         (tpipeline, "load_known_lists", "allowlist read"),
-        (tpipeline, "correct_known_hamming", "known level correction"),
+        (tcorrect, "correct_known_hamming", "known level correction"),
         (tcorrect, "hamming_hits", "hamming_hits"),
         (tdist, "upload_rows", "upload"),
         (tdist, "match_hits", "match_hits"),
@@ -2181,6 +2224,448 @@ def phase_threshold(level_batches):
     return rows
 
 
+def _sass_cell_counts():
+    """MUFU and FP32-pipe instructions of one pair-HMM cell: the opcodes
+    of clique_hmm_cell_probe (one cell, csrc/hmm_forward.cu, besides its
+    loads and stores) in the built library's SASS."""
+    from clique_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", _build.build_info().path],
+                         capture_output=True, text=True)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
+    ops, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if m and cur == "clique_hmm_cell_probe":
+            op = m.group(1).split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+    mufu = ops.get("MUFU", 0)
+    fp32 = sum(ops.get(o, 0) for o in FP32_OPCODES)
+    check(mufu > 0 and fp32 > 0, f"no cell probe in the SASS: {ops}")
+    return mufu, fp32, ops
+
+
+def _sm_clock_hz():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.split()[0]) * 1e6
+
+
+def _hmm_batch(rng, n_refs, n_reads, width):
+    """Every (read, reference) pair of n_reads reads against n_refs
+    references of ~width bases: reference bytes with N and digit
+    wildcards, reads from their reference with 8% substitutions (N among
+    them) and a 5-base deletion in every other one; ragged lengths."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    letters = np.frombuffer(b"ACGTACGTACGTACGTN0123", np.uint8)
+    refs = [rng.choice(letters, int(rng.integers(width - 30, width + 1)))
+            for _ in range(n_refs)]
+    reads = []
+    for q in range(n_reads):
+        src = refs[q % n_refs].copy()
+        src[src < 58] = rng.choice(bases, int((src < 58).sum()))
+        if q % 2:
+            cut = int(rng.integers(0, len(src) - 5))
+            src = np.concatenate([src[:cut], src[cut + 5:]])
+        sub = rng.random(len(src)) < 0.08
+        src[sub] = rng.choice(np.frombuffer(b"ACGTN", np.uint8),
+                              int(sub.sum()))
+        reads.append(src)
+    B = n_refs * n_reads
+    R = np.zeros((B, width), np.uint8)
+    Q = np.zeros((B, width), np.uint8)
+    l1 = np.zeros(B, np.int32)
+    l2 = np.zeros(B, np.int32)
+    for q, read in enumerate(reads):
+        for r, ref in enumerate(refs):
+            i = q * n_refs + r
+            R[i, :len(ref)], Q[i, :len(read)] = ref, read
+            l1[i], l2[i] = len(ref), len(read)
+    return R, Q, l1, l2
+
+
+def _hold_ll(label, got, want):
+    """The kernel's LLs against the plain version's: finite, within
+    HMM_RTOL / HMM_ATOL. Returns the largest absolute difference."""
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{label}: a non-finite LL")
+    diff = (got - want).abs()
+    excess = float((diff - (HMM_ATOL + HMM_RTOL * want.abs())).max())
+    err = float(diff.max())
+    say(f"[hmm] {label}: max |kernel - plain| {err:.3g}, "
+        f"{'within' if excess <= 0 else 'OUTSIDE'} rtol {HMM_RTOL} / atol "
+        f"{HMM_ATOL}")
+    check(excess <= 0, f"{label}: hmm_forward differs from its plain "
+          "version past the tolerance")
+    return err
+
+
+def phase_hmm_kernel():
+    """hmm_forward against its plain version on the card at the panel's
+    shape (1,024 pairs of ~250 x ~250: 32 reads against 32 references,
+    whose routes must agree wherever a read's two best LLs differ by more
+    than the tolerance) and on pairs past 6,144 rows; timed in turns with
+    the plain version; its bound from the cell's MUFU and FP32-pipe
+    instructions in the SASS."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.align import hmm
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(39)
+    p = torch.from_numpy(hmm.default_hmm_params()).to(dev)
+    n_q = n_r = 32
+    host = _hmm_batch(rng, n_r, n_q, 250)
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    got = hmm.hmm_forward_batch(*args, p)
+    want = hmm.hmm_forward_batch_reference(*args, p)
+    err = _hold_ll("B=1024, 32 reads x 32 references of 220-250 bases",
+                   got, want)
+    g, w = got.view(n_q, n_r), want.view(n_q, n_r)
+    top = w.topk(2, dim=1).values
+    decided = (top[:, 0] - top[:, 1]) > HMM_ATOL + HMM_RTOL * top[:, 0].abs()
+    same = g.argmax(1) == w.argmax(1)
+    say(f"[hmm] routes of the 32 reads: {int(same.sum())} equal, "
+        f"{int((~decided).sum())} within the tolerance of a tie")
+    check(bool(same[decided].all()), "hmm_forward routes a read elsewhere "
+          "than its plain version")
+    check(int((g.argmax(1).cpu() == torch.arange(n_q) % n_r).sum()) >= 24,
+          "hmm_forward does not route the reads to their references")
+
+    # a read of 250 bases against references of 6,600 and 5,000 rows
+    letters = np.frombuffer(b"ACGTACGTACGTACGTN0123", np.uint8)
+    lrefs = np.zeros((2, 6600), np.uint8)
+    lrefs[0] = rng.choice(letters, 6600)
+    lrefs[1, :5000] = rng.choice(letters, 5000)
+    lreads = np.repeat(lrefs[:1, 3000:3250], 2, axis=0)
+    lreads[lreads < 58] = ord("A")
+    long = (lrefs, lreads, np.array([6600, 5000], np.int32),
+            np.array([250, 250], np.int32))
+    largs = [torch.from_numpy(a).to(dev) for a in long]
+    err = max(err, _hold_ll("pairs of 6,600 and 5,000 reference rows",
+                            hmm.hmm_forward_batch(*largs, p),
+                            hmm.hmm_forward_batch_reference(*largs, p)))
+
+    k_ms, p_ms = _turns("[hmm] hmm_forward at B=1024, ~250 x ~250",
+                        lambda: hmm.hmm_forward_batch(*args, p),
+                        lambda: hmm.hmm_forward_batch_reference(*args, p),
+                        20)
+    mufu, fp32, ops = _sass_cell_counts()
+    clock = _sm_clock_hz()
+
+    def hmm_bound(cells):
+        t_mufu = mufu * cells / (MUFU_PER_SM_CLOCK * SMS * clock) * 1e3
+        t_fp32 = fp32 * cells / (FP32_PER_SM_CLOCK * SMS * clock) * 1e3
+        return max(t_mufu, t_fp32), t_mufu, t_fp32
+
+    cells = int((host[2].astype(np.int64) * host[3]).sum())
+    bound_ms, t_mufu, t_fp32 = hmm_bound(cells)
+    b = (bound_ms, "operations")
+    say(f"[hmm] a cell's SASS (clique_hmm_cell_probe): {mufu} MUFU, {fp32} "
+        f"FP32-pipe instructions ({json.dumps(dict(sorted(ops.items())))})"
+        f"; {cells} cells at the SM clock nvidia-smi reports "
+        f"({clock / 1e6:.0f} MHz): MUFU {t_mufu:.4f} ms, FP32 pipe "
+        f"{t_fp32:.4f} ms; bound {b[0]:.4f} ms, the kernel at "
+        f"{b[0] / k_ms:.3f} of it; {cells / k_ms / 1e6:.3f} G cells/s")
+    # the panel's launch shape: a route call of 2,048 reads against 180
+    # references is 368,640 pairs (this batch 360 times over)
+    big = [a.repeat(360, *([1] * (a.dim() - 1))).contiguous() for a in args]
+    big_ms = _time_ms(lambda: hmm.hmm_forward_batch(*big, p), 3)
+    big_bound = hmm_bound(360 * cells)[0]
+    say(f"[hmm] hmm_forward at B=368,640 (the panel's launch shape): "
+        f"{big_ms:.3f} ms, bound {big_bound:.3f} ms, the kernel at "
+        f"{big_bound / big_ms:.3f} of it; "
+        f"{360 * cells / big_ms / 1e6:.3f} G cells/s")
+    return err, _timing(k_ms, p_ms, b)
+
+
+def _panel_dataset(workdir):
+    """The stand-in for config 5's 180-guide panel: one seeded backbone,
+    180 references differing only in a seeded 20 bp guide, 40 reads a
+    reference with 5% substitutions (bench_extra.py's _make_reads), in a
+    seeded order. Read e<k> comes from reference k // 40."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    backbone = rng.choice(bases, PANEL_BACKBONE)
+    g0, g1 = PANEL_GUIDE
+    refs = []
+    for _ in range(N_PANEL_REFS):
+        r = backbone.copy()
+        r[g0:g1] = rng.choice(bases, g1 - g0)
+        refs.append(r)
+    layout_text = ("known_strand: true\nreads:\n  - !Read1\n"
+                   "    orientation: Forward\nreferences:\n" + "".join(
+                       f"  guide{k:03d}:\n    sequence: "
+                       f"\"{r.tobytes().decode()}\"\n"
+                       for k, r in enumerate(refs)))
+    lines = []
+    for k, ref in enumerate(refs):
+        for i in range(PANEL_PER_REF):
+            read = ref.copy()
+            subs = rng.random(len(read)) < 0.05
+            read[subs] = rng.choice(bases, int(subs.sum()))
+            lines.append(f"@e{k * PANEL_PER_REF + i}\n"
+                         f"{read.tobytes().decode()}\n+\n"
+                         f"{'I' * len(read)}\n")
+    lines = [lines[i] for i in rng.permutation(len(lines))]
+    wd = os.path.join(workdir, "panel")
+    os.makedirs(wd)
+    fq, head = os.path.join(wd, "panel.fastq"), os.path.join(wd, "head.fastq")
+    for path, part in ((fq, lines), (head, lines[:N_PANEL_CPU])):
+        with open(path, "w") as fh:
+            fh.writelines(part)
+    return wd, layout_text, fq, head
+
+
+def phase_panel(workdir, pool):
+    """align --router hmm over the 180-reference panel on the card: every
+    read against every reference through hmm_forward, the routed reads
+    through dp_align. The first 64 reads' BAM on the CPU is computed in
+    the pool; panel_head_check holds it against the card's."""
+    from clique_tpu_torch.align.pipeline import align_reads
+    from clique_tpu_torch.io.sam import BamReader
+
+    wd, layout_text, fq, head = _panel_dataset(workdir)
+    layout, rm = _layout_from_text(layout_text, wd)
+    head_cpu = pool.submit(_align_on_cpu, layout_text, head,
+                           os.path.join(wd, "cpu"), PANEL_BATCH, "hmm")
+    out_head = os.path.join(wd, "head_cuda.bam")
+    align_reads(layout, rm, out_head, read1=head, batch_size=PANEL_BATCH,
+                router="hmm", device="cuda")
+
+    out = os.path.join(wd, "panel.bam")
+    metrics_path = os.path.join(wd, "metrics.json")
+    _reset_counts()
+    t0 = time.time()
+    stats = align_reads(layout, rm, out, read1=fq, batch_size=PANEL_BATCH,
+                        router="hmm", device="cuda",
+                        metrics_path=metrics_path)
+    seconds = time.time() - t0
+    launches = _counts()
+    with open(metrics_path) as fh:
+        m = json.load(fh)
+    with BamReader(out, parse_tags=False) as reader:
+        routed = [(rec.name, rec.reference_name) for rec in reader]
+    right = sum(ref == f"guide{int(name[1:]) // PANEL_PER_REF:03d}"
+                for name, ref in routed)
+    n_reads = N_PANEL_REFS * PANEL_PER_REF
+    pairs = n_reads * N_PANEL_REFS
+    say(f"[panel] {stats.aligned}/{stats.total} reads over {N_PANEL_REFS} "
+        f"references ({pairs} read-reference pairs, ~{pairs * 231 ** 2:.3g} "
+        f"forward cells) with --router hmm on the card: {seconds:.3f} s, "
+        f"{stats.aligned / seconds:.1f} reads/s; routing accuracy "
+        f"{right}/{len(routed)} = {right / len(routed):.4f}; launches "
+        f"hmm_forward {launches['hmm_forward']}, dp_align "
+        f"{launches['dp_align']}; device_seconds {m['device_seconds']}, "
+        f"phase walls {json.dumps(m['phase_walls'])}")
+    check(stats.aligned == n_reads, "not every panel read was aligned")
+    check(launches["hmm_forward"] > 0 and launches["dp_align"] > 0,
+          f"the panel did not launch both kernels: {launches}")
+    check(m["kernel_launches"]["hmm_forward"] == launches["hmm_forward"],
+          "the align metrics miscount hmm_forward")
+    check(right >= 0.9 * len(routed), "the panel's routing accuracy is "
+          "below 0.9")
+    return launches, (rm, head, out_head, head_cpu)
+
+
+def _route_ties(rm, head, cpu_bam, cuda_bam):
+    """Where the head's CUDA and CPU BAMs differ: each read whose route
+    differs must be a tie within the tolerance on the CPU's LLs, and every
+    other read's record must be the same. Returns the number of ties."""
+    import torch
+
+    from clique_tpu_torch.align import hmm
+    from clique_tpu_torch.io.fastq import ReadIterator
+    from clique_tpu_torch.io.sam import BamReader
+
+    reads = [rec.seq for rec in ReadIterator(head).read_one_records()]
+    refs = [r.sequence for r in rm.references.values()]
+    lls = {device: torch.from_numpy(
+        hmm.HmmRouter(refs, device=device).pair_lls(reads)[2]).view(
+            len(reads), -1) for device in ("cuda", "cpu")}
+    top = lls["cpu"].topk(2, dim=1).values
+    tie = (top[:, 0] - top[:, 1]) <= HMM_ATOL + HMM_RTOL * top[:, 0].abs()
+    moved = lls["cuda"].argmax(1) != lls["cpu"].argmax(1)
+    check(bool(tie[moved].all()), "a panel read routes elsewhere on the "
+          "card than on the CPU, and not at a tie")
+
+    def records(path):
+        with BamReader(path) as reader:
+            return {r.name: r.to_sam_line() for r in reader}
+
+    names = [rec.name for rec in ReadIterator(head).read_one_records()]
+    a, b = records(cuda_bam), records(cpu_bam)
+    skip = {names[i] for i in range(len(names)) if bool(moved[i])}
+    check(all(a.get(n) == b.get(n) for n in names if n not in skip),
+          "the head's records differ between cuda and cpu off the ties")
+    return int(moved.sum())
+
+
+def panel_head_check(pending):
+    rm, head, out_head, future = pending
+    head_cpu, seconds = future.result()
+    same = _inflate_bgzf(out_head) == head_cpu
+    ties = 0
+    if not same:
+        cpu_bam = os.path.join(os.path.dirname(out_head), "cpu", "cpu.bam")
+        ties = _route_ties(rm, head, cpu_bam, out_head)
+    say(f"[panel] first {N_PANEL_CPU} reads on cpu (in the pool): "
+        f"{seconds:.2f} s; cuda and cpu aligned BAMs "
+        f"{'identical' if same else 'equal apart from the ties'}; routes "
+        f"that differ at a tie within the tolerance: {ties}")
+
+
+def _record_multiset(path):
+    from clique_tpu_torch.io.sam import BamReader
+
+    with BamReader(path) as reader:
+        return sorted((r.name, r.seq, r.qual, r.cigar_string,
+                       tuple(sorted(r.tags.items()))) for r in reader)
+
+
+def phase_workers(workdir, bench):
+    """collapse --threads N on the bench phase's aligned 80,000-read BAM on
+    the card, in turns: one process, N workers, N workers, one process,
+    then N workers out of core. The five give the same records, the two
+    in-RAM N-worker runs the same bytes; every worker reports no CUDA
+    context. Then golden (in-RAM) and golden_ml (maximum_subsequences:
+    the spill path) with two workers give their pinned records."""
+    from clique_tpu_torch.collapse.pipeline import collapse
+
+    layout_text, aligned = bench[0], bench[1]
+    wd = os.path.join(workdir, "workers")
+    os.makedirs(wd)
+    layout, _rm = _layout_from_text(layout_text, wd)
+    n = min(8, (os.cpu_count() or 2) - 1)
+    say(f"[workers] N = min(8, cpu_count - 1) = {n} "
+        f"(cpu_count {os.cpu_count()})")
+    # what a worker pays to import its modules, in a fresh interpreter,
+    # against importing torch besides
+    for label, mods in (("worker modules", "clique_tpu_torch.collapse."
+                         "pipeline, clique_tpu_torch.io.sam"),
+                        ("torch", "torch")):
+        res = subprocess.run(
+            [sys.executable, "-c", f"import sys, time; sys.path.insert(0, "
+             f"{HERE!r}); t = time.time(); import {mods}; "
+             f"print(time.time() - t, 'torch' in sys.modules)"],
+            capture_output=True, text=True, cwd=wd)
+        check(res.returncode == 0, f"import of {mods} failed: "
+              f"{res.stderr[-500:]}")
+        secs, has_torch = res.stdout.split()
+        say(f"[workers] import of {label} in a fresh interpreter: "
+            f"{float(secs):.3f} s (torch loaded: {has_torch})")
+    from clique_tpu_torch.collapse.workers import make_pool, warmup_task
+
+    t0 = time.time()
+    pool = make_pool(n)
+    try:
+        pool.map(warmup_task, range(n), chunksize=1)
+    finally:
+        pool.close()
+        pool.join()
+    say(f"[workers] a pool of {n} started, every worker's modules imported "
+        f"and the pool joined: {time.time() - t0:.3f} s; the aligned BAM "
+        f"is {os.path.getsize(aligned)} bytes (ingest runs in the main "
+        f"process below CLIQUE_PAR_INGEST_MIN, 8 MiB by default)")
+    launches = dict.fromkeys(KERNELS, 0)
+    sets, payloads = [], []
+    for i, (nw, ooc) in enumerate([(1, False), (n, False), (n, False),
+                                   (1, False), (n, True)]):
+        out = os.path.join(wd, f"run{i}.bam")
+        _reset_counts()
+        t0 = time.time()
+        stats = collapse(out, layout, aligned, temp_dir=wd, n_workers=nw,
+                         out_of_core=ooc, device="cuda")
+        wall = time.time() - t0
+        counts = _counts()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        with open(out + ".collapse_metrics.json") as fh:
+            m = json.load(fh)
+        workers = m.get("workers", [])
+        no_cuda = all(not w["cuda_initialized"] for w in workers)
+        say(f"[workers] run {i}: n_workers {nw}"
+            f"{', out of core' if ooc else ''}: {wall:.3f} s (ingest "
+            f"{m.get('ingest_s')} s, levels {m.get('levels_s')} s, outputs "
+            f"{m.get('outputs_s')} s), {stats.passing} passing, edit_hits "
+            f"launches {counts['edit_hits']}; {len(workers)} workers "
+            f"reported, torch.cuda.is_initialized() "
+            f"{sorted({w['cuda_initialized'] for w in workers})}, torch "
+            f"imported {sorted({w['torch'] for w in workers})}, jax or JAX-"
+            f"package modules {sorted({m_ for w in workers for m_ in w['forbidden']})}")
+        check(counts["edit_hits"] > 0, f"workers run {i} launched no "
+              "edit_hits")
+        check(nw == 1 or (workers and no_cuda), f"workers run {i}: a "
+              "worker made a CUDA context, or none reported")
+        check(not any(w["forbidden"] for w in workers),
+              f"workers run {i}: a worker loaded jax or the JAX package")
+        sets.append(_record_multiset(out))
+        payloads.append(_inflate_bgzf(out))
+    check(all(s == sets[0] for s in sets), "the worker runs' records differ")
+    check(payloads[1] == payloads[2], "the two N-worker runs' bytes differ")
+    say(f"[workers] the five runs give the same {len(sets[0])} records; the "
+        f"two in-RAM {n}-worker runs the same bytes")
+    for name in ("golden", "golden_ml"):
+        gwd = os.path.join(wd, name)
+        gd, glayout, _grm = _golden_layout(name, gwd)
+        out = os.path.join(gwd, "collapsed.bam")
+        collapse(out, glayout, os.path.join(gd, "aligned.bam"),
+                 temp_dir=gwd, n_workers=2, device="cuda")
+        with open(out + ".collapse_metrics.json") as fh:
+            m = json.load(fh)
+        same = _record_multiset(out) == _record_multiset(
+            os.path.join(gd, "collapsed.bam"))
+        say(f"[workers] {name} with --threads 2 on the card "
+            f"({'spill path' if m.get('out_of_core') else 'in RAM'}): "
+            f"records {'equal' if same else 'DIFFER from'} the pinned "
+            f"collapsed.bam's")
+        check(same, f"{name} with two workers differs from its pin")
+        check(m["workers"] and not any(w["cuda_initialized"]
+                                       for w in m["workers"]),
+              f"{name}: a worker made a CUDA context")
+    return launches
+
+
+def phase_profile(workdir):
+    """align --profile-dir on golden on the card: a torch.profiler Chrome
+    trace appears and holds dp_align's kernel events."""
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    wd = os.path.join(workdir, "profile")
+    gd, layout, rm = _golden_layout("golden", wd)
+    trace = os.path.join(wd, "trace")
+    out = os.path.join(wd, "aligned.bam")
+    align_reads(layout, rm, out, read1=os.path.join(gd, "reads.fastq.gz"),
+                batch_size=16, device="cuda", profile_dir=trace)
+    files = [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"--profile-dir wrote {files}")
+    with open(os.path.join(trace, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    dp = [e for e in kernels if "align_kernel" in e.get("name", "")]
+    say(f"[profile] --profile-dir on golden: {files[0]}, {len(events)} "
+        f"events, {len(kernels)} device kernel events, {len(dp)} of "
+        f"dp_align ({sum(e.get('dur', 0) for e in dp):.1f} us)")
+    check(dp, "the trace holds no dp_align kernel event")
+    check(_inflate_bgzf(out) == _inflate_bgzf(os.path.join(gd,
+                                                           "aligned.bam")),
+          "the profiled golden align differs from its pin")
+
+
 def main():
     t_start = time.time()
     phase_card()
@@ -2196,19 +2681,25 @@ def main():
     err.update(tag_err)
     times.update(tag_times)
     err["edit_hits"], times["edit_hits"] = phase_edit_hits()
+    err["hmm_forward"], times["hmm_forward"] = phase_hmm_kernel()
     launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_cpu_worker_init) as pool:
         path_launches = [phase_golden(workdir)]
+        phase_profile(workdir)
+        panel_launches, panel = phase_panel(workdir, pool)
         bench_launches, bench = phase_bench(workdir)
-        path_launches += [bench_launches, phase_banded(workdir, bench),
+        path_launches += [panel_launches, bench_launches,
+                          phase_workers(workdir, bench),
+                          phase_banded(workdir, bench),
                           phase_known_list(workdir, bench)]
         path_launches.append(phase_device_levenshtein())
         phase_threshold(bench[5])
         long_launches, long_rate, long_head = phase_long_reads(workdir, pool)
         path_launches += [long_launches, phase_inversion(pool)]
         long_reads_head_check(long_head)
+        panel_head_check(panel)
     for n in path_launches:
         for k in KERNELS:
             launches[k] += n[k]

@@ -171,6 +171,13 @@ def load() -> ctypes.CDLL:
         lib.clique_edit_hits.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, vp,
                                          ci, ci, ci, ci, ctypes.c_double, vp,
                                          vp, ll, vp]
+        cf = ctypes.c_float
+        lib.clique_hmm_forward_scratch_floats.restype = ll
+        lib.clique_hmm_forward_scratch_floats.argtypes = [ci, ci]
+        lib.clique_hmm_forward.restype = ci
+        lib.clique_hmm_forward.argtypes = [vp, ci, vp, ci, vp, vp, cf, cf, cf,
+                                           cf, cf, cf, cf, vp, vp, ci, ci, ci,
+                                           vp]
         _lib, _info = lib, info
         return lib
 

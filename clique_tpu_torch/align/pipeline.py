@@ -11,11 +11,12 @@ that a diff between the two reads easily. What differs:
   workarounds (batch pad-up to a compiled shape, the wave, fetch-fuse,
   the device mesh) are gone.
 - align_reads runs the dp engine with the kmer router (single reference,
-  kmer vote, exhaustive search), a full or partial band, and the anchored
-  seed-and-extend path for long reads. Options not ported yet raise
-  NotImplementedError naming their ROADMAP.md item: --engine wfa/convex,
-  --router hmm over several references, a profiler trace and read
-  sharding across processes.
+  kmer vote, exhaustive search) or the pair-HMM router (align/hmm.py, its
+  forward recurrence a hand-written kernel), a full or partial band, the
+  anchored seed-and-extend path for long reads, and a torch.profiler trace
+  (profile_dir). Options not ported yet raise NotImplementedError naming
+  their ROADMAP.md item: --engine wfa/convex and read sharding across
+  processes.
 - BatchAligner splits a length bucket into groups whose traceback stays
   within batch.MAX_TRACEBACK_BYTES (the JAX package pads groups up
   instead); outputs do not change.
@@ -37,6 +38,7 @@ rm = reference alignment rate, as/rs = alignment score.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass
 from decimal import Decimal
@@ -59,7 +61,7 @@ from clique_tpu_torch.io.sam import SamRecord, open_alignment_writer
 from clique_tpu_torch.reference.manager import ReferenceManager, orient_by_longest_segment
 from clique_tpu_torch.utils.seq import GAP, reverse_complement
 from clique_tpu_torch.align import batch as dbatch
-from clique_tpu_torch.align import dp_kernels
+from clique_tpu_torch.align import dp_kernels, hmm
 
 log = logging.getLogger(__name__)
 
@@ -67,11 +69,8 @@ log = logging.getLogger(__name__)
 # the ROADMAP.md Queue 1 item that ports each capability the JAX pipeline
 # has and this one refuses (the CLI names them too)
 ROADMAP_ITEMS = {
-    "profiling": "7 (bench.py and profiling on the port)",
-    "hmm": "9 (align/hmm.py)",
     "wavefront": "10 (align/wavefront.py)",
     "parallel": "11 (parallel/)",
-    "collapse_workers": "13 (collapse/workers.py)",
 }
 
 
@@ -444,8 +443,9 @@ def _align_reads_impl(
 
     mode: "ont" (reference-compatible scoring) or "hifi" (PacBio low-error
     preset, BASELINE config 2). router: "kmer" (unique-kmer vote, the
-    reference's quick_alignment_search); "hmm" is accepted only with a
-    single reference, where no routing happens.
+    reference's quick_alignment_search) or "hmm" (pair-HMM forward routing
+    over several references, align/hmm.py, on `device`; with one
+    reference nothing is routed).
 
     anchored_min_length: reads at least this long (and passing the
     max_reference_multiplier gate) take the anchored seed-and-extend path:
@@ -459,8 +459,12 @@ def _align_reads_impl(
     band, as every reference call site passes.
 
     engine: "dp" (or None), the exact 3-plane affine DP. "wfa" and
-    "convex" (align/wavefront.py) are not ported and raise, as do
-    profile_dir and read_shard.
+    "convex" (align/wavefront.py) are not ported and raise, as does
+    read_shard.
+
+    profile_dir: a torch.profiler trace of the run (CPU activity, and the
+    card's with a CUDA device), written there as a Chrome trace when the
+    run ends; the span of the JAX package's jax.profiler.trace.
 
     sink: optional CollapseSink (chain.py), the fused chain's
     tap on the record stream: a sink thread feeds it every flush in BAM
@@ -475,17 +479,17 @@ def _align_reads_impl(
         engine = "dp"
     if engine != "dp":
         _unported(f"engine={engine!r}", "wavefront")
-    if router == "hmm" and len(rm.references) > 1:
-        _unported("router='hmm' over several references", "hmm")
-    elif router not in ("kmer", "hmm"):
+    if router not in ("kmer", "hmm"):
         raise ValueError(f"unknown router {router!r}")
-    if profile_dir:
-        _unported("profile_dir", "profiling")
     if read_shard is not None:
         _unported("read_shard", "parallel")
     if scoring is None:
         scoring = AffineScoring.hifi_default() if mode == "hifi" \
             else AffineScoring.aligner_default()
+    hmm_router = None
+    if router == "hmm" and len(rm.references) > 1:
+        hmm_router = hmm.HmmRouter(
+            [r.sequence for r in rm.references.values()], device=device)
     stats = AlignStats()
     flush_factor = FLUSH_FACTOR
     max_read_size = (rm.longest_ref + 1) * max_reference_multiplier
@@ -502,7 +506,10 @@ def _align_reads_impl(
         report_zero_score = False
     merge_aligner = BatchAligner(MERGE_SCORING, batch_size, device=device)
     launches0 = (dp_kernels.align_launches,
-                 dict(dp_kernels.fill_mode_launches))
+                 dict(dp_kernels.fill_mode_launches),
+                 hmm.hmm_forward_launches)
+
+    profiler = _start_profiler(profile_dir, aligner.device)
 
     references = [(r.name, len(r.sequence)) for r in rm.references.values()]
     writer = open_alignment_writer(output_path, references)
@@ -735,6 +742,7 @@ def _align_reads_impl(
     pending: List[_Pending] = []
     merge_pending: List[Tuple[str, bytes, bytes, bytes, bytes]] = []
     exh_pending: List[Tuple[str, bytes, bytes, List[int]]] = []
+    route_pending: List[Tuple[str, bytes, bytes]] = []
 
     def flush_exhaustive():
         """Batched exhaustive search: every (candidate ref, read) pair of every
@@ -770,6 +778,20 @@ def _align_reads_impl(
         stats.aligned += len(exh_pending)
         exh_pending.clear()
 
+    def flush_routes():
+        if not route_pending:
+            return
+        routed = hmm_router.route([seq for _n, seq, _q in route_pending])
+        for (name, seq, quals), (ref_id, _ll) in zip(route_pending, routed):
+            if ref_id < 0:
+                stats.failed += 1
+                continue
+            pending.append(_Pending(name, seq, quals, ref_id))
+        route_pending.clear()
+        if len(pending) >= batch_size * flush_factor:
+            flush(pending)
+            pending.clear()
+
     def process_merged(name: str, seq: bytes, quals: bytes):
         if len(seq) >= max_read_size:
             log.warning(
@@ -787,6 +809,11 @@ def _align_reads_impl(
                 "Dropped read %s as its length %d is below the minimum "
                 "read length %d", name, len(seq), min_read_length)
             stats.dropped_short += 1
+            return
+        if hmm_router is not None:
+            route_pending.append((name, seq, quals))
+            if len(route_pending) >= batch_size * 4:
+                flush_routes()
             return
         ref_id = _choose_reference(rm, layout, seq, quick_match_threshold)
         if ref_id is None:
@@ -864,6 +891,8 @@ def _align_reads_impl(
 
     t_tail = time.time()
     flush_merges()
+    if hmm_router is not None:
+        flush_routes()
     flush_exhaustive()
     flush(pending)
     phase["tail_wall"] = time.time() - t_tail
@@ -887,6 +916,8 @@ def _align_reads_impl(
         from clique_tpu_torch.io.sam import write_cqi
 
         write_cqi(output_path, writer.chunk_offsets)
+    if profiler is not None:
+        _stop_profiler(profiler, profile_dir)
     elapsed = time.time() - start
     log.info("Aligned %d/%d reads in %.1fs", stats.aligned, stats.total,
              elapsed)
@@ -931,7 +962,9 @@ def _align_reads_impl(
                     "dp_align": dp_kernels.align_launches - launches0[0],
                     "dp_fill_modes": {
                         k: v - launches0[1][k] for k, v in
-                        dp_kernels.fill_mode_launches.items()}},
+                        dp_kernels.fill_mode_launches.items()},
+                    "hmm_forward": hmm.hmm_forward_launches - launches0[2]},
+                "router": "hmm" if hmm_router is not None else "kmer",
                 "bandwidth": bandwidth,
                 # the anchored path: its reads, their inter-anchor sub-DPs,
                 # the DP cells those filled and its aligner's device wait
@@ -944,6 +977,30 @@ def _align_reads_impl(
                     if inner else 0.0},
             }, fh, indent=2)
     return stats
+
+
+def _start_profiler(profile_dir: Optional[str], device: torch.device):
+    """A running torch.profiler over the CPU and, on a CUDA device, the
+    card (the JAX package's jax.profiler.trace span), or None."""
+    if not profile_dir:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str) -> None:
+    """Stop the profiler and write its Chrome trace into profile_dir."""
+    prof.stop()
+    path = os.path.join(profile_dir, f"align.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("wrote a torch.profiler trace to %s", path)
 
 
 def _choose_reference(rm: ReferenceManager, layout: SequenceLayout,

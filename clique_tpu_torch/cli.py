@@ -15,21 +15,19 @@ import logging
 import sys
 
 # per verb: flag -> (is it set to an unported value?, key of
-# align.pipeline.ROADMAP_ITEMS). `--router hmm` is not here: it is ported
-# for a single reference, where no routing happens, and align_reads
-# refuses it over several once it has read the layout.
+# align.pipeline.ROADMAP_ITEMS): the wavefront engines and the
+# multi-process runs. Everything else, `--router hmm`, `--profile-dir` and
+# `collapse --threads N` included, runs.
 _ALIGN_UNPORTED = {
     "--engine wfa|convex": (lambda a: a.engine in ("wfa", "convex"),
                             "wavefront"),
     "--distributed-world > 1": (lambda a: a.distributed_world > 1,
                                 "parallel"),
-    "--profile-dir": (lambda a: a.profile_dir is not None, "profiling"),
 }
 _UNPORTED = {
     "align": _ALIGN_UNPORTED,
     "run": {"--engine wfa|convex": _ALIGN_UNPORTED["--engine wfa|convex"]},
     "collapse": {
-        "--threads > 1": (lambda a: a.threads > 1, "collapse_workers"),
         "--distributed-world > 1": (lambda a: a.distributed_world > 1,
                                     "parallel"),
     },
@@ -76,12 +74,13 @@ def main(argv=None) -> int:
                               "hifi (PacBio low-error)")
     p_align.add_argument("--router", default="kmer", choices=["kmer", "hmm"],
                          help="multi-reference routing: unique-kmer vote "
-                              "(hmm over several references is not "
-                              "ported)")
+                              "or pair-HMM forward likelihood (on "
+                              "--device)")
     p_align.add_argument("--metrics", default=None,
                          help="write per-stage JSON metrics to this path")
     p_align.add_argument("--profile-dir", default=None,
-                         help="not ported")
+                         help="write a torch.profiler Chrome trace of the "
+                              "run (host, and the card's activity) here")
     p_align.add_argument("--kmer-size", type=int, default=8,
                          help="reference routing kmer size (main.rs:271 "
                               "hardcodes 8)")
@@ -113,8 +112,9 @@ def main(argv=None) -> int:
     p_collapse.add_argument("--output-bam-file", required=True)
     p_collapse.add_argument("--read-structure", required=True)
     p_collapse.add_argument("--threads", type=int, default=1,
-                            help="values above 1 (the worker pool) are not "
-                                 "ported")
+                            help="host worker processes (ingest and "
+                                 "consensus); the corrections stay on "
+                                 "--device")
     p_collapse.add_argument("--temp-dir", default="NONE")
     p_collapse.add_argument("--input-bam-file", required=True)
     # accepted-and-ignored like the reference (main.rs:228)
@@ -177,7 +177,7 @@ def main(argv=None) -> int:
                        choices=["auto", "dp", "wfa", "convex"],
                        help="auto = dp; wfa and convex are not ported")
     p_run.add_argument("--router", default="kmer", choices=["kmer", "hmm"],
-                       help="hmm over several references is not ported")
+                       help="multi-reference routing: kmer vote or pair-HMM")
     p_run.add_argument("--correct-only", action="store_true")
     p_run.add_argument("--downsample-cap", type=int, default=40)
     p_run.add_argument("--min-aligned-bases", type=int, default=45)
@@ -239,6 +239,7 @@ def _run(args) -> int:
             quick_match_threshold=args.quick_match_threshold,
             anchored_min_length=args.anchored_min_length,
             metrics_path=args.metrics,
+            profile_dir=args.profile_dir,
             bandwidth=args.bandwidth,
             device=args.device,
         )
@@ -261,6 +262,7 @@ def _run(args) -> int:
             gap_call_threshold=args.gap_call_threshold,
             downsample_cap=args.downsample_cap,
             shards=args.shards,
+            n_workers=args.threads,
             device=args.device,
         )
         return 0

@@ -30,6 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from clique_tpu_torch.utils.seq import normalize_tag
+
 from clique_tpu_torch.collapse.distance import (
     EDIT_HITS_MAX_LEN,
     candidate_pairs_array,
@@ -74,15 +76,6 @@ def tag_consensus(seqs) -> bytes:
         real = [b for b in best if b not in (ord("N"), GAP)]
         out.append(real[0] if real else best[0])
     return bytes(out)
-
-
-def normalize_tag(tag: bytes, length: int) -> bytes:
-    """Gap-strip then right-pad with '-' to `length` (longer tags keep their
-    length). Mirrors clique_tpu/collapse/correct.py:65-71."""
-    stripped = tag.replace(b"-", b"")
-    if len(stripped) < length:
-        return stripped.ljust(length, b"-")
-    return stripped
 
 
 def correct_known_hamming(counts: Dict[bytes, int], allowlist: List[bytes],

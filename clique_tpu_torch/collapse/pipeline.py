@@ -23,8 +23,10 @@ Per level (= one UMIConfiguration, in `order`):
 
 Finally each equal-key group is collapsed through the stretcher column
 consensus (consensus/stretcher.py) or passed through with --correct-only.
-The host-parallel worker pool (n_workers > 1, clique_tpu's
-collapse/workers.py) is not ported and raises.
+n_workers > 1 hands the run to the host worker pool (collapse/workers.py).
+The pool's processes import this module, so it loads torch and the
+distance kernels (collapse/correct.py, collapse/distance.py) only inside
+the functions that run corrections: a worker never imports torch.
 """
 
 from __future__ import annotations
@@ -38,13 +40,6 @@ from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
-from clique_tpu_torch.collapse import distance
-from clique_tpu_torch.collapse.correct import (
-    correct_degenerate_groups,
-    correct_known_hamming,
-    correct_known_levenshtein,
-    normalize_tag,
-)
 from clique_tpu_torch.config.layout import (
     SequenceLayout,
     UMIConfiguration,
@@ -62,7 +57,7 @@ from clique_tpu_torch.extract.extractor import (
 )
 from clique_tpu_torch.io.sam import BamReader, SamRecord, open_alignment_writer
 from clique_tpu_torch.reference.manager import ReferenceManager
-from clique_tpu_torch.utils.seq import FASTA_N, GAP
+from clique_tpu_torch.utils.seq import FASTA_N, GAP, normalize_tag
 
 log = logging.getLogger(__name__)
 
@@ -824,6 +819,8 @@ def sort_level(reads: List[SortingRead], tag: UMIConfiguration,
     threaded by the previous level (== grouping by (reference,
     key_tuple())), in first-seen order. Mirrors
     clique_tpu/collapse/pipeline.py:500-563."""
+    from clique_tpu_torch.collapse.correct import correct_degenerate_groups
+
     grouped: Dict[int, List[SortingRead]] = {}
     for r in reads:
         grouped.setdefault(r.gid, []).append(r)
@@ -883,6 +880,7 @@ def sort_level_spill(in_dir, tag: UMIConfiguration,
     2 streams again, applies the correction maps per read and respills.
     Only tag counters and correction maps stay in RAM. Returns (reads_in,
     reads_out). Mirrors clique_tpu/collapse/pipeline.py:578-627."""
+    from clique_tpu_torch.collapse.correct import correct_degenerate_groups
     from clique_tpu_torch.collapse.shards import ShardWriter, iter_items
 
     counts_by_bin: Dict[Tuple, Counter] = {}
@@ -926,6 +924,8 @@ def _known_correction(counts: Counter, tag: UMIConfiguration,
     to the Levenshtein correction, false to Hamming (the JAX package's
     deliberate routing of None, see its docstring). Mirrors
     clique_tpu/collapse/pipeline.py:667-699."""
+    from clique_tpu_torch.collapse import correct
+
     allow = known_lists.get(tag.file or "", [])
     if not allow:
         # KnownTag without an allowlist file: tags pass through uncorrected
@@ -935,9 +935,9 @@ def _known_correction(counts: Counter, tag: UMIConfiguration,
         return {normalize_tag(t, tag.length): normalize_tag(t, tag.length)
                 for t in counts}
     if tag.levenshtein_distance is None or tag.levenshtein_distance:
-        return correct_known_levenshtein(
+        return correct.correct_known_levenshtein(
             counts, allow, tag.max_distance, tag.length, device=device)
-    return correct_known_hamming(
+    return correct.correct_known_hamming(
         counts, allow, tag.max_distance, tag.length, device=device)
 
 
@@ -999,28 +999,52 @@ def _collapse_impl(output_path: str, layout: SequenceLayout, input_bam: str,
                    shards: Optional[int] = None,
                    device="cuda") -> CollapseStats:
     """The `clique collapse` equivalent. Mirrors
-    clique_tpu/collapse/pipeline.py:1061-1268 for one process: the in-RAM
-    path, the out-of-core path (`out_of_core`, or switched on for inputs
-    over 4 GB and for layouts whose maximum_subsequences cap can bind) and
+    clique_tpu/collapse/pipeline.py:1061-1268: the in-RAM path, the
+    out-of-core path (`out_of_core`, or switched on for inputs over 4 GB
+    and for layouts whose maximum_subsequences cap can bind) and
     checkpoint/resume (`checkpoint`, under `temp_dir`). Out-of-core output
     groups equal the in-RAM path's, ordered by shard rather than by a
     global key sort.
 
+    n_workers > 1 (without checkpoint) runs the host worker pool
+    (collapse/workers.py): collapse_parallel_spill for inputs over 4 GB,
+    layouts with a maximum_subsequences cap and out_of_core, else
+    collapse_parallel; the corrections stay in this process, on `device`.
+
     device: where the distance kernels run ("cuda", "cuda:N" or "cpu"); a
-    CUDA device without a GPU raises before any work. n_workers > 1 (the
-    JAX package's host-parallel pool) is not ported and raises.
+    CUDA device without a GPU raises before any work.
 
     The metrics JSON (collapse_metrics.json) carries the shared fields plus
     `device` and the kernel launches of this run."""
-    if n_workers and n_workers > 1:
-        from clique_tpu_torch.align.pipeline import unported_message
+    from clique_tpu_torch.collapse import distance
 
-        raise NotImplementedError(unported_message(
-            "n_workers > 1 (collapse --threads > 1)", "collapse_workers"))
     dev = distance.resolve_device(device)
-    launches0 = (distance.match_hits_launches,
-                 distance.edit_distance_launches,
-                 distance.edit_hits_launches)
+    if n_workers and n_workers > 1 and not checkpoint:
+        try:
+            big = os.path.getsize(input_bam) > 4 << 30
+        except OSError:
+            big = False
+        caps = any(cfg.maximum_subsequences is not None
+                   for ref in layout.references.values()
+                   for cfg in ref.umi_configurations.values())
+        kw = dict(temp_dir=temp_dir, correct_only=correct_only,
+                  downsample_cap=downsample_cap, metrics_path=metrics_path,
+                  n_workers=n_workers, min_aligned_bases=min_aligned_bases,
+                  min_identical=min_identical,
+                  gap_call_threshold=gap_call_threshold, device=dev)
+        if big or caps or out_of_core:
+            # workers + spill unified: the shard-parallel streaming
+            # path honors maximum_subsequences (O(1) per-bin residency)
+            # while every stage still fans out over the pool
+            from clique_tpu_torch.collapse.workers import (
+                collapse_parallel_spill)
+
+            return collapse_parallel_spill(output_path, layout, input_bam,
+                                           shards=shards, **kw)
+        from clique_tpu_torch.collapse.workers import collapse_parallel
+
+        return collapse_parallel(output_path, layout, input_bam, **kw)
+    launches0 = launch_counts()
 
     rm = ReferenceManager.from_layout(layout)
     known_lists = load_known_lists(layout)
@@ -1153,11 +1177,22 @@ def _collapse_impl(output_path: str, layout: SequenceLayout, input_bam: str,
     return stats
 
 
+def launch_counts() -> Tuple[int, int, int]:
+    """The distance kernels' launch counters (match_hits, edit_distance,
+    edit_hits), for add_device_metrics."""
+    from clique_tpu_torch.collapse import distance
+
+    return (distance.match_hits_launches, distance.edit_distance_launches,
+            distance.edit_hits_launches)
+
+
 def add_device_metrics(metrics: dict, dev, launches0) -> None:
     """The port's fields of the collapse metrics JSON: the device the
     distance kernels ran on and their launches since `launches0` (0 on a
     CPU device, where the plain versions run)."""
     import torch
+
+    from clique_tpu_torch.collapse import distance
 
     metrics["device"] = torch.cuda.get_device_name(dev) \
         if dev.type == "cuda" else "cpu"

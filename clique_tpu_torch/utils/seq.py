@@ -151,6 +151,16 @@ def strip_gaps(seq):
     return out
 
 
+def normalize_tag(tag: bytes, length: int) -> bytes:
+    """Gap-strip then right-pad with '-' to `length` (longer tags keep their
+    length). Mirrors clique_tpu/collapse/correct.py:65-71; here so that the
+    collapse worker processes reach it without importing torch."""
+    stripped = tag.replace(b"-", b"")
+    if len(stripped) < length:
+        return stripped.ljust(length, b"-")
+    return stripped
+
+
 def pad_right(seq: bytes, target_len: int, pad_byte: int) -> bytes:
     """Resize to target_len, padding with pad_byte — and, like Vec::resize,
     TRUNCATING when target_len is shorter (read_utils.rs:44-48)."""

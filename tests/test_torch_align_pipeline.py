@@ -209,7 +209,6 @@ def test_bench_shaped_two_reference_matches_jax(tmp_path):
 UNPORTED = {
     "engine_wfa": dict(engine="wfa"),
     "engine_convex": dict(engine="convex"),
-    "profile_dir": dict(profile_dir="trace"),
     "read_shard": dict(read_shard=(0, 2)),
 }
 # options the port once refused and now runs: their parity with the JAX
@@ -246,28 +245,76 @@ def test_ported_options_match_jax(option, tmp_path):
         os.path.join(gd, "aligned.bam"))
 
 
-def test_hmm_router_over_several_references_raises(tmp_path):
-    layout, rm, fq = _bench_shaped(tmp_path, n_reads=8)
-    with pytest.raises(NotImplementedError, match="hmm"):
-        align_reads(layout, rm, str(tmp_path / "x.bam"), read1=fq,
-                    router="hmm", device="cpu")
+def test_hmm_router_over_several_references_matches_jax(tmp_path):
+    """router="hmm" over the two bench-shaped amplicons (chimeras
+    included): the same stats and BAM bytes as the JAX package's."""
+    layout, rm, fq = _bench_shaped(tmp_path, n_reads=48)
+    out_t, out_j = str(tmp_path / "t.bam"), str(tmp_path / "j.bam")
+    stats_t = align_reads(layout, rm, out_t, read1=fq, batch_size=8,
+                          router="hmm", device="cpu")
+    stats_j = jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"),
+                              out_j, read1=fq, batch_size=8, router="hmm")
+    assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
+    assert stats_t.aligned == stats_t.total == 48
+    assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
+
+
+def test_cli_align_router_hmm_two_references(tmp_path):
+    """`align --router hmm` on a two-reference layout exits 0 and writes
+    the library call's bytes."""
+    layout, rm, fq = _bench_shaped(tmp_path, n_reads=16)
+    out = tmp_path / "cli.bam"
+    assert cli.main(["align", "--read-structure",
+                     str(tmp_path / "layout.yaml"), "--read1", fq,
+                     "--output-bam-file", str(out), "--batch-size", "8",
+                     "--device", "cpu", "--router", "hmm"]) == 0
+    lib = str(tmp_path / "lib.bam")
+    align_reads(layout, rm, lib, read1=fq, batch_size=8, router="hmm",
+                device="cpu")
+    assert _inflate_bgzf(str(out)) == _inflate_bgzf(lib)
+
+
+def _trace_files(d):
+    return sorted(p for p in os.listdir(d) if p.endswith(".pt.trace.json"))
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """profile_dir: a torch.profiler Chrome trace of the run appears there
+    (CPU activity on a CPU device), the BAM still equals the pin."""
+    import json
+
+    mg = _load_make_golden()
+    gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    out, trace = str(tmp_path / "p.bam"), tmp_path / "trace"
+    align_reads(layout, rm, out, read1=r1, batch_size=16, device="cpu",
+                profile_dir=str(trace))
+    files = _trace_files(trace)
+    assert len(files) == 1
+    with open(trace / files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
+    assert _inflate_bgzf(out) == _inflate_bgzf(os.path.join(gd, "aligned.bam"))
+
+
+def test_cli_align_profile_dir(tmp_path):
+    mg = _load_make_golden()
+    _gd, _layout, _rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    assert cli.main(["align", "--read-structure",
+                     str(tmp_path / "layout.yaml"), "--read1", r1,
+                     "--output-bam-file", str(tmp_path / "x.bam"),
+                     "--batch-size", "16", "--device", "cpu",
+                     "--profile-dir", str(tmp_path / "trace")]) == 0
+    assert len(_trace_files(tmp_path / "trace")) == 1
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "wfa"], ["--engine", "convex"], ["--router", "hmm"],
-    ["--distributed-world", "2"], ["--profile-dir", "trace"],
+    ["--engine", "wfa"], ["--engine", "convex"],
+    ["--distributed-world", "2"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_unported_flags_exit(flags, tmp_path, capsys):
     mg = _load_make_golden()
     _gd, _layout, _rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
     layout = tmp_path / "layout.yaml"
-    if "hmm" in flags:
-        # the HMM router is unported over several references only: the
-        # CLI exits once align_reads has read the layout
-        wd = tmp_path / "two_refs"
-        wd.mkdir()
-        _layout, _rm, r1 = _bench_shaped(wd, n_reads=8)
-        layout = wd / "layout.yaml"
     with pytest.raises(SystemExit) as exc:
         cli.main(["align", "--read-structure", str(layout), "--read1", r1,
                   "--output-bam-file", str(tmp_path / "x.bam"),
@@ -275,7 +322,7 @@ def test_cli_unported_flags_exit(flags, tmp_path, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err
-    assert "item 9" in err or "hmm" not in flags
+    assert "item 10" in err or "item 11" in err
     assert not os.path.exists(tmp_path / "x.bam")
 
 

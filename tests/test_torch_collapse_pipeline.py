@@ -308,11 +308,9 @@ def test_cli_run_golden(flags, tmp_path):
 
 
 @pytest.mark.parametrize("verb,flags,item", [
-    ("collapse", ["--threads", "2"], "item 13"),
     ("collapse", ["--distributed-world", "2"], "item 11"),
     ("run", ["--engine", "wfa"], "item 10"),
-    ("run", ["--router", "hmm"], "item 9"),
-], ids=["collapse_threads", "collapse_distributed", "run_wfa", "run_hmm"])
+], ids=["collapse_distributed", "run_wfa"])
 def test_cli_unported_flags_exit(verb, flags, item, tmp_path, capsys):
     gd, layout, r1 = _cli_golden(tmp_path)
     if verb == "collapse":
@@ -320,12 +318,6 @@ def test_cli_unported_flags_exit(verb, flags, item, tmp_path, capsys):
                 os.path.join(gd, "aligned.bam"), "--output-bam-file",
                 str(tmp_path / "c.bam")]
     else:
-        if "hmm" in flags:
-            # the HMM router is unported over several references only
-            wd = tmp_path / "two_refs"
-            wd.mkdir()
-            _layout, _rm, r1 = _bench_shaped(wd, n_reads=8)
-            layout = str(wd / "layout.yaml")
         argv = ["run", "--read-structure", layout, "--read1", r1,
                 "--aligned-bam-file", str(tmp_path / "a.bam"),
                 "--output-bam-file", str(tmp_path / "c.bam")]
@@ -337,12 +329,46 @@ def test_cli_unported_flags_exit(verb, flags, item, tmp_path, capsys):
     assert not os.path.exists(tmp_path / "c.bam")
 
 
-def test_collapse_worker_pool_raises(tmp_path):
+def test_collapse_worker_pool_gives_the_pin(tmp_path):
+    """n_workers = 2 on golden: the worker pool's output is the pinned
+    collapsed BAM, byte for byte (groups in the in-RAM path's order)."""
     mg = _load_make_golden()
     gd, layout, _rm, _r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        collapse(str(tmp_path / "c.bam"), layout,
-                 os.path.join(gd, "aligned.bam"), n_workers=2, device="cpu")
+    out = str(tmp_path / "c.bam")
+    collapse(out, layout, os.path.join(gd, "aligned.bam"),
+             temp_dir=str(tmp_path), n_workers=2, device="cpu")
+    assert _inflate_bgzf(out) == _inflate_bgzf(
+        os.path.join(gd, "collapsed.bam"))
+
+
+def test_cli_collapse_threads_golden(tmp_path):
+    """`collapse --threads 2` on golden: exit 0 and the pin."""
+    gd, layout, _r1 = _cli_golden(tmp_path)
+    out = str(tmp_path / "c.bam")
+    assert cli.main(["collapse", "--read-structure", layout,
+                     "--input-bam-file", os.path.join(gd, "aligned.bam"),
+                     "--output-bam-file", out, "--threads", "2",
+                     "--temp-dir", str(tmp_path), "--device", "cpu"]) == 0
+    assert _inflate_bgzf(out) == _inflate_bgzf(
+        os.path.join(gd, "collapsed.bam"))
+
+
+def test_cli_run_router_hmm_two_references(tmp_path):
+    """`run --router hmm` over two references: exit 0, its aligned BAM the
+    HMM-routed align's and its collapsed BAM the two-stage chain's."""
+    layout, rm, fq = _bench_shaped(tmp_path, n_reads=24)
+    lpath = str(tmp_path / "layout.yaml")
+    a, c = str(tmp_path / "a.bam"), str(tmp_path / "c.bam")
+    assert cli.main(["run", "--read-structure", lpath, "--read1", fq,
+                     "--aligned-bam-file", a, "--output-bam-file", c,
+                     "--batch-size", "8", "--router", "hmm",
+                     "--device", "cpu"]) == 0
+    a2, c2 = str(tmp_path / "a2.bam"), str(tmp_path / "c2.bam")
+    align_reads(layout, rm, a2, read1=fq, batch_size=8, router="hmm",
+                device="cpu")
+    collapse(c2, layout, a2, device="cpu")
+    assert _inflate_bgzf(a) == _inflate_bgzf(a2)
+    assert _inflate_bgzf(c) == _inflate_bgzf(c2)
 
 
 def test_collapse_on_cuda_without_a_gpu_raises(tmp_path):

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (the fused global fill + walk in every
 mode, the fused local fill + walk, the fused Hamming hit search, edit
-distance and the edit-hit search) against
+distance, the edit-hit search and the pair-HMM forward recurrence) against
 their plain PyTorch versions, on CUDA tensors, and the paths that run them
 (align_reads with a band and with long reads, the inversion batch) against
 the CPU. The fused kernel is held to walk_reference(fill_reference(...)):
@@ -11,7 +11,8 @@ Needs an NVIDIA GPU with nvcc; run there with
 
 Elsewhere every test skips (the `cuda` fixture decides, at run time).
 Tolerance: exact equality of every byte (all DP decisions are exact, and
-the tag distances are integers).
+the tag distances are integers), except the pair-HMM log-likelihoods
+(rtol 1e-5, atol 1e-3: see HMM_RTOL).
 """
 
 import os
@@ -596,3 +597,136 @@ def test_collapse_golden_on_cuda(cuda, tmp_path):
     call_events_from_bam(layout, out, tsv, min_read_count=1)
     with open(tsv) as f1, open(os.path.join(gd, "alleles.tsv")) as f2:
         assert f1.read() == f2.read()
+
+
+# --- the pair-HMM forward kernel (csrc/hmm_forward.cu) -----------------------
+# Tolerance: rtol 1e-5 and atol 1e-3 on log-likelihoods of -10^1 to -10^4.
+# Both versions take the same f32 terms and the JAX package's order of
+# operations; CUDA's precise expf / logf are within 1-2 ulp of PyTorch's,
+# and those ulps accumulate over a pair's cells.
+
+HMM_RTOL, HMM_ATOL = 1e-5, 1e-3
+
+
+def _hmm_pairs(seed, B, n1, n2):
+    rng = np.random.default_rng(seed)
+    refs = rng.choice(ALPHABET, (B, n1 - 1)).astype(np.uint8)
+    reads = np.zeros((B, n2 - 1), np.uint8)
+    l1 = rng.integers(0, n1, B).astype(np.int32)
+    l2 = rng.integers(0, n2, B).astype(np.int32)
+    for i in range(B):
+        src = refs[i, :min(l1[i], n2 - 1)].copy()
+        sub = rng.random(len(src)) < 0.08
+        src[sub] = rng.choice(np.frombuffer(b"ACGTN", np.uint8), sub.sum())
+        reads[i, :len(src)] = src
+        reads[i, len(src):] = rng.choice(ALPHABET, n2 - 1 - len(src))
+    l1[0], l2[0] = n1 - 1, n2 - 1
+    if B > 4:
+        l1[1], l2[2] = 0, 0
+        l1[3] = l2[3] = 0
+    return refs, reads, l1, l2
+
+
+@pytest.mark.parametrize("shape", [
+    (64, 251, 251), (1024, 251, 251), (5, 6601, 64), (1, 2, 2), (33, 385, 40),
+    (7, 40, 1200),
+], ids=["B64", "B1024", "rows_6600", "one_cell", "two_bands", "long_reads"])
+def test_hmm_forward_kernel_matches_plain(cuda, shape):
+    from clique_tpu_torch.align import hmm as thmm
+
+    B, n1, n2 = shape
+    args = [torch.from_numpy(a).to(cuda) for a in _hmm_pairs(5, B, n1, n2)]
+    p = torch.from_numpy(thmm.default_hmm_params()).to(cuda)
+    n = thmm.hmm_forward_launches
+    got = thmm.hmm_forward_batch(*args, p)
+    torch.cuda.synchronize()
+    assert thmm.hmm_forward_launches == n + 1
+    want = thmm.hmm_forward_batch_reference(*args, p)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=HMM_RTOL, atol=HMM_ATOL)
+
+
+def test_hmm_forward_kernel_marks_bad_lengths(cuda):
+    from clique_tpu_torch.align import hmm as thmm
+
+    t = torch.full((3, 20), ord("A"), dtype=torch.uint8, device=cuda)
+    l1 = torch.tensor([5, 21, 4], dtype=torch.int32, device=cuda)
+    l2 = torch.tensor([5, 3, -1], dtype=torch.int32, device=cuda)
+    p = torch.from_numpy(thmm.default_hmm_params()).to(cuda)
+    got = thmm.hmm_forward_batch(t, t, l1, l2, p).cpu()
+    assert torch.isfinite(got[0]) and torch.isnan(got[1:]).all()
+
+
+def test_hmm_router_on_cuda_equals_cpu(cuda):
+    """One launch a route call; the same routes as the CPU wherever a
+    read's two best LLs differ by more than the tolerance."""
+    from clique_tpu_torch.align import hmm as thmm
+
+    rng = np.random.default_rng(21)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    backbone = rng.choice(bases, 230)
+    refs = []
+    for _ in range(24):
+        r = backbone.copy()
+        r[100:120] = rng.choice(bases, 20)
+        refs.append(r.tobytes())
+    reads = []
+    for i in range(96):
+        r = np.frombuffer(refs[i % 24], np.uint8).copy()
+        sub = rng.random(len(r)) < 0.05
+        r[sub] = rng.choice(bases, sub.sum())
+        reads.append(r.tobytes())
+    n = thmm.hmm_forward_launches
+    got = thmm.HmmRouter(refs, device="cuda").route(reads)
+    assert thmm.hmm_forward_launches == n + 1
+    want = thmm.HmmRouter(refs, device="cpu").route(reads)
+    assert [r for r, _ in got] == [r for r, _ in want]
+    np.testing.assert_allclose([ll for _, ll in got], [ll for _, ll in want],
+                               rtol=HMM_RTOL, atol=HMM_ATOL)
+    assert sum(r == i % 24 for i, (r, _) in enumerate(got)) >= 90
+
+
+def test_align_router_hmm_on_cuda_equals_cpu(cuda, tmp_path):
+    """align_reads(router="hmm") over two references on the card gives
+    the CPU's BAM, launching hmm_forward and dp_align."""
+    from test_torch_align_pipeline import _bench_shaped, _inflate_bgzf
+
+    from clique_tpu_torch.align import hmm as thmm
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    layout, rm, fq = _bench_shaped(tmp_path, n_reads=96)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.bam")
+        n = (thmm.hmm_forward_launches, dp_kernels.align_launches)
+        align_reads(layout, rm, out, read1=fq, batch_size=16, router="hmm",
+                    device=device)
+        if device == "cuda":
+            assert thmm.hmm_forward_launches > n[0]
+            assert dp_kernels.align_launches > n[1]
+        outs[device] = _inflate_bgzf(out)
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_collapse_workers_on_cuda(cuda, tmp_path):
+    """collapse with two workers on the card: the pin's bytes, the
+    corrections launched in the main process, no worker with CUDA."""
+    import json
+
+    from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
+                                           _load_make_golden)
+
+    from clique_tpu_torch.collapse.pipeline import collapse
+
+    gd, layout, _rm, _r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
+                                               tmp_path)
+    out = str(tmp_path / "collapsed.bam")
+    collapse(out, layout, os.path.join(gd, "aligned.bam"),
+             temp_dir=str(tmp_path), n_workers=2, device="cuda")
+    assert _inflate_bgzf(out) == _inflate_bgzf(os.path.join(gd,
+                                                            "collapsed.bam"))
+    with open(out + ".collapse_metrics.json") as fh:
+        m = json.load(fh)
+    assert m["kernel_launches"]["match_hits"] > 0
+    assert m["workers"] and not any(w["cuda_initialized"]
+                                    for w in m["workers"])

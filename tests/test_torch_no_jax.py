@@ -2,8 +2,9 @@
 interpreter with `jax`, `jaxlib` and `clique_tpu` blocked imports
 clique_tpu_torch, aligns the golden reads on the CPU (full band, a partial
 band, every read on the anchored path, and the fused align + collapse +
-call), reproduces the pinned outputs or the JAX package's, and loads
-neither a jax module nor one of the JAX package. An AST scan holds every
+call), routes a two-amplicon panel with `--router hmm`, collapses golden
+with `--threads 2` (the worker pool), reproduces the pinned outputs or the
+JAX package's, and loads neither a jax module nor one of the JAX package. An AST scan holds every
 source of the port, chip_smoke.py and the profile scripts to importing
 nothing of the JAX package, and the port's copy of the host
 inversion_alignment is held equal to the JAX package's."""
@@ -41,9 +42,23 @@ SCRIPT = textwrap.dedent("""
     with open(layout, "w") as fh:
         fh.write(text)
     out = os.path.join(workdir, "aligned.bam")
+    reads = ["--read1", os.path.join(gd, "reads.fastq.gz"),
+             "--batch-size", "16"]
     verb = sys.argv[3]
     if verb == "align":
         argv = ["align", "--output-bam-file", out]
+    elif verb == "align_panel":
+        # a multi-reference layout and its reads, written by the test
+        layout = os.path.join(workdir, "panel", "layout.yaml")
+        reads = ["--read1", os.path.join(workdir, "panel", "reads.fastq"),
+                 "--batch-size", "8"]
+        argv = ["align", "--output-bam-file", out]
+    elif verb == "collapse":
+        reads = []
+        argv = ["collapse", "--input-bam-file",
+                os.path.join(gd, "aligned.bam"), "--output-bam-file",
+                os.path.join(workdir, "collapsed.bam"), "--temp-dir",
+                workdir]
     else:
         from clique_tpu_torch import chain
         from clique_tpu_torch.collapse import correct, distance
@@ -52,10 +67,8 @@ SCRIPT = textwrap.dedent("""
         argv = ["run", "--aligned-bam-file", out, "--output-bam-file",
                 os.path.join(workdir, "collapsed.bam"), "--alleles",
                 os.path.join(workdir, "alleles.tsv")]
-    rc = cli.main(argv + ["--read-structure", layout, "--read1",
-                          os.path.join(gd, "reads.fastq.gz"),
-                          "--batch-size", "16", "--device", "cpu"]
-                  + sys.argv[4:])
+    rc = cli.main(argv + ["--read-structure", layout, *reads,
+                          "--device", "cpu"] + sys.argv[4:])
     assert rc == 0
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in
@@ -142,6 +155,44 @@ def test_router_hmm_golden_without_jax(verb, tmp_path):
             os.path.join(GOLDEN, name))
 
 
+def test_router_hmm_panel_without_jax(tmp_path):
+    """`align --router hmm` over the two bench-shaped amplicons with jax
+    blocked: the HMM router runs and the BAM equals the JAX package's."""
+    from test_torch_align_pipeline import (_bench_shaped, _inflate_bgzf,
+                                           load_jax_layout)
+
+    from clique_tpu.align.pipeline import align_reads as jax_align_reads
+
+    panel = tmp_path / "panel"
+    panel.mkdir()
+    _layout, _rm, fq = _bench_shaped(panel, n_reads=24)
+    out = _run_without_jax("align_panel", tmp_path, "--router", "hmm")
+    assert "clique_tpu_torch.align.hmm" in out
+    out_j = str(tmp_path / "jax.bam")
+    jax_align_reads(*load_jax_layout(panel / "layout.yaml"), out_j,
+                    read1=fq, batch_size=8, router="hmm")
+    assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
+        out_j)
+
+
+def test_collapse_threads_without_jax(tmp_path):
+    """`collapse --threads 2` on golden with jax blocked: the worker pool
+    runs and the collapsed BAM equals the pin."""
+    import json
+
+    out = _run_without_jax("collapse", tmp_path, "--threads", "2")
+    assert "clique_tpu_torch.collapse.workers" in out
+    from test_torch_align_pipeline import _inflate_bgzf
+
+    collapsed = str(tmp_path / "collapsed.bam")
+    assert _inflate_bgzf(collapsed) == _inflate_bgzf(
+        os.path.join(GOLDEN, "collapsed.bam"))
+    with open(collapsed + ".collapse_metrics.json") as fh:
+        workers = json.load(fh)["workers"]
+    assert workers and all(not w["cuda_initialized"] and not w["forbidden"]
+                           for w in workers)
+
+
 SCANNED = sorted(
     os.path.relpath(p, ROOT) for p in
     glob.glob(os.path.join(ROOT, "clique_tpu_torch", "**", "*.py"),
@@ -172,6 +223,9 @@ def test_source_imports_nothing_of_the_jax_package(path):
 def test_scan_sees_the_port():
     assert "chip_smoke.py" in SCANNED and "profile_port.py" in SCANNED
     assert os.path.join("clique_tpu_torch", "align", "pipeline.py") in SCANNED
+    assert os.path.join("clique_tpu_torch", "align", "hmm.py") in SCANNED
+    assert os.path.join("clique_tpu_torch", "collapse",
+                        "workers.py") in SCANNED
     assert len(SCANNED) > 30
 
 

@@ -10,7 +10,24 @@ before and read just after:
 
 - golden: align -> collapse -> call on tests/data/golden{,_pe,_ml}
   reproduces the pinned BAMs and allele tables, and the fused run_chain
-  gives the same bytes;
+  gives the same bytes; golden aligned with --engine wfa and convex
+  reproduces tests/data/golden/aligned_{wfa,convex}.bam;
+- hifi: bench_extra.py's config 2, 200 cells x 40 reads of a ~342 bp
+  amplicon at 0.5% substitutions through --mode hifi --engine wfa
+  (wfa_align), then collapse; every written CIGAR's penalty equals its
+  score, and the first 64 reads' BAM is the same on the card as on the
+  CPU; every wfa_align launch of the run is held against its plain
+  version, and the largest timed (the kernels line's wfa_align);
+- convex: bench_extra.py's structural-variant config, 6,000 reads, every
+  other one with a 30-80 bp dropout, through --engine convex: the share
+  of dropouts kept as one D run, every CIGAR's dual-affine penalty, the
+  64-read head against the CPU; every wfa_align launch against its plain
+  version;
+- screen: 4,000 reads over two amplicons whose unique-kmer vote splits,
+  --engine wfa: every read takes the exhaustive search, wfa_score
+  screens its candidates, and it routes to its true reference; every
+  wfa_score launch of the run is held against its plain version on its
+  own pairs, and the largest timed (the kernels line's wfa_score);
 - known list: the bench-shaped reads collapsed against a 737,280-entry
   allowlist (KnownTag Hamming at the size of 10x Chromium v2's list): one
   match_hits launch for the level's one hamming_hits call, the collapse
@@ -53,13 +70,20 @@ before and read just after:
 The kernel phases hold every kernel against its plain version (for the
 fused global fill + walk, dp_align, its fused rows and its traceback laid
 out as the plain fill's, in every global mode, with ragged and marked rows,
-at the bench, inversion and anchored shapes and at 6,600 rows), time each
+at the bench, inversion and anchored shapes and at 6,600 rows; wfa_align
+and wfa_score in both penalty models at bench_extra.py's bench_wfa shape
+and at the hifi, convex and screen launches, penalties, op-store rows,
+skeletons and end rows), time each
 in turns with its plain version at the main path's shape, time a PyTorch
 library call that computes the same function where there is one, and
 work out each kernel's bound from the timed inputs (hmm_forward's from
-the MUFU and FP32-pipe instructions of a cell in its SASS).
+the MUFU and FP32-pipe instructions of a cell in its SASS, the wavefront
+kernels' from the integer instructions of the recurrence of a cell and of
+four extension bytes in theirs, for the cells of the diagonals a pair's
+penalty reaches at each of its steps).
 
-The CPU runs of the long-read, inversion and panel phases go to a pool of
+The CPU runs of the long-read, inversion, panel, hifi and convex phases go
+to a pool of
 spawned processes and run beside the card's; a script that imports these
 phases needs an `if __name__ == "__main__":` guard.
 
@@ -71,6 +95,7 @@ the last line of a run that passed is
 and the line before it is a JSON object with one entry per kernel.
 """
 
+import contextlib
 import json
 import multiprocessing
 import os
@@ -115,6 +140,28 @@ PANEL_BACKBONE = 230
 PANEL_GUIDE = (80, 100)           # the 20 bp guide's span in the backbone
 PANEL_BATCH = 512
 N_PANEL_CPU = 64
+# the wavefront phases: bench_extra.py's bench_wfa shapes (5%-substituted
+# pairs at L = 512, smax 192), its config 2 (HiFi through --engine wfa)
+# and structural-variant config (--engine convex), and an exhaustive
+# search panel whose kmer vote stays ambiguous (the wfa_score screen)
+WFA_L = 512
+WFA_SMAX = 192
+WFA_ALIGN_B = 512
+WFA_SCORE_B = 1024
+WFA_PEN = dict(x=4, o=6, e=2, o2=24, e2=1)
+HIFI_CELLS = 200
+HIFI_PER_CELL = 40
+N_CONVEX_READS = 6000
+N_SCREEN_READS = 4000
+WFA_BATCH = 512
+N_WFA_CPU = 64
+# SASS opcodes that are not operations of a wavefront cell: memory,
+# control flow, barriers, special-register and constant reads, moves
+WFA_NON_OPS = ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LD", "ST", "BRA",
+               "EXIT", "RET", "NOP", "BAR", "S2R", "CS2R", "S2UR", "BSSY",
+               "BSYNC", "WARPSYNC", "CALL", "MOV", "UMOV")
+
+
 # the hmm_forward kernel's tolerance against its plain version: both take
 # the same f32 terms and order of operations; CUDA's precise expf / logf
 # are within 1-2 ulp of PyTorch's, accumulated over a pair's cells
@@ -127,20 +174,24 @@ SMS = 132
 FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
                 "FRND", "FCHK")
 KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local",
-           "edit_hits", "hmm_forward")
+           "edit_hits", "hmm_forward", "wfa_align", "wfa_score")
 SOURCES = {"dp_align": "dp_align.cu",
            "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
            "dp_align_local": "dp_align_local.cu",
            "edit_hits": "tag_distance.cu",
-           "hmm_forward": "hmm_forward.cu"}
+           "hmm_forward": "hmm_forward.cu",
+           "wfa_align": "wfa_align.cu",
+           "wfa_score": "wfa_align.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
             "dp_align_local": "clique_tpu/align/batch.py:363 and :450",
             "edit_hits": "clique_tpu/collapse/distance.py:36 and "
                          "clique_tpu/collapse/correct.py:273",
-            "hmm_forward": "clique_tpu/align/hmm.py:39"}
+            "hmm_forward": "clique_tpu/align/hmm.py:39",
+            "wfa_align": "clique_tpu/align/wavefront.py:723, :874 and :1154",
+            "wfa_score": "clique_tpu/align/wavefront.py:316 and :612"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
 # float32 outside the tensor cores counts an FMA as two, so one lane
@@ -248,6 +299,9 @@ def phase_build():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("hmm_forward_kernel",
                                        "clique_hmm_cell_probe",
+                                       "clique_wfa_cell_probe_affine2p",
+                                       "clique_wfa_cell_probe_affine",
+                                       "clique_wfa_word_probe",
                                        "align_local_kernel", "align_kernel",
                                        "match_hits_wide", "match_hits",
                                        "edit_hits_group", "edit_hits_pairs",
@@ -263,6 +317,12 @@ def phase_build():
             if flags:
                 kernel = "dp_align<tie_last={0},banded={1}>".format(
                     *flags.groups())
+            # the wavefront kernel's gap classes and op store
+            flags = re.search(r"wfa_kernelILi(\d)ELb(\d)E", line)
+            if flags:
+                kernel = "wfa_{0}<{1}>".format(
+                    "align" if flags.group(2) == "1" else "score",
+                    "affine" if flags.group(1) == "1" else "affine2p")
             # the fused Hamming search's code width and row words
             flags = re.search(r"match_hits_kernelILi(\d)ELi(\d)E", line)
             if flags:
@@ -1219,16 +1279,17 @@ def _golden_layout(name, workdir):
 
 
 def _reset_counts():
-    from clique_tpu_torch.align import dp_kernels, hmm
+    from clique_tpu_torch.align import dp_kernels, hmm, wfa_kernels
     from clique_tpu_torch.collapse import distance
 
     dp_kernels.reset_counts()
     distance.reset_counts()
     hmm.reset_counts()
+    wfa_kernels.reset_counts()
 
 
 def _counts():
-    from clique_tpu_torch.align import dp_kernels, hmm
+    from clique_tpu_torch.align import dp_kernels, hmm, wfa_kernels
     from clique_tpu_torch.collapse import distance
 
     return {"dp_align": dp_kernels.align_launches,
@@ -1236,7 +1297,9 @@ def _counts():
             "edit_distance": distance.edit_distance_launches,
             "dp_align_local": dp_kernels.align_local_launches,
             "edit_hits": distance.edit_hits_launches,
-            "hmm_forward": hmm.hmm_forward_launches}
+            "hmm_forward": hmm.hmm_forward_launches,
+            "wfa_align": wfa_kernels.wfa_align_launches,
+            "wfa_score": wfa_kernels.wfa_score_launches}
 
 
 def _read(path):
@@ -2224,17 +2287,16 @@ def phase_threshold(level_batches):
     return rows
 
 
-def _sass_cell_counts():
-    """MUFU and FP32-pipe instructions of one pair-HMM cell: the opcodes
-    of clique_hmm_cell_probe (one cell, csrc/hmm_forward.cu, besides its
-    loads and stores) in the built library's SASS."""
+def _sass_ops(functions):
+    """{function: {opcode: count}} of the named functions in the built
+    library's SASS (cuobjdump). An IMAD.MOV is a move and counts as MOV."""
     from clique_tpu_torch import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     res = subprocess.run([cuobjdump, "-sass", _build.build_info().path],
                          capture_output=True, text=True)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-500:]}")
-    ops, cur = {}, None
+    out, cur = {f: {} for f in functions}, None
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -2242,9 +2304,20 @@ def _sass_cell_counts():
             continue
         m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
                      line)
-        if m and cur == "clique_hmm_cell_probe":
-            op = m.group(1).split(".")[0]
-            ops[op] = ops.get(op, 0) + 1
+        if m and cur in out:
+            name = m.group(1)
+            op = "MOV" if name.startswith("IMAD.MOV") else name.split(".")[0]
+            out[cur][op] = out[cur].get(op, 0) + 1
+    for f in functions:
+        check(out[f], f"no {f} in the SASS")
+    return out
+
+
+def _sass_cell_counts():
+    """MUFU and FP32-pipe instructions of one pair-HMM cell: the opcodes
+    of clique_hmm_cell_probe (one cell, csrc/hmm_forward.cu, besides its
+    loads and stores) in the built library's SASS."""
+    ops = _sass_ops(("clique_hmm_cell_probe",))["clique_hmm_cell_probe"]
     mufu = ops.get("MUFU", 0)
     fp32 = sum(ops.get(o, 0) for o in FP32_OPCODES)
     check(mufu > 0 and fp32 > 0, f"no cell probe in the SASS: {ops}")
@@ -2640,6 +2713,539 @@ def phase_workers(workdir, bench):
     return launches
 
 
+def _wfa_ops_per(ops):
+    """Operations in a probe's SASS: every instruction but WFA_NON_OPS."""
+    return sum(n for op, n in ops.items() if op not in WFA_NON_OPS)
+
+
+_WFA_OPS = {}
+
+
+def _wfa_op_counts():
+    """Operations of the recurrence from the probes' SASS, once: a cell
+    with its op byte ("align", wfa_align) and without ("score",
+    wfa_score) for each model, and four extension bytes ("word")."""
+    if _WFA_OPS:
+        return _WFA_OPS
+    probes = {("align", "affine"): "clique_wfa_cell_probe_affine",
+              ("align", "affine2p"): "clique_wfa_cell_probe_affine2p",
+              ("score", "affine"): "clique_wfa_score_probe_affine",
+              ("score", "affine2p"): "clique_wfa_score_probe_affine2p",
+              "word": "clique_wfa_word_probe"}
+    sass = _sass_ops(tuple(probes.values()))
+    for key, fn in probes.items():
+        _WFA_OPS[key] = _wfa_ops_per(sass[fn])
+        say(f"[wfa] {fn}: {_WFA_OPS[key]} operations "
+            f"({json.dumps(dict(sorted(sass[fn].items())))})")
+    return _WFA_OPS
+
+
+def _wfa_pairs(rng, B):
+    """bench_wfa's pairs: B random references of WFA_L bases, reads with
+    5% substitutions."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs = rng.choice(bases, (B, WFA_L)).astype(np.uint8)
+    reads = refs.copy()
+    subs = rng.random((B, WFA_L)) < 0.05
+    reads[subs] = rng.choice(bases, int(subs.sum()))
+    lens = np.full(B, WFA_L, dtype=np.int32)
+    return refs, reads, lens, lens.copy()
+
+
+def _wfa_cells(pen, l1, l2, smax, kmax, model, o, e, o2, e2):
+    """The (score step, diagonal) cells the fills of these pairs need:
+    for each pair and each step s = 1 .. its steps (its penalty, or smax
+    if censored), the diagonals k with |k| <= min(s, kmax, reach(s)) and
+    -l2 <= k <= l1, where reach(s) is the widest |k| a penalty of s pays
+    for (one gap of (s - o) // e bases; under affine2p of either class).
+    Every other diagonal is NEG at that step."""
+    import numpy as np
+
+    s = np.arange(1, smax + 1, dtype=np.int64)
+    reach = np.maximum(0, (s - o) // e)
+    if model == "affine2p":
+        reach = np.maximum(reach, np.maximum(0, (s - o2) // e2))
+    r = np.minimum(np.minimum(s, kmax), reach)[None]
+    width = (np.minimum(r, l2.astype(np.int64)[:, None])
+             + np.minimum(r, l1.astype(np.int64)[:, None]) + 1)
+    steps = np.minimum(pen.astype(np.int64), smax)
+    return int((width * (s[None] <= steps[:, None])).sum())
+
+
+def _wfa_bound(host, pen, kw, traceback):
+    """The least time of a wavefront fill on these inputs: the bytes it
+    must move (both sequences and lengths in; penalties out, and with
+    traceback the op-store rows up to each pair's penalty, the skeleton
+    rows and end rows) over the memory rate, and its integer operations
+    over the int32 rate: the recurrence's operations (the probes' SASS)
+    for each cell _wfa_cells counts, and four extension bytes' for each
+    four read bytes (the least extension an alignment compares). Returns
+    (bound pair, cells)."""
+    import numpy as np
+
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    refs, reads, l1, l2 = host
+    B, smax, model = len(l1), kw["smax"], kw.get("model", "affine")
+    pens = {k: kw.get(k, d) for k, d in
+            (("o", 6), ("e", 2), ("o2", 24), ("e2", 1))}
+    kmax = wk.kmax_of(model, refs.shape[1], reads.shape[1], smax,
+                      pens["o"], pens["e"], pens["o2"], pens["e2"],
+                      kw.get("kband"))
+    ops_per = _wfa_op_counts()
+    cells = _wfa_cells(pen, l1, l2, smax, kmax, model, **pens)
+    nbytes = refs.nbytes + reads.nbytes + 8 * B + 4 * B
+    if traceback:
+        steps = np.minimum(pen.astype(np.int64), smax)
+        nbytes += int(np.sum(steps + 1)) * (2 * kmax + 1) + \
+            B * (smax + 1) + 4 * B
+    ops = cells * ops_per[("align" if traceback else "score", model)] + \
+        int(np.sum(-(-l2.astype(np.int64) // 4))) * ops_per["word"]
+    return bound(nbytes, ops, PEAK_INT32_OPS), cells
+
+
+def _wfa_check(label, args, kw, traceback, reps=20):
+    """wfa_align (traceback) or wfa_score on these card tensors against
+    its plain version on the same inputs (penalties; with traceback also
+    the op-store rows up to each pair's penalty, skeletons and end rows),
+    then timed in turns with it, beside its bound. Returns (max abs err,
+    timing)."""
+    import torch
+
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    B, n1 = args[0].shape
+    model = kw.get("model", "affine")
+    if traceback:
+        pen, ops, fwd, fin = wk.wfa_align(*args, **kw)
+        p_pen, p_ops = wk.wfa_fill_reference(*args, **kw)
+        walk_kw = {k: kw[k] for k in ("model", "x", "o", "e", "o2", "e2")
+                   if k in kw}
+        p_fwd, p_fin = wk.wfa_walk_reference(p_ops, p_pen, args[2] - args[3],
+                                             **walk_kw)
+        rows = torch.arange(kw["smax"] + 1,
+                            device=pen.device)[:, None] <= p_pen[None]
+        same = (torch.equal(pen, p_pen) and torch.equal(fwd, p_fwd)
+                and torch.equal(fin, p_fin)
+                and bool(((ops == p_ops) | ~rows[:, :, None]).all()))
+        err = max(int((pen - p_pen).abs().max()),
+                  int((fwd.int() - p_fwd.int()).abs().max()),
+                  int((fin - p_fin).abs().max()))
+        del ops, p_ops
+
+        def kern():
+            return wk.wfa_align(*args, **kw)
+
+        def plain():
+            pp, po = wk.wfa_fill_reference(*args, **kw)
+            return wk.wfa_walk_reference(po, pp, args[2] - args[3],
+                                         **walk_kw)
+        what = "penalties, op-store rows, skeletons and end rows"
+    else:
+        pen = wk.wfa_score(*args, **kw)
+        p_pen = wk.wfa_fill_reference(*args, traceback=False, **kw)[0]
+        err = int((pen - p_pen).abs().max())
+        same = err == 0
+
+        def kern():
+            return wk.wfa_score(*args, **kw)
+
+        def plain():
+            return wk.wfa_fill_reference(*args, traceback=False, **kw)
+        what = "penalties"
+    name = f"{'wfa_align' if traceback else 'wfa_score'}<{model}>"
+    say(f"[{label}] {name} B={B} L={n1} smax={kw['smax']}: {what} "
+        f"{'equal' if same else 'DIFFER'} (max abs err {err}); penalties "
+        f"{int(p_pen.min())}-{int(p_pen.max())}, "
+        f"{int((p_pen > kw['smax']).sum())} censored")
+    check(same, f"{label}: {name} disagrees with its plain version")
+    if reps == 0:
+        return err, None
+    k_ms, p_ms = _turns(f"[{label}] {name} B={B}", kern, plain, reps)
+    host = [a.cpu().numpy() for a in args]
+    b, cells = _wfa_bound(host, p_pen.cpu().numpy(), kw, traceback)
+    say(f"[{label}] {name} bound {b[0]:.5f} ms by {b[1]} ({cells} cells, "
+        f"{cells / B:.1f} a pair); the kernel at {b[0] / k_ms:.4f} of it")
+    return err, _timing(k_ms, p_ms, b)
+
+
+def phase_wfa_kernels():
+    """wfa_align (B = 512) and wfa_score (B = 1,024) of both penalty
+    models on bench_wfa's pairs against their plain versions on the card,
+    timed in turns with them beside their bounds. A secondary shape: the
+    kernels line carries the main path's launches (_wfa_main_launches)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    errs = {"wfa_align": 0, "wfa_score": 0}
+    for model in ("affine", "affine2p"):
+        kw = dict(smax=WFA_SMAX, model=model, **WFA_PEN)
+        for name, B in (("wfa_align", WFA_ALIGN_B),
+                        ("wfa_score", WFA_SCORE_B)):
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in _wfa_pairs(rng, B)]
+            err, _t = _wfa_check("wfa bench_wfa", args, kw,
+                                 name == "wfa_align")
+            errs[name] = max(errs[name], err)
+    return errs
+
+
+@contextlib.contextmanager
+def _recorded(name):
+    """Every launch of wfa_kernels.<name> while the block runs, recorded:
+    the main path calls the wrapper as before (its count included) and a
+    copy of each launch's card tensors is taken on the launch's stream.
+    Yields the list of (tensors, keywords)."""
+    import torch
+
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    orig, seen = getattr(wk, name), []
+
+    def rec(*args, **kw):
+        out = orig(*args, **kw)
+        stream = kw.pop("stream", None) or torch.cuda.current_stream()
+        if args[0].is_cuda:
+            with torch.cuda.stream(stream):
+                seen.append(([a.clone() for a in args], kw))
+        return out
+
+    setattr(wk, name, rec)
+    try:
+        yield seen
+    finally:
+        setattr(wk, name, orig)
+        torch.cuda.synchronize()
+
+
+def _wfa_main_launches(label, seen, traceback):
+    """The main path's recorded launches: each held against its plain
+    version on the card, the first with the most pairs timed and bounded.
+    Returns (max abs err, its timing)."""
+    check(seen, f"{label}: no launch was recorded")
+    top = max(range(len(seen)), key=lambda i: (seen[i][0][0].shape[0], -i))
+    err, timing = 0, None
+    for i, (args, kw) in enumerate(seen):
+        e, t = _wfa_check(label, args, kw, traceback,
+                          reps=20 if i == top else 0)
+        err = max(err, e)
+        timing = t or timing
+    say(f"[{label}] {len(seen)} launches held against the plain version, "
+        f"max abs err {err}")
+    return err, timing
+
+
+def _wfa_amplicon(rng, bases):
+    """bench_extra.py's _amplicon: adapters, a 16 bp cell and a 12 bp UMI
+    zone, ten 23 bp Cas9 targets joined by GAAA."""
+    targets = [rng.choice(bases, 20).tobytes().decode() + "TGG"
+               for _ in range(10)]
+    a5 = "TTCAGACGTGTGCTCTTCCGATCT"
+    a3 = "AGATCGGAAGAGCACACGTCTGAA"
+    return f"{a5}{'0' * 16}{'1' * 12}{'GAAA'.join(targets)}{a3}"
+
+
+def _wfa_layout_text(refs):
+    """bench_extra.py's _write_layout: every reference with the cell_id
+    and cell_umi DegenerateTag zones."""
+    text = ("known_strand: true\nreads:\n  - !Read1\n"
+            "    orientation: Forward\nreferences:\n")
+    for name, seq in refs:
+        text += (f"  {name}:\n    sequence: \"{seq}\"\n"
+                 "    umi_configurations:\n"
+                 "      cell_id: {symbol: '0', sort_type: \"DegenerateTag\", "
+                 "length: 16, order: 0, max_distance: 2}\n"
+                 "      cell_umi: {symbol: '1', sort_type: \"DegenerateTag\", "
+                 "length: 12, order: 1, max_distance: 2}\n")
+    return text
+
+
+def _align_engine_on_cpu(layout_text, fastq, workdir, engine, mode):
+    """align_reads under a wavefront engine with the plain versions on the
+    CPU (run in the pool): the inflated BAM payload and its seconds."""
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    os.makedirs(workdir)
+    layout, rm = _layout_from_text(layout_text, workdir)
+    out = os.path.join(workdir, "cpu.bam")
+    t0 = time.time()
+    align_reads(layout, rm, out, read1=fastq, batch_size=WFA_BATCH,
+                engine=engine, mode=mode, device="cpu")
+    return _inflate_bgzf(out), time.time() - t0
+
+
+def _check_wfa_penalties(path, ref, model):
+    """Every written record's CIGAR penalty (wildcards on) against its
+    score: the as tag is the negated penalty. Returns the records."""
+    from clique_tpu_torch.align.wavefront import (cigar_penalty,
+                                                  cigar_penalty_2p)
+    from clique_tpu_torch.io.sam import BamReader
+
+    n = 0
+    with BamReader(path) as reader:
+        for rec in reader:
+            if model == "affine2p":
+                pen = cigar_penalty_2p(rec.cigar, ref, rec.seq, x=4, o1=6,
+                                       e1=2, o2=24, e2=1, wildcards=True)
+            else:
+                pen = cigar_penalty(rec.cigar, ref, rec.seq, x=4, o=6, e=2,
+                                    wildcards=True)
+            check(pen == -float(rec.tags["as"]),
+                  f"{rec.name}: CIGAR penalty {pen} != as "
+                  f"{rec.tags['as']}")
+            n += 1
+    return n
+
+
+def _wfa_engine_run(label, workdir, layout_text, lines, engine, mode,
+                    pool):
+    """align_reads(engine=...) on the card over the reads, the first
+    N_WFA_CPU of them on the CPU in the pool; returns (stats, seconds,
+    metrics, launches, out path, layout, head check)."""
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    wd = os.path.join(workdir, label)
+    os.makedirs(wd)
+    layout, rm = _layout_from_text(layout_text, wd)
+    fq, head = os.path.join(wd, "reads.fastq"), os.path.join(wd, "head.fastq")
+    for path, part in ((fq, lines), (head, lines[:N_WFA_CPU])):
+        with open(path, "w") as fh:
+            fh.writelines(part)
+    head_cpu = pool.submit(_align_engine_on_cpu, layout_text, head,
+                           os.path.join(wd, "cpu"), engine, mode)
+    out_head = os.path.join(wd, "head_cuda.bam")
+    align_reads(layout, rm, out_head, read1=head, batch_size=WFA_BATCH,
+                engine=engine, mode=mode, device="cuda")
+    out = os.path.join(wd, "aligned.bam")
+    metrics_path = os.path.join(wd, "metrics.json")
+    _reset_counts()
+    t0 = time.time()
+    stats = align_reads(layout, rm, out, read1=fq, batch_size=WFA_BATCH,
+                        engine=engine, mode=mode, device="cuda",
+                        metrics_path=metrics_path)
+    seconds = time.time() - t0
+    launches = _counts()
+    with open(metrics_path) as fh:
+        m = json.load(fh)
+    check(m["kernel_launches"]["wfa_align"] == launches["wfa_align"] > 0,
+          f"{label}: wfa_align launches {launches['wfa_align']}, metrics "
+          f"{m['kernel_launches']}")
+    return stats, seconds, m, launches, out, layout, (label, out_head,
+                                                      head_cpu)
+
+
+def wfa_head_check(pending):
+    label, out_head, future = pending
+    head_cpu, seconds = future.result()
+    same = _inflate_bgzf(out_head) == head_cpu
+    say(f"[{label}] first {N_WFA_CPU} reads on cpu (in the pool): "
+        f"{seconds:.2f} s; cuda and cpu aligned BAMs "
+        f"{'identical' if same else 'DIFFER'}")
+    check(same, f"{label}: the head's BAMs differ between cuda and cpu")
+
+
+def phase_hifi(workdir, pool):
+    """bench_extra.py's config 2 (bench_hifi): 200 cells x 40 reads of a
+    ~342 bp amplicon with 0.5% substitutions, align --mode hifi --engine
+    wfa at batch 512 on the card, then collapse; every written CIGAR's
+    penalty against its score."""
+    import numpy as np
+
+    from clique_tpu_torch.collapse.pipeline import collapse
+
+    rng = np.random.default_rng(7)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref_seq = _wfa_amplicon(rng, bases)
+    n_reads = HIFI_CELLS * HIFI_PER_CELL
+    cells = rng.choice(bases, (HIFI_CELLS, 16))
+    umis = rng.choice(bases, (HIFI_CELLS, 4, 12))
+    base = np.frombuffer(ref_seq.replace("0", "N").replace("1", "N")
+                         .encode(), dtype=np.uint8)
+    L = len(base)
+    lines = []
+    for i in range(n_reads):
+        c = i % HIFI_CELLS
+        read = base.copy()
+        read[24:40] = cells[c]
+        read[40:52] = umis[c, (i // HIFI_CELLS) % 4]
+        subs = rng.random(L) < 0.005
+        read[subs] = rng.choice(bases, int(subs.sum()))
+        lines.append(f"@e{i}\n{read.tobytes().decode()}\n+\n{'I' * L}\n")
+    text = _wfa_layout_text([("amplicon1", ref_seq)])
+    with _recorded("wfa_align") as seen:
+        stats, seconds, m, launches, out, layout, head = _wfa_engine_run(
+            "hifi", workdir, text, lines, "wfa", "hifi", pool)
+    checked = _check_wfa_penalties(out, ref_seq.encode(), "affine")
+    collapsed = os.path.join(workdir, "hifi", "collapsed.bam")
+    _reset_counts()
+    t0 = time.time()
+    cstats = collapse(collapsed, layout, out, device="cuda")
+    c_seconds = time.time() - t0
+    c_launches = _counts()
+    say(f"[hifi] {stats.aligned}/{stats.total} reads of {L} bp, --mode "
+        f"hifi --engine wfa on the card: {seconds:.3f} s, "
+        f"{stats.aligned / seconds:.1f} align reads/s; wfa_phase_seconds "
+        f"{json.dumps(m['wfa_phase_seconds'])}, wfa_dp_fallbacks "
+        f"{m['wfa_dp_fallbacks']}, launches wfa_align "
+        f"{launches['wfa_align']} dp_align {launches['dp_align']}; "
+        f"{checked} CIGAR penalties equal their scores; collapse "
+        f"{c_seconds:.3f} s ({cstats.passing} passing, launches "
+        f"{c_launches}), chain {stats.aligned / (seconds + c_seconds):.1f} "
+        f"reads/s")
+    check(stats.aligned == n_reads and checked == n_reads,
+          "not every hifi read was aligned and checked")
+    return launches, head, _wfa_main_launches("hifi", seen, True)
+
+
+def phase_convex(workdir, pool):
+    """bench_extra.py's structural-variant config (bench_convex): 6,000
+    reads of the amplicon at 0.5% substitutions, every other one with a
+    30-80 bp dropout, align --engine convex on the card."""
+    import numpy as np
+
+    from clique_tpu_torch.io.sam import BamReader
+
+    rng = np.random.default_rng(23)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    ref_seq = _wfa_amplicon(rng, bases)
+    base = np.frombuffer(ref_seq.replace("0", "N").replace("1", "N")
+                         .encode(), dtype=np.uint8)
+    L = len(base)
+    wild = (base < 58) | (base == ord("N"))
+    lines = []
+    for i in range(N_CONVEX_READS):
+        read = base.copy()
+        read[wild] = rng.choice(bases, int(wild.sum()))
+        subs = rng.random(L) < 0.005
+        read[subs] = rng.choice(bases, int(subs.sum()))
+        if i % 2:
+            dlen = int(rng.integers(30, 81))
+            start = int(rng.integers(64, L - 40 - dlen))
+            read = np.concatenate([read[:start], read[start + dlen:]])
+        lines.append(f"@e{i}\n{read.tobytes().decode()}\n+\n"
+                     f"{'I' * len(read)}\n")
+    text = _wfa_layout_text([("amplicon1", ref_seq)])
+    with _recorded("wfa_align") as seen:
+        stats, seconds, m, launches, out, _layout, head = _wfa_engine_run(
+            "convex", workdir, text, lines, "convex", "ont", pool)
+    checked = _check_wfa_penalties(out, ref_seq.encode(), "affine2p")
+    single = sv = 0
+    with BamReader(out, parse_tags=False) as reader:
+        for rec in reader:
+            if int(rec.name[1:]) % 2:
+                sv += 1
+                single += len([n for n, op in rec.cigar
+                               if op == "D" and n >= 30]) == 1
+    say(f"[convex] {stats.aligned}/{stats.total} reads, --engine convex on "
+        f"the card: {seconds:.3f} s, {stats.aligned / seconds:.1f} reads/s; "
+        f"dropouts kept as one D run {single}/{sv} = {single / sv:.4f}; "
+        f"{checked} affine2p CIGAR penalties equal their scores; "
+        f"wfa_phase_seconds {json.dumps(m['wfa_phase_seconds'])}, "
+        f"wfa_dp_fallbacks {m['wfa_dp_fallbacks']}, launches wfa_align "
+        f"{launches['wfa_align']}")
+    check(stats.aligned == N_CONVEX_READS and checked == N_CONVEX_READS,
+          "not every convex read was aligned and checked")
+    check(single >= 0.9 * sv, "fewer than 0.9 of the dropouts are one D run")
+    return launches, head, _wfa_main_launches("convex", seen, True)
+
+
+def phase_screen(workdir):
+    """An exhaustive-search panel under --engine wfa: two amplicons 12 bp
+    (block A) and 6 bp (block B) apart; each read takes block A of its
+    reference and block B of the other, so the unique-kmer vote splits,
+    every read goes to the exhaustive search, and wfa_score's screen must
+    route it to the reference of its block A. Each screen launch is held
+    against the plain version on its own pairs, and the largest timed."""
+    import numpy as np
+
+    from clique_tpu_torch.align.pipeline import align_reads
+    from clique_tpu_torch.io.sam import BamReader
+
+    rng = np.random.default_rng(31337)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    def seq(n):
+        return rng.choice(bases, n).tobytes().decode()
+
+    a1, a2, b1, b2, spacer = seq(12), seq(12), seq(6), seq(6), seq(20)
+    a5 = "TTCAGACGTGTGCTCTTCCGATCT"
+    a3 = "AGATCGGAAGAGCACACGTCTGAA"
+
+    def amp(a, b, cell="0" * 16, umi="1" * 12):
+        return a5 + cell + umi + a + spacer + b + a3
+
+    text = _wfa_layout_text([("amp1", amp(a1, b1)), ("amp2", amp(a2, b2))])
+    wd = os.path.join(workdir, "screen")
+    os.makedirs(wd)
+    layout, rm = _layout_from_text(text, wd)
+    fq = os.path.join(wd, "reads.fastq")
+    with open(fq, "w") as fh:
+        for i in range(N_SCREEN_READS):
+            r = amp(a1, b2, seq(16), seq(12)) if i % 2 == 0 else \
+                amp(a2, b1, seq(16), seq(12))
+            fh.write(f"@t{i % 2}_{i}\n{r}\n+\n{'I' * len(r)}\n")
+    out = os.path.join(wd, "aligned.bam")
+    metrics_path = os.path.join(wd, "metrics.json")
+    with _recorded("wfa_score") as seen:
+        _reset_counts()
+        t0 = time.time()
+        stats = align_reads(layout, rm, out, read1=fq, batch_size=WFA_BATCH,
+                            engine="wfa", device="cuda",
+                            metrics_path=metrics_path)
+        seconds = time.time() - t0
+        launches = _counts()
+    with open(metrics_path) as fh:
+        m = json.load(fh)
+    with BamReader(out, parse_tags=False) as reader:
+        routed = [(rec.name, rec.reference_name) for rec in reader]
+    right = sum(ref == ("amp1" if name.startswith("t0") else "amp2")
+                for name, ref in routed)
+    say(f"[screen] {stats.aligned}/{stats.total} reads over 2 amplicons with "
+        f"--engine wfa on the card: {seconds:.3f} s, "
+        f"{stats.aligned / seconds:.1f} reads/s; {m['wfa_screened_reads']} "
+        f"reads took the exhaustive path; routed to their true reference "
+        f"{right}/{len(routed)}; launches wfa_score {launches['wfa_score']} "
+        f"wfa_align {launches['wfa_align']}")
+    check(launches["wfa_score"] > 0 and m["kernel_launches"]["wfa_score"]
+          == launches["wfa_score"], "the screen launched no wfa_score")
+    check(m["wfa_screened_reads"] == N_SCREEN_READS,
+          "a screen read missed the exhaustive path")
+    check(right == len(routed) == N_SCREEN_READS,
+          "a screen read routed to the wrong reference")
+    return launches, _wfa_main_launches("screen", seen, False)
+
+
+def phase_golden_engines(workdir):
+    """golden aligned with engine="wfa" and "convex" on the card against
+    tests/data/golden/aligned_wfa.bam and aligned_convex.bam."""
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    launches = dict.fromkeys(KERNELS, 0)
+    for engine in ("wfa", "convex"):
+        wd = os.path.join(workdir, f"golden_{engine}")
+        gd, layout, rm = _golden_layout("golden", wd)
+        out = os.path.join(wd, "aligned.bam")
+        _reset_counts()
+        stats = align_reads(layout, rm, out,
+                            read1=os.path.join(gd, "reads.fastq.gz"),
+                            batch_size=16, engine=engine, device="cuda")
+        n = _counts()
+        launches["wfa_align"] += n["wfa_align"]
+        same = _inflate_bgzf(out) == _inflate_bgzf(
+            os.path.join(gd, f"aligned_{engine}.bam"))
+        say(f"[golden] {engine}: {stats.aligned}/{stats.total} aligned on "
+            f"the card ({n['wfa_align']} wfa_align launches), BAM payload "
+            f"{'equals' if same else 'DIFFERS from'} "
+            f"tests/data/golden/aligned_{engine}.bam")
+        check(same, f"the golden {engine} BAM differs from its pin")
+        check(n["wfa_align"] > 0, f"golden {engine} launched no wfa_align")
+    return launches
+
+
 def phase_profile(workdir):
     """align --profile-dir on golden on the card: a torch.profiler Chrome
     trace appears and holds dp_align's kernel events."""
@@ -2682,12 +3288,25 @@ def main():
     times.update(tag_times)
     err["edit_hits"], times["edit_hits"] = phase_edit_hits()
     err["hmm_forward"], times["hmm_forward"] = phase_hmm_kernel()
+    err.update(phase_wfa_kernels())
     launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_cpu_worker_init) as pool:
-        path_launches = [phase_golden(workdir)]
+        path_launches = [phase_golden(workdir),
+                         phase_golden_engines(workdir)]
         phase_profile(workdir)
+        hifi_launches, hifi_head, hifi_wfa = phase_hifi(workdir, pool)
+        convex_launches, convex_head, convex_wfa = phase_convex(workdir,
+                                                                pool)
+        screen_launches, screen_wfa = phase_screen(workdir)
+        path_launches += [hifi_launches, convex_launches, screen_launches]
+        # the kernels line: wfa_align at the hifi path's launch, wfa_score
+        # at the screen's
+        err["wfa_align"] = max(err["wfa_align"], hifi_wfa[0], convex_wfa[0])
+        times["wfa_align"] = hifi_wfa[1]
+        err["wfa_score"] = max(err["wfa_score"], screen_wfa[0])
+        times["wfa_score"] = screen_wfa[1]
         panel_launches, panel = phase_panel(workdir, pool)
         bench_launches, bench = phase_bench(workdir)
         path_launches += [panel_launches, bench_launches,
@@ -2700,6 +3319,8 @@ def main():
         path_launches += [long_launches, phase_inversion(pool)]
         long_reads_head_check(long_head)
         panel_head_check(panel)
+        wfa_head_check(hifi_head)
+        wfa_head_check(convex_head)
     for n in path_launches:
         for k in KERNELS:
             launches[k] += n[k]

@@ -178,6 +178,11 @@ def load() -> ctypes.CDLL:
         lib.clique_hmm_forward.argtypes = [vp, ci, vp, ci, vp, vp, cf, cf, cf,
                                            cf, cf, cf, cf, vp, vp, ci, ci, ci,
                                            vp]
+        lib.clique_wfa_global_ring_ints.restype = ll
+        lib.clique_wfa_global_ring_ints.argtypes = [ci, ci, ci, ci, ci]
+        for fn in (lib.clique_wfa_align, lib.clique_wfa_score):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 12 + [vp] * 6
         _lib, _info = lib, info
         return lib
 

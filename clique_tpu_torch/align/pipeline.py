@@ -10,13 +10,16 @@ that a diff between the two reads easily. What differs:
   a CPU device the plain PyTorch versions run instead. The TPU
   workarounds (batch pad-up to a compiled shape, the wave, fetch-fuse,
   the device mesh) are gone.
-- align_reads runs the dp engine with the kmer router (single reference,
-  kmer vote, exhaustive search) or the pair-HMM router (align/hmm.py, its
-  forward recurrence a hand-written kernel), a full or partial band, the
-  anchored seed-and-extend path for long reads, and a torch.profiler trace
-  (profile_dir). Options not ported yet raise NotImplementedError naming
-  their ROADMAP.md item: --engine wfa/convex and read sharding across
-  processes.
+- align_reads runs the dp engine or the wavefront engines (--engine
+  wfa|convex, align/wavefront.py's WfaAligner, their fill and walk a
+  hand-written kernel) with the kmer router (single reference, kmer vote,
+  exhaustive search, screened by the score-only wavefront kernel on the
+  wavefront engines) or the pair-HMM router (align/hmm.py, its forward
+  recurrence a hand-written kernel), a full or partial band, the anchored
+  seed-and-extend path for long reads, and a torch.profiler trace
+  (profile_dir). What is not ported yet raises NotImplementedError naming
+  its ROADMAP.md item: the wavefront bialign engine and read sharding
+  across processes.
 - BatchAligner splits a length bucket into groups whose traceback stays
   within batch.MAX_TRACEBACK_BYTES (the JAX package pads groups up
   instead); outputs do not change.
@@ -61,7 +64,9 @@ from clique_tpu_torch.io.sam import SamRecord, open_alignment_writer
 from clique_tpu_torch.reference.manager import ReferenceManager, orient_by_longest_segment
 from clique_tpu_torch.utils.seq import GAP, reverse_complement
 from clique_tpu_torch.align import batch as dbatch
-from clique_tpu_torch.align import dp_kernels, hmm
+from clique_tpu_torch.align import dp_kernels, hmm, wfa_kernels
+from clique_tpu_torch.align.wavefront import (WfaAligner,
+                                              wfa_screen_candidates)
 
 log = logging.getLogger(__name__)
 
@@ -69,7 +74,7 @@ log = logging.getLogger(__name__)
 # the ROADMAP.md Queue 1 item that ports each capability the JAX pipeline
 # has and this one refuses (the CLI names them too)
 ROADMAP_ITEMS = {
-    "wavefront": "10 (align/wavefront.py)",
+    "wavefront": "10c (the bialign engine of align/wavefront.py)",
     "parallel": "11 (parallel/)",
 }
 
@@ -458,9 +463,12 @@ def _align_reads_impl(
     (alignment_matrix.rs:376-425) for the main aligner; None is the full
     band, as every reference call site passes.
 
-    engine: "dp" (or None), the exact 3-plane affine DP. "wfa" and
-    "convex" (align/wavefront.py) are not ported and raise, as does
-    read_shard.
+    engine: "dp" (or None), the exact 3-plane affine DP; "wfa", the
+    wavefront engine with traceback (align/wavefront.py::WfaAligner, the
+    DP as its fallback); "convex", the same engine under the dual-affine
+    penalties. Scores on the wavefront engines are negated penalties, and
+    the exhaustive search screens candidates by penalty (last minimum
+    wins). read_shard is not ported and raises.
 
     profile_dir: a torch.profiler trace of the run (CPU activity, and the
     card's with a CUDA device), written there as a Chrome trace when the
@@ -477,8 +485,8 @@ def _align_reads_impl(
     JSON names it and counts the kernel launches."""
     if engine is None:
         engine = "dp"
-    if engine != "dp":
-        _unported(f"engine={engine!r}", "wavefront")
+    if engine not in ("dp", "wfa", "convex"):
+        raise ValueError(f"unknown engine {engine!r}")
     if router not in ("kmer", "hmm"):
         raise ValueError(f"unknown router {router!r}")
     if read_shard is not None:
@@ -495,7 +503,7 @@ def _align_reads_impl(
     max_read_size = (rm.longest_ref + 1) * max_reference_multiplier
     single_ref = len(rm.references) == 1
 
-    if single_ref and not single_ref_native:
+    if single_ref and not single_ref_native and engine == "dp":
         aligner = BatchAligner(RUST_BIO_COMPAT, batch_size,
                                special_mode="ref_n_only", device=device,
                                bandwidth=bandwidth)
@@ -504,10 +512,18 @@ def _align_reads_impl(
         aligner = BatchAligner(scoring, batch_size, device=device,
                                bandwidth=bandwidth)
         report_zero_score = False
+    dp_fallback = None
+    if engine in ("wfa", "convex"):
+        dp_fallback = aligner
+        aligner = WfaAligner(
+            batch_size=batch_size, dp_fallback=aligner,
+            model="affine2p" if engine == "convex" else "affine",
+            device=device)
     merge_aligner = BatchAligner(MERGE_SCORING, batch_size, device=device)
     launches0 = (dp_kernels.align_launches,
                  dict(dp_kernels.fill_mode_launches),
-                 hmm.hmm_forward_launches)
+                 hmm.hmm_forward_launches, wfa_kernels.wfa_align_launches,
+                 wfa_kernels.wfa_score_launches)
 
     profiler = _start_profiler(profile_dir, aligner.device)
 
@@ -700,12 +716,25 @@ def _align_reads_impl(
         phase["flush_wall"] += time.time() - t_f
 
     def _flush_inner(pending: List[_Pending]):
-        long_pending = [p for p in pending
-                        if len(p.seq) >= anchored_min_length]
-        if long_pending:
-            pending = [p for p in pending
-                       if len(p.seq) < anchored_min_length]
-        if pending:
+        long_pending = []
+        if not isinstance(aligner, WfaAligner):
+            long_pending = [p for p in pending
+                            if len(p.seq) >= anchored_min_length]
+            if long_pending:
+                pending = [p for p in pending
+                           if len(p.seq) < anchored_min_length]
+        if pending and isinstance(aligner, WfaAligner):
+            out = zip(pending, aligner.align_pairs(
+                [rm.references[p.ref_id].sequence for p in pending],
+                [p.seq for p in pending]))
+            emit_aligned([AlignedRead(
+                read_name=p.name,
+                reference_name=rm.references[p.ref_id].name,
+                reference_aligned=a1, read_aligned=a2, quals=p.quals,
+                cigar=cigar, score=0.0 if report_zero_score else score,
+            ) for p, (a1, a2, cigar, score) in out])
+            stats.aligned += len(pending)
+        elif pending:
             refs = [rm.references[p.ref_id].sequence for p in pending]
             reads = [p.seq for p in pending]
             # dispatch here (align_pairs_entries is eager about dispatch +
@@ -742,13 +771,18 @@ def _align_reads_impl(
     pending: List[_Pending] = []
     merge_pending: List[Tuple[str, bytes, bytes, bytes, bytes]] = []
     exh_pending: List[Tuple[str, bytes, bytes, List[int]]] = []
+    n_screened = [0]       # reads whose candidates the wavefront screen ranked
     route_pending: List[Tuple[str, bytes, bytes]] = []
 
     def flush_exhaustive():
         """Batched exhaustive search: every (candidate ref, read) pair of every
         queued read goes through ONE align_pairs call; per read the best score
         wins, Rust max_by keeping the LAST maximum on ties
-        (exhaustive_alignment_search)."""
+        (exhaustive_alignment_search).
+
+        On the wavefront engines every candidate is first screened by its
+        penalty (wfa_screen_candidates, the score-only kernel), and only
+        each read's winner (the last minimum) is aligned with traceback."""
         if not exh_pending:
             return
         refs: List[bytes] = []
@@ -758,6 +792,34 @@ def _align_reads_impl(
             spans.append((len(refs), len(cands)))
             refs.extend(rm.references[i].sequence for i in cands)
             reads.extend([seq] * len(cands))
+
+        if isinstance(aligner, WfaAligner):
+            pens = wfa_screen_candidates(
+                refs, reads, x=aligner.x, o=aligner.o, e=aligner.e,
+                model=aligner.model, o2=aligner.o2, e2=aligner.e2,
+                device=aligner.device)
+            n_screened[0] += len(exh_pending)
+            winners = []
+            for (_name, seq, _quals, _cands), (start, count) in zip(
+                    exh_pending, spans):
+                best = 0
+                for i in range(count):
+                    if pens[start + i] <= pens[start + best]:
+                        best = i  # last minimum = last maximum of -penalty
+                winners.append(best)
+            outs_w = aligner.align_pairs(
+                [refs[start + best] for (start, _c), best in
+                 zip(spans, winners)], [e[1] for e in exh_pending])
+            emit_aligned([AlignedRead(
+                read_name=name,
+                reference_name=rm.references[cands[best]].name,
+                reference_aligned=a1, read_aligned=a2, quals=quals,
+                cigar=cigar, score=score)
+                for (name, _seq, quals, cands), best, (a1, a2, cigar, score)
+                in zip(exh_pending, winners, outs_w)])
+            stats.aligned += len(exh_pending)
+            exh_pending.clear()
+            return
 
         outs = aligner.align_pairs(refs, reads)
         aligned_out = []
@@ -928,7 +990,8 @@ def _align_reads_impl(
         with open(metrics_path, "w") as fh:
             json.dump({
                 "engine": engine,
-                "wfa_dp_fallbacks": None,      # no WFA engine in the port
+                "wfa_dp_fallbacks": aligner.fallbacks
+                if isinstance(aligner, WfaAligner) else None,
                 "total_reads": stats.total,
                 "aligned": stats.aligned,
                 "dropped_length": stats.dropped_length,
@@ -944,7 +1007,12 @@ def _align_reads_impl(
                 # for room in the drain queue; tail/join = post-loop flush
                 # + pipeline-thread join; *_busy = each thread's busy time
                 "phase_walls": {k: round(v, 3) for k, v in phase.items()},
-                "wfa_phase_seconds": None,
+                "wfa_phase_seconds": {
+                    k: round(v, 3) for k, v in aligner.phase_seconds.items()}
+                if isinstance(aligner, WfaAligner) else None,
+                # reads of the exhaustive search that the wavefront screen
+                # ranked (the score-only kernel's reads)
+                "wfa_screened_reads": n_screened[0],
                 "pairs_aligned": aligner.pairs_aligned,
                 "dp_cells_filled": aligner.cells_filled,
                 "dp_cells_per_s": round(
@@ -957,13 +1025,18 @@ def _align_reads_impl(
                 # launches of this run (0 on a CPU device, where the plain
                 # PyTorch versions run)
                 "dispatches": aligner.dispatches + merge_aligner.dispatches
-                + (inner.dispatches if inner else 0),
+                + (inner.dispatches if inner else 0)
+                + (dp_fallback.dispatches if dp_fallback else 0),
                 "kernel_launches": {
                     "dp_align": dp_kernels.align_launches - launches0[0],
                     "dp_fill_modes": {
                         k: v - launches0[1][k] for k, v in
                         dp_kernels.fill_mode_launches.items()},
-                    "hmm_forward": hmm.hmm_forward_launches - launches0[2]},
+                    "hmm_forward": hmm.hmm_forward_launches - launches0[2],
+                    "wfa_align": wfa_kernels.wfa_align_launches
+                    - launches0[3],
+                    "wfa_score": wfa_kernels.wfa_score_launches
+                    - launches0[4]},
                 "router": "hmm" if hmm_router is not None else "kmer",
                 "bandwidth": bandwidth,
                 # the anchored path: its reads, their inter-anchor sub-DPs,

@@ -1,0 +1,806 @@
+"""The wavefront engines on PyTorch + CUDA: `align --engine wfa` (gap-affine)
+and `--engine convex` (dual-affine) through WfaAligner, and the score-only
+screen of the exhaustive reference search.
+
+Counterpart of clique_tpu/align/wavefront.py. The device work is
+align/wfa_kernels.py's (hand-written kernels in csrc/wfa_align.cu on a
+CUDA device, their plain PyTorch versions on the CPU); this module keeps
+the host side:
+
+- copies of the JAX module's host helpers (`_wild`, `wfa_replay_cigar`,
+  `cigar_penalty`, `affine_penalty_golden`, `cigar_penalty_2p`,
+  `affine2p_penalty_golden`, `cigar_to_aligned`; `exact_kband` lives in
+  wfa_kernels) and its host walkers `wfa_backtrace_ops{,_2p}` (the tests' oracle for the
+  walk), each with its body as in the JAX module;
+- `WfaAligner`, the JAX class with an explicit device: the same length
+  buckets, penalty-aware ceilings, chunk caps, waves, 2x escalation and
+  fallbacks, so every pair takes the same route and gets the same CIGAR
+  and score. Each chunk is one `wfa_align` launch whose walk runs on the
+  card after the fill; only the penalties, skeletons and end rows come
+  back to the host. The bialign engine (`wfa_bialign_affine_pairs`) is
+  not ported: where the JAX class hands a pair to it, this one raises
+  NotImplementedError naming its ROADMAP.md item before any result is
+  returned;
+- `wfa_screen_candidates` on `wfa_score`, and `wfa_affine_align_pairs`.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from clique_tpu_torch.align import wfa_kernels
+
+
+def _wild(c: int) -> bool:
+    return c < 58 or c == 78
+
+
+def wfa_replay_cigar(a: bytes, b: bytes, skeleton,
+                     wildcards: bool = False):
+    """Rebuild the full CIGAR from an op skeleton by replaying greedy
+    match extension (deterministic, identical to the kernel's extension).
+    Returns [(count, op)] with 'M' covering matches+mismatches
+    (wavefront.py:1243-1309)."""
+    h = v = 0
+    l1, l2 = len(a), len(b)
+    a_arr = np.frombuffer(a, dtype=np.uint8)
+    b_arr = np.frombuffer(b, dtype=np.uint8)
+    stop_a = (a_arr >= 58) & (a_arr != 78) if wildcards else None
+    stop_b = (b_arr >= 58) & (b_arr != 78) if wildcards else None
+
+    def run_len(h, v):
+        n = min(l1 - h, l2 - v)
+        if n <= 0:
+            return 0
+        stop = a_arr[h:h + n] != b_arr[v:v + n]
+        if wildcards:
+            stop &= stop_a[h:h + n] & stop_b[v:v + n]
+        i = int(stop.argmax())
+        return i if stop[i] else n
+
+    raw: list = []
+
+    def emit(op, n=1):
+        if n <= 0:
+            return
+        if raw and raw[-1][1] == op:
+            raw[-1] = (raw[-1][0] + n, op)
+        else:
+            raw.append((n, op))
+
+    for op in skeleton:
+        if op in ("X", "I", "D"):
+            # M state: greedy extension happened before this op in the
+            # forward pass (lowercase gap-extends have no matches before
+            # them — they continue an open gap)
+            run = run_len(h, v)
+            h += run
+            v += run
+            emit("M", run)
+        if op == "X":
+            emit("M", 1)
+            h += 1
+            v += 1
+        elif op in ("I", "i"):
+            emit("I", 1)
+            v += 1
+        elif op in ("D", "d"):
+            emit("D", 1)
+            h += 1
+    run = run_len(h, v)
+    h += run
+    v += run
+    emit("M", run)
+    if h != l1 or v != l2:
+        raise ValueError(
+            f"wfa replay did not consume both sequences: ({h},{v}) vs "
+            f"({l1},{l2})")
+    return raw
+
+
+def cigar_penalty(cigar, a: bytes, b: bytes, *, x: int, o: int, e: int,
+                  wildcards: bool = False) -> int:
+    """Affine penalty of a CIGAR over a pair (match 0, mismatch x, gap
+    o + n*e) — the checkable invariant for traceback tests."""
+    h = v = 0
+    p = 0
+    for n, op in cigar:
+        if op == "M":
+            for _ in range(n):
+                if not (a[h] == b[v] or
+                        (wildcards and (_wild(a[h]) or _wild(b[v])))):
+                    p += x
+                h += 1
+                v += 1
+        elif op == "I":
+            p += o + n * e
+            v += n
+        elif op == "D":
+            p += o + n * e
+            h += n
+    return p
+
+
+def affine_penalty_golden(a: bytes, b: bytes, *, x: int, o: int,
+                          e: int, wildcards: bool = False) -> int:
+    """O(nm) min-penalty gap-affine DP (numpy, host): the independent
+    golden for the WFA kernels (match 0 / mismatch x / gap o + n*e,
+    Gotoh three-plane)."""
+    n1, n2 = len(a), len(b)
+    INF = 1 << 29
+    av = np.frombuffer(a, dtype=np.uint8).astype(np.int32)
+    bv = np.frombuffer(b, dtype=np.uint8).astype(np.int32)
+    sub = (av[:, None] != bv[None, :]).astype(np.int64) * x
+    if wildcards:
+        wild = ((av[:, None] < 58) | (av[:, None] == 78) |
+                (bv[None, :] < 58) | (bv[None, :] == 78))
+        sub = np.where(wild, 0, sub)
+    M = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    I = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    D = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    M[0, 0] = 0
+    for j in range(1, n2 + 1):
+        I[0, j] = o + j * e
+        M[0, j] = I[0, j]
+    for i in range(1, n1 + 1):
+        D[i, 0] = o + i * e
+        M[i, 0] = D[i, 0]
+    for i in range(1, n1 + 1):
+        for j in range(1, n2 + 1):
+            I[i, j] = min(M[i, j - 1] + o + e, I[i, j - 1] + e)
+            D[i, j] = min(M[i - 1, j] + o + e, D[i - 1, j] + e)
+            M[i, j] = min(M[i - 1, j - 1] + sub[i - 1, j - 1],
+                          I[i, j], D[i, j])
+    return int(M[n1, n2])
+
+
+def cigar_penalty_2p(cigar, a: bytes, b: bytes, *, x: int, o1: int,
+                     e1: int, o2: int, e2: int,
+                     wildcards: bool = False) -> int:
+    """Dual-affine penalty of a CIGAR (match 0, mismatch x, gap of length n
+    costs min(o1 + n*e1, o2 + n*e2)) — the checkable invariant for the
+    convex traceback tests."""
+    h = v = 0
+    p = 0
+    for n, op in cigar:
+        if op == "M":
+            for _ in range(n):
+                if not (a[h] == b[v] or
+                        (wildcards and (_wild(a[h]) or _wild(b[v])))):
+                    p += x
+                h += 1
+                v += 1
+        elif op == "I":
+            p += min(o1 + n * e1, o2 + n * e2)
+            v += n
+        elif op == "D":
+            p += min(o1 + n * e1, o2 + n * e2)
+            h += n
+    return p
+
+
+def affine2p_penalty_golden(a: bytes, b: bytes, *, x: int, o1: int,
+                            e1: int, o2: int, e2: int,
+                            wildcards: bool = False) -> int:
+    """O(nm) min-penalty dual-affine DP (numpy, host): the independent
+    golden for the affine2p WFA kernels — Gotoh with five planes
+    (M, I1, D1, I2, D2), gap cost min over the two affine classes."""
+    n1, n2 = len(a), len(b)
+    INF = 1 << 29
+    av = np.frombuffer(a, dtype=np.uint8).astype(np.int32)
+    bv = np.frombuffer(b, dtype=np.uint8).astype(np.int32)
+    sub = (av[:, None] != bv[None, :]).astype(np.int64) * x
+    if wildcards:
+        wild = ((av[:, None] < 58) | (av[:, None] == 78) |
+                (bv[None, :] < 58) | (bv[None, :] == 78))
+        sub = np.where(wild, 0, sub)
+    M = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    I1 = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    D1 = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    I2 = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    D2 = np.full((n1 + 1, n2 + 1), INF, dtype=np.int64)
+    M[0, 0] = 0
+    for j in range(1, n2 + 1):
+        I1[0, j] = o1 + j * e1
+        I2[0, j] = o2 + j * e2
+        M[0, j] = min(I1[0, j], I2[0, j])
+    for i in range(1, n1 + 1):
+        D1[i, 0] = o1 + i * e1
+        D2[i, 0] = o2 + i * e2
+        M[i, 0] = min(D1[i, 0], D2[i, 0])
+    for i in range(1, n1 + 1):
+        for j in range(1, n2 + 1):
+            I1[i, j] = min(M[i, j - 1] + o1 + e1, I1[i, j - 1] + e1)
+            D1[i, j] = min(M[i - 1, j] + o1 + e1, D1[i - 1, j] + e1)
+            I2[i, j] = min(M[i, j - 1] + o2 + e2, I2[i, j - 1] + e2)
+            D2[i, j] = min(M[i - 1, j] + o2 + e2, D2[i - 1, j] + e2)
+            M[i, j] = min(M[i - 1, j - 1] + sub[i - 1, j - 1],
+                          I1[i, j], D1[i, j], I2[i, j], D2[i, j])
+    return int(M[n1, n2])
+
+
+def cigar_to_aligned(a: bytes, b: bytes, cigar) -> Tuple[bytes, bytes]:
+    """Expand a [(count, op)] CIGAR over (a, b) into the gapped aligned
+    pair (a_aligned, b_aligned); gaps are '-'."""
+    out_a = bytearray()
+    out_b = bytearray()
+    h = v = 0
+    for n, op in cigar:
+        if op == "M":
+            out_a += a[h:h + n]
+            out_b += b[v:v + n]
+            h += n
+            v += n
+        elif op == "I":
+            out_a += b"-" * n
+            out_b += b[v:v + n]
+            v += n
+        elif op == "D":
+            out_a += a[h:h + n]
+            out_b += b"-" * n
+            h += n
+    return bytes(out_a), bytes(out_b)
+
+
+def wfa_backtrace_ops_2p(ops: np.ndarray, scores: np.ndarray,
+                         k_targets: np.ndarray, *, x: int, o1: int,
+                         e1: int, o2: int, e2: int) -> list:
+    """Host lockstep backtrace for the dual-affine op store. Walks 5 states
+    (M, I1, D1, I2, D2); gap class only changes the score decrement — the
+    emitted skeleton ops stay {'X','I','i','D','d'} so wfa_replay_cigar
+    works unchanged. Returns per-lane forward-order op lists (None for
+    censored lanes)."""
+    S1, B, K = ops.shape
+    smax = (K - 1) // 2
+    alive = (scores >= 0) & (scores < S1)
+    s = np.where(alive, scores, 0).astype(np.int64)
+    k = np.where(alive, k_targets, 0).astype(np.int64)
+    state = np.zeros(B, dtype=np.int8)  # 0=M 1=I1 2=D1 3=I2 4=D2
+    done = ~alive
+    rev_ops: list = [[] for _ in range(B)]
+    # (state id, op char, diag step, ext-bit shift, o, e)
+    GAPS = ((1, "I", +1, 3, o1, e1), (2, "D", -1, 4, o1, e1),
+            (3, "I", +1, 5, o2, e2), (4, "D", -1, 6, o2, e2))
+    guard = 0
+    while not done.all():
+        guard += 1
+        if guard > 4 * S1 + 8:
+            raise RuntimeError("wfa affine2p backtrace failed to converge")
+        byte = ops[s, np.arange(B), k + smax]
+        m_src = byte & 7
+
+        in_m = (state == 0) & ~done
+        finish = in_m & (s == 0)
+        done |= finish
+        act_m = in_m & ~finish
+        mm = act_m & (m_src == 1)
+        for idx in np.nonzero(mm)[0]:
+            rev_ops[idx].append("X")
+        s = np.where(mm, s - x, s)
+        for st in (2, 3, 4, 5):
+            state = np.where(act_m & (m_src == st), st - 1, state)
+
+        # lanes that just switched out of M wait for the next pass (the
+        # byte re-read at the same (s, k) is correct)
+        claimed = in_m
+        for st, opch, dk, shift, o, e in GAPS:
+            in_g = (state == st) & ~done & ~claimed
+            claimed = claimed | in_g
+            if not in_g.any():
+                continue
+            g_ext = (byte >> shift) & 1
+            for idx in np.nonzero(in_g)[0]:
+                rev_ops[idx].append(opch.lower() if g_ext[idx] else opch)
+            s = np.where(in_g, s - np.where(g_ext == 1, e, o + e), s)
+            k = np.where(in_g, k + dk, k)
+            state = np.where(in_g & (g_ext == 0), 0, state)
+    return [list(reversed(r)) if a else None
+            for r, a in zip(rev_ops, alive)]
+
+
+def wfa_backtrace_ops(ops: np.ndarray, scores: np.ndarray,
+                      k_targets: np.ndarray, *, x: int, o: int,
+                      e: int) -> list:
+    """Host lockstep backtrace over the packed affine op store: walk every
+    lane's op skeleton (non-match ops only; matches are re-derived by
+    replay). ops is [S+1, B, K] u8, scores the penalties, k_targets =
+    l1 - l2. Returns per-lane lists of ops in FORWARD order from
+    {'X','I','i','D','d'} (None for censored lanes)."""
+    S1, B, K = ops.shape
+    smax = (K - 1) // 2
+    alive = (scores >= 0) & (scores < S1)  # censored lanes excluded
+    s = np.where(alive, scores, 0).astype(np.int64)
+    k = np.where(alive, k_targets, 0).astype(np.int64)
+    state = np.zeros(B, dtype=np.int8)  # 0=M 1=I 2=D
+    done = ~alive
+    rev_ops: list = [[] for _ in range(B)]
+    guard = 0
+    while not done.all():
+        guard += 1
+        if guard > 4 * S1 + 8:
+            raise RuntimeError("wfa backtrace failed to converge")
+        byte = ops[s, np.arange(B), k + smax]
+        m_src = byte & 3
+        i_ext = (byte >> 2) & 1
+        d_ext = (byte >> 3) & 1
+
+        in_m = (state == 0) & ~done
+        finish = in_m & (s == 0)
+        done |= finish
+        act_m = in_m & ~finish
+        # M from mismatch
+        mm = act_m & (m_src == 1)
+        for idx in np.nonzero(mm)[0]:
+            rev_ops[idx].append("X")
+        s = np.where(mm, s - x, s)
+        state = np.where(act_m & (m_src == 2), 1, state)
+        state = np.where(act_m & (m_src == 3), 2, state)
+
+        # lanes that JUST switched to I/D this iteration (in_m) wait for
+        # the next pass: their byte was read at the same (s, k), and the
+        # re-read is correct
+        in_i = (state == 1) & ~done & ~in_m
+        for idx in np.nonzero(in_i)[0]:
+            # lowercase = gap-extend step, uppercase = gap OPEN (the first
+            # op of the gap in forward order)
+            rev_ops[idx].append("i" if i_ext[idx] else "I")
+        i_to_m = in_i & (i_ext == 0)
+        s = np.where(in_i, s - np.where(i_ext == 1, e, o + e), s)
+        k = np.where(in_i, k + 1, k)
+        state = np.where(i_to_m, 0, state)
+
+        in_d = (state == 2) & ~done & ~in_m & ~in_i
+        for idx in np.nonzero(in_d)[0]:
+            rev_ops[idx].append("d" if d_ext[idx] else "D")
+        d_to_m = in_d & (d_ext == 0)
+        s = np.where(in_d, s - np.where(d_ext == 1, e, o + e), s)
+        k = np.where(in_d, k - 1, k)
+        state = np.where(d_to_m, 0, state)
+    return [list(reversed(r)) if a else None
+            for r, a in zip(rev_ops, alive)]
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _pad_pairs(refs, reads, B: int, L: int):
+    """[B, L] u8 rows and [B] i32 lengths of the pairs, zero-padded."""
+    a = np.zeros((B, L), dtype=np.uint8)
+    b = np.zeros((B, L), dtype=np.uint8)
+    la = np.zeros(B, dtype=np.int32)
+    lb = np.zeros(B, dtype=np.int32)
+    for j, (r, d) in enumerate(zip(refs, reads)):
+        a[j, :len(r)] = np.frombuffer(r, dtype=np.uint8)
+        b[j, :len(d)] = np.frombuffer(d, dtype=np.uint8)
+        la[j], lb[j] = len(r), len(d)
+    return a, b, la, lb
+
+
+def _ceil_pow2(n: int, lo: int = 32) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _unported_bialign(n: int):
+    from clique_tpu_torch.align.pipeline import unported_message
+
+    raise NotImplementedError(unported_message(
+        f"the wavefront bialign engine ({n} pair(s) whose op store exceeds "
+        "the memory budget)", "wavefront"))
+
+
+class _Launch:
+    """One dispatched wfa_align chunk: its penalties, skeletons and end
+    rows on their way to the host, and the event that says they are
+    there."""
+
+    def __init__(self, pen, ops_fwd, fin, stream):
+        if stream is None:
+            self.host = (pen.numpy(), ops_fwd.numpy(), fin.numpy())
+            self.event = None
+            return
+        with torch.cuda.stream(stream):
+            host = []
+            for t in (pen, ops_fwd, fin):
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                host.append(h)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+        self.host = host
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+            self.host = tuple(t.numpy() for t in self.host)
+            self.event = None
+        return self.host
+
+
+class WfaAligner:
+    """Pipeline-facing batched WFA engine with traceback
+    (clique_tpu/align/wavefront.py:1652-2135), on one device.
+
+    Drop-in for BatchAligner.align_pairs: align_pairs(refs, reads) ->
+    [(ref_aligned, read_aligned, cigar, score)]. Pairs are batched by
+    padded length and run with a small score ceiling; censored pairs retry
+    at 2x the ceiling, and pairs still censored past 2*L fall back to the
+    exact DP (dp_fallback). The reported score is the NEGATED WFA penalty.
+    model="affine2p" is the dual-affine ("convex") penalty set: gap cost
+    min(o + n*e, o2 + n*e2); its pairs past the ceiling rerun at a
+    guaranteed-sufficient one.
+
+    On a CUDA device every chunk goes out on one explicit stream: its H2D
+    copies, the wfa_align kernel (fill, then the walk on the card) and
+    non-blocking copies of the penalties, skeletons and end rows into
+    pinned host memory, followed by an event. On a CPU device the plain
+    versions run at dispatch."""
+
+    def __init__(self, x: int = 4, o: int = 6, e: int = 2,
+                 batch_size: int = 512, length_quantum: int = 128,
+                 wildcards: bool = True, s0: Optional[int] = None,
+                 dp_fallback=None, model: str = "affine",
+                 o2: int = 24, e2: int = 1, kband: Optional[int] = None,
+                 adaptive: Optional[int] = None, device="cuda"):
+        if model not in ("affine", "affine2p"):
+            raise ValueError(f"unknown WFA penalties model: {model}")
+        self.model = model
+        self.x, self.o, self.e = x, o, e
+        self.o2, self.e2 = o2, e2
+        self.batch_size = batch_size
+        self.quantum = length_quantum
+        self.wildcards = wildcards
+        self.s0 = s0
+        # optional heuristic diagonal band for the first round; censored
+        # pairs retry without it. None = exact band only (default).
+        self.kband = kband
+        # optional wf-adaptive trim margin for the first round; censored
+        # pairs retry untrimmed. CLIQUE_WFA_ADAPTIVE sets one globally.
+        if adaptive is None:
+            env_a = os.environ.get("CLIQUE_WFA_ADAPTIVE")
+            adaptive = int(env_a) if env_a else None
+        self.adaptive = adaptive
+        self.dp_fallback = dp_fallback  # BatchAligner or None
+        self.device = _device(device)
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+        self.pairs_aligned = 0
+        self.cells_filled = 0           # DP-equivalent n*m cells
+        self.device_seconds = 0.0
+        self.post_seconds = 0.0
+        self.fallbacks = 0
+        self.dispatches = 0             # wfa_align launches (or plain runs)
+        # per-phase wall: dispatch = host prep + kernel enqueue;
+        # score_sync = waits for a chunk's results; window_pull = skeleton
+        # decode; host_walk = CIGAR replay on the host
+        self.phase_seconds = {"dispatch": 0.0, "score_sync": 0.0,
+                              "window_pull": 0.0, "host_walk": 0.0}
+
+    def _kmax(self, L: int, smax: int, kband: Optional[int]) -> int:
+        """The kernel's diagonal half-width for [B, L] rows at smax."""
+        return wfa_kernels.kmax_of(self.model, L, L, smax, self.o, self.e,
+                                   self.o2, self.e2, kband)
+
+    def _dispatch(self, a, b, la, lb, *, L, smax, kband=None,
+                  adaptive=None) -> _Launch:
+        """One wfa_align launch over padded [B, L] rows."""
+        dev = self.device
+        self.dispatches += 1
+        host = (a, b, la, lb)
+        if self.stream is None:
+            out = wfa_kernels.wfa_align(
+                *(torch.from_numpy(t) for t in host), smax=smax,
+                model=self.model, x=self.x, o=self.o, e=self.e, o2=self.o2,
+                e2=self.e2, wildcards=self.wildcards, kband=kband,
+                adaptive=adaptive)
+            return _Launch(out[0], out[2], out[3], None)
+        with torch.cuda.stream(self.stream):
+            args = [torch.from_numpy(t).to(dev, non_blocking=True)
+                    for t in host]
+            pen, _ops, ops_fwd, fin = wfa_kernels.wfa_align(
+                *args, smax=smax, model=self.model, x=self.x, o=self.o,
+                e=self.e, o2=self.o2, e2=self.e2, wildcards=self.wildcards,
+                kband=kband, adaptive=adaptive, stream=self.stream)
+            return _Launch(pen, ops_fwd, fin, self.stream)
+
+    @staticmethod
+    def _decode_walk(ops_np, fin_np, n: int) -> list:
+        """The first n lanes' skeleton lists from a walk's (ops_fwd, fin)
+        (None where censored)."""
+        out = []
+        for b in range(n):
+            if fin_np[b] == -2:
+                out.append(None)
+                continue
+            if fin_np[b] != -1:
+                raise RuntimeError(
+                    f"wfa device walk failed to converge (lane {b}, "
+                    f"fin={fin_np[b]})")
+            row = ops_np[b]
+            out.append([chr(c) for c in row[row != 0]])
+        return out
+
+    def _bucket_len(self, n: int) -> int:
+        q = self.quantum
+        return max(q, -(-n // q) * q)
+
+    def _budget(self) -> int:
+        # the JAX package's op-store budgets (512 MiB affine, 2 GiB
+        # affine2p), kept as they are: they decide which pairs escalate,
+        # fall back or go to bialign, so they decide output bytes
+        default = (2 << 30) if self.model == "affine2p" else (512 << 20)
+        return int(os.environ.get("CLIQUE_WFA_MEM_BUDGET", str(default)))
+
+    def _chunk_bytes(self, B: int, L: int, smax: int,
+                     kband: Optional[int] = None) -> int:
+        """The JAX package's estimate of one chunk's device footprint: the
+        [smax+1, B, K] op store plus its packed bitmap/wordrun tables
+        (8 bytes per 32 offsets) and the [B, K, H] bool intermediate of
+        their build (wavefront.py:1808-1817)."""
+        K = 2 * self._kmax(L, smax, kband) + 1
+        W = (L + 33) // 32
+        return B * K * ((smax + 1) + 8 * W + (L + 2))
+
+    def _mem_cap(self, L: int, smax: int,
+                 kband: Optional[int] = None) -> int:
+        """Largest power-of-2 lane count whose chunk footprint fits the
+        budget; floors at 32 lanes."""
+        budget = self._budget()
+        b = 32
+        while self._chunk_bytes(b * 2, L, smax, kband) <= budget:
+            b *= 2
+        return b
+
+    def align_pairs(self, refs, reads):
+        """Per retry round, every chunk of every length bucket of a wave is
+        dispatched before any result is waited for; then each chunk's
+        skeletons are decoded and its CIGARs replayed on the host."""
+        results = [None] * len(refs)
+        t0 = time.time()
+        fallback: list = []
+        buckets: dict = {}
+        for k in range(len(refs)):
+            L = self._bucket_len(max(len(refs[k]), len(reads[k])))
+            buckets.setdefault(L, []).append(k)
+        work = []                # (L, smax, idxs, kband, adaptive)
+        for L in sorted(buckets):
+            if L + 1 >= (1 << 15):
+                # ultra-long pairs go to the exact DP
+                fallback.extend(buckets[L])
+                continue
+            if self.s0 is not None:
+                idxs = sorted(buckets[L], key=lambda k:
+                              abs(len(refs[k]) - len(reads[k])))
+                work.append((L, self.s0, idxs, self.kband, self.adaptive))
+                continue
+            # penalty-aware initial ceilings: a pair's length gap d
+            # lower-bounds its penalty, so such a lane starts on the
+            # smallest rung of the base*2^n ladder above bound + base/4
+            base = max(64, L // 4)
+            rungs: dict = {}
+            for k in buckets[L]:
+                d = abs(len(refs[k]) - len(reads[k]))
+                bound = 0 if d == 0 else min(
+                    self.o + self.e * d, self.o2 + self.e2 * d) \
+                    if self.model == "affine2p" else self.o + self.e * d
+                s = base
+                while s < bound + base // 4:
+                    s *= 2
+                rungs.setdefault(s, []).append(k)
+            for s, idxs in sorted(rungs.items()):
+                if self.model == "affine" and \
+                        self._chunk_bytes(32, L, s, self.kband) > \
+                        self._budget():
+                    # the JAX engine sends these to its bialign engine
+                    _unported_bialign(len(idxs))
+                idxs.sort(key=lambda k: abs(len(refs[k]) - len(reads[k])))
+                work.append((L, s, idxs, self.kband, self.adaptive))
+        wave_budget = 2 * self._budget()
+        while work:
+            # this round's chunks, run in waves whose summed footprint
+            # stays inside 2x the budget (a floor chunk over the budget
+            # runs alone)
+            chunks = []
+            for (L, smax, idxs, kband, adaptive) in work:
+                cap = min(self.batch_size, self._mem_cap(L, smax, kband))
+                for lo in range(0, len(idxs), cap):
+                    chunks.append((L, smax, idxs[lo:lo + cap], kband,
+                                   adaptive, cap))
+            censored: dict = {}        # (L, smax) -> [indices]
+            pos = 0
+            while pos < len(chunks):
+                t_a = time.time()
+                disp = []
+                used = 0
+                while pos < len(chunks):
+                    L, smax, chunk, kband, adaptive, cap = chunks[pos]
+                    nbytes = self._chunk_bytes(cap, L, smax, kband)
+                    if disp and used + nbytes > wave_budget:
+                        break
+                    used += nbytes
+                    pos += 1
+                    a, b, la, lb = _pad_pairs(
+                        [refs[k] for k in chunk], [reads[k] for k in chunk],
+                        len(chunk), L)
+                    disp.append((chunk, L, smax, self._dispatch(
+                        a, b, la, lb, L=L, smax=smax, kband=kband,
+                        adaptive=adaptive)))
+                self.phase_seconds["dispatch"] += time.time() - t_a
+                for (chunk, L, smax, launch) in disp:
+                    t_c = time.time()
+                    sc, ops_np, fin_np = launch.wait()
+                    self.phase_seconds["score_sync"] += time.time() - t_c
+                    t_d = time.time()
+                    skeletons = self._decode_walk(ops_np, fin_np, len(chunk))
+                    self.phase_seconds["window_pull"] += time.time() - t_d
+                    t_w = time.time()
+                    miss = censored.setdefault((L, smax), [])
+                    for j, k in enumerate(chunk):
+                        if skeletons[j] is None:
+                            miss.append(k)
+                            continue
+                        cig = wfa_replay_cigar(refs[k], reads[k],
+                                               skeletons[j],
+                                               wildcards=self.wildcards)
+                        ra, da = cigar_to_aligned(refs[k], reads[k], cig)
+                        results[k] = (ra, da, cig, -float(sc[j]))
+                        self.cells_filled += len(refs[k]) * len(reads[k])
+                    self.phase_seconds["host_walk"] += time.time() - t_w
+                del disp
+            # next round: censored pairs retry at 2x the ceiling, without
+            # the heuristic band and trim
+            work = []
+            for (L, smax), idxs in censored.items():
+                if not idxs:
+                    continue
+                if smax > 2 * L:
+                    fallback.extend(idxs)
+                elif self.model == "affine" and \
+                        self._chunk_bytes(32, L, smax * 2, None) > \
+                        self._budget():
+                    _unported_bialign(len(idxs))
+                else:
+                    work.append((L, smax * 2, idxs, None, None))
+        self.device_seconds += time.time() - t0
+        self.pairs_aligned += len(refs)
+        if fallback:
+            self._dp_fallback_fill(fallback, refs, reads, results)
+        return results
+
+    def _dp_fallback_fill(self, remaining, refs, reads, results):
+        """Pairs beyond the WFA score cap. affine2p pairs rerun the affine2p
+        kernel at a guaranteed-sufficient ceiling (quantized to 1024)
+        where its op store fits the budget; the rest go to the exact-DP
+        fallback."""
+        self.fallbacks += len(remaining)
+        if self.model == "affine2p":
+            long_pairs = []
+            rerun_buckets: dict = {}
+            for k in remaining:
+                L = self._bucket_len(max(len(refs[k]), len(reads[k])))
+                if L + 1 >= (1 << 15):
+                    long_pairs.append(k)
+                    continue
+                rerun_buckets.setdefault(L, []).append(k)
+            for L, idxs in rerun_buckets.items():
+                smax = max(
+                    min(2 * self.o + self.e * 2
+                        * max(len(refs[k]), len(reads[k])),
+                        2 * self.o2 + self.e2 * 2
+                        * max(len(refs[k]), len(reads[k])))
+                    for k in idxs) + 1
+                smax = -(-smax // 1024) * 1024   # quantize the ceiling
+                if self._chunk_bytes(32, L, smax) > self._budget():
+                    long_pairs.extend(idxs)
+                    continue
+                for c0 in range(0, len(idxs), 32):
+                    chunk = idxs[c0:c0 + 32]
+                    a, b, la, lb = _pad_pairs(
+                        [refs[k] for k in chunk], [reads[k] for k in chunk],
+                        32, L)
+                    sc, ops_np, fin_np = self._dispatch(
+                        a, b, la, lb, L=L, smax=smax).wait()
+                    skels = self._decode_walk(ops_np, fin_np, len(chunk))
+                    for j, k in enumerate(chunk):
+                        cig = wfa_replay_cigar(refs[k], reads[k], skels[j],
+                                               wildcards=self.wildcards)
+                        ra, da = cigar_to_aligned(refs[k], reads[k], cig)
+                        results[k] = (ra, da, cig, -float(sc[j]))
+                        self.cells_filled += len(refs[k]) * len(reads[k])
+            remaining = long_pairs
+            if not remaining:
+                return
+        if self.dp_fallback is not None:
+            out = self.dp_fallback.align_pairs(
+                [refs[k] for k in remaining], [reads[k] for k in remaining])
+            for k, r in zip(remaining, out):
+                results[k] = r
+        elif self.model == "affine" and all(
+                _bialign_len_ok(max(len(refs[k]), len(reads[k])))
+                for k in remaining):
+            # the JAX engine finishes these on its bialign engine
+            _unported_bialign(len(remaining))
+        else:
+            for k in remaining:
+                (pen, cig), = wfa_affine_align_pairs(
+                    [refs[k]], [reads[k]], x=self.x, o=self.o, e=self.e,
+                    wildcards=self.wildcards, device=self.device)
+                ra, da = cigar_to_aligned(refs[k], reads[k], cig)
+                results[k] = (ra, da, cig, -float(pen))
+                self.cells_filled += len(refs[k]) * len(reads[k])
+
+
+def _bialign_len_ok(n: int) -> bool:
+    """True when a pair of max raw length n fits the JAX bialign split
+    encoding (lengths quantized up to 128 below 1 << 15,
+    wavefront.py:430-436)."""
+    return -(-max(n, 1) // 128) * 128 < (1 << 16) // 2
+
+
+def wfa_affine_align_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
+                           e: int = 2, smax=None, wildcards: bool = False,
+                           pad_to: int = 64, device="cuda"):
+    """Batched gap-affine WFA with traceback over byte pairs
+    (wavefront.py:1334-1372): [(penalty, cigar)] per pair, cigar None
+    where the pair was censored at smax (penalty smax + 1)."""
+    if not pairs_a:
+        return []
+    L = max(pad_to, max(max(len(a) for a in pairs_a),
+                        max(len(b) for b in pairs_b)))
+    P = len(pairs_a)
+    a, b, la, lb = _pad_pairs(pairs_a, pairs_b, _ceil_pow2(P), L)
+    if smax is None:
+        smax = x + o + e * L  # worst case bound: all-gap then mismatches
+    dev = _device(device)
+    pen, _ops, ops_fwd, fin = wfa_kernels.wfa_align(
+        *(torch.from_numpy(t).to(dev) for t in (a, b, la, lb)), smax=smax,
+        model="affine", x=x, o=o, e=e, wildcards=wildcards)
+    pen = pen.cpu().numpy()
+    skeletons = WfaAligner._decode_walk(ops_fwd.cpu().numpy(),
+                                        fin.cpu().numpy(), P)
+    out = []
+    for i in range(P):
+        if skeletons[i] is None:
+            out.append((int(pen[i]), None))
+            continue
+        cig = wfa_replay_cigar(pairs_a[i], pairs_b[i], skeletons[i],
+                               wildcards=wildcards)
+        out.append((int(pen[i]), cig))
+    return out
+
+
+def wfa_screen_candidates(refs, reads, *, x: int = 4, o: int = 6,
+                          e: int = 2, smax: Optional[int] = None,
+                          pad_to: int = 64, model: str = "affine",
+                          o2: int = 24, e2: int = 1,
+                          device="cuda") -> np.ndarray:
+    """Score-only candidate screen for exhaustive reference search
+    (wavefront.py:2136-2173): the WFA penalty of each (ref, read) pair,
+    censored at smax (censored pairs return smax + 1 and rank last), in
+    one wfa_score launch. model="affine2p" screens under the dual-affine
+    penalties."""
+    if not refs:
+        return np.zeros(0, dtype=np.int32)
+    P = len(refs)
+    L = max(pad_to, max(max(len(r) for r in refs),
+                        max(len(d) for d in reads)))
+    if smax is None:
+        smax = max(64, L // 2)
+    a, b, la, lb = _pad_pairs(refs, reads, _ceil_pow2(P), L)
+    dev = _device(device)
+    pen = wfa_kernels.wfa_score(
+        *(torch.from_numpy(t).to(dev) for t in (a, b, la, lb)), smax=smax,
+        model=model, x=x, o=o, e=e, o2=o2, e2=e2, wildcards=True)
+    return pen.cpu().numpy()[:P]

@@ -1,0 +1,436 @@
+"""Wavefront (WFA) kernels on PyTorch + CUDA: the gap-affine and dual-affine
+("convex") wavefront fills with and without an op store, and the backtrace
+walk over that store.
+
+Counterpart of the device functions of clique_tpu/align/wavefront.py that
+`align --engine wfa|convex` runs:
+
+- `wfa_align` replaces wfa_affine_tb_batch (:723) and
+  wfa_affine2p_tb_batch (:874), and wfa_walk_device (:1154) fused after
+  them: per pair the penalty, the [smax+1, B, K] u8 op store and the
+  walk's forward op skeleton with its end row;
+- `wfa_score` replaces the score-only wfa_affine_batch (:316) and
+  wfa_affine2p_batch (:612) of the exhaustive-search screen.
+
+Both take `model` "affine" (penalties x, o, e) or "affine2p" (also o2, e2)
+and run the hand-written kernels of csrc/wfa_align.cu on CUDA tensors, the
+plain PyTorch versions below on CPU tensors; any other device raises.
+`wfa_align_launches` and `wfa_score_launches` count kernel launches and
+nothing else.
+
+The plain versions are the JAX functions step for step: one batched
+[B, K] update a score step, ring buffers of `hist` rows, the loop running
+while s < smax and a lane is not done. Greedy extension compares bytes (a
+run-length table over offsets replaces the JAX package's packed bitmaps,
+a workaround for the TPU's slow gathers; the runs are the same): a
+position matches where h < l1 and 0 <= h - k < l2, and under `wildcards`
+a byte below 58 or 'N' on either side matches anything.
+
+The op byte of a (score step, pair, diagonal): affine, bits 0-1 the M
+source (0 none, 1 mismatch, 2 I, 3 D), bit 2 I from extend, bit 3 D from
+extend; affine2p, bits 0-2 the M source (0 none, 1 mismatch, 2 I1, 3 D1,
+4 I2, 5 D2), bits 3-6 I1, D1, I2, D2 from extend. Rows past a lane's
+penalty hold whatever the fill left there (the kernel stops a pair at its
+own penalty, the batched plain version at the batch's last one): only
+rows up to each lane's penalty are defined.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from clique_tpu_torch.align.dp_kernels import (_check, _device_of,
+                                               _launch_stream, _raise_on)
+
+NEG = -(1 << 30)
+MODELS = ("affine", "affine2p")
+
+wfa_align_launches = 0
+wfa_score_launches = 0
+# wfa_align launches whose rings did not fit shared memory and lived in a
+# global workspace instead (csrc/wfa_align.cu)
+wfa_global_ring_launches = 0
+
+
+def reset_counts() -> None:
+    global wfa_align_launches, wfa_score_launches, wfa_global_ring_launches
+    wfa_align_launches = 0
+    wfa_score_launches = 0
+    wfa_global_ring_launches = 0
+
+
+def exact_kband(smax: int, opens_extends) -> int:
+    """Largest |diagonal| any path with penalty <= smax can touch
+    (clique_tpu/align/wavefront.py:60-73): reaching diagonal k costs at
+    least min_i(o_i + e_i * |k|)."""
+    kb = 0
+    for o, e in opens_extends:
+        if smax > o:
+            kb = max(kb, (smax - o) // max(e, 1))
+    return kb
+
+
+def gap_classes(model: str, o: int, e: int, o2: int, e2: int):
+    """The (open, extend) pairs of a penalty model."""
+    if model not in MODELS:
+        raise ValueError(f"unknown WFA penalties model: {model}")
+    return ((o, e),) if model == "affine" else ((o, e), (o2, e2))
+
+
+def kmax_of(model: str, n1: int, n2: int, smax: int, o: int, e: int,
+            o2: int, e2: int, kband: Optional[int] = None) -> int:
+    """The fill's diagonal half-width: K = 2 * kmax + 1 diagonals."""
+    kmax = min(n1 + n2, smax, exact_kband(smax, gap_classes(model, o, e,
+                                                            o2, e2)))
+    if kband is not None:
+        kmax = min(kmax, kband)
+    return kmax
+
+
+def hist_of(model: str, x: int, o: int, e: int, o2: int, e2: int) -> int:
+    """Rows of each ring buffer: the longest lookback plus one."""
+    back = [x] + [v for oe in gap_classes(model, o, e, o2, e2)
+                  for v in (oe[0] + oe[1], oe[1])]
+    return max(back) + 1
+
+
+def _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x, o, e,
+                  o2, e2):
+    dev = _device_of(reads)
+    _check(refs, "refs", torch.uint8, 2, dev)
+    _check(reads, "reads", torch.uint8, 2, dev)
+    _check(ref_lens, "ref_lens", torch.int32, 1, dev)
+    _check(read_lens, "read_lens", torch.int32, 1, dev)
+    B = reads.shape[0]
+    if refs.shape[0] != B or ref_lens.shape[0] != B or \
+            read_lens.shape[0] != B:
+        raise ValueError("refs, reads and their lengths need one row per "
+                         "pair")
+    gap_classes(model, o, e, o2, e2)
+    if refs.shape[1] < 1 or reads.shape[1] < 1:
+        raise ValueError("refs and reads must be at least one byte wide")
+    if smax < 0:
+        raise ValueError("smax must be >= 0")
+    if min(x, o, e, o2, e2) < 0:
+        raise ValueError("penalties must be >= 0")
+    return dev, B
+
+
+def _run_table(refs, reads, ks, l1, l2, wildcards):
+    """[B, K, H+1] i32: the greedy match run from each offset h of each
+    diagonal (H = refs.shape[1]; column H is 0)."""
+    B, n1w = refs.shape
+    n2w = reads.shape[1]
+    dev = refs.device
+    h = torch.arange(n1w + 1, dtype=torch.int32, device=dev)
+    v = h[None, :] - ks[:, None]                              # [K, H+1]
+    rh = refs[:, h.clamp(max=n1w - 1).long()][:, None, :]
+    rv = reads[:, v.clamp(0, n2w - 1).long()]
+    eq = rh == rv
+    if wildcards:
+        eq = eq | (rh < 58) | (rh == 78) | (rv < 58) | (rv == 78)
+    eq = eq & (h[None, None, :] < l1[:, :, None]) & (v[None] >= 0) & \
+        (v[None] < l2[:, :, None])
+    # run[h] = (first mismatch at or after h) - h
+    hh = h.expand_as(eq)
+    stop = torch.where(eq, torch.full_like(hh, n1w + 1), hh)
+    first = torch.flip(torch.cummin(torch.flip(stop, (2,)), 2).values, (2,))
+    return first - hh
+
+
+def _shift_r(w):
+    """W[k-1] (the deletion direction), NEG at the first diagonal."""
+    return torch.nn.functional.pad(w[:, :-1], (1, 0), value=NEG)
+
+
+def _shift_l(w):
+    """W[k+1] (the insertion direction), NEG at the last diagonal."""
+    return torch.nn.functional.pad(w[:, 1:], (0, 1), value=NEG)
+
+
+def _plus1(w):
+    return torch.where(w > NEG, w + 1, NEG)
+
+
+def wfa_fill_reference(refs, reads, ref_lens, read_lens, *, smax: int,
+                       model: str = "affine", x: int = 4, o: int = 6,
+                       e: int = 2, o2: int = 24, e2: int = 1,
+                       wildcards: bool = False, kband: Optional[int] = None,
+                       adaptive: Optional[int] = None,
+                       traceback: bool = True):
+    """The plain wavefront fill: penalty [B] i32 (smax + 1 censored) and,
+    with traceback, the op store [smax+1, B, K] u8 (else None). Semantics
+    of wfa_affine{,2p}_tb_batch and, without traceback and adaptive, of
+    wfa_affine{,2p}_batch. refs [B, n1] and reads [B, n2] u8 row-padded,
+    lengths [B] i32 in [0, n1] / [0, n2]."""
+    dev, B = _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x,
+                           o, e, o2, e2)
+    n1w, n2w = refs.shape[1], reads.shape[1]
+    if bool(((ref_lens < 0) | (ref_lens > n1w) | (read_lens < 0)
+             | (read_lens > n2w)).any()):
+        raise ValueError("a length lies outside [0, width]")
+    classes = gap_classes(model, o, e, o2, e2)
+    G = len(classes)
+    Kmax = kmax_of(model, n1w, n2w, smax, o, e, o2, e2, kband)
+    K = 2 * Kmax + 1
+    hist = hist_of(model, x, o, e, o2, e2)
+    i32 = torch.int32
+    ks = torch.arange(K, dtype=i32, device=dev) - Kmax
+    l1 = ref_lens[:, None]
+    l2 = read_lens[:, None]
+    k_target = (l1 - l2)[:, 0]
+    target_ok = k_target.abs() <= Kmax
+    tgt = (k_target.clamp(-Kmax, Kmax) + Kmax).long()[:, None]
+    run = _run_table(refs, reads, ks, l1, l2, wildcards)
+
+    def clamp(offs):
+        v = offs - ks[None, :]
+        ok = (offs <= l1) & (v <= l2) & (v >= 0) & (ks[None, :] >= -l2) & \
+            (ks[None, :] <= l1)
+        return torch.where(ok, offs, NEG)
+
+    def diag_valid(s):
+        return (ks.abs()[None, :] <= s) & (ks[None, :] >= -l2) & \
+            (ks[None, :] <= l1)
+
+    def extend(offs, valid):
+        ok = valid & (offs > NEG) & (offs >= 0)
+        idx = offs.clamp(0, n1w).long()
+        return torch.where(ok, offs + run.gather(2, idx[:, :, None])[:, :, 0],
+                           offs)
+
+    def done(m):
+        return target_ok & (m.gather(1, tgt)[:, 0] >= l1[:, 0])
+
+    neg = torch.full((B, K), NEG, dtype=i32, device=dev)
+    m0 = torch.where((ks == 0)[None, :].expand(B, K), 0, neg)
+    m0 = extend(m0, diag_valid(0))
+    M = [neg] * hist
+    M[0] = m0
+    I = [[neg] * hist for _ in range(G)]
+    D = [[neg] * hist for _ in range(G)]
+    ops = torch.zeros((smax + 1, B, K), dtype=torch.uint8, device=dev) \
+        if traceback else None
+    result = torch.where(done(m0), 0, -1).to(i32)
+    s = 0
+
+    def get(ring, s1, back):
+        return ring[(s1 - back) % hist] if s1 - back >= 0 else neg
+
+    while s < smax and not bool((result >= 0).all()):
+        s1 = s + 1
+        vld = diag_valid(s1)
+        new_i, new_d, i_ext, d_ext = [], [], [], []
+        for g, (og, eg) in enumerate(classes):
+            m_oe = get(M, s1, og + eg)
+            d_open, d_e = _shift_r(m_oe), _shift_r(get(D[g], s1, eg))
+            i_open, i_e = _shift_l(m_oe), _shift_l(get(I[g], s1, eg))
+            new_d.append(_plus1(torch.maximum(d_open, d_e)))
+            d_ext.append(d_e > d_open)            # a tie opens
+            new_i.append(torch.maximum(i_open, i_e))
+            i_ext.append(i_e > i_open)
+        mism = _plus1(get(M, s1, x))
+        if G == 1:
+            # affine: M from the raw gaps, then every plane clamped
+            new_m = torch.maximum(mism, torch.maximum(new_i[0], new_d[0]))
+            m_src = torch.where(mism == new_m, 1,
+                                torch.where(new_i[0] == new_m, 2, 3))
+            new_i = [clamp(torch.where(vld, new_i[0], NEG))]
+            new_d = [clamp(torch.where(vld, new_d[0], NEG))]
+        else:
+            # affine2p: the gaps clamped first, M from the clamped gaps
+            new_i = [clamp(torch.where(vld, t, NEG)) for t in new_i]
+            new_d = [clamp(torch.where(vld, t, NEG)) for t in new_d]
+            new_m = torch.maximum(
+                mism, torch.maximum(torch.maximum(new_i[0], new_d[0]),
+                                    torch.maximum(new_i[1], new_d[1])))
+            m_src = torch.where(
+                mism == new_m, 1, torch.where(
+                    new_i[0] == new_m, 2, torch.where(
+                        new_d[0] == new_m, 3, torch.where(
+                            new_i[1] == new_m, 4, 5))))
+        m_src = torch.where(new_m <= NEG, 0, m_src)
+        new_m = extend(clamp(torch.where(vld, new_m, NEG)), vld)
+        if adaptive is not None:
+            # wf-adaptive trim: drop diagonals whose antidiagonal progress
+            # 2h - k lags the lane's best by more than the margin
+            has_m = new_m > NEG
+            prog = 2 * torch.where(has_m, new_m, 0) - ks[None, :]
+            best = torch.where(has_m, prog, NEG).amax(1, keepdim=True)
+            kill = has_m & (prog < best - adaptive)
+            new_m = torch.where(kill, NEG, new_m)
+            new_i = [torch.where(kill, NEG, t) for t in new_i]
+            new_d = [torch.where(kill, NEG, t) for t in new_d]
+        if traceback:
+            shift = 2 if G == 1 else 3
+            byte = m_src.to(torch.uint8)
+            for g in range(G):
+                byte = byte | (i_ext[g].to(torch.uint8) << (shift + 2 * g)) \
+                    | (d_ext[g].to(torch.uint8) << (shift + 2 * g + 1))
+            ops[s1] = byte
+        idx = s1 % hist
+        M[idx] = new_m
+        for g in range(G):
+            I[g][idx] = new_i[g]
+            D[g][idx] = new_d[g]
+        result = torch.where((result < 0) & done(new_m), s1, result).to(i32)
+        s = s1
+    pen = torch.where(result < 0, smax + 1, result).to(i32)
+    return pen, ops
+
+
+def _walk_gaps(model, x, o, e, o2, e2):
+    """(state, diagonal step, extend bit, open + extend cost, extend cost,
+    open op, extend op) of each gap state of the walk."""
+    if model == "affine2p":
+        return ((1, +1, 3, o + e, e), (2, -1, 4, o + e, e),
+                (3, +1, 5, o2 + e2, e2), (4, -1, 6, o2 + e2, e2))
+    return ((1, +1, 2, o + e, e), (2, -1, 3, o + e, e))
+
+
+def wfa_walk_reference(ops, scores, k_targets, *, model: str, x: int, o: int,
+                       e: int, o2: int = 0, e2: int = 0):
+    """The plain backtrace walk (wfa_walk_device, wavefront.py:1154-1236):
+    one reverse pass over the op store's rows, each lane acting at the row
+    its score pointer is on, at most one op a row (an M -> gap switch and
+    the gap's first step share the row). Returns (ops_fwd [B, S+1] u8, the
+    op characters in forward order, 0-padded; fin [B] i32: -1 where the
+    walk reached row 0 in M, -2 for a censored lane)."""
+    S1, B, K = ops.shape
+    dev = ops.device
+    kmax = (K - 1) // 2
+    i32 = torch.int32
+    scores = scores.to(i32)
+    alive = (scores >= 0) & (scores < S1)
+    s = torch.where(alive, scores, -2)
+    k = torch.where(alive, k_targets.to(i32), 0).clamp(-kmax, kmax)
+    state = torch.zeros(B, dtype=i32, device=dev)
+    m_mask = 7 if model == "affine2p" else 3
+    gaps = _walk_gaps(model, x, o, e, o2, e2)
+    rows_out = torch.zeros((B, S1), dtype=torch.uint8, device=dev)
+    for row in range(S1 - 1, -1, -1):
+        kk = (k + kmax).long()
+        inside = (kk >= 0) & (kk < K)
+        byte = torch.where(inside, ops[row].gather(
+            1, kk.clamp(0, K - 1)[:, None])[:, 0].to(i32), 0)
+        in_m = (s == row) & (state == 0)
+        finish = in_m & (row == 0)
+        m_src = byte & m_mask
+        mm = in_m & ~finish & (m_src == 1)
+        op = torch.where(mm, 88, 0).to(i32)                  # 'X'
+        s = torch.where(mm, s - x, s)
+        s = torch.where(finish, -1, s)
+        sw = in_m & ~finish & (m_src >= 2)
+        state = torch.where(sw, m_src - 1, state)
+        in_g = (s == row) & (state > 0)
+        for st, dk, shift, oe_cost, e_cost in gaps:
+            g = in_g & (state == st)
+            ext = (byte >> shift) & 1
+            op = torch.where(g, torch.where(ext == 1, 105 if dk > 0 else 100,
+                                            73 if dk > 0 else 68), op)
+            s = torch.where(g, s - torch.where(ext == 1, e_cost, oe_cost), s)
+            k = torch.where(g, k + dk, k)
+            state = torch.where(g & (ext == 0), 0, state)
+        rows_out[:, row] = op.to(torch.uint8)
+    # forward path order = ascending rows; left-compact the emitted ops
+    order = torch.argsort((rows_out == 0).to(i32), dim=1, stable=True)
+    return rows_out.gather(1, order), s.to(i32)
+
+
+def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
+            wildcards, kband, adaptive, traceback, stream):
+    """Allocate the outputs, launch csrc/wfa_align.cu's wfa_align (with
+    traceback) or wfa_score and return (pen, ops, ops_fwd, fin), the last
+    three None without traceback. Counts a launch where it makes one."""
+    global wfa_align_launches, wfa_score_launches, wfa_global_ring_launches
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    dev = reads.device
+    B, n1w = refs.shape
+    n2w = reads.shape[1]
+    Kmax = kmax_of(model, n1w, n2w, smax, o, e, o2, e2, kband)
+    K = 2 * Kmax + 1
+    hist = hist_of(model, x, o, e, o2, e2)
+    G = 1 if model == "affine" else 2
+    s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens))
+    ring_ints = lib.clique_wfa_global_ring_ints(n1w, n2w, G, hist, K)
+    with torch.cuda.stream(s):
+        pen = torch.empty(B, dtype=torch.int32, device=dev)
+        ops = ops_fwd = fin = None
+        if traceback:
+            ops = torch.empty((smax + 1, B, K), dtype=torch.uint8,
+                              device=dev)
+            ops_fwd = torch.empty((B, smax + 1), dtype=torch.uint8,
+                                  device=dev)
+            fin = torch.empty(B, dtype=torch.int32, device=dev)
+        ring = torch.empty((B, ring_ints), dtype=torch.int32, device=dev) \
+            if ring_ints else None
+    if B == 0:
+        return pen, ops, ops_fwd, fin
+    o2_, e2_ = (o2, e2) if G == 2 else (0, 0)
+    fn = lib.clique_wfa_align if traceback else lib.clique_wfa_score
+    with torch.cuda.device(dev):
+        err = fn(
+            refs.data_ptr(), n1w, reads.data_ptr(), n2w, ref_lens.data_ptr(),
+            read_lens.data_ptr(), B, G, smax, Kmax, hist, x, o, e, o2_, e2_,
+            int(bool(wildcards)), -1 if adaptive is None else int(adaptive),
+            ring.data_ptr() if ring is not None else None, pen.data_ptr(),
+            ops.data_ptr() if traceback else None,
+            ops_fwd.data_ptr() if traceback else None,
+            fin.data_ptr() if traceback else None, s.cuda_stream)
+    _raise_on(err, "wfa_align" if traceback else "wfa_score")
+    if traceback:
+        wfa_align_launches += 1
+        if ring is not None:
+            wfa_global_ring_launches += 1
+    else:
+        wfa_score_launches += 1
+    return pen, ops, ops_fwd, fin
+
+
+def wfa_align(refs, reads, ref_lens, read_lens, *, smax: int,
+              model: str = "affine", x: int = 4, o: int = 6, e: int = 2,
+              o2: int = 24, e2: int = 1, wildcards: bool = False,
+              kband: Optional[int] = None, adaptive: Optional[int] = None,
+              stream=None) -> Tuple[torch.Tensor, ...]:
+    """Wavefront fill with its op store and the backtrace walk, fused:
+    refs [B, n1] u8, reads [B, n2] u8 (row-padded), lengths [B] i32 ->
+    (penalty [B] i32, smax + 1 censored; op store [smax+1, B, K] u8;
+    ops_fwd [B, smax+1] u8; fin [B] i32), as wfa_fill_reference followed
+    by wfa_walk_reference with k_targets = ref_lens - read_lens. The
+    kernel marks a pair whose lengths lie outside the rows with penalty
+    -1 and fin -3 (the plain version raises ValueError)."""
+    dev, _B = _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x,
+                            o, e, o2, e2)
+    if dev.type == "cpu":
+        pen, ops = wfa_fill_reference(
+            refs, reads, ref_lens, read_lens, smax=smax, model=model, x=x,
+            o=o, e=e, o2=o2, e2=e2, wildcards=wildcards, kband=kband,
+            adaptive=adaptive)
+        ops_fwd, fin = wfa_walk_reference(
+            ops, pen, ref_lens - read_lens, model=model, x=x, o=o, e=e,
+            o2=o2, e2=e2)
+        return pen, ops, ops_fwd, fin
+    return _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e,
+                   o2, e2, wildcards, kband, adaptive, True, stream)
+
+
+def wfa_score(refs, reads, ref_lens, read_lens, *, smax: int,
+              model: str = "affine", x: int = 4, o: int = 6, e: int = 2,
+              o2: int = 24, e2: int = 1, wildcards: bool = False,
+              kband: Optional[int] = None, stream=None) -> torch.Tensor:
+    """Score-only wavefront fill: penalty [B] i32 (smax + 1 censored), the
+    semantics of wfa_affine_batch / wfa_affine2p_batch; inputs as
+    wfa_align's."""
+    dev, _B = _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x,
+                            o, e, o2, e2)
+    if dev.type == "cpu":
+        return wfa_fill_reference(
+            refs, reads, ref_lens, read_lens, smax=smax, model=model, x=x,
+            o=o, e=e, o2=o2, e2=e2, wildcards=wildcards, kband=kband,
+            traceback=False)[0]
+    return _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e,
+                   o2, e2, wildcards, kband, None, False, stream)[0]

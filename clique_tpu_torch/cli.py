@@ -15,18 +15,14 @@ import logging
 import sys
 
 # per verb: flag -> (is it set to an unported value?, key of
-# align.pipeline.ROADMAP_ITEMS): the wavefront engines and the
-# multi-process runs. Everything else, `--router hmm`, `--profile-dir` and
+# align.pipeline.ROADMAP_ITEMS): the multi-process runs. Everything else,
+# `--engine wfa|convex`, `--router hmm`, `--profile-dir` and
 # `collapse --threads N` included, runs.
-_ALIGN_UNPORTED = {
-    "--engine wfa|convex": (lambda a: a.engine in ("wfa", "convex"),
-                            "wavefront"),
-    "--distributed-world > 1": (lambda a: a.distributed_world > 1,
-                                "parallel"),
-}
 _UNPORTED = {
-    "align": _ALIGN_UNPORTED,
-    "run": {"--engine wfa|convex": _ALIGN_UNPORTED["--engine wfa|convex"]},
+    "align": {
+        "--distributed-world > 1": (lambda a: a.distributed_world > 1,
+                                    "parallel"),
+    },
     "collapse": {
         "--distributed-world > 1": (lambda a: a.distributed_world > 1,
                                     "parallel"),
@@ -64,7 +60,8 @@ def main(argv=None) -> int:
     p_align.add_argument("--engine", default="auto",
                          choices=["auto", "dp", "wfa", "convex"],
                          help="alignment engine: dp = exact 3-plane affine DP "
-                              "(auto = dp); wfa and convex are not ported")
+                              "(auto = dp); wfa = wavefront engine; convex = "
+                              "wavefront engine under dual-affine penalties")
     p_align.add_argument("--batch-size", type=int, default=256)
     p_align.add_argument("--single-ref-native", action="store_true",
                          help="use native affine scoring on single-reference "
@@ -175,7 +172,8 @@ def main(argv=None) -> int:
     p_run.add_argument("--mode", default="ont", choices=["ont", "hifi"])
     p_run.add_argument("--engine", default="auto",
                        choices=["auto", "dp", "wfa", "convex"],
-                       help="auto = dp; wfa and convex are not ported")
+                       help="auto = dp; wfa = wavefront engine; convex = "
+                            "wavefront engine under dual-affine penalties")
     p_run.add_argument("--router", default="kmer", choices=["kmer", "hmm"],
                        help="multi-reference routing: kmer vote or pair-HMM")
     p_run.add_argument("--correct-only", action="store_true")

@@ -207,15 +207,16 @@ def test_bench_shaped_two_reference_matches_jax(tmp_path):
 
 
 UNPORTED = {
-    "engine_wfa": dict(engine="wfa"),
-    "engine_convex": dict(engine="convex"),
     "read_shard": dict(read_shard=(0, 2)),
 }
 # options the port once refused and now runs: their parity with the JAX
-# package on the golden reads (a narrow band; every read anchored)
+# package on the golden reads (a narrow band; every read anchored; the
+# wavefront engines)
 PORTED = {
     "bandwidth": dict(bandwidth=8),
     "anchored_length": dict(anchored_min_length=100),
+    "engine_wfa": dict(engine="wfa"),
+    "engine_convex": dict(engine="convex"),
 }
 
 
@@ -308,7 +309,6 @@ def test_cli_align_profile_dir(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "wfa"], ["--engine", "convex"],
     ["--distributed-world", "2"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_unported_flags_exit(flags, tmp_path, capsys):
@@ -322,7 +322,7 @@ def test_cli_unported_flags_exit(flags, tmp_path, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err
-    assert "item 10" in err or "item 11" in err
+    assert "item 11" in err
     assert not os.path.exists(tmp_path / "x.bam")
 
 

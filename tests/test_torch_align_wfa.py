@@ -1,0 +1,596 @@
+"""The port's wavefront engines (clique_tpu_torch/align/wavefront.py and
+wfa_kernels.py) on the CPU, held against the JAX package's
+clique_tpu/align/wavefront.py.
+
+Each side builds its own inputs from the same numpy arrays or bytes, made
+from a numpy seed. Every penalty, op byte, skeleton, CIGAR and BAM byte is
+an exact integer result, so everything compares for equality: the plain
+fills (both penalty models, with and without the op store, with
+wildcards, censoring, the heuristic band and the wf-adaptive trim, the op
+store whole), the plain walk (against wfa_walk_device and the host
+walkers), the host helpers, WfaAligner.align_pairs (escalation, the
+memory caps and waves, the DP fallback, the affine2p rerun), the
+candidate screen, the exhaustive search and the golden pins under
+`--engine wfa` and `--engine convex`. The JAX engine's bialign branch is
+not ported: the port raises there, naming ROADMAP.md item 10c.
+"""
+
+import dataclasses
+import gzip
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from clique_tpu.align import wavefront as jw
+from clique_tpu.align.pipeline import BatchAligner as JaxBatchAligner
+from clique_tpu.align.pipeline import align_reads as jax_align_reads
+from clique_tpu.align.scoring import AffineScoring as JaxAffineScoring
+from clique_tpu_torch import cli
+from clique_tpu_torch.align import wavefront as tw
+from clique_tpu_torch.align import wfa_kernels as tk
+from clique_tpu_torch.align.pipeline import BatchAligner, align_reads
+from clique_tpu_torch.align.scoring import AffineScoring
+from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
+                                       _load_make_golden, load_jax_layout,
+                                       load_layout)
+
+BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+PEN = dict(x=4, o=6, e=2, o2=24, e2=1)
+A5 = "TTCAGACGTGTGCTCTTCCGATCT"
+A3 = "AGATCGGAAGAGCACACGTCTGAA"
+TARGET = "GGCACTGCGGCTGGAGGTGG"
+
+
+def _mutate(rng, seq, sub, indel):
+    out = bytearray()
+    for c in seq:
+        r = rng.random()
+        if r < indel / 2:
+            continue
+        if r < indel:
+            out.append(int(rng.choice(BASES)))
+        out.append(int(rng.choice(BASES)) if rng.random() < sub else c)
+    return bytes(out)
+
+
+def _pairs(seed, n=28, lo=8, hi=60):
+    """Random pairs: substitutions and indels, long deletions (the class-2
+    gap), identical pairs (an empty skeleton), a wildcard zone, and one
+    pair too divergent for a low ceiling."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for i in range(n):
+        L = int(rng.integers(lo, hi))
+        a = bytearray(rng.choice(BASES, L).tobytes())
+        if i % 5 == 0:
+            a[3:9] = b"012N45"
+        a = bytes(a)
+        if i % 4 == 0 and L > 20:
+            cut = int(rng.integers(8, L // 2))
+            b = a[:5] + a[5 + cut:]
+        elif i % 4 == 1:
+            b = a
+        else:
+            b = _mutate(rng, a, 0.10, 0.06)
+        pairs.append((a, b[:hi]))
+    pairs.append((b"A" * 40, b"C" * 40))
+    return pairs
+
+
+def _arrays(pairs, B, W):
+    a = np.zeros((B, W), np.uint8)
+    b = np.zeros((B, W), np.uint8)
+    la = np.zeros(B, np.int32)
+    lb = np.zeros(B, np.int32)
+    for i, (s, t) in enumerate(pairs):
+        a[i, :len(s)] = np.frombuffer(s, np.uint8)
+        b[i, :len(t)] = np.frombuffer(t, np.uint8)
+        la[i], lb[i] = len(s), len(t)
+    return a, b, la, lb
+
+
+def _jax_fill(model, host, W, smax, wildcards, kband, adaptive, tb=True):
+    kw = dict(n1=W, n2=W, smax=smax, x=4, wildcards=wildcards, kband=kband)
+    if model == "affine":
+        kw.update(o=6, e=2)
+        if tb:
+            return jw.wfa_affine_tb_batch(*host, adaptive=adaptive, **kw)
+        return jw.wfa_affine_batch(*host, **kw)
+    kw.update(o1=6, e1=2, o2=24, e2=1)
+    if tb:
+        return jw.wfa_affine2p_tb_batch(*host, adaptive=adaptive, **kw)
+    return jw.wfa_affine2p_batch(*host, **kw)
+
+
+OPTIONS = {
+    "exact": dict(smax=96),
+    "wildcards": dict(smax=96, wildcards=True),
+    "kband": dict(smax=96, kband=5),
+    "adaptive": dict(smax=96, wildcards=True, adaptive=3),
+    "censored": dict(smax=12),
+}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+@pytest.mark.parametrize("model", tk.MODELS)
+def test_plain_fill_and_walk_match_jax(model, option):
+    """The plain traceback fill (penalties and the whole op store), the
+    fused walk (skeletons and end rows) and the score-only fill equal the
+    JAX functions'."""
+    opt = dict(OPTIONS[option])
+    smax = opt.pop("smax")
+    wildcards = opt.get("wildcards", False)
+    kband, adaptive = opt.get("kband"), opt.get("adaptive")
+    W = 64
+    host = _arrays(_pairs(3), 32, W)
+    j_pen, j_ops = _jax_fill(model, host, W, smax, wildcards, kband,
+                             adaptive)
+    j_fwd, j_fin = jw.wfa_walk_device(j_ops, j_pen, host[2] - host[3],
+                                      model=model, x=4, o1=6, e1=2, o2=24,
+                                      e2=1)
+    args = [torch.from_numpy(v) for v in host]
+    n = tk.wfa_align_launches
+    pen, ops, fwd, fin = tk.wfa_align(*args, smax=smax, model=model,
+                                      **PEN, **opt)
+    assert tk.wfa_align_launches == n       # the CPU runs no kernel
+    assert np.array_equal(pen.numpy(), np.asarray(j_pen))
+    assert np.array_equal(ops.numpy(), np.asarray(j_ops))
+    assert np.array_equal(fwd.numpy(), np.asarray(j_fwd))
+    assert np.array_equal(fin.numpy(), np.asarray(j_fin))
+    assert (pen.numpy() > smax).any()
+    if adaptive is None:
+        j_sc = _jax_fill(model, host, W, smax, wildcards, kband, None,
+                         tb=False)
+        sc = tk.wfa_score(*args, smax=smax, model=model, wildcards=wildcards,
+                          kband=kband, **PEN)
+        assert np.array_equal(sc.numpy(), np.asarray(j_sc))
+
+
+@pytest.mark.parametrize("model", tk.MODELS)
+def test_plain_walk_matches_host_walkers(model):
+    """wfa_walk_reference is decision-identical to the host walkers (the
+    port's copies and the JAX package's), censored lanes included."""
+    W = 64
+    host = _arrays(_pairs(5), 32, W)
+    args = [torch.from_numpy(v) for v in host]
+    pen, ops, fwd, fin = tk.wfa_align(*args, smax=96, model=model, **PEN)
+    n = 29
+    kt = (host[2] - host[3])[:n]
+    if model == "affine":
+        port = tw.wfa_backtrace_ops(ops.numpy()[:, :n], pen.numpy()[:n], kt,
+                                    x=4, o=6, e=2)
+        jax_ = jw.wfa_backtrace_ops(ops.numpy()[:, :n], pen.numpy()[:n], kt,
+                                    x=4, o=6, e=2)
+    else:
+        port = tw.wfa_backtrace_ops_2p(ops.numpy()[:, :n], pen.numpy()[:n],
+                                       kt, x=4, o1=6, e1=2, o2=24, e2=1)
+        jax_ = jw.wfa_backtrace_ops_2p(ops.numpy()[:, :n], pen.numpy()[:n],
+                                       kt, x=4, o1=6, e1=2, o2=24, e2=1)
+    assert port == jax_
+    walked = tw.WfaAligner._decode_walk(fwd.numpy(), fin.numpy(), n)
+    assert walked == port
+    assert sum(s is None for s in walked) == 1
+    assert [] in walked                      # an identical pair
+
+
+def test_host_helpers_match_jax():
+    """The port's copies of the replay, penalty, golden and expansion
+    helpers give the JAX package's results."""
+    pairs = _pairs(7, n=14, hi=30)[:-1]
+    for wild in (False, True):
+        host = _arrays(pairs, 16, 30)
+        pen, _ops, fwd, fin = tk.wfa_align(
+            *(torch.from_numpy(v) for v in host), smax=200, wildcards=wild,
+            **PEN)
+        skels = tw.WfaAligner._decode_walk(fwd.numpy(), fin.numpy(),
+                                           len(pairs))
+        for (a, b), p, sk in zip(pairs, pen.tolist(), skels):
+            cig = tw.wfa_replay_cigar(a, b, sk, wildcards=wild)
+            assert cig == jw.wfa_replay_cigar(a, b, sk, wildcards=wild)
+            assert tw.cigar_penalty(cig, a, b, x=4, o=6, e=2,
+                                    wildcards=wild) == p
+            assert p == tw.affine_penalty_golden(a, b, x=4, o=6, e=2,
+                                                 wildcards=wild) == \
+                jw.affine_penalty_golden(a, b, x=4, o=6, e=2, wildcards=wild)
+            assert tw.affine2p_penalty_golden(
+                a, b, x=4, o1=6, e1=2, o2=24, e2=1, wildcards=wild) == \
+                jw.affine2p_penalty_golden(a, b, x=4, o1=6, e1=2, o2=24,
+                                           e2=1, wildcards=wild)
+            for c in (cig, [(len(a), "D"), (len(b), "I")]):
+                assert tw.cigar_penalty(c, a, b, x=4, o=6, e=2,
+                                        wildcards=wild) == \
+                    jw.cigar_penalty(c, a, b, x=4, o=6, e=2, wildcards=wild)
+                assert tw.cigar_penalty_2p(c, a, b, x=4, o1=6, e1=2, o2=24,
+                                           e2=1, wildcards=wild) == \
+                    jw.cigar_penalty_2p(c, a, b, x=4, o1=6, e1=2, o2=24,
+                                        e2=1, wildcards=wild)
+                assert tw.cigar_to_aligned(a, b, c) == \
+                    jw.cigar_to_aligned(a, b, c)
+    assert tk.exact_kband(192, ((6, 2), (24, 1))) == \
+        jw.exact_kband(192, ((6, 2), (24, 1))) == 168
+    assert tk.exact_kband(6, ((6, 2),)) == 0
+
+
+def test_traceback_pairs_are_optimal():
+    """wfa_affine_align_pairs: each CIGAR is a valid alignment whose affine
+    penalty equals the returned one, which equals the O(nm) golden and
+    the JAX package's (penalty and CIGAR)."""
+    pairs = _pairs(11, n=20, hi=48)[:-1]
+    out = tw.wfa_affine_align_pairs([p[0] for p in pairs],
+                                    [p[1] for p in pairs], device="cpu")
+    want = jw.wfa_affine_align_pairs([p[0] for p in pairs],
+                                     [p[1] for p in pairs])
+    assert out == want
+    for (a, b), (pen, cig) in zip(pairs, out):
+        assert pen == tw.affine_penalty_golden(a, b, x=4, o=6, e=2)
+        assert tw.cigar_penalty(cig, a, b, x=4, o=6, e=2) == pen
+        assert sum(n for n, op in cig if op in "MD") == len(a)
+        assert sum(n for n, op in cig if op in "MI") == len(b)
+
+
+def test_traceback_single_ops_wildcards_and_censoring():
+    a = b"ACGTACGTACGT"
+    cases = [(a, a), (a, a[:4] + b"T" + a[5:]), (a, a[:6] + a[8:]),
+             (a[:6] + a[8:], a)]
+    out = tw.wfa_affine_align_pairs([c[0] for c in cases],
+                                    [c[1] for c in cases], device="cpu")
+    assert out[0] == (0, [(12, "M")])
+    assert out[1] == (4, [(12, "M")])
+    assert out[2][0] == 10 and [c for c in out[2][1] if c[1] != "M"] == \
+        [(2, "D")]
+    assert out[3][0] == 10 and [c for c in out[3][1] if c[1] != "M"] == \
+        [(2, "I")]
+    ref = b"ACGTACGT" + b"0" * 8 + b"TTGGCCAA"
+    read = b"ACGTACGT" + b"GATCGATC" + b"TTGGCCAA"
+    assert tw.wfa_affine_align_pairs([ref], [read], wildcards=True,
+                                     device="cpu") == [(0, [(24, "M")])]
+    assert tw.wfa_affine_align_pairs([ref], [read], device="cpu")[0][0] == 32
+    rng = np.random.default_rng(2)
+    x, y = rng.choice(BASES, 40).tobytes(), rng.choice(BASES, 40).tobytes()
+    assert tw.wfa_affine_align_pairs([x], [y], smax=6, device="cpu") == \
+        [(7, None)]
+
+
+def test_affine2p_traceback_is_optimal():
+    """The dual-affine fill + walk + replay: CIGAR penalties equal the
+    5-plane golden; a long deletion stays one gap."""
+    pairs = _pairs(13, n=20, hi=48)
+    host = _arrays(pairs, 32, 48)
+    pen, _ops, fwd, fin = tk.wfa_align(
+        *(torch.from_numpy(v) for v in host), smax=300, model="affine2p",
+        **PEN)
+    skels = tw.WfaAligner._decode_walk(fwd.numpy(), fin.numpy(), len(pairs))
+    for (a, b), p, sk in zip(pairs, pen.tolist(), skels):
+        want = tw.affine2p_penalty_golden(a, b, x=4, o1=6, e1=2, o2=24, e2=1)
+        assert p == want
+        cig = tw.wfa_replay_cigar(a, b, sk)
+        assert tw.cigar_penalty_2p(cig, a, b, x=4, o1=6, e1=2, o2=24,
+                                   e2=1) == want
+
+
+def _aligner_pairs(seed, n, L, sv_every=0):
+    rng = np.random.default_rng(seed)
+    refs, reads = [], []
+    for i in range(n):
+        ref = rng.choice(BASES, L).tobytes()
+        read = bytearray(ref)
+        for p in rng.choice(L, max(1, L // 40), replace=False):
+            read[p] = BASES[rng.integers(4)]
+        if sv_every and i % sv_every == 0:
+            start = 40 + int(rng.integers(40))
+            del read[start:start + 40]
+        refs.append(ref)
+        reads.append(bytes(read))
+    return refs, reads
+
+
+ALIGNERS = {
+    "affine": dict(),
+    "affine2p_sv": dict(model="affine2p"),
+    "escalation": dict(s0=2),
+    "kband": dict(kband=4),
+    "adaptive_64": dict(adaptive=64),
+    "adaptive_2_affine2p": dict(adaptive=2, model="affine2p"),
+    "mem_cap": dict(budget=800_000),
+    "waves_affine2p": dict(budget=1 << 16, model="affine2p"),
+}
+
+
+@pytest.mark.parametrize("case", list(ALIGNERS))
+def test_aligner_matches_jax(case, monkeypatch):
+    """WfaAligner.align_pairs: the JAX engine's (ref, read, CIGAR, score)
+    for every pair, through escalation, the heuristic band, the trim, a
+    binding memory cap and one-chunk waves."""
+    kw = dict(ALIGNERS[case])
+    budget = kw.pop("budget", None)
+    if budget is not None:
+        monkeypatch.setenv("CLIQUE_WFA_MEM_BUDGET", str(budget))
+    # a floor chunk of the SV pairs' ceiling exceeds the capped affine
+    # budget (the JAX engine's bialign route), so that case has none
+    refs, reads = _aligner_pairs(5, 40 if case == "mem_cap" else 24, 150,
+                                 sv_every=0 if case == "mem_cap" else 3)
+    port = tw.WfaAligner(device="cpu", **kw)
+    if case == "mem_cap":
+        assert port._mem_cap(256, 64) == 32     # the budget binds
+    got = port.align_pairs(refs, reads)
+    want = jw.WfaAligner(**kw).align_pairs(refs, reads)
+    assert got == want
+    assert port.dispatches > 0 and port.fallbacks == 0
+
+
+def test_aligner_dp_fallback_matches_jax():
+    """Pairs censored past 2 L go to the DP fallback (affine) or rerun at
+    a guaranteed ceiling (affine2p), as in the JAX engine; pairs past the
+    run-table width go straight to the DP."""
+    rng = np.random.default_rng(9)
+    refs, reads = _aligner_pairs(6, 6, 100)
+    # censored at a first ceiling past 2 L = 256 (penalty 480 affine, 288
+    # affine2p)
+    refs.append(b"A" * 120)
+    reads.append(b"C" * 120)
+    sc = AffineScoring.aligner_default()
+    jsc = JaxAffineScoring.aligner_default()
+    for model in ("affine", "affine2p"):
+        port = tw.WfaAligner(model=model, s0=260, device="cpu",
+                             dp_fallback=BatchAligner(sc, 16, device="cpu"))
+        got = port.align_pairs(refs, reads)
+        jax_ = jw.WfaAligner(model=model, s0=260,
+                             dp_fallback=JaxBatchAligner(jsc, 16))
+        assert got == jax_.align_pairs(refs, reads)
+        assert port.fallbacks == jax_.fallbacks == 1
+
+    class FakeDP:
+        def __init__(self):
+            self.seen = []
+
+        def align_pairs(self, refs, reads):
+            self.seen.extend(refs)
+            return [(r, d, [(len(r), "M")], 1.0) for r, d in zip(refs, reads)]
+
+    long_seq = rng.choice(BASES, 33000).tobytes()
+    dp = FakeDP()
+    engine = tw.WfaAligner(dp_fallback=dp, device="cpu")
+    out = engine.align_pairs([long_seq, b"ACGTACGT"],
+                             [long_seq, b"ACGAACGT"])
+    assert engine.fallbacks == 1 and dp.seen == [long_seq]
+    assert out[0][3] == 1.0 and out[1][2] == [(8, "M")]
+
+
+def test_bialign_branches_raise():
+    """Where the JAX engine hands pairs to its bialign engine (an op store
+    over the budget, or no DP fallback for a pair past 2 L), the port
+    raises naming ROADMAP.md item 10c and returns nothing."""
+    refs, reads = _aligner_pairs(5, 8, 150)
+    old = os.environ.get("CLIQUE_WFA_MEM_BUDGET")
+    os.environ["CLIQUE_WFA_MEM_BUDGET"] = str(1 << 16)
+    try:
+        eng = tw.WfaAligner(device="cpu")
+        with pytest.raises(NotImplementedError, match=r"item 10c"):
+            eng.align_pairs(refs, reads)
+        assert eng.dispatches == 0
+    finally:
+        if old is None:
+            del os.environ["CLIQUE_WFA_MEM_BUDGET"]
+        else:
+            os.environ["CLIQUE_WFA_MEM_BUDGET"] = old
+    with pytest.raises(NotImplementedError, match=r"bialign.*item 10c"):
+        tw.WfaAligner(s0=260, device="cpu").align_pairs([b"A" * 120],
+                                                        [b"C" * 120])
+
+
+@pytest.mark.parametrize("model", tk.MODELS)
+def test_screen_matches_jax(model):
+    refs, reads = [], []
+    rng = np.random.default_rng(17)
+    for i in range(40):
+        r = rng.choice(BASES, int(rng.integers(30, 90))).tobytes()
+        refs.append(r)
+        reads.append(_mutate(rng, r, 0.08, 0.05) if i % 3 else
+                     rng.choice(BASES, 60).tobytes())
+    got = tw.wfa_screen_candidates(refs, reads, model=model, device="cpu")
+    want = jw.wfa_screen_candidates(refs, reads, model=model)
+    assert got.tolist() == np.asarray(want).tolist()
+    assert (got > 64).any() and (got <= 64).any()
+
+
+def _two_amplicons(tmp_path, n_reads=8):
+    """Two amplicons that differ in a 12 bp block A and a 6 bp block B;
+    each read takes block A of its true reference and block B of the
+    other, so the unique-kmer vote splits (no reference past 0.90), the
+    exhaustive search runs, and the wavefront screen must route it by
+    penalty."""
+    rng = np.random.default_rng(31337)
+
+    def rand_seq(n):
+        return rng.choice(BASES, size=n).tobytes().decode()
+
+    a1, a2, b1, b2 = rand_seq(12), rand_seq(12), rand_seq(6), rand_seq(6)
+    spacer = rand_seq(20)
+
+    def amp(a, b, umi="0" * 12):
+        return A5 + umi + a + spacer + b + A3
+
+    umi = """
+    umi_configurations:
+      umi:
+        symbol: '0'
+        sort_type: "DegenerateTag"
+        length: 12
+        order: 0
+        max_distance: 2"""
+    (tmp_path / "layout.yaml").write_text(f"""
+known_strand: true
+reads:
+  - !Read1
+    orientation: Forward
+references:
+  amp1:
+    sequence: "{amp(a1, b1)}"{umi}
+  amp2:
+    sequence: "{amp(a2, b2)}"{umi}
+""")
+    fq = tmp_path / "reads.fastq.gz"
+    with gzip.open(fq, "wt") as fh:
+        for i in range(n_reads):
+            read = amp(a1, b2, rand_seq(12)) if i % 2 == 0 else \
+                amp(a2, b1, rand_seq(12))
+            fh.write(f"@t{i % 2}_{i}\n{read}\n+\n{'I' * len(read)}\n")
+    return str(fq)
+
+
+@pytest.mark.parametrize("engine", ["wfa", "convex"])
+def test_exhaustive_routing_matches_jax(engine, tmp_path):
+    """align_reads over the two-amplicon panel: every read takes the
+    screened exhaustive path, routes to its true reference, and the BAM
+    equals the JAX package's."""
+    import json
+
+    from clique_tpu_torch.io.sam import BamReader
+
+    fq = _two_amplicons(tmp_path)
+    layout, rm = load_layout(tmp_path / "layout.yaml")
+    out_t, out_j = str(tmp_path / "t.bam"), str(tmp_path / "j.bam")
+    metrics = tmp_path / "m.json"
+    stats = align_reads(layout, rm, out_t, read1=fq, batch_size=8,
+                        engine=engine, device="cpu",
+                        metrics_path=str(metrics))
+    stats_j = jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"),
+                              out_j, read1=fq, batch_size=8, engine=engine)
+    assert dataclasses.asdict(stats) == dataclasses.asdict(stats_j)
+    assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
+    with BamReader(out_t) as reader:
+        recs = list(reader)
+    assert len(recs) == 8
+    for rec in recs:
+        assert rec.reference_name == ("amp1" if rec.name.startswith("t0")
+                                      else "amp2")
+    m = json.loads(metrics.read_text())
+    assert m["engine"] == engine and m["wfa_screened_reads"] == 8
+    assert m["wfa_dp_fallbacks"] == 0
+
+
+@pytest.fixture(scope="module")
+def golden_engine_runs(tmp_path_factory):
+    mg = _load_make_golden()
+    runs = {}
+    for engine in ("wfa", "convex"):
+        wd = tmp_path_factory.mktemp(engine)
+        gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", wd)
+        out = str(wd / "aligned.bam")
+        metrics = wd / "m.json"
+        stats = align_reads(layout, rm, out, read1=r1, batch_size=16,
+                            engine=engine, device="cpu",
+                            metrics_path=str(metrics))
+        runs[engine] = (gd, wd, r1, out, stats, metrics)
+    return runs
+
+
+@pytest.mark.parametrize("engine", ["wfa", "convex"])
+def test_golden_engine_bam_pinned(golden_engine_runs, engine):
+    """align_reads(engine=...) on golden reproduces
+    tests/data/golden/aligned_<engine>.bam byte for byte."""
+    import json
+
+    gd, _wd, _r1, out, stats, metrics = golden_engine_runs[engine]
+    assert stats.aligned == stats.total > 0
+    assert _inflate_bgzf(out) == _inflate_bgzf(
+        os.path.join(gd, f"aligned_{engine}.bam"))
+    m = json.loads(metrics.read_text())
+    assert m["wfa_phase_seconds"]["dispatch"] >= 0
+    assert m["kernel_launches"]["wfa_align"] == 0      # the CPU's plain run
+
+
+@pytest.mark.parametrize("engine", ["wfa", "convex"])
+def test_cli_align_engine_golden(golden_engine_runs, engine):
+    """`align --engine wfa|convex` exits 0 and writes the pinned bytes."""
+    gd, wd, r1, _out, _stats, _m = golden_engine_runs[engine]
+    out = wd / "cli.bam"
+    assert cli.main(["align", "--read-structure", str(wd / "layout.yaml"),
+                     "--read1", r1, "--output-bam-file", str(out),
+                     "--batch-size", "16", "--device", "cpu", "--engine",
+                     engine]) == 0
+    assert _inflate_bgzf(str(out)) == _inflate_bgzf(
+        os.path.join(gd, f"aligned_{engine}.bam"))
+
+
+def test_run_chain_wfa_matches_jax_align_then_collapse(tmp_path):
+    """`run --engine wfa` (align -> collapse fused through the sink's
+    AlignedRead path) gives the collapsed bytes of the JAX package's
+    align_reads(engine="wfa") followed by its collapse."""
+    from clique_tpu.collapse.pipeline import collapse as jax_collapse
+    from clique_tpu_torch.chain import run_chain
+
+    mg = _load_make_golden()
+    _gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    a_t, c_t = str(tmp_path / "a_t.bam"), str(tmp_path / "c_t.bam")
+    run_chain(layout, rm, a_t, c_t, read1=r1, batch_size=16, engine="wfa",
+              device="cpu")
+    a_j, c_j = str(tmp_path / "a_j.bam"), str(tmp_path / "c_j.bam")
+    jl, jrm = load_jax_layout(tmp_path / "layout.yaml")
+    jax_align_reads(jl, jrm, a_j, read1=r1, batch_size=16, engine="wfa")
+    jax_collapse(c_j, jl, a_j)
+    assert _inflate_bgzf(a_t) == _inflate_bgzf(a_j)
+    assert _inflate_bgzf(c_t) == _inflate_bgzf(c_j)
+
+
+def test_convex_structural_deletion_matches_jax(tmp_path):
+    """A 40 bp dropout under --engine convex: one 40D run, the JAX
+    package's BAM."""
+    rng = np.random.default_rng(8)
+
+    def rand_seq(n):
+        return rng.choice(BASES, size=n).tobytes().decode()
+
+    amp = A5 + "0" * 12 + TARGET + rand_seq(60) + A3
+    (tmp_path / "layout.yaml").write_text(f"""
+known_strand: true
+reads:
+  - !Read1
+    orientation: Forward
+references:
+  amp1:
+    sequence: "{amp}"
+    umi_configurations:
+      umi:
+        symbol: '0'
+        sort_type: "DegenerateTag"
+        length: 12
+        order: 0
+        max_distance: 2
+""")
+    umi = rand_seq(12)
+    full = A5 + umi + TARGET + amp[len(A5) + 12 + len(TARGET):]
+    cut = len(A5) + 12 + len(TARGET) + 8
+    read = full[:cut] + full[cut + 40:]
+    fq = tmp_path / "r.fastq.gz"
+    with gzip.open(fq, "wt") as fh:
+        fh.write(f"@sv0\n{read}\n+\n{'I' * len(read)}\n")
+    from clique_tpu_torch.io.sam import BamReader
+
+    layout, rm = load_layout(tmp_path / "layout.yaml")
+    out_t, out_j = str(tmp_path / "t.bam"), str(tmp_path / "j.bam")
+    align_reads(layout, rm, out_t, read1=str(fq), batch_size=8,
+                engine="convex", device="cpu")
+    jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"), out_j,
+                    read1=str(fq), batch_size=8, engine="convex")
+    assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
+    with BamReader(out_t) as reader:
+        (rec,) = list(reader)
+    assert [c for c in rec.cigar if c[1] == "D"] == [(40, "D")]
+    assert rec.tags["e0"] == umi
+
+
+def test_wrappers_check_their_inputs():
+    t = torch.zeros((2, 8), dtype=torch.uint8)
+    lens = torch.full((2,), 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown WFA"):
+        tk.wfa_align(t, t, lens, lens, smax=8, model="linear")
+    with pytest.raises(TypeError):
+        tk.wfa_score(t.int(), t, lens, lens, smax=8)
+    with pytest.raises(ValueError, match="outside"):
+        tk.wfa_align(t, t, lens + 1, lens, smax=8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tk.wfa_score(t.to("meta"), t.to("meta"), lens.to("meta"),
+                     lens.to("meta"), smax=8)

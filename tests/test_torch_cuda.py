@@ -1,10 +1,13 @@
 """The hand-written CUDA kernels (the fused global fill + walk in every
 mode, the fused local fill + walk, the fused Hamming hit search, edit
-distance, the edit-hit search and the pair-HMM forward recurrence) against
-their plain PyTorch versions, on CUDA tensors, and the paths that run them
-(align_reads with a band and with long reads, the inversion batch) against
-the CPU. The fused kernel is held to walk_reference(fill_reference(...)):
-its fused rows, and its traceback laid out as fill_reference's.
+distance, the edit-hit search, the pair-HMM forward recurrence and the
+wavefront fills with and without the fused walk) against their plain
+PyTorch versions, on CUDA tensors, and the paths that run them
+(align_reads with a band, with long reads and under the wavefront
+engines, the inversion batch, WfaAligner and the wavefront screen)
+against the CPU. The fused kernel is held to
+walk_reference(fill_reference(...)): its fused rows, and its traceback
+laid out as fill_reference's.
 Needs an NVIDIA GPU with nvcc; run there with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -730,3 +733,171 @@ def test_collapse_workers_on_cuda(cuda, tmp_path):
     assert m["kernel_launches"]["match_hits"] > 0
     assert m["workers"] and not any(w["cuda_initialized"]
                                     for w in m["workers"])
+
+
+def _wfa_pairs(seed, B, W):
+    """B pairs of up to W bytes: substitutions and indels, long deletions,
+    identical pairs, wildcard zones, one hopeless pair."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    a = np.zeros((B, W), np.uint8)
+    b = np.zeros((B, W), np.uint8)
+    la = np.zeros(B, np.int32)
+    lb = np.zeros(B, np.int32)
+    for i in range(B):
+        L = int(rng.integers(8, W + 1))
+        ref = rng.choice(bases, L)
+        if i % 5 == 0:
+            ref[3:9] = np.frombuffer(b"012N45", np.uint8)
+        read = ref.copy()
+        if i % 4 == 0 and L > 20:
+            cut = int(rng.integers(8, L // 2))
+            read = np.concatenate([read[:5], read[5 + cut:]])
+        elif i % 4 != 1:
+            sub = rng.random(L) < 0.08
+            read[sub] = rng.choice(bases, int(sub.sum()))
+            if L > 12:
+                d = int(rng.integers(1, L - 1))
+                read = np.concatenate([read[:d], read[d + 2:]])
+        a[i, :L], b[i, :len(read)] = ref, read
+        la[i], lb[i] = L, len(read)
+    a[-1, :40], b[-1, :40] = ord("A"), ord("C")
+    la[-1] = lb[-1] = 40
+    return a, b, la, lb
+
+
+def _check_wfa(args, smax, model, **kw):
+    """wfa_align and wfa_score on the card against the plain fill and
+    walk: penalties, op-store rows up to each pair's penalty, skeletons,
+    end rows, score-only penalties."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    n = (wk.wfa_align_launches, wk.wfa_score_launches)
+    pen, ops, fwd, fin = wk.wfa_align(*args, smax=smax, model=model, **kw)
+    adaptive = kw.pop("adaptive", None)
+    sc = wk.wfa_score(*args, smax=smax, model=model, **kw)
+    torch.cuda.synchronize()
+    assert (wk.wfa_align_launches, wk.wfa_score_launches) == (n[0] + 1,
+                                                              n[1] + 1)
+    p_pen, p_ops = wk.wfa_fill_reference(*args, smax=smax, model=model,
+                                         adaptive=adaptive, **kw)
+    p_fwd, p_fin = wk.wfa_walk_reference(p_ops, p_pen, args[2] - args[3],
+                                         model=model, x=4, o=6, e=2, o2=24,
+                                         e2=1)
+    assert torch.equal(pen, p_pen)
+    rows = torch.arange(smax + 1, device=pen.device)[:, None] <= p_pen[None]
+    assert bool(((ops == p_ops) | ~rows[:, :, None]).all())
+    assert torch.equal(fwd, p_fwd) and torch.equal(fin, p_fin)
+    if adaptive is None:
+        assert torch.equal(sc, p_pen)
+    return pen
+
+
+@pytest.mark.parametrize("option", [
+    dict(), dict(wildcards=True), dict(kband=6),
+    dict(wildcards=True, adaptive=3), dict(smax=10),
+], ids=["exact", "wildcards", "kband", "adaptive", "censored"])
+@pytest.mark.parametrize("model", ["affine", "affine2p"])
+def test_wfa_kernels_match_plain(cuda, model, option):
+    kw = dict(option)
+    smax = kw.pop("smax", 96)
+    args = [torch.from_numpy(a).to(cuda) for a in _wfa_pairs(3, 64, 120)]
+    pen = _check_wfa(args, smax, model, **kw)
+    assert bool((pen > smax).any())
+
+
+@pytest.mark.parametrize("model", ["affine", "affine2p"])
+def test_wfa_kernels_bench_shape(cuda, model):
+    """bench_extra.py's bench_wfa shape: 5%-substituted pairs at L = 512,
+    smax 192."""
+    rng = np.random.default_rng(3)
+    refs = rng.choice(np.frombuffer(b"ACGT", np.uint8), (512, 512))
+    reads = refs.copy()
+    sub = rng.random(reads.shape) < 0.05
+    reads[sub] = rng.choice(np.frombuffer(b"ACGT", np.uint8), int(sub.sum()))
+    lens = np.full(512, 512, np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (refs, reads, lens, lens)]
+    _check_wfa(args, 192, model)
+
+
+def test_wfa_kernel_global_rings(cuda):
+    """affine2p at the 1,024-ceiling rerun of an L = 384 bucket: the rings
+    do not fit shared memory and live in the global workspace."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    a, b, la, lb = _wfa_pairs(4, 32, 120)
+    a = np.pad(a, ((0, 0), (0, 264)))
+    b = np.pad(b, ((0, 0), (0, 264)))
+    args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+            for v in (a, b, la, lb)]
+    n = wk.wfa_global_ring_launches
+    _check_wfa(args, 1024, "affine2p", wildcards=True)
+    assert wk.wfa_global_ring_launches == n + 1
+
+
+def test_wfa_kernel_marks_bad_lengths(cuda):
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    t = torch.full((3, 20), ord("A"), dtype=torch.uint8, device=cuda)
+    l1 = torch.tensor([5, 21, 4], dtype=torch.int32, device=cuda)
+    l2 = torch.tensor([5, 3, -1], dtype=torch.int32, device=cuda)
+    pen, _ops, fwd, fin = wk.wfa_align(t, t, l1, l2, smax=16)
+    assert pen.tolist() == [0, -1, -1] and fin.tolist() == [-1, -3, -3]
+    assert int(fwd.sum()) == 0
+
+
+def test_wfa_kernels_empty_batch_counts_no_launch(cuda):
+    """B = 0 launches nothing, so neither counter moves."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    t = torch.zeros((0, 16), dtype=torch.uint8, device=cuda)
+    n = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = (wk.wfa_align_launches, wk.wfa_score_launches)
+    pen, ops, fwd, fin = wk.wfa_align(t, t, n, n, smax=8)
+    sc = wk.wfa_score(t, t, n, n, smax=8)
+    assert (wk.wfa_align_launches, wk.wfa_score_launches) == before
+    assert pen.shape == sc.shape == fin.shape == (0,)
+    assert ops.shape[1] == 0 and fwd.shape == (0, 9)
+
+
+@pytest.mark.parametrize("model", ["affine", "affine2p"])
+def test_wfa_aligner_and_screen_on_cuda_equal_cpu(cuda, model):
+    from clique_tpu_torch.align import wavefront as twf
+
+    a, b, la, lb = _wfa_pairs(6, 96, 300)
+    refs = [a[i, :la[i]].tobytes() for i in range(len(la))]
+    reads = [b[i, :lb[i]].tobytes() for i in range(len(lb))]
+    from clique_tpu_torch.align.pipeline import BatchAligner
+
+    fb = {d: BatchAligner(AffineScoring.aligner_default(), 16, device=d)
+          for d in ("cuda", "cpu")}
+    got = twf.WfaAligner(model=model, device="cuda",
+                         dp_fallback=fb["cuda"]).align_pairs(refs, reads)
+    want = twf.WfaAligner(model=model, device="cpu",
+                          dp_fallback=fb["cpu"]).align_pairs(refs, reads)
+    assert got == want
+    s_got = twf.wfa_screen_candidates(refs, reads, model=model,
+                                      device="cuda")
+    s_want = twf.wfa_screen_candidates(refs, reads, model=model,
+                                       device="cpu")
+    assert s_got.tolist() == s_want.tolist()
+
+
+@pytest.mark.parametrize("engine", ["wfa", "convex"])
+def test_align_engine_golden_on_cuda(cuda, engine, tmp_path):
+    from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
+                                           _load_make_golden)
+
+    from clique_tpu_torch.align import wfa_kernels as wk
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    gd, layout, rm, r1, _r2 = _golden_inputs(_load_make_golden(), "golden",
+                                             tmp_path)
+    out = str(tmp_path / "aligned.bam")
+    n = wk.wfa_align_launches
+    align_reads(layout, rm, out, read1=r1, batch_size=16, engine=engine,
+                device="cuda")
+    assert wk.wfa_align_launches > n
+    assert _inflate_bgzf(out) == _inflate_bgzf(
+        os.path.join(gd, f"aligned_{engine}.bam"))

@@ -1,8 +1,8 @@
 """The port runs without jax and without the JAX package: a fresh
 interpreter with `jax`, `jaxlib` and `clique_tpu` blocked imports
 clique_tpu_torch, aligns the golden reads on the CPU (full band, a partial
-band, every read on the anchored path, and the fused align + collapse +
-call), routes a two-amplicon panel with `--router hmm`, collapses golden
+band, every read on the anchored path, the wavefront engines `--engine wfa`
+and `--engine convex`, and the fused align + collapse + call), routes a two-amplicon panel with `--router hmm`, collapses golden
 with `--threads 2` (the worker pool), reproduces the pinned outputs or the
 JAX package's, and loads neither a jax module nor one of the JAX package. An AST scan holds every
 source of the port, chip_smoke.py and the profile scripts to importing
@@ -139,6 +139,19 @@ def test_align_modes_without_jax(flags, tmp_path):
                     **{key: int(flags[1])})
     assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
         out_j)
+
+
+@pytest.mark.parametrize("engine", ["wfa", "convex"])
+def test_align_engines_without_jax(engine, tmp_path):
+    """`align --engine wfa|convex` with jax blocked: the wavefront modules
+    run and the BAM equals tests/data/golden/aligned_<engine>.bam."""
+    out = _run_without_jax("align", tmp_path, "--engine", engine)
+    assert "clique_tpu_torch.align.wavefront" in out
+    assert "clique_tpu_torch.align.wfa_kernels" in out
+    from test_torch_align_pipeline import _inflate_bgzf
+
+    assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
+        os.path.join(GOLDEN, f"aligned_{engine}.bam"))
 
 
 @pytest.mark.parametrize("verb", ["align", "run"])

@@ -28,6 +28,14 @@ before and read just after:
   screens its candidates, and it routes to its true reference; every
   wfa_score launch of the run is held against its plain version on its
   own pairs, and the largest timed (the kernels line's wfa_score);
+- ont-raw: 1,000 reads of the long-read phases' 4 kb reference at ONT
+  raw-read error rates (5% substitutions, 2.5% each of 1-3 bp deletions
+  and insertions) through --engine wfa at batch 1,024: censored at the
+  1,024 and 2,048 rungs, every read finishes on the bialign engine
+  (wfa_mid splits, wfa_align leaves); every CIGAR's penalty equals its
+  score, the first 8 reads' BAM is the same on the card as on the CPU,
+  every wfa_mid launch is held against its plain version and the level-0
+  top-rung launch timed (the kernels line's wfa_mid);
 - known list: the bench-shaped reads collapsed against a 737,280-entry
   allowlist (KnownTag Hamming at the size of 10x Chromium v2's list): one
   match_hits launch for the level's one hamming_hits call, the collapse
@@ -155,6 +163,18 @@ N_CONVEX_READS = 6000
 N_SCREEN_READS = 4000
 WFA_BATCH = 512
 N_WFA_CPU = 64
+# the ONT-raw phase: the long-read phase's reference, 1,000 reads at ONT
+# raw-read error rates (5% substitutions, 2.5% deletions and 2.5%
+# insertions of 1-3 bp) through --engine wfa at batch 1,024: every read
+# passes the 2,048 rung, whose 32-lane op store is the last under the
+# 512 MiB budget, and finishes on the bialign engine (wfa_mid)
+N_ONT_WFA_READS = 1000
+N_ONT_WFA_CPU = 8
+ONT_RAW = dict(sub=0.05, dele=0.025, ins=0.025)
+# device memory a plain midpoint fill may take for its run table: the
+# path's launches are held against it a slice of lanes at a time (its
+# steps are launch-bound, so the fewer slices the faster)
+MID_PLAIN_BYTES = 30e9
 # SASS opcodes that are not operations of a wavefront cell: memory,
 # control flow, barriers, special-register and constant reads, moves
 WFA_NON_OPS = ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LD", "ST", "BRA",
@@ -174,7 +194,7 @@ SMS = 132
 FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
                 "FRND", "FCHK")
 KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local",
-           "edit_hits", "hmm_forward", "wfa_align", "wfa_score")
+           "edit_hits", "hmm_forward", "wfa_align", "wfa_score", "wfa_mid")
 SOURCES = {"dp_align": "dp_align.cu",
            "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
@@ -182,7 +202,8 @@ SOURCES = {"dp_align": "dp_align.cu",
            "edit_hits": "tag_distance.cu",
            "hmm_forward": "hmm_forward.cu",
            "wfa_align": "wfa_align.cu",
-           "wfa_score": "wfa_align.cu"}
+           "wfa_score": "wfa_align.cu",
+           "wfa_mid": "wfa_align.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
@@ -191,7 +212,8 @@ REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
                          "clique_tpu/collapse/correct.py:273",
             "hmm_forward": "clique_tpu/align/hmm.py:39",
             "wfa_align": "clique_tpu/align/wavefront.py:723, :874 and :1154",
-            "wfa_score": "clique_tpu/align/wavefront.py:316 and :612"}
+            "wfa_score": "clique_tpu/align/wavefront.py:316 and :612",
+            "wfa_mid": "clique_tpu/align/wavefront.py:442"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
 # float32 outside the tensor cores counts an FMA as two, so one lane
@@ -317,11 +339,12 @@ def phase_build():
             if flags:
                 kernel = "dp_align<tie_last={0},banded={1}>".format(
                     *flags.groups())
-            # the wavefront kernel's gap classes and op store
-            flags = re.search(r"wfa_kernelILi(\d)ELb(\d)E", line)
+            # the wavefront kernel's gap classes, op store and midpoint
+            flags = re.search(r"wfa_kernelILi(\d)ELb(\d)ELb(\d)E", line)
             if flags:
                 kernel = "wfa_{0}<{1}>".format(
-                    "align" if flags.group(2) == "1" else "score",
+                    "align" if flags.group(2) == "1" else
+                    "mid" if flags.group(3) == "1" else "score",
                     "affine" if flags.group(1) == "1" else "affine2p")
             # the fused Hamming search's code width and row words
             flags = re.search(r"match_hits_kernelILi(\d)ELi(\d)E", line)
@@ -1299,7 +1322,8 @@ def _counts():
             "edit_hits": distance.edit_hits_launches,
             "hmm_forward": hmm.hmm_forward_launches,
             "wfa_align": wfa_kernels.wfa_align_launches,
-            "wfa_score": wfa_kernels.wfa_score_launches}
+            "wfa_score": wfa_kernels.wfa_score_launches,
+            "wfa_mid": wfa_kernels.wfa_mid_launches}
 
 
 def _read(path):
@@ -1591,10 +1615,10 @@ def phase_banded(workdir, bench):
     return launches
 
 
-def _ont_read(rng, ref, bases):
-    """An ONT-like read of ref: a random base drawn at 3% of the
-    positions, and an indel of 1-3 bp at 2% (half deletions, half
-    insertions)."""
+def _ont_read(rng, ref, bases, sub=0.03, dele=0.01, ins=0.01):
+    """An ONT-like read of ref: a random base drawn at a `sub` share of
+    the positions, a deletion of 1-3 bp at `dele` and an insertion of 1-3
+    bp at `ins` (by default 3%, 1% and 1%)."""
     n = len(ref)
     u = rng.random(n)
     draw = rng.choice(bases, (n, 4))
@@ -1602,12 +1626,12 @@ def _ont_read(rng, ref, bases):
     out = bytearray()
     i = 0
     while i < n:
-        if u[i] < 0.03:
+        if u[i] < sub:
             out.append(draw[i, 0])
-        elif u[i] < 0.04:
+        elif u[i] < sub + dele:
             i += int(span[i])
             continue
-        elif u[i] < 0.05:
+        elif u[i] < sub + dele + ins:
             out += draw[i, 1:1 + span[i]].tobytes()
             out.append(ref[i])
         else:
@@ -1639,22 +1663,15 @@ def _align_on_cpu(layout_text, fastq, workdir, batch_size=BENCH_BATCH,
     return _inflate_bgzf(out), time.time() - t0
 
 
-def phase_long_reads(workdir, pool):
-    """1,000 reads of a seeded 4 kb amplicon with ONT-like errors through
-    align_reads at the default anchored_min_length (2048): every read takes
-    the anchored seed-and-extend path, its inter-anchor sub-DPs batched
-    through dp_align. The first 64 reads' BAM on the CPU is
-    computed in the pool after the card's runs; long_reads_head_check
-    holds it against the card's."""
+def _long_reference():
+    """The long-read phases' seeded 4 kb reference and its layout: (the
+    generator, left where the reference was drawn; the bases; the
+    reference; the layout text)."""
     import numpy as np
-
-    from clique_tpu_torch.align.pipeline import align_reads
 
     rng = np.random.default_rng(4000)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     ref = rng.choice(bases, LONG_REF).tobytes()
-    wd = os.path.join(workdir, "long")
-    os.makedirs(wd)
     layout_text = f"""
 known_strand: true
 reads:
@@ -1664,6 +1681,21 @@ references:
   longamp:
     sequence: "{ref.decode()}"
 """
+    return rng, bases, ref, layout_text
+
+
+def phase_long_reads(workdir, pool):
+    """1,000 reads of a seeded 4 kb amplicon with ONT-like errors through
+    align_reads at the default anchored_min_length (2048): every read takes
+    the anchored seed-and-extend path, its inter-anchor sub-DPs batched
+    through dp_align. The first 64 reads' BAM on the CPU is
+    computed in the pool after the card's runs; long_reads_head_check
+    holds it against the card's."""
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    rng, bases, ref, layout_text = _long_reference()
+    wd = os.path.join(workdir, "long")
+    os.makedirs(wd)
     layout, rm = _layout_from_text(layout_text, wd)
     lines = []
     for i in range(N_LONG_READS):
@@ -2724,13 +2756,15 @@ _WFA_OPS = {}
 def _wfa_op_counts():
     """Operations of the recurrence from the probes' SASS, once: a cell
     with its op byte ("align", wfa_align) and without ("score",
-    wfa_score) for each model, and four extension bytes ("word")."""
+    wfa_score) for each model, wfa_mid's affine cell with its payload work
+    ("mid"), and four extension bytes ("word")."""
     if _WFA_OPS:
         return _WFA_OPS
     probes = {("align", "affine"): "clique_wfa_cell_probe_affine",
               ("align", "affine2p"): "clique_wfa_cell_probe_affine2p",
               ("score", "affine"): "clique_wfa_score_probe_affine",
               ("score", "affine2p"): "clique_wfa_score_probe_affine2p",
+              ("mid", "affine"): "clique_wfa_mid_probe",
               "word": "clique_wfa_word_probe"}
     sass = _sass_ops(tuple(probes.values()))
     for key, fn in probes.items():
@@ -2774,15 +2808,15 @@ def _wfa_cells(pen, l1, l2, smax, kmax, model, o, e, o2, e2):
     return int((width * (s[None] <= steps[:, None])).sum())
 
 
-def _wfa_bound(host, pen, kw, traceback):
+def _wfa_bound(host, pen, kw, traceback, kind=None):
     """The least time of a wavefront fill on these inputs: the bytes it
     must move (both sequences and lengths in; penalties out, and with
     traceback the op-store rows up to each pair's penalty, the skeleton
-    rows and end rows) over the memory rate, and its integer operations
-    over the int32 rate: the recurrence's operations (the probes' SASS)
-    for each cell _wfa_cells counts, and four extension bytes' for each
-    four read bytes (the least extension an alignment compares). Returns
-    (bound pair, cells)."""
+    rows and end rows; for wfa_mid, kind "mid", the payloads) over the
+    memory rate, and its integer operations over the int32 rate: the
+    recurrence's operations (the probes' SASS) for each cell _wfa_cells
+    counts, and four extension bytes' for each four read bytes (the least
+    extension an alignment compares). Returns (bound pair, cells)."""
     import numpy as np
 
     from clique_tpu_torch.align import wfa_kernels as wk
@@ -2796,12 +2830,15 @@ def _wfa_bound(host, pen, kw, traceback):
                       kw.get("kband"))
     ops_per = _wfa_op_counts()
     cells = _wfa_cells(pen, l1, l2, smax, kmax, model, **pens)
+    kind = kind or ("align" if traceback else "score")
     nbytes = refs.nbytes + reads.nbytes + 8 * B + 4 * B
+    if kind == "mid":
+        nbytes += 4 * B
     if traceback:
         steps = np.minimum(pen.astype(np.int64), smax)
         nbytes += int(np.sum(steps + 1)) * (2 * kmax + 1) + \
             B * (smax + 1) + 4 * B
-    ops = cells * ops_per[("align" if traceback else "score", model)] + \
+    ops = cells * ops_per[(kind, model)] + \
         int(np.sum(-(-l2.astype(np.int64) // 4))) * ops_per["word"]
     return bound(nbytes, ops, PEAK_INT32_OPS), cells
 
@@ -2964,7 +3001,8 @@ def _wfa_layout_text(refs):
     return text
 
 
-def _align_engine_on_cpu(layout_text, fastq, workdir, engine, mode):
+def _align_engine_on_cpu(layout_text, fastq, workdir, engine, mode,
+                         batch=WFA_BATCH):
     """align_reads under a wavefront engine with the plain versions on the
     CPU (run in the pool): the inflated BAM payload and its seconds."""
     from clique_tpu_torch.align.pipeline import align_reads
@@ -2973,7 +3011,7 @@ def _align_engine_on_cpu(layout_text, fastq, workdir, engine, mode):
     layout, rm = _layout_from_text(layout_text, workdir)
     out = os.path.join(workdir, "cpu.bam")
     t0 = time.time()
-    align_reads(layout, rm, out, read1=fastq, batch_size=WFA_BATCH,
+    align_reads(layout, rm, out, read1=fastq, batch_size=batch,
                 engine=engine, mode=mode, device="cpu")
     return _inflate_bgzf(out), time.time() - t0
 
@@ -3002,29 +3040,29 @@ def _check_wfa_penalties(path, ref, model):
 
 
 def _wfa_engine_run(label, workdir, layout_text, lines, engine, mode,
-                    pool):
-    """align_reads(engine=...) on the card over the reads, the first
-    N_WFA_CPU of them on the CPU in the pool; returns (stats, seconds,
-    metrics, launches, out path, layout, head check)."""
+                    pool, n_cpu=N_WFA_CPU, batch=WFA_BATCH):
+    """align_reads(engine=...) on the card over the reads, the first n_cpu
+    of them on the CPU in the pool; returns (stats, seconds, metrics,
+    launches, out path, layout, head check)."""
     from clique_tpu_torch.align.pipeline import align_reads
 
     wd = os.path.join(workdir, label)
     os.makedirs(wd)
     layout, rm = _layout_from_text(layout_text, wd)
     fq, head = os.path.join(wd, "reads.fastq"), os.path.join(wd, "head.fastq")
-    for path, part in ((fq, lines), (head, lines[:N_WFA_CPU])):
+    for path, part in ((fq, lines), (head, lines[:n_cpu])):
         with open(path, "w") as fh:
             fh.writelines(part)
     head_cpu = pool.submit(_align_engine_on_cpu, layout_text, head,
-                           os.path.join(wd, "cpu"), engine, mode)
+                           os.path.join(wd, "cpu"), engine, mode, batch)
     out_head = os.path.join(wd, "head_cuda.bam")
-    align_reads(layout, rm, out_head, read1=head, batch_size=WFA_BATCH,
+    align_reads(layout, rm, out_head, read1=head, batch_size=batch,
                 engine=engine, mode=mode, device="cuda")
     out = os.path.join(wd, "aligned.bam")
     metrics_path = os.path.join(wd, "metrics.json")
     _reset_counts()
     t0 = time.time()
-    stats = align_reads(layout, rm, out, read1=fq, batch_size=WFA_BATCH,
+    stats = align_reads(layout, rm, out, read1=fq, batch_size=batch,
                         engine=engine, mode=mode, device="cuda",
                         metrics_path=metrics_path)
     seconds = time.time() - t0
@@ -3035,14 +3073,14 @@ def _wfa_engine_run(label, workdir, layout_text, lines, engine, mode,
           f"{label}: wfa_align launches {launches['wfa_align']}, metrics "
           f"{m['kernel_launches']}")
     return stats, seconds, m, launches, out, layout, (label, out_head,
-                                                      head_cpu)
+                                                      head_cpu, n_cpu)
 
 
 def wfa_head_check(pending):
-    label, out_head, future = pending
+    label, out_head, future, n_cpu = pending
     head_cpu, seconds = future.result()
     same = _inflate_bgzf(out_head) == head_cpu
-    say(f"[{label}] first {N_WFA_CPU} reads on cpu (in the pool): "
+    say(f"[{label}] first {n_cpu} reads on cpu (in the pool): "
         f"{seconds:.2f} s; cuda and cpu aligned BAMs "
         f"{'identical' if same else 'DIFFER'}")
     check(same, f"{label}: the head's BAMs differ between cuda and cpu")
@@ -3151,6 +3189,115 @@ def phase_convex(workdir, pool):
           "not every convex read was aligned and checked")
     check(single >= 0.9 * sv, "fewer than 0.9 of the dropouts are one D run")
     return launches, head, _wfa_main_launches("convex", seen, True)
+
+
+def _mid_plain(args, kw):
+    """wfa_mid_reference over one launch's card tensors, a slice of lanes
+    at a time so that its run table ([lanes, K, L + 1] i32) stays within
+    MID_PLAIN_BYTES; returns (penalties, payloads)."""
+    import torch
+
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    B, n1 = args[0].shape
+    kmax = wk.kmax_of("affine", n1, args[1].shape[1], kw["smax"],
+                      kw.get("o", 6), kw.get("e", 2), 0, 0)
+    step = max(1, int(MID_PLAIN_BYTES // ((2 * kmax + 1) * (n1 + 1) * 4)))
+    outs = [wk.wfa_mid_reference(*(a[i:i + step] for a in args), **kw)
+            for i in range(0, B, step)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def _mid_main_launches(label, seen):
+    """The path's recorded wfa_mid launches, each held against its plain
+    version on the card (penalties and split payloads); the level-0
+    top-rung launch (the widest rows at the highest ceiling, the most
+    pairs) timed in two turns beside its plain version's comparison call,
+    and bounded. Returns (max abs err, its timing)."""
+    import torch
+
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    check(seen, f"{label}: no wfa_mid launch was recorded")
+    top = max(range(len(seen)), key=lambda i: (
+        seen[i][0][0].shape[1], seen[i][1]["smax"], seen[i][0][0].shape[0]))
+    err, timing = 0, None
+    for i, (args, kw) in enumerate(seen):
+        pen, pay = wk.wfa_mid(*args, **kw)
+        (p_pen, p_pay), p_ms = _timed(lambda: _mid_plain(args, kw))
+        same = torch.equal(pen, p_pen) and torch.equal(pay, p_pay)
+        e = max(int((pen - p_pen).abs().max()),
+                int((pay - p_pay).abs().max()))
+        B, n1 = args[0].shape
+        say(f"[{label}] wfa_mid B={B} L={n1} smax={kw['smax']}: penalties "
+            f"and payloads {'equal' if same else 'DIFFER'} (max abs err "
+            f"{e}); penalties {int(p_pen.min())}-{int(p_pen.max())}, "
+            f"{int((p_pen > kw['smax']).sum())} censored; plain "
+            f"{p_ms:.1f} ms")
+        check(same, f"{label}: wfa_mid disagrees with its plain version")
+        err = max(err, e)
+        if i != top:
+            continue
+        k_ms, p_ms = _kernel_turns(f"[{label}] wfa_mid B={B}",
+                                   lambda: wk.wfa_mid(*args, **kw), 3, p_ms)
+        host = [a.cpu().numpy() for a in args]
+        b, cells = _wfa_bound(host, p_pen.cpu().numpy(), kw, False, "mid")
+        say(f"[{label}] wfa_mid bound {b[0]:.5f} ms by {b[1]} ({cells} "
+            f"cells, {cells / B:.1f} a pair); the kernel at "
+            f"{b[0] / k_ms:.4f} of it")
+        timing = _timing(k_ms, p_ms, b)
+    say(f"[{label}] {len(seen)} wfa_mid launches held against the plain "
+        f"version, max abs err {err}")
+    return err, timing
+
+
+def phase_ont_wfa(workdir, pool):
+    """ONT raw reads through --engine wfa: 1,000 reads of the long-read
+    phases' 4 kb reference at ONT raw-read error rates (ONT_RAW), at batch
+    1,024. Each is censored at the 1,024 and 2,048 rungs of wfa_align and
+    finishes on the bialign engine: wfa_mid splits it level by level,
+    wfa_align aligns its leaves. Every CIGAR's penalty against its score,
+    the first 8 reads' BAM against the CPU's (in the pool), every wfa_mid
+    launch of the run against its plain version."""
+    from clique_tpu_torch.io.sam import BamReader
+
+    rng, bases, ref, layout_text = _long_reference()
+    lines = []
+    for i in range(N_ONT_WFA_READS):
+        r = _ont_read(rng, ref, bases, **ONT_RAW).decode()
+        lines.append(f"@ont{i}\n{r}\n+\n{'I' * len(r)}\n")
+    with _recorded("wfa_mid") as seen:
+        stats, seconds, m, launches, out, _layout, head = _wfa_engine_run(
+            "ont-raw", workdir, layout_text, lines, "wfa", "ont", pool,
+            n_cpu=N_ONT_WFA_CPU, batch=BENCH_BATCH)
+    checked = _check_wfa_penalties(out, ref, "affine")
+    with BamReader(out) as reader:
+        pens = sorted(-float(rec.tags["as"]) for rec in reader)
+    bialign = m["wfa_bialign_pairs"]
+    say(f"[ont-raw] {stats.aligned}/{stats.total} reads of ~{LONG_REF} bp "
+        f"(5% substitutions, 2.5% deletions, 2.5% insertions) with "
+        f"--engine wfa on the card: {seconds:.3f} s, "
+        f"{stats.aligned / seconds:.1f} align reads/s; {bialign} to the "
+        f"bialign engine; penalties {pens[0]:.0f} / {pens[len(pens) // 2]:.0f}"
+        f" / {pens[-1]:.0f} (min / median / max); wfa_phase_seconds "
+        f"{json.dumps(m['wfa_phase_seconds'])}, wfa_dp_fallbacks "
+        f"{m['wfa_dp_fallbacks']}; launches wfa_align "
+        f"{launches['wfa_align']} wfa_mid {launches['wfa_mid']} dp_align "
+        f"{launches['dp_align']}; {checked} CIGAR penalties equal their "
+        f"scores")
+    check(stats.aligned == N_ONT_WFA_READS and checked == N_ONT_WFA_READS,
+          "not every ONT-raw read was aligned and checked")
+    check(launches["wfa_mid"] > 0 and m["kernel_launches"]["wfa_mid"]
+          == launches["wfa_mid"], f"the ONT-raw path launched no wfa_mid: "
+          f"{launches}, metrics {m['kernel_launches']}")
+    check(bialign > 0, "no ONT-raw read went to the bialign engine")
+    # the run's own launches: the last ones recorded (the 8-read head on
+    # the card ran first)
+    check(len(seen) >= launches["wfa_mid"], "a wfa_mid launch went "
+          "unrecorded")
+    return (launches, head,
+            _mid_main_launches("ont-raw", seen[-launches["wfa_mid"]:]),
+            stats.aligned / seconds)
 
 
 def phase_screen(workdir):
@@ -3300,7 +3447,12 @@ def main():
         convex_launches, convex_head, convex_wfa = phase_convex(workdir,
                                                                 pool)
         screen_launches, screen_wfa = phase_screen(workdir)
-        path_launches += [hifi_launches, convex_launches, screen_launches]
+        ont_launches, ont_head, ont_mid, ont_rate = phase_ont_wfa(workdir,
+                                                                  pool)
+        path_launches += [hifi_launches, convex_launches, screen_launches,
+                          ont_launches]
+        # the kernels line: wfa_mid at the ONT-raw path's level-0 top rung
+        err["wfa_mid"], times["wfa_mid"] = ont_mid
         # the kernels line: wfa_align at the hifi path's launch, wfa_score
         # at the screen's
         err["wfa_align"] = max(err["wfa_align"], hifi_wfa[0], convex_wfa[0])
@@ -3321,6 +3473,7 @@ def main():
         panel_head_check(panel)
         wfa_head_check(hifi_head)
         wfa_head_check(convex_head)
+        wfa_head_check(ont_head)
     for n in path_launches:
         for k in KERNELS:
             launches[k] += n[k]
@@ -3334,7 +3487,9 @@ def main():
           f"a kernel was never launched on a path: {launches}")
     say(f"[summary] chain {bench[3]:.1f} reads/s over {N_BENCH_READS} "
         f"bench-shaped reads; long reads {long_rate:.1f} reads/s over "
-        f"{N_LONG_READS}; host Myers at 2M pairs {myers_ms:.1f} ms; "
+        f"{N_LONG_READS}; ONT-raw reads under --engine wfa {ont_rate:.1f} "
+        f"reads/s over {N_ONT_WFA_READS}; host Myers at 2M pairs "
+        f"{myers_ms:.1f} ms; "
         f"script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -74,7 +74,6 @@ log = logging.getLogger(__name__)
 # the ROADMAP.md Queue 1 item that ports each capability the JAX pipeline
 # has and this one refuses (the CLI names them too)
 ROADMAP_ITEMS = {
-    "wavefront": "10c (the bialign engine of align/wavefront.py)",
     "parallel": "11 (parallel/)",
 }
 
@@ -523,7 +522,7 @@ def _align_reads_impl(
     launches0 = (dp_kernels.align_launches,
                  dict(dp_kernels.fill_mode_launches),
                  hmm.hmm_forward_launches, wfa_kernels.wfa_align_launches,
-                 wfa_kernels.wfa_score_launches)
+                 wfa_kernels.wfa_score_launches, wfa_kernels.wfa_mid_launches)
 
     profiler = _start_profiler(profile_dir, aligner.device)
 
@@ -992,6 +991,9 @@ def _align_reads_impl(
                 "engine": engine,
                 "wfa_dp_fallbacks": aligner.fallbacks
                 if isinstance(aligner, WfaAligner) else None,
+                # pairs the wavefront engine finished on its bialign engine
+                "wfa_bialign_pairs": aligner.bialign_pairs
+                if isinstance(aligner, WfaAligner) else None,
                 "total_reads": stats.total,
                 "aligned": stats.aligned,
                 "dropped_length": stats.dropped_length,
@@ -1036,7 +1038,9 @@ def _align_reads_impl(
                     "wfa_align": wfa_kernels.wfa_align_launches
                     - launches0[3],
                     "wfa_score": wfa_kernels.wfa_score_launches
-                    - launches0[4]},
+                    - launches0[4],
+                    "wfa_mid": wfa_kernels.wfa_mid_launches
+                    - launches0[5]},
                 "router": "hmm" if hmm_router is not None else "kmer",
                 "bandwidth": bandwidth,
                 # the anchored path: its reads, their inter-anchor sub-DPs,

@@ -17,10 +17,10 @@ the host side:
   fallbacks, so every pair takes the same route and gets the same CIGAR
   and score. Each chunk is one `wfa_align` launch whose walk runs on the
   card after the fill; only the penalties, skeletons and end rows come
-  back to the host. The bialign engine (`wfa_bialign_affine_pairs`) is
-  not ported: where the JAX class hands a pair to it, this one raises
-  NotImplementedError naming its ROADMAP.md item before any result is
-  returned;
+  back to the host;
+- the bialign engine, `wfa_bialign_affine_pairs` over `_mid_split_batch`
+  (one `wfa_mid` launch a rung of a split level), for the pairs whose op
+  store would pass the memory budget, as in the JAX class;
 - `wfa_screen_candidates` on `wfa_score`, and `wfa_affine_align_pairs`.
 """
 
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from clique_tpu_torch.align import wfa_kernels
+from clique_tpu_torch.align.wfa_kernels import MID_ENC
 
 
 def _wild(c: int) -> bool:
@@ -392,14 +393,6 @@ def _ceil_pow2(n: int, lo: int = 32) -> int:
     return b
 
 
-def _unported_bialign(n: int):
-    from clique_tpu_torch.align.pipeline import unported_message
-
-    raise NotImplementedError(unported_message(
-        f"the wavefront bialign engine ({n} pair(s) whose op store exceeds "
-        "the memory budget)", "wavefront"))
-
-
 class _Launch:
     """One dispatched wfa_align chunk: its penalties, skeletons and end
     rows on their way to the host, and the event that says they are
@@ -481,12 +474,15 @@ class WfaAligner:
         self.device_seconds = 0.0
         self.post_seconds = 0.0
         self.fallbacks = 0
+        self.bialign_pairs = 0          # pairs finished by the bialign engine
         self.dispatches = 0             # wfa_align launches (or plain runs)
         # per-phase wall: dispatch = host prep + kernel enqueue;
         # score_sync = waits for a chunk's results; window_pull = skeleton
-        # decode; host_walk = CIGAR replay on the host
+        # decode; host_walk = CIGAR replay on the host; bialign = the
+        # bialign engine's runs, splits and leaves
         self.phase_seconds = {"dispatch": 0.0, "score_sync": 0.0,
-                              "window_pull": 0.0, "host_walk": 0.0}
+                              "window_pull": 0.0, "host_walk": 0.0,
+                              "bialign": 0.0}
 
     def _kmax(self, L: int, smax: int, kband: Optional[int]) -> int:
         """The kernel's diagonal half-width for [B, L] rows at smax."""
@@ -570,6 +566,8 @@ class WfaAligner:
         results = [None] * len(refs)
         t0 = time.time()
         fallback: list = []
+        bialign_pool: list = []  # affine pairs routed to the O(s)-memory
+        #                          bialign engine (op store over budget)
         buckets: dict = {}
         for k in range(len(refs)):
             L = self._bucket_len(max(len(refs[k]), len(reads[k])))
@@ -603,8 +601,10 @@ class WfaAligner:
                 if self.model == "affine" and \
                         self._chunk_bytes(32, L, s, self.kband) > \
                         self._budget():
-                    # the JAX engine sends these to its bialign engine
-                    _unported_bialign(len(idxs))
+                    # even a floor chunk's op store is over the budget:
+                    # these pairs go to the bialign engine
+                    bialign_pool.extend(idxs)
+                    continue
                 idxs.sort(key=lambda k: abs(len(refs[k]) - len(reads[k])))
                 work.append((L, s, idxs, self.kband, self.adaptive))
         wave_budget = 2 * self._budget()
@@ -670,14 +670,33 @@ class WfaAligner:
                 elif self.model == "affine" and \
                         self._chunk_bytes(32, L, smax * 2, None) > \
                         self._budget():
-                    _unported_bialign(len(idxs))
+                    # escalation would pass the op-store budget: these
+                    # finish on the bialign engine
+                    bialign_pool.extend(idxs)
                 else:
                     work.append((L, smax * 2, idxs, None, None))
+        if bialign_pool:
+            self._bialign_fill(bialign_pool, refs, reads, results)
         self.device_seconds += time.time() - t0
         self.pairs_aligned += len(refs)
         if fallback:
             self._dp_fallback_fill(fallback, refs, reads, results)
         return results
+
+    def _bialign_fill(self, idxs, refs, reads, results):
+        """The pairs idxs on the bialign engine (wavefront.py:2031-2039,
+        :2117-2125): score the negated penalty."""
+        t0 = time.time()
+        outs = wfa_bialign_affine_pairs(
+            [refs[k] for k in idxs], [reads[k] for k in idxs], x=self.x,
+            o=self.o, e=self.e, wildcards=self.wildcards,
+            device=self.device)
+        for k, (pen, cig) in zip(idxs, outs):
+            ra, da = cigar_to_aligned(refs[k], reads[k], cig)
+            results[k] = (ra, da, cig, -float(pen))
+            self.cells_filled += len(refs[k]) * len(reads[k])
+        self.bialign_pairs += len(idxs)
+        self.phase_seconds["bialign"] += time.time() - t0
 
     def _dp_fallback_fill(self, remaining, refs, reads, results):
         """Pairs beyond the WFA score cap. affine2p pairs rerun the affine2p
@@ -730,8 +749,9 @@ class WfaAligner:
         elif self.model == "affine" and all(
                 _bialign_len_ok(max(len(refs[k]), len(reads[k])))
                 for k in remaining):
-            # the JAX engine finishes these on its bialign engine
-            _unported_bialign(len(remaining))
+            # no exact-DP engine attached: the bialign engine finishes
+            # these without the full-bound op store of the direct kernel
+            self._bialign_fill(remaining, refs, reads, results)
         else:
             for k in remaining:
                 (pen, cig), = wfa_affine_align_pairs(
@@ -743,10 +763,151 @@ class WfaAligner:
 
 
 def _bialign_len_ok(n: int) -> bool:
-    """True when a pair of max raw length n fits the JAX bialign split
-    encoding (lengths quantized up to 128 below 1 << 15,
-    wavefront.py:430-436)."""
-    return -(-max(n, 1) // 128) * 128 < (1 << 16) // 2
+    """True when a pair of max raw length n fits the bialign split
+    encoding: _mid_split_batch quantizes lengths up to a 128 multiple and
+    rejects a quantized length >= MID_ENC // 2 (wavefront.py:430-439)."""
+    return -(-max(n, 1) // 128) * 128 < MID_ENC // 2
+
+
+def _mid_split_batch(pairs, *, x: int, o: int, e: int, wildcards: bool,
+                     s0: Optional[int] = None, device="cuda"):
+    """wfa_mid over (a, b) byte pairs with the 2x score-ceiling ladder
+    (only censored pairs re-run), wavefront.py:1375-1428. Returns
+    [(penalty, h, v)] per pair; (smax + 1, -1, -1) if censored at the hard
+    bound (which cannot happen: 2 * (o + e * L) covers any pair). Each
+    rung is one launch over the pending pairs, unpadded."""
+    P = len(pairs)
+    out = [None] * P
+    pending = list(range(P))
+    L = max(64, max(max(len(a), len(b)) for a, b in pairs))
+    q = 128
+    L = max(q, -(-L // q) * q)
+    if L >= MID_ENC // 2:
+        raise ValueError(f"bialign split encoding caps lengths at "
+                         f"{MID_ENC // 2 - 1}; got {L}")
+    hard = 2 * (o + e * L) + 1  # delete-all + insert-all upper bound
+    if s0 is None:
+        # lower-bound rung: the length gap alone costs o + e*d
+        dmax = max(abs(len(a) - len(b)) for a, b in pairs)
+        s0 = 64
+        while s0 <= o + e * dmax:
+            s0 *= 2
+    smax = min(s0, hard)
+    dev = _device(device)
+    while pending:
+        host = _pad_pairs([pairs[i][0] for i in pending],
+                          [pairs[i][1] for i in pending], len(pending), L)
+        pen, pay = wfa_kernels.wfa_mid(
+            *(torch.from_numpy(t).to(dev) for t in host), smax=smax, x=x,
+            o=o, e=e, wildcards=wildcards)
+        pen, pay = pen.cpu().numpy(), pay.cpu().numpy()
+        still = []
+        for i, idx in enumerate(pending):
+            if pen[i] <= smax and pay[i] >= 0:
+                out[idx] = (int(pen[i]), int(pay[i]) // MID_ENC,
+                            int(pay[i]) % MID_ENC)
+            elif smax >= hard:
+                out[idx] = (smax + 1, -1, -1)
+            else:
+                still.append(idx)
+        pending = still
+        smax = min(smax * 2, hard)
+    return out
+
+
+def wfa_bialign_affine_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
+                             e: int = 2, wildcards: bool = False,
+                             leaf: int = 512, s0: Optional[int] = None,
+                             device="cuda"):
+    """O(s)-memory batched gap-affine alignment with traceback, the JAX
+    package's bialign engine (wavefront.py:1431-1527; WFA2-lib's
+    wavefront_bialign.o). Each level runs one midpoint sweep
+    (_mid_split_batch) over every segment still longer than `leaf`, splits
+    each at its on-path M-state cell and recurses; segments at or under
+    `leaf` run the direct traceback kernel (wfa_affine_align_pairs) in
+    chunks of 64. A segment whose split is degenerate (the path crosses
+    the middle anti-diagonal inside an edge gap) runs the direct kernel
+    at its full length.
+
+    Returns [(penalty, cigar)] per pair: cigars merge adjacent runs, and
+    the penalty is the top-level midpoint fill's optimum."""
+    n = len(pairs_a)
+    results: list = [None] * n
+    top_pen = [None] * n
+    # segment worklist: (pair idx, order path, a, b, forced_leaf)
+    segs = [(i, (), bytes(a), bytes(b), False)
+            for i, (a, b) in enumerate(zip(pairs_a, pairs_b))]
+    leaves: list = []
+    while segs:
+        split_jobs = []
+        nxt: list = []
+        for seg in segs:
+            i, path, a, b, forced = seg
+            if not a or not b:
+                leaves.append(seg)
+            elif forced or max(len(a), len(b)) <= leaf:
+                leaves.append(seg)
+            else:
+                split_jobs.append(seg)
+        if not split_jobs:
+            break
+        outs = _mid_split_batch([(s[2], s[3]) for s in split_jobs],
+                                x=x, o=o, e=e, wildcards=wildcards, s0=s0,
+                                device=device)
+        for (i, path, a, b, _f), (pen, h, v) in zip(split_jobs, outs):
+            if not path and h >= 0:
+                top_pen[i] = pen
+            if h < 0:
+                leaves.append((i, path, a, b, True))
+            elif (h, v) in ((0, 0), (len(a), len(b))):
+                # path crosses mid inside an edge gap: no shrink possible
+                leaves.append((i, path, a, b, True))
+            else:
+                nxt.append((i, path + (0,), a[:h], b[:v], False))
+                nxt.append((i, path + (1,), a[h:], b[v:], False))
+        segs = nxt
+
+    # resolve leaves: gap-only segments directly, the rest batched tb
+    pieces: dict = {}
+    tb_jobs = []
+    for i, path, a, b, _f in leaves:
+        if not a and not b:
+            pieces[(i, path)] = []
+        elif not a:
+            pieces[(i, path)] = [(len(b), "I")]
+        elif not b:
+            pieces[(i, path)] = [(len(a), "D")]
+        else:
+            tb_jobs.append((i, path, a, b))
+    # chunked leaf batches: the direct kernel's op store is O(smax*B*K)
+    for lo in range(0, len(tb_jobs), 64):
+        sl_jobs = tb_jobs[lo:lo + 64]
+        outs = wfa_affine_align_pairs([j[2] for j in sl_jobs],
+                                      [j[3] for j in sl_jobs],
+                                      x=x, o=o, e=e, wildcards=wildcards,
+                                      device=device)
+        for (i, path, a, b), (pen, cig) in zip(sl_jobs, outs):
+            if cig is None:  # unreachable: full-bound smax never censors
+                raise RuntimeError("bialign leaf censored at full bound")
+            pieces[(i, path)] = cig
+
+    by_pair: dict = {}
+    for (i, p), cig in pieces.items():
+        by_pair.setdefault(i, []).append((p, cig))
+    for i in range(n):
+        merged: list = []
+        for _p, cig in sorted(by_pair.get(i, [])):
+            for run_ in cig:
+                if merged and merged[-1][1] == run_[1]:
+                    merged[-1] = (merged[-1][0] + run_[0], run_[1])
+                else:
+                    merged.append(run_)
+        pen = top_pen[i]
+        if pen is None:  # pair went straight to a leaf (short/empty)
+            pen = cigar_penalty(merged, pairs_a[i], pairs_b[i],
+                                x=x, o=o, e=e, wildcards=wildcards)
+        results[i] = (pen, merged)
+    return results
 
 
 def wfa_affine_align_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,

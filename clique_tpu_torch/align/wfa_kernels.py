@@ -10,13 +10,16 @@ Counterpart of the device functions of clique_tpu/align/wavefront.py that
   them: per pair the penalty, the [smax+1, B, K] u8 op store and the
   walk's forward op skeleton with its end row;
 - `wfa_score` replaces the score-only wfa_affine_batch (:316) and
-  wfa_affine2p_batch (:612) of the exhaustive-search screen.
+  wfa_affine2p_batch (:612) of the exhaustive-search screen;
+- `wfa_mid` replaces wfa_affine_mid_batch (:442), the bialign engine's
+  midpoint fill: per pair the penalty and the on-path split cell.
 
-Both take `model` "affine" (penalties x, o, e) or "affine2p" (also o2, e2)
-and run the hand-written kernels of csrc/wfa_align.cu on CUDA tensors, the
-plain PyTorch versions below on CPU tensors; any other device raises.
-`wfa_align_launches` and `wfa_score_launches` count kernel launches and
-nothing else.
+`wfa_align` and `wfa_score` take `model` "affine" (penalties x, o, e) or
+"affine2p" (also o2, e2); `wfa_mid` is gap-affine only. Each runs its
+hand-written kernel of csrc/wfa_align.cu on CUDA tensors, its plain
+PyTorch version below on CPU tensors; any other device raises.
+`wfa_align_launches`, `wfa_score_launches` and `wfa_mid_launches` count
+kernel launches and nothing else.
 
 The plain versions are the JAX functions step for step: one batched
 [B, K] update a score step, ring buffers of `hist` rows, the loop running
@@ -46,18 +49,23 @@ from clique_tpu_torch.align.dp_kernels import (_check, _device_of,
 
 NEG = -(1 << 30)
 MODELS = ("affine", "affine2p")
+# the midpoint payload's encoding, h * MID_ENC + v (lengths below 32,768)
+MID_ENC = 1 << 16
 
 wfa_align_launches = 0
 wfa_score_launches = 0
-# wfa_align launches whose rings did not fit shared memory and lived in a
-# global workspace instead (csrc/wfa_align.cu)
+wfa_mid_launches = 0
+# wfa_align and wfa_mid launches whose rings did not fit shared memory and
+# lived in a global workspace instead (csrc/wfa_align.cu)
 wfa_global_ring_launches = 0
 
 
 def reset_counts() -> None:
-    global wfa_align_launches, wfa_score_launches, wfa_global_ring_launches
+    global wfa_align_launches, wfa_score_launches, wfa_mid_launches
+    global wfa_global_ring_launches
     wfa_align_launches = 0
     wfa_score_launches = 0
+    wfa_mid_launches = 0
     wfa_global_ring_launches = 0
 
 
@@ -118,9 +126,26 @@ def _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x, o, e,
     return dev, B
 
 
+# elements of one slice of diagonals while a run table is built: bounds
+# the build's temporaries (the cummin's int64 indices among them)
+RUN_TABLE_SLICE = 1 << 25
+
+
 def _run_table(refs, reads, ks, l1, l2, wildcards):
     """[B, K, H+1] i32: the greedy match run from each offset h of each
-    diagonal (H = refs.shape[1]; column H is 0)."""
+    diagonal (H = refs.shape[1]; column H is 0). Built a slice of
+    diagonals at a time, into the table."""
+    B, n1w = refs.shape
+    run = torch.empty((B, len(ks), n1w + 1), dtype=torch.int32,
+                      device=refs.device)
+    step = max(1, RUN_TABLE_SLICE // max(1, B * (n1w + 1)))
+    for i in range(0, len(ks), step):
+        run[:, i:i + step] = _run_slice(refs, reads, ks[i:i + step], l1, l2,
+                                        wildcards)
+    return run
+
+
+def _run_slice(refs, reads, ks, l1, l2, wildcards):
     B, n1w = refs.shape
     n2w = reads.shape[1]
     dev = refs.device
@@ -154,6 +179,58 @@ def _plus1(w):
     return torch.where(w > NEG, w + 1, NEG)
 
 
+def _check_lengths(refs, reads, ref_lens, read_lens):
+    n1w, n2w = refs.shape[1], reads.shape[1]
+    if bool(((ref_lens < 0) | (ref_lens > n1w) | (read_lens < 0)
+             | (read_lens > n2w)).any()):
+        raise ValueError("a length lies outside [0, width]")
+    return n1w, n2w
+
+
+class _Diagonals:
+    """The K = 2 * Kmax + 1 diagonals of a batch's fills and the per-step
+    masks of the JAX functions: `clamp` to the DP rectangle, `diag_valid`
+    at a score step, greedy `extend` through the run table, `done` on the
+    target diagonal."""
+
+    def __init__(self, refs, reads, ref_lens, read_lens, Kmax, wildcards):
+        K = 2 * Kmax + 1
+        self.n1w = refs.shape[1]
+        self.ks = torch.arange(K, dtype=torch.int32,
+                               device=refs.device) - Kmax
+        self.l1 = ref_lens[:, None]
+        self.l2 = read_lens[:, None]
+        k_target = (self.l1 - self.l2)[:, 0]
+        self.target_ok = k_target.abs() <= Kmax
+        self.tgt = (k_target.clamp(-Kmax, Kmax) + Kmax).long()[:, None]
+        self.run = _run_table(refs, reads, self.ks, self.l1, self.l2,
+                              wildcards)
+
+    def clamp(self, offs):
+        ks, l1, l2 = self.ks[None, :], self.l1, self.l2
+        v = offs - ks
+        ok = (offs <= l1) & (v <= l2) & (v >= 0) & (ks >= -l2) & (ks <= l1)
+        return torch.where(ok, offs, NEG)
+
+    def diag_valid(self, s):
+        ks = self.ks[None, :]
+        return (ks.abs() <= s) & (ks >= -self.l2) & (ks <= self.l1)
+
+    def extend(self, offs, valid):
+        ok = valid & (offs > NEG) & (offs >= 0)
+        idx = offs.clamp(0, self.n1w).long()
+        return torch.where(
+            ok, offs + self.run.gather(2, idx[:, :, None])[:, :, 0], offs)
+
+    def at_target(self, t):
+        """[B] values of t [B, K] on each pair's (clipped) target
+        diagonal."""
+        return t.gather(1, self.tgt)[:, 0]
+
+    def done(self, m):
+        return self.target_ok & (self.at_target(m) >= self.l1[:, 0])
+
+
 def wfa_fill_reference(refs, reads, ref_lens, read_lens, *, smax: int,
                        model: str = "affine", x: int = 4, o: int = 6,
                        e: int = 2, o2: int = 24, e2: int = 1,
@@ -167,42 +244,16 @@ def wfa_fill_reference(refs, reads, ref_lens, read_lens, *, smax: int,
     lengths [B] i32 in [0, n1] / [0, n2]."""
     dev, B = _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x,
                            o, e, o2, e2)
-    n1w, n2w = refs.shape[1], reads.shape[1]
-    if bool(((ref_lens < 0) | (ref_lens > n1w) | (read_lens < 0)
-             | (read_lens > n2w)).any()):
-        raise ValueError("a length lies outside [0, width]")
+    n1w, n2w = _check_lengths(refs, reads, ref_lens, read_lens)
     classes = gap_classes(model, o, e, o2, e2)
     G = len(classes)
     Kmax = kmax_of(model, n1w, n2w, smax, o, e, o2, e2, kband)
     K = 2 * Kmax + 1
     hist = hist_of(model, x, o, e, o2, e2)
     i32 = torch.int32
-    ks = torch.arange(K, dtype=i32, device=dev) - Kmax
-    l1 = ref_lens[:, None]
-    l2 = read_lens[:, None]
-    k_target = (l1 - l2)[:, 0]
-    target_ok = k_target.abs() <= Kmax
-    tgt = (k_target.clamp(-Kmax, Kmax) + Kmax).long()[:, None]
-    run = _run_table(refs, reads, ks, l1, l2, wildcards)
-
-    def clamp(offs):
-        v = offs - ks[None, :]
-        ok = (offs <= l1) & (v <= l2) & (v >= 0) & (ks[None, :] >= -l2) & \
-            (ks[None, :] <= l1)
-        return torch.where(ok, offs, NEG)
-
-    def diag_valid(s):
-        return (ks.abs()[None, :] <= s) & (ks[None, :] >= -l2) & \
-            (ks[None, :] <= l1)
-
-    def extend(offs, valid):
-        ok = valid & (offs > NEG) & (offs >= 0)
-        idx = offs.clamp(0, n1w).long()
-        return torch.where(ok, offs + run.gather(2, idx[:, :, None])[:, :, 0],
-                           offs)
-
-    def done(m):
-        return target_ok & (m.gather(1, tgt)[:, 0] >= l1[:, 0])
+    w = _Diagonals(refs, reads, ref_lens, read_lens, Kmax, wildcards)
+    ks, clamp, diag_valid, extend, done = (w.ks, w.clamp, w.diag_valid,
+                                           w.extend, w.done)
 
     neg = torch.full((B, K), NEG, dtype=i32, device=dev)
     m0 = torch.where((ks == 0)[None, :].expand(B, K), 0, neg)
@@ -281,6 +332,94 @@ def wfa_fill_reference(refs, reads, ref_lens, read_lens, *, smax: int,
     return pen, ops
 
 
+def wfa_mid_reference(refs, reads, ref_lens, read_lens, *, smax: int,
+                      x: int = 4, o: int = 6, e: int = 2,
+                      wildcards: bool = False):
+    """The plain gap-affine midpoint fill of the bialign engine, step for
+    step wfa_affine_mid_batch (wavefront.py:442-609): the penalty [B] i32
+    (smax + 1 censored) and the split payload [B] i32, h * MID_ENC + v of
+    the last M-state cell with h + v <= (l1 + l2) // 2 on the optimal path
+    (-1 censored). Beside the M, I and D rings it keeps payload rings PM,
+    PI and PD that follow the traceback's choices (mismatch > I > D on the
+    raw gaps; a gap extends only where extend > open); `pay_update` moves
+    an M payload across a step's greedy extension. Inputs as
+    wfa_fill_reference's."""
+    dev, B = _check_inputs(refs, reads, ref_lens, read_lens, "affine", smax,
+                           x, o, e, 0, 0)
+    n1w, n2w = _check_lengths(refs, reads, ref_lens, read_lens)
+    Kmax = kmax_of("affine", n1w, n2w, smax, o, e, 0, 0)
+    K = 2 * Kmax + 1
+    hist = hist_of("affine", x, o, e, 0, 0)
+    i32 = torch.int32
+    w = _Diagonals(refs, reads, ref_lens, read_lens, Kmax, wildcards)
+    ks, clamp, diag_valid, extend, done = (w.ks[None, :], w.clamp,
+                                           w.diag_valid, w.extend, w.done)
+    mid = (w.l1 + w.l2) // 2                   # [B, 1] split anti-diagonal
+
+    def pay_update(h_base, h_ext, pay_inh):
+        # the last cell of the run h_base..h_ext at/before the mid
+        # anti-diagonal (>> floors, as jnp's)
+        cand = torch.minimum(torch.maximum((mid + ks) >> 1, h_base), h_ext)
+        on_mid = (h_base > NEG) & (2 * cand - ks <= mid)
+        return torch.where(on_mid, cand * MID_ENC + (cand - ks), pay_inh)
+
+    neg = torch.full((B, K), NEG, dtype=i32, device=dev)
+    neg_pay = torch.full((B, K), -1, dtype=i32, device=dev)
+    m0_base = torch.where((ks == 0).expand(B, K), 0, neg)
+    m0 = extend(m0_base, diag_valid(0))
+    p0 = pay_update(m0_base, m0, neg_pay)
+    M, I, D = [neg] * hist, [neg] * hist, [neg] * hist
+    PM, PI, PD = [neg_pay] * hist, [neg_pay] * hist, [neg_pay] * hist
+    M[0], PM[0] = m0, p0
+    init_done = done(m0)
+    result = torch.where(init_done, 0, -1).to(i32)
+    out_pay = torch.where(init_done, w.at_target(p0), -1).to(i32)
+    s = 0
+
+    def get(ring, s1, back, empty):
+        return ring[(s1 - back) % hist] if s1 - back >= 0 else empty
+
+    def shift_r(t, fill):
+        return torch.nn.functional.pad(t[:, :-1], (1, 0), value=fill)
+
+    def shift_l(t, fill):
+        return torch.nn.functional.pad(t[:, 1:], (0, 1), value=fill)
+
+    while s < smax and not bool((result >= 0).all()):
+        s1 = s + 1
+        m_oe, p_oe = get(M, s1, o + e, neg), get(PM, s1, o + e, neg_pay)
+        d_open, d_ext = shift_r(m_oe, NEG), shift_r(get(D, s1, e, neg), NEG)
+        new_d = _plus1(torch.maximum(d_open, d_ext))
+        pay_d = torch.where(d_ext > d_open,           # a tie opens
+                            shift_r(get(PD, s1, e, neg_pay), -1),
+                            shift_r(p_oe, -1))
+        i_open, i_ext = shift_l(m_oe, NEG), shift_l(get(I, s1, e, neg), NEG)
+        new_i = torch.maximum(i_open, i_ext)
+        pay_i = torch.where(i_ext > i_open,
+                            shift_l(get(PI, s1, e, neg_pay), -1),
+                            shift_l(p_oe, -1))
+        mism = _plus1(get(M, s1, x, neg))
+        new_m = torch.maximum(mism, torch.maximum(new_i, new_d))
+        pay_m = torch.where(mism == new_m, get(PM, s1, x, neg_pay),
+                            torch.where(new_i == new_m, pay_i, pay_d))
+        vld = diag_valid(s1)
+        h_base = clamp(torch.where(vld, new_m, NEG))
+        new_i = clamp(torch.where(vld, new_i, NEG))
+        new_d = clamp(torch.where(vld, new_d, NEG))
+        new_m = extend(h_base, vld)
+        pay_m = pay_update(h_base, new_m, pay_m)
+        idx = s1 % hist
+        M[idx], I[idx], D[idx] = new_m, new_i, new_d
+        PM[idx], PI[idx], PD[idx] = pay_m, pay_i, pay_d
+        newly = (result < 0) & done(new_m)
+        out_pay = torch.where(newly, w.at_target(pay_m), out_pay)
+        result = torch.where(newly, s1, result).to(i32)
+        s = s1
+    censored = result < 0
+    return (torch.where(censored, smax + 1, result).to(i32),
+            torch.where(censored, -1, out_pay).to(i32))
+
+
 def _walk_gaps(model, x, o, e, o2, e2):
     """(state, diagonal step, extend bit, open + extend cost, extend cost,
     open op, extend op) of each gap state of the walk."""
@@ -356,7 +495,7 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
     hist = hist_of(model, x, o, e, o2, e2)
     G = 1 if model == "affine" else 2
     s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens))
-    ring_ints = lib.clique_wfa_global_ring_ints(n1w, n2w, G, hist, K)
+    ring_ints = lib.clique_wfa_global_ring_ints(n1w, n2w, G, hist, K, 0)
     with torch.cuda.stream(s):
         pen = torch.empty(B, dtype=torch.int32, device=dev)
         ops = ops_fwd = fin = None
@@ -434,3 +573,48 @@ def wfa_score(refs, reads, ref_lens, read_lens, *, smax: int,
             traceback=False)[0]
     return _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e,
                    o2, e2, wildcards, kband, None, False, stream)[0]
+
+
+def wfa_mid(refs, reads, ref_lens, read_lens, *, smax: int, x: int = 4,
+            o: int = 6, e: int = 2, wildcards: bool = False,
+            stream=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gap-affine midpoint fill of the bialign engine: (penalty [B] i32,
+    smax + 1 censored; payload [B] i32, h * MID_ENC + v of the split cell,
+    -1 censored), the semantics of wfa_affine_mid_batch; inputs as
+    wfa_align's. On CUDA tensors csrc/wfa_align.cu's wfa_mid kernel (a
+    pair whose lengths lie outside its rows gets -1 and -1; the plain
+    version raises ValueError)."""
+    global wfa_mid_launches, wfa_global_ring_launches
+    dev, B = _check_inputs(refs, reads, ref_lens, read_lens, "affine", smax,
+                           x, o, e, 0, 0)
+    if dev.type == "cpu":
+        return wfa_mid_reference(refs, reads, ref_lens, read_lens, smax=smax,
+                                 x=x, o=o, e=e, wildcards=wildcards)
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    n1w, n2w = refs.shape[1], reads.shape[1]
+    Kmax = kmax_of("affine", n1w, n2w, smax, o, e, 0, 0)
+    hist = hist_of("affine", x, o, e, 0, 0)
+    s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens))
+    ring_ints = lib.clique_wfa_global_ring_ints(n1w, n2w, 1, hist,
+                                                2 * Kmax + 1, 1)
+    with torch.cuda.stream(s):
+        pen = torch.empty(B, dtype=torch.int32, device=dev)
+        pay = torch.empty(B, dtype=torch.int32, device=dev)
+        ring = torch.empty((B, ring_ints), dtype=torch.int32, device=dev) \
+            if ring_ints else None
+    if B == 0:
+        return pen, pay
+    with torch.cuda.device(dev):
+        err = lib.clique_wfa_mid(
+            refs.data_ptr(), n1w, reads.data_ptr(), n2w, ref_lens.data_ptr(),
+            read_lens.data_ptr(), B, smax, Kmax, hist, x, o, e,
+            int(bool(wildcards)),
+            ring.data_ptr() if ring is not None else None, pen.data_ptr(),
+            pay.data_ptr(), s.cuda_stream)
+    _raise_on(err, "wfa_mid")
+    wfa_mid_launches += 1
+    if ring is not None:
+        wfa_global_ring_launches += 1
+    return pen, pay

@@ -11,8 +11,8 @@ store whole), the plain walk (against wfa_walk_device and the host
 walkers), the host helpers, WfaAligner.align_pairs (escalation, the
 memory caps and waves, the DP fallback, the affine2p rerun), the
 candidate screen, the exhaustive search and the golden pins under
-`--engine wfa` and `--engine convex`. The JAX engine's bialign branch is
-not ported: the port raises there, naming ROADMAP.md item 10c.
+`--engine wfa` and `--engine convex`, and the engine's two routes to its
+bialign engine (tests/test_torch_wfa_bialign.py holds that engine).
 """
 
 import dataclasses
@@ -358,26 +358,33 @@ def test_aligner_dp_fallback_matches_jax():
     assert out[0][3] == 1.0 and out[1][2] == [(8, "M")]
 
 
-def test_bialign_branches_raise():
-    """Where the JAX engine hands pairs to its bialign engine (an op store
-    over the budget, or no DP fallback for a pair past 2 L), the port
-    raises naming ROADMAP.md item 10c and returns nothing."""
-    refs, reads = _aligner_pairs(5, 8, 150)
-    old = os.environ.get("CLIQUE_WFA_MEM_BUDGET")
-    os.environ["CLIQUE_WFA_MEM_BUDGET"] = str(1 << 16)
-    try:
+def test_bialign_branches_raise(monkeypatch):
+    """Both routes of the engine to its bialign engine give the JAX
+    engine's (ref, read, CIGAR, score): a 64 KiB op-store budget sends
+    every rung there (nothing is dispatched to wfa_align), and with no DP
+    fallback a pair censored past 2 L finishes there."""
+    refs, reads = _aligner_pairs(5, 8, 150, sv_every=3)
+    with monkeypatch.context() as mp:
+        mp.setenv("CLIQUE_WFA_MEM_BUDGET", str(1 << 16))
         eng = tw.WfaAligner(device="cpu")
-        with pytest.raises(NotImplementedError, match=r"item 10c"):
-            eng.align_pairs(refs, reads)
-        assert eng.dispatches == 0
-    finally:
-        if old is None:
-            del os.environ["CLIQUE_WFA_MEM_BUDGET"]
-        else:
-            os.environ["CLIQUE_WFA_MEM_BUDGET"] = old
-    with pytest.raises(NotImplementedError, match=r"bialign.*item 10c"):
-        tw.WfaAligner(s0=260, device="cpu").align_pairs([b"A" * 120],
-                                                        [b"C" * 120])
+        got = eng.align_pairs(refs, reads)
+        assert got == jw.WfaAligner().align_pairs(refs, reads)
+    assert eng.dispatches == 0 and eng.bialign_pairs == len(refs)
+    # 70 substitutions in 128 bases: penalty 264, censored at the rungs
+    # 129 and 258 = 2 L + 2, under the leaf's ceiling x + o + e * 128
+    rng = np.random.default_rng(0)
+    ref = rng.choice(BASES, 128)
+    k = int(rng.integers(60, 72))
+    pos = rng.choice(128, k, replace=False)
+    read = ref.copy()
+    read[pos] = BASES[(np.searchsorted(BASES, ref[pos])
+                       + rng.integers(1, 4, k)) % 4]
+    refs, reads = [ref.tobytes(), refs[0]], [read.tobytes(), reads[0]]
+    eng = tw.WfaAligner(s0=129, device="cpu")
+    got = eng.align_pairs(refs, reads)
+    assert got == jw.WfaAligner(s0=129).align_pairs(refs, reads)
+    assert eng.fallbacks == eng.bialign_pairs == 1
+    assert got[0][3] == -264.0
 
 
 @pytest.mark.parametrize("model", tk.MODELS)

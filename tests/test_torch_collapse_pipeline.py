@@ -309,31 +309,51 @@ def test_cli_run_golden(flags, tmp_path):
 
 @pytest.mark.parametrize("verb,flags,item", [
     ("collapse", ["--distributed-world", "2"], "item 11"),
-    ("run", ["--engine", "wfa"], "item 10c"),
-], ids=["collapse_distributed", "run_wfa"])
-def test_cli_unported_flags_exit(verb, flags, item, tmp_path, capsys,
-                                 monkeypatch):
+], ids=["collapse_distributed"])
+def test_cli_unported_flags_exit(verb, flags, item, tmp_path, capsys):
     """What the port refuses exits 2 naming its ROADMAP.md item: the
-    multi-process collapse, and `run --engine wfa` where the JAX engine
-    would hand the reads to its bialign engine (here: a 64 KiB op-store
-    budget that no chunk fits)."""
-    if verb == "run":
-        monkeypatch.setenv("CLIQUE_WFA_MEM_BUDGET", str(1 << 16))
-    gd, layout, r1 = _cli_golden(tmp_path)
-    if verb == "collapse":
-        argv = ["collapse", "--read-structure", layout, "--input-bam-file",
-                os.path.join(gd, "aligned.bam"), "--output-bam-file",
-                str(tmp_path / "c.bam")]
-    else:
-        argv = ["run", "--read-structure", layout, "--read1", r1,
-                "--aligned-bam-file", str(tmp_path / "a.bam"),
-                "--output-bam-file", str(tmp_path / "c.bam")]
+    multi-process collapse."""
+    gd, layout, _r1 = _cli_golden(tmp_path)
+    argv = [verb, "--read-structure", layout, "--input-bam-file",
+            os.path.join(gd, "aligned.bam"), "--output-bam-file",
+            str(tmp_path / "c.bam")]
     with pytest.raises(SystemExit) as exc:
         cli.main(argv + ["--device", "cpu", *flags])
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
     assert not os.path.exists(tmp_path / "c.bam")
+
+
+def test_cli_run_wfa_over_budget_matches_jax_cli(tmp_path, monkeypatch):
+    """`run --engine wfa` under a 64 KiB op-store budget, where every read
+    goes to the bialign engine: the aligned BAM, collapsed BAM and allele
+    table equal the JAX CLI's under the same budget, byte for byte."""
+    import json
+
+    from clique_tpu import cli as jax_cli
+
+    monkeypatch.setenv("CLIQUE_WFA_MEM_BUDGET", str(1 << 16))
+    _gd, layout, r1 = _cli_golden(tmp_path)
+    argv = ["run", "--read-structure", layout, "--read1", r1,
+            "--batch-size", "16", "--engine", "wfa"]
+    out = {}
+    for side, main, extra in (
+            ("t", cli.main, ["--device", "cpu", "--metrics",
+                             str(tmp_path / "m.json")]),
+            ("j", jax_cli.main, [])):
+        paths = [str(tmp_path / f"{side}{n}") for n in
+                 ("a.bam", "c.bam", ".tsv")]
+        assert main(argv + ["--aligned-bam-file", paths[0],
+                            "--output-bam-file", paths[1], "--alleles",
+                            paths[2], *extra]) == 0
+        with open(paths[2]) as fh:
+            out[side] = (_inflate_bgzf(paths[0]), _inflate_bgzf(paths[1]),
+                         fh.read())
+    assert out["t"] == out["j"]
+    m = json.loads((tmp_path / "m.json").read_text())
+    assert m["wfa_bialign_pairs"] == m["aligned"] > 0
+    assert m["kernel_launches"]["wfa_align"] == 0
 
 
 def test_collapse_worker_pool_gives_the_pin(tmp_path):

@@ -1,13 +1,13 @@
 """The hand-written CUDA kernels (the fused global fill + walk in every
 mode, the fused local fill + walk, the fused Hamming hit search, edit
 distance, the edit-hit search, the pair-HMM forward recurrence and the
-wavefront fills with and without the fused walk) against their plain
-PyTorch versions, on CUDA tensors, and the paths that run them
-(align_reads with a band, with long reads and under the wavefront
-engines, the inversion batch, WfaAligner and the wavefront screen)
-against the CPU. The fused kernel is held to
-walk_reference(fill_reference(...)): its fused rows, and its traceback
-laid out as fill_reference's.
+wavefront fills with and without the fused walk, and the midpoint fill
+of the bialign engine) against their plain PyTorch versions, on CUDA
+tensors, and the paths that run them (align_reads with a band, with long
+reads and under the wavefront engines, the inversion batch, WfaAligner,
+the bialign engine and the wavefront screen) against the CPU. The fused
+kernel is held to walk_reference(fill_reference(...)): its fused rows,
+and its traceback laid out as fill_reference's.
 Needs an NVIDIA GPU with nvcc; run there with
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -747,7 +747,7 @@ def _wfa_pairs(seed, B, W):
     for i in range(B):
         L = int(rng.integers(8, W + 1))
         ref = rng.choice(bases, L)
-        if i % 5 == 0:
+        if i % 5 == 0 and L >= 9:
             ref[3:9] = np.frombuffer(b"012N45", np.uint8)
         read = ref.copy()
         if i % 4 == 0 and L > 20:
@@ -859,6 +859,90 @@ def test_wfa_kernels_empty_batch_counts_no_launch(cuda):
     assert (wk.wfa_align_launches, wk.wfa_score_launches) == before
     assert pen.shape == sc.shape == fin.shape == (0,)
     assert ops.shape[1] == 0 and fwd.shape == (0, 9)
+
+
+def _check_mid(args, **kw):
+    """wfa_mid on the card against wfa_mid_reference: penalties and split
+    payloads; one launch counted."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    n = wk.wfa_mid_launches
+    pen, pay = wk.wfa_mid(*args, **kw)
+    torch.cuda.synchronize()
+    assert wk.wfa_mid_launches == n + 1
+    p_pen, p_pay = wk.wfa_mid_reference(*args, **kw)
+    assert torch.equal(pen, p_pen) and torch.equal(pay, p_pay)
+    return pen, pay
+
+
+@pytest.mark.parametrize("option", [
+    dict(), dict(wildcards=True), dict(smax=10),
+], ids=["exact", "wildcards", "censored"])
+def test_wfa_mid_matches_plain(cuda, option):
+    """A ragged batch (identical pairs, long deletions, wildcard zones, a
+    hopeless pair that censors)."""
+    kw = dict(option)
+    smax = kw.pop("smax", 96)
+    args = [torch.from_numpy(a).to(cuda) for a in _wfa_pairs(7, 64, 120)]
+    pen, pay = _check_mid(args, smax=smax, **kw)
+    assert bool((pen > smax).any()) and bool((pay >= 0).any())
+    assert bool(((pen > smax) == (pay < 0)).all())
+
+
+def test_wfa_mid_global_rings(cuda):
+    """L = 1,280, smax 2,300 (K = 2,295): the rings and payload planes
+    (216 bytes a diagonal) pass shared memory and live in the global
+    workspace."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    rng = np.random.default_rng(8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    a = rng.choice(bases, (6, 1280))
+    b = a.copy()
+    sub = rng.random(b.shape) < 0.12
+    b[sub] = rng.choice(bases, int(sub.sum()))
+    la = np.array([1280, 1200, 1000, 640, 1, 1280], np.int32)
+    lb = np.array([1280, 1250, 900, 700, 1, 1100], np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+            for v in (a, b, la, lb)]
+    n = wk.wfa_global_ring_launches
+    pen, _pay = _check_mid(args, smax=2300)
+    assert wk.wfa_global_ring_launches == n + 1
+    assert bool((pen > 600).any())
+
+
+def test_wfa_mid_marks_bad_lengths_and_empty_batch(cuda):
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    t = torch.full((3, 20), ord("A"), dtype=torch.uint8, device=cuda)
+    l1 = torch.tensor([6, 21, 4], dtype=torch.int32, device=cuda)
+    l2 = torch.tensor([6, 3, -1], dtype=torch.int32, device=cuda)
+    pen, pay = wk.wfa_mid(t, t, l1, l2, smax=16)
+    assert pen.tolist() == [0, -1, -1]
+    assert pay.tolist() == [3 * 65536 + 3, -1, -1]
+    e = torch.zeros((0, 16), dtype=torch.uint8, device=cuda)
+    n = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = wk.wfa_mid_launches
+    pen, pay = wk.wfa_mid(e, e, n, n, smax=8)
+    assert wk.wfa_mid_launches == before and pen.shape == pay.shape == (0,)
+
+
+def test_wfa_bialign_on_cuda_equals_cpu(cuda):
+    """wfa_bialign_affine_pairs on the card (wfa_mid splits, wfa_align
+    leaves) gives the CPU's list, pair for pair."""
+    from clique_tpu_torch.align import wavefront as twf
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    a, b, la, lb = _wfa_pairs(9, 24, 700)
+    refs = [a[i, :la[i]].tobytes() for i in range(len(la))]
+    reads = [b[i, :lb[i]].tobytes() for i in range(len(lb))]
+    n = wk.wfa_mid_launches
+    for leaf in (64, 512):
+        got = twf.wfa_bialign_affine_pairs(refs, reads, wildcards=True,
+                                           leaf=leaf, device="cuda")
+        assert got == twf.wfa_bialign_affine_pairs(
+            refs, reads, wildcards=True, leaf=leaf, device="cpu")
+    assert wk.wfa_mid_launches > n
 
 
 @pytest.mark.parametrize("model", ["affine", "affine2p"])

@@ -154,6 +154,25 @@ def test_align_engines_without_jax(engine, tmp_path):
         os.path.join(GOLDEN, f"aligned_{engine}.bam"))
 
 
+def test_run_wfa_bialign_without_jax(tmp_path, monkeypatch):
+    """`run --engine wfa` under a 64 KiB op-store budget with jax blocked:
+    every read goes to the bialign engine, and the aligned BAM equals
+    tests/data/golden/aligned_wfa.bam."""
+    import json
+
+    from test_torch_align_pipeline import _inflate_bgzf
+
+    monkeypatch.setenv("CLIQUE_WFA_MEM_BUDGET", str(1 << 16))
+    metrics = tmp_path / "m.json"
+    out = _run_without_jax("run", tmp_path, "--engine", "wfa", "--metrics",
+                           str(metrics))
+    assert "clique_tpu_torch.align.wfa_kernels" in out
+    m = json.loads(metrics.read_text())
+    assert m["wfa_bialign_pairs"] == m["aligned"] > 0
+    assert _inflate_bgzf(str(tmp_path / "aligned.bam")) == _inflate_bgzf(
+        os.path.join(GOLDEN, "aligned_wfa.bam"))
+
+
 @pytest.mark.parametrize("verb", ["align", "run"])
 def test_router_hmm_golden_without_jax(verb, tmp_path):
     """`--router hmm` on golden's single reference, with jax blocked: no

@@ -68,7 +68,7 @@ before and read just after:
   guide apart), 7,200 reads: hmm_forward scores every read against every
   reference, dp_align aligns the routed reads; routing accuracy, and the
   first 64 reads' BAM the same on the card as on the CPU apart from
-  routes tied within the kernel's tolerance;
+  routes tied within the card-CPU tolerance of the LLs;
 - workers: collapse --threads N on the bench's aligned BAM in turns with
   one process (and once out of core): the same records, no worker with a
   CUDA context; golden and golden_ml with two workers give their pins;
@@ -81,7 +81,8 @@ out as the plain fill's, in every global mode, with ragged and marked rows,
 at the bench, inversion and anchored shapes and at 6,600 rows; wfa_align
 and wfa_score in both penalty models at bench_extra.py's bench_wfa shape
 and at the hifi, convex and screen launches, penalties, op-store rows,
-skeletons and end rows), time each
+skeletons and end rows; hmm_forward exactly, at a launch of each strip
+height and at the panel's launch shape), time each
 in turns with its plain version at the main path's shape, time a PyTorch
 library call that computes the same function where there is one, and
 work out each kernel's bound from the timed inputs (hmm_forward's from
@@ -182,9 +183,11 @@ WFA_NON_OPS = ("LDG", "STG", "LDS", "STS", "LDC", "ULDC", "LD", "ST", "BRA",
                "BSYNC", "WARPSYNC", "CALL", "MOV", "UMOV")
 
 
-# the hmm_forward kernel's tolerance against its plain version: both take
-# the same f32 terms and order of operations; CUDA's precise expf / logf
-# are within 1-2 ulp of PyTorch's, accumulated over a pair's cells
+# the tolerance between the pair-HMM LLs of the card and of the CPU (the
+# panel head's ties): both take the same f32 terms and order of
+# operations, but CUDA's precise expf / logf are within 1-2 ulp of the
+# CPU's, accumulated over a pair's cells. On the card the kernel equals
+# its plain version exactly.
 HMM_RTOL, HMM_ATOL = 1e-5, 1e-3
 # an H100 SM's throughput a clock: MUFU (ex2, lg2) and FP32 lanes (NVIDIA's
 # arithmetic-instruction throughput table, compute capability 9.0)
@@ -321,6 +324,7 @@ def phase_build():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("hmm_forward_kernel",
                                        "clique_hmm_cell_probe",
+                                       "clique_hmm_cell_floor_probe",
                                        "clique_wfa_cell_probe_affine2p",
                                        "clique_wfa_cell_probe_affine",
                                        "clique_wfa_word_probe",
@@ -339,6 +343,10 @@ def phase_build():
             if flags:
                 kernel = "dp_align<tie_last={0},banded={1}>".format(
                     *flags.groups())
+            # the pair-HMM kernel's strip height
+            flags = re.search(r"hmm_forward_kernelILi(\d+)E", line)
+            if flags:
+                kernel = "hmm_forward<rows={0}>".format(*flags.groups())
             # the wavefront kernel's gap classes, op store and midpoint
             flags = re.search(r"wfa_kernelILi(\d)ELb(\d)ELb(\d)E", line)
             if flags:
@@ -2346,14 +2354,31 @@ def _sass_ops(functions):
 
 
 def _sass_cell_counts():
-    """MUFU and FP32-pipe instructions of one pair-HMM cell: the opcodes
-    of clique_hmm_cell_probe (one cell, csrc/hmm_forward.cu, besides its
-    loads and stores) in the built library's SASS."""
-    ops = _sass_ops(("clique_hmm_cell_probe",))["clique_hmm_cell_probe"]
-    mufu = ops.get("MUFU", 0)
-    fp32 = sum(ops.get(o, 0) for o in FP32_OPCODES)
-    check(mufu > 0 and fp32 > 0, f"no cell probe in the SASS: {ops}")
-    return mufu, fp32, ops
+    """{probe: (MUFU, FP32-pipe instructions, opcodes)} of one pair-HMM
+    cell in the built library's SASS (csrc/hmm_forward.cu, besides the
+    probes' loads and stores): clique_hmm_cell_probe, the kernel's cell,
+    and clique_hmm_cell_floor_probe, the cell without the compares and
+    selects that pick the slot of each LSE's maximum."""
+    probes = ("clique_hmm_cell_probe", "clique_hmm_cell_floor_probe")
+    out = {}
+    for name, ops in _sass_ops(probes).items():
+        mufu = ops.get("MUFU", 0)
+        fp32 = sum(ops.get(o, 0) for o in FP32_OPCODES)
+        check(mufu > 0 and fp32 > 0, f"no {name} in the SASS: {ops}")
+        out[name] = (mufu, fp32, ops)
+    return out
+
+
+def _ctas_per_sm(ptxas_lines, threads):
+    """CTAs of `threads` threads that fit on an SM (sm_90: 64 K registers
+    allocated 256 a warp at a time, 64 warps, 32 CTAs) at the registers
+    ptxas gave the kernel; None if the build log did not say."""
+    m = re.search(r"Used (\d+) registers", " ".join(ptxas_lines))
+    if not m:
+        return None
+    warps = threads // 32
+    per_warp = -(-int(m.group(1)) * 32 // 256) * 256
+    return min(65536 // (per_warp * warps), 64 // warps, 32)
 
 
 def _sm_clock_hz():
@@ -2400,52 +2425,52 @@ def _hmm_batch(rng, n_refs, n_reads, width):
 
 
 def _hold_ll(label, got, want):
-    """The kernel's LLs against the plain version's: finite, within
-    HMM_RTOL / HMM_ATOL. Returns the largest absolute difference."""
+    """The kernel's LLs against the plain version's: finite and equal (both
+    take the same f32 terms, the JAX package's order in every LSE and the
+    card's expf / logf). Returns the largest absolute difference."""
     import torch
 
     check(bool(torch.isfinite(got).all()), f"{label}: a non-finite LL")
-    diff = (got - want).abs()
-    excess = float((diff - (HMM_ATOL + HMM_RTOL * want.abs())).max())
-    err = float(diff.max())
-    say(f"[hmm] {label}: max |kernel - plain| {err:.3g}, "
-        f"{'within' if excess <= 0 else 'OUTSIDE'} rtol {HMM_RTOL} / atol "
-        f"{HMM_ATOL}")
-    check(excess <= 0, f"{label}: hmm_forward differs from its plain "
-          "version past the tolerance")
+    err = float((got - want).abs().max())
+    say(f"[hmm] {label}: max |kernel - plain| {err:.3g}")
+    check(torch.equal(got, want), f"{label}: hmm_forward differs from its "
+          "plain version")
     return err
 
 
 def phase_hmm_kernel():
-    """hmm_forward against its plain version on the card at the panel's
-    shape (1,024 pairs of ~250 x ~250: 32 reads against 32 references,
-    whose routes must agree wherever a read's two best LLs differ by more
-    than the tolerance) and on pairs past 6,144 rows; timed in turns with
-    the plain version; its bound from the cell's MUFU and FP32-pipe
-    instructions in the SASS."""
+    """hmm_forward against its plain version on the card, exactly, at one
+    launch of each strip height (the panel's shape, 1,024 pairs of ~250 x
+    ~250: 32 reads against 32 references, whose routes must agree, at 8
+    rows a lane; 1,024 pairs of ~350 x ~350 at 12), on pairs of 6,600
+    and 5,000 rows (row bands) and at the panel's launch shape (B=368,640,
+    the first batch 360 times over, where a warp streams many pairs); its
+    registers, spills and CTAs an SM; timed in turns with the plain
+    version at B=1,024 and alone at B=368,640; its bounds from the MUFU and
+    FP32-pipe instructions of a cell in the SASS, with and without the
+    selection of each LSE's maximum."""
     import numpy as np
     import torch
 
+    from clique_tpu_torch import _build
     from clique_tpu_torch.align import hmm
 
+    lib = _build.load()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(39)
     p = torch.from_numpy(hmm.default_hmm_params()).to(dev)
+
+    def rows(batch):
+        return lib.clique_hmm_forward_strip_rows(batch[0].shape[1] + 1)
+
     n_q = n_r = 32
     host = _hmm_batch(rng, n_r, n_q, 250)
     args = [torch.from_numpy(a).to(dev) for a in host]
     got = hmm.hmm_forward_batch(*args, p)
     want = hmm.hmm_forward_batch_reference(*args, p)
-    err = _hold_ll("B=1024, 32 reads x 32 references of 220-250 bases",
-                   got, want)
-    g, w = got.view(n_q, n_r), want.view(n_q, n_r)
-    top = w.topk(2, dim=1).values
-    decided = (top[:, 0] - top[:, 1]) > HMM_ATOL + HMM_RTOL * top[:, 0].abs()
-    same = g.argmax(1) == w.argmax(1)
-    say(f"[hmm] routes of the 32 reads: {int(same.sum())} equal, "
-        f"{int((~decided).sum())} within the tolerance of a tie")
-    check(bool(same[decided].all()), "hmm_forward routes a read elsewhere "
-          "than its plain version")
+    err = _hold_ll(f"B=1024, 32 reads x 32 references of 220-250 bases "
+                   f"({rows(args)} rows a lane)", got, want)
+    g = got.view(n_q, n_r)
     check(int((g.argmax(1).cpu() == torch.arange(n_q) % n_r).sum()) >= 24,
           "hmm_forward does not route the reads to their references")
 
@@ -2459,40 +2484,68 @@ def phase_hmm_kernel():
     long = (lrefs, lreads, np.array([6600, 5000], np.int32),
             np.array([250, 250], np.int32))
     largs = [torch.from_numpy(a).to(dev) for a in long]
-    err = max(err, _hold_ll("pairs of 6,600 and 5,000 reference rows",
+    err = max(err, _hold_ll(f"pairs of 6,600 and 5,000 reference rows "
+                            f"({rows(largs)} rows a lane, row bands)",
                             hmm.hmm_forward_batch(*largs, p),
                             hmm.hmm_forward_batch_reference(*largs, p)))
+    # the other strip height: references of 320-350 rows
+    wide = [torch.from_numpy(a).to(dev)
+            for a in _hmm_batch(rng, n_r, n_q, 350)]
+    err = max(err, _hold_ll(f"B=1024, 32 reads x 32 references of 320-350 "
+                            f"bases ({rows(wide)} rows a lane)",
+                            hmm.hmm_forward_batch(*wide, p),
+                            hmm.hmm_forward_batch_reference(*wide, p)))
+    for n1 in (251, 351):
+        r = lib.clique_hmm_forward_strip_rows(n1)
+        lines = PTXAS.get(f"hmm_forward<rows={r}>", ["not read"])
+        ctas = _ctas_per_sm(lines, 128)
+        say(f"[hmm] hmm_forward<rows={r}> (n1={n1}): {'; '.join(lines)}; "
+            + (f"{ctas} CTAs ({4 * ctas} warps) an SM by its registers"
+               if ctas else "CTAs an SM not read"))
 
     k_ms, p_ms = _turns("[hmm] hmm_forward at B=1024, ~250 x ~250",
                         lambda: hmm.hmm_forward_batch(*args, p),
                         lambda: hmm.hmm_forward_batch_reference(*args, p),
                         20)
-    mufu, fp32, ops = _sass_cell_counts()
+    counts = _sass_cell_counts()
     clock = _sm_clock_hz()
 
-    def hmm_bound(cells):
+    def hmm_bound(cells, probe):
+        mufu, fp32, _ = counts[probe]
         t_mufu = mufu * cells / (MUFU_PER_SM_CLOCK * SMS * clock) * 1e3
         t_fp32 = fp32 * cells / (FP32_PER_SM_CLOCK * SMS * clock) * 1e3
         return max(t_mufu, t_fp32), t_mufu, t_fp32
 
+    # the kernels line takes the floor's bound (no slot selection), the
+    # least the function needs; the kernel cell's is printed beside it
+    floor, full = "clique_hmm_cell_floor_probe", "clique_hmm_cell_probe"
     cells = int((host[2].astype(np.int64) * host[3]).sum())
-    bound_ms, t_mufu, t_fp32 = hmm_bound(cells)
-    b = (bound_ms, "operations")
-    say(f"[hmm] a cell's SASS (clique_hmm_cell_probe): {mufu} MUFU, {fp32} "
-        f"FP32-pipe instructions ({json.dumps(dict(sorted(ops.items())))})"
-        f"; {cells} cells at the SM clock nvidia-smi reports "
-        f"({clock / 1e6:.0f} MHz): MUFU {t_mufu:.4f} ms, FP32 pipe "
-        f"{t_fp32:.4f} ms; bound {b[0]:.4f} ms, the kernel at "
-        f"{b[0] / k_ms:.3f} of it; {cells / k_ms / 1e6:.3f} G cells/s")
+    for probe in (full, floor):
+        mufu, fp32, ops = counts[probe]
+        bound_ms, t_mufu, t_fp32 = hmm_bound(cells, probe)
+        say(f"[hmm] a cell's SASS ({probe}): {mufu} MUFU, {fp32} "
+            f"FP32-pipe instructions ({json.dumps(dict(sorted(ops.items())))})"
+            f"; {cells} cells at the SM clock nvidia-smi reports "
+            f"({clock / 1e6:.0f} MHz): MUFU {t_mufu:.4f} ms, FP32 pipe "
+            f"{t_fp32:.4f} ms; bound {bound_ms:.4f} ms, the kernel at "
+            f"{bound_ms / k_ms:.3f} of it; {cells / k_ms / 1e6:.3f} G cells/s")
+    b = (hmm_bound(cells, floor)[0], "operations")
     # the panel's launch shape: a route call of 2,048 reads against 180
-    # references is 368,640 pairs (this batch 360 times over)
+    # references is 368,640 pairs (this batch 360 times over): a warp
+    # streams many pairs, held against the plain version's LLs 360 times
     big = [a.repeat(360, *([1] * (a.dim() - 1))).contiguous() for a in args]
+    big_ll = hmm.hmm_forward_batch(*big, p)
+    check(torch.equal(big_ll, want.repeat(360)), "hmm_forward at B=368,640 "
+          "differs from its plain version at B=1,024, repeated")
+    say("[hmm] B=368,640 (the B=1,024 batch 360 times over): equal to the "
+        "plain version's LLs 360 times over")
     big_ms = _time_ms(lambda: hmm.hmm_forward_batch(*big, p), 3)
-    big_bound = hmm_bound(360 * cells)[0]
-    say(f"[hmm] hmm_forward at B=368,640 (the panel's launch shape): "
-        f"{big_ms:.3f} ms, bound {big_bound:.3f} ms, the kernel at "
-        f"{big_bound / big_ms:.3f} of it; "
-        f"{360 * cells / big_ms / 1e6:.3f} G cells/s")
+    for probe in (full, floor):
+        big_bound = hmm_bound(360 * cells, probe)[0]
+        say(f"[hmm] hmm_forward at B=368,640 (the panel's launch shape): "
+            f"{big_ms:.3f} ms, bound ({probe}) {big_bound:.3f} ms, the "
+            f"kernel at {big_bound / big_ms:.3f} of it; "
+            f"{360 * cells / big_ms / 1e6:.3f} G cells/s")
     return err, _timing(k_ms, p_ms, b)
 
 

@@ -174,6 +174,8 @@ def load() -> ctypes.CDLL:
         cf = ctypes.c_float
         lib.clique_hmm_forward_scratch_floats.restype = ll
         lib.clique_hmm_forward_scratch_floats.argtypes = [ci, ci]
+        lib.clique_hmm_forward_strip_rows.restype = ci
+        lib.clique_hmm_forward_strip_rows.argtypes = [ci]
         lib.clique_hmm_forward.restype = ci
         lib.clique_hmm_forward.argtypes = [vp, ci, vp, ci, vp, vp, cf, cf, cf,
                                            cf, cf, cf, cf, vp, vp, ci, ci, ci,

@@ -5,6 +5,7 @@ in turns.
     python3 profile_port.py align [--runs 3] [--reads 80000] [ROOT ...]
     python3 profile_port.py hamming [--tags 25000] [--reps 3] [ROOT ...]
     python3 profile_port.py local [--reps 5] [ROOT ...]
+    python3 profile_port.py hmm [--reps 5] [ROOT ...]
 
 Each ROOT (default: this checkout) is the root of a checkout of the repo;
 its clique_tpu_torch is imported and its kernels built in a process of its
@@ -38,6 +39,16 @@ results must agree between roots. Imports no jax. The workloads:
   _mode_batch makes them), under AffineScoring.hifi_default(), the
   inversion screen's scoring. CUDA events around `--reps` calls after one
   warm-up call.
+- hmm: hmm_forward_batch on the root's chip_smoke.py batch (_hmm_batch,
+  seed 39: 32 reads against 32 references of 220-250 bases, B=1,024), on
+  it 360 times over (B=368,640, a panel route call's launch), on 32
+  reads against 32 references of 320-350 bases (seed 40) once and 36
+  times over, and on 32 against 32 of 1,070-1,100 bases (seed 41) 4
+  times over, CUDA events around `--reps` calls after one warm-up
+  call; then align
+  --router hmm over the root's panel (_panel_dataset: 180 references,
+  7,200 reads), its 64-read head once to warm up and the whole once timed
+  (wall, reads/s, reader_wall). The LLs and the routed BAM must agree.
 """
 
 import argparse
@@ -240,7 +251,64 @@ def run_local(root, args):
     return {"times": times, "check": digests}
 
 
-WORKLOADS = {"align": run_align, "hamming": run_hamming, "local": run_local}
+def run_hmm(root, args):
+    """hmm_forward at both launch shapes (CUDA events), then the panel."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from clique_tpu_torch.align import hmm
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    dev = torch.device("cuda", 0)
+    p = torch.from_numpy(hmm.default_hmm_params()).to(dev)
+    host = cs._hmm_batch(np.random.default_rng(39), 32, 32, 250)
+    wide = cs._hmm_batch(np.random.default_rng(40), 32, 32, 350)
+    long = cs._hmm_batch(np.random.default_rng(41), 32, 32, 1100)
+    times, digests = {}, []
+    for arrays, times_over, name in ((host, 1, ""), (host, 360, ""),
+                                     (wide, 1, " (320-350 rows)"),
+                                     (wide, 36, " (320-350 rows)"),
+                                     (long, 4, " (1,070-1,100 rows)")):
+        batch = [torch.from_numpy(np.concatenate([a] * times_over)).to(dev)
+                 for a in arrays]
+
+        def call():
+            return hmm.hmm_forward_batch(*batch, p)
+
+        key = f"B={len(arrays[2]) * times_over}{name} ms"
+        times[key] = [_event_ms(call, args.reps)]
+        ll = call().cpu().numpy()
+        digests.append(hashlib.sha256(ll.tobytes()).hexdigest()[:16])
+        print(f"{key}: {times[key][0]}, LLs {digests[-1]}", flush=True)
+        del batch
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as wd:
+        pdir, text, fq, head = cs._panel_dataset(wd)
+        layout, rm = cs._layout_from_text(text, pdir)
+        kw = dict(batch_size=cs.PANEL_BATCH, router="hmm", device="cuda")
+        align_reads(layout, rm, os.path.join(pdir, "warm.bam"), read1=head,
+                    **kw)
+        mpath, out = os.path.join(pdir, "m.json"), os.path.join(pdir,
+                                                                "p.bam")
+        t0 = time.time()
+        st = align_reads(layout, rm, out, read1=fq, metrics_path=mpath, **kw)
+        wall = time.time() - t0
+        with open(mpath) as fh:
+            m = json.load(fh)
+        times["panel align s"] = [wall]
+        times["panel reads/s"] = [st.aligned / wall]
+        times["panel reader_wall s"] = [m["phase_walls"]["reader_wall"]]
+        digests.append(hashlib.sha256(cs._inflate_bgzf(out)).hexdigest()[:16])
+        print(f"panel: {st.aligned}/{st.total} reads, wall {wall} s, "
+              f"{st.aligned / wall} reads/s, phase walls "
+              f"{json.dumps(m['phase_walls'])}, BAM {digests[-1]}",
+              flush=True)
+    return {"times": times, "check": digests}
+
+
+WORKLOADS = {"align": run_align, "hamming": run_hamming, "local": run_local,
+             "hmm": run_hmm}
 
 
 def child(root, args):

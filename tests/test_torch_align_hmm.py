@@ -158,6 +158,75 @@ def test_terms_match_the_jax_transitions():
                 np.float32(jnp.log1p(-jnp.exp(lge)))], rtol=RTOL)
 
 
+# The kernel's LSEs (csrc/hmm_forward.cu:94-110, lse3 and lse2) put 1.0f in
+# the slot of the maximum instead of computing expf(0), and keep the plain
+# version's order of summation: (ea + eb) + 1 when c is the maximum, else
+# (1 + x) + y with x, y the other two in order; lse2 is 1 + exp(min - max).
+# Transcribed here in float32, they must equal the plain _lse3 / _lse2
+# (align/hmm.py, the JAX package's order) bit for bit: that is why the
+# kernel still equals the plain version on the card.
+
+
+def _kernel_lse3(a, b, c):
+    m = torch.maximum(a, torch.maximum(b, c))
+    cmax = c == m
+    eu = torch.exp(torch.where(cmax | (a != m), a, b) - m)
+    ev = torch.exp(torch.where(cmax, b, c) - m)
+    one = torch.ones_like(m)
+    return m + torch.log((torch.where(cmax, eu, one)
+                          + torch.where(cmax, ev, eu))
+                         + torch.where(cmax, one, ev))
+
+
+def _kernel_lse2(a, b):
+    m = torch.maximum(a, b)
+    return m + torch.log(1.0 + torch.exp(torch.minimum(a, b) - m))
+
+
+def _lse_operands(kind, n=4096):
+    """Three seeded float32 operand vectors of log-likelihood size (-10^3
+    to 0, NEG = -1e30 among them where the kind says)."""
+    rng = np.random.default_rng(["random", "two_way_ties", "three_way_ties",
+                                 "neg", "all_neg", "transitions"].index(kind))
+    x = (-rng.gamma(2.0, 40.0, (3, n))).astype(np.float32)
+    if kind == "two_way_ties":
+        # each pair of slots tied, at the maximum and below it
+        for k, (i, j) in enumerate(((0, 1), (0, 2), (1, 2))):
+            rows = slice(k * n // 3, (k + 1) * n // 3)
+            x[j, rows] = x[i, rows]
+        low = rng.random(n) < 0.5
+        x[:, low] = np.sort(x[:, low], axis=0)   # the tie need not be the max
+    elif kind == "three_way_ties":
+        x[1] = x[2] = x[0]
+    elif kind == "neg":
+        x[rng.random((3, n)) < 0.4] = thmm.NEG
+    elif kind == "all_neg":
+        x[:] = thmm.NEG
+        x[:, : n // 2] = np.where(rng.random((3, n // 2)) < 0.5, thmm.NEG,
+                                  x[:, : n // 2])
+    elif kind == "transitions":
+        # a cell's own operands: the diagonal plus t_mm / t_gc, the up and
+        # left neighbours plus lgo / lge, NEG borders among them
+        x[rng.random((3, n)) < 0.1] = thmm.NEG
+        t = thmm.hmm_terms(torch.from_numpy(thmm.default_hmm_params()))
+        x = torch.from_numpy(x)
+        return (x[0] + t[5], x[1] + t[6], x[2] + t[6], x[0] + t[3],
+                x[1] + t[4])
+    x = torch.from_numpy(x)
+    return x[0], x[1], x[2], x[0], x[1]
+
+
+@pytest.mark.parametrize("kind", ["random", "two_way_ties", "three_way_ties",
+                                  "neg", "all_neg", "transitions"])
+def test_kernel_lse_without_the_max_exp_equals_plain(kind):
+    a, b, c, d, e = _lse_operands(kind)
+    for got, want in ((_kernel_lse3(a, b, c), thmm._lse3(a, b, c)),
+                      (_kernel_lse2(d, e), thmm._lse2(d, e)),
+                      (_kernel_lse2(e, d), thmm._lse2(e, d))):
+        assert got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _noisy(rng, seq, sub=0.08, indel=0.03):
     out = bytearray()
     for b in seq:

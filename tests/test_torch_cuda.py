@@ -649,6 +649,119 @@ def test_hmm_forward_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, want, rtol=HMM_RTOL, atol=HMM_ATOL)
 
 
+def _hmm_edge_pairs(seed, B, l1, l2):
+    """B pairs at (l1, l2) but two (one at l1 // 2 rows, one at l2 // 2
+    columns), reference bytes with N and digit wildcards, reads from their
+    reference with 8% substitutions (N among them); rows padded to l1 and
+    max(l2, 1) bytes."""
+    rng = np.random.default_rng(seed)
+    refs = rng.choice(ALPHABET, (B, l1)).astype(np.uint8)
+    reads = rng.choice(ALPHABET, (B, max(l2, 1))).astype(np.uint8)
+    k = min(l1, l2)
+    reads[:, :k] = refs[:, :k]
+    sub = rng.random((B, k)) < 0.08
+    reads[:, :k][sub] = rng.choice(np.frombuffer(b"ACGTN", np.uint8),
+                                   int(sub.sum()))
+    ref_lens = np.full(B, l1, np.int32)
+    read_lens = np.full(B, l2, np.int32)
+    ref_lens[5], read_lens[6] = l1 // 2, l2 // 2
+    return refs, reads, ref_lens, read_lens
+
+
+@pytest.mark.parametrize("l2", [0, 1, 230])
+@pytest.mark.parametrize("l1", [1, 7, 8, 9, 255, 256, 257, 383, 384, 385,
+                                1100])
+def test_hmm_forward_strip_edges_equal_plain(cuda, l1, l2):
+    """A launch of l1 reference rows at each strip height's edges: 8 rows
+    a lane up to 256 rows, 12 at 257-384, 8 in two row bands at 385, 12 in
+    three at 1,100; 37 pairs (no multiple of a CTA's 4 warps). Equal to
+    the plain version on the card, bit for bit."""
+    from clique_tpu_torch import _build
+    from clique_tpu_torch.align import hmm as thmm
+
+    rows = _build.load().clique_hmm_forward_strip_rows(l1 + 1)
+    assert rows == (12 if l1 in (257, 383, 384, 1100) else 8)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _hmm_edge_pairs(l1 + l2, 37, l1, l2)]
+    p = torch.from_numpy(thmm.default_hmm_params()).to(cuda)
+    n = thmm.hmm_forward_launches
+    got = thmm.hmm_forward_batch(*args, p)
+    torch.cuda.synchronize()
+    assert thmm.hmm_forward_launches == n + 1
+    want = thmm.hmm_forward_batch_reference(*args, p)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def test_hmm_forward_panel_batch_equals_plain(cuda):
+    """A panel-shaped launch: 40 reads against 24 references of one 230 bp
+    backbone a 20 bp guide apart (960 pairs of 230 x ~230, the reads with
+    5% substitutions and every third a 3-base deletion), bit for bit."""
+    from clique_tpu_torch.align import hmm as thmm
+
+    rng = np.random.default_rng(8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    backbone = rng.choice(bases, 230)
+    refs = np.repeat(backbone[None], 24, axis=0)
+    refs[:, 100:120] = rng.choice(bases, (24, 20))
+    reads = np.zeros((40, 230), np.uint8)
+    read_lens = np.zeros(40, np.int32)
+    for i in range(40):
+        r = refs[i % 24].copy()
+        sub = rng.random(230) < 0.05
+        r[sub] = rng.choice(bases, int(sub.sum()))
+        if i % 3 == 0:
+            r = np.delete(r, [50, 51, 52])
+        reads[i, :len(r)], read_lens[i] = r, len(r)
+    qi, ri = np.repeat(np.arange(40), 24), np.tile(np.arange(24), 40)
+    host = (refs[ri], reads[qi], np.full(960, 230, np.int32), read_lens[qi])
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in host]
+    p = torch.from_numpy(thmm.default_hmm_params()).to(cuda)
+    got = thmm.hmm_forward_batch(*args, p)
+    want = thmm.hmm_forward_batch_reference(*args, p)
+    assert torch.equal(got, want)
+    assert (got.view(40, 24).argmax(1).cpu().numpy()
+            == np.arange(40) % 24).all()
+
+
+def test_hmm_forward_streamed_pairs_equal_plain(cuda):
+    """More pairs than the card holds warps (2 x 64 an SM, + 37), so that
+    every warp streams two pairs or more: seeded draws of twelve pairs in
+    one launch of 6,600 rows and 300 columns, among them pairs in row
+    bands (6,600, 5,000 with 30 columns, 1,100, 257 with 1 column), pairs
+    with no interior cell (a length 0) and ordinary ones. Equal bit for
+    bit to the plain version of the twelve, taken at the same widths."""
+    from clique_tpu_torch.align import hmm as thmm
+
+    rng = np.random.default_rng(12)
+    shapes = [(6600, 250), (5000, 30), (1100, 300), (257, 1), (256, 230),
+              (230, 230), (230, 0), (0, 200), (0, 0), (8, 300), (1, 1),
+              (100, 300)]
+    K, n1, n2 = len(shapes), 6601, 301
+    refs = rng.choice(ALPHABET, (K, n1 - 1)).astype(np.uint8)
+    reads = rng.choice(ALPHABET, (K, n2 - 1)).astype(np.uint8)
+    for k, (l1, l2) in enumerate(shapes):
+        n = min(l1, l2)
+        src = refs[k, l1 - n:l1].copy()
+        sub = rng.random(n) < 0.08
+        src[sub] = rng.choice(np.frombuffer(b"ACGTN", np.uint8),
+                              int(sub.sum()))
+        reads[k, :n] = src
+    l1s = np.array([s[0] for s in shapes], np.int32)
+    l2s = np.array([s[1] for s in shapes], np.int32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = 2 * 64 * sms + 37
+    pick = rng.integers(0, K, B)
+    args = [torch.from_numpy(np.ascontiguousarray(a[pick])).to(cuda)
+            for a in (refs, reads, l1s, l2s)]
+    p = torch.from_numpy(thmm.default_hmm_params()).to(cuda)
+    got = thmm.hmm_forward_batch(*args, p)
+    want = thmm.hmm_forward_batch_reference(
+        *[torch.from_numpy(a).to(cuda) for a in (refs, reads, l1s, l2s)], p)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want[torch.from_numpy(pick).to(cuda)])
+
+
 def test_hmm_forward_kernel_marks_bad_lengths(cuda):
     from clique_tpu_torch.align import hmm as thmm
 

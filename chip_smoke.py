@@ -35,7 +35,10 @@ before and read just after:
   (wfa_mid splits, wfa_align leaves); every CIGAR's penalty equals its
   score, the first 8 reads' BAM is the same on the card as on the CPU,
   every wfa_mid launch is held against its plain version and the level-0
-  top-rung launch timed (the kernels line's wfa_mid);
+  top-rung launch timed (the kernels line's wfa_mid); one wfa_align
+  launch of each shape (a chunk of each censored rung, a bialign leaf
+  chunk) held, timed and bounded, and the bialign wall split into its
+  kernels' time (CUDA events) and the host's;
 - known list: the bench-shaped reads collapsed against a 737,280-entry
   allowlist (KnownTag Hamming at the size of 10x Chromium v2's list): one
   match_hits launch for the level's one hamming_hits call, the collapse
@@ -214,8 +217,8 @@ REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "edit_hits": "clique_tpu/collapse/distance.py:36 and "
                          "clique_tpu/collapse/correct.py:273",
             "hmm_forward": "clique_tpu/align/hmm.py:39",
-            "wfa_align": "clique_tpu/align/wavefront.py:723, :874 and :1154",
-            "wfa_score": "clique_tpu/align/wavefront.py:316 and :612",
+            "wfa_align": "clique_tpu/align/wavefront.py:726, :878 and :1156",
+            "wfa_score": "clique_tpu/align/wavefront.py:319 and :615",
             "wfa_mid": "clique_tpu/align/wavefront.py:442"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
@@ -2896,6 +2899,28 @@ def _wfa_bound(host, pen, kw, traceback, kind=None):
     return bound(nbytes, ops, PEAK_INT32_OPS), cells
 
 
+def _plan_line(args, kw, kind):
+    """wfa_kernels.wfa_plan's layout of a launch, as a line."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    (B, n1), n2 = args[0].shape, args[1].shape[1]
+    model = kw.get("model", "affine")
+    pen = {k: kw.get(k, d) for k, d in WFA_PEN.items()}
+    if model == "affine":
+        pen.update(o2=0, e2=0)
+    kmax = wk.kmax_of(model, n1, n2, kw["smax"], pen["o"], pen["e"],
+                      pen["o2"], pen["e2"], kw.get("kband"))
+    plan = wk.wfa_plan(kind, model, n1, n2, B, kw["smax"], kmax, **pen,
+                       adaptive=kw.get("adaptive") is not None)
+    rings = "the global workspace" if plan.ring_global else "shared memory"
+    where = (f"a persistent grid of <= {plan.grid} CTAs, rings in {rings}"
+             if plan.grid else f"a cluster of {plan.C} CTA(s) a pair")
+    return (f"plan C={plan.C} ({where}), {plan.steps} step(s) a barrier, "
+            f"ring rows {plan.heights} of {plan.value_bytes} B, {plan.cw} "
+            f"diagonals and {plan.threads} threads a CTA, {plan.smem} B of "
+            f"shared memory")
+
+
 def _wfa_check(label, args, kw, traceback, reps=20):
     """wfa_align (traceback) or wfa_score on these card tensors against
     its plain version on the same inputs (penalties; with traceback also
@@ -2953,6 +2978,8 @@ def _wfa_check(label, args, kw, traceback, reps=20):
     check(same, f"{label}: {name} disagrees with its plain version")
     if reps == 0:
         return err, None
+    kind = "align" if traceback else "score"
+    say(f"[{label}] {name} B={B}: {_plan_line(args, kw, kind)}")
     k_ms, p_ms = _turns(f"[{label}] {name} B={B}", kern, plain, reps)
     host = [a.cpu().numpy() for a in args]
     b, cells = _wfa_bound(host, p_pen.cpu().numpy(), kw, traceback)
@@ -2985,11 +3012,13 @@ def phase_wfa_kernels():
 
 
 @contextlib.contextmanager
-def _recorded(name):
+def _recorded(name, events=None):
     """Every launch of wfa_kernels.<name> while the block runs, recorded:
     the main path calls the wrapper as before (its count included) and a
     copy of each launch's card tensors is taken on the launch's stream.
-    Yields the list of (tensors, keywords)."""
+    Yields the list of (tensors, keywords). With `events` (a list), CUDA
+    events on the launch's stream around each call go into it as (start,
+    end, keywords, whether the call named a stream)."""
     import torch
 
     from clique_tpu_torch.align import wfa_kernels as wk
@@ -2997,9 +3026,16 @@ def _recorded(name):
     orig, seen = getattr(wk, name), []
 
     def rec(*args, **kw):
+        stream = kw.get("stream") or torch.cuda.current_stream()
+        if events is not None and args[0].is_cuda:
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record(stream)
         out = orig(*args, **kw)
-        stream = kw.pop("stream", None) or torch.cuda.current_stream()
+        named = kw.pop("stream", None) is not None
         if args[0].is_cuda:
+            if events is not None:
+                pair[1].record(stream)
+                events.append((*pair, kw, named))
             with torch.cuda.stream(stream):
                 seen.append(([a.clone() for a in args], kw))
         return out
@@ -3291,6 +3327,7 @@ def _mid_main_launches(label, seen):
         err = max(err, e)
         if i != top:
             continue
+        say(f"[{label}] wfa_mid B={B}: {_plan_line(args, kw, 'mid')}")
         k_ms, p_ms = _kernel_turns(f"[{label}] wfa_mid B={B}",
                                    lambda: wk.wfa_mid(*args, **kw), 3, p_ms)
         host = [a.cpu().numpy() for a in args]
@@ -3319,7 +3356,9 @@ def phase_ont_wfa(workdir, pool):
     for i in range(N_ONT_WFA_READS):
         r = _ont_read(rng, ref, bases, **ONT_RAW).decode()
         lines.append(f"@ont{i}\n{r}\n+\n{'I' * len(r)}\n")
-    with _recorded("wfa_mid") as seen:
+    mid_ev, align_ev = [], []
+    with _recorded("wfa_mid", mid_ev) as seen, \
+            _recorded("wfa_align", align_ev) as seen_align:
         stats, seconds, m, launches, out, _layout, head = _wfa_engine_run(
             "ont-raw", workdir, layout_text, lines, "wfa", "ont", pool,
             n_cpu=N_ONT_WFA_CPU, batch=BENCH_BATCH)
@@ -3348,9 +3387,52 @@ def phase_ont_wfa(workdir, pool):
     # the card ran first)
     check(len(seen) >= launches["wfa_mid"], "a wfa_mid launch went "
           "unrecorded")
+    check(len(seen_align) >= launches["wfa_align"], "a wfa_align launch "
+          "went unrecorded")
+    n_align = launches["wfa_align"]
+    run_align = list(zip(seen_align[-n_align:], align_ev[-n_align:]))
+    # the bialign wall split: its wfa_mid launches and its leaf wfa_align
+    # launches (the calls that name no stream) on the card, the rest host
+    mid_ms = sum(a.elapsed_time(b) for a, b, _kw, _n in
+                 mid_ev[-launches["wfa_mid"]:])
+    leaf_ms = sum(ev[0].elapsed_time(ev[1]) for _r, ev in run_align
+                  if not ev[3])
+    rung_ms = sum(ev[0].elapsed_time(ev[1]) for _r, ev in run_align
+                  if ev[3])
+    n_leaf = sum(not ev[3] for _r, ev in run_align)
+    wall = m["wfa_phase_seconds"]["bialign"]
+    say(f"[ont-raw] bialign wall {wall:.3f} s: {launches['wfa_mid']} "
+        f"wfa_mid launches {mid_ms / 1e3:.4f} s and {n_leaf} leaf wfa_align "
+        f"launches {leaf_ms / 1e3:.4f} s on the card (CUDA events), the "
+        f"host and copies {wall - (mid_ms + leaf_ms) / 1e3:.4f} s; the "
+        f"censored rungs' {n_align - n_leaf} wfa_align launches "
+        f"{rung_ms / 1e3:.4f} s")
+    align_err = _ont_align_shapes(run_align)
     return (launches, head,
             _mid_main_launches("ont-raw", seen[-launches["wfa_mid"]:]),
-            stats.aligned / seconds)
+            stats.aligned / seconds, align_err)
+
+
+def _ont_align_shapes(run_align):
+    """One wfa_align launch of each ont-raw shape (a censored chunk at the
+    1,024 rung, at the 2,048 rung of an L = 4,096 bucket and at the 2,112
+    rung of L = 4,224, and the first bialign leaf chunk), held against its
+    plain version on the card, timed in turns with it and bounded; each
+    with its launch plan."""
+    shapes = {}
+    for (args, kw), ev in run_align:
+        L, smax = args[0].shape[1], kw["smax"]
+        what = "leaf chunk" if not ev[3] else f"rung {smax} L={L}"
+        shapes.setdefault(what, (args, kw))
+    want = {"rung 1024 L=4096", "rung 2048 L=4096", "rung 2112 L=4224",
+            "leaf chunk"}
+    check(want <= set(shapes), f"ont-raw wfa_align shapes: {sorted(shapes)}")
+    err = 0
+    for what in sorted(want):
+        args, kw = shapes[what]
+        err = max(err, _wfa_check(f"ont-raw {what}", args, kw, True,
+                                  reps=10)[0])
+    return err
 
 
 def phase_screen(workdir):
@@ -3500,15 +3582,16 @@ def main():
         convex_launches, convex_head, convex_wfa = phase_convex(workdir,
                                                                 pool)
         screen_launches, screen_wfa = phase_screen(workdir)
-        ont_launches, ont_head, ont_mid, ont_rate = phase_ont_wfa(workdir,
-                                                                  pool)
+        ont_launches, ont_head, ont_mid, ont_rate, ont_err = phase_ont_wfa(
+            workdir, pool)
         path_launches += [hifi_launches, convex_launches, screen_launches,
                           ont_launches]
         # the kernels line: wfa_mid at the ONT-raw path's level-0 top rung
         err["wfa_mid"], times["wfa_mid"] = ont_mid
         # the kernels line: wfa_align at the hifi path's launch, wfa_score
         # at the screen's
-        err["wfa_align"] = max(err["wfa_align"], hifi_wfa[0], convex_wfa[0])
+        err["wfa_align"] = max(err["wfa_align"], hifi_wfa[0], convex_wfa[0],
+                               ont_err)
         times["wfa_align"] = hifi_wfa[1]
         err["wfa_score"] = max(err["wfa_score"], screen_wfa[0])
         times["wfa_score"] = screen_wfa[1]

@@ -180,14 +180,13 @@ def load() -> ctypes.CDLL:
         lib.clique_hmm_forward.argtypes = [vp, ci, vp, ci, vp, vp, cf, cf, cf,
                                            cf, cf, cf, cf, vp, vp, ci, ci, ci,
                                            vp]
-        lib.clique_wfa_global_ring_ints.restype = ll
-        lib.clique_wfa_global_ring_ints.argtypes = [ci] * 6
         for fn in (lib.clique_wfa_align, lib.clique_wfa_score):
             fn.restype = ci
-            fn.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 12 + [vp] * 6
+            fn.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 18 + [ll] + \
+                [vp] * 6
         lib.clique_wfa_mid.restype = ci
-        lib.clique_wfa_mid.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 8 + \
-            [vp] * 4
+        lib.clique_wfa_mid.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 12 + \
+            [ll] + [vp] * 4
         _lib, _info = lib, info
         return lib
 

@@ -5,12 +5,12 @@ walk over that store.
 Counterpart of the device functions of clique_tpu/align/wavefront.py that
 `align --engine wfa|convex` runs:
 
-- `wfa_align` replaces wfa_affine_tb_batch (:723) and
-  wfa_affine2p_tb_batch (:874), and wfa_walk_device (:1154) fused after
+- `wfa_align` replaces wfa_affine_tb_batch (:726) and
+  wfa_affine2p_tb_batch (:878), and wfa_walk_device (:1156) fused after
   them: per pair the penalty, the [smax+1, B, K] u8 op store and the
   walk's forward op skeleton with its end row;
-- `wfa_score` replaces the score-only wfa_affine_batch (:316) and
-  wfa_affine2p_batch (:612) of the exhaustive-search screen;
+- `wfa_score` replaces the score-only wfa_affine_batch (:319) and
+  wfa_affine2p_batch (:615) of the exhaustive-search screen;
 - `wfa_mid` replaces wfa_affine_mid_batch (:442), the bialign engine's
   midpoint fill: per pair the penalty and the on-path split cell.
 
@@ -19,7 +19,9 @@ Counterpart of the device functions of clique_tpu/align/wavefront.py that
 hand-written kernel of csrc/wfa_align.cu on CUDA tensors, its plain
 PyTorch version below on CPU tensors; any other device raises.
 `wfa_align_launches`, `wfa_score_launches` and `wfa_mid_launches` count
-kernel launches and nothing else.
+kernel launches and nothing else. `wfa_plan` lays a launch out on the
+card (each plane's ring rows, the CTAs a pair, where the rings live); the
+kernel checks what it is given.
 
 The plain versions are the JAX functions step for step: one batched
 [B, K] update a score step, ring buffers of `hist` rows, the loop running
@@ -40,7 +42,8 @@ rows up to each lane's penalty are defined.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,9 +58,22 @@ MID_ENC = 1 << 16
 wfa_align_launches = 0
 wfa_score_launches = 0
 wfa_mid_launches = 0
-# wfa_align and wfa_mid launches whose rings did not fit shared memory and
-# lived in a global workspace instead (csrc/wfa_align.cu)
+# launches whose rings did not fit the shared memory of a cluster of 8 CTAs
+# and lived in a global workspace instead (csrc/wfa_align.cu)
 wfa_global_ring_launches = 0
+
+# csrc/wfa_align.cu's limits: an H100 block's shared memory, the threads of
+# a wfa_mid CTA and of the others', the cluster sizes, its control words
+# and the workspace's pair counter; the L2 a persistent grid's workspaces
+# share, and the SMs of an H100 SXM
+SMEM_LIMIT = 232448
+MID_THREADS = 1024
+MAX_THREADS = 512
+CLUSTER_SIZES = (1, 2, 4, 8)
+CTRL_INTS = 8
+COUNTER_INTS = 4
+L2_BYTES = 50 << 20
+SMS = 132
 
 
 def reset_counts() -> None:
@@ -102,6 +118,116 @@ def hist_of(model: str, x: int, o: int, e: int, o2: int, e2: int) -> int:
     back = [x] + [v for oe in gap_classes(model, o, e, o2, e2)
                   for v in (oe[0] + oe[1], oe[1])]
     return max(back) + 1
+
+
+def steps_of(model: str, x: int, e: int, e2: int,
+             adaptive: bool = False) -> int:
+    """Score steps the kernel runs between two barriers: 2 where no plane
+    is read fewer than 2 steps back (x and every extend >= 2) and no trim
+    runs between the steps, else 1."""
+    least = min([x, e] + ([e2] if model == "affine2p" else []))
+    return 2 if least >= 2 and not adaptive else 1
+
+
+def ring_heights(model: str, x: int, o: int, e: int, o2: int, e2: int,
+                 steps: int = 1):
+    """Rows of each ring plane of the kernel: (M, I and D of class 1[, I
+    and D of class 2]). M is read x and o_g + e_g steps back, I_g and D_g
+    e_g steps back; each keeps its longest lookback plus `steps` rows (a
+    barrier interval's steps never write a row that one of them reads)."""
+    classes = gap_classes(model, o, e, o2, e2)
+    return (max([x] + [og + eg for og, eg in classes]) + steps,
+            *(eg + steps for _og, eg in classes))
+
+
+def seq_bytes(n: int) -> int:
+    """Shared-memory bytes of a sequence row (whole words, one spare)."""
+    return ((n + 3) // 4 + 1) * 4
+
+
+class WfaPlan(NamedTuple):
+    """How csrc/wfa_align.cu lays one launch out on the card."""
+    steps: int         # score steps between two barriers
+    heights: tuple     # ring rows: M (and PM), I and D of each class (PI, PD)
+    rows: int          # rows of the M, I, D planes
+    C: int             # CTAs a pair: a thread-block cluster when > 1
+    cw: int            # diagonals a CTA (CTA r: r * cw .. r * cw + cw - 1)
+    value_bytes: int   # bytes of a ring value: 4, or 2 (wfa_mid's int16)
+    smem: int          # shared-memory bytes of a CTA
+    grid: int          # > 0: a persistent grid of at most grid CTAs
+    ring_global: bool  # the rings in the global workspace
+    ws_ints: int       # ints of one CTA's global workspace
+    threads: int       # threads a CTA
+
+
+@functools.lru_cache(maxsize=256)
+def wfa_plan(kind: str, model: str, n1: int, n2: int, B: int, smax: int,
+             kmax: int, x: int, o: int, e: int, o2: int, e2: int,
+             adaptive: bool = False, sms: int = SMS,
+             cluster: Optional[int] = None) -> WfaPlan:
+    """The layout of a wfa_align ("align"), wfa_score ("score") or wfa_mid
+    ("mid") launch over B pairs of [n1] / [n2] rows at smax, K = 2 * kmax
+    + 1 diagonals. A CTA holds both sequences, its control words, then the
+    rows of its diagonals in every ring plane (each plane its own height),
+    or after the fill the walk's ops. wfa_align and wfa_score take the
+    least cluster size C whose CTAs each fit SMEM_LIMIT, doubled while a
+    CTA would still hold more than MAX_THREADS diagonals and the pairs'
+    CTAs, B * 2C, stay within half the card's `sms` (past that, clusters
+    of 2 and 4 measured slower than one CTA a pair). Past a cluster of 8
+    the rings live in a global workspace. wfa_mid runs a persistent grid:
+    its int16 M, I and D rings in shared memory where one CTA holds them
+    (else in the workspace), its payload planes in the workspace. A
+    persistent grid has at most as many CTAs as L2_BYTES holds the
+    workspaces of (at most B; the launch caps it at what the card holds at
+    once). Where every lookback is 2 or more and the trim is off, two
+    score steps run between barriers and each plane keeps one row more.
+    `cluster` forces C (0: the global workspace). Raises ValueError for a
+    lookback below 1 (x or an extend of 0), which the kernel's rings
+    cannot hold."""
+    if min(x, e) < 1 or (model == "affine2p" and e2 < 1):
+        raise ValueError("the kernels need x and every extend >= 1")
+    steps = steps_of(model, x, e, e2, adaptive)
+    heights = ring_heights(model, x, o, e, o2, e2, steps)
+    rows = heights[0] + 2 * sum(heights[1:])
+    K = 2 * kmax + 1
+    vb = 2 if kind == "mid" else 4
+    base = seq_bytes(n1) + seq_bytes(n2) + 4 * CTRL_INTS
+    walk = (smax + 4) // 4 * 4 if kind == "align" else 0
+
+    def threads(cw):
+        return min(MID_THREADS if kind == "mid" else MAX_THREADS,
+                   max(32, -(-cw // 32) * 32))
+
+    def smem(C):
+        cw = -(-K // C)
+        return base + max(-(-vb * rows * (cw + 2) // 4) * 4, walk)
+
+    def persistent(ring_global):
+        ws = rows * (K + 2) * ((kind == "mid") + ring_global)
+        grid = max(1, min(B, L2_BYTES // (4 * ws)))
+        return WfaPlan(steps, heights, rows, 1, K, vb,
+                       base + walk if ring_global else smem(1), grid,
+                       ring_global, ws, threads(K))
+
+    if kind == "mid":
+        if cluster not in (None, 0, 1):
+            raise ValueError("wfa_mid runs one CTA a pair")
+        return persistent(cluster == 0 or smem(1) > SMEM_LIMIT)
+    if cluster is None:
+        C = next((c for c in CLUSTER_SIZES if smem(c) <= SMEM_LIMIT), 0)
+        while C and C < CLUSTER_SIZES[-1] and -(-K // C) > MAX_THREADS \
+                and B * 2 * C <= sms // 2:
+            C *= 2
+    else:
+        C = cluster
+        if C and (C not in CLUSTER_SIZES or smem(C) > SMEM_LIMIT):
+            raise ValueError(f"{kind}: a cluster of {C} cannot hold these "
+                             f"rings")
+    if C == 0:
+        return persistent(True)
+    cw = -(-K // C)
+    return WfaPlan(steps, heights, rows, C, cw, vb, smem(C), 0, False, 0,
+                   threads(cw))
 
 
 def _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x, o, e,
@@ -431,7 +557,7 @@ def _walk_gaps(model, x, o, e, o2, e2):
 
 def wfa_walk_reference(ops, scores, k_targets, *, model: str, x: int, o: int,
                        e: int, o2: int = 0, e2: int = 0):
-    """The plain backtrace walk (wfa_walk_device, wavefront.py:1154-1236):
+    """The plain backtrace walk (wfa_walk_device, wavefront.py:1156-1236):
     one reverse pass over the op store's rows, each lane acting at the row
     its score pointer is on, at most one op a row (an M -> gap switch and
     the gap's first step share the row). Returns (ops_fwd [B, S+1] u8, the
@@ -478,6 +604,35 @@ def wfa_walk_reference(ops, scores, k_targets, *, model: str, x: int, o: int,
     return rows_out.gather(1, order), s.to(i32)
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_on(dev, kind, model, n1, n2, B, smax, kmax, x, o, e, o2, e2,
+             adaptive=False):
+    return wfa_plan(kind, model, n1, n2, B, smax, kmax, x, o, e, o2, e2,
+                    adaptive, sms=_sms(dev.index if dev.index is not None
+                                       else torch.cuda.current_device()))
+
+
+def _workspace(plan, dev):
+    """A persistent grid's workspace (its pair counter, then each CTA's
+    ints), else None."""
+    if not plan.grid:
+        return None
+    return torch.empty(COUNTER_INTS + plan.grid * plan.ws_ints,
+                       dtype=torch.int32, device=dev)
+
+
+def _layout_args(plan):
+    """The kernel's layout arguments: steps, ring rows (hm, he1, he2), C,
+    grid, ring_global."""
+    hm, he1, *he2 = plan.heights
+    return (plan.steps, hm, he1, he2[0] if he2 else 0, plan.C, plan.grid,
+            int(plan.ring_global))
+
+
 def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
             wildcards, kband, adaptive, traceback, stream):
     """Allocate the outputs, launch csrc/wfa_align.cu's wfa_align (with
@@ -486,16 +641,18 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
     global wfa_align_launches, wfa_score_launches, wfa_global_ring_launches
     from clique_tpu_torch import _build
 
-    lib = _build.load()
     dev = reads.device
     B, n1w = refs.shape
     n2w = reads.shape[1]
     Kmax = kmax_of(model, n1w, n2w, smax, o, e, o2, e2, kband)
     K = 2 * Kmax + 1
-    hist = hist_of(model, x, o, e, o2, e2)
     G = 1 if model == "affine" else 2
+    o2_, e2_ = (o2, e2) if G == 2 else (0, 0)
+    plan = _plan_on(dev, "align" if traceback else "score", model, n1w, n2w,
+                    B, smax, Kmax, x, o, e, o2_, e2_,
+                    traceback and adaptive is not None)
+    lib = _build.load()
     s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens))
-    ring_ints = lib.clique_wfa_global_ring_ints(n1w, n2w, G, hist, K, 0)
     with torch.cuda.stream(s):
         pen = torch.empty(B, dtype=torch.int32, device=dev)
         ops = ops_fwd = fin = None
@@ -505,17 +662,16 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
             ops_fwd = torch.empty((B, smax + 1), dtype=torch.uint8,
                                   device=dev)
             fin = torch.empty(B, dtype=torch.int32, device=dev)
-        ring = torch.empty((B, ring_ints), dtype=torch.int32, device=dev) \
-            if ring_ints else None
+        ring = _workspace(plan, dev) if B else None
     if B == 0:
         return pen, ops, ops_fwd, fin
-    o2_, e2_ = (o2, e2) if G == 2 else (0, 0)
     fn = lib.clique_wfa_align if traceback else lib.clique_wfa_score
     with torch.cuda.device(dev):
         err = fn(
             refs.data_ptr(), n1w, reads.data_ptr(), n2w, ref_lens.data_ptr(),
-            read_lens.data_ptr(), B, G, smax, Kmax, hist, x, o, e, o2_, e2_,
+            read_lens.data_ptr(), B, G, smax, Kmax, x, o, e, o2_, e2_,
             int(bool(wildcards)), -1 if adaptive is None else int(adaptive),
+            *_layout_args(plan), plan.ws_ints,
             ring.data_ptr() if ring is not None else None, pen.data_ptr(),
             ops.data_ptr() if traceback else None,
             ops_fwd.data_ptr() if traceback else None,
@@ -523,10 +679,10 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
     _raise_on(err, "wfa_align" if traceback else "wfa_score")
     if traceback:
         wfa_align_launches += 1
-        if ring is not None:
-            wfa_global_ring_launches += 1
     else:
         wfa_score_launches += 1
+    if plan.ring_global:
+        wfa_global_ring_launches += 1
     return pen, ops, ops_fwd, fin
 
 
@@ -592,29 +748,28 @@ def wfa_mid(refs, reads, ref_lens, read_lens, *, smax: int, x: int = 4,
                                  x=x, o=o, e=e, wildcards=wildcards)
     from clique_tpu_torch import _build
 
-    lib = _build.load()
     n1w, n2w = refs.shape[1], reads.shape[1]
     Kmax = kmax_of("affine", n1w, n2w, smax, o, e, 0, 0)
-    hist = hist_of("affine", x, o, e, 0, 0)
+    plan = _plan_on(dev, "mid", "affine", n1w, n2w, B, smax, Kmax, x, o, e,
+                    0, 0)
+    lib = _build.load()
     s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens))
-    ring_ints = lib.clique_wfa_global_ring_ints(n1w, n2w, 1, hist,
-                                                2 * Kmax + 1, 1)
     with torch.cuda.stream(s):
         pen = torch.empty(B, dtype=torch.int32, device=dev)
         pay = torch.empty(B, dtype=torch.int32, device=dev)
-        ring = torch.empty((B, ring_ints), dtype=torch.int32, device=dev) \
-            if ring_ints else None
+        ring = _workspace(plan, dev) if B else None
     if B == 0:
         return pen, pay
     with torch.cuda.device(dev):
         err = lib.clique_wfa_mid(
             refs.data_ptr(), n1w, reads.data_ptr(), n2w, ref_lens.data_ptr(),
-            read_lens.data_ptr(), B, smax, Kmax, hist, x, o, e,
-            int(bool(wildcards)),
+            read_lens.data_ptr(), B, smax, Kmax, x, o, e,
+            int(bool(wildcards)), plan.steps, *plan.heights, plan.grid,
+            int(plan.ring_global), plan.ws_ints,
             ring.data_ptr() if ring is not None else None, pen.data_ptr(),
             pay.data_ptr(), s.cuda_stream)
     _raise_on(err, "wfa_mid")
     wfa_mid_launches += 1
-    if ring is not None:
+    if plan.ring_global:
         wfa_global_ring_launches += 1
     return pen, pay

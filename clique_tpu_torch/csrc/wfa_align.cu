@@ -4,103 +4,171 @@
 // (wfa_align), score only (wfa_score), or gap-affine with the bialign
 // engine's split payload (wfa_mid).
 //
-// Replaces: clique_tpu/align/wavefront.py::wfa_affine_tb_batch (:723),
-// wfa_affine2p_tb_batch (:874) and wfa_walk_device (:1154) -> wfa_align;
-// wfa_affine_batch (:316) and wfa_affine2p_batch (:612) -> wfa_score;
+// Replaces: clique_tpu/align/wavefront.py::wfa_affine_tb_batch (:726),
+// wfa_affine2p_tb_batch (:878) and wfa_walk_device (:1156) -> wfa_align;
+// wfa_affine_batch (:319) and wfa_affine2p_batch (:615) -> wfa_score;
 // wfa_affine_mid_batch (:442) -> wfa_mid. Each JAX function is a
 // lax.while_loop that advances the whole batch one score step an
 // iteration as [B, K] vector ops, until every lane is done. The plain
 // versions are align/wfa_kernels.py::wfa_fill_reference,
 // wfa_walk_reference and wfa_mid_reference.
 //
-// What bounds it on an H100: integer work. A score step updates every one
-// of the K diagonals of a pair (K = 2 * kmax + 1, kmax the exact band
+// What bounds it on an H100: integer work. A score step updates the live
+// diagonals of a pair (K = 2 * kmax + 1 in all, kmax the exact band
 // (smax - o) / e of wfa_kernels.exact_kband): a handful of ring loads, a
 // few dozen integer max / compare / select instructions, one op byte
 // stored. A pair takes as many steps as its penalty, and the bytes it
 // must move (two sequences in, a penalty, its op-store rows and skeleton
 // out) are small against that, so it is bound by integer operations
 // (chip_smoke.py counts a cell's instructions in this file's SASS through
-// clique_wfa_cell_probe_*). Greedy extension compares bytes.
+// clique_wfa_cell_probe_*). Greedy extension compares bytes. In practice
+// a launch of few pairs waits on each step's chain of dependent loads and
+// its barrier (a step holds a few diagonals a thread), and wfa_mid's
+// launch of ~1,000 pairs on the SMs' issue of its instructions.
 //
-// What the design does about it (a simple kernel first):
-// - One CTA a pair, its two sequences in shared memory. The threads stride
-//   over the K diagonals; one __syncthreads a score step (two with the
-//   wf-adaptive trim, whose CTA maximum of 2h - k needs its own barrier).
-//   A pair stops at its own penalty: no lane waits for the batch's worst.
-// - The ring buffers (hist rows of K offsets for M, and for I and D of
-//   each gap class, hist = the longest lookback + 1) live in shared memory
-//   when they fit beside the sequences, else in a per-pair global
-//   workspace that stays in L2: affine2p at the 1,024-ceiling reruns of
-//   an L = 384 bucket (K = 1,537) needs 5 x 26 x 1,537 x 4 B ~ 800 KB.
-//   clique_wfa_global_ring_ints says which shapes take that path.
-// - Extension compares four bytes at a time: two aligned 32-bit loads and
-//   a funnel shift give four bytes at any offset, __vcmpeq4 the equal
-//   bytes, __vcmpltu4 / __vcmpeq4 the wildcard bytes (below '0' + 10, or
-//   'N'); on HiFi reads diagonal 0 extends across almost the whole read.
-// - wfa_align writes each step's op bytes (every diagonal) to the global
-//   op store [smax+1, B, K] in the plain version's layout, then thread 0
-//   walks that pair's store backwards exactly as wfa_walk_device does: one
-//   op a row, an M -> gap switch fused with the gap's first step at the
-//   same row. It counts the ops, then writes them in forward order into
-//   the skeleton row [smax+1] (0-padded), and the end row into fin: -1 a
-//   converged walk, -2 a censored pair.
-//
-// - wfa_mid is the score fill with three payload planes (PM, PI, PD: the
-//   last on-path M cell at or before the anti-diagonal (l1 + l2) / 2, as
-//   h * 65536 + v) beside the M, I and D rings, in the same shared or
-//   global ring space. Each payload follows the choice the cell's op byte
-//   records, so payload and traceback cannot disagree; pay_update moves
-//   an M payload across the step's greedy extension. Its steps visit only
-//   |k| <= min(s, (s - o) / e), the diagonals a penalty of s reaches (every
-//   other cell is NEG in every ring row). At the bialign engine's top rung
-//   (L = 4,224, smax 4,096, K = 4,091) the planes take 884 KB a pair, so
-//   they live in the global workspace.
+// What the design does about it (layout from wfa_kernels.wfa_plan, which
+// the launch checks):
+// - Live diagonals only. Step s visits |k| <= min(s, kmax, reach(s)) and
+//   -l2 - 1 <= k <= l1 + 1, reach(s) the widest |k| a penalty of s pays
+//   for (one gap of (s - o_g) / e_g bases, the wider class). Every other
+//   diagonal is NEG in every ring and 0 in the op store at that step (a
+//   finite value on diagonal k costs at least min_g(o_g + e_g |k|); the op
+//   bits of k = l1 + 1 and -l2 - 1 record gap extends from the rectangle's
+//   edge). Ring cells are cleared once and never written outside the band,
+//   which only grows; one memset zeroes the op store before the launch.
+// - Compact rings: each plane keeps its own lookback. M (and wfa_mid's
+//   payload PM) keeps max(x, o_g + e_g) + steps rows, I_g and D_g (PI, PD)
+//   e_g + steps, each indexed by s mod its own height. A lookback before
+//   step 0 lands on a row no step has written yet: NEG (-1 for payloads),
+//   as the plain version's.
+// - Two score steps between barriers where every lookback is at least 2
+//   (x and the extends; gap-affine at 4, 6, 2) and the trim is off: the
+//   second step reads no row the first writes, so a thread computes both
+//   steps of its diagonal back to back.
+// - Greedy extension compares four bytes at a time: two aligned 32-bit
+//   loads and a funnel shift give four bytes at any offset, a ^ b the
+//   bytes that differ; the wildcard masks (__vcmpltu4 / __vcmpeq4: below
+//   '0' + 10, or 'N') only where four bytes differ and the pair holds a
+//   wildcard at all.
+// - wfa_align and wfa_score: one CTA a pair, its rings in shared memory;
+//   a thread-block cluster of C CTAs a pair where the rings need it or a
+//   small launch leaves SMs idle (wfa_plan: C = 1, 2, 4 or 8). Each CTA
+//   of a cluster owns a contiguous slice of the diagonals, its rings
+//   between two halo columns in its own shared memory; a cell at a slice
+//   edge also stores its values into the neighbour's halo (distributed
+//   shared memory), so every read is local, and each barrier interval ends
+//   at a cluster barrier (release / acquire). The done step, wfa_mid's
+//   payload at it and the trim's maximum go into every CTA's control
+//   words, so that all leave the loop at the same step; rank 0 writes the
+//   outputs and walks. Past what a cluster of 8 holds, the rings live in a
+//   global workspace and a persistent grid takes pairs from a counter.
+// - wfa_mid: a persistent grid of CTAs of up to 1,024 threads, one an SM,
+//   each taking pairs from a counter; its M, I and D rings hold int16
+//   offsets (NEG as -32768) in shared memory, its payload planes (PM, PI,
+//   PD: the last on-path M cell at or before the anti-diagonal (l1 + l2) /
+//   2, as h * 65536 + v) in the CTA's slice of the workspace, which L2
+//   holds. Each payload follows the choice the cell's op byte records, so
+//   payload and traceback cannot disagree (the candidates are loaded
+//   before the byte is known); pay_update moves an M payload across the
+//   step's greedy extension.
+// - wfa_align writes each step's op bytes to the global op store
+//   [smax+1, B, K] in the plain version's layout, then rank 0's thread 0
+//   walks that pair's store backwards once, exactly as wfa_walk_device
+//   does (one op a row, an M -> gap switch fused with the gap's first
+//   step at the same row), into shared memory over the dead rings, and
+//   every thread writes the skeleton row [smax+1] forwards (0-padded),
+//   and the end row into fin: -1 a converged walk, -2 a censored pair.
 //
 // Exactness: integers only. The recurrence, its clamp order (affine clamps
 // I and D after taking M's maximum, affine2p before), its tie orders
 // (mismatch > I > D, mismatch > I1 > D1 > I2 > D2; a gap extends only
-// where extend > open), the NEG sentinel and the bounds are the JAX
-// functions'. Rows of the op store past a pair's penalty are not written.
+// where extend > open), the NEG sentinel's order and the bounds are the
+// JAX functions'. Rows of the op store past a pair's penalty are not
+// defined.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace clique_wfa {
 namespace {
 
 constexpr int kNeg = -(1 << 30);
 constexpr int kMaxThreads = 512;
+// wfa_mid's CTAs: one an SM holds its int16 rings, and its 64 registers a
+// thread allow 1,024 threads, whose warps hide its payloads' L2 loads
+constexpr int kMidThreads = 1024;
 constexpr int kSmemLimit = 232448;  // an H100 block's shared memory
-constexpr int kCtrlInts = 4;        // done step, two adaptive maxima, ops
-                                    // (wfa_mid: the payload in slot 1)
+constexpr int kMaxCluster = 8;      // the portable cluster size
+// control words: [0] [1] the done step, [2] [3] the trim's maximum, each
+// by the parity of the barrier interval (a thread that reads interval i's
+// word after its barrier cannot see interval i + 1's write), [4] wfa_mid's
+// payload at the done step, [5] the walk's ops, [6] the pair (persistent
+// grid)
+constexpr int kCtrlInts = 8;
+constexpr int kCounterInts = 4;     // the workspace's pair counter
 constexpr int kMidEnc = 1 << 16;    // wfa_mid's payload: h * kMidEnc + v
 
 struct Params {
   int n1, n2;        // row widths: refs [B, n1], reads [B, n2]
-  int B, smax, kmax, K, hist;
+  int B, smax, kmax, K;
   int x, o1, e1, o2, e2;
+  int hm, he1, he2;  // ring rows: M (and PM), I and D of each class
   int wildcards;
   int adaptive;      // the wf-adaptive margin, < 0: off
+  int C;             // CTAs a pair (a cluster when > 1)
+  int cw;            // diagonals a CTA: CTA r holds r * cw .. r * cw + cw - 1
+  int grid;          // > 0: a persistent grid of at most grid CTAs
+  int ring_global;   // the M, I, D rings in the global workspace
+  long long ws_ints; // ints of one CTA's global workspace
+};
+
+struct Bufs {
+  const uint8_t* refs;
+  const uint8_t* reads;
+  const int* ref_lens;
+  const int* read_lens;
+  int* ring_ws;
+  int* pen;
+  uint8_t* ops;
+  uint8_t* ops_fwd;
+  int* fin;
+  int* pay;
 };
 
 // Bytes a sequence row takes in shared memory: whole words and one spare
 // word, so that a four-byte read at any offset below n stays inside.
 __host__ __device__ inline int seq_bytes(int n) { return ((n + 3) / 4 + 1) * 4; }
 
-// Ints of a pair's rings: hist rows of K for M and for I and D of each gap
-// class; wfa_mid keeps a payload plane beside each of them.
-__host__ __device__ inline long long ring_ints(int G, int hist, int K,
-                                               bool mid) {
-  return (1LL + 2 * G) * hist * K * (mid ? 2 : 1);
+// Values of one CTA's M, I, D rings: every plane's rows of its cw
+// diagonals between two halo columns (wfa_mid's payload planes, as many
+// rows of ints, live in the global workspace).
+__host__ inline long long cta_ring_values(const Params& p, int G) {
+  return (long long)(p.hm + 2 * p.he1 + (G == 2 ? 2 * p.he2 : 0)) *
+         (p.cw + 2);
 }
 
-__host__ inline long long smem_with_rings(int n1, int n2, int G, int hist,
-                                          int K, bool mid) {
-  return seq_bytes(n1) + seq_bytes(n2) + 4LL * kCtrlInts +
-         4 * ring_ints(G, hist, K, mid);
+// Ints of one CTA's global workspace: wfa_mid's payload planes, then the
+// rings where they are global.
+__host__ inline long long cta_ws_ints(const Params& p, int G, bool mid) {
+  return (mid ? cta_ring_values(p, G) : 0) +
+         (p.ring_global ? cta_ring_values(p, G) : 0);
+}
+
+// Shared memory of one CTA: the sequences, the control words, then its
+// rings of `value` bytes (unless they are global) or, after the fill, the
+// walk's ops.
+__host__ inline long long cta_smem(const Params& p, int G, bool tb,
+                                   bool mid, int value) {
+  const long long walk = tb ? (p.smax + 4) / 4 * 4 : 0;
+  const long long rings =
+      p.ring_global ? 0 : (value * cta_ring_values(p, G) + 3) / 4 * 4;
+  return seq_bytes(p.n1) + seq_bytes(p.n2) + 4LL * kCtrlInts +
+         std::max(rings, walk);
 }
 
 __device__ __forceinline__ uint32_t load4(const uint8_t* base, int i) {
@@ -115,15 +183,24 @@ __device__ __forceinline__ uint32_t wild4(uint32_t w) {
 
 __device__ __forceinline__ bool wild1(int c) { return c < 58 || c == 78; }
 
-// The greedy match run from ref[h], read[v], at most n bytes.
+// The bytes of four that differ (non-zero bytes of a ^ b) and are not a
+// wildcard on either side.
+__device__ __forceinline__ uint32_t differ4(uint32_t a, uint32_t b,
+                                           bool wildcards) {
+  uint32_t x = a ^ b;
+  if (wildcards && x) x &= ~(wild4(a) | wild4(b));
+  return x;
+}
+
+// The greedy match run from ref[h], read[v], at most n bytes (wildcards:
+// the pair holds a wildcard byte and they are on).
 __device__ int extend_run(const uint8_t* ref, const uint8_t* read, int h,
                           int v, int n, bool wildcards) {
   int run = 0;
   for (; run + 4 <= n; run += 4) {
-    const uint32_t a = load4(ref, h + run), b = load4(read, v + run);
-    uint32_t eq = __vcmpeq4(a, b);
-    if (wildcards) eq |= wild4(a) | wild4(b);
-    if (eq != 0xffffffffu) return run + (__ffs(~eq) - 1) / 8;
+    const uint32_t x =
+        differ4(load4(ref, h + run), load4(read, v + run), wildcards);
+    if (x) return run + (__ffs(x) - 1) / 8;
   }
   for (; run < n; ++run) {
     const int a = ref[h + run], b = read[v + run];
@@ -132,49 +209,29 @@ __device__ int extend_run(const uint8_t* ref, const uint8_t* read, int h,
   return run;
 }
 
-__device__ __forceinline__ int plus1(int w) { return w > kNeg ? w + 1 : kNeg; }
+template <int kN = kNeg>
+__device__ __forceinline__ int plus1(int w) { return w > kN ? w + 1 : kN; }
 
-// The rows of a score step's lookbacks: ring row of s1 - back, or -1
-// before the first step (a NEG wavefront).
-__device__ __forceinline__ int back_row(int s1, int back, int hist) {
-  return s1 - back >= 0 ? (s1 - back) % hist : -1;
-}
-
-__device__ __forceinline__ int ring_at(const int* plane, int row, int ki,
-                                       int K) {
-  return (row >= 0 && ki >= 0 && ki < K) ? plane[row * K + ki] : kNeg;
+// The ring row `back` steps before row `cur` of a plane of h rows.
+__device__ __forceinline__ int back_row(int cur, int back, int h) {
+  const int r = cur - back;
+  return r < 0 ? r + h : r;
 }
 
 // The ring values one diagonal of one score step reads: M at s1 - x (k),
 // and for each gap class the opens (M at s1 - o_g - e_g, k -/+ 1) and the
-// extends (D at k - 1, I at k + 1, s1 - e_g); NEG outside the rows.
+// extends (D at k - 1, I at k + 1, s1 - e_g).
 template <int G>
 struct CellIn {
   int mism;
   int d_open[G], d_ext[G], i_open[G], i_ext[G];
 };
 
-// rows: [0] s1 - x, [1 + g] s1 - o_g - e_g, [3 + g] s1 - e_g.
-template <int G>
-__device__ __forceinline__ CellIn<G> gather(const int* M, const int* const* I,
-                                            const int* const* D,
-                                            const int* rows, int ki, int K) {
-  CellIn<G> in;
-  in.mism = ring_at(M, rows[0], ki, K);
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    in.d_open[g] = ring_at(M, rows[1 + g], ki - 1, K);
-    in.d_ext[g] = ring_at(D[g], rows[3 + g], ki - 1, K);
-    in.i_open[g] = ring_at(M, rows[1 + g], ki + 1, K);
-    in.i_ext[g] = ring_at(I[g], rows[3 + g], ki + 1, K);
-  }
-  return in;
-}
-
 // The recurrence of one diagonal k at score s1 from its ring values: the
 // new M (before extension), I and D of each gap class (clamped), and the
-// op byte.
-template <int G>
+// op byte. kN: the NEG sentinel (any value below every offset and -kmax
+// gives the same bytes; wfa_mid's int16 rings use -32768).
+template <int G, int kN = kNeg>
 __device__ __forceinline__ void combine(const CellIn<G>& in, int k, int s1,
                                         int l1, int l2, int* new_m,
                                         int* new_i, int* new_d, uint8_t* op) {
@@ -183,16 +240,16 @@ __device__ __forceinline__ void combine(const CellIn<G>& in, int k, int s1,
   int byte = 0;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    raw_d[g] = plus1(max(in.d_open[g], in.d_ext[g]));
+    raw_d[g] = plus1<kN>(max(in.d_open[g], in.d_ext[g]));
     raw_i[g] = max(in.i_open[g], in.i_ext[g]);
     const int shift = (G == 1 ? 2 : 3) + 2 * g;
     byte |= (int(in.i_ext[g] > in.i_open[g]) << shift) |
             (int(in.d_ext[g] > in.d_open[g]) << (shift + 1));
   }
-  const int mism = plus1(in.mism);
+  const int mism = plus1<kN>(in.mism);
   auto clamp = [&](int offs) {
     const int v = offs - k;
-    return (vld && offs <= l1 && v <= l2 && v >= 0) ? offs : kNeg;
+    return (vld && offs <= l1 && v <= l2 && v >= 0) ? offs : kN;
   };
   int m, src;
   if (G == 1) {
@@ -217,52 +274,47 @@ __device__ __forceinline__ void combine(const CellIn<G>& in, int k, int s1,
         : new_d[0] == m ? 3
         : new_i[G - 1] == m ? 4 : 5;
   }
-  if (m <= kNeg) src = 0;
+  if (m <= kN) src = 0;
   *op = static_cast<uint8_t>(byte | src);
   *new_m = clamp(m);
 }
 
 // wfa_mid's payloads of one diagonal's new I, D and M (M before its
 // extension), each following the choice its op byte records, as the
-// traceback would: I from extend (k + 1, s1 - e) where bit 2 says so,
-// else from the M at s1 - o - e (k + 1); D likewise at k - 1 (bit 3); M
-// from the mismatch (s1 - x, k), the I or the D (bits 0-1; -1 where no
-// source: the cell is NEG). load(plane, row, ki) reads payload plane 0
-// (PM), 1 (PI) or 2 (PD) at rows[row] of the step's lookbacks.
-template <class Load>
-__device__ __forceinline__ void mid_pays(uint8_t op, int ki, Load load,
+// traceback would: I from extend (PI at k + 1, s1 - e) where bit 2 says
+// so, else from the M at s1 - o - e (PM, k + 1); D likewise at k - 1 (bit
+// 3); M from the mismatch (PM at s1 - x, k), the I or the D (bits 0-1; -1
+// where no source: the cell is NEG). c: those five candidates, PI(k + 1),
+// PM(k + 1), PD(k - 1), PM(k - 1), PM(k).
+__device__ __forceinline__ void mid_pays(uint8_t op, const int (&c)[5],
                                          int* pm, int* pi, int* pd) {
-  *pi = (op >> 2) & 1 ? load(1, 3, ki + 1) : load(0, 1, ki + 1);
-  *pd = (op >> 3) & 1 ? load(2, 3, ki - 1) : load(0, 1, ki - 1);
+  *pi = (op >> 2) & 1 ? c[0] : c[1];
+  *pd = (op >> 3) & 1 ? c[2] : c[3];
   const int src = op & 3;
-  *pm = src == 1 ? load(0, 0, ki) : src == 2 ? *pi : src == 3 ? *pd : -1;
+  *pm = src == 1 ? c[4] : src == 2 ? *pi : src == 3 ? *pd : -1;
 }
 
 // pay_update of wfa_affine_mid_batch: across an M step and its greedy
 // extension h_base .. h_ext on diagonal k, the payload becomes the last
 // cell of that run at or before the mid anti-diagonal, if one is (>> is
 // an arithmetic shift: a floor, as jnp's).
+template <int kN = kNeg>
 __device__ __forceinline__ int pay_update(int h_base, int h_ext, int pay,
                                           int k, int mid) {
-  if (h_base <= kNeg) return pay;
+  if (h_base <= kN) return pay;
   const int cand = min(max((mid + k) >> 1, h_base), h_ext);
   return 2 * cand - k <= mid ? cand * kMidEnc + (cand - k) : pay;
 }
 
 // The walk of wfa_walk_device from (row score, diagonal k_target): returns
-// the end row (fin) and the number of ops; with `out`, writes them in
-// forward order to out[0 .. n).
+// the end row (fin); its ops go to rev[0 .. *n_ops) last op first.
 template <int G>
 __device__ int walk(const uint8_t* ops, const Params& p, int b, int score,
-                    int k_target, uint8_t* out, int n_total, int* n_ops) {
+                    int k_target, uint8_t* rev, int* n_ops) {
   int s = score;
   int k = min(max(k_target, -p.kmax), p.kmax);
   int st = 0, j = 0;
   const int mmask = G == 1 ? 3 : 7;
-  auto emit = [&](int c) {
-    if (out) out[n_total - 1 - j] = static_cast<uint8_t>(c);
-    ++j;
-  };
   while (s >= 0) {
     const int row = s;
     const int kk = k + p.kmax;
@@ -275,7 +327,7 @@ __device__ int walk(const uint8_t* ops, const Params& p, int b, int score,
       }
       const int src = byte & mmask;
       if (src == 1) {
-        emit('X');
+        rev[j++] = 'X';
         s -= p.x;
         if (s >= row) break;     // no later row is this one: the lane stays
         continue;
@@ -290,7 +342,7 @@ __device__ int walk(const uint8_t* ops, const Params& p, int b, int score,
     const int e = g == 0 ? p.e1 : p.e2;
     const int oe = (g == 0 ? p.o1 : p.o2) + e;
     const int ext = (byte >> shift) & 1;
-    emit(ext ? (ins ? 'i' : 'd') : (ins ? 'I' : 'D'));
+    rev[j++] = ext ? (ins ? 'i' : 'd') : (ins ? 'I' : 'D');
     s -= ext ? e : oe;
     k += ins ? 1 : -1;
     if (!ext) st = 0;
@@ -300,266 +352,474 @@ __device__ int walk(const uint8_t* ops, const Params& p, int b, int score,
   return s;
 }
 
-// kTb: with the op store and the walk (wfa_align). kMid (G = 1, no kTb):
-// the midpoint fill (wfa_mid), payload planes beside the rings and the
-// target diagonal's payload at the done step in pay; its steps visit only
-// the diagonals a penalty of s1 can reach.
-template <int G, bool kTb, bool kMid>
-__global__ void __launch_bounds__(kMaxThreads)
-    wfa_kernel(const uint8_t* __restrict__ refs,
-               const uint8_t* __restrict__ reads,
-               const int* __restrict__ ref_lens,
-               const int* __restrict__ read_lens, const Params p,
-               int* __restrict__ ring_ws, int* __restrict__ pen,
-               uint8_t* __restrict__ ops, uint8_t* __restrict__ ops_fwd,
-               int* __restrict__ fin, int* __restrict__ pay) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int b = blockIdx.x;
+// A pair's ring planes in a CTA: M, I and D of each class (RT: int, or
+// int16_t with -32768 its NEG), wfa_mid's payload planes PM, PI, PD
+// (int); rw values a row: the CTA's cw diagonals between two halo
+// columns.
+template <int G, class RT>
+struct Rings {
+  RT* M;
+  RT* I[G];
+  RT* D[G];
+  int *PM, *PI, *PD;
+  int rw;
+};
+
+template <class RT>
+__device__ __forceinline__ void st(RT* p, int v) { *p = static_cast<RT>(v); }
+
+// The NEG sentinel of a ring value type.
+template <class RT>
+__host__ __device__ constexpr int neg_of() { return sizeof(RT) == 2 ? -32768 : kNeg; }
+
+__device__ __forceinline__ void sync_pair(const Params& p) {
+  if (p.C > 1)
+    cg::this_cluster().sync();   // barrier.cluster arrive (release), wait (acquire)
+  else
+    __syncthreads();
+}
+
+// This CTA's copy of a shared word in the pair's CTA `rank`.
+template <class T>
+__device__ __forceinline__ T* at_rank(T* local, int rank, const Params& p) {
+  return p.C > 1 ? cg::this_cluster().map_shared_rank(local, rank) : local;
+}
+
+// A cell's planes at column q = li + 1 of rows cm (M, PM) and ce[] (I, D,
+// PI, PD); at the edge of the CTA's slice also into the neighbouring
+// CTA's halo: M and I for the CTA before (it reads them as k + 1), M and
+// D for the CTA after (k - 1). Clusters carry no payload planes.
+template <int G, bool kMid, class RT>
+__device__ __forceinline__ void put(const Rings<G, RT>& R, const Params& p,
+                                    int li, int rank, int cm,
+                                    const int (&ce)[2], int m,
+                                    const int (&ni)[G], const int (&nd)[G],
+                                    int pm, int pi, int pd) {
+  const int rw = R.rw, q = li + 1;
+  st(&R.M[cm * rw + q], m);
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    st(&R.I[h][ce[h] * rw + q], ni[h]);
+    st(&R.D[h][ce[h] * rw + q], nd[h]);
+  }
+  if (kMid) {
+    R.PM[cm * rw + q] = pm;
+    R.PI[ce[0] * rw + q] = pi;
+    R.PD[ce[0] * rw + q] = pd;
+  }
+  if (p.C == 1) return;
+  if (li == 0 && rank > 0) {
+    st(&at_rank(R.M, rank - 1, p)[cm * rw + p.cw + 1], m);
+#pragma unroll
+    for (int h = 0; h < G; ++h)
+      st(&at_rank(R.I[h], rank - 1, p)[ce[h] * rw + p.cw + 1], ni[h]);
+  }
+  if (li == p.cw - 1 && rank + 1 < p.C) {
+    st(&at_rank(R.M, rank + 1, p)[cm * rw], m);
+#pragma unroll
+    for (int h = 0; h < G; ++h)
+      st(&at_rank(R.D[h], rank + 1, p)[ce[h] * rw], nd[h]);
+  }
+}
+
+// One pair: its CTA (or one of the C CTAs of its cluster, `rank`) holds
+// diagonal indices rank * cw .. rank * cw + cw - 1 in local slots li. ring:
+// the M, I, D planes (shared memory, or the CTA's global workspace); pays:
+// wfa_mid's payload planes (the CTA's global workspace). kSteps score steps
+// run between two barriers: every lookback is at least kSteps (the host
+// passes 2 where x and the extends allow it and the trim is off), so a
+// step never reads a row written in its own interval, and each plane keeps
+// its longest lookback + kSteps rows.
+template <int G, bool kTb, bool kMid, int kSteps, class RT>
+__device__ void run_pair(const Bufs& g, const Params& p, int b,
+                         uint8_t* smem, RT* ring, int* pays, int rank) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int K = p.K, kmax = p.kmax, hist = p.hist;
+  const int K = p.K, kmax = p.kmax;
   const int S1 = p.smax + 1;
-  const int l1 = ref_lens[b], l2 = read_lens[b];
+  const int l1 = g.ref_lens[b], l2 = g.read_lens[b];
   if (l1 < 0 || l1 > p.n1 || l2 < 0 || l2 > p.n2) {
-    // lengths outside the rows: marked, not aligned
-    if (tid == 0) {
-      pen[b] = -1;
-      if (kTb) fin[b] = -3;
-      if (kMid) pay[b] = -1;
+    // lengths outside the rows: marked, not aligned (every CTA of the
+    // pair leaves here)
+    if (rank == 0) {
+      if (tid == 0) {
+        g.pen[b] = -1;
+        if (kTb) g.fin[b] = -3;
+        if (kMid) g.pay[b] = -1;
+      }
+      if (kTb)
+        for (int i = tid; i < S1; i += nt) g.ops_fwd[(size_t)b * S1 + i] = 0;
     }
-    if (kTb)
-      for (int i = tid; i < S1; i += nt) ops_fwd[(size_t)b * S1 + i] = 0;
     return;
   }
   const int sa = seq_bytes(p.n1), sb = seq_bytes(p.n2);
   uint8_t* sref = smem;
   uint8_t* sread = smem + sa;
   int* ctrl = reinterpret_cast<int*>(smem + sa + sb);
-  int* ring = ring_ws ? ring_ws + (size_t)b * ring_ints(G, hist, K, kMid)
-                      : ctrl + kCtrlInts;
-  for (int i = tid; i < sa; i += nt)
-    sref[i] = i < l1 ? refs[(size_t)b * p.n1 + i] : 0;
-  for (int i = tid; i < sb; i += nt)
-    sread[i] = i < l2 ? reads[(size_t)b * p.n2 + i] : 0;
-  const int plane = hist * K;
-  const long long rn = ring_ints(G, hist, K, false);
-  for (long long i = tid; i < rn; i += nt) ring[i] = kNeg;
-  // wfa_mid's payload planes PM, PI, PD after the rings, -1 (none)
-  int* P = ring + rn;
-  if (kMid)
-    for (long long i = tid; i < rn; i += nt) P[i] = -1;
-  int* M = ring;
-  int* I[G];
-  int* D[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    I[g] = ring + (1 + 2 * g) * plane;
-    D[g] = ring + (2 + 2 * g) * plane;
+  bool any_wild = false;
+  for (int i = tid; i < sa; i += nt) {
+    const int c = i < l1 ? g.refs[(size_t)b * p.n1 + i] : 0;
+    sref[i] = c;
+    any_wild |= i < l1 && wild1(c);
   }
-  if (kTb)
-    for (int ki = tid; ki < K; ki += nt) ops[(size_t)b * K + ki] = 0;
+  for (int i = tid; i < sb; i += nt) {
+    const int c = i < l2 ? g.reads[(size_t)b * p.n2 + i] : 0;
+    sread[i] = c;
+    any_wild |= i < l2 && wild1(c);
+  }
+  // wildcards only cost where the pair holds one
+  const bool wild = p.wildcards != 0 && __syncthreads_or(any_wild);
+  const int rw = p.cw + 2;                 // values of a ring row
+  const int k0 = rank * p.cw;              // the slice's first diagonal index
+  const int he[2] = {p.he1, p.he2};
+  Rings<G, RT> R;
+  R.rw = rw;
+  R.M = ring;
+  int rn = p.hm * rw;
+#pragma unroll
+  for (int c = 0; c < G; ++c) {
+    R.I[c] = ring + rn;
+    R.D[c] = ring + rn + he[c] * rw;
+    rn += 2 * he[c] * rw;
+  }
+  // wfa_mid's payload planes: PM (hm rows), PI, PD (he1)
+  R.PM = pays;
+  R.PI = pays + p.hm * rw;
+  R.PD = R.PI + p.he1 * rw;
+  constexpr int kN = neg_of<RT>();
+  for (int i = tid; i < rn; i += nt) st(&ring[i], kN);
+  if (kMid)
+    for (int i = tid; i < rn; i += nt) pays[i] = -1;
   if (tid == 0) {
-    ctrl[0] = -1;
-    ctrl[1] = ctrl[2] = kNeg;
-    if (kMid) ctrl[1] = -1;
+    ctrl[0] = ctrl[1] = ctrl[4] = -1;
+    ctrl[2] = ctrl[3] = kNeg;
   }
   const int k_target = l1 - l2;
   const bool target_ok = k_target <= kmax && -k_target <= kmax;
-  const int tki = min(max(k_target, -kmax), kmax) + kmax;
-  const bool wild = p.wildcards != 0;
+  const int tli = min(max(k_target, -kmax), kmax) + kmax - k0;
   const int mid = (l1 + l2) / 2;
-  __syncthreads();
-  if (tid == 0) {
-    // s = 0: diagonal 0 from offset 0, extended
-    const int m0 = extend_run(sref, sread, 0, 0, min(l1, l2), wild);
-    M[kmax] = m0;
-    if (kMid) P[kmax] = pay_update(0, m0, -1, 0, mid);
-    if (target_ok && tki == kmax && m0 >= l1) {
-      ctrl[0] = 0;
-      if (kMid) ctrl[1] = P[kmax];
+  // the done step (and wfa_mid's payload at it) into every CTA's control
+  // words (slot sl, the parity of the barrier interval), read by all after
+  // the interval's barrier
+  auto set_done = [&](int sl, int s, int pay) {
+    for (int r = 0; r < p.C; ++r) {
+      int* c = at_rank(ctrl, r, p);
+      c[sl] = s;
+      if (kMid) c[4] = pay;
     }
+  };
+  int negs[G];
+#pragma unroll
+  for (int h = 0; h < G; ++h) negs[h] = kN;
+  int ce[2] = {0, 0};
+
+  sync_pair(p);   // every CTA's rings are clear before a halo is written
+  if (tid == 0 && kmax >= k0 && kmax < k0 + p.cw) {
+    // s = 0: diagonal 0 from offset 0, extended, in the CTA that holds it
+    const int m0 = extend_run(sref, sread, 0, 0, min(l1, l2), wild);
+    const int p0 = kMid ? pay_update<kN>(0, m0, -1, 0, mid) : -1;
+    put<G, kMid>(R, p, kmax - k0, rank, 0, ce, m0, negs, negs, p0, -1, -1);
+    if (target_ok && tli == kmax - k0 && m0 >= l1) set_done(0, 0, p0);
   }
-  __syncthreads();
+  sync_pair(p);
   int result = ctrl[0];
   const int o_e[2] = {p.o1 + p.e1, p.o2 + p.e2};
   const int e_[2] = {p.e1, p.e2};
-  for (int s1 = 1; result < 0 && s1 <= p.smax; ++s1) {
-    int rows[5];
-    rows[0] = back_row(s1, p.x, hist);
+  const int o_[2] = {p.o1, p.o2};
+  int cm = 0;
+  int rq[2] = {0, 0}, rr[2] = {0, 0};   // (s - o_g) / e_g and its remainder
+  for (int s0 = 1, it = 1; result < 0 && s0 <= p.smax; s0 += kSteps, ++it) {
+    // each step's ring rows (written, and its lookbacks) and live slots
+    int wm[kSteps], we[kSteps][G], rx[kSteps], roe[kSteps][G], re[kSteps][G];
+    int lo[kSteps], hi[kSteps];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      rows[1 + g] = back_row(s1, o_e[g], hist);
-      rows[3 + g] = back_row(s1, e_[g], hist);
+    for (int dt = 0; dt < kSteps; ++dt) {
+      const int s1 = s0 + dt;
+      cm = cm + 1 == p.hm ? 0 : cm + 1;
+      wm[dt] = cm;
+      rx[dt] = back_row(cm, p.x, p.hm);
+      int reach = 0;
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        ce[h] = ce[h] + 1 == he[h] ? 0 : ce[h] + 1;
+        we[dt][h] = ce[h];
+        roe[dt][h] = back_row(cm, o_e[h], p.hm);
+        re[dt][h] = back_row(ce[h], e_[h], he[h]);
+        if (s1 > o_[h] && ++rr[h] == e_[h]) {
+          rr[h] = 0;
+          ++rq[h];
+        }
+        reach = max(reach, rq[h]);
+      }
+      // the live band: the diagonals a penalty of s1 reaches
+      const int kr = min(min(s1, kmax), reach);
+      lo[dt] = min(max(kmax - min(kr, l2 + 1) - k0, 0), p.cw);
+      hi[dt] = min(max(kmax + min(kr, l1 + 1) + 1 - k0, 0), p.cw);
+      if (s1 > p.smax) hi[dt] = lo[dt];
     }
-    const int row = s1 % hist;
-    // wfa_mid: no diagonal past min(s1, (s1 - o) / e) holds a value yet
-    int k_lo = 0, k_hi = K;
-    if (kMid) {
-      const int reach =
-          p.e1 > 0 ? (s1 > p.o1 ? (s1 - p.o1) / p.e1 : 0) : kmax;
-      const int kr = min(kmax, min(s1, reach));
-      k_lo = kmax - kr;
-      k_hi = kmax + kr + 1;
-    }
+    const int sl = it & 1;
     int best = kNeg;
-    for (int ki = k_lo + tid; ki < k_hi; ki += nt) {
-      const int k = ki - kmax;
-      int m, ni[G], nd[G];
-      uint8_t op;
-      combine<G>(gather<G>(M, I, D, rows, ki, K), k, s1, l1, l2, &m, ni, nd,
-                 &op);
-      int pm = -1, pi = -1, pd = -1;
-      if (kMid)
-        mid_pays(op, ki,
-                 [&](int pl, int r, int kj) {
-                   return (rows[r] >= 0 && kj >= 0 && kj < K)
-                              ? P[pl * plane + rows[r] * K + kj]
-                              : -1;
-                 },
-                 &pm, &pi, &pd);
-      const int h_base = m;
-      if (m > kNeg && m >= 0) {
-        const int v = m - k;
-        const int n = min(l1 - m, l2 - v);
-        if (n > 0) m += extend_run(sref, sread, m, v, n, wild);
-      }
-      M[row * K + ki] = m;
+    // the band only grows: the interval's last step holds every live slot
+    for (int li = lo[kSteps - 1] + tid; li < hi[kSteps - 1]; li += nt) {
+      const int q = li + 1, k = li + k0 - kmax;
+      bool done_here = false;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        I[g][row * K + ki] = ni[g];
-        D[g][row * K + ki] = nd[g];
-      }
-      if (kMid) {
-        pm = pay_update(h_base, m, pm, k, mid);
-        P[row * K + ki] = pm;
-        P[plane + row * K + ki] = pi;
-        P[2 * plane + row * K + ki] = pd;
-      }
-      if (kTb) ops[((size_t)s1 * p.B + b) * K + ki] = op;
-      if (p.adaptive >= 0) {
-        if (m > kNeg) best = max(best, 2 * m - k);
-      } else if (ki == tki && target_ok && m >= l1) {
-        ctrl[0] = s1;
-        if (kMid) ctrl[1] = pm;
+      for (int dt = 0; dt < kSteps; ++dt) {
+        if (li < lo[dt] || li >= hi[dt]) continue;
+        const int s1 = s0 + dt;
+        CellIn<G> in;
+        in.mism = R.M[rx[dt] * rw + q];
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          in.d_open[h] = R.M[roe[dt][h] * rw + q - 1];
+          in.d_ext[h] = R.D[h][re[dt][h] * rw + q - 1];
+          in.i_open[h] = R.M[roe[dt][h] * rw + q + 1];
+          in.i_ext[h] = R.I[h][re[dt][h] * rw + q + 1];
+        }
+        int cand[5];
+        if (kMid) {
+          // every payload the op byte may pick, loaded before it is known
+          cand[0] = R.PI[re[dt][0] * rw + q + 1];
+          cand[1] = R.PM[roe[dt][0] * rw + q + 1];
+          cand[2] = R.PD[re[dt][0] * rw + q - 1];
+          cand[3] = R.PM[roe[dt][0] * rw + q - 1];
+          cand[4] = R.PM[rx[dt] * rw + q];
+        }
+        int m, ni[G], nd[G];
+        uint8_t op;
+        combine<G, kN>(in, k, s1, l1, l2, &m, ni, nd, &op);
+        int pm = -1, pi = -1, pd = -1;
+        if (kMid) mid_pays(op, cand, &pm, &pi, &pd);
+        const int h_base = m;
+        if (m >= 0) {
+          const int v = m - k;
+          const int n = min(l1 - m, l2 - v);
+          if (n > 0) m += extend_run(sref, sread, m, v, n, wild);
+        }
+        if (kMid) pm = pay_update<kN>(h_base, m, pm, k, mid);
+        int wce[2] = {we[dt][0], we[dt][G - 1]};
+        put<G, kMid>(R, p, li, rank, wm[dt], wce, m, ni, nd, pm, pi, pd);
+        if (kTb) g.ops[((size_t)s1 * p.B + b) * K + li + k0] = op;
+        if (p.adaptive >= 0) {
+          if (m > kN) best = max(best, 2 * m - k);
+        } else if (li == tli && target_ok && m >= l1 && !done_here) {
+          done_here = true;
+          set_done(sl, s1, pm);
+        }
       }
     }
     if (p.adaptive >= 0) {
-      // wf-adaptive trim: drop diagonals whose antidiagonal progress
-      // 2h - k lags the pair's best by more than the margin
+      // wf-adaptive trim (kSteps is 1): drop diagonals whose antidiagonal
+      // progress 2h - k lags the pair's best by more than the margin
+      const int s1 = s0;
+      const int ms = 2 + sl;
       best = __reduce_max_sync(0xffffffffu, best);
-      if ((tid & 31) == 0) atomicMax(&ctrl[1 + (s1 & 1)], best);
-      __syncthreads();
-      const int lim = ctrl[1 + (s1 & 1)] - p.adaptive;
-      for (int ki = tid; ki < K; ki += nt) {
-        const int k = ki - kmax;
-        const int m = M[row * K + ki];
-        if (m > kNeg && 2 * m - k < lim) {
-          M[row * K + ki] = kNeg;
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            I[g][row * K + ki] = kNeg;
-            D[g][row * K + ki] = kNeg;
-          }
-        } else if (ki == tki && target_ok && m >= l1) {
-          ctrl[0] = s1;
+      if ((tid & 31) == 0) atomicMax(&ctrl[ms], best);
+      if (p.C > 1) {
+        __syncthreads();
+        if (tid == 0) {
+          // an atomic read: other CTAs' maxima may arrive meanwhile
+          const int mine = atomicMax(&ctrl[ms], kNeg);
+          for (int r = 0; r < p.C; ++r)
+            if (r != rank) atomicMax(at_rank(ctrl, r, p) + ms, mine);
         }
       }
-      if (tid == 0) ctrl[1 + ((s1 + 1) & 1)] = kNeg;
+      sync_pair(p);
+      const int lim = ctrl[ms] - p.adaptive;
+      int wce[2] = {we[0][0], we[0][G - 1]};
+      for (int li = lo[0] + tid; li < hi[0]; li += nt) {
+        const int k = li + k0 - kmax;
+        const int m = R.M[wm[0] * rw + li + 1];
+        if (m > kN && 2 * m - k < lim) {
+          put<G, kMid>(R, p, li, rank, wm[0], wce, kN, negs, negs, -1, -1,
+                       -1);
+        } else if (li == tli && target_ok && m >= l1) {
+          set_done(sl, s1, -1);
+        }
+      }
+      if (tid == 0) ctrl[2 + (sl ^ 1)] = kNeg;
     }
-    __syncthreads();
-    result = ctrl[0];
+    sync_pair(p);
+    result = ctrl[sl];
   }
   const int score = result < 0 ? p.smax + 1 : result;
+  if (rank != 0) return;   // no CTA reads another's shared memory any more
   if (tid == 0) {
-    pen[b] = score;
-    if (kMid) pay[b] = result < 0 ? -1 : ctrl[1];
+    g.pen[b] = score;
+    if (kMid) g.pay[b] = result < 0 ? -1 : ctrl[4];
   }
   if (!kTb) return;
 
-  // the walk: thread 0 counts the ops, everyone clears the rest of the
-  // skeleton row, thread 0 writes the ops in forward order
-  uint8_t* out = ops_fwd + (size_t)b * S1;
-  const bool alive = score < S1;
+  // the walk, once: thread 0 walks backwards into shared memory past the
+  // control words (over the rings, dead now), every thread writes the
+  // skeleton row forwards and clears the rest of it
+  uint8_t* rev = reinterpret_cast<uint8_t*>(ctrl + kCtrlInts);
   if (tid == 0) {
     int n = 0;
     int s_end = -2;
-    if (alive) s_end = walk<G>(ops, p, b, score, k_target, nullptr, 0, &n);
-    ctrl[3] = n;
-    fin[b] = s_end;
+    if (score < S1) s_end = walk<G>(g.ops, p, b, score, k_target, rev, &n);
+    ctrl[5] = n;
+    g.fin[b] = s_end;
   }
   __syncthreads();
-  const int n = ctrl[3];
-  for (int i = n + tid; i < S1; i += nt) out[i] = 0;
-  if (tid == 0 && n > 0) {
-    int n2;
-    walk<G>(ops, p, b, score, k_target, out, n, &n2);
+  const int n = ctrl[5];
+  uint8_t* out = g.ops_fwd + (size_t)b * S1;
+  for (int i = tid; i < S1; i += nt) out[i] = i < n ? rev[n - 1 - i] : 0;
+}
+
+// kTb: with the op store and the walk (wfa_align). kMid (G = 1, no kTb):
+// the midpoint fill (wfa_mid), payload planes beside the rings and the
+// target diagonal's payload at the done step in pay. RT: the M, I, D
+// rings' values (int16_t for wfa_mid, whose lengths stay below 32,767).
+template <int G, bool kTb, bool kMid, int kSteps, class RT>
+__global__ void __launch_bounds__(kMid ? kMidThreads : kMaxThreads, 1)
+    wfa_kernel(const Bufs g, const Params p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* ctrl = reinterpret_cast<int*>(smem + seq_bytes(p.n1) + seq_bytes(p.n2));
+  RT* shared_ring = reinterpret_cast<RT*>(ctrl + kCtrlInts);
+  if (p.grid == 0) {
+    // one pair a cluster of C CTAs (rank = blockIdx.x % C), its rings in
+    // shared memory after the control words
+    const int rank = p.C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+    run_pair<G, kTb, kMid, kSteps, RT>(g, p, blockIdx.x / p.C, smem,
+                                       shared_ring, nullptr, rank);
+    return;
+  }
+  // a persistent grid: each CTA takes pairs from the counter; its global
+  // workspace holds its payload planes (wfa_mid), then its rings unless
+  // they are shared
+  int* ws = g.ring_ws + kCounterInts + (size_t)blockIdx.x * p.ws_ints;
+  const long long pay_ints =
+      kMid ? (long long)(p.hm + 2 * p.he1) * (p.cw + 2) : 0;
+  RT* ring = p.ring_global ? reinterpret_cast<RT*>(ws + pay_ints) : shared_ring;
+  for (;;) {
+    __syncthreads();   // the last pair's walk has read its control words
+    if (threadIdx.x == 0) ctrl[6] = atomicAdd(g.ring_ws, 1);
+    __syncthreads();
+    const int b = ctrl[6];
+    if (b >= p.B) return;
+    run_pair<G, kTb, kMid, kSteps, RT>(g, p, b, smem, ring, ws, 0);
   }
 }
 
-template <int G, bool kTb, bool kMid>
-int launch(const uint8_t* refs, const uint8_t* reads, const int* ref_lens,
-           const int* read_lens, const Params& p, int* ring_ws, int* pen,
-           uint8_t* ops, uint8_t* ops_fwd, int* fin, int* pay,
-           cudaStream_t stream) {
-  const long long full = smem_with_rings(p.n1, p.n2, G, p.hist, p.K, kMid);
-  const int smem = static_cast<int>(
-      ring_ws ? full - 4 * ring_ints(G, p.hist, p.K, kMid) : full);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+template <int G, bool kTb, bool kMid, int kSteps, class RT>
+int launch(const Bufs& g, Params p, cudaStream_t stream) {
+  const long long smem_ll = cta_smem(p, G, kTb, kMid, sizeof(RT));
+  if (smem_ll > kSmemLimit) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(smem_ll);
+  auto kern = wfa_kernel<G, kTb, kMid, kSteps, RT>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wfa_kernel<G, kTb, kMid>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const int threads =
-      std::min(kMaxThreads, std::max(32, (p.K + 31) / 32 * 32));
-  wfa_kernel<G, kTb, kMid><<<p.B, threads, smem, stream>>>(
-      refs, reads, ref_lens, read_lens, p, ring_ws, pen, ops, ops_fwd, fin,
-      pay);
+  const int threads = std::min(kMid ? kMidThreads : kMaxThreads,
+                               std::max(32, (p.cw + 31) / 32 * 32));
+  if (p.grid) {
+    // no more CTAs than the card holds at once
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                          threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    p.grid = std::min(p.grid, per_sm * sms);
+    err = cudaMemsetAsync(g.ring_ws, 0, 4 * kCounterInts, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (kTb) {
+    // the op store's dead cells read 0 (the steps write live cells only)
+    const cudaError_t err = cudaMemsetAsync(
+        g.ops, 0, (size_t)(p.smax + 1) * p.B * p.K, stream);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid ? p.grid : p.B * p.C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  if (p.C > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, g, p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <int G, bool kTb, bool kMid, class RT>
+int launch_steps(const Bufs& g, const Params& p, int steps,
+                 cudaStream_t stream) {
+  return steps == 2 ? launch<G, kTb, kMid, 2, RT>(g, p, stream)
+                    : launch<G, kTb, kMid, 1, RT>(g, p, stream);
 }
 
 // tb: wfa_align; mid: wfa_mid (G = 1, pay [B] i32); neither: wfa_score.
 int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
         int n2, const void* ref_lens, const void* read_lens, int B, int G,
-        int smax, int kmax, int hist, int x, int o1, int e1, int o2, int e2,
-        int wildcards, int adaptive, void* ring_ws, void* pen, void* ops,
-        void* ops_fwd, void* fin, void* pay, void* stream) {
+        int smax, int kmax, int x, int o1, int e1, int o2, int e2,
+        int wildcards, int adaptive, int steps, int hm, int he1, int he2,
+        int C, int grid, int ring_global, long long ws_ints, void* ring_ws,
+        void* pen, void* ops, void* ops_fwd, void* fin, void* pay,
+        void* stream) {
   if (B <= 0 || n1 < 1 || n2 < 1 || smax < 0 || kmax < 0 ||
-      (G != 1 && G != 2) || std::min({x, o1, e1, o2, e2}) < 0)
+      (G != 1 && G != 2) || x < 1 || o1 < 0 || e1 < 1)
     return cudaErrorInvalidValue;
-  int back = std::max({x, o1 + e1, e1});
-  if (G == 2) back = std::max({back, o2 + e2, e2});
-  if (hist != back + 1) return cudaErrorInvalidValue;
+  if (G == 1) {
+    o2 = e2 = he2 = 0;
+  } else if (o2 < 0 || e2 < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (!tb) adaptive = -1;
+  // steps between barriers: no lookback shorter, no trim between them
+  int least = std::min(x, e1);
+  if (G == 2) least = std::min(least, e2);
+  if (steps != 1 && (steps != 2 || least < 2 || adaptive >= 0))
+    return cudaErrorInvalidValue;
+  // each plane's rows cover its lookbacks and the steps of an interval
+  int back = std::max(x, o1 + e1);
+  if (G == 2) back = std::max(back, o2 + e2);
+  if (hm < back + steps || he1 < e1 + steps || (G == 2 && he2 < e2 + steps))
+    return cudaErrorInvalidValue;
   const int K = 2 * kmax + 1;
-  const bool global = smem_with_rings(n1, n2, G, hist, K, mid) > kSmemLimit;
-  if (global != (ring_ws != nullptr)) return cudaErrorInvalidValue;
+  if (C != 1 && C != 2 && C != 4 && C != kMaxCluster) return cudaErrorInvalidValue;
+  if (grid < 0 || (grid > 0 && C != 1) || (grid > 0) != (ring_ws != nullptr) ||
+      (ring_global && !grid) || (mid && !grid))
+    return cudaErrorInvalidValue;
+  // wfa_mid's int16 rings hold offsets below 32,767
+  if (mid && (n1 >= 32767 || n2 >= 32767)) return cudaErrorInvalidValue;
   if (tb && (!ops || !ops_fwd || !fin)) return cudaErrorInvalidValue;
   if (mid && (tb || G != 1 || !pay)) return cudaErrorInvalidValue;
-  if (!tb) adaptive = -1;
-  const Params p{n1, n2, B, smax, kmax, K, hist, x, o1, e1, o2, e2,
-                 wildcards, adaptive};
-  auto* a = static_cast<const uint8_t*>(refs);
-  auto* r = static_cast<const uint8_t*>(reads);
-  auto* la = static_cast<const int*>(ref_lens);
-  auto* lb = static_cast<const int*>(read_lens);
-  auto* w = static_cast<int*>(ring_ws);
-  auto* pe = static_cast<int*>(pen);
-  auto* op = static_cast<uint8_t*>(ops);
-  auto* of = static_cast<uint8_t*>(ops_fwd);
-  auto* fi = static_cast<int*>(fin);
-  auto* pa = static_cast<int*>(pay);
+  const Params p{n1, n2, B, smax, kmax, K, x, o1, e1, o2, e2, hm, he1, he2,
+                 wildcards, adaptive, C, (K + C - 1) / C, grid, ring_global,
+                 ws_ints};
+  if (grid && ws_ints < cta_ws_ints(p, G, mid)) return cudaErrorInvalidValue;
+  const Bufs g{static_cast<const uint8_t*>(refs),
+               static_cast<const uint8_t*>(reads),
+               static_cast<const int*>(ref_lens),
+               static_cast<const int*>(read_lens),
+               static_cast<int*>(ring_ws), static_cast<int*>(pen),
+               static_cast<uint8_t*>(ops), static_cast<uint8_t*>(ops_fwd),
+               static_cast<int*>(fin), static_cast<int*>(pay)};
   auto s = static_cast<cudaStream_t>(stream);
-  if (mid)
-    return launch<1, false, true>(a, r, la, lb, p, w, pe, op, of, fi, pa, s);
+  if (mid) return launch_steps<1, false, true, int16_t>(g, p, steps, s);
   if (G == 1)
-    return tb ? launch<1, true, false>(a, r, la, lb, p, w, pe, op, of, fi,
-                                       pa, s)
-              : launch<1, false, false>(a, r, la, lb, p, w, pe, op, of, fi,
-                                        pa, s);
-  return tb ? launch<2, true, false>(a, r, la, lb, p, w, pe, op, of, fi, pa,
-                                     s)
-            : launch<2, false, false>(a, r, la, lb, p, w, pe, op, of, fi,
-                                      pa, s);
+    return tb ? launch_steps<1, true, false, int>(g, p, steps, s)
+              : launch_steps<1, false, false, int>(g, p, steps, s);
+  return tb ? launch<2, true, false, 1, int>(g, p, s)
+            : launch<2, false, false, 1, int>(g, p, s);
 }
 
 }  // namespace
@@ -637,9 +897,8 @@ extern "C" __global__ void clique_wfa_mid_probe(const int* in,
   clique_wfa::combine<1>(c, lens[0], lens[1], lens[2], lens[3], &m, ni, nd,
                          &op);
   int pm, pi, pd;
-  clique_wfa::mid_pays(
-      op, 0, [&](int pl, int r, int) { return in[5 + 4 * pl + r]; }, &pm,
-      &pi, &pd);
+  const int cand[5] = {in[5], in[6], in[7], in[8], in[9]};
+  clique_wfa::mid_pays(op, cand, &pm, &pi, &pd);
   out[0] = m;
   out[1] = ni[0];
   out[2] = nd[0];
@@ -648,48 +907,44 @@ extern "C" __global__ void clique_wfa_mid_probe(const int* in,
   out[5] = pd;
 }
 
-// Four bytes of greedy extension with wildcards and nothing else (the
-// loop body of extend_run; its funnel shift is loaded, since a run keeps
-// one), for its operation count (chip_smoke.py).
+// Four bytes of greedy extension with wildcards that differ and nothing
+// else (the loop body of extend_run; its funnel shift is loaded, since a
+// run keeps one), for its operation count (chip_smoke.py).
 extern "C" __global__ void clique_wfa_word_probe(const uint32_t* in,
                                                  int* out) {
   const uint32_t a = __funnelshift_r(in[0], in[1], in[4]);
   const uint32_t b = __funnelshift_r(in[2], in[3], in[5]);
-  const uint32_t eq =
-      __vcmpeq4(a, b) | clique_wfa::wild4(a) | clique_wfa::wild4(b);
-  out[0] = eq != 0xffffffffu;
-}
-
-// Ints of global ring workspace one pair needs: (1 + 2G) * hist * K (twice
-// that with wfa_mid's payload planes, mid 1) when the rings do not fit in
-// shared memory beside the two sequences, else 0.
-extern "C" long long clique_wfa_global_ring_ints(int n1, int n2, int G,
-                                                 int hist, int K, int mid) {
-  using namespace clique_wfa;
-  return smem_with_rings(n1, n2, G, hist, K, mid != 0) > kSmemLimit
-             ? ring_ints(G, hist, K, mid != 0)
-             : 0;
+  out[0] = clique_wfa::differ4(a, b, true) != 0;
 }
 
 // Launch wfa_align on `stream`: refs [B, n1] u8, reads [B, n2] u8
 // (row-padded), lens [B] i32; G gap classes (1 affine: o1, e1; 2
-// affine2p: also o2, e2), K = 2 * kmax + 1 diagonals, hist rings rows
-// (the longest lookback + 1); wildcards 0/1; adaptive the wf-adaptive
-// margin or -1; ring_ws [B, clique_wfa_global_ring_ints] i32 when that is
-// not 0, else null; pen [B] i32, ops [smax+1, B, K] u8, ops_fwd
-// [B, smax+1] u8, fin [B] i32. A pair whose lengths lie outside its rows
-// gets pen -1 and fin -3. Returns the CUDA error of the launch.
+// affine2p: also o2, e2), K = 2 * kmax + 1 diagonals; wildcards 0/1;
+// adaptive the wf-adaptive margin or -1. The layout of wfa_kernels.wfa_plan:
+// steps (1, or 2 where x and every extend are >= 2 and the trim is off)
+// score steps between barriers, ring rows hm (M), he1 and he2 (I and D of
+// each class), C CTAs a pair (a cluster when > 1), or grid > 0: a
+// persistent grid of at most grid CTAs with ws_ints ints of the workspace
+// ring_ws each ([4 + grid * ws_ints] i32), the rings there when
+// ring_global (else in shared memory); ring_ws null when grid is 0. pen
+// [B] i32, ops [smax+1, B, K] u8, ops_fwd [B, smax+1] u8, fin [B] i32. A
+// pair whose lengths lie outside its rows gets pen -1 and fin -3. Returns
+// the CUDA error of the launch (a cluster the card cannot hold is
+// refused).
 extern "C" int clique_wfa_align(const void* refs, int n1, const void* reads,
                                 int n2, const void* ref_lens,
                                 const void* read_lens, int B, int G, int smax,
-                                int kmax, int hist, int x, int o1, int e1,
-                                int o2, int e2, int wildcards, int adaptive,
+                                int kmax, int x, int o1, int e1, int o2,
+                                int e2, int wildcards, int adaptive, int steps,
+                                int hm, int he1, int he2, int C, int grid,
+                                int ring_global, long long ws_ints,
                                 void* ring_ws, void* pen, void* ops,
                                 void* ops_fwd, void* fin, void* stream) {
   return clique_wfa::run(true, false, refs, n1, reads, n2, ref_lens,
-                         read_lens, B, G, smax, kmax, hist, x, o1, e1, o2, e2,
-                         wildcards, adaptive, ring_ws, pen, ops, ops_fwd, fin,
-                         nullptr, stream);
+                         read_lens, B, G, smax, kmax, x, o1, e1, o2, e2,
+                         wildcards, adaptive, steps, hm, he1, he2, C, grid,
+                         ring_global, ws_ints, ring_ws, pen, ops, ops_fwd,
+                         fin, nullptr, stream);
 }
 
 // Launch wfa_score: the arguments of clique_wfa_align, with ops, ops_fwd
@@ -697,30 +952,38 @@ extern "C" int clique_wfa_align(const void* refs, int n1, const void* reads,
 extern "C" int clique_wfa_score(const void* refs, int n1, const void* reads,
                                 int n2, const void* ref_lens,
                                 const void* read_lens, int B, int G, int smax,
-                                int kmax, int hist, int x, int o1, int e1,
-                                int o2, int e2, int wildcards, int adaptive,
+                                int kmax, int x, int o1, int e1, int o2,
+                                int e2, int wildcards, int adaptive, int steps,
+                                int hm, int he1, int he2, int C, int grid,
+                                int ring_global, long long ws_ints,
                                 void* ring_ws, void* pen, void* ops,
                                 void* ops_fwd, void* fin, void* stream) {
   return clique_wfa::run(false, false, refs, n1, reads, n2, ref_lens,
-                         read_lens, B, G, smax, kmax, hist, x, o1, e1, o2, e2,
-                         wildcards, adaptive, ring_ws, pen, ops, ops_fwd, fin,
-                         nullptr, stream);
+                         read_lens, B, G, smax, kmax, x, o1, e1, o2, e2,
+                         wildcards, adaptive, steps, hm, he1, he2, C, grid,
+                         ring_global, ws_ints, ring_ws, pen, ops, ops_fwd,
+                         fin, nullptr, stream);
 }
 
 // Launch wfa_mid, the gap-affine midpoint fill of the bialign engine:
-// inputs as clique_wfa_align's with G = 1 (x, o, e); ring_ws [B,
-// clique_wfa_global_ring_ints(..., mid = 1)] i32 or null; pen [B] i32
-// (smax + 1 censored), pay [B] i32 (h * 65536 + v of the split cell, -1
-// censored). A pair whose lengths lie outside its rows gets pen -1 and
-// pay -1. Returns the CUDA error of the launch.
+// inputs as clique_wfa_align's with G = 1 (x, o, e; rows hm and he of M
+// and of I and D) and always a persistent grid: each CTA's workspace holds
+// its payload planes, then its rings when ring_global; the M, I, D rings
+// hold int16 offsets (n1, n2 < 32,767). pen [B] i32 (smax + 1 censored),
+// pay [B] i32 (h * 65536 + v of the split cell, -1 censored). A pair
+// whose lengths lie outside its rows gets pen -1 and pay -1. Returns the
+// CUDA error of the launch.
 extern "C" int clique_wfa_mid(const void* refs, int n1, const void* reads,
                               int n2, const void* ref_lens,
                               const void* read_lens, int B, int smax,
-                              int kmax, int hist, int x, int o, int e,
-                              int wildcards, void* ring_ws, void* pen,
-                              void* pay, void* stream) {
+                              int kmax, int x, int o, int e, int wildcards,
+                              int steps, int hm, int he, int grid,
+                              int ring_global, long long ws_ints,
+                              void* ring_ws, void* pen, void* pay,
+                              void* stream) {
   return clique_wfa::run(false, true, refs, n1, reads, n2, ref_lens,
-                         read_lens, B, 1, smax, kmax, hist, x, o, e, 0, 0,
-                         wildcards, -1, ring_ws, pen, nullptr, nullptr,
-                         nullptr, pay, stream);
+                         read_lens, B, 1, smax, kmax, x, o, e, 0, 0,
+                         wildcards, -1, steps, hm, he, 0, 1, grid,
+                         ring_global, ws_ints, ring_ws, pen, nullptr,
+                         nullptr, nullptr, pay, stream);
 }

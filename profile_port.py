@@ -6,6 +6,7 @@ in turns.
     python3 profile_port.py hamming [--tags 25000] [--reps 3] [ROOT ...]
     python3 profile_port.py local [--reps 5] [ROOT ...]
     python3 profile_port.py hmm [--reps 5] [ROOT ...]
+    python3 profile_port.py wfa [--reps 5] [ROOT ...]
 
 Each ROOT (default: this checkout) is the root of a checkout of the repo;
 its clique_tpu_torch is imported and its kernels built in a process of its
@@ -49,6 +50,19 @@ results must agree between roots. Imports no jax. The workloads:
   --router hmm over the root's panel (_panel_dataset: 180 references,
   7,200 reads), its 64-read head once to warm up and the whole once timed
   (wall, reads/s, reader_wall). The LLs and the routed BAM must agree.
+- wfa: the wavefront kernels at the launch shapes of `align --engine wfa`
+  (wildcards on, x 4, o 6, e 2), CUDA events around `--reps` calls after
+  one warm-up call. ONT raw reads of the root's chip_smoke.py
+  (_long_reference, _ont_read at ONT_RAW, its ONT-raw phase's first 1,000
+  reads), each bucketed as WfaAligner buckets it (L a multiple of 128):
+  wfa_align at the 1,024 rung (B=64, L=4,096), at the 2,048 rung (B=32,
+  L=4,096) and at the 2,112 rung (B=32, L=4,224), and wfa_mid at the
+  bialign engine's top rung (the first 991 reads, L=4,224, smax 4,096);
+  a bialign leaf chunk (B=64 windows of 300-512 bases of the reference
+  against their ONT reads, L=512, smax 10 + 2L); the hifi launch (B=512,
+  L=384, smax 96: a 342 bp reference at 0.5% substitutions) and the
+  screen's wfa_score (B=4,096, L=114, smax 64). Penalties, skeletons, end
+  rows and payloads must agree.
 """
 
 import argparse
@@ -307,8 +321,107 @@ def run_hmm(root, args):
     return {"times": times, "check": digests}
 
 
+def _wfa_shapes():
+    """[(name, kernel, host arrays, keywords)] of the wfa workload."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    def pad(pairs, B, L):
+        a = np.zeros((B, L), np.uint8)
+        b = np.zeros((B, L), np.uint8)
+        la = np.zeros(B, np.int32)
+        lb = np.zeros(B, np.int32)
+        for i, (s, t) in enumerate(pairs):
+            a[i, :len(s)] = np.frombuffer(s, np.uint8)
+            b[i, :len(t)] = np.frombuffer(t, np.uint8)
+            la[i], lb[i] = len(s), len(t)
+        return a, b, la, lb
+
+    rng, bases, ref, _text = cs._long_reference()
+    reads = [cs._ont_read(rng, ref, bases, **cs.ONT_RAW)
+             for _ in range(cs.N_ONT_WFA_READS)]
+    by_len = {}
+    for r in reads:
+        by_len.setdefault(-(-max(len(ref), len(r)) // 128) * 128,
+                          []).append((ref, r))
+    pen = dict(x=4, o=6, e=2, wildcards=True)
+    shapes = [
+        ("wfa_align rung 1,024 B=64 L=4,096", "align",
+         pad(by_len[4096][:64], 64, 4096), dict(smax=1024, **pen)),
+        ("wfa_align rung 2,048 B=32 L=4,096", "align",
+         pad(by_len[4096][:32], 32, 4096), dict(smax=2048, **pen)),
+        (f"wfa_align rung 2,112 B={len(by_len[4224][:32])} L=4,224",
+         "align", pad(by_len[4224][:32], len(by_len[4224][:32]), 4224),
+         dict(smax=2112, **pen))]
+    top = [(ref, r) for r in reads[:991]]
+    L = -(-max(len(r) for _a, r in top) // 128) * 128
+    shapes.append((f"wfa_mid top rung B=991 L={L}", "mid", pad(top, 991, L),
+                   dict(smax=4096, **pen)))
+    leaves = []
+    for i in range(64):
+        n = int(rng.integers(300, 513))
+        start = int(rng.integers(0, len(ref) - n))
+        win = ref[start:start + n]
+        leaves.append((win, cs._ont_read(rng, win, bases,
+                                         **cs.ONT_RAW)[:512]))
+    shapes.append(("wfa_align leaf chunk B=64 L=512", "align",
+                   pad(leaves, 64, 512), dict(smax=10 + 2 * 512, **pen)))
+    amp = rng.choice(bases, 342)
+    hifi = []
+    for _ in range(512):
+        r = amp.copy()
+        sub = rng.random(342) < 0.005
+        r[sub] = rng.choice(bases, int(sub.sum()))
+        hifi.append((amp.tobytes(), r.tobytes()))
+    shapes.append(("wfa_align hifi B=512 L=384", "align",
+                   pad(hifi, 512, 384), dict(smax=96, **pen)))
+    screen = []
+    for _ in range(4096):
+        a = rng.choice(bases, 100)
+        r = a.copy()
+        sub = rng.random(100) < 0.05
+        r[sub] = rng.choice(bases, int(sub.sum()))
+        screen.append((a.tobytes(), r.tobytes()))
+    shapes.append(("wfa_score screen B=4,096 L=114", "score",
+                   pad(screen, 4096, 114), dict(smax=64, **pen)))
+    return shapes
+
+
+def run_wfa(root, args):
+    """The wavefront kernels at the ONT-raw, leaf, hifi and screen launch
+    shapes, CUDA events."""
+    import torch
+
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    dev = torch.device("cuda", 0)
+    times, digests = {}, []
+    fns = {"align": wk.wfa_align, "score": wk.wfa_score, "mid": wk.wfa_mid}
+    for name, kind, host, kw in _wfa_shapes():
+        inputs = [torch.from_numpy(a).to(dev) for a in host]
+
+        def call():
+            return fns[kind](*inputs, **kw)
+
+        key = f"{name} smax={kw['smax']} ms"
+        times[key] = [_event_ms(call, args.reps)]
+        out = call()
+        out = out if isinstance(out, tuple) else (out,)
+        if kind == "align":
+            out = (out[0], out[2], out[3])    # the op store's dead rows vary
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        digests.append(h.hexdigest()[:16])
+        print(f"{key}: {times[key][0]}, outputs {digests[-1]}", flush=True)
+        del inputs, out
+        torch.cuda.empty_cache()
+    return {"times": times, "check": digests}
+
+
 WORKLOADS = {"align": run_align, "hamming": run_hamming, "local": run_local,
-             "hmm": run_hmm}
+             "hmm": run_hmm, "wfa": run_wfa}
 
 
 def child(root, args):
@@ -336,7 +449,8 @@ def main():
     ap.add_argument("--reads", type=int, default=80_000, help="align")
     ap.add_argument("--tags", type=int, default=25_000, help="hamming")
     ap.add_argument("--reps", type=int, default=None,
-                    help="hamming (default 3), local (default 5)")
+                    help="hamming (default 3), local, hmm and wfa "
+                         "(default 5)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*", default=[HERE])
     args = ap.parse_intermixed_args()

@@ -601,3 +601,194 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         tk.wfa_score(t.to("meta"), t.to("meta"), lens.to("meta"),
                      lens.to("meta"), smax=8)
+
+
+def _dead_op_bytes(ops, la, lb, kmax, model, strict=False):
+    """(step, lane, diagonal index) of every non-zero op byte outside the
+    live band of csrc/wfa_align.cu: |k| <= min(s, kmax, reach(s)) with
+    reach(s) the widest |k| a penalty of s pays for (max over the gap
+    classes of (s - o_g) // e_g), and -l2 - 1 <= k <= l1 + 1 (strict:
+    -l2 <= k <= l1)."""
+    ops = np.asarray(ops)
+    s = np.arange(ops.shape[0])[:, None, None]
+    k = np.arange(ops.shape[2])[None, None, :] - kmax
+    reach = np.maximum(0, (s - PEN["o"]) // PEN["e"])
+    if model == "affine2p":
+        reach = np.maximum(reach, np.maximum(0, (s - PEN["o2"]) // PEN["e2"]))
+    r = np.minimum(np.minimum(s, kmax), reach)
+    edge = 0 if strict else 1
+    live = (np.abs(k) <= r) & (k >= -lb[None, :, None] - edge) & \
+        (k <= la[None, :, None] + edge)
+    return np.argwhere((ops != 0) & ~live)
+
+
+@pytest.mark.parametrize("option", ["exact", "kband", "adaptive"])
+@pytest.mark.parametrize("model", tk.MODELS)
+def test_live_band_holds_every_op_byte(model, option):
+    """The invariant the kernels' live band rests on: every non-zero op
+    byte of the JAX package's wfa_affine_tb_batch / wfa_affine2p_tb_batch
+    and of the port's wfa_fill_reference, at every step, lies inside the
+    band, with and without kband and the wf-adaptive trim. Pairs of very
+    different lengths set the op bits of k = l1 + 1 and -l2 - 1 (a gap
+    extended from the rectangle's edge), which the band keeps."""
+    pairs = _pairs(5)
+    rng = np.random.default_rng(6)
+    for n in (3, 5, 9):
+        a = rng.choice(BASES, 50).tobytes()
+        pairs += [(a[:n], a), (a, a[:n])]
+    W, smax = 64, 96
+    host = _arrays(pairs, len(pairs), W)
+    kband = 5 if option == "kband" else None
+    adaptive = 3 if option == "adaptive" else None
+    kmax = tk.kmax_of(model, W, W, smax, PEN["o"], PEN["e"], PEN["o2"],
+                      PEN["e2"], kband)
+    _j_pen, j_ops = _jax_fill(model, host, W, smax, True, kband, adaptive)
+    _p_pen, p_ops = tk.wfa_fill_reference(
+        *(torch.from_numpy(v) for v in host), smax=smax, model=model,
+        wildcards=True, kband=kband, adaptive=adaptive, **PEN)
+    for ops in (np.asarray(j_ops), p_ops.numpy()):
+        assert ops.shape[2] == 2 * kmax + 1
+        assert len(_dead_op_bytes(ops, host[2], host[3], kmax, model)) == 0
+    if option == "exact":
+        assert len(_dead_op_bytes(p_ops.numpy(), host[2], host[3], kmax,
+                                  model, strict=True)) > 0
+
+
+@pytest.mark.parametrize("pen", [PEN, dict(x=3, o=10, e=1, o2=40, e2=3),
+                                 dict(x=300, o=6, e=2, o2=24, e2=1),
+                                 dict(x=1, o=6, e=2, o2=24, e2=2)],
+                         ids=["default", "other", "wide-mismatch", "x1"])
+@pytest.mark.parametrize("model", tk.MODELS)
+def test_ring_heights_cover_their_lookbacks(model, pen):
+    """M (and PM) is read x and o_g + e_g steps back, I_g and D_g (PI, PD)
+    e_g: each plane keeps its longest lookback plus the steps of a barrier
+    interval, which is 2 only where no lookback is shorter than 2 and no
+    trim runs between the steps."""
+    classes = tk.gap_classes(model, pen["o"], pen["e"], pen["o2"], pen["e2"])
+    least = min([pen["x"]] + [e for _o, e in classes])
+    for adaptive in (False, True):
+        steps = tk.steps_of(model, pen["x"], pen["e"], pen["e2"], adaptive)
+        assert steps == (2 if least >= 2 and not adaptive else 1)
+        heights = tk.ring_heights(model, **pen, steps=steps)
+        assert heights[0] == max([pen["x"]] + [o + e for o, e in classes]) \
+            + steps
+        assert list(heights[1:]) == [e + steps for _o, e in classes]
+        plan = tk.wfa_plan("align", model, 64, 64, 8, 96, 45, **pen,
+                           adaptive=adaptive)
+        assert (plan.steps, plan.heights) == (steps, heights)
+        assert plan.rows == heights[0] + 2 * sum(heights[1:])
+    hm, he = tk.ring_heights("affine", **pen, steps=tk.steps_of(
+        "affine", pen["x"], pen["e"], pen["e2"]))
+    mid = tk.wfa_plan("mid", "affine", 64, 64, 8, 96, 45, **pen)
+    assert (mid.heights, mid.rows, mid.value_bytes) == ((hm, he), hm + 2 * he,
+                                                         2)
+
+
+@pytest.mark.parametrize("K", [1, 3, 91, 1019, 2043, 4091])
+def test_plan_slices_cover_the_diagonals_once(K):
+    """Every cluster size that holds the rings splits the K diagonals into
+    contiguous slices of cw (CTA r holds r * cw .. r * cw + cw - 1), each
+    diagonal in one CTA, no CTA past the last diagonal's."""
+    kmax = (K - 1) // 2
+    for C in tk.CLUSTER_SIZES:
+        try:
+            plan = tk.wfa_plan("score", "affine", 64, 64, 8, 2 * K + 8,
+                               kmax, **PEN, cluster=C)
+        except ValueError:
+            continue          # this C cannot hold the rings
+        owned = [range(r * plan.cw, min(K, (r + 1) * plan.cw))
+                 for r in range(C)]
+        assert [k for ks in owned for k in ks] == list(range(K))
+        assert plan.cw * C >= K > plan.cw * (C - 1) or K < C
+        assert plan.threads <= tk.MAX_THREADS and plan.threads % 32 == 0
+        assert plan.smem <= tk.SMEM_LIMIT
+
+
+def _smem_of(kind, n1, n2, smax, K, C, rows, value_bytes):
+    """A CTA's shared memory at C slices: sequences, control words, then
+    the larger of its rings and the walk's ops."""
+    walk = (smax + 4) // 4 * 4 if kind == "align" else 0
+    rings = -(-value_bytes * rows * (-(-K // C) + 2) // 4) * 4
+    return tk.seq_bytes(n1) + tk.seq_bytes(n2) + 4 * tk.CTRL_INTS + \
+        max(rings, walk)
+
+
+# (kind, model, n1 = n2, B, smax, penalties) -> the plan's C (0: rings in
+# the global workspace): the ont-raw rung chunks, the 2,112 rung's
+# one-pair chunk, a bialign leaf chunk, wfa_mid at the top rung, the hifi
+# and screen launches, the convex rerun of an L = 384 bucket, and the
+# CUDA tests' global shapes
+PLAN_SHAPES = [
+    ("align", "affine", 4096, 64, 1024, PEN, 1),
+    ("align", "affine", 4096, 32, 2048, PEN, 2),
+    ("align", "affine", 4224, 1, 2112, PEN, 8),
+    ("align", "affine", 512, 64, 1034, PEN, 1),
+    ("mid", "affine", 4224, 991, 4096, PEN, 1),
+    ("align", "affine", 384, 512, 96, PEN, 1),
+    ("score", "affine", 114, 4096, 64, PEN, 1),
+    ("align", "affine2p", 384, 32, 1024, PEN, 2),
+    ("align", "affine2p", 384, 32, 1024, dict(PEN, x=300), 0),
+    ("mid", "affine", 1280, 6, 2300, dict(PEN, x=300), 0),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=[f"{s[0]}-{s[1]}-L{s[2]}-B{s[3]}-s{s[4]}-x"
+                              f"{s[5]['x']}" for s in PLAN_SHAPES])
+def test_plan_cluster_sizes_and_the_global_workspace(shape):
+    """wfa_align and wfa_score: C is the least cluster size whose CTAs fit
+    SMEM_LIMIT, doubled while a CTA would hold more than MAX_THREADS
+    diagonals and B * 2C <= SMS / 2; the global workspace takes exactly
+    the shapes past a cluster of 8. wfa_mid: one CTA a pair in a
+    persistent grid, its int16 rings in shared memory where they fit. A
+    persistent grid has at most B CTAs, whose workspaces L2 holds
+    together."""
+    kind, model, L, B, smax, pen, want = shape
+    kmax = tk.kmax_of(model, L, L, smax, pen["o"], pen["e"], pen["o2"],
+                      pen["e2"])
+    K = 2 * kmax + 1
+    plan = tk.wfa_plan(kind, model, L, L, B, smax, kmax, **pen)
+    smem = {C: _smem_of(kind, L, L, smax, K, C, plan.rows, plan.value_bytes)
+            for C in tk.CLUSTER_SIZES}
+    walk = (smax + 4) // 4 * 4 if kind == "align" else 0
+    if plan.grid:
+        assert 1 <= plan.grid <= B and plan.C == 1 and plan.cw == K
+        assert plan.grid == 1 or \
+            plan.grid * 4 * plan.ws_ints <= tk.L2_BYTES
+    if kind == "mid":
+        assert plan.grid and plan.ring_global == (smem[1] > tk.SMEM_LIMIT)
+        assert plan.ws_ints == plan.rows * (K + 2) * (1 + plan.ring_global)
+    else:
+        assert plan.ring_global == (smem[8] > tk.SMEM_LIMIT) == \
+            (plan.grid > 0)
+    if plan.ring_global:
+        assert want == 0
+        assert plan.smem == 2 * tk.seq_bytes(L) + 4 * tk.CTRL_INTS + walk
+        return
+    assert plan.C == want
+    assert plan.smem == smem[plan.C] <= tk.SMEM_LIMIT
+    if kind == "mid":
+        return
+    least = min(C for C in tk.CLUSTER_SIZES if smem[C] <= tk.SMEM_LIMIT)
+    assert plan.C == least or (-(-K // (plan.C // 2)) > tk.MAX_THREADS
+                               and B * plan.C <= tk.SMS // 2)
+    assert plan.C == 8 or -(-K // plan.C) <= tk.MAX_THREADS or \
+        B * 2 * plan.C > tk.SMS // 2
+
+
+def test_plan_refuses_what_the_rings_cannot_hold():
+    """A lookback of 0 (x or an extend of 0) reads the row being written;
+    a forced cluster too small for the rings, or a cluster for wfa_mid,
+    is refused too."""
+    for bad in (dict(PEN, x=0), dict(PEN, e=0)):
+        with pytest.raises(ValueError, match=">= 1"):
+            tk.wfa_plan("align", "affine", 64, 64, 8, 96, 45, **bad)
+    with pytest.raises(ValueError, match=">= 1"):
+        tk.wfa_plan("align", "affine2p", 64, 64, 8, 96, 72,
+                    **dict(PEN, e2=0))
+    with pytest.raises(ValueError, match="cannot hold"):
+        tk.wfa_plan("align", "affine", 4224, 4224, 991, 4096, 2045, **PEN,
+                    cluster=1)
+    with pytest.raises(ValueError, match="one CTA"):
+        tk.wfa_plan("mid", "affine", 4224, 4224, 991, 4096, 2045, **PEN,
+                    cluster=2)

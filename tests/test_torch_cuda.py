@@ -879,31 +879,52 @@ def _wfa_pairs(seed, B, W):
     return a, b, la, lb
 
 
-def _check_wfa(args, smax, model, **kw):
+WFA_PEN = dict(x=4, o=6, e=2, o2=24, e2=1)
+
+
+def _check_wfa(args, smax, model, pen=None, **kw):
     """wfa_align and wfa_score on the card against the plain fill and
     walk: penalties, op-store rows up to each pair's penalty, skeletons,
     end rows, score-only penalties."""
     from clique_tpu_torch.align import wfa_kernels as wk
 
+    pen = dict(WFA_PEN, **(pen or {}))
     n = (wk.wfa_align_launches, wk.wfa_score_launches)
-    pen, ops, fwd, fin = wk.wfa_align(*args, smax=smax, model=model, **kw)
+    pen_, ops, fwd, fin = wk.wfa_align(*args, smax=smax, model=model, **pen,
+                                       **kw)
     adaptive = kw.pop("adaptive", None)
-    sc = wk.wfa_score(*args, smax=smax, model=model, **kw)
+    sc = wk.wfa_score(*args, smax=smax, model=model, **pen, **kw)
     torch.cuda.synchronize()
     assert (wk.wfa_align_launches, wk.wfa_score_launches) == (n[0] + 1,
                                                               n[1] + 1)
     p_pen, p_ops = wk.wfa_fill_reference(*args, smax=smax, model=model,
-                                         adaptive=adaptive, **kw)
+                                         adaptive=adaptive, **pen, **kw)
     p_fwd, p_fin = wk.wfa_walk_reference(p_ops, p_pen, args[2] - args[3],
-                                         model=model, x=4, o=6, e=2, o2=24,
-                                         e2=1)
-    assert torch.equal(pen, p_pen)
-    rows = torch.arange(smax + 1, device=pen.device)[:, None] <= p_pen[None]
+                                         model=model, **pen)
+    assert torch.equal(pen_, p_pen)
+    rows = torch.arange(smax + 1, device=pen_.device)[:, None] <= p_pen[None]
     assert bool(((ops == p_ops) | ~rows[:, :, None]).all())
     assert torch.equal(fwd, p_fwd) and torch.equal(fin, p_fin)
     if adaptive is None:
         assert torch.equal(sc, p_pen)
-    return pen
+    return pen_
+
+
+def _force_plan(monkeypatch, kinds=("align", "score"), **force):
+    """The wfa_plan of every launch of these kinds with `force` (cluster=C,
+    0 the global workspace); returns the list the plans go into."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    plans = []
+    orig = getattr(wk.wfa_plan, "__wrapped__", wk.wfa_plan)
+
+    def plan(*a, **kw):
+        plans.append(orig(*a, **{**kw, **(force if a[0] in kinds else {})}))
+        return plans[-1]
+
+    plan.__wrapped__ = orig
+    monkeypatch.setattr(wk, "wfa_plan", plan)
+    return plans
 
 
 @pytest.mark.parametrize("option", [
@@ -935,8 +956,10 @@ def test_wfa_kernels_bench_shape(cuda, model):
 
 
 def test_wfa_kernel_global_rings(cuda):
-    """affine2p at the 1,024-ceiling rerun of an L = 384 bucket: the rings
-    do not fit shared memory and live in the global workspace."""
+    """Rings past a cluster of 8 CTAs live in the global workspace: affine2p
+    at the 1,024-ceiling rerun of an L = 384 bucket (K = 1,537) with a
+    mismatch of 300, whose M rings keep 301 rows (311 rows in all, 242 KB
+    a CTA of 8)."""
     from clique_tpu_torch.align import wfa_kernels as wk
 
     a, b, la, lb = _wfa_pairs(4, 32, 120)
@@ -945,8 +968,167 @@ def test_wfa_kernel_global_rings(cuda):
     args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
             for v in (a, b, la, lb)]
     n = wk.wfa_global_ring_launches
+    _check_wfa(args, 1024, "affine2p", pen=dict(x=300), wildcards=True)
+    assert wk.wfa_global_ring_launches == n + 2
+
+
+def test_wfa_kernel_affine2p_rerun_in_shared_memory(cuda, monkeypatch):
+    """The same rerun shape at the default penalties: compact rings (M 26
+    rows, I1 and D1 3, I2 and D2 2) fit shared memory, a cluster of 2
+    CTAs a pair at B = 32."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    plans = _force_plan(monkeypatch)
+    a, b, la, lb = _wfa_pairs(4, 32, 120)
+    a = np.pad(a, ((0, 0), (0, 264)))
+    b = np.pad(b, ((0, 0), (0, 264)))
+    args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+            for v in (a, b, la, lb)]
+    n = wk.wfa_global_ring_launches
     _check_wfa(args, 1024, "affine2p", wildcards=True)
-    assert wk.wfa_global_ring_launches == n + 1
+    assert wk.wfa_global_ring_launches == n
+    assert [(p.C, p.grid) for p in plans] == [(2, 0), (2, 0)]
+
+
+@pytest.mark.parametrize("B", [1, 32, 64])
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_wfa_kernels_every_cluster_size(cuda, monkeypatch, C, B):
+    """wfa_align and wfa_score (both models) with C CTAs a pair at B = 1,
+    32 and 64 (one diagonal slice a CTA, halos in the neighbours' shared
+    memory), and wfa_mid at those batches."""
+    plans = _force_plan(monkeypatch, cluster=C)
+    host = _wfa_pairs(20 + B, max(B, 2), 120)
+    args = [torch.from_numpy(np.ascontiguousarray(v[:B])).to(cuda)
+            for v in host]
+    for model in ("affine", "affine2p"):
+        _check_wfa(args, 96, model, wildcards=True)
+    _check_mid(args, smax=96, wildcards=True)
+    assert {p.C for p in plans if p.grid == 0} == {C}
+    assert sum(p.grid > 0 for p in plans) == 1      # wfa_mid's
+
+
+@pytest.mark.parametrize("C", [2, 8])
+@pytest.mark.parametrize("option", [
+    dict(), dict(wildcards=True), dict(kband=6),
+    dict(wildcards=True, adaptive=3), dict(smax=10),
+], ids=["exact", "wildcards", "kband", "adaptive", "censored"])
+def test_wfa_kernels_options_under_a_cluster(cuda, monkeypatch, option, C):
+    """The heuristic band, the wf-adaptive trim (its maximum taken over the
+    cluster), censoring and wildcards with 2 and 8 CTAs a pair."""
+    plans = _force_plan(monkeypatch, cluster=C)
+    kw = dict(option)
+    smax = kw.pop("smax", 96)
+    args = [torch.from_numpy(a).to(cuda) for a in _wfa_pairs(3, 64, 120)]
+    for model in ("affine", "affine2p"):
+        pen = _check_wfa(args, smax, model, **kw)
+        assert bool((pen > smax).any())
+    assert {p.C for p in plans} == {C}
+
+
+def test_wfa_kernels_paths_cross_slice_edges(cuda, monkeypatch):
+    """Deletions of 1 to 44 bases and insertions of 1 to 44 at K = 91: each
+    path runs along the diagonals of several CTAs (slices of 12 at C = 8,
+    23 at C = 4)."""
+    rng = np.random.default_rng(12)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    B, W = 88, 160
+    a = np.zeros((B, W), np.uint8)
+    b = np.zeros((B, W), np.uint8)
+    la = np.zeros(B, np.int32)
+    lb = np.zeros(B, np.int32)
+    for i in range(B):
+        d = i % 44 + 1
+        ref = rng.choice(bases, 110)
+        if i < 44:
+            read = np.concatenate([ref[:30], ref[30 + d:]])
+        else:
+            read = np.concatenate([ref[:30], rng.choice(bases, d), ref[30:]])
+        a[i, :110], b[i, :len(read)] = ref, read
+        la[i], lb[i] = 110, len(read)
+    args = [torch.from_numpy(v).to(cuda) for v in (a, b, la, lb)]
+    for C in (8, 4):
+        plans = _force_plan(monkeypatch, cluster=C)
+        for model in ("affine", "affine2p"):
+            _check_wfa(args, 96, model)
+        assert plans[0].cw < 44 and {p.C for p in plans} == {C}
+
+
+def _ont_like(rng, ref):
+    """A read of ref at ONT raw-read rates: 5% substitutions, 2.5% each of
+    1-3 bp deletions and insertions."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    out, i = [], 0
+    while i < len(ref):
+        u = rng.random()
+        if u < 0.05:
+            out.append(rng.choice(bases))
+        elif u < 0.075:
+            i += int(rng.integers(1, 4))
+            continue
+        elif u < 0.1:
+            out.extend(rng.choice(bases, int(rng.integers(1, 4))))
+            out.append(ref[i])
+        else:
+            out.append(ref[i])
+        i += 1
+    return np.array(out, np.uint8)
+
+
+def test_wfa_mid_ont_pairs_at_the_top_rung(cuda, monkeypatch):
+    """wfa_mid on 8 pairs of a 4 kb reference and its ONT-like reads at the
+    bialign engine's top rung (smax 4,096, L = 4,224, K = 4,091): int16
+    rings in shared memory, then all in the global workspace."""
+    rng = np.random.default_rng(13)
+    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), 4000)
+    B, W = 8, 4224
+    a = np.zeros((B, W), np.uint8)
+    b = np.zeros((B, W), np.uint8)
+    lb = np.zeros(B, np.int32)
+    for i in range(B):
+        read = _ont_like(rng, ref)[:W]
+        a[i, :4000], b[i, :len(read)] = ref, read
+        lb[i] = len(read)
+    la = np.full(B, 4000, np.int32)
+    args = [torch.from_numpy(v).to(cuda) for v in (a, b, la, lb)]
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    p_pen, p_pay = wk.wfa_mid_reference(*args, smax=4096, wildcards=True)
+    assert bool((p_pen > 2048).all()) and bool((p_pen <= 4096).all())
+    for force in (dict(), dict(cluster=0)):
+        plans = _force_plan(monkeypatch, kinds=("mid",), **force)
+        pen, pay = wk.wfa_mid(*args, smax=4096, wildcards=True)
+        assert torch.equal(pen, p_pen) and torch.equal(pay, p_pay)
+        assert [p.ring_global for p in plans] == [bool(force)]
+
+
+def test_wfa_kernels_mark_bad_lengths_in_a_cluster(cuda, monkeypatch):
+    """A pair whose lengths lie outside its rows is marked by every CTA of
+    its cluster together (and by the persistent grid's CTAs), beside pairs
+    that align."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    t = torch.full((4, 20), ord("A"), dtype=torch.uint8, device=cuda)
+    t[3, 7] = ord("C")
+    l1 = torch.tensor([5, 21, 4, 20], dtype=torch.int32, device=cuda)
+    l2 = torch.tensor([5, 3, -1, 18], dtype=torch.int32, device=cuda)
+    good = [0, 3]
+    p_pen, p_ops = wk.wfa_fill_reference(t[good], t[good], l1[good],
+                                         l2[good], smax=16)
+    p_fwd, p_fin = wk.wfa_walk_reference(p_ops, p_pen, l1[good] - l2[good],
+                                         model="affine", x=4, o=6, e=2)
+    p_mid = wk.wfa_mid_reference(t[good], t[good], l1[good], l2[good],
+                                 smax=16)
+    for C in (2, 8, 0):
+        _force_plan(monkeypatch, kinds=("align", "mid") if C == 0 else
+                    ("align",), cluster=C)
+        pen, _ops, fwd, fin = wk.wfa_align(t, t, l1, l2, smax=16)
+        assert pen.tolist() == [p_pen[0], -1, -1, p_pen[1]]
+        assert fin.tolist() == [p_fin[0], -3, -3, p_fin[1]]
+        assert int(fwd[1:3].sum()) == 0 and torch.equal(fwd[good], p_fwd)
+        pen, pay = wk.wfa_mid(t, t, l1, l2, smax=16)
+        assert torch.equal(pen[good], p_mid[0]) and torch.equal(pay[good],
+                                                                p_mid[1])
+        assert pen.tolist()[1:3] == [-1, -1] and pay.tolist()[1:3] == [-1, -1]
 
 
 def test_wfa_kernel_marks_bad_lengths(cuda):
@@ -1003,9 +1185,9 @@ def test_wfa_mid_matches_plain(cuda, option):
 
 
 def test_wfa_mid_global_rings(cuda):
-    """L = 1,280, smax 2,300 (K = 2,295): the rings and payload planes
-    (216 bytes a diagonal) pass shared memory and live in the global
-    workspace."""
+    """L = 1,280, smax 2,300 (K = 2,295) at a mismatch of 300: the rings
+    and payload planes (614 rows: M and PM 301 each) pass a cluster of 8
+    CTAs and live in the global workspace."""
     from clique_tpu_torch.align import wfa_kernels as wk
 
     rng = np.random.default_rng(8)
@@ -1019,7 +1201,7 @@ def test_wfa_mid_global_rings(cuda):
     args = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
             for v in (a, b, la, lb)]
     n = wk.wfa_global_ring_launches
-    pen, _pay = _check_mid(args, smax=2300)
+    pen, _pay = _check_mid(args, smax=2300, x=300)
     assert wk.wfa_global_ring_launches == n + 1
     assert bool((pen > 600).any())
 

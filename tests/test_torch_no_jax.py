@@ -230,7 +230,8 @@ SCANNED = sorted(
     glob.glob(os.path.join(ROOT, "clique_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(ROOT, "chip_smoke.py"),
-       os.path.join(ROOT, "profile_port.py")])
+       os.path.join(ROOT, "profile_port.py"),
+       os.path.join(ROOT, "profile_wfa.py")])
 
 
 def _imported_modules(tree):
@@ -254,6 +255,7 @@ def test_source_imports_nothing_of_the_jax_package(path):
 
 def test_scan_sees_the_port():
     assert "chip_smoke.py" in SCANNED and "profile_port.py" in SCANNED
+    assert "profile_wfa.py" in SCANNED
     assert os.path.join("clique_tpu_torch", "align", "pipeline.py") in SCANNED
     assert os.path.join("clique_tpu_torch", "align", "hmm.py") in SCANNED
     assert os.path.join("clique_tpu_torch", "collapse",

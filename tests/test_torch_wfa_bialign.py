@@ -262,3 +262,42 @@ def test_wfa_mid_checks_its_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         tk.wfa_mid(t.to("meta"), t.to("meta"), lens.to("meta"),
                    lens.to("meta"), smax=8)
+
+
+# the bialign engine's wfa_mid launches on 1,000 ONT raw reads of a 4 kb
+# reference (chip_smoke.py's ont-raw phase): (B, L, smax), the 2x ladder
+# of each split level
+MID_LAUNCHES = [(991, 4224, s) for s in (256, 512, 1024, 2048, 4096)] + \
+    [(1982, 2176, s) for s in (256, 512, 1024, 2048)] + \
+    [(3964, 1152, s) for s in (256, 512, 1024)] + \
+    [(259, 640, s) for s in (128, 256, 512)]
+
+
+@pytest.mark.parametrize("launch", MID_LAUNCHES,
+                         ids=[f"B{b}-L{n}-s{s}" for b, n, s in MID_LAUNCHES])
+def test_mid_plan_at_the_engine_launches(launch):
+    """Every wfa_mid launch of the bialign engine on ONT raw reads runs a
+    persistent grid whose CTAs hold the int16 M, I and D rings in shared
+    memory (two score steps a barrier at x 4, o 6, e 2: M 10 rows, I and D
+    4) and their payload planes in a workspace that L2 holds for the
+    whole grid."""
+    B, L, smax = launch
+    kmax = tk.kmax_of("affine", L, L, smax, O, E, 0, 0)
+    K = 2 * kmax + 1
+    plan = tk.wfa_plan("mid", "affine", L, L, B, smax, kmax, X, O, E, 0, 0)
+    assert (plan.steps, plan.heights, plan.value_bytes) == (2, (10, 4), 2)
+    assert not plan.ring_global and plan.C == 1 and plan.cw == K
+    assert plan.smem == 2 * tk.seq_bytes(L) + 4 * tk.CTRL_INTS + \
+        -(-2 * plan.rows * (K + 2) // 4) * 4 <= tk.SMEM_LIMIT
+    assert plan.ws_ints == plan.rows * (K + 2)
+    assert 1 <= plan.grid <= B and \
+        plan.grid * 4 * plan.ws_ints <= tk.L2_BYTES
+    assert plan.threads == min(tk.MID_THREADS, -(-K // 32) * 32)
+
+
+def test_mid_int16_rings_hold_every_engine_length():
+    """wfa_mid's int16 rings hold offsets up to the rows' widths, below
+    32,767: the engine's length cap keeps every launch's rows there."""
+    top = max(n for n in range(1, 1 << 15, 64) if tw._bialign_len_ok(n))
+    assert -(-top // 128) * 128 < 32767
+    assert not tw._bialign_len_ok(32767)

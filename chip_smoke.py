@@ -25,9 +25,10 @@ before and read just after:
   version;
 - screen: 4,000 reads over two amplicons whose unique-kmer vote splits,
   --engine wfa: every read takes the exhaustive search, wfa_score
-  screens its candidates, and it routes to its true reference; every
-  wfa_score launch of the run is held against its plain version on its
-  own pairs, and the largest timed (the kernels line's wfa_score);
+  screens its candidates (one warp a pair), and it routes to its true
+  reference; every wfa_score launch of the run is held against its plain
+  version on its own pairs, and the largest timed (the kernels line's
+  wfa_score);
 - ont-raw: 1,000 reads of the long-read phases' 4 kb reference at ONT
   raw-read error rates (5% substitutions, 2.5% each of 1-3 bp deletions
   and insertions) through --engine wfa at batch 1,024: censored at the
@@ -85,14 +86,17 @@ at the bench, inversion and anchored shapes and at 6,600 rows; wfa_align
 and wfa_score in both penalty models at bench_extra.py's bench_wfa shape
 and at the hifi, convex and screen launches, penalties, op-store rows,
 skeletons and end rows; hmm_forward exactly, at a launch of each strip
-height and at the panel's launch shape), time each
+height and at the panel's launch shape; edit_distance at the widths where
+its words change, over every byte value, and at 2M pairs of 32, 80 and
+300-byte rows), time each
 in turns with its plain version at the main path's shape, time a PyTorch
 library call that computes the same function where there is one, and
 work out each kernel's bound from the timed inputs (hmm_forward's from
 the MUFU and FP32-pipe instructions of a cell in its SASS, the wavefront
 kernels' from the integer instructions of the recurrence of a cell and of
 four extension bytes in theirs, for the cells of the diagonals a pair's
-penalty reaches at each of its steps).
+penalty reaches at each of its steps, edit_distance's from those of a
+column step of its bit-vector recurrence).
 
 The CPU runs of the long-read, inversion, panel, hifi and convex phases go
 to a pool of
@@ -104,7 +108,9 @@ the last line of a run that passed is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
-and the line before it is a JSON object with one entry per kernel.
+and the line before it is a JSON object with one entry per kernel (its
+"ms" the wrapper's time by CUDA events; edit_distance's entry also holds
+"kernel_ms", its kernel alone).
 """
 
 import contextlib
@@ -235,10 +241,15 @@ PEAK_INT32_OPS = PEAK_LANE_OPS / 2
 # their compares and selects, the special and terminal-gap selects, the
 # byte pack (global); the zero fields and the running argmax besides
 # (local); a Levenshtein cell's three candidates, their minimum and the
-# match test
+# match test (edit_distance's DP kernel before its Myers/Hyyro redesign:
+# the old bound, printed beside the new one)
 OPS_GLOBAL_CELL = 30
 OPS_LOCAL_CELL = 36
 OPS_EDIT_CELL = 8
+# edit_distance's widths beside collapse's 32-byte rows: the 80-byte tags
+# of the device-Levenshtein phase's wide group and rows past the kernel's
+# 256-byte register band, full rows (la = lb = L)
+EDIT_WIDE = ((2_097_152, 80), (262_144, 300))
 # integer lane operations match_hits spends on a pair of one-word rows:
 # XOR, the shift of the fold, the lop3 of fold and live mask, popc and
 # the budget compare
@@ -334,9 +345,9 @@ def phase_build():
                                        "align_local_kernel", "align_kernel",
                                        "match_hits_wide", "match_hits",
                                        "edit_hits_group", "edit_hits_pairs",
-                                       "edit_distance_reg",
-                                       "edit_distance_local",
-                                       "edit_distance_scratch")
+                                       "edit_distance_bands",
+                                       "clique_edit_column_probe16",
+                                       "clique_edit_column_probe")
                            if k in line), line.strip())
             if kernel == "align_local_kernel":
                 kernel = "dp_align_local"
@@ -357,6 +368,17 @@ def phase_build():
                     "align" if flags.group(2) == "1" else
                     "mid" if flags.group(3) == "1" else "score",
                     "affine" if flags.group(1) == "1" else "affine2p")
+            # wfa_score's warp path: gap classes and steps a barrier
+            flags = re.search(r"wfa_score_warp_kernelILi(\d)ELi(\d)E", line)
+            if flags:
+                kernel = "wfa_score_warp<{0},steps={1}>".format(
+                    "affine" if flags.group(1) == "1" else "affine2p",
+                    flags.group(2))
+            # the Levenshtein kernel's bit-vector word and words a pattern
+            flags = re.search(r"edit_distance_kernelI([jy])Li(\d)E", line)
+            if flags:
+                kernel = "edit_distance<{0} bits,words={1}>".format(
+                    32 if flags.group(1) == "j" else 64, flags.group(2))
             # the fused Hamming search's code width and row words
             flags = re.search(r"match_hits_kernelILi(\d)ELi(\d)E", line)
             if flags:
@@ -893,12 +915,72 @@ def _hit_bound(U, K, L, hits):
             OPS_HIT_PAIR * U * K / PEAK_INT32_OPS * 1e3)
 
 
+_EDIT_OPS = {}
+
+
+def _edit_column_ops():
+    """Operations of one column step of edit_distance's 32-bit kernel (a
+    text byte's eight replicated bits, the mismatch mask from the pattern's
+    planes, the recurrence), from the SASS of clique_edit_column_probe,
+    and of its path for patterns of at most 16 bytes (two planes a word)
+    from clique_edit_column_probe16: four steps each, their loads and
+    stores left out. {32: ops, 16: ops}."""
+    if not _EDIT_OPS:
+        probes = {32: "clique_edit_column_probe",
+                  16: "clique_edit_column_probe16"}
+        sass = _sass_ops(tuple(probes.values()))
+        for rows, fn in probes.items():
+            _EDIT_OPS[rows] = _wfa_ops_per(sass[fn]) / 4
+            say(f"[tag kernels] {fn}: {_EDIT_OPS[rows]} operations a column "
+                f"step ({json.dumps(dict(sorted(sass[fn].items())))} for "
+                f"four)")
+    return _EDIT_OPS
+
+
+def _edit_bound(host):
+    """The least time of edit_distance on these rows: both rows and
+    lengths read once and a byte out a pair over the memory rate, and over
+    the int32 rate the column steps the recurrence needs: lb of them a pair,
+    each at the 16-row path's operations where la <= 16, else at the 32-bit
+    word's for each 32 pattern rows (a 64-bit word counts as two)."""
+    import numpy as np
+
+    a, _b, la, lb = host
+    P, L = a.shape
+    ops = _edit_column_ops()
+    la64, lb64 = la.astype(np.int64), lb.astype(np.int64)
+    per_col = np.where(la64 <= 16, ops[16], ops[32] * -(-la64 // 32))
+    total = float(np.sum(np.where(la64 > 0, lb64 * per_col, 0)))
+    return bound(2 * P * L + 8 * P + P, total, PEAK_INT32_OPS)
+
+
+def _edit_kernel_call(args):
+    """edit_distance's kernel alone on these card tensors: no length check
+    and no allocation a call (the wrapper's), the output made once."""
+    import torch
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    a, b, la, lb = args
+    P, L = a.shape
+    out = torch.empty(P, dtype=torch.uint8, device=a.device)
+
+    def run():
+        err = lib.clique_edit_distance(
+            a.data_ptr(), b.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            out.data_ptr(), P, L, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"clique_edit_distance returned {err}")
+        return out
+    return run
+
+
 def phase_tag_kernels():
     """match_hits and edit_distance against their plain PyTorch versions
     on the card, then timed in turns (plain, kernel, kernel, plain) at the
     JAX chunk shape (2048 tags x 16384 entries) and at 2M bench-shaped
     pairs, beside torch.cdist(p=0) and the host Myers code on the same
-    inputs."""
+    inputs; edit_distance also at EDIT_WIDE's rows, with its bound."""
     import numpy as np
     import torch
 
@@ -952,6 +1034,22 @@ def phase_tag_kernels():
     for P, L in ((3001, 16), (3001, 32), (3001, 64), (3001, 100),
                  (3001, 256), (3001, 300), (3001, 1000)):
         edit_case(P, L)
+    # every byte value, at each width the kernel switches at
+    for L in (32, 33, 64, 65, 256, 257):
+        a = rng.integers(0, 256, (3001, L), dtype=np.uint8)
+        a.reshape(-1)[:256] = np.arange(256, dtype=np.uint8)
+        b = a.copy()
+        b[rng.random(a.shape) < 0.1] = 0
+        b[::5] = rng.integers(0, 256, b[::5].shape, dtype=np.uint8)
+        la = rng.integers(0, L + 1, 3001).astype(np.int32)
+        lb = np.clip(la + rng.integers(-3, 4, 3001), 0, L).astype(np.int32)
+        args = [torch.from_numpy(x).to(dev) for x in (a, b, la, lb)]
+        e = (tdist.edit_distance(*args).int()
+             - tdist.edit_distance_reference(*args).int()).abs().max().item()
+        err["edit_distance"] = max(err["edit_distance"], e)
+        say(f"[tag kernels] edit_distance P=3001 L={L}, bytes 0-255: "
+            f"{'equal' if e == 0 else 'DIFFER'} (max abs err {e})")
+        check(e == 0, "edit_distance and its plain version disagree")
     pairs = tdist.edit_distance_pairs([b"A" * 300, b"ACGT" * 70],
                                       [b"C" * 300, b"ACGA" * 70],
                                       device="cuda")
@@ -994,20 +1092,46 @@ def phase_tag_kernels():
     b_hits, int_ms = _hit_bound(U, K, L, hits)
     say(f"[tag kernels] match_hits integer-pipe time at U=2048 K=16384: "
         f"{int_ms:.4f} ms ({OPS_HIT_PAIR} lane operations a pair)")
+    # the kernels line's ms: the wrapper (the launch, the length check read
+    # back), as it was timed before the kernel's redesign; the kernel alone
+    # beside it as kernel_ms
     ed = _turns("[tag kernels] edit_distance at P=2097152 L=32 la=lb=16",
                 lambda: tdist.edit_distance(*args),
                 lambda: tdist.edit_distance_reference(*args), 20, 2)
+    check(torch.equal(_edit_kernel_call(args)(),
+                      tdist.edit_distance(*args)),
+          "edit_distance's kernel call and its wrapper disagree")
+    k1 = _time_ms(_edit_kernel_call(args), 20)
+    k2 = _time_ms(_edit_kernel_call(args), 20)
+    say(f"[tag kernels] edit_distance kernel alone (no length check, the "
+        f"output made once) at P=2097152 L=32: {k1:.4f} / {k2:.4f} ms per "
+        f"call")
     P, Le = host[0].shape
-    times = {
-        "match_hits": _timing(*mc, b_hits, lib_ms),
-        # both rows and lengths once, one byte out a pair; OPS_EDIT_CELL lane
-        # operations a DP cell
-        "edit_distance": _timing(*ed, bound(
-            2 * P * Le + 8 * P + P,
-            OPS_EDIT_CELL * _interior_cells(host[2], host[3])))}
+    old_b = bound(2 * P * Le + 8 * P + P,
+                  OPS_EDIT_CELL * _interior_cells(host[2], host[3]))
+    say(f"[tag kernels] edit_distance old bound (the DP's {OPS_EDIT_CELL} "
+        f"lane operations a cell over "
+        f"{_interior_cells(host[2], host[3])} cells): {old_b[0]:.4f} ms")
+    times = {"match_hits": _timing(*mc, b_hits, lib_ms),
+             "edit_distance": {**_timing(*ed, _edit_bound(host)),
+                               "kernel_ms": (k1 + k2) / 2}}
     for name in ("match_hits", "edit_distance"):
         say(f"[tag kernels] {name} bound {times[name]['bound_ms']:.4f} ms, "
             f"by {times[name]['bound_by']}")
+    del args
+    torch.cuda.empty_cache()
+    for P, L in EDIT_WIDE:
+        wide = edit_case(P, L, la_val=L)
+        wt = _turns(f"[tag kernels] edit_distance kernel at P={P} L={L} "
+                    f"la=lb={L}", _edit_kernel_call(wide[1]),
+                    lambda: tdist.edit_distance_reference(*wide[1]), 10)
+        wb = _edit_bound(wide[0])
+        say(f"[tag kernels] edit_distance bound at P={P} L={L}: "
+            f"{wb[0]:.4f} ms by {wb[1]}; the kernel at {wb[0] / wt[0]:.4f} "
+            f"of it")
+        del wide
+        torch.cuda.empty_cache()
+    args = [torch.from_numpy(x).to(dev) for x in host]
     t0 = time.time()
     myers = tdist._edit_distance_myers_host(*host)
     myers_ms = (time.time() - t0) * 1e3
@@ -1262,8 +1386,10 @@ def phase_edit_hits():
     check(int((ed.int() <= LEV_D).sum()) == hits,
           "edit_distance and edit_hits disagree on the group")
     ed_ms = _time_ms(lambda: tdist.edit_distance(a, bb, la, la), 20)
+    ek_ms = _time_ms(_edit_kernel_call((a, bb, la, la)), 20)
     say(f"[edit hits] edit_distance on the same {P} pairs in 32-byte rows: "
-        f"{ed_ms:.4f} ms per call (its rows gathered beforehand)")
+        f"{ed_ms:.4f} ms per call, its kernel alone {ek_ms:.4f} ms (its "
+        f"rows gathered beforehand)")
     del a, bb, la, ed, hh, lo
     return err, _timing(k_ms, p_ms, b)
 
@@ -2135,11 +2261,11 @@ def phase_known_list(workdir, bench):
 
 
 class _Routes:
-    """Context of correct_degenerate_groups's routing constants: `hits`
-    sets EDIT_HITS_MIN_PAIRS to 0 (the edit-hits route), `rows` to above
-    any call (the host route, edit_distance from DEVICE_MIN_PAIRS pairs),
-    `myers` sets DEVICE_MIN_PAIRS above any call as well (host Myers);
-    None keeps both."""
+    """Context of correct_degenerate_groups's routing: `hits` sets
+    EDIT_HITS_MIN_PAIRS to 0 (the edit-hits route), `rows` to above any
+    call (the host route, edit_distance on the card), `myers` as well and
+    puts the host Myers code in place of edit_distance_rows; None keeps
+    them."""
 
     def __init__(self, route):
         self.route = route
@@ -2148,19 +2274,27 @@ class _Routes:
         from clique_tpu_torch.collapse import correct as tcorrect
         from clique_tpu_torch.collapse import distance as tdist
 
-        self.saved = tcorrect.EDIT_HITS_MIN_PAIRS, tdist.DEVICE_MIN_PAIRS
+        self.saved = (tcorrect.EDIT_HITS_MIN_PAIRS,
+                      tcorrect.edit_distance_rows, tdist.edit_distance_rows)
         if self.route == "hits":
             tcorrect.EDIT_HITS_MIN_PAIRS = 0
         elif self.route in ("rows", "myers"):
             tcorrect.EDIT_HITS_MIN_PAIRS = 1 << 62
         if self.route == "myers":
-            tdist.DEVICE_MIN_PAIRS = 1 << 62
+            rows = self.saved[2]
+
+            def myers(a, b, la, lb, device="cuda"):
+                if a.shape[1] > tdist.MYERS_MAX_LEN:
+                    return rows(a, b, la, lb, device=device)
+                return tdist._edit_distance_myers_host(a, b, la, lb)
+            tcorrect.edit_distance_rows = tdist.edit_distance_rows = myers
 
     def __exit__(self, *exc):
         from clique_tpu_torch.collapse import correct as tcorrect
         from clique_tpu_torch.collapse import distance as tdist
 
-        tcorrect.EDIT_HITS_MIN_PAIRS, tdist.DEVICE_MIN_PAIRS = self.saved
+        (tcorrect.EDIT_HITS_MIN_PAIRS, tcorrect.edit_distance_rows,
+         tdist.edit_distance_rows) = self.saved
 
 
 def _correct_wall(batch, route=None):
@@ -2914,7 +3048,9 @@ def _plan_line(args, kw, kind):
                        adaptive=kw.get("adaptive") is not None)
     rings = "the global workspace" if plan.ring_global else "shared memory"
     where = (f"a persistent grid of <= {plan.grid} CTAs, rings in {rings}"
-             if plan.grid else f"a cluster of {plan.C} CTA(s) a pair")
+             if plan.grid else
+             f"the warp path, one warp a pair, {plan.wp} pairs a CTA"
+             if plan.wp else f"a cluster of {plan.C} CTA(s) a pair")
     return (f"plan C={plan.C} ({where}), {plan.steps} step(s) a barrier, "
             f"ring rows {plan.heights} of {plan.value_bytes} B, {plan.cw} "
             f"diagonals and {plan.threads} threads a CTA, {plan.smem} B of "
@@ -3444,6 +3580,7 @@ def phase_screen(workdir):
     against the plain version on its own pairs, and the largest timed."""
     import numpy as np
 
+    from clique_tpu_torch.align import wfa_kernels
     from clique_tpu_torch.align.pipeline import align_reads
     from clique_tpu_torch.io.sam import BamReader
 
@@ -3480,6 +3617,7 @@ def phase_screen(workdir):
                             metrics_path=metrics_path)
         seconds = time.time() - t0
         launches = _counts()
+        warp_launches = wfa_kernels.wfa_score_warp_launches
     with open(metrics_path) as fh:
         m = json.load(fh)
     with BamReader(out, parse_tags=False) as reader:
@@ -3494,6 +3632,10 @@ def phase_screen(workdir):
         f"wfa_align {launches['wfa_align']}")
     check(launches["wfa_score"] > 0 and m["kernel_launches"]["wfa_score"]
           == launches["wfa_score"], "the screen launched no wfa_score")
+    say(f"[screen] wfa_score launches on the warp path: {warp_launches} of "
+        f"{launches['wfa_score']}")
+    check(warp_launches == launches["wfa_score"],
+          "a screen launch left the warp path")
     check(m["wfa_screened_reads"] == N_SCREEN_READS,
           "a screen read missed the exhaustive path")
     check(right == len(routed) == N_SCREEN_READS,

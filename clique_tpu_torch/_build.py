@@ -160,11 +160,8 @@ def load() -> ctypes.CDLL:
         lib.clique_match_hits.restype = ci
         lib.clique_match_hits.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp,
                                           vp, ll, vp]
-        lib.clique_edit_distance_scratch_bytes.restype = ll
-        lib.clique_edit_distance_scratch_bytes.argtypes = [ci, ci]
         lib.clique_edit_distance.restype = ci
-        lib.clique_edit_distance.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                             vp]
+        lib.clique_edit_distance.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
         lib.clique_edit_hits_warps.restype = ci
         lib.clique_edit_hits_warps.argtypes = []
         lib.clique_edit_hits.restype = ci
@@ -180,10 +177,12 @@ def load() -> ctypes.CDLL:
         lib.clique_hmm_forward.argtypes = [vp, ci, vp, ci, vp, vp, cf, cf, cf,
                                            cf, cf, cf, cf, vp, vp, ci, ci, ci,
                                            vp]
-        for fn in (lib.clique_wfa_align, lib.clique_wfa_score):
-            fn.restype = ci
-            fn.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 18 + [ll] + \
-                [vp] * 6
+        lib.clique_wfa_align.restype = ci
+        lib.clique_wfa_align.argtypes = [vp, ci, vp, ci, vp, vp] + \
+            [ci] * 18 + [ll] + [vp] * 6
+        lib.clique_wfa_score.restype = ci
+        lib.clique_wfa_score.argtypes = [vp, ci, vp, ci, vp, vp] + \
+            [ci] * 18 + [ll] + [vp] * 3
         lib.clique_wfa_mid.restype = ci
         lib.clique_wfa_mid.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 12 + \
             [ll] + [vp] * 4

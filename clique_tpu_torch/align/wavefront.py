@@ -950,8 +950,9 @@ def wfa_screen_candidates(refs, reads, *, x: int = 4, o: int = 6,
     """Score-only candidate screen for exhaustive reference search
     (wavefront.py:2136-2173): the WFA penalty of each (ref, read) pair,
     censored at smax (censored pairs return smax + 1 and rank last), in
-    one wfa_score launch. model="affine2p" screens under the dual-affine
-    penalties."""
+    one wfa_score launch of exactly the P pairs (the JAX function pads P
+    to a power of two for XLA's compile reuse; the kernel needs no such
+    pad). model="affine2p" screens under the dual-affine penalties."""
     if not refs:
         return np.zeros(0, dtype=np.int32)
     P = len(refs)
@@ -959,9 +960,9 @@ def wfa_screen_candidates(refs, reads, *, x: int = 4, o: int = 6,
                         max(len(d) for d in reads)))
     if smax is None:
         smax = max(64, L // 2)
-    a, b, la, lb = _pad_pairs(refs, reads, _ceil_pow2(P), L)
+    a, b, la, lb = _pad_pairs(refs, reads, P, L)
     dev = _device(device)
     pen = wfa_kernels.wfa_score(
         *(torch.from_numpy(t).to(dev) for t in (a, b, la, lb)), smax=smax,
         model=model, x=x, o=o, e=e, o2=o2, e2=e2, wildcards=True)
-    return pen.cpu().numpy()[:P]
+    return pen.cpu().numpy()

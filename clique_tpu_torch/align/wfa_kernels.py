@@ -61,6 +61,8 @@ wfa_mid_launches = 0
 # launches whose rings did not fit the shared memory of a cluster of 8 CTAs
 # and lived in a global workspace instead (csrc/wfa_align.cu)
 wfa_global_ring_launches = 0
+# wfa_score launches on the warp path (one warp a pair)
+wfa_score_warp_launches = 0
 
 # csrc/wfa_align.cu's limits: an H100 block's shared memory, the threads of
 # a wfa_mid CTA and of the others', the cluster sizes, its control words
@@ -74,15 +76,20 @@ CTRL_INTS = 8
 COUNTER_INTS = 4
 L2_BYTES = 50 << 20
 SMS = 132
+# wfa_score's warp path (kWarpMaxK, kWarpPairs): the widest band one warp
+# takes, four diagonals a lane, and the pairs (warps) of a CTA at most
+WARP_MAX_K = 128
+WARP_PAIRS = 4
 
 
 def reset_counts() -> None:
     global wfa_align_launches, wfa_score_launches, wfa_mid_launches
-    global wfa_global_ring_launches
+    global wfa_global_ring_launches, wfa_score_warp_launches
     wfa_align_launches = 0
     wfa_score_launches = 0
     wfa_mid_launches = 0
     wfa_global_ring_launches = 0
+    wfa_score_warp_launches = 0
 
 
 def exact_kband(smax: int, opens_extends) -> int:
@@ -145,6 +152,14 @@ def seq_bytes(n: int) -> int:
     return ((n + 3) // 4 + 1) * 4
 
 
+def warp_slice(n1: int, n2: int, rows: int, K: int) -> int:
+    """Shared-memory bytes of one pair on wfa_score's warp path: both
+    sequences and the rings of all K diagonals (int values), no control
+    words, in 16-byte steps."""
+    return -(-(seq_bytes(n1) + seq_bytes(n2) + 4 * rows * (K + 2)) // 16) \
+        * 16
+
+
 class WfaPlan(NamedTuple):
     """How csrc/wfa_align.cu lays one launch out on the card."""
     steps: int         # score steps between two barriers
@@ -158,13 +173,15 @@ class WfaPlan(NamedTuple):
     ring_global: bool  # the rings in the global workspace
     ws_ints: int       # ints of one CTA's global workspace
     threads: int       # threads a CTA
+    wp: int = 0        # > 0: wfa_score's warp path, wp pairs (warps) a CTA
 
 
 @functools.lru_cache(maxsize=256)
 def wfa_plan(kind: str, model: str, n1: int, n2: int, B: int, smax: int,
              kmax: int, x: int, o: int, e: int, o2: int, e2: int,
              adaptive: bool = False, sms: int = SMS,
-             cluster: Optional[int] = None) -> WfaPlan:
+             cluster: Optional[int] = None,
+             warp: Optional[bool] = None) -> WfaPlan:
     """The layout of a wfa_align ("align"), wfa_score ("score") or wfa_mid
     ("mid") launch over B pairs of [n1] / [n2] rows at smax, K = 2 * kmax
     + 1 diagonals. A CTA holds both sequences, its control words, then the
@@ -181,9 +198,14 @@ def wfa_plan(kind: str, model: str, n1: int, n2: int, B: int, smax: int,
     workspaces of (at most B; the launch caps it at what the card holds at
     once). Where every lookback is 2 or more and the trim is off, two
     score steps run between barriers and each plane keeps one row more.
-    `cluster` forces C (0: the global workspace). Raises ValueError for a
-    lookback below 1 (x or an extend of 0), which the kernel's rings
-    cannot hold."""
+    `cluster` forces C (0: the global workspace). wfa_score takes the warp
+    path where the band fits a warp, K <= WARP_MAX_K (at most four
+    diagonals a lane), and one pair's slice (its rows and rings) fits:
+    WARP_PAIRS pairs a CTA, fewer where their slices would pass
+    SMEM_LIMIT, never more than B. `warp` forces it on (True, raising
+    where it does not apply) or off (False); a forced `cluster` keeps the
+    CTA path. Raises ValueError for a lookback below 1 (x or an extend of
+    0), which the kernel's rings cannot hold."""
     if min(x, e) < 1 or (model == "affine2p" and e2 < 1):
         raise ValueError("the kernels need x and every extend >= 1")
     steps = steps_of(model, x, e, e2, adaptive)
@@ -213,6 +235,19 @@ def wfa_plan(kind: str, model: str, n1: int, n2: int, B: int, smax: int,
         if cluster not in (None, 0, 1):
             raise ValueError("wfa_mid runs one CTA a pair")
         return persistent(cluster == 0 or smem(1) > SMEM_LIMIT)
+    if warp or (warp is None and cluster is None):
+        one = warp_slice(n1, n2, rows, K)
+        if kind == "score" and K <= WARP_MAX_K and one <= SMEM_LIMIT:
+            wp = WARP_PAIRS
+            while wp > 1 and wp * one > SMEM_LIMIT:
+                wp //= 2
+            wp = min(wp, max(1, B))
+            return WfaPlan(steps, heights, rows, 1, K, vb, wp * one, 0,
+                           False, 0, 32 * wp, wp)
+        if warp:
+            raise ValueError(f"{kind}: the warp path takes wfa_score "
+                             f"launches of K <= {WARP_MAX_K} whose rings "
+                             f"fit, not K = {K}")
     if cluster is None:
         C = next((c for c in CLUSTER_SIZES if smem(c) <= SMEM_LIMIT), 0)
         while C and C < CLUSTER_SIZES[-1] and -(-K // C) > MAX_THREADS \
@@ -639,6 +674,7 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
     traceback) or wfa_score and return (pen, ops, ops_fwd, fin), the last
     three None without traceback. Counts a launch where it makes one."""
     global wfa_align_launches, wfa_score_launches, wfa_global_ring_launches
+    global wfa_score_warp_launches
     from clique_tpu_torch import _build
 
     dev = reads.device
@@ -665,22 +701,28 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
         ring = _workspace(plan, dev) if B else None
     if B == 0:
         return pen, ops, ops_fwd, fin
-    fn = lib.clique_wfa_align if traceback else lib.clique_wfa_score
-    with torch.cuda.device(dev):
-        err = fn(
-            refs.data_ptr(), n1w, reads.data_ptr(), n2w, ref_lens.data_ptr(),
+    steps, hm, he1, he2, C, grid, ring_global = _layout_args(plan)
+    head = (refs.data_ptr(), n1w, reads.data_ptr(), n2w, ref_lens.data_ptr(),
             read_lens.data_ptr(), B, G, smax, Kmax, x, o, e, o2_, e2_,
-            int(bool(wildcards)), -1 if adaptive is None else int(adaptive),
-            *_layout_args(plan), plan.ws_ints,
-            ring.data_ptr() if ring is not None else None, pen.data_ptr(),
-            ops.data_ptr() if traceback else None,
-            ops_fwd.data_ptr() if traceback else None,
-            fin.data_ptr() if traceback else None, s.cuda_stream)
+            int(bool(wildcards)))
+    ring_ptr = ring.data_ptr() if ring is not None else None
+    with torch.cuda.device(dev):
+        if traceback:
+            err = lib.clique_wfa_align(
+                *head, -1 if adaptive is None else int(adaptive), steps, hm,
+                he1, he2, C, grid, ring_global, plan.ws_ints, ring_ptr,
+                pen.data_ptr(), ops.data_ptr(), ops_fwd.data_ptr(),
+                fin.data_ptr(), s.cuda_stream)
+        else:
+            err = lib.clique_wfa_score(
+                *head, steps, hm, he1, he2, C, plan.wp, grid, ring_global,
+                plan.ws_ints, ring_ptr, pen.data_ptr(), s.cuda_stream)
     _raise_on(err, "wfa_align" if traceback else "wfa_score")
     if traceback:
         wfa_align_launches += 1
     else:
         wfa_score_launches += 1
+        wfa_score_warp_launches += plan.wp > 0
     if plan.ring_global:
         wfa_global_ring_launches += 1
     return pen, ops, ops_fwd, fin

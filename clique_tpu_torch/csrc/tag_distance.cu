@@ -12,7 +12,8 @@
 //   the radius itself and writes only the hits.
 // - _edit_distance_kernel (:36-91): Levenshtein distance per row pair. The
 //   XLA version sweeps anti-diagonals over [P, L+1] lanes with a scan; here
-//   one thread owns one pair and keeps a rolling DP row.
+//   one thread owns one pair and runs the Myers/Hyyro bit-vector
+//   recurrence over it.
 // - the same kernel where collapse's degenerate correction calls it, fused
 //   with the pair preparation of clique_tpu/collapse/correct.py:273-399
 //   (triu or count-filtered pair enumeration, the count-ratio test) and
@@ -39,18 +40,30 @@
 //   ballot; hits go out as (u, k) i32 pairs in no order. One launch covers
 //   the whole U x K. Rows wider than 8 words (L > 128 at 2 bits) take a
 //   kernel with one tag a lane whose words stay in L1.
-// - edit distance: la*L cells of a few integer ops per pair, no reuse
-//   between pairs; at 2M pairs of 16 bp in 32-byte rows it reads 134 MB
-//   once. The integer pipe bounds it. Design: one thread per pair, the
-//   row of L+1 cells and the b row (packed four bytes a word) in registers
-//   for L <= 32, the rows of collapse's 16 bp cell barcodes (fully
-//   unrolled inner loop: 0.26 ms at 2M pairs against 0.80 ms for the
-//   local-memory row on an H100 80GB HBM3 at 700 W), a local-memory row
-//   up to kLocalEditLen beyond that, and past it a row of u8 cells in a
-//   device scratch the wrapper allocates, laid out [L + 1][P] so that
-//   neighbouring threads touch neighbouring bytes. Cells are capped at 255
-//   as they are computed: min and +1 are monotone, so the capped DP gives
-//   exactly min(d, 255).
+// - edit distance: at 2M pairs of 16 bp in 32-byte rows the function reads
+//   134 MB once (0.04 ms at 3.35 TB/s); a DP over la x lb cells per pair
+//   (the port's first kernel: a thread a pair, a rolling row, each thread
+//   reading its own rows byte by byte) took 0.37-0.42 ms there. Design: the
+//   Myers/Hyyro recurrence with no early exit, one thread a pair, the
+//   pattern a[:la] as bit-vector words and one column step a text byte of
+//   b[:lb]. Rows hold any byte, so a column's match mask is built in the
+//   kernel from the pattern's eight bit planes (plane k, bit i: bit k of
+//   a[i]; an 8 x 8 bit transpose a group of eight bytes, once a pair): the
+//   OR of plane_k ^ (bit k of b[j], replicated by one PRMT) is 1 exactly
+//   where a[i] != b[j]. A word takes one lop3 a plane, whatever the
+//   alphabet. The distance is read from the last column's vertical deltas,
+//   lb + popc(VP) - popc(VN) over rows below la: rows at or past la never
+//   feed rows below them (carries, shifts and the horizontal delta between
+//   words all move up), so bytes past la need no mask and columns past lb
+//   are never run. One 32-bit word for L <= 32 (collapse's tags), up to four
+//   64-bit words in registers up to kEditBandBytes, the words chained by
+//   the horizontal delta (Hyyro's blocks, as edlib's calculateBlock). A
+//   warp stages its 32 pairs' rows, each row block 32 L contiguous bytes,
+//   through shared memory with coalesced 16-byte loads. Past
+//   kEditBandBytes, bands of 256 pattern rows run one after another over
+//   the whole text; each column's horizontal delta out of a band (2 bits)
+//   waits in shared memory for the next band, so no device scratch is
+//   needed at any width. min(d, 255) is taken at the end.
 // - edit hits: the host used to enumerate every candidate pair, gather two
 //   32-byte rows a pair and read every distance back (1.0-1.4 s of host
 //   work for 3.66M pairs against 0.4 ms of kernel). Here the host uploads
@@ -84,8 +97,8 @@ constexpr int kHitThreads = 128;     // 4 warps a CTA
 constexpr int kHitTagWords = 8;      // tag words a lane holds (tags x words)
 constexpr int kHitWaves = 4;         // CTAs per SM the grid aims for, x 4
 constexpr int kEditThreads = 128;
-constexpr int kRegEditLen = 32;      // widest row the register kernel takes
-constexpr int kLocalEditLen = 256;   // widest row kept in local memory
+constexpr int kEditBandBytes = 256;  // pattern rows a band keeps in registers
+constexpr int kSmemLimit = 232448;   // an H100 block's shared memory
 constexpr int kEditHitWarps = 8;     // patterns (warps) a CTA of edit hits
 constexpr int kEditHitTileBytes = 32768;  // shared tile of partner codes
 constexpr int kEditHitPairSmem = 48 * 1024;  // Peq budget a pairs CTA
@@ -268,124 +281,423 @@ int launch_hits(const uint32_t* tw, const uint32_t* tm, const int* tr,
   return cudaGetLastError();
 }
 
-// Levenshtein distance of a[p, :la[p]] and b[p, :lb[p]], min(d, 255).
-// Row j of the rolling DP is D(i, j) for the first i bytes of a and the
-// first j bytes of b; columns past lb never feed columns at or below it,
-// so the unrolled loop computes all kRegEditLen columns and reads column
-// lb. For L <= kRegEditLen.
-__global__ void __launch_bounds__(kEditThreads)
-edit_distance_reg_kernel(const uint8_t* __restrict__ a,
-                         const uint8_t* __restrict__ b,
-                         const int* __restrict__ la,
-                         const int* __restrict__ lb,
-                         uint8_t* __restrict__ out, int P, int L) {
-  const int p = blockIdx.x * kEditThreads + threadIdx.x;
-  if (p >= P) return;
-  const uint8_t* arow = a + static_cast<size_t>(p) * L;
-  const uint8_t* brow = b + static_cast<size_t>(p) * L;
-  const int n = min(max(la[p], 0), L);
-  const int m = min(max(lb[p], 0), L);
-  uint32_t bw[kRegEditLen / 4];
-#pragma unroll
-  for (int w = 0; w < kRegEditLen / 4; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int c = 4 * w + k;
-      if (c < L) word |= static_cast<uint32_t>(brow[c]) << (8 * k);
-    }
-    bw[w] = word;
-  }
-  int row[kRegEditLen + 1];
-#pragma unroll
-  for (int j = 0; j <= kRegEditLen; ++j) row[j] = j;
-  for (int i = 1; i <= n; ++i) {
-    const uint32_t ai = arow[i - 1];
-    int diag = row[0];
-    row[0] = i;
-#pragma unroll
-    for (int j = 1; j <= kRegEditLen; ++j) {
-      const uint32_t bj = (bw[(j - 1) >> 2] >> (8 * ((j - 1) & 3))) & 0xffu;
-      const int up = row[j];
-      const int v = min(min(up, row[j - 1]) + 1, diag + (ai != bj ? 1 : 0));
-      diag = up;
-      row[j] = v;
-    }
-  }
-  int d = 0;
-#pragma unroll
-  for (int j = 0; j <= kRegEditLen; ++j)
-    if (j == m) d = row[j];
-  out[p] = static_cast<uint8_t>(d < 255 ? d : 255);
+// Four bytes from byte i of a shared-memory row (any alignment; reads up
+// to byte i + 7).
+__device__ __forceinline__ uint32_t smem_word(const uint8_t* row, int i) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(row) + i;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(at & ~uintptr_t(3));
+  return __funnelshift_r(w[0], w[1], 8 * static_cast<int>(at & 3));
 }
 
-// The same DP for kRegEditLen < L <= kLocalEditLen, with the row in local
-// memory.
+// The 8 x 8 bit transpose of eight bytes (byte i of x, bit j its bit j):
+// byte k of the result holds bit k of byte i at bit i.
+__device__ __forceinline__ uint64_t transpose8(uint64_t x) {
+  uint64_t t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
+  x ^= t ^ (t << 7);
+  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
+  x ^= t ^ (t << 14);
+  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
+  return x ^ t ^ (t << 28);
+}
+
+// The sign bit of a byte of {y, x} (bytes 0-3 of x, 4-7 of y) replicated
+// over each byte of the result, as selector s picks them (prmt with the
+// sign-replicate bit of each selector nibble).
+__device__ __forceinline__ uint32_t prmt_sign(uint32_t x, uint32_t y,
+                                              uint32_t s) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(y), "r"(s));
+  return r;
+}
+
+// The text word tw shifted so that bit k of each byte is the byte's top
+// bit: tk[k] = tw << (7 - k).
+__device__ __forceinline__ void text_word(uint32_t tw, uint32_t (&tk)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) tk[k] = tw << (7 - k);
+}
+
+// Bit k of byte j of the text word, replicated over 32 bits, for k =
+// 0..7: one prmt of tk[k] (text_word) each.
+__device__ __forceinline__ void text_bits(const uint32_t (&tk)[8], int j,
+                                          uint32_t (&m)[8]) {
+  const uint32_t sel = (8u + j) * 0x1111u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) m[k] = prmt_sign(tk[k], 0u, sel);
+}
+
+// A column's mismatch mask for patterns of at most 16 bytes: planes 2q and
+// 2q + 1 share a word pp[q] (2q's in the low half) and one prmt gives both
+// their bits of byte j, so four prmt and four lop3 build the mask. The
+// high half (rows 16-31) holds garbage, which never feeds rows below la.
+__device__ __forceinline__ uint32_t mismatch16(const uint32_t (&pp)[4],
+                                               const uint32_t (&tk)[8],
+                                               int j) {
+  const uint32_t sel = (8u + j) * 0x0011u | (12u + j) * 0x1100u;
+  uint32_t ne = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    ne |= pp[q] ^ prmt_sign(tk[2 * q], tk[2 * q + 1], sel);
+  return ne | (ne >> 16);
+}
+
+// The columns j = 0 .. m - 1 of the text row (shared memory), four a text
+// word: whole words every live lane runs (below mmin) without a test, then
+// the ragged rest (up to mmax) lane by lane. col(tk, j) runs one.
+template <class Col>
+__device__ __forceinline__ void text_columns(const uint8_t* brow, int m,
+                                             int mmin, int mmax, Col col) {
+  int j0 = 0;
+  for (; j0 + 4 <= mmin; j0 += 4) {
+    uint32_t tk[8];
+    text_word(smem_word(brow, j0), tk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) col(tk, j);
+  }
+  for (; j0 < mmax; j0 += 4) {
+    uint32_t tk[8];
+    text_word(smem_word(brow, j0), tk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j0 + j < m) col(tk, j);
+  }
+}
+
+// The pattern's bit planes in W words: pl[k][w] bit i is bit k of pattern
+// byte w * bits + i, for the groups of eight bytes below n (the rest 0).
+// read4(i) gives the four bytes i .. i + 3 as a little-endian word.
+template <typename Word, int W, class Read4>
+__device__ __forceinline__ void build_planes(Word (&pl)[8][W], int n,
+                                             Read4 read4) {
+  constexpr int kBits = 8 * sizeof(Word);
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) pl[k][w] = 0;
+#pragma unroll
+    for (int g = 0; g < kBits / 8; ++g) {
+      const int i = w * kBits + 8 * g;
+      if (i >= n) break;
+      const uint64_t y = transpose8(static_cast<uint64_t>(read4(i)) |
+                                    static_cast<uint64_t>(read4(i + 4)) << 32);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        pl[k][w] |= static_cast<Word>((y >> (8 * k)) & 0xffu) << (8 * g);
+    }
+  }
+}
+
+// One column of one word of the recurrence (edlib's calculateBlock): ne
+// the word's mismatch mask, pv / mv its vertical +1 / -1 deltas, hin the
+// horizontal delta into its lowest row (+1 in the first word: D(0, j) =
+// j). Returns the horizontal delta out of its top row.
+template <typename Word>
+__device__ __forceinline__ int myers_word(Word ne, Word& pv, Word& mv,
+                                          int hin) {
+  constexpr int kTop = 8 * sizeof(Word) - 1;
+  const Word hneg = hin < 0 ? Word(1) : Word(0);
+  const Word hpos = hin > 0 ? Word(1) : Word(0);
+  const Word eq = ~ne;
+  const Word xv = eq | mv;
+  const Word e = eq | hneg;
+  const Word xh = (((e & pv) + pv) ^ pv) | e;
+  Word ph = mv | ~(xh | pv);
+  Word mh = pv & xh;
+  const int hout = static_cast<int>(ph >> kTop) - static_cast<int>(mh >> kTop);
+  ph = (ph << 1) | hpos;
+  mh = (mh << 1) | hneg;
+  pv = mh | ~(xv | ph);
+  mv = ph & xv;
+  return hout;
+}
+
+// One column over the first nw of W words: the mismatch mask of each word
+// from the planes and the text byte's bits m, the words chained by their
+// horizontal deltas. Returns the delta out of the last word run.
+template <typename Word, int W>
+__device__ __forceinline__ int myers_column(const Word (&pl)[8][W],
+                                            const uint32_t (&m)[8], int nw,
+                                            Word (&pv)[W], Word (&mv)[W],
+                                            int hin) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    if (w >= nw) break;
+    Word ne = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      ne |= pl[k][w] ^ static_cast<Word>(static_cast<int32_t>(m[k]));
+    hin = myers_word<Word>(ne, pv[w], mv[w], hin);
+  }
+  return hin;
+}
+
+// The vertical deltas' sum over rows below n of W words (rows r0 ..).
+template <typename Word, int W>
+__device__ __forceinline__ int rows_sum(const Word (&pv)[W],
+                                        const Word (&mv)[W], int n) {
+  constexpr int kBits = 8 * sizeof(Word);
+  int d = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int r = n - w * kBits;
+    if (r <= 0) break;
+    const Word mask = r >= kBits ? ~Word(0) : (Word(1) << r) - Word(1);
+    d += __popcll(static_cast<unsigned long long>(pv[w] & mask)) -
+         __popcll(static_cast<unsigned long long>(mv[w] & mask));
+  }
+  return d;
+}
+
+// Shared-memory bytes of one staged row block of a warp: its 32 rows after
+// up to 15 bytes of misalignment, and the last row's pattern words, which
+// read W * bits + 3 bytes from its start.
+template <typename Word, int W>
+__host__ __device__ inline int edit_block_bytes(int L) {
+  return (31 * L + W * 8 * static_cast<int>(sizeof(Word)) + 32 + 15) / 16 *
+         16;
+}
+
+// Copy the bytes [first, first + n) of a tensor of `total` bytes at `base`
+// into dst (16-byte aligned) by the warp: asynchronous 16-byte copies
+// (cp.async, the caller commits and waits) of the aligned chunks that lie
+// inside the tensor, the tensor's ragged ends byte by byte. Returns where
+// byte `first` lands.
+__device__ __forceinline__ int stage_rows(const uint8_t* base, long long first,
+                                          long long n, long long total,
+                                          uint8_t* dst, int lane) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(base);
+  const uintptr_t hi = lo + static_cast<uintptr_t>(total);
+  const uintptr_t start = lo + static_cast<uintptr_t>(first);
+  const uintptr_t c0 = start & ~uintptr_t(15);
+  const int chunks = static_cast<int>((start + n - c0 + 15) / 16);
+  for (int i = lane; i < chunks; i += 32) {
+    const uintptr_t c = c0 + 16 * static_cast<uintptr_t>(i);
+    if (c >= lo && c + 16 <= hi) {
+      __pipeline_memcpy_async(dst + 16 * i, reinterpret_cast<const void*>(c),
+                              16);
+    } else {
+      for (int k = 0; k < 16; ++k)
+        if (c + k >= lo && c + k < hi)
+          dst[16 * i + k] = *reinterpret_cast<const uint8_t*>(c + k);
+    }
+  }
+  return static_cast<int>(start - c0);
+}
+
+// Levenshtein distance of a[p, :la[p]] and b[p, :lb[p]], min(d, 255), for
+// L <= W words of Word. Each warp takes blocks of 32 pairs, one after
+// another (block q of P / 32, then q + the grid's warps): it stages the
+// next block's rows of a and b into its other pair of shared-memory
+// buffers (cp.async) while its lanes run the current block's pairs: the
+// planes of each pattern once, then one column a text byte.
+template <typename Word, int W>
 __global__ void __launch_bounds__(kEditThreads)
-edit_distance_local_kernel(const uint8_t* __restrict__ a,
+edit_distance_kernel(const uint8_t* __restrict__ a,
+                     const uint8_t* __restrict__ b,
+                     const int* __restrict__ la,
+                     const int* __restrict__ lb,
+                     uint8_t* __restrict__ out, int P, int L) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int kBits = 8 * sizeof(Word);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long blocks = (static_cast<long long>(P) + 31) / 32;
+  const long long step =
+      static_cast<long long>(gridDim.x) * (kEditThreads / 32);
+  long long q = static_cast<long long>(blockIdx.x) * (kEditThreads / 32) +
+                warp;
+  if (q >= blocks) return;   // warp-uniform
+  const int blk = edit_block_bytes<Word, W>(L);
+  uint8_t* buf = smem + 4 * warp * blk;    // [buffer][a, b]
+  const long long total = static_cast<long long>(P) * L;
+  // stage block q into buffer s; its lengths into n, m (0 past P)
+  auto stage = [&](long long q, int s, int& oa, int& ob, int& n, int& m) {
+    const long long p0 = q * 32;
+    const long long bytes = min(32LL, P - p0) * L;
+    oa = stage_rows(a, p0 * L, bytes, total, buf + 2 * s * blk, lane);
+    ob = stage_rows(b, p0 * L, bytes, total, buf + (2 * s + 1) * blk, lane);
+    const bool live = p0 + lane < P;
+    n = live ? min(max(la[p0 + lane], 0), L) : 0;
+    m = live ? min(max(lb[p0 + lane], 0), L) : 0;
+  };
+  int oa, ob, n, m;
+  stage(q, 0, oa, ob, n, m);
+  __pipeline_commit();
+  for (int s = 0; q < blocks; q += step, s ^= 1) {
+    int noa = 0, nob = 0, nn = 0, nm = 0;
+    if (q + step < blocks) stage(q + step, s ^ 1, noa, nob, nn, nm);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);   // this block's rows have landed
+    __syncwarp();
+    const uint8_t* arow = buf + 2 * s * blk + oa + lane * L;
+    const uint8_t* brow = buf + (2 * s + 1) * blk + ob + lane * L;
+    // words and plane groups past the warp's longest pattern never run
+    const int nmax = __reduce_max_sync(kFull, n);
+    const int nw = (nmax + kBits - 1) / kBits;
+    const int mmax = __reduce_max_sync(kFull, m);
+    Word pl[8][W];
+    build_planes<Word, W>(pl, nmax, [&](int i) { return smem_word(arow, i); });
+    Word pv[W], mv[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      pv[w] = ~Word(0);
+      mv[w] = 0;
+    }
+    const int mmin = __reduce_min_sync(kFull, q * 32 + lane < P ? m : L);
+    bool done = false;
+    if constexpr (W == 1 && sizeof(Word) == 4) {
+      if (nmax <= 16) {   // collapse's tags: two planes a word
+        uint32_t pp[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          pp[k] = (pl[2 * k][0] & 0xffffu) | (pl[2 * k + 1][0] << 16);
+        text_columns(brow, m, mmin, mmax,
+                     [&](const uint32_t (&tk)[8], int j) {
+                       myers_word<Word>(mismatch16(pp, tk, j), pv[0], mv[0],
+                                        1);
+                     });
+        done = true;
+      }
+    }
+    if (!done)
+      text_columns(brow, m, mmin, mmax, [&](const uint32_t (&tk)[8], int j) {
+        uint32_t bits[8];
+        text_bits(tk, j, bits);
+        myers_column<Word, W>(pl, bits, nw, pv, mv, 1);
+      });
+    if (q * 32 + lane < P) {
+      const int d = m + rows_sum<Word, W>(pv, mv, n);
+      out[q * 32 + lane] = static_cast<uint8_t>(d < 255 ? d : 255);
+    }
+    __syncwarp();   // every lane is done with buffer s before it refills
+    oa = noa;
+    ob = nob;
+    n = nn;
+    m = nm;
+  }
+}
+
+// The same distance for L > kEditBandBytes: one thread a pair reading its
+// rows from global memory, the pattern in bands of kEditBandBytes rows
+// (four 64-bit words) run one after another over the whole text. The
+// horizontal deltas out of a band's top row, one a column, wait for the
+// next band in shared memory as two bit vectors (+1, -1) of cw 64-bit
+// words a thread, laid out [vector][word][thread].
+__global__ void __launch_bounds__(kEditThreads)
+edit_distance_bands_kernel(const uint8_t* __restrict__ a,
                            const uint8_t* __restrict__ b,
                            const int* __restrict__ la,
                            const int* __restrict__ lb,
-                           uint8_t* __restrict__ out, int P, int L) {
-  const int p = blockIdx.x * kEditThreads + threadIdx.x;
+                           uint8_t* __restrict__ out, int P, int L, int cw) {
+  extern __shared__ __align__(16) uint64_t hbits[];
+  constexpr int W = kEditBandBytes / 64;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
+  const int T = blockDim.x;
+  uint64_t* hp = hbits + threadIdx.x;
+  uint64_t* hn = hp + static_cast<size_t>(cw) * T;
   const uint8_t* arow = a + static_cast<size_t>(p) * L;
   const uint8_t* brow = b + static_cast<size_t>(p) * L;
   const int n = min(max(la[p], 0), L);
   const int m = min(max(lb[p], 0), L);
-  uint16_t row[kLocalEditLen + 1];
-  for (int j = 0; j <= m; ++j) row[j] = static_cast<uint16_t>(j);
-  for (int i = 1; i <= n; ++i) {
-    const uint8_t ai = arow[i - 1];
-    int diag = row[0];
-    row[0] = static_cast<uint16_t>(i);
-    for (int j = 1; j <= m; ++j) {
-      const int up = row[j];
-      const int v = min(min(up, static_cast<int>(row[j - 1])) + 1,
-                        diag + (ai != brow[j - 1] ? 1 : 0));
-      diag = up;
-      row[j] = static_cast<uint16_t>(v);
+  const int nb = (n + kEditBandBytes - 1) / kEditBandBytes;
+  int d = m;
+  for (int band = 0; band < nb; ++band) {
+    const int r0 = band * kEditBandBytes;
+    const bool last = band + 1 == nb;
+    const int nw = min(W, (n - r0 + 63) / 64);
+    uint64_t pl[8][W];
+    build_planes<uint64_t, W>(pl, n - r0, [&](int i) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (r0 + i + k < L) v |= static_cast<uint32_t>(__ldg(arow + r0 + i + k)) << (8 * k);
+      return v;
+    });
+    uint64_t pv[W], mv[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      pv[w] = ~0ull;
+      mv[w] = 0;
     }
+    uint64_t in_p = 0, in_n = 0, out_p = 0, out_n = 0;
+    for (int j = 0; j < m; ++j) {
+      const int q = j >> 6, bit = j & 63;
+      if (bit == 0 && band > 0) {
+        in_p = hp[static_cast<size_t>(q) * T];
+        in_n = hn[static_cast<size_t>(q) * T];
+      }
+      const int hin = band == 0 ? 1
+                                : static_cast<int>((in_p >> bit) & 1) -
+                                      static_cast<int>((in_n >> bit) & 1);
+      uint32_t tk[8], bits[8];
+      text_word(__ldg(brow + j), tk);
+      text_bits(tk, 0, bits);
+      const int hout = myers_column<uint64_t, W>(pl, bits, nw, pv, mv, hin);
+      if (!last) {
+        out_p |= static_cast<uint64_t>(hout > 0) << bit;
+        out_n |= static_cast<uint64_t>(hout < 0) << bit;
+        if (bit == 63 || j + 1 == m) {
+          hp[static_cast<size_t>(q) * T] = out_p;
+          hn[static_cast<size_t>(q) * T] = out_n;
+          out_p = out_n = 0;
+        }
+      }
+    }
+    d += rows_sum<uint64_t, W>(pv, mv, n - r0);
   }
-  const int d = row[m];
   out[p] = static_cast<uint8_t>(d < 255 ? d : 255);
 }
 
-// The same DP for L > kLocalEditLen: the row is u8 cells capped at 255 in
-// scratch[j * P + p].
-__global__ void __launch_bounds__(kEditThreads)
-edit_distance_scratch_kernel(const uint8_t* __restrict__ a,
-                             const uint8_t* __restrict__ b,
-                             const int* __restrict__ la,
-                             const int* __restrict__ lb,
-                             uint8_t* __restrict__ out,
-                             uint8_t* __restrict__ scratch, int P, int L) {
-  const int p = blockIdx.x * kEditThreads + threadIdx.x;
-  if (p >= P) return;
-  const uint8_t* arow = a + static_cast<size_t>(p) * L;
-  const uint8_t* brow = b + static_cast<size_t>(p) * L;
-  uint8_t* row = scratch + p;
-  const size_t step = static_cast<size_t>(P);
-  const int n = min(max(la[p], 0), L);
-  const int m = min(max(lb[p], 0), L);
-  for (int j = 0; j <= m; ++j) row[j * step] = static_cast<uint8_t>(min(j, 255));
-  for (int i = 1; i <= n; ++i) {
-    const uint8_t ai = arow[i - 1];
-    int diag = row[0];
-    int left = min(i, 255);
-    row[0] = static_cast<uint8_t>(left);
-    for (int j = 1; j <= m; ++j) {
-      const int up = row[j * step];
-      const int v = min(min(min(up, left) + 1,
-                            diag + (ai != brow[j - 1] ? 1 : 0)), 255);
-      diag = up;
-      left = v;
-      row[j * step] = static_cast<uint8_t>(v);
-    }
+template <typename Word, int W>
+int launch_edit(const uint8_t* a, const uint8_t* b, const int* la,
+                const int* lb, uint8_t* out, int P, int L, cudaStream_t s) {
+  // two buffers of a and b rows a warp
+  const int smem = 4 * (kEditThreads / 32) * edit_block_bytes<Word, W>(L);
+  auto kern = edit_distance_kernel<Word, W>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
   }
-  out[p] = row[m * step];
+  // no more CTAs than the card holds at once: each warp streams blocks
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kEditThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long need = (static_cast<long long>(P) + kEditThreads - 1) /
+                         kEditThreads;
+  const int blocks = static_cast<int>(
+      min(need, static_cast<long long>(per_sm) * sms));
+  kern<<<blocks, kEditThreads, smem, s>>>(a, b, la, lb, out, P, L);
+  return cudaGetLastError();
 }
 
+int launch_edit_bands(const uint8_t* a, const uint8_t* b, const int* la,
+                      const int* lb, uint8_t* out, int P, int L,
+                      cudaStream_t s) {
+  const int cw = (L + 63) / 64;
+  const long long per_thread = 16LL * cw;
+  int threads = kEditThreads;
+  while (threads > 1 && threads * per_thread > kSmemLimit) threads /= 2;
+  if (threads * per_thread > kSmemLimit) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(threads * per_thread);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        edit_distance_bands_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks = (static_cast<long long>(P) + threads - 1) / threads;
+  edit_distance_bands_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+                               s>>>(a, b, la, lb, out, P, L, cw);
+  return cudaGetLastError();
+}
 
 // Whether the Levenshtein distance of two w-byte code strings is at most
 // d: the pattern's Peq masks (bit i of peq[c * STRIDE] set iff pattern
@@ -649,41 +961,74 @@ extern "C" int clique_match_hits(const void* tag_words, const void* tag_masks,
   }
 }
 
-// Bytes of device scratch clique_edit_distance needs for P pairs of rows
-// L wide (0 where the row fits the registers or local memory).
-extern "C" long long clique_edit_distance_scratch_bytes(int P, int L) {
+// Four column steps (one text word) of edit_distance's 32-bit kernel and
+// nothing else: never launched for work, compiled (with external linkage,
+// so that it is kept) so that its SASS gives the operations of a column
+// step (chip_smoke.py). The planes, the vertical deltas and the text word
+// are loaded from fixed offsets and the deltas stored, so that besides the
+// recurrence and the match masks the probe holds loads, stores and moves.
+extern "C" __global__ void clique_edit_column_probe(const uint32_t* in,
+                                                    uint32_t* out) {
   using namespace clique_tag;
-  return L > kLocalEditLen ? static_cast<long long>(P) * (L + 1) : 0;
+  uint32_t pl[8][1];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) pl[k][0] = in[k];
+  uint32_t pv[1] = {in[8]}, mv[1] = {in[9]};
+  uint32_t tk[8];
+  text_word(in[10], tk);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t bits[8];
+    text_bits(tk, j, bits);
+    myers_column<uint32_t, 1>(pl, bits, 1, pv, mv, 1);
+  }
+  out[0] = pv[0];
+  out[1] = mv[0];
+}
+
+// The same four column steps for patterns of at most 16 bytes (two planes
+// a word, mismatch16), edit_distance's path at collapse's 16 bp tags.
+extern "C" __global__ void clique_edit_column_probe16(const uint32_t* in,
+                                                      uint32_t* out) {
+  using namespace clique_tag;
+  uint32_t pp[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) pp[q] = in[q];
+  uint32_t pv = in[8], mv = in[9];
+  uint32_t tk[8];
+  text_word(in[10], tk);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    myers_word<uint32_t>(mismatch16(pp, tk, j), pv, mv, 1);
+  out[0] = pv;
+  out[1] = mv;
 }
 
 // Launch the edit distance on `stream`: a, b [P, L] u8, la, lb [P] i32
-// (0 <= la, lb <= L, checked by the caller), out [P] u8, scratch of
-// clique_edit_distance_scratch_bytes(P, L) bytes (null where that is 0).
-// Returns the CUDA error of the launch.
+// (0 <= la, lb <= L, checked by the caller), out [P] u8. Rows of up to 32
+// bytes take one 32-bit word, up to 256 one to four 64-bit words, wider
+// rows bands of 256. Returns the CUDA error of the launch.
 extern "C" int clique_edit_distance(const void* a, const void* b,
                                     const void* la, const void* lb,
-                                    void* out, void* scratch, int P, int L,
-                                    void* stream) {
+                                    void* out, int P, int L, void* stream) {
   using namespace clique_tag;
-  if (P <= 0 || L <= 0 || (L > kLocalEditLen && scratch == nullptr))
-    return cudaErrorInvalidValue;
-  const int blocks = (P + kEditThreads - 1) / kEditThreads;
+  if (P <= 0 || L <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* pa = static_cast<const uint8_t*>(a);
   const uint8_t* pb = static_cast<const uint8_t*>(b);
   const int* pla = static_cast<const int*>(la);
   const int* plb = static_cast<const int*>(lb);
   uint8_t* po = static_cast<uint8_t*>(out);
-  if (L <= kRegEditLen)
-    edit_distance_reg_kernel<<<blocks, kEditThreads, 0, s>>>(
-        pa, pb, pla, plb, po, P, L);
-  else if (L <= kLocalEditLen)
-    edit_distance_local_kernel<<<blocks, kEditThreads, 0, s>>>(
-        pa, pb, pla, plb, po, P, L);
-  else
-    edit_distance_scratch_kernel<<<blocks, kEditThreads, 0, s>>>(
-        pa, pb, pla, plb, po, static_cast<uint8_t*>(scratch), P, L);
-  return cudaGetLastError();
+  if (L <= 32) return launch_edit<uint32_t, 1>(pa, pb, pla, plb, po, P, L, s);
+  if (L <= 64)
+    return launch_edit<unsigned long long, 1>(pa, pb, pla, plb, po, P, L, s);
+  if (L <= 128)
+    return launch_edit<unsigned long long, 2>(pa, pb, pla, plb, po, P, L, s);
+  if (L <= 192)
+    return launch_edit<unsigned long long, 3>(pa, pb, pla, plb, po, P, L, s);
+  if (L <= kEditBandBytes)
+    return launch_edit<unsigned long long, 4>(pa, pb, pla, plb, po, P, L, s);
+  return launch_edit_bands(pa, pb, pla, plb, po, P, L, s);
 }
 
 // Patterns a CTA of the group mode of clique_edit_hits takes (the block

@@ -50,6 +50,16 @@
 //   bytes that differ; the wildcard masks (__vcmpltu4 / __vcmpeq4: below
 //   '0' + 10, or 'N') only where four bytes differ and the pair holds a
 //   wildcard at all.
+// - wfa_score where the band fits a warp (K <= kWarpMaxK, up to four
+//   diagonals a lane): one warp a pair, W pairs a CTA (wfa_plan), each
+//   warp its own slice of shared memory (its pair's rows and rings, no
+//   control words). __syncwarp ends a barrier interval, the wildcard and
+//   done tests are ballots, and the steps' ring bookkeeping is issued once
+//   a pair; the cell code is run_pair's, the same as wfa_align's. Its
+//   launch bounds let an SM hold kWarpCtas CTAs of kWarpPairs warps, so a
+//   launch of 4,096 pairs fits the 132 SMs in one wave. It beat wfa_kernel
+//   run as one-warp CTAs under the same 32 warps an SM at the screen's
+//   launch (profile_wfa.py variant cta32), so it stays a kernel of its own.
 // - wfa_align and wfa_score: one CTA a pair, its rings in shared memory;
 //   a thread-block cluster of C CTAs a pair where the rings need it or a
 //   small launch leaves SMs idle (wfa_plan: C = 1, 2, 4 or 8). Each CTA
@@ -104,6 +114,13 @@ constexpr int kMaxThreads = 512;
 constexpr int kMidThreads = 1024;
 constexpr int kSmemLimit = 232448;  // an H100 block's shared memory
 constexpr int kMaxCluster = 8;      // the portable cluster size
+// wfa_score's warp path: the widest band it takes (four diagonals a lane),
+// pairs (warps) a CTA at most, and the CTAs an SM holds at its launch
+// bounds (32 warps: 4,096 pairs on 132 SMs in one wave)
+constexpr int kWarpMaxK = 128;
+constexpr int kWarpPairs = 4;
+constexpr int kWarpCtas = 8;
+constexpr unsigned kFull = 0xffffffffu;
 // control words: [0] [1] the done step, [2] [3] the trim's maximum, each
 // by the parity of the barrier interval (a thread that reads interval i's
 // word after its barrier cannot see interval i + 1's write), [4] wfa_mid's
@@ -125,6 +142,9 @@ struct Params {
   int grid;          // > 0: a persistent grid of at most grid CTAs
   int ring_global;   // the M, I, D rings in the global workspace
   long long ws_ints; // ints of one CTA's global workspace
+  // > 0: wfa_score's warp path, wp pairs (warps) a CTA; last, so that the
+  // CTA path's kernels read every other field where they did without it
+  int wp;
 };
 
 struct Bufs {
@@ -147,7 +167,7 @@ __host__ __device__ inline int seq_bytes(int n) { return ((n + 3) / 4 + 1) * 4; 
 // Values of one CTA's M, I, D rings: every plane's rows of its cw
 // diagonals between two halo columns (wfa_mid's payload planes, as many
 // rows of ints, live in the global workspace).
-__host__ inline long long cta_ring_values(const Params& p, int G) {
+__host__ __device__ inline long long cta_ring_values(const Params& p, int G) {
   return (long long)(p.hm + 2 * p.he1 + (G == 2 ? 2 * p.he2 : 0)) *
          (p.cw + 2);
 }
@@ -169,6 +189,13 @@ __host__ inline long long cta_smem(const Params& p, int G, bool tb,
       p.ring_global ? 0 : (value * cta_ring_values(p, G) + 3) / 4 * 4;
   return seq_bytes(p.n1) + seq_bytes(p.n2) + 4LL * kCtrlInts +
          std::max(rings, walk);
+}
+
+// Shared memory of one warp's pair on wfa_score's warp path: the
+// sequences and its rings, no control words (16-byte multiple).
+__host__ __device__ inline long long warp_slice(const Params& p, int G) {
+  return (seq_bytes(p.n1) + seq_bytes(p.n2) + 4 * cta_ring_values(p, G) +
+          15) / 16 * 16;
 }
 
 __device__ __forceinline__ uint32_t load4(const uint8_t* base, int i) {
@@ -422,6 +449,13 @@ __device__ __forceinline__ void put(const Rings<G, RT>& R, const Params& p,
   }
 }
 
+// The step at which some lane of the warp saw the pair done (mine: this
+// lane's, -1 if none), the same in every lane; -1 if none did.
+__device__ __forceinline__ int warp_done(int mine) {
+  const unsigned hit = __ballot_sync(kFull, mine >= 0);
+  return hit ? __shfl_sync(kFull, mine, __ffs(hit) - 1) : -1;
+}
+
 // One pair: its CTA (or one of the C CTAs of its cluster, `rank`) holds
 // diagonal indices rank * cw .. rank * cw + cw - 1 in local slots li. ring:
 // the M, I, D planes (shared memory, or the CTA's global workspace); pays:
@@ -429,11 +463,24 @@ __device__ __forceinline__ void put(const Rings<G, RT>& R, const Params& p,
 // run between two barriers: every lookback is at least kSteps (the host
 // passes 2 where x and the extends allow it and the trim is off), so a
 // step never reads a row written in its own interval, and each plane keeps
-// its longest lookback + kSteps rows.
-template <int G, bool kTb, bool kMid, int kSteps, class RT>
+// its longest lookback + kSteps rows. kWarp (wfa_score's warp path): the
+// pair is one warp's, smem its slice (sequences, then the rings), its
+// barriers __syncwarp and its done step and wildcard test ballots, so no
+// control words are kept.
+template <int G, bool kTb, bool kMid, int kSteps, class RT,
+          bool kWarp = false>
 __device__ void run_pair(const Bufs& g, const Params& p, int b,
                          uint8_t* smem, RT* ring, int* pays, int rank) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+  static_assert(!kWarp || (!kTb && !kMid), "the warp path is wfa_score's");
+  const int tid = kWarp ? threadIdx.x & 31 : threadIdx.x;
+  const int nt = kWarp ? 32 : blockDim.x;
+  // a barrier interval's end: the rings written in it are seen by all
+  auto sync = [&] {
+    if constexpr (kWarp)
+      __syncwarp();
+    else
+      sync_pair(p);
+  };
   const int K = p.K, kmax = p.kmax;
   const int S1 = p.smax + 1;
   const int l1 = g.ref_lens[b], l2 = g.read_lens[b];
@@ -454,7 +501,7 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
   const int sa = seq_bytes(p.n1), sb = seq_bytes(p.n2);
   uint8_t* sref = smem;
   uint8_t* sread = smem + sa;
-  int* ctrl = reinterpret_cast<int*>(smem + sa + sb);
+  int* ctrl = kWarp ? nullptr : reinterpret_cast<int*>(smem + sa + sb);
   bool any_wild = false;
   for (int i = tid; i < sa; i += nt) {
     const int c = i < l1 ? g.refs[(size_t)b * p.n1 + i] : 0;
@@ -467,7 +514,13 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
     any_wild |= i < l2 && wild1(c);
   }
   // wildcards only cost where the pair holds one
-  const bool wild = p.wildcards != 0 && __syncthreads_or(any_wild);
+  bool wild;
+  if constexpr (kWarp) {
+    __syncwarp();
+    wild = p.wildcards != 0 && __any_sync(kFull, any_wild);
+  } else {
+    wild = p.wildcards != 0 && __syncthreads_or(any_wild);
+  }
   const int rw = p.cw + 2;                 // values of a ring row
   const int k0 = rank * p.cw;              // the slice's first diagonal index
   const int he[2] = {p.he1, p.he2};
@@ -489,7 +542,7 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
   for (int i = tid; i < rn; i += nt) st(&ring[i], kN);
   if (kMid)
     for (int i = tid; i < rn; i += nt) pays[i] = -1;
-  if (tid == 0) {
+  if (!kWarp && tid == 0) {
     ctrl[0] = ctrl[1] = ctrl[4] = -1;
     ctrl[2] = ctrl[3] = kNeg;
   }
@@ -499,20 +552,32 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
   const int mid = (l1 + l2) / 2;
   // the done step (and wfa_mid's payload at it) into every CTA's control
   // words (slot sl, the parity of the barrier interval), read by all after
-  // the interval's barrier
+  // the interval's barrier; on the warp path into the lane's own mine
+  int mine = -1;
   auto set_done = [&](int sl, int s, int pay) {
-    for (int r = 0; r < p.C; ++r) {
-      int* c = at_rank(ctrl, r, p);
-      c[sl] = s;
-      if (kMid) c[4] = pay;
+    if constexpr (kWarp) {
+      if (mine < 0) mine = s;
+    } else {
+      for (int r = 0; r < p.C; ++r) {
+        int* c = at_rank(ctrl, r, p);
+        c[sl] = s;
+        if (kMid) c[4] = pay;
+      }
     }
+  };
+  // the done step after an interval's barrier, -1 while the pair runs
+  auto done_at = [&](int sl) {
+    if constexpr (kWarp)
+      return warp_done(mine);
+    else
+      return ctrl[sl];
   };
   int negs[G];
 #pragma unroll
   for (int h = 0; h < G; ++h) negs[h] = kN;
   int ce[2] = {0, 0};
 
-  sync_pair(p);   // every CTA's rings are clear before a halo is written
+  sync();   // every CTA's rings are clear before a halo is written
   if (tid == 0 && kmax >= k0 && kmax < k0 + p.cw) {
     // s = 0: diagonal 0 from offset 0, extended, in the CTA that holds it
     const int m0 = extend_run(sref, sread, 0, 0, min(l1, l2), wild);
@@ -520,8 +585,8 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
     put<G, kMid>(R, p, kmax - k0, rank, 0, ce, m0, negs, negs, p0, -1, -1);
     if (target_ok && tli == kmax - k0 && m0 >= l1) set_done(0, 0, p0);
   }
-  sync_pair(p);
-  int result = ctrl[0];
+  sync();
+  int result = done_at(0);
   const int o_e[2] = {p.o1 + p.e1, p.o2 + p.e2};
   const int e_[2] = {p.e1, p.e2};
   const int o_[2] = {p.o1, p.o2};
@@ -599,7 +664,7 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
         int wce[2] = {we[dt][0], we[dt][G - 1]};
         put<G, kMid>(R, p, li, rank, wm[dt], wce, m, ni, nd, pm, pi, pd);
         if (kTb) g.ops[((size_t)s1 * p.B + b) * K + li + k0] = op;
-        if (p.adaptive >= 0) {
+        if (!kWarp && p.adaptive >= 0) {
           if (m > kN) best = max(best, 2 * m - k);
         } else if (li == tli && target_ok && m >= l1 && !done_here) {
           done_here = true;
@@ -607,7 +672,7 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
         }
       }
     }
-    if (p.adaptive >= 0) {
+    if (!kWarp && p.adaptive >= 0) {
       // wf-adaptive trim (kSteps is 1): drop diagonals whose antidiagonal
       // progress 2h - k lags the pair's best by more than the margin
       const int s1 = s0;
@@ -638,8 +703,8 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
       }
       if (tid == 0) ctrl[2 + (sl ^ 1)] = kNeg;
     }
-    sync_pair(p);
-    result = ctrl[sl];
+    sync();
+    result = done_at(sl);
   }
   const int score = result < 0 ? p.smax + 1 : result;
   if (rank != 0) return;   // no CTA reads another's shared memory any more
@@ -701,8 +766,42 @@ __global__ void __launch_bounds__(kMid ? kMidThreads : kMaxThreads, 1)
   }
 }
 
+// wfa_score's warp path: warp w of CTA c runs pair c * p.wp + w in its
+// own slice of shared memory.
+template <int G, int kSteps>
+__global__ void __launch_bounds__(kWarpPairs * 32, kWarpCtas)
+    wfa_score_warp_kernel(const Bufs g, const Params p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * p.wp + warp;
+  if (b >= p.B) return;   // the whole warp
+  uint8_t* slice = smem + warp * warp_slice(p, G);
+  int* ring =
+      reinterpret_cast<int*>(slice + seq_bytes(p.n1) + seq_bytes(p.n2));
+  run_pair<G, false, false, kSteps, int, true>(g, p, b, slice, ring, nullptr,
+                                               0);
+}
+
+template <int G, int kSteps>
+int launch_warp(const Bufs& g, const Params& p, cudaStream_t stream) {
+  const long long smem_ll = p.wp * warp_slice(p, G);
+  if (smem_ll > kSmemLimit) return cudaErrorInvalidValue;
+  const int smem = static_cast<int>(smem_ll);
+  auto kern = wfa_score_warp_kernel<G, kSteps>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<(p.B + p.wp - 1) / p.wp, 32 * p.wp, smem, stream>>>(g, p);
+  return cudaGetLastError();
+}
+
 template <int G, bool kTb, bool kMid, int kSteps, class RT>
 int launch(const Bufs& g, Params p, cudaStream_t stream) {
+  if constexpr (!kTb && !kMid) {
+    if (p.wp > 0) return launch_warp<G, kSteps>(g, p, stream);
+  }
   const long long smem_ll = cta_smem(p, G, kTb, kMid, sizeof(RT));
   if (smem_ll > kSmemLimit) return cudaErrorInvalidValue;
   const int smem = static_cast<int>(smem_ll);
@@ -771,7 +870,8 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
         int n2, const void* ref_lens, const void* read_lens, int B, int G,
         int smax, int kmax, int x, int o1, int e1, int o2, int e2,
         int wildcards, int adaptive, int steps, int hm, int he1, int he2,
-        int C, int grid, int ring_global, long long ws_ints, void* ring_ws,
+        int C, int wp, int grid, int ring_global, long long ws_ints,
+        void* ring_ws,
         void* pen, void* ops, void* ops_fwd, void* fin, void* pay,
         void* stream) {
   if (B <= 0 || n1 < 1 || n2 < 1 || smax < 0 || kmax < 0 ||
@@ -795,6 +895,10 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
     return cudaErrorInvalidValue;
   const int K = 2 * kmax + 1;
   if (C != 1 && C != 2 && C != 4 && C != kMaxCluster) return cudaErrorInvalidValue;
+  // the warp path: score only, one warp a pair, a band of kWarpMaxK
+  if (wp < 0 || (wp > 0 && (tb || mid || C != 1 || grid || K > kWarpMaxK ||
+                            wp > kWarpPairs)))
+    return cudaErrorInvalidValue;
   if (grid < 0 || (grid > 0 && C != 1) || (grid > 0) != (ring_ws != nullptr) ||
       (ring_global && !grid) || (mid && !grid))
     return cudaErrorInvalidValue;
@@ -803,8 +907,8 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
   if (tb && (!ops || !ops_fwd || !fin)) return cudaErrorInvalidValue;
   if (mid && (tb || G != 1 || !pay)) return cudaErrorInvalidValue;
   const Params p{n1, n2, B, smax, kmax, K, x, o1, e1, o2, e2, hm, he1, he2,
-                 wildcards, adaptive, C, (K + C - 1) / C, grid, ring_global,
-                 ws_ints};
+                 wildcards, adaptive, C, (K + C - 1) / C, grid,
+                 ring_global, ws_ints, wp};
   if (grid && ws_ints < cta_ws_ints(p, G, mid)) return cudaErrorInvalidValue;
   const Bufs g{static_cast<const uint8_t*>(refs),
                static_cast<const uint8_t*>(reads),
@@ -942,27 +1046,27 @@ extern "C" int clique_wfa_align(const void* refs, int n1, const void* reads,
                                 void* ops_fwd, void* fin, void* stream) {
   return clique_wfa::run(true, false, refs, n1, reads, n2, ref_lens,
                          read_lens, B, G, smax, kmax, x, o1, e1, o2, e2,
-                         wildcards, adaptive, steps, hm, he1, he2, C, grid,
+                         wildcards, adaptive, steps, hm, he1, he2, C, 0, grid,
                          ring_global, ws_ints, ring_ws, pen, ops, ops_fwd,
                          fin, nullptr, stream);
 }
 
-// Launch wfa_score: the arguments of clique_wfa_align, with ops, ops_fwd
-// and fin null and adaptive ignored.
+// Launch wfa_score: the arguments of clique_wfa_align without the trim and
+// the outputs but the penalties, and wp: > 0 for the warp path (one warp a
+// pair, wp pairs a CTA, C 1, no persistent grid, K <= 128; wfa_plan).
 extern "C" int clique_wfa_score(const void* refs, int n1, const void* reads,
                                 int n2, const void* ref_lens,
                                 const void* read_lens, int B, int G, int smax,
                                 int kmax, int x, int o1, int e1, int o2,
-                                int e2, int wildcards, int adaptive, int steps,
-                                int hm, int he1, int he2, int C, int grid,
+                                int e2, int wildcards, int steps, int hm,
+                                int he1, int he2, int C, int wp, int grid,
                                 int ring_global, long long ws_ints,
-                                void* ring_ws, void* pen, void* ops,
-                                void* ops_fwd, void* fin, void* stream) {
+                                void* ring_ws, void* pen, void* stream) {
   return clique_wfa::run(false, false, refs, n1, reads, n2, ref_lens,
                          read_lens, B, G, smax, kmax, x, o1, e1, o2, e2,
-                         wildcards, adaptive, steps, hm, he1, he2, C, grid,
-                         ring_global, ws_ints, ring_ws, pen, ops, ops_fwd,
-                         fin, nullptr, stream);
+                         wildcards, -1, steps, hm, he1, he2, C, wp, grid,
+                         ring_global, ws_ints, ring_ws, pen, nullptr, nullptr,
+                         nullptr, nullptr, stream);
 }
 
 // Launch wfa_mid, the gap-affine midpoint fill of the bialign engine:
@@ -983,7 +1087,7 @@ extern "C" int clique_wfa_mid(const void* refs, int n1, const void* reads,
                               void* stream) {
   return clique_wfa::run(false, true, refs, n1, reads, n2, ref_lens,
                          read_lens, B, 1, smax, kmax, x, o, e, 0, 0,
-                         wildcards, -1, steps, hm, he, 0, 1, grid,
+                         wildcards, -1, steps, hm, he, 0, 1, 0, grid,
                          ring_global, ws_ints, ring_ws, pen, nullptr,
                          nullptr, nullptr, pay, stream);
 }

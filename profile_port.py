@@ -6,7 +6,8 @@ in turns.
     python3 profile_port.py hamming [--tags 25000] [--reps 3] [ROOT ...]
     python3 profile_port.py local [--reps 5] [ROOT ...]
     python3 profile_port.py hmm [--reps 5] [ROOT ...]
-    python3 profile_port.py wfa [--reps 5] [ROOT ...]
+    python3 profile_port.py wfa [--reps 5] [--shapes WORD,...] [ROOT ...]
+    python3 profile_port.py edit [--reps 5] [ROOT ...]
 
 Each ROOT (default: this checkout) is the root of a checkout of the repo;
 its clique_tpu_torch is imported and its kernels built in a process of its
@@ -60,9 +61,25 @@ results must agree between roots. Imports no jax. The workloads:
   bialign engine's top rung (the first 991 reads, L=4,224, smax 4,096);
   a bialign leaf chunk (B=64 windows of 300-512 bases of the reference
   against their ONT reads, L=512, smax 10 + 2L); the hifi launch (B=512,
-  L=384, smax 96: a 342 bp reference at 0.5% substitutions) and the
-  screen's wfa_score (B=4,096, L=114, smax 64). Penalties, skeletons, end
-  rows and payloads must agree.
+  L=384, smax 96: a 342 bp reference at 0.5% substitutions), the
+  screen's wfa_score (B=4,096, L=114, smax 64: the warp path) and
+  wfa_score at chip_smoke.py's bench_wfa shape in both penalty models
+  (B=1,024, L=512, smax 192, no wildcards: the CTA path). Each shape also
+  by its kernel's device time under torch.profiler over as many calls.
+  `--shapes` keeps the shapes whose names hold one of its comma-separated
+  words ("wfa_score", "rung" ...). Penalties, skeletons, end rows and
+  payloads must agree.
+- edit: edit_distance (collapse's Levenshtein kernel) at P=2,097,152 rows
+  of L=32 with la=lb=16 (16 bp tags in 32-byte rows, ACGTN- with 10%
+  substitutions), P=2,097,152 of L=80 and P=262,144 of L=300 (full rows):
+  the wrapper (its length check included) by CUDA events around `--reps`
+  calls after one warm-up call, and the kernel alone by its device time
+  under torch.profiler over as many calls; then the two
+  routes of edit_distance_rows at L=32, la=lb=16, P from 1 to 2,097,152:
+  the host Myers code against the card's route with its transfers
+  (rows up, distances back), host clock, in turns (host, card, card,
+  host): why every call on a CUDA device takes the card. Distances must agree
+  between the routes and the roots.
 """
 
 import argparse
@@ -385,6 +402,10 @@ def _wfa_shapes():
         screen.append((a.tobytes(), r.tobytes()))
     shapes.append(("wfa_score screen B=4,096 L=114", "score",
                    pad(screen, 4096, 114), dict(smax=64, **pen)))
+    bench = cs._wfa_pairs(np.random.default_rng(3), 1024)
+    for model in ("affine", "affine2p"):
+        shapes.append((f"wfa_score bench_wfa {model} B=1,024 L=512", "score",
+                       bench, dict(smax=192, model=model, **cs.WFA_PEN)))
     return shapes
 
 
@@ -398,7 +419,10 @@ def run_wfa(root, args):
     dev = torch.device("cuda", 0)
     times, digests = {}, []
     fns = {"align": wk.wfa_align, "score": wk.wfa_score, "mid": wk.wfa_mid}
+    words = [w for w in args.shapes.split(",") if w]
     for name, kind, host, kw in _wfa_shapes():
+        if words and not any(w in name for w in words):
+            continue
         inputs = [torch.from_numpy(a).to(dev) for a in host]
 
         def call():
@@ -406,6 +430,8 @@ def run_wfa(root, args):
 
         key = f"{name} smax={kw['smax']} ms"
         times[key] = [_event_ms(call, args.reps)]
+        dkey = f"{name} smax={kw['smax']} device ms"
+        times[dkey] = [_device_ms(call, args.reps, "wfa_")]
         out = call()
         out = out if isinstance(out, tuple) else (out,)
         if kind == "align":
@@ -414,14 +440,114 @@ def run_wfa(root, args):
         for t in out:
             h.update(t.cpu().numpy().tobytes())
         digests.append(h.hexdigest()[:16])
-        print(f"{key}: {times[key][0]}, outputs {digests[-1]}", flush=True)
+        print(f"{key}: {times[key][0]} (on the card {times[dkey][0]}), "
+              f"outputs {digests[-1]}", flush=True)
         del inputs, out
         torch.cuda.empty_cache()
     return {"times": times, "check": digests}
 
 
+EDIT_SHAPES = ((2_097_152, 32, 16), (2_097_152, 80, 80), (262_144, 300, 300))
+EDIT_ROUTE_PAIRS = (1, 4, 16, 64, 256, 1024, 4096, 16384, 65536, 262_144,
+                    1_048_576, 2_097_152)
+
+
+def _edit_rows(P, L, la, seed):
+    """[P, L] rows a and b (ACGTN-, b with 10% substitutions and every
+    seventh row redrawn) and la = lb = `la`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGTN-", dtype=np.uint8)
+    a = alphabet[rng.integers(0, 6, (P, L), dtype=np.uint8)]
+    b = a.copy()
+    b[rng.random((P, L), dtype=np.float32) < 0.1] = ord("A")
+    b[::7] = alphabet[rng.integers(0, 6, b[::7].shape, dtype=np.uint8)]
+    lens = np.full(P, la, np.int32)
+    return a, b, lens, lens.copy()
+
+
+def _device_ms(fn, reps, name):
+    """Device time a call of the kernels whose names hold `name`, by
+    torch.profiler over `reps` calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or
+             getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if name in e.key)
+    if not us:
+        raise SystemExit(f"the profiler saw no {name} kernel")
+    return us / reps / 1e3
+
+
+def run_edit(root, args):
+    """edit_distance at three widths (CUDA events), then the two routes
+    of edit_distance_rows by P (host clock, in turns)."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.collapse import distance as tdist
+
+    dev = torch.device("cuda", 0)
+    times, digests = {}, []
+    for P, L, la in EDIT_SHAPES:
+        host = _edit_rows(P, L, la, L)
+        args_ = [torch.from_numpy(x).to(dev) for x in host]
+        n0 = tdist.edit_distance_launches
+        key = f"edit_distance P={P} L={L} ms"
+        times[key] = [_event_ms(lambda: tdist.edit_distance(*args_),
+                                args.reps)]
+        kkey = f"edit_distance P={P} L={L} kernel ms"
+        times[kkey] = [_device_ms(lambda: tdist.edit_distance(*args_),
+                                  args.reps, "edit_distance")]
+        out = tdist.edit_distance(*args_).cpu().numpy()
+        digests.append(hashlib.sha256(out.tobytes()).hexdigest()[:16])
+        print(f"{key}: {times[key][0]} (the kernel {times[kkey][0]}), "
+              f"{tdist.edit_distance_launches - n0} launches, distances "
+              f"{digests[-1]}", flush=True)
+        del args_
+        torch.cuda.empty_cache()
+    saved = tdist.DEVICE_MIN_PAIRS
+    tdist.DEVICE_MIN_PAIRS = 0        # older trees' CUDA route reads it
+    for P in EDIT_ROUTE_PAIRS:
+        host = _edit_rows(P, 32, 16, P)
+        reps = max(1, min(50, (1 << 18) // P))
+
+        def route(on_card):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                d = tdist.edit_distance_rows(*host, device="cuda") \
+                    if on_card else tdist._edit_distance_myers_host(*host)
+            return d, (time.perf_counter() - t0) / reps * 1e3
+
+        route(True)                                   # warm the card path
+        h1, host1 = route(False)
+        c1, card1 = route(True)
+        c2, card2 = route(True)
+        h2, host2 = route(False)
+        if not (np.array_equal(h1, c1) and np.array_equal(h1, c2)
+                and np.array_equal(h1, h2)):
+            raise SystemExit(f"the two routes disagree at P={P}")
+        digests.append(hashlib.sha256(h1.tobytes()).hexdigest()[:16])
+        times[f"rows route P={P} host ms"] = [host1, host2]
+        times[f"rows route P={P} card ms"] = [card1, card2]
+        print(f"edit_distance_rows P={P} L=32: host Myers {host1} / {host2} "
+              f"ms, card with transfers {card1} / {card2} ms "
+              f"({reps} calls a turn)", flush=True)
+    tdist.DEVICE_MIN_PAIRS = saved
+    return {"times": times, "check": digests}
+
+
 WORKLOADS = {"align": run_align, "hamming": run_hamming, "local": run_local,
-             "hmm": run_hmm, "wfa": run_wfa}
+             "hmm": run_hmm, "wfa": run_wfa, "edit": run_edit}
 
 
 def child(root, args):
@@ -448,8 +574,10 @@ def main():
     ap.add_argument("--runs", type=int, default=3, help="align: warm runs")
     ap.add_argument("--reads", type=int, default=80_000, help="align")
     ap.add_argument("--tags", type=int, default=25_000, help="hamming")
+    ap.add_argument("--shapes", default="", help="wfa: words of the shapes "
+                    "to run (comma-separated; default all)")
     ap.add_argument("--reps", type=int, default=None,
-                    help="hamming (default 3), local, hmm and wfa "
+                    help="hamming (default 3), local, hmm, wfa and edit "
                          "(default 5)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*", default=[HERE])
@@ -467,8 +595,8 @@ def main():
         raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
     flags = [args.workload, "--child", "--runs", str(args.runs), "--reads",
-             str(args.reads), "--tags", str(args.tags), "--reps",
-             str(args.reps)]
+             str(args.reads), "--tags", str(args.tags), "--shapes",
+             args.shapes, "--reps", str(args.reps)]
     order = roots + roots[::-1] if len(roots) > 1 else roots
     runs = []
     for root in order:

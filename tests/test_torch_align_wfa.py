@@ -402,6 +402,26 @@ def test_screen_matches_jax(model):
     assert (got > 64).any() and (got <= 64).any()
 
 
+def test_screen_launches_exactly_its_pairs(monkeypatch):
+    """The screen launches wfa_score on its P pairs, with no pad-up to a
+    power of two (the JAX function's compile-reuse device)."""
+    seen = []
+    real = tk.wfa_score
+
+    def record(*args, **kw):
+        seen.append(args[0].shape[0])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tk, "wfa_score", record)
+    rng = np.random.default_rng(5)
+    refs = [rng.choice(BASES, 50).tobytes() for _ in range(37)]
+    reads = [_mutate(rng, r, 0.05, 0.0) for r in refs]
+    got = tw.wfa_screen_candidates(refs, reads, device="cpu")
+    assert seen == [37] and got.shape == (37,)
+    assert got.tolist() == np.asarray(
+        jw.wfa_screen_candidates(refs, reads)).tolist()
+
+
 def _two_amplicons(tmp_path, n_reads=8):
     """Two amplicons that differ in a 12 bp block A and a 6 bp block B;
     each read takes block A of its true reference and block B of the
@@ -748,6 +768,15 @@ def test_plan_cluster_sizes_and_the_global_workspace(shape):
                       pen["e2"])
     K = 2 * kmax + 1
     plan = tk.wfa_plan(kind, model, L, L, B, smax, kmax, **pen)
+    if plan.wp:
+        # wfa_score's warp path (its rule: test_plan_warp_path_*); the CTA
+        # layout below still holds for the same launch with the path off
+        assert kind == "score" and plan.C == want == 1 and plan.cw == K
+        assert plan.smem == plan.wp * tk.warp_slice(L, L, plan.rows, K) \
+            <= tk.SMEM_LIMIT
+        plan = tk.wfa_plan(kind, model, L, L, B, smax, kmax, warp=False,
+                           **pen)
+        assert plan.wp == 0
     smem = {C: _smem_of(kind, L, L, smax, K, C, plan.rows, plan.value_bytes)
             for C in tk.CLUSTER_SIZES}
     walk = (smax + 4) // 4 * 4 if kind == "align" else 0
@@ -774,6 +803,69 @@ def test_plan_cluster_sizes_and_the_global_workspace(shape):
                                and B * plan.C <= tk.SMS // 2)
     assert plan.C == 8 or -(-K // plan.C) <= tk.MAX_THREADS or \
         B * 2 * plan.C > tk.SMS // 2
+
+
+@pytest.mark.parametrize("model", tk.MODELS)
+def test_plan_warp_path_takes_the_bands_a_warp_holds(model):
+    """wfa_score takes the warp path where K <= WARP_MAX_K (at most four
+    diagonals a lane): the screen's launch (K = 59 affine, 81 affine2p),
+    K = 1 and 127; K = 129 and the bench_wfa launches (K = 187, 337) keep
+    the CTA path, as do every wfa_align and wfa_mid launch and a forced
+    cluster. WARP_PAIRS pairs a CTA, at most B."""
+    kw = dict(PEN) if model == "affine2p" else dict(PEN, o2=0, e2=0)
+    screen = tk.kmax_of(model, 114, 114, 64, kw["o"], kw["e"], kw["o2"],
+                        kw["e2"])
+    assert 2 * screen + 1 == (59 if model == "affine" else 81)
+    for kmax, L, smax, warp in ((screen, 114, 64, True), (0, 114, 64, True),
+                                (63, 114, 64, True), (64, 200, 128, False),
+                                (93, 512, 192, False)):
+        plan = tk.wfa_plan("score", model, L, L, 4096, smax, kmax, **kw)
+        assert (plan.wp > 0) == warp == (2 * kmax + 1 <= tk.WARP_MAX_K)
+        if warp:
+            assert (plan.wp, plan.threads, plan.C, plan.grid) == \
+                (tk.WARP_PAIRS, 32 * tk.WARP_PAIRS, 1, 0)
+    bench = tk.kmax_of(model, 512, 512, 192, kw["o"], kw["e"], kw["o2"],
+                       kw["e2"])
+    assert 2 * bench + 1 == (187 if model == "affine" else 337)
+    assert tk.wfa_plan("score", model, 512, 512, 1024, 192, bench,
+                       **kw).wp == 0
+    for B, wp in ((1, 1), (3, 3), (4, 4), (5, 4), (4096, 4)):
+        assert tk.wfa_plan("score", model, 114, 114, B, 64, screen,
+                           **kw).wp == wp
+    assert tk.wfa_plan("align", model, 114, 114, 4096, 64, screen,
+                       **kw).wp == 0
+    assert tk.wfa_plan("score", model, 114, 114, 4096, 64, screen, **kw,
+                       cluster=1).wp == 0
+    assert tk.wfa_plan("score", model, 114, 114, 4096, 64, screen, **kw,
+                       warp=False).wp == 0
+    with pytest.raises(ValueError, match="warp path"):
+        tk.wfa_plan("score", model, 200, 200, 8, 128, 64, **kw, warp=True)
+    with pytest.raises(ValueError, match="warp path"):
+        tk.wfa_plan("align", model, 114, 114, 8, 64, screen, **kw,
+                    warp=True)
+    assert tk.wfa_plan("mid", "affine", 114, 114, 4096, 64, screen,
+                       **PEN).wp == 0
+
+
+@pytest.mark.parametrize("L", [114, 20_000, 50_000, 120_000])
+def test_plan_warp_path_slices_fit(L):
+    """A warp's slice holds both sequences and every ring row of all K
+    diagonals (16-byte steps); WARP_PAIRS slices a CTA while they fit
+    SMEM_LIMIT, fewer past it, the CTA path where one does not fit."""
+    kmax = 29
+    K = 2 * kmax + 1
+    plan = tk.wfa_plan("score", "affine", L, L, 4096, 64, kmax, **PEN)
+    one = tk.warp_slice(L, L, plan.rows, K)
+    assert one % 16 == 0
+    assert one >= 2 * tk.seq_bytes(L) + 4 * plan.rows * (K + 2)
+    assert one < 2 * tk.seq_bytes(L) + 4 * plan.rows * (K + 2) + 16
+    if one > tk.SMEM_LIMIT:
+        assert plan.wp == 0
+        return
+    assert plan.smem == plan.wp * one <= tk.SMEM_LIMIT
+    assert plan.wp == tk.WARP_PAIRS or (plan.wp * 2 * one > tk.SMEM_LIMIT
+                                        and plan.wp >= 1)
+    assert plan.rows == plan.heights[0] + 2 * sum(plan.heights[1:])
 
 
 def test_plan_refuses_what_the_rings_cannot_hold():

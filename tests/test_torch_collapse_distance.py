@@ -94,6 +94,232 @@ def test_edit_distance_reference_matches_myers_host(L, monkeypatch):
         tdist._edit_distance_myers_host(a, b, la, lb), want)
 
 
+# --- an emulation of csrc/tag_distance.cu's edit_distance kernel ----------
+#
+# The Myers/Hyyro recurrence as the kernel runs it: a warp's 32 row blocks
+# staged from the aligned 16-byte chunks, the pattern's bit planes by 8 x 8
+# bit transposes, a column's mismatch mask as the OR of plane_k ^ (bit k of
+# the text byte, replicated), two planes a word where a warp's patterns
+# fit 16 rows, words of 32 bits (L <= 32) or 64 bits chained by their
+# horizontal deltas, bands of 256 rows past L = 256 with each column's
+# delta out of a band kept for the next, and the distance read from the
+# last column's vertical deltas. numpy, over pairs.
+
+U64 = np.uint64
+
+
+def _transpose8(x):
+    t = (x ^ (x >> U64(7))) & U64(0x00AA00AA00AA00AA)
+    x = x ^ t ^ (t << U64(7))
+    t = (x ^ (x >> U64(14))) & U64(0x0000CCCC0000CCCC)
+    x = x ^ t ^ (t << U64(14))
+    t = (x ^ (x >> U64(28))) & U64(0x00000000F0F0F0F0)
+    return x ^ t ^ (t << U64(28))
+
+
+def _staged_rows(rows, L, shift):
+    """Each pair's row as its lane reads it from shared memory: the warp's
+    bytes copied from the aligned 16-byte chunks of a tensor that starts
+    `shift` bytes past an aligned address, the row at (offset + lane * L),
+    then whatever follows it in the block (the next rows, or bytes no load
+    wrote: here 0xA5)."""
+    P = rows.shape[0]
+    flat = rows.reshape(-1)
+    out = np.zeros((P, 2 * 256 + L + 64), np.uint8)
+    for p0 in range(0, P, 32):
+        n = min(32, P - p0)
+        start = shift + p0 * L
+        c0 = start // 16 * 16
+        chunks = (start + n * L - c0 + 15) // 16
+        block = np.full(chunks * 16 + 512 + 64, 0xA5, np.uint8)
+        for i in range(chunks * 16):
+            g = c0 + i - shift
+            if 0 <= g < P * L:
+                block[i] = flat[g]
+        off = start - c0
+        for lane in range(n):
+            at = off + lane * L
+            out[p0 + lane] = block[at:at + out.shape[1]]
+    return out
+
+
+def _words(rows, i):
+    """Little-endian 32-bit words of rows[:, i:i + 4]."""
+    r = rows[:, i:i + 4].astype(np.uint32)
+    return r[:, 0] | r[:, 1] << 8 | r[:, 2] << 16 | r[:, 3] << 24
+
+
+def _planes(rows, r0, nwords, bits):
+    """pl[k][w]: bit i is bit k of pattern byte r0 + w * bits + i."""
+    dt = np.uint32 if bits == 32 else np.uint64
+    pl = [[np.zeros(rows.shape[0], dt) for _ in range(nwords)]
+          for _ in range(8)]
+    for w in range(nwords):
+        for g in range(bits // 8):
+            i = r0 + w * bits + 8 * g
+            y = _transpose8(_words(rows, i).astype(U64)
+                            | _words(rows, i + 4).astype(U64) << U64(32))
+            for k in range(8):
+                pl[k][w] |= ((y >> U64(8 * k)) & U64(0xff)).astype(dt) \
+                    << dt(8 * g)
+    return pl
+
+
+def _text_bits(tw, j):
+    """m[k]: bit k of byte j of tw replicated (prmt of tw << (7 - k))."""
+    out = []
+    for k in range(8):
+        top = ((tw << np.uint32(7 - k)) >> np.uint32(8 * j + 7)) & 1
+        out.append(np.where(top == 1, np.uint32(0xFFFFFFFF), np.uint32(0)))
+    return out
+
+
+def _mismatch16(pl, tw, j):
+    """The kernel's mismatch16: planes 2q and 2q + 1 in one word's halves,
+    one prmt giving both their bits of byte j (low two bytes from
+    tw << (7 - 2q), high two from tw << (6 - 2q)), the halves OR-ed."""
+    ne = np.zeros(len(tw), np.uint32)
+    for q in range(4):
+        pp = (pl[2 * q][0] & np.uint32(0xFFFF)) | (pl[2 * q + 1][0]
+                                                  << np.uint32(16))
+        lo = ((tw << np.uint32(7 - 2 * q)) >> np.uint32(8 * j + 7)) & 1
+        hi = ((tw << np.uint32(6 - 2 * q)) >> np.uint32(8 * j + 7)) & 1
+        m2 = np.where(lo == 1, np.uint32(0xFFFF), np.uint32(0)) | \
+            np.where(hi == 1, np.uint32(0xFFFF0000), np.uint32(0))
+        ne |= pp ^ m2
+    return ne | (ne >> np.uint32(16))
+
+
+def _myers_word(ne, pv, mv, hin, bits):
+    dt = ne.dtype.type
+    one = dt(1)
+    hneg = np.where(hin < 0, one, dt(0))
+    hpos = np.where(hin > 0, one, dt(0))
+    eq = ~ne
+    xv = eq | mv
+    e = eq | hneg
+    xh = (((e & pv) + pv) ^ pv) | e
+    ph = mv | ~(xh | pv)
+    mh = pv & xh
+    top = dt(bits - 1)
+    hout = (ph >> top).astype(np.int64) - (mh >> top).astype(np.int64)
+    ph = (ph << one) | hpos
+    mh = (mh << one) | hneg
+    return hout, mh | ~(xv | ph), ph & xv
+
+
+def _rows_sum(pv, mv, n, bits):
+    d = np.zeros(len(n), np.int64)
+    for w in range(len(pv)):
+        r = np.clip(n - w * bits, 0, bits)
+        for i in range(bits):
+            bit = pv[w].dtype.type(i)
+            on = r > i
+            d += on * (((pv[w] >> bit) & 1).astype(np.int64)
+                       - ((mv[w] >> bit) & 1).astype(np.int64))
+    return d
+
+
+def edit_distance_emulated(a, b, la, lb, shift=0):
+    """min(Levenshtein, 255) of each row pair the way the kernel gets it."""
+    P, L = a.shape
+    la = np.clip(la.astype(np.int64), 0, L)
+    lb = np.clip(lb.astype(np.int64), 0, L)
+    if L <= 256:
+        bits = 32 if L <= 32 else 64
+        W = max(1, -(-L // bits))
+        sa, sb = _staged_rows(a, L, shift), _staged_rows(b, L, shift)
+        band, bands = W, 1
+    else:
+        bits, band = 64, 4
+        bands = -(-L // 256)
+        pad = np.zeros((P, 256 * bands + 8 - L), np.uint8)
+        sa = np.concatenate([a, pad], 1)       # bytes past L read as 0
+        sb = np.concatenate([b, pad], 1)
+    dt = np.uint32 if bits == 32 else np.uint64
+    # words past a warp's longest pattern are not run
+    warp_n = np.repeat([la[i:i + 32].max() for i in range(0, P, 32)], 32)[:P]
+    d = lb.copy()
+    h_in = np.ones((P, L), np.int64)                 # band 0: D(0, j) = j
+    for bd in range(bands):
+        r0 = 256 * bd
+        live = la > r0
+        nw = np.minimum(band, -(-(warp_n - r0) // bits)) if L <= 256 else \
+            np.minimum(band, -(-(la - r0) // bits))
+        pl = _planes(sa, r0, band, bits)
+        pv = [np.full(P, ~dt(0), dt) for _ in range(band)]
+        mv = [np.zeros(P, dt) for _ in range(band)]
+        h_out = np.zeros((P, L), np.int64)
+        # warps whose patterns all fit 16 rows: two planes a word
+        half = (bits == 32) & (warp_n <= 16)
+        for j in range(int(lb.max(initial=0))):
+            act = live & (j < lb)
+            tw = _words(sb, j - j % 4)
+            m = _text_bits(tw, j % 4)
+            hin = h_in[:, j]
+            for w in range(band):
+                run = act & (w < nw)
+                ne = np.zeros(P, dt)
+                for k in range(8):
+                    mk = m[k].astype(np.int32).astype(np.int64).astype(dt)
+                    ne |= pl[k][w] ^ mk
+                if bits == 32:
+                    ne = np.where(half, _mismatch16(pl, tw, j % 4), ne)
+                hout, npv, nmv = _myers_word(ne, pv[w], mv[w], hin, bits)
+                pv[w] = np.where(run, npv, pv[w])
+                mv[w] = np.where(run, nmv, mv[w])
+                hin = np.where(run, hout, hin)
+            h_out[:, j] = hin
+        d += np.where(live, _rows_sum(pv, mv, la - r0, bits), 0)
+        h_in = h_out
+    return np.minimum(d, 255).astype(np.uint8)
+
+
+EMULATION_WIDTHS = [8, 16, 32, 33, 64, 65, 80, 256, 257, 300]
+
+
+@pytest.mark.parametrize("L", EMULATION_WIDTHS)
+def test_edit_distance_kernel_emulation_matches_jax_kernel(L):
+    """Every byte value 0-255 in the rows (the zero padding included),
+    la or lb = 0, equal rows, pairs past the 255 cap, lb shorter than la,
+    two misaligned row blocks, a last warp of fewer than 32 pairs; at
+    L = 32 a first warp of patterns of at most 16 bytes (two planes a
+    word)."""
+    rng = np.random.default_rng(1000 + L)
+    P = 200 if L <= 80 else 70
+    a = rng.integers(0, 256, (P, L), dtype=np.uint8)
+    a[: 256 // L + 1].reshape(-1)[:256] = np.arange(256, dtype=np.uint8)
+    b = a.copy()
+    mut = rng.random((P, L)) < 0.1
+    b[mut] = rng.integers(0, 256, int(mut.sum()), dtype=np.uint8)
+    b[::5] = rng.integers(0, 256, b[::5].shape, dtype=np.uint8)
+    b[1::6] = rng.choice(np.array([0, 255, 65], np.uint8), b[1::6].shape)
+    la = rng.integers(0, L + 1, P).astype(np.int32)
+    lb = np.clip(la + rng.integers(-5, 6, P), 0, L).astype(np.int32)
+    la[0], lb[1], la[2], lb[2], la[3], lb[3] = 0, 0, 0, 0, L, L
+    la[4], lb[4] = L, max(0, L - 40)
+    a[5], b[5], la[5], lb[5] = 0, 0, L, L                  # equal rows of 0
+    a[6], b[6], la[6], lb[6] = 7, 9, L, L                  # d = L
+    if L == 32:
+        la[:32] = np.minimum(la[:32], 16)
+    want = np.asarray(jdist._edit_distance_kernel(a, b, la, lb, L1=L, L2=L))
+    if L > 255:
+        assert want[6] == 255
+    for shift in (0, 7):
+        np.testing.assert_array_equal(
+            edit_distance_emulated(a, b, la, lb, shift), want)
+
+
+def test_transpose8_gives_bit_planes():
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 256, (50, 8), dtype=np.uint8)
+    y = _transpose8(x.view("<u8")[:, 0])
+    for k in range(8):
+        plane = (y >> U64(8 * k)) & U64(0xff)
+        want = ((x >> k) & 1).astype(np.uint64) << np.arange(8, dtype=U64)
+        np.testing.assert_array_equal(plane, want.sum(1))
+
+
 def test_edit_distance_caps_at_255():
     L = 256
     a = np.full((2, L), ord("A"), np.uint8)

@@ -449,16 +449,23 @@ def test_match_hits_kernel_matches_plain(cuda, name):
         assert len(u) == U * K
 
 
-@pytest.mark.parametrize("L", [8, 16, 32, 33, 64, 65, 200, 256, 300, 1000])
+@pytest.mark.parametrize("L", [8, 16, 32, 33, 64, 65, 80, 128, 129, 192,
+                               193, 200, 256, 257, 300, 1000])
 def test_edit_distance_kernel_matches_plain(cuda, L):
+    """Every width where the kernel's words change (32-bit, one to four
+    64-bit words, bands of 256 past that), rows holding every byte value
+    (the zero padding included), P not a multiple of a warp's 32."""
     from clique_tpu_torch.collapse import distance as tdist
 
     rng = np.random.default_rng(L)
-    P = 3000
+    P = 3001
     a = rng.choice(TAG_ALPHABET, (P, L))
+    a[P // 2:] = rng.integers(0, 256, a[P // 2:].shape, dtype=np.uint8)
+    a.reshape(-1)[:256] = np.arange(256, dtype=np.uint8)
     b = a.copy()
     b[rng.random((P, L)) < 0.1] = ord("A")
     b[::7] = rng.choice(TAG_ALPHABET, b[::7].shape)
+    b[1::9] = rng.integers(0, 256, b[1::9].shape, dtype=np.uint8)
     la = rng.integers(0, L + 1, P).astype(np.int32)
     lb = np.clip(la + rng.integers(-3, 4, P), 0, L).astype(np.int32)
     la[0], lb[1], la[2], lb[2] = 0, 0, 0, 0
@@ -472,6 +479,29 @@ def test_edit_distance_kernel_matches_plain(cuda, L):
     if L <= 64:
         assert np.array_equal(got.cpu().numpy(),
                               tdist._edit_distance_myers_host(a, b, la, lb))
+
+
+@pytest.mark.parametrize("L", [32, 300, 1000])
+def test_edit_distance_kernel_allocates_no_scratch(cuda, L):
+    """The wrapper allocates the output and its length check's
+    temporaries, nothing that grows with L (the DP kernel's u8 scratch was
+    P * (L + 1) bytes past 256)."""
+    from clique_tpu_torch.collapse import distance as tdist
+
+    P = 4096
+    rng = np.random.default_rng(L)
+    a = torch.from_numpy(rng.integers(0, 256, (P, L), dtype=np.uint8)).to(
+        cuda)
+    la = torch.full((P,), L, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    got = tdist.edit_distance(a, a.flip(0).contiguous(), la, la)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) - base < 16 * P + 16384 \
+        + a.numel()                                   # the flipped copy
+    assert torch.equal(got, tdist.edit_distance_reference(
+        a, a.flip(0).contiguous(), la, la))
 
 
 @pytest.mark.parametrize("source", ["triu", "count_filtered", "explicit"])
@@ -1051,6 +1081,43 @@ def test_wfa_kernels_paths_cross_slice_edges(cuda, monkeypatch):
         for model in ("affine", "affine2p"):
             _check_wfa(args, 96, model)
         assert plans[0].cw < 44 and {p.C for p in plans} == {C}
+
+
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("model", ["affine", "affine2p"])
+def test_wfa_score_warp_path_matches_plain(cuda, monkeypatch, model, B):
+    """wfa_score on the warp path (one warp a pair, B not a multiple of
+    the pairs a CTA): wildcards, censored pairs, kband at both sides of
+    the switch (K = 127 on the warp path, 129 on the CTA path), a pair
+    whose lengths lie outside its rows (-1, the others unchanged)."""
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    plans = _force_plan(monkeypatch, kinds=("score",))
+    host = _wfa_pairs(40 + B, max(B, 2), 120)
+    args = [torch.from_numpy(np.ascontiguousarray(v[:B])).to(cuda)
+            for v in host]
+    n = (wk.wfa_score_launches, wk.wfa_score_warp_launches)
+    for kw in (dict(wildcards=True), dict(), dict(smax=10),
+               dict(kband=63, smax=200), dict(kband=64, smax=200)):
+        kw = {**WFA_PEN, "smax": 96, **kw}
+        got = wk.wfa_score(*args, model=model, **kw)
+        want = wk.wfa_fill_reference(*args, model=model, traceback=False,
+                                     **kw)[0]
+        assert torch.equal(got, want)
+    assert [p.wp > 0 for p in plans] == [
+        2 * wk.kmax_of(model, 120, 120, 96, 6, 2, 24, 1) + 1 <= 128] * 2 + \
+        [True, True, False]
+    bad = [a.clone() for a in args]
+    bad[2][0] = 121                                  # past the 120-byte row
+    got = wk.wfa_score(*bad, model=model, **WFA_PEN, smax=10,
+                       wildcards=True)
+    want = wk.wfa_fill_reference(*args, model=model, traceback=False,
+                                 **WFA_PEN, smax=10, wildcards=True)[0]
+    assert int(got[0]) == -1 and torch.equal(got[1:], want[1:])
+    assert plans[-1].wp > 0
+    assert wk.wfa_score_launches - n[0] == 6
+    assert wk.wfa_score_warp_launches - n[1] == \
+        sum(p.wp > 0 for p in plans)
 
 
 def _ont_like(rng, ref):

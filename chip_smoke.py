@@ -77,7 +77,22 @@ before and read just after:
   one process (and once out of core): the same records, no worker with a
   CUDA context; golden and golden_ml with two workers give their pins;
 - profile: align --profile-dir on golden writes a torch.profiler trace
-  that holds dp_align's kernel events.
+  that holds dp_align's kernel events;
+- wfa-linear: wavefront.py's wfa_edit_batch (smax 102) and
+  wfa_linear_batch (x 4, e 2, an smax that censors no pair) over
+  bench_extra.py's bench_wfa pairs (B = 256, L = 512, 5% substitutions,
+  seed 0): each one wfa_score launch under the gap-linear model (the
+  kernel's G = 0), held against its plain version, timed and bounded;
+- distributed: `align` then `collapse` with --distributed-world 2, two
+  rank subprocesses of `python3 -m clique_tpu_torch.cli` on the card over
+  a shared work dir, at the bench's full width: align over the bench's
+  80,000 reads, collapse over the bench's aligned BAM. The merged aligned
+  BAM's records equal the bench's single-process BAM's, the collapsed
+  records the single-process collapse's of the same BAM (the workers
+  phase's one-process run); each rank prints its device, backend,
+  launches, reads and walls, rank 0 its merge wall; a rank that exits
+  non-zero, or launched no kernel on a CUDA device, fails the run. parallel/mesh.py's sharded_align_step on
+  [cuda:0] equals one dp_align call on the same batch.
 
 The kernel phases hold every kernel against its plain version (for the
 fused global fill + walk, dp_align, its fused rows and its traceback laid
@@ -101,7 +116,8 @@ column step of its bit-vector recurrence).
 The CPU runs of the long-read, inversion, panel, hifi and convex phases go
 to a pool of
 spawned processes and run beside the card's; a script that imports these
-phases needs an `if __name__ == "__main__":` guard.
+phases needs an `if __name__ == "__main__":` guard. Each phase prints its
+wall as `[wall] NAME S s`, and a `[walls]` line gathers them.
 
 It imports no jax. Every failure raises and the script exits non-zero;
 the last line of a run that passed is
@@ -110,10 +126,12 @@ the last line of a run that passed is
 
 and the line before it is a JSON object with one entry per kernel (its
 "ms" the wrapper's time by CUDA events; edit_distance's entry also holds
-"kernel_ms", its kernel alone).
+"kernel_ms", its kernel alone; wfa_score_linear's times are those of the
+call its "timed" names).
 """
 
 import contextlib
+import functools
 import json
 import multiprocessing
 import os
@@ -166,6 +184,20 @@ WFA_L = 512
 WFA_SMAX = 192
 WFA_ALIGN_B = 512
 WFA_SCORE_B = 1024
+# the wfa-linear phase: bench_wfa's pairs at B = 256, edit distance censored
+# at 0.2 L, the gap-linear penalties x 4, e 2 under an smax that censors no
+# pair at 5% substitutions
+WFA_LINEAR_B = 256
+WFA_EDIT_SMAX = 102
+WFA_LINEAR_SMAX = 256
+WFA_LINEAR_PEN = dict(x=4, e=2)
+# the distributed phase: ranks, the seconds a rank may run, and each rank's
+# timeout at a rendezvous or barrier
+N_DIST_RANKS = 2
+DIST_RANK_TIMEOUT = 300
+DIST_BARRIER_TIMEOUT = 120
+# walls of earlier phases that the distributed phase prints beside its own
+WALLS = {}
 WFA_PEN = dict(x=4, o=6, e=2, o2=24, e2=1)
 HIFI_CELLS = 200
 HIFI_PER_CELL = 40
@@ -206,7 +238,8 @@ SMS = 132
 FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
                 "FRND", "FCHK")
 KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local",
-           "edit_hits", "hmm_forward", "wfa_align", "wfa_score", "wfa_mid")
+           "edit_hits", "hmm_forward", "wfa_align", "wfa_score", "wfa_mid",
+           "wfa_score_linear")
 SOURCES = {"dp_align": "dp_align.cu",
            "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
@@ -215,7 +248,8 @@ SOURCES = {"dp_align": "dp_align.cu",
            "hmm_forward": "hmm_forward.cu",
            "wfa_align": "wfa_align.cu",
            "wfa_score": "wfa_align.cu",
-           "wfa_mid": "wfa_align.cu"}
+           "wfa_mid": "wfa_align.cu",
+           "wfa_score_linear": "wfa_align.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
@@ -225,7 +259,9 @@ REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "hmm_forward": "clique_tpu/align/hmm.py:39",
             "wfa_align": "clique_tpu/align/wavefront.py:726, :878 and :1156",
             "wfa_score": "clique_tpu/align/wavefront.py:319 and :615",
-            "wfa_mid": "clique_tpu/align/wavefront.py:442"}
+            "wfa_mid": "clique_tpu/align/wavefront.py:442",
+            "wfa_score_linear": "clique_tpu/align/wavefront.py:166 and "
+                                ":232"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
 # float32 outside the tensor cores counts an FMA as two, so one lane
@@ -267,6 +303,8 @@ LEV_RATIO = 5.0
 KNOWN_D = 1
 # ptxas's register and spill lines of each kernel, read from the build log
 PTXAS = {}
+# the wavefront kernels' gap classes G (a template argument) by model
+WFA_MODEL_OF_G = {"0": "linear", "1": "affine", "2": "affine2p"}
 
 
 def bound(nbytes, ops, op_rate=PEAK_LANE_OPS):
@@ -291,6 +329,27 @@ def say(msg):
     print(msg, flush=True)
 
 
+# each phase's wall (s), and each head check's (the wait for the pool's
+# CPU runs), for the [walls] line
+PHASE_WALLS = {}
+
+
+def _walled(fn):
+    """fn, its wall added to PHASE_WALLS and printed when it returns."""
+    @functools.wraps(fn)
+    def run(*args):
+        t0 = time.time()
+        try:
+            return fn(*args)
+        finally:
+            dt = time.time() - t0
+            name = fn.__name__.removeprefix("phase_")
+            PHASE_WALLS[name] = round(PHASE_WALLS.get(name, 0.0) + dt, 3)
+            say(f"[wall] {name} {dt:.3f} s")
+    return run
+
+
+@_walled
 def phase_card():
     import torch
 
@@ -320,6 +379,7 @@ def phase_card():
     return card
 
 
+@_walled
 def phase_build():
     import clique_tpu_torch
     from clique_tpu_torch import _build
@@ -341,6 +401,7 @@ def phase_build():
                                        "clique_hmm_cell_floor_probe",
                                        "clique_wfa_cell_probe_affine2p",
                                        "clique_wfa_cell_probe_affine",
+                                       "clique_wfa_score_probe_linear",
                                        "clique_wfa_word_probe",
                                        "align_local_kernel", "align_kernel",
                                        "match_hits_wide", "match_hits",
@@ -367,13 +428,12 @@ def phase_build():
                 kernel = "wfa_{0}<{1}>".format(
                     "align" if flags.group(2) == "1" else
                     "mid" if flags.group(3) == "1" else "score",
-                    "affine" if flags.group(1) == "1" else "affine2p")
+                    WFA_MODEL_OF_G[flags.group(1)])
             # wfa_score's warp path: gap classes and steps a barrier
             flags = re.search(r"wfa_score_warp_kernelILi(\d)ELi(\d)E", line)
             if flags:
                 kernel = "wfa_score_warp<{0},steps={1}>".format(
-                    "affine" if flags.group(1) == "1" else "affine2p",
-                    flags.group(2))
+                    WFA_MODEL_OF_G[flags.group(1)], flags.group(2))
             # the Levenshtein kernel's bit-vector word and words a pattern
             flags = re.search(r"edit_distance_kernelI([jy])Li(\d)E", line)
             if flags:
@@ -588,6 +648,7 @@ def _hold_align(label, args, params, err, **kw):
     return plain_ms
 
 
+@_walled
 def phase_kernels():
     """dp_align against its plain versions on the card in the full band,
     then timed in turns with them at the bench shape."""
@@ -663,6 +724,7 @@ def _mode_batch(rng, B, n1, n2):
     return ref[None, :], reads, np.full(B, n1 - 1, np.int32), read_lens
 
 
+@_walled
 def phase_mode_kernels():
     """dp_align's other modes and shapes, and the local kernels, against
     their plain PyTorch versions on the card, byte for byte, then timed
@@ -975,6 +1037,7 @@ def _edit_kernel_call(args):
     return run
 
 
+@_walled
 def phase_tag_kernels():
     """match_hits and edit_distance against their plain PyTorch versions
     on the card, then timed in turns (plain, kernel, kernel, plain) at the
@@ -1293,6 +1356,7 @@ def _edit_hits_kernel_call(args, d, ratio, reps):
     return call, codes.shape[1], K, high.numel()
 
 
+@_walled
 def phase_edit_hits():
     """edit_hits against its plain PyTorch version on the card (group mode
     at the widths and radii of the tests, many groups, tiles of a 4,000-tag
@@ -1460,7 +1524,8 @@ def _counts():
             "hmm_forward": hmm.hmm_forward_launches,
             "wfa_align": wfa_kernels.wfa_align_launches,
             "wfa_score": wfa_kernels.wfa_score_launches,
-            "wfa_mid": wfa_kernels.wfa_mid_launches}
+            "wfa_mid": wfa_kernels.wfa_mid_launches,
+            "wfa_score_linear": wfa_kernels.wfa_linear_launches}
 
 
 def _read(path):
@@ -1468,6 +1533,7 @@ def _read(path):
         return fh.read()
 
 
+@_walled
 def phase_golden(workdir):
     """align -> collapse -> call and the fused run_chain on the card,
     against the pins. Returns the kernel launches of the collapse runs."""
@@ -1594,6 +1660,7 @@ references:
     return layout_text, fq, head, cells
 
 
+@_walled
 def phase_bench(workdir):
     """The fused chain over the 80,000 bench-shaped reads, as
     bench.py:126-181 times it: a warm-up run, then align (with the sink),
@@ -1708,10 +1775,12 @@ def phase_bench(workdir):
           "differ between cuda and cpu")
     say(f"[bench] first {N_CPU_CHECK} reads: cuda and cpu aligned BAMs, "
         "collapsed BAMs and allele tables identical")
+    WALLS["bench align"] = align_s
     return launches, (layout_text, aligned, cells, stats.aligned / chain_s,
                       head, level_batches)
 
 
+@_walled
 def phase_banded(workdir, bench):
     """The bench's first 2,048 reads through align_reads with a band of
     half-width 32: every group a banded dp_align on the card, and the same
@@ -1821,6 +1890,7 @@ references:
     return rng, bases, ref, layout_text
 
 
+@_walled
 def phase_long_reads(workdir, pool):
     """1,000 reads of a seeded 4 kb amplicon with ONT-like errors through
     align_reads at the default anchored_min_length (2048): every read takes
@@ -1880,6 +1950,7 @@ def phase_long_reads(workdir, pool):
     return launches, stats.aligned / seconds, (head_cuda, head_cpu)
 
 
+@_walled
 def long_reads_head_check(pending):
     head_cuda, future = pending
     head_cpu, seconds = future.result()
@@ -1984,6 +2055,7 @@ def _inversion_data():
     return ref.tobytes(), reads, inverted, rng
 
 
+@_walled
 def phase_inversion(pool):
     """inversion_alignment_batch over 512 reads of a seeded 1 kb reference
     with 1% substitutions, 10 of them (~2%) with an inverted block of
@@ -2125,6 +2197,7 @@ class _CallTimer:
             setattr(mod, name, orig)
 
 
+@_walled
 def phase_known_list(workdir, bench):
     """The bench-shaped reads collapsed with cell_id as KnownTag Hamming
     (max_distance 1) against a seeded 737,280-entry 16 bp allowlist that
@@ -2330,6 +2403,7 @@ def _wide_lev_group():
     return counts
 
 
+@_walled
 def phase_device_levenshtein():
     """The device-Levenshtein group (2,000 tags of count 10, ~2,000 of
     count 1: 3,656,000 ratio-filtered pairs) and a group of 80-byte tags
@@ -2428,6 +2502,7 @@ def _umi_batch(n_groups, seed):
     return groups
 
 
+@_walled
 def phase_threshold(level_batches):
     """correct_degenerate_groups's host route (pair preparation and host
     Myers) and its edit-hits route in turns (host, card, card, host) on
@@ -2575,6 +2650,7 @@ def _hold_ll(label, got, want):
     return err
 
 
+@_walled
 def phase_hmm_kernel():
     """hmm_forward against its plain version on the card, exactly, at one
     launch of each strip height (the panel's shape, 1,024 pairs of ~250 x
@@ -2726,6 +2802,7 @@ def _panel_dataset(workdir):
     return wd, layout_text, fq, head
 
 
+@_walled
 def phase_panel(workdir, pool):
     """align --router hmm over the 180-reference panel on the card: every
     read against every reference through hmm_forward, the routed reads
@@ -2810,6 +2887,7 @@ def _route_ties(rm, head, cpu_bam, cuda_bam):
     return int(moved.sum())
 
 
+@_walled
 def panel_head_check(pending):
     rm, head, out_head, future = pending
     head_cpu, seconds = future.result()
@@ -2832,6 +2910,7 @@ def _record_multiset(path):
                        tuple(sorted(r.tags.items()))) for r in reader)
 
 
+@_walled
 def phase_workers(workdir, bench):
     """collapse --threads N on the bench phase's aligned 80,000-read BAM on
     the card, in turns: one process, N workers, N workers, one process,
@@ -2886,6 +2965,8 @@ def phase_workers(workdir, bench):
         stats = collapse(out, layout, aligned, temp_dir=wd, n_workers=nw,
                          out_of_core=ooc, device="cuda")
         wall = time.time() - t0
+        if nw == 1 and not ooc:
+            WALLS.setdefault("one-process collapse", []).append(wall)
         counts = _counts()
         for k in KERNELS:
             launches[k] += counts[k]
@@ -2954,6 +3035,7 @@ def _wfa_op_counts():
               ("align", "affine2p"): "clique_wfa_cell_probe_affine2p",
               ("score", "affine"): "clique_wfa_score_probe_affine",
               ("score", "affine2p"): "clique_wfa_score_probe_affine2p",
+              ("score", "linear"): "clique_wfa_score_probe_linear",
               ("mid", "affine"): "clique_wfa_mid_probe",
               "word": "clique_wfa_word_probe"}
     sass = _sass_ops(tuple(probes.values()))
@@ -3015,6 +3097,8 @@ def _wfa_bound(host, pen, kw, traceback, kind=None):
     B, smax, model = len(l1), kw["smax"], kw.get("model", "affine")
     pens = {k: kw.get(k, d) for k, d in
             (("o", 6), ("e", 2), ("o2", 24), ("e2", 1))}
+    if model == "linear":
+        pens["o"] = 0      # no gap open: reach(s) = s // e
     kmax = wk.kmax_of(model, refs.shape[1], reads.shape[1], smax,
                       pens["o"], pens["e"], pens["o2"], pens["e2"],
                       kw.get("kband"))
@@ -3042,6 +3126,8 @@ def _plan_line(args, kw, kind):
     pen = {k: kw.get(k, d) for k, d in WFA_PEN.items()}
     if model == "affine":
         pen.update(o2=0, e2=0)
+    elif model == "linear":
+        pen.update(o=0, o2=0, e2=0)
     kmax = wk.kmax_of(model, n1, n2, kw["smax"], pen["o"], pen["e"],
                       pen["o2"], pen["e2"], kw.get("kband"))
     plan = wk.wfa_plan(kind, model, n1, n2, B, kw["smax"], kmax, **pen,
@@ -3124,6 +3210,7 @@ def _wfa_check(label, args, kw, traceback, reps=20):
     return err, _timing(k_ms, p_ms, b)
 
 
+@_walled
 def phase_wfa_kernels():
     """wfa_align (B = 512) and wfa_score (B = 1,024) of both penalty
     models on bench_wfa's pairs against their plain versions on the card,
@@ -3301,6 +3388,7 @@ def _wfa_engine_run(label, workdir, layout_text, lines, engine, mode,
                                                       head_cpu, n_cpu)
 
 
+@_walled
 def wfa_head_check(pending):
     label, out_head, future, n_cpu = pending
     head_cpu, seconds = future.result()
@@ -3311,6 +3399,7 @@ def wfa_head_check(pending):
     check(same, f"{label}: the head's BAMs differ between cuda and cpu")
 
 
+@_walled
 def phase_hifi(workdir, pool):
     """bench_extra.py's config 2 (bench_hifi): 200 cells x 40 reads of a
     ~342 bp amplicon with 0.5% substitutions, align --mode hifi --engine
@@ -3364,6 +3453,7 @@ def phase_hifi(workdir, pool):
     return launches, head, _wfa_main_launches("hifi", seen, True)
 
 
+@_walled
 def phase_convex(workdir, pool):
     """bench_extra.py's structural-variant config (bench_convex): 6,000
     reads of the amplicon at 0.5% substitutions, every other one with a
@@ -3477,6 +3567,7 @@ def _mid_main_launches(label, seen):
     return err, timing
 
 
+@_walled
 def phase_ont_wfa(workdir, pool):
     """ONT raw reads through --engine wfa: 1,000 reads of the long-read
     phases' 4 kb reference at ONT raw-read error rates (ONT_RAW), at batch
@@ -3571,6 +3662,7 @@ def _ont_align_shapes(run_align):
     return err
 
 
+@_walled
 def phase_screen(workdir):
     """An exhaustive-search panel under --engine wfa: two amplicons 12 bp
     (block A) and 6 bp (block B) apart; each read takes block A of its
@@ -3643,6 +3735,7 @@ def phase_screen(workdir):
     return launches, _wfa_main_launches("screen", seen, False)
 
 
+@_walled
 def phase_golden_engines(workdir):
     """golden aligned with engine="wfa" and "convex" on the card against
     tests/data/golden/aligned_wfa.bam and aligned_convex.bam."""
@@ -3670,6 +3763,7 @@ def phase_golden_engines(workdir):
     return launches
 
 
+@_walled
 def phase_profile(workdir):
     """align --profile-dir on golden on the card: a torch.profiler Chrome
     trace appears and holds dp_align's kernel events."""
@@ -3696,6 +3790,245 @@ def phase_profile(workdir):
           "the profiled golden align differs from its pin")
 
 
+@_walled
+def phase_wfa_linear():
+    """wavefront.py's wfa_edit_batch (smax WFA_EDIT_SMAX) and
+    wfa_linear_batch (WFA_LINEAR_PEN under WFA_LINEAR_SMAX, which must
+    censor no pair) through their entry points on bench_wfa's pairs (B =
+    WFA_LINEAR_B, L = WFA_L, 5% substitutions, seed 0), the counts set to 0
+    just before and read just after: each one wfa_score launch under the
+    gap-linear model (the kernel's G = 0). Each result is held against the
+    plain version (wfa_linear_reference) on the card, and each call timed
+    in turns with it by CUDA events beside its bound. Returns (launches,
+    max abs err, the wfa_linear_batch call's timing)."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.align import wavefront as wf
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    dev = torch.device("cuda", 0)
+    host = _wfa_pairs(np.random.default_rng(0), WFA_LINEAR_B)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in host]
+    calls = {
+        "wfa_edit_batch": (
+            lambda: wf.wfa_edit_batch(*args, n1=WFA_L, n2=WFA_L,
+                                      smax=WFA_EDIT_SMAX, device=dev),
+            dict(smax=WFA_EDIT_SMAX, x=1, e=1)),
+        "wfa_linear_batch": (
+            lambda: wf.wfa_linear_batch(*args, n1=WFA_L, n2=WFA_L,
+                                        smax=WFA_LINEAR_SMAX, device=dev,
+                                        **WFA_LINEAR_PEN),
+            dict(smax=WFA_LINEAR_SMAX, **WFA_LINEAR_PEN))}
+    _reset_counts()
+    pens = {name: call() for name, (call, _kw) in calls.items()}
+    torch.cuda.synchronize()
+    launches = _counts()
+    say(f"[wfa-linear] B={WFA_LINEAR_B} L={WFA_L}: wfa_edit_batch and "
+        f"wfa_linear_batch through the port's entry points; launches "
+        f"{launches}")
+    check(launches["wfa_score_linear"] == 2 and sum(launches.values()) == 2,
+          "the wfa-linear path did not launch wfa_score's linear case once "
+          "a call")
+    err, timing = 0, None
+    for name, (call, kw) in calls.items():
+        kw = dict(kw, kband=2 * WFA_L)
+
+        def plain(kw=kw):
+            return wk.wfa_linear_reference(*args, **kw)
+        want = plain()
+        e = int((pens[name] - want).abs().max())
+        err = max(err, e)
+        censored = int((want > kw["smax"]).sum())
+        say(f"[wfa-linear] {name} x={kw['x']} e={kw['e']} smax={kw['smax']}: "
+            f"penalties {'equal' if e == 0 else 'DIFFER'} (max abs err {e}) "
+            f"to the plain version's on the card; penalties "
+            f"{int(want.min())}-{int(want.max())}, {censored} censored; "
+            f"{_plan_line(args, dict(kw, model='linear'), 'score')}")
+        check(e == 0, f"wfa-linear: {name} disagrees with its plain version")
+        if name == "wfa_linear_batch":
+            check(censored == 0, f"wfa-linear: smax {kw['smax']} censors "
+                  f"{censored} pairs")
+        k_ms, p_ms = _turns(f"[wfa-linear] {name}", call, plain, 20)
+        b, cells = _wfa_bound(host, want.cpu().numpy(),
+                              dict(kw, model="linear"), False)
+        say(f"[wfa-linear] {name} bound {b[0]:.5f} ms by {b[1]} ({cells} "
+            f"cells, {cells / WFA_LINEAR_B:.1f} a pair); the kernel at "
+            f"{b[0] / k_ms:.4f} of it; library: none (no PyTorch call "
+            f"computes a WFA penalty)")
+        if name == "wfa_linear_batch":
+            # the kernels line's times are the gap-linear call's
+            timing = dict(_timing(k_ms, p_ms, b), timed=name)
+    return launches, err, timing
+
+
+def _run_ranks(label, argv, workdir):
+    """`python3 -m clique_tpu_torch.cli` + argv as N_DIST_RANKS ranks on the
+    card, each a fresh interpreter with this checkout on its PYTHONPATH,
+    joined at a free localhost port. Every rank must exit 0 within
+    DIST_RANK_TIMEOUT seconds (the ones still running then are killed and
+    the run fails). Returns each rank's summary (its JSON log line) with
+    its wall from start to exit."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=HERE + (os.pathsep + path if path
+                                              else ""),
+               CLIQUE_TPU_DIST_TIMEOUT=str(DIST_BARRIER_TIMEOUT))
+    procs = []
+    for r in range(N_DIST_RANKS):
+        log = open(os.path.join(workdir, f"{label}.rank{r}.log"), "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "clique_tpu_torch.cli", *argv,
+             "--device", "cuda", "--distributed-world", str(N_DIST_RANKS),
+             "--distributed-rank", str(r), "--distributed-coordinator",
+             f"localhost:{port}"],
+            cwd=workdir, env=env, stdout=log, stderr=subprocess.STDOUT),
+            log, time.time()))
+    walls = [None] * N_DIST_RANKS
+    deadline = time.time() + DIST_RANK_TIMEOUT
+    try:
+        while None in walls and time.time() < deadline:
+            for r, (proc, _log, t0) in enumerate(procs):
+                if walls[r] is None and proc.poll() is not None:
+                    walls[r] = time.time() - t0
+            time.sleep(0.05)
+    finally:
+        for proc, _log, _t0 in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = []
+    for r, (proc, log, _t0) in enumerate(procs):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        check(walls[r] is not None and proc.returncode == 0,
+              f"{label}: rank {r} exited {proc.returncode} (wall "
+              f"{walls[r]}): {text[-3000:]}")
+        m = re.search(r"distributed \w+ summary (\{.*\})", text)
+        check(m is not None, f"{label}: rank {r} printed no summary")
+        out.append(dict(json.loads(m.group(1)), process_wall_s=walls[r]))
+    return out
+
+
+@_walled
+def phase_distributed(workdir, bench):
+    """align then collapse with --distributed-world N_DIST_RANKS on the
+    card over a shared work dir, at the bench's full width: align over the
+    bench's 80,000 reads at batch BENCH_BATCH (merged BAM against the
+    bench's single-process bench.bam), collapse over bench.bam (merged BAM
+    against the workers phase's one-process collapse of it, run0.bam). Each
+    rank's device, backend, launches, reads and walls are printed, and
+    rank 0's merge wall; each align rank must have launched dp_align on a
+    CUDA device, each collapse rank a tag-distance kernel. Then parallel/mesh.py's sharded_align_step on [cuda:0]
+    against one dp_align call on the same batch."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align.scoring import AffineScoring
+    from clique_tpu_torch.parallel import make_mesh, sharded_align_step
+
+    layout_text, aligned = bench[0], bench[1]
+    wd = os.path.join(workdir, "distributed")
+    os.makedirs(wd)
+    layout = os.path.join(wd, "layout.yaml")
+    with open(layout, "w") as fh:
+        fh.write(layout_text)
+    fq = os.path.join(workdir, "reads.fastq")
+    t0 = time.time()
+    out_a = os.path.join(wd, "aligned.bam")
+    ranks = _run_ranks("align", [
+        "align", "--read-structure", layout, "--read1", fq,
+        "--output-bam-file", out_a, "--batch-size", str(BENCH_BATCH),
+        "--work-dir", os.path.join(wd, "align_work")], wd)
+    align_wall = time.time() - t0
+    for r in ranks:
+        say(f"[distributed] align rank {r['rank']}/{r['world']}: device "
+            f"{r['device']}, backend {r['backend']}, dp_align launches "
+            f"{r['launches']['dp_align']}, reads {r['reads']} ({r['aligned']} "
+            f"aligned), align {r['align_s']:.3f} s, in the function "
+            f"{r['wall_s']:.3f} s, process {r['process_wall_s']:.3f} s"
+            + (f", merge {r['merge_s']:.3f} s" if r["merge_s"] is not None
+               else ""))
+        check(r["device"].startswith("cuda") and
+              r["launches"]["dp_align"] > 0,
+              f"align rank {r['rank']} launched no dp_align on the card")
+    check(sum(r["reads"] for r in ranks) == N_BENCH_READS,
+          "the align ranks' stripes do not cover the reads")
+    same_a = _record_multiset(out_a) == _record_multiset(aligned)
+    say(f"[distributed] align of {N_BENCH_READS} reads on "
+        f"{N_DIST_RANKS} ranks: {align_wall:.3f} s for the ranks (the "
+        f"single-process bench align {WALLS.get('bench align', 0):.3f} s); "
+        f"merged records {'equal' if same_a else 'DIFFER from'} the "
+        f"single-process BAM's")
+    check(same_a, "the distributed align differs from the single-process "
+          "align")
+
+    t0 = time.time()
+    out_c = os.path.join(wd, "collapsed.bam")
+    ranks = _run_ranks("collapse", [
+        "collapse", "--read-structure", layout, "--input-bam-file", aligned,
+        "--output-bam-file", out_c,
+        "--work-dir", os.path.join(wd, "collapse_work")], wd)
+    collapse_wall = time.time() - t0
+    for r in ranks:
+        say(f"[distributed] collapse rank {r['rank']}/{r['world']}: device "
+            f"{r['device']}, backend {r['backend']}, launches "
+            f"{r['launches']}, reads {r['reads']}, records {r['records']}, "
+            f"ingest and levels {r['ingest_levels_s']:.3f} s, in the "
+            f"function "
+            f"{r['wall_s']:.3f} s, process {r['process_wall_s']:.3f} s"
+            + (f", merge {r['merge_s']:.3f} s" if r["merge_s"] is not None
+               else ""))
+        check(r["device"].startswith("cuda") and
+              sum(r["launches"].values()) > 0,
+              f"collapse rank {r['rank']} launched no tag-distance kernel "
+              "on the card")
+    one = os.path.join(workdir, "workers", "run0.bam")
+    same_c = _record_multiset(out_c) == _record_multiset(one)
+    say(f"[distributed] collapse of the bench BAM on {N_DIST_RANKS} ranks: "
+        f"{collapse_wall:.3f} s for the ranks (one process: "
+        f"{WALLS.get('one-process collapse')} s); merged records "
+        f"{'equal' if same_c else 'DIFFER from'} the one-process "
+        f"collapse's")
+    check(same_c, "the distributed collapse differs from the one-process "
+          "collapse")
+    check(sum(r["reads"] for r in ranks) == N_BENCH_READS,
+          "the collapse ranks' slices do not cover the reads")
+
+    # sharded_align_step over [cuda:0] against one dp_align call
+    rng = np.random.default_rng(5)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    B, L = 256, 342
+    refs = rng.choice(bases, (B, L)).astype(np.uint8)
+    reads = refs.copy()
+    subs = rng.random(reads.shape) < 0.05
+    reads[subs] = rng.choice(bases, int(subs.sum()))
+    lens = np.full(B, L, dtype=np.int32)
+    params = tbatch.scoring_to_params(AffineScoring.aligner_default(), "cpu")
+    scores, ops, n_ops = sharded_align_step(
+        make_mesh(1), refs, reads, lens, lens, params, n1=L + 1, n2=L + 1)
+    dev = torch.device("cuda", 0)
+    fused, _tb = dp_kernels.dp_align(
+        *(torch.from_numpy(a).to(dev) for a in (refs, reads, lens, lens)),
+        params.to(dev), n1=L + 1, n2=L + 1, special_mode="both")
+    packed, one_n, one_score = tbatch.unfuse_result(fused.cpu().numpy())
+    same = (np.array_equal(scores.numpy(), one_score)
+            and np.array_equal(n_ops.numpy(), one_n)
+            and np.array_equal(ops.numpy(), tbatch.unpack_ops(
+                np.ascontiguousarray(packed), 2 * L + 2)))
+    say(f"[distributed] sharded_align_step on [cuda:0], B={B} n1=n2={L + 1}: "
+        f"scores, ops and n_ops {'equal' if same else 'DIFFER from'} one "
+        f"dp_align call's")
+    check(same, "sharded_align_step differs from dp_align")
+
+
 def main():
     t_start = time.time()
     phase_card()
@@ -3713,12 +4046,14 @@ def main():
     err["edit_hits"], times["edit_hits"] = phase_edit_hits()
     err["hmm_forward"], times["hmm_forward"] = phase_hmm_kernel()
     err.update(phase_wfa_kernels())
+    linear_launches, err["wfa_score_linear"], times["wfa_score_linear"] = \
+        phase_wfa_linear()
     launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_cpu_worker_init) as pool:
         path_launches = [phase_golden(workdir),
-                         phase_golden_engines(workdir)]
+                         phase_golden_engines(workdir), linear_launches]
         phase_profile(workdir)
         hifi_launches, hifi_head, hifi_wfa = phase_hifi(workdir, pool)
         convex_launches, convex_head, convex_wfa = phase_convex(workdir,
@@ -3743,6 +4078,7 @@ def main():
                           phase_workers(workdir, bench),
                           phase_banded(workdir, bench),
                           phase_known_list(workdir, bench)]
+        phase_distributed(workdir, bench)
         path_launches.append(phase_device_levenshtein())
         phase_threshold(bench[5])
         long_launches, long_rate, long_head = phase_long_reads(workdir, pool)
@@ -3769,6 +4105,7 @@ def main():
         f"reads/s over {N_ONT_WFA_READS}; host Myers at 2M pairs "
         f"{myers_ms:.1f} ms; "
         f"script {time.time() - t_start:.1f} s")
+    say(f"[walls] {json.dumps(PHASE_WALLS)}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"clique_tpu_torch/csrc/{SOURCES[name]}",

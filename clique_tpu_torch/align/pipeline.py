@@ -17,9 +17,8 @@ that a diff between the two reads easily. What differs:
   wavefront engines) or the pair-HMM router (align/hmm.py, its forward
   recurrence a hand-written kernel), a full or partial band, the anchored
   seed-and-extend path for long reads, and a torch.profiler trace
-  (profile_dir). What is not ported yet raises NotImplementedError naming
-  its ROADMAP.md item: the wavefront bialign engine and read sharding
-  across processes.
+  (profile_dir), and read_shard: one process's stripe of the read chunks
+  (the multi-process align of parallel/distributed.py).
 - BatchAligner splits a length bucket into groups whose traceback stays
   within batch.MAX_TRACEBACK_BYTES (the JAX package pads groups up
   instead); outputs do not change.
@@ -68,23 +67,13 @@ from clique_tpu_torch.align import dp_kernels, hmm, wfa_kernels
 from clique_tpu_torch.align.wavefront import (WfaAligner,
                                               wfa_screen_candidates)
 
+# read-chunk size for multi-process striping (align_reads read_shard):
+# large enough that each process's device batches stay dense, small enough
+# to balance 2+ processes on modest inputs (env-overridable for tests), as
+# clique_tpu/align/pipeline.py reads it
+_SHARD_CHUNK = int(os.environ.get("CLIQUE_TPU_SHARD_CHUNK", "1024"))
+
 log = logging.getLogger(__name__)
-
-
-# the ROADMAP.md Queue 1 item that ports each capability the JAX pipeline
-# has and this one refuses (the CLI names them too)
-ROADMAP_ITEMS = {
-    "parallel": "11 (parallel/)",
-}
-
-
-def unported_message(what: str, item: str) -> str:
-    return (f"{what} is not ported to clique_tpu_torch yet (ROADMAP.md "
-            f"Queue 1 item {ROADMAP_ITEMS[item]}); use clique_tpu")
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(unported_message(what, item))
 
 # rust-bio-compatible scoring used by the reference's single-reference path
 # (alignment_functions.rs:48-61): match/ref-N = 1, mismatch = -1, gap -5/-1.
@@ -467,7 +456,14 @@ def _align_reads_impl(
     DP as its fallback); "convex", the same engine under the dual-affine
     penalties. Scores on the wavefront engines are negated penalties, and
     the exhaustive search screens candidates by penalty (last minimum
-    wins). read_shard is not ported and raises.
+    wins).
+
+    read_shard: (rank, world) — process only the read chunks dealt to this
+    rank (chunks of _SHARD_CHUNK read sets, round-robin by chunk index:
+    a deterministic disjoint cover). The multi-process align
+    (parallel/distributed.py:align_distributed) gives each process one
+    shard and merges the per-process part BAMs; stats then cover the
+    LOCAL slice only.
 
     profile_dir: a torch.profiler trace of the run (CPU activity, and the
     card's with a CUDA device), written there as a Chrome trace when the
@@ -488,8 +484,6 @@ def _align_reads_impl(
         raise ValueError(f"unknown engine {engine!r}")
     if router not in ("kmer", "hmm"):
         raise ValueError(f"unknown router {router!r}")
-    if read_shard is not None:
-        _unported("read_shard", "parallel")
     if scoring is None:
         scoring = AffineScoring.hifi_default() if mode == "hifi" \
             else AffineScoring.aligner_default()
@@ -929,15 +923,27 @@ def _align_reads_impl(
         (p.orientation for p in layout.reads if p.kind == "Read1"),
         AlignedReadOrientation.FORWARD)
 
+    def _shard_filter(it):
+        """Yield only this rank's read chunks (see read_shard docstring)."""
+        if read_shard is None:
+            return it
+        rank, world = read_shard
+
+        def gen():
+            for i, item in enumerate(it):
+                if (i // _SHARD_CHUNK) % world == rank:
+                    yield item
+        return gen()
+
     t_reader = time.time()
     if (reader.single_stream and "Read1" in declared_kinds
             and not concat_single
             and r1_orientation == AlignedReadOrientation.FORWARD):
-        for rec in reader.read_one_records():
+        for rec in _shard_filter(reader.read_one_records()):
             stats.total += 1
             process_merged(rec.name, rec.seq, rec.qual)
     else:
-        for rsc in reader:
+        for rsc in _shard_filter(reader):
             stats.total += 1
             merged = unify_read(rsc, layout,
                                 defer_align_merge=needs_align_merge)

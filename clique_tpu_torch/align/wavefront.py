@@ -21,7 +21,11 @@ the host side:
 - the bialign engine, `wfa_bialign_affine_pairs` over `_mid_split_batch`
   (one `wfa_mid` launch a rung of a split level), for the pairs whose op
   store would pass the memory budget, as in the JAX class;
-- `wfa_screen_candidates` on `wfa_score`, and `wfa_affine_align_pairs`.
+- `wfa_screen_candidates` on `wfa_score`, and `wfa_affine_align_pairs`;
+- `wfa_linear_batch`, `wfa_edit_batch` and `wfa_edit_distances`, the
+  gap-linear penalty and edit distance (its x = e = 1 case, no
+  wildcards), each one `wfa_score` launch under the "linear" model, which
+  no verb calls.
 """
 
 from __future__ import annotations
@@ -966,3 +970,62 @@ def wfa_screen_candidates(refs, reads, *, x: int = 4, o: int = 6,
         *(torch.from_numpy(t).to(dev) for t in (a, b, la, lb)), smax=smax,
         model=model, x=x, o=o, e=e, o2=o2, e2=e2, wildcards=True)
     return pen.cpu().numpy()
+
+
+# --- gap-linear penalties and edit distance ----------------------------------
+
+def _pair_tensors(refs, reads, ref_lens, read_lens, dev):
+    """The four inputs as contiguous tensors on `dev` (numpy arrays or
+    tensors): u8 rows, i32 lengths."""
+    out = []
+    for t, dtype in ((refs, torch.uint8), (reads, torch.uint8),
+                     (ref_lens, torch.int32), (read_lens, torch.int32)):
+        t = t if torch.is_tensor(t) else torch.from_numpy(np.asarray(t))
+        out.append(t.to(device=dev, dtype=dtype).contiguous())
+    return out
+
+
+def wfa_linear_batch(refs, reads, ref_lens, read_lens, *, n1: int, n2: int,
+                     smax: int, x: int = 4, e: int = 2,
+                     wildcards: bool = False, kband: Optional[int] = None,
+                     device="cuda") -> torch.Tensor:
+    """Batched gap-LINEAR WFA (WFA2-lib's wavefront_compute_linear.o,
+    wavefront.py:232-316): penalties mismatch=x, per-base indel=e, no
+    gap-open term. refs [B, n1], reads [B, n2] u8 row-padded, lengths [B]
+    i32 (numpy arrays or tensors). Returns the minimal penalty [B] i32 on
+    `device` (smax + 1 censored). One wfa_score launch under the "linear"
+    model (the kernel's G = 0) on a CUDA device, its plain version on the
+    CPU; diagonals |k| <= min(n1 + n2, smax, smax // e, kband)."""
+    dev = _device(device)
+    args = _pair_tensors(refs, reads, ref_lens, read_lens, dev)
+    kb = n1 + n2 if kband is None else min(kband, n1 + n2)
+    return wfa_kernels.wfa_score(*args, smax=smax, model="linear", x=x, e=e,
+                                 wildcards=wildcards, kband=kb)
+
+
+def wfa_edit_batch(refs, reads, ref_lens, read_lens, *, n1: int, n2: int,
+                   smax: int, device="cuda") -> torch.Tensor:
+    """Batched WFA edit distance (wavefront.py:166-229): [B] i32 on
+    `device` (smax + 1 if censored), diagonals |k| <= min(n1 + n2, smax).
+    The gap-linear fill at x = e = 1 without wildcards: its clamp's
+    v >= 0 and k-range terms, which wfa_edit_batch's leaner loop leaves
+    out, hold for every finite offset anyway."""
+    return wfa_linear_batch(refs, reads, ref_lens, read_lens, n1=n1, n2=n2,
+                            smax=smax, x=1, e=1, device=device)
+
+
+def wfa_edit_distances(pairs_a, pairs_b, smax=None, pad_to: int = 64,
+                       device="cuda") -> np.ndarray:
+    """Host wrapper: exact edit distances via the wavefront kernel
+    (wavefront.py:2178-2199), i32 [P]. Rows of L = max(pad_to, longest)
+    bytes; smax defaults to 2 * L. One launch of exactly the P pairs (the
+    JAX function pads P to a power of two for XLA's compile reuse)."""
+    if not pairs_a:
+        return np.zeros(0, dtype=np.int32)
+    L = max(pad_to, max(max(len(a) for a in pairs_a),
+                        max(len(b) for b in pairs_b)))
+    a, b, la, lb = _pad_pairs(pairs_a, pairs_b, len(pairs_a), L)
+    if smax is None:
+        smax = 2 * L
+    return wfa_edit_batch(a, b, la, lb, n1=L, n2=L, smax=smax,
+                          device=device).cpu().numpy()

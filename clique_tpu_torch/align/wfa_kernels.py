@@ -10,16 +10,21 @@ Counterpart of the device functions of clique_tpu/align/wavefront.py that
   them: per pair the penalty, the [smax+1, B, K] u8 op store and the
   walk's forward op skeleton with its end row;
 - `wfa_score` replaces the score-only wfa_affine_batch (:319) and
-  wfa_affine2p_batch (:615) of the exhaustive-search screen;
+  wfa_affine2p_batch (:615) of the exhaustive-search screen, and under the
+  "linear" model wfa_linear_batch (:232) and with it wfa_edit_batch
+  (:166), edit distance being the gap-linear penalty at x = e = 1;
 - `wfa_mid` replaces wfa_affine_mid_batch (:442), the bialign engine's
   midpoint fill: per pair the penalty and the on-path split cell.
 
 `wfa_align` and `wfa_score` take `model` "affine" (penalties x, o, e) or
-"affine2p" (also o2, e2); `wfa_mid` is gap-affine only. Each runs its
-hand-written kernel of csrc/wfa_align.cu on CUDA tensors, its plain
-PyTorch version below on CPU tensors; any other device raises.
-`wfa_align_launches`, `wfa_score_launches` and `wfa_mid_launches` count
-kernel launches and nothing else. `wfa_plan` lays a launch out on the
+"affine2p" (also o2, e2); `wfa_score` also takes "linear" (x, and e an
+indel base: the M plane alone, the kernel's G = 0); `wfa_mid` is
+gap-affine only. Each runs its hand-written kernel of csrc/wfa_align.cu on
+CUDA tensors, its plain PyTorch version below on CPU tensors
+(wfa_fill_reference, wfa_linear_reference, wfa_mid_reference); any other
+device raises. `wfa_align_launches`, `wfa_score_launches` (the affine
+models), `wfa_linear_launches` (wfa_score under "linear") and
+`wfa_mid_launches` count kernel launches and nothing else. `wfa_plan` lays a launch out on the
 card (each plane's ring rows, the CTAs a pair, where the rings live); the
 kernel checks what it is given.
 
@@ -51,12 +56,15 @@ from clique_tpu_torch.align.dp_kernels import (_check, _device_of,
                                                _launch_stream, _raise_on)
 
 NEG = -(1 << 30)
+# the models of the op store and the walk (wfa_align); wfa_score also
+# takes "linear"
 MODELS = ("affine", "affine2p")
 # the midpoint payload's encoding, h * MID_ENC + v (lengths below 32,768)
 MID_ENC = 1 << 16
 
 wfa_align_launches = 0
 wfa_score_launches = 0
+wfa_linear_launches = 0
 wfa_mid_launches = 0
 # launches whose rings did not fit the shared memory of a cluster of 8 CTAs
 # and lived in a global workspace instead (csrc/wfa_align.cu)
@@ -85,8 +93,10 @@ WARP_PAIRS = 4
 def reset_counts() -> None:
     global wfa_align_launches, wfa_score_launches, wfa_mid_launches
     global wfa_global_ring_launches, wfa_score_warp_launches
+    global wfa_linear_launches
     wfa_align_launches = 0
     wfa_score_launches = 0
+    wfa_linear_launches = 0
     wfa_mid_launches = 0
     wfa_global_ring_launches = 0
     wfa_score_warp_launches = 0
@@ -104,7 +114,10 @@ def exact_kband(smax: int, opens_extends) -> int:
 
 
 def gap_classes(model: str, o: int, e: int, o2: int, e2: int):
-    """The (open, extend) pairs of a penalty model."""
+    """The (open, extend) pairs of a penalty model; gap-linear's one class
+    opens for nothing."""
+    if model == "linear":
+        return ((0, e),)
     if model not in MODELS:
         raise ValueError(f"unknown WFA penalties model: {model}")
     return ((o, e),) if model == "affine" else ((o, e), (o2, e2))
@@ -112,7 +125,8 @@ def gap_classes(model: str, o: int, e: int, o2: int, e2: int):
 
 def kmax_of(model: str, n1: int, n2: int, smax: int, o: int, e: int,
             o2: int, e2: int, kband: Optional[int] = None) -> int:
-    """The fill's diagonal half-width: K = 2 * kmax + 1 diagonals."""
+    """The fill's diagonal half-width: K = 2 * kmax + 1 diagonals
+    (gap-linear: min(n1 + n2, smax, smax // e), wfa_linear_batch's)."""
     kmax = min(n1 + n2, smax, exact_kband(smax, gap_classes(model, o, e,
                                                             o2, e2)))
     if kband is not None:
@@ -141,10 +155,13 @@ def ring_heights(model: str, x: int, o: int, e: int, o2: int, e2: int,
     """Rows of each ring plane of the kernel: (M, I and D of class 1[, I
     and D of class 2]). M is read x and o_g + e_g steps back, I_g and D_g
     e_g steps back; each keeps its longest lookback plus `steps` rows (a
-    barrier interval's steps never write a row that one of them reads)."""
+    barrier interval's steps never write a row that one of them reads).
+    Gap-linear has the M plane alone, read x and e steps back: (M,)."""
     classes = gap_classes(model, o, e, o2, e2)
-    return (max([x] + [og + eg for og, eg in classes]) + steps,
-            *(eg + steps for _og, eg in classes))
+    hm = max([x] + [og + eg for og, eg in classes]) + steps
+    if model == "linear":
+        return (hm,)
+    return (hm, *(eg + steps for _og, eg in classes))
 
 
 def seq_bytes(n: int) -> int:
@@ -198,7 +215,8 @@ def wfa_plan(kind: str, model: str, n1: int, n2: int, B: int, smax: int,
     workspaces of (at most B; the launch caps it at what the card holds at
     once). Where every lookback is 2 or more and the trim is off, two
     score steps run between barriers and each plane keeps one row more.
-    `cluster` forces C (0: the global workspace). wfa_score takes the warp
+    `cluster` forces C (0: the global workspace). Gap-linear ("linear",
+    o = 0) is wfa_score's only. wfa_score takes the warp
     path where the band fits a warp, K <= WARP_MAX_K (at most four
     diagonals a lane), and one pair's slice (its rows and rings) fits:
     WARP_PAIRS pairs a CTA, fewer where their slices would pass
@@ -208,6 +226,8 @@ def wfa_plan(kind: str, model: str, n1: int, n2: int, B: int, smax: int,
     0), which the kernel's rings cannot hold."""
     if min(x, e) < 1 or (model == "affine2p" and e2 < 1):
         raise ValueError("the kernels need x and every extend >= 1")
+    if model == "linear" and (kind != "score" or o != 0):
+        raise ValueError("the gap-linear model is wfa_score's, with o = 0")
     steps = steps_of(model, x, e, e2, adaptive)
     heights = ring_heights(model, x, o, e, o2, e2, steps)
     rows = heights[0] + 2 * sum(heights[1:])
@@ -402,7 +422,12 @@ def wfa_fill_reference(refs, reads, ref_lens, read_lens, *, smax: int,
     with traceback, the op store [smax+1, B, K] u8 (else None). Semantics
     of wfa_affine{,2p}_tb_batch and, without traceback and adaptive, of
     wfa_affine{,2p}_batch. refs [B, n1] and reads [B, n2] u8 row-padded,
-    lengths [B] i32 in [0, n1] / [0, n2]."""
+    lengths [B] i32 in [0, n1] / [0, n2]. The gap-linear model's plain
+    version is wfa_linear_reference."""
+    if model not in MODELS:
+        raise ValueError(f"unknown WFA penalties model for the op store: "
+                         f"{model!r} (the gap-linear one's plain version "
+                         f"is wfa_linear_reference)")
     dev, B = _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x,
                            o, e, o2, e2)
     n1w, n2w = _check_lengths(refs, reads, ref_lens, read_lens)
@@ -491,6 +516,50 @@ def wfa_fill_reference(refs, reads, ref_lens, read_lens, *, smax: int,
         s = s1
     pen = torch.where(result < 0, smax + 1, result).to(i32)
     return pen, ops
+
+
+def wfa_linear_reference(refs, reads, ref_lens, read_lens, *, smax: int,
+                         x: int = 4, e: int = 2, wildcards: bool = False,
+                         kband: Optional[int] = None):
+    """The plain gap-linear wavefront fill, step for step wfa_linear_batch
+    (wavefront.py:232-316): mismatch x, e an indel base, no gap open, the
+    M plane alone (M[s] from M[s - x] on k and M[s - e] on k -/+ 1).
+    Returns the penalty [B] i32 (smax + 1 censored); edit distance is x =
+    e = 1 without wildcards (wfa_edit_batch's). Inputs as
+    wfa_fill_reference's."""
+    dev, B = _check_inputs(refs, reads, ref_lens, read_lens, "linear", smax,
+                           x, 0, e, 0, 0)
+    n1w, n2w = _check_lengths(refs, reads, ref_lens, read_lens)
+    Kmax = kmax_of("linear", n1w, n2w, smax, 0, e, 0, 0, kband)
+    K = 2 * Kmax + 1
+    hist = hist_of("linear", x, 0, e, 0, 0)
+    i32 = torch.int32
+    w = _Diagonals(refs, reads, ref_lens, read_lens, Kmax, wildcards)
+    ks, clamp, diag_valid, extend, done = (w.ks, w.clamp, w.diag_valid,
+                                           w.extend, w.done)
+    neg = torch.full((B, K), NEG, dtype=i32, device=dev)
+    m0 = torch.where((ks == 0)[None, :].expand(B, K), 0, neg)
+    m0 = extend(m0, diag_valid(0))
+    M = [neg] * hist
+    M[0] = m0
+    result = torch.where(done(m0), 0, -1).to(i32)
+    s = 0
+
+    def get(s1, back):
+        return M[(s1 - back) % hist] if s1 - back >= 0 else neg
+
+    while s < smax and not bool((result >= 0).all()):
+        s1 = s + 1
+        m_e = get(s1, e)
+        new = torch.maximum(_plus1(get(s1, x)),
+                            torch.maximum(_plus1(_shift_r(m_e)),
+                                          _shift_l(m_e)))
+        vld = diag_valid(s1)
+        new = extend(clamp(torch.where(vld, new, NEG)), vld)
+        M[s1 % hist] = new
+        result = torch.where((result < 0) & done(new), s1, result).to(i32)
+        s = s1
+    return torch.where(result < 0, smax + 1, result).to(i32)
 
 
 def wfa_mid_reference(refs, reads, ref_lens, read_lens, *, smax: int,
@@ -661,10 +730,11 @@ def _workspace(plan, dev):
 
 
 def _layout_args(plan):
-    """The kernel's layout arguments: steps, ring rows (hm, he1, he2), C,
-    grid, ring_global."""
-    hm, he1, *he2 = plan.heights
-    return (plan.steps, hm, he1, he2[0] if he2 else 0, plan.C, plan.grid,
+    """The kernel's layout arguments: steps, ring rows (hm, he1, he2; 0 for
+    a plane the model has not), C, grid, ring_global."""
+    hm, *he = plan.heights
+    he = list(he) + [0] * (2 - len(he))
+    return (plan.steps, hm, he[0], he[1], plan.C, plan.grid,
             int(plan.ring_global))
 
 
@@ -674,15 +744,17 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
     traceback) or wfa_score and return (pen, ops, ops_fwd, fin), the last
     three None without traceback. Counts a launch where it makes one."""
     global wfa_align_launches, wfa_score_launches, wfa_global_ring_launches
-    global wfa_score_warp_launches
+    global wfa_score_warp_launches, wfa_linear_launches
     from clique_tpu_torch import _build
 
     dev = reads.device
     B, n1w = refs.shape
     n2w = reads.shape[1]
+    G = {"linear": 0, "affine": 1, "affine2p": 2}[model]
+    if G == 0:
+        o = 0          # gap-linear: no gap open
     Kmax = kmax_of(model, n1w, n2w, smax, o, e, o2, e2, kband)
     K = 2 * Kmax + 1
-    G = 1 if model == "affine" else 2
     o2_, e2_ = (o2, e2) if G == 2 else (0, 0)
     plan = _plan_on(dev, "align" if traceback else "score", model, n1w, n2w,
                     B, smax, Kmax, x, o, e, o2_, e2_,
@@ -720,6 +792,8 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
     _raise_on(err, "wfa_align" if traceback else "wfa_score")
     if traceback:
         wfa_align_launches += 1
+    elif G == 0:
+        wfa_linear_launches += 1
     else:
         wfa_score_launches += 1
         wfa_score_warp_launches += plan.wp > 0
@@ -740,6 +814,10 @@ def wfa_align(refs, reads, ref_lens, read_lens, *, smax: int,
     by wfa_walk_reference with k_targets = ref_lens - read_lens. The
     kernel marks a pair whose lengths lie outside the rows with penalty
     -1 and fin -3 (the plain version raises ValueError)."""
+    if model not in MODELS:
+        raise ValueError(f"unknown WFA penalties model for the op store: "
+                         f"{model!r} (the gap-linear model is "
+                         f"wfa_score's)")
     dev, _B = _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x,
                             o, e, o2, e2)
     if dev.type == "cpu":
@@ -760,11 +838,16 @@ def wfa_score(refs, reads, ref_lens, read_lens, *, smax: int,
               o2: int = 24, e2: int = 1, wildcards: bool = False,
               kband: Optional[int] = None, stream=None) -> torch.Tensor:
     """Score-only wavefront fill: penalty [B] i32 (smax + 1 censored), the
-    semantics of wfa_affine_batch / wfa_affine2p_batch; inputs as
+    semantics of wfa_affine_batch / wfa_affine2p_batch, and under model
+    "linear" (x, e; o, o2 and e2 unused) of wfa_linear_batch; inputs as
     wfa_align's."""
     dev, _B = _check_inputs(refs, reads, ref_lens, read_lens, model, smax, x,
                             o, e, o2, e2)
     if dev.type == "cpu":
+        if model == "linear":
+            return wfa_linear_reference(
+                refs, reads, ref_lens, read_lens, smax=smax, x=x, e=e,
+                wildcards=wildcards, kband=kband)
         return wfa_fill_reference(
             refs, reads, ref_lens, read_lens, smax=smax, model=model, x=x,
             o=o, e=e, o2=o2, e2=e2, wildcards=wildcards, kband=kband,

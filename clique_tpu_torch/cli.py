@@ -2,10 +2,11 @@
 
 `clique-tpu-torch align|collapse|run ...` take the flags of the same verbs
 of `clique-tpu` (clique_tpu/cli.py:25-184) plus `--device`; `call` takes
-those of `clique-tpu call` and runs on the host. Options the port does not
-run yet exit with code 2 and an error that names the ROADMAP.md item
-porting them, whether the CLI sees them in the flags or `align_reads`
-refuses them on the layout (NotImplementedError).
+those of `clique-tpu call` and runs on the host. `align` and `collapse`
+with `--distributed-world N > 1` run as one of N processes
+(parallel/distributed.py) over a shared `--work-dir`, joined at
+`--distributed-coordinator` (host:port, rank 0's); each process runs its
+kernels on `--device`, a bare `cuda` meaning cuda:(rank % device count).
 """
 
 from __future__ import annotations
@@ -13,21 +14,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-# per verb: flag -> (is it set to an unported value?, key of
-# align.pipeline.ROADMAP_ITEMS): the multi-process runs. Everything else,
-# `--engine wfa|convex`, `--router hmm`, `--profile-dir` and
-# `collapse --threads N` included, runs.
-_UNPORTED = {
-    "align": {
-        "--distributed-world > 1": (lambda a: a.distributed_world > 1,
-                                    "parallel"),
-    },
-    "collapse": {
-        "--distributed-world > 1": (lambda a: a.distributed_world > 1,
-                                    "parallel"),
-    },
-}
 
 
 def main(argv=None) -> int:
@@ -92,10 +78,17 @@ def main(argv=None) -> int:
                          help="reads at least this long route through the "
                               "anchored seed-and-extend path (DP engine)")
     p_align.add_argument("--distributed-world", type=int, default=1,
-                         help="values above 1 are not ported")
+                         help="run align as N cooperating processes over a "
+                              "shared --work-dir; launch every process with "
+                              "identical args plus a distinct "
+                              "--distributed-rank")
     p_align.add_argument("--distributed-rank", type=int, default=0)
-    p_align.add_argument("--distributed-coordinator", default=None)
-    p_align.add_argument("--work-dir", default=None)
+    p_align.add_argument("--distributed-coordinator", default=None,
+                         help="host:port of the torch.distributed "
+                              "rendezvous (rank 0's address)")
+    p_align.add_argument("--work-dir", default=None,
+                         help="shared scratch dir for part BAMs (required "
+                              "with --distributed-world > 1)")
     p_align.add_argument("--bandwidth", type=int, default=None,
                          help="banded DP half-width around the length-"
                               "proportional diagonal (alignment_matrix.rs"
@@ -142,10 +135,17 @@ def main(argv=None) -> int:
                             help="spill shard count for the out-of-core "
                                  "path (default: sized from the input)")
     p_collapse.add_argument("--distributed-world", type=int, default=1,
-                            help="values above 1 are not ported")
+                            help="number of cooperating processes; run one "
+                                 "process per rank with identical flags "
+                                 "plus a distinct --distributed-rank")
     p_collapse.add_argument("--distributed-rank", type=int, default=0)
-    p_collapse.add_argument("--distributed-coordinator", default=None)
-    p_collapse.add_argument("--work-dir", default=None)
+    p_collapse.add_argument("--distributed-coordinator", default=None,
+                            help="host:port of the torch.distributed "
+                                 "rendezvous (rank 0's address)")
+    p_collapse.add_argument("--work-dir", default=None,
+                            help="shared filesystem directory for the "
+                                 "multi-process exchange (required when "
+                                 "--distributed-world > 1)")
     p_collapse.add_argument("--device", default="cuda",
                             help="torch device the tag-distance kernels run "
                                  "on: cuda, cuda:N or cpu")
@@ -200,17 +200,21 @@ def main(argv=None) -> int:
     p_call.add_argument("--min-read-count", type=int, default=1)
 
     args = parser.parse_args(argv)
+    if getattr(args, "distributed_world", 1) > 1:
+        if not args.work_dir:
+            parser.error("--work-dir is required with "
+                         "--distributed-world > 1")
+        if not args.distributed_coordinator:
+            parser.error("--distributed-coordinator is required with "
+                         "--distributed-world > 1")
+        from clique_tpu_torch.parallel.distributed import \
+            shutdown_distributed
 
-    from clique_tpu_torch.align.pipeline import unported_message
-
-    for flag, (is_set, item) in _UNPORTED.get(args.cmd, {}).items():
-        if is_set(args):
-            parser.error(unported_message(flag, item))
-
-    try:
-        return _run(args)
-    except NotImplementedError as exc:
-        parser.error(str(exc))
+        try:
+            return _run(args)
+        finally:
+            shutdown_distributed()
+    return _run(args)
 
 
 def _run(args) -> int:
@@ -223,10 +227,7 @@ def _run(args) -> int:
         layout = SequenceLayout.from_yaml(args.read_structure)
         rm = ReferenceManager.from_layout(layout, args.kmer_size,
                                           args.kmer_spacing)
-        stats = align_reads(
-            layout, rm, args.output_bam_file,
-            read1=args.read1, read2=args.read2,
-            index1=args.index1, index2=args.index2,
+        align_kwargs = dict(
             max_reference_multiplier=args.max_reference_multiplier,
             min_read_length=args.min_read_length,
             batch_size=args.batch_size,
@@ -241,15 +242,51 @@ def _run(args) -> int:
             bandwidth=args.bandwidth,
             device=args.device,
         )
+        if args.distributed_world > 1:
+            from clique_tpu_torch.parallel.distributed import \
+                align_distributed
+
+            stats = align_distributed(
+                layout, rm, args.output_bam_file, args.work_dir,
+                read1=args.read1, read2=args.read2,
+                index1=args.index1, index2=args.index2,
+                process_id=args.distributed_rank,
+                num_processes=args.distributed_world,
+                coordinator_address=args.distributed_coordinator,
+                **align_kwargs)
+            logging.info("distributed align done: %s", stats)
+            return 0
+        stats = align_reads(
+            layout, rm, args.output_bam_file,
+            read1=args.read1, read2=args.read2,
+            index1=args.index1, index2=args.index2,
+            **align_kwargs)
         logging.info("align done: %s", stats)
         return 0
 
     if args.cmd == "collapse":
         from clique_tpu_torch.collapse.pipeline import collapse
 
+        layout = SequenceLayout.from_yaml(args.read_structure)
+        if args.distributed_world > 1:
+            from clique_tpu_torch.parallel.distributed import \
+                collapse_distributed
+
+            collapse_distributed(
+                args.output_bam_file, layout, args.input_bam_file,
+                args.work_dir,
+                process_id=args.distributed_rank,
+                num_processes=args.distributed_world,
+                coordinator_address=args.distributed_coordinator,
+                correct_only=args.correct_only,
+                downsample_cap=args.downsample_cap,
+                out_of_core=args.out_of_core or None,
+                device=args.device,
+            )
+            return 0
         collapse(
             output_path=args.output_bam_file,
-            layout=SequenceLayout.from_yaml(args.read_structure),
+            layout=layout,
             input_bam=args.input_bam_file,
             temp_dir=None if args.temp_dir == "NONE" else args.temp_dir,
             correct_only=args.correct_only,

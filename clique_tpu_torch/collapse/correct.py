@@ -9,6 +9,8 @@ distance kernels run on threaded through:
   within Hamming max_distance (match_hits kernel).
 - correct_known_levenshtein: pigeonhole candidates + Levenshtein; unique
   hit accepted, multi-hit accepted iff a unique minimum distance.
+- correct_degenerate: the one-group form (correct.py:402) of
+  correct_degenerate_groups; no pipeline path calls it.
 - correct_degenerate_groups: candidate pairs + Levenshtein + greedy
   count-ratio absorption (bigger cluster absorbs smaller when
   count_big/count_small >= minimum_collapsing_difference, default 5.0)
@@ -18,8 +20,7 @@ distance kernels run on threaded through:
   pairs there; only the close pairs come back.
 
 All corrections key on the gap-stripped tag padded with '-' to the
-configured length. `correct_degenerate` (correct.py:402), which no
-pipeline path calls, is not ported.
+configured length.
 """
 
 from __future__ import annotations
@@ -565,3 +566,22 @@ def _rows_route(groups, candidates, norm_list, tag_lists, results,
         results[gi] = degenerate_finish(
             norm_list[gi], tag_lists[gi], pairs_g, dists[s:e],
             max_distance, collapse_ratio)
+
+
+def correct_degenerate(counts: Dict[bytes, int], max_distance: int,
+                       length: int, collapse_ratio: float = 5.0,
+                       device="cuda") -> Dict[bytes, bytes]:
+    """Starcode-style ratio clustering of one group (correct_tags.rs:256-332):
+
+    - 0 tags -> {}; 1 tag -> maps (padded) to itself;
+    - else: pad tags, find pairs within Levenshtein max_distance, absorb the
+      lower-count tag into the higher-count one when the count ratio >=
+      collapse_ratio, resolve absorption chains transitively to the root.
+
+    Result keys are the normalized tags; every observed tag maps somewhere
+    (unabsorbed tags map to themselves). The one-group form of
+    correct_degenerate_groups: absorption does not depend on the order of
+    the close pairs, so the map equals that of
+    clique_tpu/collapse/correct.py:402-477."""
+    return correct_degenerate_groups([counts], max_distance, length,
+                                     collapse_ratio, device=device)[0]

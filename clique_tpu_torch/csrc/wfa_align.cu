@@ -1,17 +1,27 @@
 // Wavefront alignment (WFA) of a batch of (reference, read) pairs, for
 // Hopper (sm_90a): the gap-affine and dual-affine ("convex") wavefront
 // fills, with an op store and the backtrace walk fused after the fill
-// (wfa_align), score only (wfa_score), or gap-affine with the bialign
+// (wfa_align), score only (wfa_score, which also takes the gap-linear
+// penalties and with them edit distance), or gap-affine with the bialign
 // engine's split payload (wfa_mid).
 //
 // Replaces: clique_tpu/align/wavefront.py::wfa_affine_tb_batch (:726),
 // wfa_affine2p_tb_batch (:878) and wfa_walk_device (:1156) -> wfa_align;
-// wfa_affine_batch (:319) and wfa_affine2p_batch (:615) -> wfa_score;
-// wfa_affine_mid_batch (:442) -> wfa_mid. Each JAX function is a
+// wfa_affine_batch (:319), wfa_affine2p_batch (:615), wfa_linear_batch
+// (:232) and wfa_edit_batch (:166) -> wfa_score; wfa_affine_mid_batch
+// (:442) -> wfa_mid. Each JAX function is a
 // lax.while_loop that advances the whole batch one score step an
 // iteration as [B, K] vector ops, until every lane is done. The plain
 // versions are align/wfa_kernels.py::wfa_fill_reference,
-// wfa_walk_reference and wfa_mid_reference.
+// wfa_linear_reference, wfa_walk_reference and wfa_mid_reference.
+//
+// G, the gap classes of a model: 1 gap-affine (M, I, D planes), 2
+// dual-affine (M, I1, D1, I2, D2), 0 gap-linear (the M plane alone: the
+// mismatch reads M at s - x on k, an indel M at s - e on k -/+ 1, no gap
+// open; edit distance is x = e = 1 without wildcards). G = 0 is score
+// only. The cell code keeps one "class" slot for G = 0 (nc(G) = 1) whose
+// open lookback o + e is the indel's s - e (the host passes o = 0) and
+// whose I and D planes do not exist.
 //
 // What bounds it on an H100: integer work. A score step updates the live
 // diagonals of a pair (K = 2 * kmax + 1 in all, kmax the exact band
@@ -130,6 +140,9 @@ constexpr int kCtrlInts = 8;
 constexpr int kCounterInts = 4;     // the workspace's pair counter
 constexpr int kMidEnc = 1 << 16;    // wfa_mid's payload: h * kMidEnc + v
 
+// Slots of a cell's per-class arrays: G, and one for gap-linear (G = 0).
+__host__ __device__ constexpr int nc(int G) { return G > 0 ? G : 1; }
+
 struct Params {
   int n1, n2;        // row widths: refs [B, n1], reads [B, n2]
   int B, smax, kmax, K;
@@ -168,7 +181,8 @@ __host__ __device__ inline int seq_bytes(int n) { return ((n + 3) / 4 + 1) * 4; 
 // diagonals between two halo columns (wfa_mid's payload planes, as many
 // rows of ints, live in the global workspace).
 __host__ __device__ inline long long cta_ring_values(const Params& p, int G) {
-  return (long long)(p.hm + 2 * p.he1 + (G == 2 ? 2 * p.he2 : 0)) *
+  return (long long)(p.hm + (G >= 1 ? 2 * p.he1 : 0) +
+                     (G == 2 ? 2 * p.he2 : 0)) *
          (p.cw + 2);
 }
 
@@ -247,11 +261,12 @@ __device__ __forceinline__ int back_row(int cur, int back, int h) {
 
 // The ring values one diagonal of one score step reads: M at s1 - x (k),
 // and for each gap class the opens (M at s1 - o_g - e_g, k -/+ 1) and the
-// extends (D at k - 1, I at k + 1, s1 - e_g).
+// extends (D at k - 1, I at k + 1, s1 - e_g). Gap-linear (G = 0) reads the
+// opens only, M at s1 - e.
 template <int G>
 struct CellIn {
   int mism;
-  int d_open[G], d_ext[G], i_open[G], i_ext[G];
+  int d_open[nc(G)], d_ext[nc(G)], i_open[nc(G)], i_ext[nc(G)];
 };
 
 // The recurrence of one diagonal k at score s1 from its ring values: the
@@ -263,7 +278,7 @@ __device__ __forceinline__ void combine(const CellIn<G>& in, int k, int s1,
                                         int l1, int l2, int* new_m,
                                         int* new_i, int* new_d, uint8_t* op) {
   const bool vld = (k <= s1 && -k <= s1) && k >= -l2 && k <= l1;
-  int raw_i[G], raw_d[G];
+  int raw_i[nc(G)], raw_d[nc(G)];
   int byte = 0;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -279,7 +294,13 @@ __device__ __forceinline__ void combine(const CellIn<G>& in, int k, int s1,
     return (vld && offs <= l1 && v <= l2 && v >= 0) ? offs : kN;
   };
   int m, src;
-  if (G == 1) {
+  if constexpr (G == 0) {
+    // gap-linear: M from the mismatch and the two indels (mismatch > I >
+    // D, as the affine source order), no gap planes
+    const int ins = in.i_open[0], del = plus1<kN>(in.d_open[0]);
+    m = max(mism, max(del, ins));
+    src = mism == m ? 1 : (ins == m ? 2 : 3);
+  } else if constexpr (G == 1) {
     // affine: M from the raw gaps, then every plane clamped
     m = max(mism, max(raw_i[0], raw_d[0]));
     src = mism == m ? 1 : (raw_i[0] == m ? 2 : 3);
@@ -386,8 +407,8 @@ __device__ int walk(const uint8_t* ops, const Params& p, int b, int score,
 template <int G, class RT>
 struct Rings {
   RT* M;
-  RT* I[G];
-  RT* D[G];
+  RT* I[nc(G)];
+  RT* D[nc(G)];
   int *PM, *PI, *PD;
   int rw;
 };
@@ -420,7 +441,8 @@ template <int G, bool kMid, class RT>
 __device__ __forceinline__ void put(const Rings<G, RT>& R, const Params& p,
                                     int li, int rank, int cm,
                                     const int (&ce)[2], int m,
-                                    const int (&ni)[G], const int (&nd)[G],
+                                    const int (&ni)[nc(G)],
+                                    const int (&nd)[nc(G)],
                                     int pm, int pi, int pd) {
   const int rw = R.rw, q = li + 1;
   st(&R.M[cm * rw + q], m);
@@ -572,9 +594,9 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
     else
       return ctrl[sl];
   };
-  int negs[G];
+  int negs[nc(G)];
 #pragma unroll
-  for (int h = 0; h < G; ++h) negs[h] = kN;
+  for (int h = 0; h < nc(G); ++h) negs[h] = kN;
   int ce[2] = {0, 0};
 
   sync();   // every CTA's rings are clear before a halo is written
@@ -594,7 +616,8 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
   int rq[2] = {0, 0}, rr[2] = {0, 0};   // (s - o_g) / e_g and its remainder
   for (int s0 = 1, it = 1; result < 0 && s0 <= p.smax; s0 += kSteps, ++it) {
     // each step's ring rows (written, and its lookbacks) and live slots
-    int wm[kSteps], we[kSteps][G], rx[kSteps], roe[kSteps][G], re[kSteps][G];
+    int wm[kSteps], we[kSteps][nc(G)], rx[kSteps], roe[kSteps][nc(G)],
+        re[kSteps][nc(G)];
     int lo[kSteps], hi[kSteps];
 #pragma unroll
     for (int dt = 0; dt < kSteps; ++dt) {
@@ -604,11 +627,12 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
       rx[dt] = back_row(cm, p.x, p.hm);
       int reach = 0;
 #pragma unroll
-      for (int h = 0; h < G; ++h) {
-        ce[h] = ce[h] + 1 == he[h] ? 0 : ce[h] + 1;
+      for (int h = 0; h < nc(G); ++h) {
+        if constexpr (G > 0) ce[h] = ce[h] + 1 == he[h] ? 0 : ce[h] + 1;
         we[dt][h] = ce[h];
         roe[dt][h] = back_row(cm, o_e[h], p.hm);
-        re[dt][h] = back_row(ce[h], e_[h], he[h]);
+        // no gap planes for G = 0
+        re[dt][h] = G > 0 ? back_row(ce[h], e_[h], he[h]) : 0;
         if (s1 > o_[h] && ++rr[h] == e_[h]) {
           rr[h] = 0;
           ++rq[h];
@@ -634,11 +658,11 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
         CellIn<G> in;
         in.mism = R.M[rx[dt] * rw + q];
 #pragma unroll
-        for (int h = 0; h < G; ++h) {
+        for (int h = 0; h < nc(G); ++h) {
           in.d_open[h] = R.M[roe[dt][h] * rw + q - 1];
-          in.d_ext[h] = R.D[h][re[dt][h] * rw + q - 1];
+          if constexpr (G > 0) in.d_ext[h] = R.D[h][re[dt][h] * rw + q - 1];
           in.i_open[h] = R.M[roe[dt][h] * rw + q + 1];
-          in.i_ext[h] = R.I[h][re[dt][h] * rw + q + 1];
+          if constexpr (G > 0) in.i_ext[h] = R.I[h][re[dt][h] * rw + q + 1];
         }
         int cand[5];
         if (kMid) {
@@ -649,7 +673,7 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
           cand[3] = R.PM[roe[dt][0] * rw + q - 1];
           cand[4] = R.PM[rx[dt] * rw + q];
         }
-        int m, ni[G], nd[G];
+        int m, ni[nc(G)], nd[nc(G)];
         uint8_t op;
         combine<G, kN>(in, k, s1, l1, l2, &m, ni, nd, &op);
         int pm = -1, pi = -1, pd = -1;
@@ -661,7 +685,7 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
           if (n > 0) m += extend_run(sref, sread, m, v, n, wild);
         }
         if (kMid) pm = pay_update<kN>(h_base, m, pm, k, mid);
-        int wce[2] = {we[dt][0], we[dt][G - 1]};
+        int wce[2] = {we[dt][0], we[dt][nc(G) - 1]};
         put<G, kMid>(R, p, li, rank, wm[dt], wce, m, ni, nd, pm, pi, pd);
         if (kTb) g.ops[((size_t)s1 * p.B + b) * K + li + k0] = op;
         if (!kWarp && p.adaptive >= 0) {
@@ -690,7 +714,7 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
       }
       sync_pair(p);
       const int lim = ctrl[ms] - p.adaptive;
-      int wce[2] = {we[0][0], we[0][G - 1]};
+      int wce[2] = {we[0][0], we[0][nc(G) - 1]};
       for (int li = lo[0] + tid; li < hi[0]; li += nt) {
         const int k = li + k0 - kmax;
         const int m = R.M[wm[0] * rw + li + 1];
@@ -865,7 +889,8 @@ int launch_steps(const Bufs& g, const Params& p, int steps,
                     : launch<G, kTb, kMid, 1, RT>(g, p, stream);
 }
 
-// tb: wfa_align; mid: wfa_mid (G = 1, pay [B] i32); neither: wfa_score.
+// tb: wfa_align; mid: wfa_mid (G = 1, pay [B] i32); neither: wfa_score
+// (G = 0 too: gap-linear, o1 = 0, he1 = he2 = 0).
 int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
         int n2, const void* ref_lens, const void* read_lens, int B, int G,
         int smax, int kmax, int x, int o1, int e1, int o2, int e2,
@@ -875,9 +900,13 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
         void* pen, void* ops, void* ops_fwd, void* fin, void* pay,
         void* stream) {
   if (B <= 0 || n1 < 1 || n2 < 1 || smax < 0 || kmax < 0 ||
-      (G != 1 && G != 2) || x < 1 || o1 < 0 || e1 < 1)
+      G < 0 || G > 2 || x < 1 || o1 < 0 || e1 < 1)
     return cudaErrorInvalidValue;
-  if (G == 1) {
+  if (G == 0) {
+    // gap-linear: score only, no gap open, no gap planes
+    if (tb || mid || o1 != 0 || he1 != 0) return cudaErrorInvalidValue;
+    o2 = e2 = he2 = 0;
+  } else if (G == 1) {
     o2 = e2 = he2 = 0;
   } else if (o2 < 0 || e2 < 1) {
     return cudaErrorInvalidValue;
@@ -891,7 +920,8 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
   // each plane's rows cover its lookbacks and the steps of an interval
   int back = std::max(x, o1 + e1);
   if (G == 2) back = std::max(back, o2 + e2);
-  if (hm < back + steps || he1 < e1 + steps || (G == 2 && he2 < e2 + steps))
+  if (hm < back + steps || (G >= 1 && he1 < e1 + steps) ||
+      (G == 2 && he2 < e2 + steps))
     return cudaErrorInvalidValue;
   const int K = 2 * kmax + 1;
   if (C != 1 && C != 2 && C != 4 && C != kMaxCluster) return cudaErrorInvalidValue;
@@ -919,6 +949,7 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
                static_cast<int*>(fin), static_cast<int*>(pay)};
   auto s = static_cast<cudaStream_t>(stream);
   if (mid) return launch_steps<1, false, true, int16_t>(g, p, steps, s);
+  if (G == 0) return launch_steps<0, false, false, int>(g, p, steps, s);
   if (G == 1)
     return tb ? launch_steps<1, true, false, int>(g, p, steps, s)
               : launch_steps<1, false, false, int>(g, p, steps, s);
@@ -941,13 +972,13 @@ __device__ void wfa_cell_probe(const int* in, const int* lens, int* out) {
   clique_wfa::CellIn<G> c;
   c.mism = in[0];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < clique_wfa::nc(G); ++g) {
     c.d_open[g] = in[1 + 4 * g];
-    c.d_ext[g] = in[2 + 4 * g];
+    if (G > 0) c.d_ext[g] = in[2 + 4 * g];
     c.i_open[g] = in[3 + 4 * g];
-    c.i_ext[g] = in[4 + 4 * g];
+    if (G > 0) c.i_ext[g] = in[4 + 4 * g];
   }
-  int m, ni[G], nd[G];
+  int m, ni[clique_wfa::nc(G)], nd[clique_wfa::nc(G)];
   uint8_t op;
   clique_wfa::combine<G>(c, lens[0], lens[1], lens[2], lens[3], &m, ni, nd,
                          &op);
@@ -982,6 +1013,14 @@ extern "C" __global__ void clique_wfa_score_probe_affine2p(const int* in,
                                                            const int* lens,
                                                            int* out) {
   wfa_cell_probe<2, false>(in, lens, out);
+}
+
+// The gap-linear cell of wfa_score (G = 0): the mismatch and the two
+// indels from M, the clamp, no gap planes.
+extern "C" __global__ void clique_wfa_score_probe_linear(const int* in,
+                                                         const int* lens,
+                                                         int* out) {
+  wfa_cell_probe<0, false>(in, lens, out);
 }
 
 // wfa_mid's cell: the affine recurrence as clique_wfa_score_probe_affine,
@@ -1053,7 +1092,9 @@ extern "C" int clique_wfa_align(const void* refs, int n1, const void* reads,
 
 // Launch wfa_score: the arguments of clique_wfa_align without the trim and
 // the outputs but the penalties, and wp: > 0 for the warp path (one warp a
-// pair, wp pairs a CTA, C 1, no persistent grid, K <= 128; wfa_plan).
+// pair, wp pairs a CTA, C 1, no persistent grid, K <= 128; wfa_plan). G =
+// 0 is gap-linear: mismatch x, e an indel base, o1 = 0, he1 = he2 = 0 (M
+// rings only).
 extern "C" int clique_wfa_score(const void* refs, int n1, const void* reads,
                                 int n2, const void* ref_lens,
                                 const void* read_lens, int B, int G, int smax,

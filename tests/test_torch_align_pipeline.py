@@ -206,9 +206,6 @@ def test_bench_shaped_two_reference_matches_jax(tmp_path):
     assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
 
 
-UNPORTED = {
-    "read_shard": dict(read_shard=(0, 2)),
-}
 # options the port once refused and now runs: their parity with the JAX
 # package on the golden reads (a narrow band; every read anchored; the
 # wavefront engines)
@@ -220,13 +217,78 @@ PORTED = {
 }
 
 
-@pytest.mark.parametrize("option", list(UNPORTED))
-def test_unported_options_raise(option, tmp_path):
+def record_multiset(bam_path):
+    """The sorted (name, reference, sequence, tags) of a BAM's records."""
+    from clique_tpu_torch.io.sam import BamReader
+
+    with BamReader(bam_path) as reader:
+        return sorted((r.name, r.reference_name, r.seq,
+                       tuple(sorted(r.tags.items()))) for r in reader)
+
+
+def run_cli_ranks(argv, n, tmp_path, timeout=180):
+    """`python -m clique_tpu_torch.cli` + argv as n ranks of a gloo world
+    (--distributed-world n, a distinct --distributed-rank, a free localhost
+    port, --device cpu), each a fresh interpreter with the repo root on
+    its PYTHONPATH, read chunks of 8 reads striped across ranks, and a
+    60 s timeout at every rendezvous and barrier. Every rank must exit 0."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT, CLIQUE_TPU_SHARD_CHUNK="8",
+               CLIQUE_TPU_DIST_TIMEOUT="60", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "clique_tpu_torch.cli", *argv,
+         "--device", "cpu", "--work-dir", str(tmp_path / "work"),
+         "--distributed-world", str(n), "--distributed-rank", str(r),
+         "--distributed-coordinator", f"localhost:{port}"],
+        env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(n)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for proc, out in zip(procs, outs):
+        assert proc.returncode == 0, out.decode(errors="replace")[-4000:]
+    return b"".join(outs).decode(errors="replace")
+
+
+@pytest.mark.parametrize("option", ["read_shard"])
+def test_unported_options_raise(option, tmp_path, monkeypatch):
+    """read_shard, which the port refused before it ran align on several
+    processes, now runs: with read chunks of 8, each of two stripes gives
+    the JAX package's stats and BAM bytes for the same stripe, and the two
+    stripes' records together are the whole run's."""
+    import clique_tpu.align.pipeline as jax_pipeline
+    import clique_tpu_torch.align.pipeline as port_pipeline
+
+    monkeypatch.setattr(port_pipeline, "_SHARD_CHUNK", 8)
+    monkeypatch.setattr(jax_pipeline, "_SHARD_CHUNK", 8)
     mg = _load_make_golden()
-    _gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        align_reads(layout, rm, str(tmp_path / "x.bam"), read1=r1,
-                    batch_size=16, device="cpu", **UNPORTED[option])
+    gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
+    joined = []
+    for rank in range(2):
+        out_t = str(tmp_path / f"t{rank}.bam")
+        out_j = str(tmp_path / f"j{rank}.bam")
+        stats_t = align_reads(layout, rm, out_t, read1=r1, batch_size=16,
+                              device="cpu", read_shard=(rank, 2))
+        stats_j = jax_align_reads(*load_jax_layout(tmp_path / "layout.yaml"),
+                                  out_j, read1=r1, batch_size=16,
+                                  read_shard=(rank, 2))
+        assert dataclasses.asdict(stats_t) == dataclasses.asdict(stats_j)
+        assert 0 < stats_t.total
+        assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
+        joined += record_multiset(out_t)
+    assert sorted(joined) == record_multiset(os.path.join(gd, "aligned.bam"))
 
 
 @pytest.mark.parametrize("option", list(PORTED))
@@ -311,19 +373,25 @@ def test_cli_align_profile_dir(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--distributed-world", "2"],
 ], ids=lambda f: f[0].lstrip("-"))
-def test_cli_unported_flags_exit(flags, tmp_path, capsys):
+def test_cli_unported_flags_exit(flags, tmp_path):
+    """`align --distributed-world 2`, which the port refused before it ran
+    align on several processes, now runs: two ranks through cli.main on
+    gloo with --device cpu each exit 0, and the merged BAM's records equal
+    the JAX package's single-process align_reads on the golden reads."""
     mg = _load_make_golden()
     _gd, _layout, _rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
     layout = tmp_path / "layout.yaml"
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["align", "--read-structure", str(layout), "--read1", r1,
-                  "--output-bam-file", str(tmp_path / "x.bam"),
-                  "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err
-    assert "item 11" in err
-    assert not os.path.exists(tmp_path / "x.bam")
+    out = str(tmp_path / "x.bam")
+    logs = run_cli_ranks(["align", "--read-structure", str(layout),
+                          "--read1", r1, "--output-bam-file", out,
+                          "--batch-size", "16"], int(flags[1]), tmp_path)
+    assert logs.count("torch.distributed gloo backend") == 2
+    out_j = str(tmp_path / "j.bam")
+    jax_align_reads(*load_jax_layout(layout), out_j, read1=r1,
+                    batch_size=16)
+    assert record_multiset(out) == record_multiset(out_j)
+    for p in range(2):
+        assert record_multiset(str(tmp_path / "work" / f"part.p{p}.bam"))
 
 
 def test_cli_bandwidth_matches_jax(tmp_path):

@@ -310,19 +310,28 @@ def test_cli_run_golden(flags, tmp_path):
 @pytest.mark.parametrize("verb,flags,item", [
     ("collapse", ["--distributed-world", "2"], "item 11"),
 ], ids=["collapse_distributed"])
-def test_cli_unported_flags_exit(verb, flags, item, tmp_path, capsys):
-    """What the port refuses exits 2 naming its ROADMAP.md item: the
-    multi-process collapse."""
+def test_cli_unported_flags_exit(verb, flags, item, tmp_path):
+    """`collapse --distributed-world 2`, which the port refused before it
+    ran ROADMAP.md's item 11 (parallel/), now runs: two ranks through
+    cli.main on gloo with --device cpu each exit 0, and the merged BAM's
+    records equal the JAX package's single-process collapse of the golden
+    aligned BAM."""
+    from clique_tpu.config.layout import SequenceLayout as JaxLayout
+
+    from test_torch_align_pipeline import record_multiset, run_cli_ranks
+
     gd, layout, _r1 = _cli_golden(tmp_path)
-    argv = [verb, "--read-structure", layout, "--input-bam-file",
-            os.path.join(gd, "aligned.bam"), "--output-bam-file",
-            str(tmp_path / "c.bam")]
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv + ["--device", "cpu", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
-    assert not os.path.exists(tmp_path / "c.bam")
+    aligned = os.path.join(gd, "aligned.bam")
+    out = str(tmp_path / "c.bam")
+    logs = run_cli_ranks([verb, "--read-structure", layout,
+                          "--input-bam-file", aligned, "--output-bam-file",
+                          out], int(flags[1]), tmp_path)
+    assert logs.count("torch.distributed gloo backend") == 2
+    out_j = str(tmp_path / "j.bam")
+    jax_collapse(out_j, JaxLayout.from_yaml(layout), aligned)
+    assert record_multiset(out) == record_multiset(out_j)
+    assert record_multiset(out) == record_multiset(
+        os.path.join(gd, "collapsed.bam"))
 
 
 def test_cli_run_wfa_over_budget_matches_jax_cli(tmp_path, monkeypatch):

@@ -4,7 +4,10 @@ clique_tpu_torch, aligns the golden reads on the CPU (full band, a partial
 band, every read on the anchored path, the wavefront engines `--engine wfa`
 and `--engine convex`, and the fused align + collapse + call), routes a two-amplicon panel with `--router hmm`, collapses golden
 with `--threads 2` (the worker pool), reproduces the pinned outputs or the
-JAX package's, and loads neither a jax module nor one of the JAX package. An AST scan holds every
+JAX package's, and loads neither a jax module nor one of the JAX package.
+The multi-process modules (parallel/) and the host modules no verb
+reaches (collapse/graph.py, caller/views.py, cells.py, tenx.py,
+utils/read_sim.py) import with the same blocks. An AST scan holds every
 source of the port, chip_smoke.py and the profile scripts to importing
 nothing of the JAX package, and the port's copy of the host
 inversion_alignment is held equal to the JAX package's."""
@@ -225,6 +228,41 @@ def test_collapse_threads_without_jax(tmp_path):
                            for w in workers)
 
 
+NEW_MODULES = ["clique_tpu_torch.parallel", "clique_tpu_torch.parallel.groupby",
+               "clique_tpu_torch.parallel.mesh",
+               "clique_tpu_torch.parallel.distributed",
+               "clique_tpu_torch.collapse.graph",
+               "clique_tpu_torch.caller.views",
+               "clique_tpu_torch.caller.cells",
+               "clique_tpu_torch.caller.tenx",
+               "clique_tpu_torch.utils.read_sim"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_module_imports_without_jax(module):
+    """The multi-process modules and the host modules no verb reaches
+    import with jax, jaxlib and the JAX package blocked, and load none of
+    them."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["clique_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import importlib
+        importlib.import_module({module!r})
+        loaded = sorted(m for m, mod in sys.modules.items()
+                        if mod is not None and m.split(".")[0] in
+                        ("jax", "jaxlib", "clique_tpu"))
+        print("JAX_MODULES", loaded)
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ""})
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "JAX_MODULES []" in res.stdout, res.stdout
+
+
 SCANNED = sorted(
     os.path.relpath(p, ROOT) for p in
     glob.glob(os.path.join(ROOT, "clique_tpu_torch", "**", "*.py"),
@@ -260,6 +298,10 @@ def test_scan_sees_the_port():
     assert os.path.join("clique_tpu_torch", "align", "hmm.py") in SCANNED
     assert os.path.join("clique_tpu_torch", "collapse",
                         "workers.py") in SCANNED
+    for mod in NEW_MODULES:
+        path = os.path.join(*mod.split("."))
+        assert path + ".py" in SCANNED or \
+            os.path.join(path, "__init__.py") in SCANNED, mod
     assert len(SCANNED) > 30
 
 

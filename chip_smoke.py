@@ -91,8 +91,22 @@ before and read just after:
   records the single-process collapse's of the same BAM (the workers
   phase's one-process run); each rank prints its device, backend,
   launches, reads and walls, rank 0 its merge wall; a rank that exits
-  non-zero, or launched no kernel on a CUDA device, fails the run. parallel/mesh.py's sharded_align_step on
-  [cuda:0] equals one dp_align call on the same batch.
+  non-zero, or launched no kernel on a CUDA device, fails the run; each
+  collapse rank's all_reduce of a level's bucket histogram is timed.
+  parallel/mesh.py's sharded_align_step on [cuda:0] equals one dp_align
+  call on the same batch and is timed with its dp_align launch, and a
+  rank's bucket count (torch.bincount) at a level's size;
+- length-sharded: parallel/mesh.py's length_sharded_align, one
+  alignment's DP rows split into parts on their own streams (a
+  segment_fill launch a part and column tile, the row above handed down;
+  a segment_walk launch a part, climbing from the corner's part): the
+  JAX test's inputs (B=2, LR=512, LD=480) over [cuda:0] * 8 with an
+  uneven split equal the plain versions over [cpu] * 8, part by part;
+  then B=2 reads of 16,384 bases against their 16,384-base references
+  over [cuda:0] * k, k = 1, 2, 4, in turns with one dp_align call: equal
+  results, each part's traceback equal to dp_align's bands of its rows,
+  the walls beside dp_align's; one launch of each kernel at that width
+  held against its plain version on the card and timed.
 
 The kernel phases hold every kernel against its plain version (for the
 fused global fill + walk, dp_align, its fused rows and its traceback laid
@@ -193,6 +207,14 @@ WFA_LINEAR_SMAX = 256
 WFA_LINEAR_PEN = dict(x=4, e=2)
 # the distributed phase: ranks, the seconds a rank may run, and each rank's
 # timeout at a rendezvous or barrier
+# the length-sharded phase: the JAX test's shape (tests/test_parallel.py)
+# split unevenly over 8 parts of the one card, its tile width; the full
+# width (a long read against a long amplicon) and its numbers of parts
+LS_JAX_SHAPE = (2, 512, 480)
+LS_BOUNDS = (1, 3, 10, 40, 60, 70, 80, 90, 513)
+LS_TILE = 160
+LS_LONG = 16_384
+LS_PARTS = (1, 2, 4)
 N_DIST_RANKS = 2
 DIST_RANK_TIMEOUT = 300
 DIST_BARRIER_TIMEOUT = 120
@@ -239,7 +261,7 @@ FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
                 "FRND", "FCHK")
 KERNELS = ("dp_align", "match_hits", "edit_distance", "dp_align_local",
            "edit_hits", "hmm_forward", "wfa_align", "wfa_score", "wfa_mid",
-           "wfa_score_linear")
+           "wfa_score_linear", "segment_fill", "segment_walk")
 SOURCES = {"dp_align": "dp_align.cu",
            "match_hits": "tag_distance.cu",
            "edit_distance": "tag_distance.cu",
@@ -249,7 +271,9 @@ SOURCES = {"dp_align": "dp_align.cu",
            "wfa_align": "wfa_align.cu",
            "wfa_score": "wfa_align.cu",
            "wfa_mid": "wfa_align.cu",
-           "wfa_score_linear": "wfa_align.cu"}
+           "wfa_score_linear": "wfa_align.cu",
+           "segment_fill": "dp_align_split.cu",
+           "segment_walk": "dp_align_split.cu"}
 REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "match_hits": "clique_tpu/collapse/distance.py:240",
             "edit_distance": "clique_tpu/collapse/distance.py:36",
@@ -261,7 +285,9 @@ REPLACES = {"dp_align": "clique_tpu/align/pallas_kernel.py:55",
             "wfa_score": "clique_tpu/align/wavefront.py:319 and :615",
             "wfa_mid": "clique_tpu/align/wavefront.py:442",
             "wfa_score_linear": "clique_tpu/align/wavefront.py:166 and "
-                                ":232"}
+                                ":232",
+            "segment_fill": "clique_tpu/parallel/mesh.py:38",
+            "segment_walk": "clique_tpu/parallel/mesh.py:38"}
 # the card's peak rates for the bounds (NVIDIA's H100 SXM data sheet, at
 # its full 700 W): HBM bytes/s; scalar lane operations/s (67 TFLOP/s of
 # float32 outside the tensor cores counts an FMA as two, so one lane
@@ -396,7 +422,9 @@ def phase_build():
     kernel = None
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("hmm_forward_kernel",
+            kernel = next((k for k in ("split_fill_kernel",
+                                       "split_walk_kernel",
+                                       "hmm_forward_kernel",
                                        "clique_hmm_cell_probe",
                                        "clique_hmm_cell_floor_probe",
                                        "clique_wfa_cell_probe_affine2p",
@@ -410,8 +438,9 @@ def phase_build():
                                        "clique_edit_column_probe16",
                                        "clique_edit_column_probe")
                            if k in line), line.strip())
-            if kernel == "align_local_kernel":
-                kernel = "dp_align_local"
+            kernel = {"align_local_kernel": "dp_align_local",
+                      "split_fill_kernel": "segment_fill",
+                      "split_walk_kernel": "segment_walk"}.get(kernel, kernel)
             # the template flags from the mangled name: dp_align's
             # keep-last ties and band
             flags = re.search(r"align_kernelILb(\d)ELb(\d)E", line)
@@ -1525,7 +1554,9 @@ def _counts():
             "wfa_align": wfa_kernels.wfa_align_launches,
             "wfa_score": wfa_kernels.wfa_score_launches,
             "wfa_mid": wfa_kernels.wfa_mid_launches,
-            "wfa_score_linear": wfa_kernels.wfa_linear_launches}
+            "wfa_score_linear": wfa_kernels.wfa_linear_launches,
+            "segment_fill": dp_kernels.fill_mode_launches["row_split"],
+            "segment_walk": dp_kernels.fill_mode_launches["row_split_walk"]}
 
 
 def _read(path):
@@ -3924,8 +3955,11 @@ def phase_distributed(workdir, bench):
     against the workers phase's one-process collapse of it, run0.bam). Each
     rank's device, backend, launches, reads and walls are printed, and
     rank 0's merge wall; each align rank must have launched dp_align on a
-    CUDA device, each collapse rank a tag-distance kernel. Then parallel/mesh.py's sharded_align_step on [cuda:0]
-    against one dp_align call on the same batch."""
+    CUDA device, each collapse rank a tag-distance kernel; each collapse
+    rank's psum_histogram seconds a level are printed. Then
+    parallel/mesh.py's sharded_align_step on [cuda:0] against one dp_align
+    call on the same batch, timed with its dp_align launch alone, and a
+    rank's bucket_histogram count (torch.bincount) at a level's size."""
     import numpy as np
     import torch
 
@@ -3985,7 +4019,9 @@ def phase_distributed(workdir, bench):
             f"function "
             f"{r['wall_s']:.3f} s, process {r['process_wall_s']:.3f} s"
             + (f", merge {r['merge_s']:.3f} s" if r["merge_s"] is not None
-               else ""))
+               else "") + ", psum_histogram (the all_reduce of a level's "
+            "256 bucket counts) " + " / ".join(
+                f"{1e3 * t:.3f}" for t in r["psum_s"]) + " ms")
         check(r["device"].startswith("cuda") and
               sum(r["launches"].values()) > 0,
               f"collapse rank {r['rank']} launched no tag-distance kernel "
@@ -4027,6 +4063,390 @@ def phase_distributed(workdir, bench):
         f"scores, ops and n_ops {'equal' if same else 'DIFFER from'} one "
         f"dp_align call's")
     check(same, "sharded_align_step differs from dp_align")
+    step_ms = _time_ms(lambda: sharded_align_step(
+        make_mesh(1), refs, reads, lens, lens, params, n1=L + 1, n2=L + 1), 5)
+    args = [torch.from_numpy(a).to(dev) for a in (refs, reads, lens, lens)]
+    launch_ms = _time_ms(lambda: dp_kernels.dp_align(
+        *args, params.to(dev), n1=L + 1, n2=L + 1, special_mode="both"), 20)
+    b = _align_bound((refs, reads, lens, lens), L + 1, L + 1)
+    say(f"[distributed] sharded_align_step on [cuda:0], B={B} n1=n2={L + 1}: "
+        f"the step {step_ms:.4f} ms (CUDA events, host copies and unpacking "
+        f"included), its dp_align launch {launch_ms:.4f} ms; bound "
+        f"{b[0]:.5f} ms by {b[1]}, the launch at {b[0] / launch_ms:.3f} of it")
+
+    # a rank's bucket histogram of a collapse level on the card: one
+    # torch.bincount of its reads' buckets into 256 (bucket_histogram's
+    # count; the all_reduce is the ranks' psum_s above)
+    buckets = torch.from_numpy(rng.integers(
+        0, 256, N_BENCH_READS // N_DIST_RANKS)).to(dev)
+    count_ms = _time_ms(lambda: torch.bincount(buckets, minlength=256), 50)
+    b = bound(buckets.nbytes + 256 * 8, buckets.numel())
+    say(f"[distributed] bucket_histogram's torch.bincount of "
+        f"{buckets.numel()} int64 buckets into 256 on the card: "
+        f"{count_ms:.4f} ms (CUDA events); bound {b[0]:.6f} ms by {b[1]} "
+        f"(each bucket read once, the counts written once), the call at "
+        f"{b[0] / count_ms:.4f} of it; its all_reduce moves 2,048 bytes a "
+        f"rank (gloo on the host: latency, not bytes)")
+
+
+def _ls_batch(seed, B, LR, LD):
+    """tests/test_parallel.py's inputs for length_sharded_align: B random
+    ACGT references of LR bases and reads that are their first LD bases
+    with 5% substitutions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs = rng.choice(bases, size=(B, LR)).astype(np.uint8)
+    reads = np.empty((B, LD), dtype=np.uint8)
+    for b in range(B):
+        r = refs[b, :LD].copy()
+        subs = rng.random(LD) < 0.05
+        r[subs] = rng.choice(bases, int(subs.sum()))
+        reads[b] = r
+    return (refs, reads, np.full(B, LR, dtype=np.int32),
+            np.full(B, LD, dtype=np.int32))
+
+
+def _band_valid(n2, nl, l2, rows, device):
+    """The bytes a full-length fill writes in one band of the wavefront
+    layout: [n2 - 2 + nl steps, row bytes] bool, lane k's byte r of step t
+    valid where column t - k + 1 lies in 1..l2 and the band's row 12k + r
+    is below `rows` (its rows of the alignment)."""
+    import torch
+
+    rb = (nl * 12 + 15) // 16 * 16
+    t = torch.arange(n2 - 2 + nl, device=device)[:, None]
+    c = torch.arange(rb, device=device)[None, :]
+    y = t - c // 12 + 1
+    return (c < 12 * nl) & (y >= 1) & (y <= l2) & (c < rows)
+
+
+def _same_bands(part_tb, full_tb, j0, n_rows, n1, n2, l1, l2):
+    """A part's traceback (rows 1 + 384 j0 .. of n_rows rows) against
+    dp_align's bands from j0 on, on the bytes a fill writes (both are
+    full-length alignments: l1 = n1 - 1, l2 = n2 - 1)."""
+    from clique_tpu_torch.align import batch as tbatch
+
+    band = tbatch.BAND_STRIPS * tbatch.STRIP_ROWS
+    full_band = (n2 + 30) * band
+    strips = -(-(n1 - 1) // tbatch.STRIP_ROWS)
+    same = True
+    for jj in range(-(-n_rows // band)):
+        j = j0 + jj
+        nl = min(32, strips - 32 * j)
+        size = (n2 - 2 + nl) * ((nl * 12 + 15) // 16 * 16)
+        rows = min(band, l1 - band * j)
+        mask = _band_valid(n2, nl, l2, rows, part_tb.device)
+        a = part_tb[:, jj * full_band:jj * full_band + size]
+        b = full_tb[:, j * full_band:j * full_band + size]
+        a = a.reshape(a.shape[0], *mask.shape)
+        b = b.reshape(b.shape[0], *mask.shape)
+        same = same and bool((a[:, mask] == b[:, mask]).all())
+    return same
+
+
+@_walled
+def phase_length_sharded():
+    """parallel/mesh.py::length_sharded_align on the card: one alignment's
+    DP rows split into parts, a part's column tile a segment_fill launch
+    with the row above handed down, the walk a segment_walk launch a part.
+
+    1. The JAX test's inputs (tests/test_parallel.py: B=2, LR=512, LD=480,
+       seed 12, 5% substitutions) over [cuda:0] * 8 with an uneven split
+       (LS_BOUNDS, the last part two bands) and LS_TILE columns a tile,
+       against the plain versions over [cpu] * 8 on CPU copies of the same
+       inputs: scores, n_ops and ops, and each part's traceback (relaid as
+       the plain fill's), byte for byte; and against one dp_align call.
+    2. The main path at full width: B=2 reads of LS_LONG bases against
+       their LS_LONG-base references (5% substitutions), n1 = n2 = LS_LONG
+       + 1, over [cuda:0] * k for k in LS_PARTS with the default split
+       (dp_align's band boundaries) and tile, each call with the counts set
+       to 0 just before and read just after, in turns with one dp_align
+       call (dp_align, k = 1, 2, 4, 4, 2, 1, dp_align): scores, n_ops and
+       ops equal dp_align's, each part's traceback equal to dp_align's
+       bands of its rows, each part holding only its rows' traceback.
+    3. One segment_fill launch (an inner part's second tile at k = 4) and
+       one segment_walk launch (the corner's part) of that run recorded,
+       re-launched and timed by CUDA events, and held against their plain
+       versions on the card on the same inputs, timed once.
+    Returns (launches, max abs errs, the kernels line's timings)."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.align import batch as tbatch
+    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align.scoring import AffineScoring
+    from clique_tpu_torch.parallel import length_sharded_align
+    from clique_tpu_torch.parallel import mesh as tmesh
+
+    dev = torch.device("cuda", 0)
+    params = tbatch.scoring_to_params(AffineScoring.aligner_default(), "cpu")
+    err = {"segment_fill": 0, "segment_walk": 0}
+
+    # 1. the JAX test's shape, uneven, against the plain versions
+    B, LR, LD = LS_JAX_SHAPE
+    host = _ls_batch(12, B, LR, LD)
+    n1, n2 = LR + 1, LD + 1
+    kw = dict(n1=n1, n2=n2, bounds=LS_BOUNDS, tile=LS_TILE,
+              return_parts=True)
+    k = len(LS_BOUNDS) - 1
+    got = length_sharded_align([dev] * k, *host, params, **kw)
+    t0 = time.perf_counter()
+    want = length_sharded_align(["cpu"] * k, *host, params, **kw)
+    plain_s = time.perf_counter() - t0
+    e_walk = max(int((got[1].int() - want[1].int()).abs().max()),
+                 int((got[2] - want[2]).abs().max()),
+                 float((got[0] - want[0]).abs().max()))
+    lens = [torch.from_numpy(a).to(dev) for a in host[2:]]
+    e_fill = 0
+    for g, w in zip(got[3], want[3]):
+        lo, hi = g["rows"]
+        relaid = tbatch.segment_wavefront_to_rows(
+            g["traceback"], *lens, row0=lo, n=hi - lo, n1=n1, n2=n2).cpu()
+        e_fill = max(e_fill, int((relaid.int()
+                                  - w["traceback"].int()).abs().max()))
+    fused, _tb = dp_kernels.dp_align(
+        *(torch.from_numpy(a).to(dev) for a in host), params.to(dev), n1=n1,
+        n2=n2, special_mode="both")
+    packed, one_n, one_score = tbatch.unfuse_result(fused.cpu().numpy())
+    one = (np.array_equal(got[0].numpy(), one_score)
+           and np.array_equal(got[2].numpy(), one_n)
+           and np.array_equal(got[1].numpy(), tbatch.unpack_ops(
+               np.ascontiguousarray(packed), n1 + n2)))
+    err["segment_fill"], err["segment_walk"] = e_fill, e_walk
+    say(f"[length-sharded] B={B} LR={LR} LD={LD} over [cuda:0] * {k}, rows "
+        f"split at {list(LS_BOUNDS)}, tiles of {LS_TILE}: scores, ops and "
+        f"n_ops {'equal' if e_walk == 0 else 'DIFFER from'} the plain "
+        f"versions' over [cpu] * {k} (max abs err {e_walk}; plain "
+        f"{plain_s:.3f} s on the host), every part's traceback "
+        f"{'equal' if e_fill == 0 else 'DIFFERS'} (max abs err {e_fill}); "
+        f"{'equal to' if one else 'DIFFER from'} one dp_align call's; "
+        f"scores {got[0].tolist()}, n_ops {got[2].tolist()}; card fill "
+        f"{got[4]['fill_ms']:.3f} ms, walk {got[4]['walk_ms']:.3f} ms")
+    check(e_fill == 0 and e_walk == 0 and one,
+          "length_sharded_align on the card differs from its plain versions "
+          "or from dp_align")
+    del got, want, fused, _tb
+
+    # 2. the main path at full width, in turns with one dp_align call
+    L = LS_LONG
+    n1 = n2 = L + 1
+    rng = np.random.default_rng(16)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs = rng.choice(bases, (2, L)).astype(np.uint8)
+    reads = refs.copy()
+    subs = rng.random(reads.shape) < 0.05
+    reads[subs] = rng.choice(bases, int(subs.sum()))
+    lens = np.full(2, L, dtype=np.int32)
+    host = (refs, reads, lens, lens)
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    p_dev = params.to(dev)
+    fused, full_tb = dp_kernels.dp_align(*args, p_dev, n1=n1, n2=n2,
+                                         special_mode="both",
+                                         return_traceback=True)
+    packed, one_n, one_score = tbatch.unfuse_result(fused.cpu().numpy())
+    one_ops = tbatch.unpack_ops(np.ascontiguousarray(packed), n1 + n2)
+    align_bound = _align_bound(host, n1, n2)
+    tb_one = tbatch.traceback_bytes(n1, n2)
+    launches = dict.fromkeys(KERNELS, 0)
+    walls = {k: [] for k in LS_PARTS}
+    dp_ms = []
+    recorded = {}
+
+    def dp_turn():
+        dp_ms.append(_timed(lambda: dp_kernels.dp_align(
+            *args, p_dev, n1=n1, n2=n2, special_mode="both"))[1])
+
+    def ls_turn(k, check_parts):
+        rec = k == max(LS_PARTS) and not recorded
+        _reset_counts()
+        with _recorded_segments(recorded if rec else None, n1, n2):
+            out, ms = _timed(lambda: length_sharded_align(
+                [dev] * k, *host, params, n1=n1, n2=n2, return_parts=True))
+        torch.cuda.synchronize()
+        n = _counts()
+        for name in KERNELS:
+            launches[name] += n[name]
+        walls[k].append((ms, out[4]))
+        same = (np.array_equal(out[0].numpy(), one_score)
+                and np.array_equal(out[2].numpy(), one_n)
+                and np.array_equal(out[1].numpy(), one_ops))
+        check(same, f"length_sharded_align at k={k}, n1=n2={n1} differs "
+              "from dp_align")
+        check(n["segment_fill"] == sum(p["fills"] for p in out[3])
+              and n["segment_walk"] == k and sum(n.values())
+              == n["segment_fill"] + k,
+              f"length_sharded_align at k={k}: its launches {n} are not "
+              "its parts' segment_fill and segment_walk launches")
+        if not check_parts:
+            return
+        band = tbatch.BAND_STRIPS * tbatch.STRIP_ROWS
+        lines = []
+        for p in out[3]:
+            lo, hi = p["rows"]
+            check((lo - 1) % band == 0, f"k={k}: part rows {p['rows']} do "
+                  "not start on a dp_align band")
+            want_bytes = 2 * tbatch.traceback_bytes(hi - lo + 1, n2)
+            same_tb = _same_bands(p["traceback"], full_tb, (lo - 1) // band,
+                                  hi - lo, n1, n2, L, L)
+            check(same_tb and p["traceback_bytes"] == want_bytes,
+                  f"k={k}: part {p['rows']}'s traceback differs from "
+                  "dp_align's bands of its rows")
+            lines.append(f"rows {lo}..{hi - 1}: {p['fills']} fills, "
+                         f"traceback {p['traceback_bytes']} B "
+                         f"({p['traceback_bytes'] / (2 * tb_one):.3f} of "
+                         f"dp_align's), halo {p['halo_bytes']} B handed "
+                         f"in{' (copied)' if p['copied'] else ''}")
+        say(f"[length-sharded] k={k} over [cuda:0] * {k}, tiles of "
+            f"{tmesh.SPLIT_TILE} ({-(-(n2 - 1) // tmesh.SPLIT_TILE)} a "
+            f"part): scores, n_ops and ops equal dp_align's; launches "
+            f"{n['segment_fill']} segment_fill + {n['segment_walk']} "
+            f"segment_walk; " + "; ".join(lines) + "; each part's traceback "
+            "equals dp_align's bands of its rows")
+
+    dp_turn()
+    for k in LS_PARTS:
+        ls_turn(k, True)
+    for k in LS_PARTS[::-1]:
+        ls_turn(k, False)
+    dp_turn()
+    del full_tb
+    dp_mean = sum(dp_ms) / len(dp_ms)
+    for k in LS_PARTS:
+        w = walls[k]
+        say(f"[length-sharded] B=2 n1=n2={n1}, k={k}: wall "
+            f"{w[0][0]:.3f} / {w[1][0]:.3f} ms (CUDA events around the call), "
+            f"fill {w[0][1]['fill_ms']:.3f} / {w[1][1]['fill_ms']:.3f} ms, "
+            f"walk {w[0][1]['walk_ms']:.3f} / {w[1][1]['walk_ms']:.3f} ms; "
+            f"dp_align {dp_ms[0]:.3f} / {dp_ms[1]:.3f} ms in turns "
+            f"({dp_mean / ((w[0][0] + w[1][0]) / 2):.3f}x of the wall); bound "
+            f"{align_bound[0]:.4f} ms by {align_bound[1]} (the wall at "
+            f"{align_bound[0] * 2 / (w[0][0] + w[1][0]):.5f} of it)")
+    check(launches["segment_fill"] > 0 and launches["segment_walk"] > 0,
+          "the length-sharded path launched no segment kernel")
+
+    # 3. one launch of each kernel at full width against its plain version
+    times = {}
+    fill_in, fill_kw, fill_out = recorded["fill"]
+    again = [t.clone() if torch.is_tensor(t) else t for t in fill_in[:6]]
+    again_bufs = dp_kernels.SegmentBuffers(*(t.clone() for t in fill_in[6]))
+    k_ms = _time_ms(lambda: dp_kernels.fill_segment(*again, again_bufs,
+                                                    **fill_kw), 3)
+    del again, again_bufs
+    row0, y0, y1 = fill_kw["row0"], fill_kw["y0"], fill_kw["y1"]
+    n = fill_in[6].carry.shape[1]
+    rows_tb = torch.full((2, n, n2 - 1), tbatch._TB_FRESH, dtype=torch.uint8,
+                         device=dev)
+    carry_p, corner_p = fill_in[6].carry.clone(), fill_in[6].corner.clone()
+    halo_p, p_ms = _timed(lambda: tbatch.fill_segment_reference(
+        *fill_in[:6], rows_tb, carry_p, corner_p, row0=row0, n1=n1, n2=n2,
+        y0=y0, y1=y1))
+    relaid = tbatch.segment_wavefront_to_rows(
+        fill_out["tb"], *args[2:], row0=row0, n=n, n1=n1, n2=n2,
+        cols=(y0, y1))
+    e = max(int((relaid.int() - rows_tb[:, :, y0 - 1:y1 - 1].int()).abs()
+                .max()),
+            float((fill_out["carry"] - carry_p).abs().max()),
+            float((fill_out["halo"] - halo_p).abs().max()))
+    err["segment_fill"] = max(err["segment_fill"], e)
+    cells = 2 * n * (y1 - y0)
+    # the part's reference bytes and the tile's read bytes, lens, params,
+    # the halo in and out, the carry in and out, the tile's traceback
+    nbytes = (2 * n + 2 * (y1 - y0) + 16 + 24 + 2 * 2 * (y1 - y0 + 1) * 12
+              + 2 * 2 * n * 12 + cells)
+    b = bound(nbytes, OPS_GLOBAL_CELL * cells)
+    say(f"[length-sharded] segment_fill at k=4, rows {row0}..{row0 + n - 1}, "
+        f"columns {y0}..{y1 - 1} (B=2): tile traceback, carry and halo "
+        f"{'equal' if e == 0 else 'DIFFER from'} the plain version's on the "
+        f"card (max abs err {e}); kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; "
+        f"bound {b[0]:.5f} ms by {b[1]} ({cells} cells), the kernel at "
+        f"{b[0] / k_ms:.4f} of it")
+    check(e == 0, "segment_fill differs from its plain version")
+    times["segment_fill"] = _timing(k_ms, p_ms, b)
+    del rows_tb, relaid
+
+    walk_args, walk_kw, walk_out = recorded["walk"]
+    st, ops = walk_args[4].clone(), walk_args[5].clone()
+    # each call starts again from the corner this part owns
+    k_ms = _time_ms(lambda: dp_kernels.walk_segment(*walk_args[:4], st, ops,
+                                                    **walk_kw), 3)
+    bufs = walk_args[0]
+    row0 = walk_kw["row0"]
+    n = bufs.carry.shape[1]
+    rows_tb = tbatch.segment_wavefront_to_rows(bufs.tb, *args[2:], row0=row0,
+                                               n=n, n1=n1, n2=n2)
+    st_p, ops_p = walk_args[4].clone(), walk_args[5].clone()
+    _r, p_ms = _timed(lambda: tbatch.walk_segment_reference(
+        rows_tb, bufs.corner, *walk_args[1:4], st_p, ops_p, row0=row0, n1=n1,
+        n2=n2))
+    e = max(int((walk_out["state"] - st_p).abs().max()),
+            int((walk_out["ops"].int() - ops_p.int()).abs().max()))
+    err["segment_walk"] = max(err["segment_walk"], e)
+    steps = int((ops_p != tbatch.OP_DONE).sum())
+    b = bound(2 * steps + 2 * 16 + 24 + 8, 10 * steps)
+    say(f"[length-sharded] segment_walk at k=4, rows {row0}..{row0 + n - 1} "
+        f"(the corner's part, {steps} steps over both alignments): state and "
+        f"ops {'equal' if e == 0 else 'DIFFER from'} the plain version's on "
+        f"the card (max abs err {e}); kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.3f} ms; bound {b[0]:.6f} ms by {b[1]} (a byte and ~10 "
+        f"lane operations a step), the kernel at {b[0] / k_ms:.6f} of it")
+    check(e == 0, "segment_walk differs from its plain version")
+    times["segment_walk"] = _timing(k_ms, p_ms, b)
+    return launches, err, times
+
+
+@contextlib.contextmanager
+def _recorded_segments(into, n1, n2):
+    """With `into` a dict, one fill launch with a halo in and out and a
+    carry in, and the first walk launch (the corner's part) while the
+    block runs: their inputs copied before the launch and their outputs
+    after, on the launch's stream (the main path runs as before, its counts
+    included)."""
+    import torch
+
+    from clique_tpu_torch.align import dp_kernels
+
+    if into is None:
+        yield
+        return
+    fill, walk = dp_kernels.fill_segment, dp_kernels.walk_segment
+
+    def snap(args, stream):
+        with torch.cuda.stream(stream):
+            return [dp_kernels.SegmentBuffers(*(t.clone() for t in a))
+                    if isinstance(a, dp_kernels.SegmentBuffers)
+                    else a.clone() if torch.is_tensor(a) else a
+                    for a in args]
+
+    def rec_fill(*args, **kw):
+        # a launch with a halo in and out and a carry in
+        take = (kw["hand_on"] and args[5] is not None and kw["y0"] > 1
+                and "fill" not in into)
+        copy = snap(args, kw["stream"]) if take else None
+        out = fill(*args, **kw)
+        if take:
+            with torch.cuda.stream(kw["stream"]):
+                into["fill"] = (copy, dict(kw, stream=None), dict(
+                    tb=args[6].tb, carry=args[6].carry.clone(),
+                    halo=out.clone()))
+        return out
+
+    def rec_walk(*args, **kw):
+        take = "walk" not in into        # the first: the corner's part
+        copy = snap(args, kw["stream"]) if take else None
+        walk(*args, **kw)
+        if take:
+            with torch.cuda.stream(kw["stream"]):
+                into["walk"] = (copy, dict(kw, stream=None), dict(
+                    state=args[4].clone(), ops=args[5].clone()))
+
+    dp_kernels.fill_segment, dp_kernels.walk_segment = rec_fill, rec_walk
+    try:
+        yield
+    finally:
+        dp_kernels.fill_segment, dp_kernels.walk_segment = fill, walk
+        torch.cuda.synchronize()
 
 
 def main():
@@ -4048,12 +4468,16 @@ def main():
     err.update(phase_wfa_kernels())
     linear_launches, err["wfa_score_linear"], times["wfa_score_linear"] = \
         phase_wfa_linear()
+    split_launches, split_err, split_times = phase_length_sharded()
+    err.update(split_err)
+    times.update(split_times)
     launches = dict.fromkeys(KERNELS, 0)
     with tempfile.TemporaryDirectory() as workdir, ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_cpu_worker_init) as pool:
         path_launches = [phase_golden(workdir),
-                         phase_golden_engines(workdir), linear_launches]
+                         phase_golden_engines(workdir), linear_launches,
+                         split_launches]
         phase_profile(workdir)
         hifi_launches, hifi_head, hifi_wfa = phase_hifi(workdir, pool)
         convex_launches, convex_head, convex_wfa = phase_convex(workdir,

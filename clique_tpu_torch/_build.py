@@ -157,6 +157,14 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [ci, ci]
         lib.clique_dp_align_local_warps.restype = ci
         lib.clique_dp_align_local_warps.argtypes = [ci]
+        lib.clique_dp_segment_smem_bytes.restype = ci
+        lib.clique_dp_segment_smem_bytes.argtypes = [ci]
+        lib.clique_dp_segment_fill.restype = ci
+        lib.clique_dp_segment_fill.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp,
+                                               vp, vp, vp, vp] + [ci] * 7 + \
+            [vp]
+        lib.clique_dp_segment_walk.restype = ci
+        lib.clique_dp_segment_walk.argtypes = [vp] * 7 + [ci] * 5 + [vp]
         lib.clique_match_hits.restype = ci
         lib.clique_match_hits.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp,
                                           vp, ll, vp]

@@ -287,6 +287,53 @@ def _shift_down(arr):
     return torch.nn.functional.pad(arr[:, :-1], (1, 0))
 
 
+def _border(k, params):
+    """The gap border of row or column k >= 1: (go + k * ge) * fgm."""
+    return (params[3] + k.to(torch.float32) * params[4]) * params[5]
+
+
+def _match_score(rx, ry, special_mode, m_s, mm_s, sp_s):
+    """The substitution score of reference bytes rx against read bytes ry
+    under a special-byte rule (clique_tpu batch.py:241-250)."""
+    if special_mode == "ref_n_only":
+        # rust-bio-compat rule (alignment_functions.rs:55): only a
+        # reference-side N scores as a guaranteed match
+        special = rx == 78
+    elif special_mode == "none":
+        # InversionScoring has no wildcard rule
+        special = torch.zeros_like(rx, dtype=torch.bool)
+    else:
+        special = (rx == 78) | (ry == 78) | (rx < 58) | (ry < 58)
+    return torch.where(special, sp_s, torch.where(rx == ry, m_s, mm_s))
+
+
+def _cell(diag, up, left, ms, lge, params, *, tie_order, local, zero, neg):
+    """One cell's three planes from its neighbours' (M, D, I): the diagonal
+    (x-1, y-1), up (x-1, y) and left (x, y-1) ones; ms the substitution
+    score, lge the gap extension with the terminal-gap multiplier applied.
+    Returns ((M, dir), (D, dir), (I, dir)) (clique_tpu batch.py:252-285)."""
+    (dm, dd, di), (um, ud, ui), (lm, ld, li) = diag, up, left
+    go, ge = params[3], params[4]
+    x1 = go + lge
+    mm_val = dm + ms
+    if local:
+        mm_val = torch.maximum(torch.maximum(zero, mm_val), ms)
+    if tie_order == "last":
+        # inversion-aware fill (clique_tpu batch.py:265-277), global only:
+        # keep-last ties, each plane with its own candidate order; the m
+        # plane is floored at MAX_NEG_SCORE
+        mm_val = torch.maximum(mm_val, neg)
+        return (_max_last3(mm_val, dd + ms, di + ms, DIAG, UP, LEFT),
+                _max_last3(ud + lge, ui + x1, um + x1, UP, LEFT, DIAG),
+                _max_last3(ld + x1, li + lge, lm + x1, UP, LEFT, DIAG))
+    # local gap planes extend with the unscaled ge but open with x1, which
+    # keeps the terminal-gap multiplier (:279-281)
+    ext = ge if local else lge
+    return (_three_way_max(dd + ms, di + ms, mm_val),
+            _three_way_max(ud + ext, ui + x1, um + x1),
+            _three_way_max(ld + x1, li + ext, lm + x1))
+
+
 def _fill(refs, reads, ref_lens, read_lens, params, *, n1, n2,
           special_mode, tie_order, bandwidth, band_centers, local):
     """The anti-diagonal scan of align_batch_device (clique_tpu
@@ -298,7 +345,7 @@ def _fill(refs, reads, ref_lens, read_lens, params, *, n1, n2,
     B = reads.shape[0]
     D = n1 + n2 - 1
     f32 = torch.float32
-    m_s, mm_s, sp_s, go, ge, fgm = (params[i] for i in range(6))
+    m_s, mm_s, sp_s, ge, fgm = (params[i] for i in (0, 1, 2, 4, 5))
     one = torch.ones((), dtype=f32, device=dev)
     zero = torch.zeros((), dtype=f32, device=dev)
     neg = torch.full((), MAX_NEG_SCORE, dtype=f32, device=dev)
@@ -342,54 +389,21 @@ def _fill(refs, reads, ref_lens, read_lens, params, *, n1, n2,
         y = d - x                                               # [1, n1]
         # read byte at y-1 for every lane (only interior lanes use it)
         ry = reads_i.index_select(1, (y[0] - 1).clamp(0, max(W - 1, 0)))
-        if special_mode == "ref_n_only":
-            # rust-bio-compat rule (alignment_functions.rs:55): only a
-            # reference-side N scores as a guaranteed match
-            special = rx == 78
-        elif special_mode == "none":
-            # InversionScoring has no wildcard rule
-            special = torch.zeros_like(rx, dtype=torch.bool)
-        else:
-            special = (rx == 78) | (ry == 78) | (rx < 58) | (ry < 58)
-        ms = torch.where(special, sp_s, torch.where(rx == ry, m_s, mm_s))
-
+        ms = _match_score(rx, ry, special_mode, m_s, mm_s, sp_s)
         gm = torch.where((x == l1) | (y == l2), fgm, one)
-        lge = ge * gm
-        x1 = go + lge
-
-        mm_val = _shift_down(p2m) + ms
-        if local:
-            mm_val = torch.maximum(torch.maximum(zero, mm_val), ms)
-        if tie_order == "last":
-            # inversion-aware fill (clique_tpu batch.py:265-277), global
-            # only: keep-last ties, each plane with its own candidate order;
-            # the m plane is floored at MAX_NEG_SCORE
-            mm_val = torch.maximum(mm_val, neg)
-            m_val, m_dir = _max_last3(mm_val, _shift_down(p2p1) + ms,
-                                      _shift_down(p2p2) + ms, DIAG, UP, LEFT)
-            d_val, d_dir = _max_last3(_shift_down(pp1) + lge,
-                                      _shift_down(pp2) + x1,
-                                      _shift_down(pm) + x1, UP, LEFT, DIAG)
-            i_val, i_dir = _max_last3(pp1 + x1, pp2 + lge, pm + x1,
-                                      UP, LEFT, DIAG)
-        else:
-            # local gap planes extend with the unscaled ge but open with
-            # x1, which keeps the terminal-gap multiplier (:279-281)
-            ext = ge if local else lge
-            m_val, m_dir = _three_way_max(_shift_down(p2p1) + ms,
-                                          _shift_down(p2p2) + ms, mm_val)
-            d_val, d_dir = _three_way_max(_shift_down(pp1) + ext,
-                                          _shift_down(pp2) + x1,
-                                          _shift_down(pm) + x1)
-            i_val, i_dir = _three_way_max(pp1 + x1, pp2 + ext, pm + x1)
+        (m_val, m_dir), (d_val, d_dir), (i_val, i_dir) = _cell(
+            [_shift_down(p) for p in (p2m, p2p1, p2p2)],
+            [_shift_down(p) for p in (pm, pp1, pp2)], (pm, pp1, pp2), ms,
+            ge * gm, params, tie_order=tie_order, local=local, zero=zero,
+            neg=neg)
 
         interior = (x >= 1) & (x <= l1) & (y >= band_lo) & (y < band_hi)
         is_x_border = (x == 0) & (y >= 1) & (y <= l2)
         is_y_border = (y == 0) & (x >= 1) & (x <= l1)
         is_origin = (x == 0) & (y == 0)
 
-        xb = (go + y.to(f32) * ge) * fgm
-        yb = (go + x.to(f32) * ge) * fgm
+        xb = _border(y, params)
+        yb = _border(x, params)
 
         m_out = torch.where(
             interior, m_val,
@@ -603,6 +617,175 @@ def walk_local_reference(tb, zflags, best, best_xd, *, n1: int, n2: int):
     coords = torch.stack([local.ref_start, local.read_start, local.ref_end,
                           local.read_end], dim=1)
     return local, fuse_result(res.ops_packed, res.n_ops, res.score, coords)
+
+
+def fill_segment_reference(refs, reads, ref_lens, read_lens, params, halo,
+                           tb, carry, corner, *, row0: int, n1: int, n2: int,
+                           y0: int, y1: int):
+    """Plain fill of one column tile of one part of a row-split alignment
+    (parallel/mesh.py::length_sharded_align): the cells of rows
+    row0..row0+n-1 and columns y0..y1-1 (1 <= y0 < y1 <= n2) of every
+    alignment, as fill_reference computes them with the full band, special
+    mode "both" and tie order up > left > diag, by an anti-diagonal scan of
+    the tile whose top row and left column are given.
+
+    refs [B, >= n] u8: the part's own reference bytes (row row0 + j scores
+    refs[:, j]); reads [B, >= n2-1] u8; lens [B] i32 (ref_lens <= n1-1,
+    read_lens <= n2-1); params f32 [6]. halo f32 [B, y1-y0+1, 3]: row
+    row0-1's (M, D, I) at columns y0-1..y1-1, from the part above; None
+    for row0 == 1 (row 0's border). Updated in place: tb u8 [B, n, n2-1]
+    (cell (x, y) at [x - row0, y - 1]: the tile's interior cells written,
+    every other byte left as it is, _TB_FRESH from segment_buffers),
+    carry f32 [B, n, 3] (the part's rows at column y0-1 in, at column y1-1
+    out; not read for y0 == 1, column 0's border) and corner f32 [B, 3]
+    (the planes at (l1, l2) where that cell lies in the tile). Returns the
+    halo this part hands on: row row0+n-1 at columns y0-1..y1-1, f32
+    [B, y1-y0+1, 3]."""
+    _check_lens(ref_lens, read_lens, n1, n2)
+    dev = reads.device
+    B, n = tb.shape[0], tb.shape[1]
+    w = y1 - y0
+    f32 = torch.float32
+    one = torch.ones((), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    neg = torch.full((), MAX_NEG_SCORE, dtype=f32, device=dev)
+    xl = torch.arange(n + 1, device=dev)[None, :]     # lane xl: row row0-1+xl
+    x = row0 - 1 + xl
+    l1 = ref_lens.to(torch.int64)[:, None]
+    l2 = read_lens.to(torch.int64)[:, None]
+    rx = torch.nn.functional.pad(refs[:, :n].to(torch.int32), (1, 0))
+    reads_i = reads.to(torch.int32)
+    if halo is None:          # row 0: the origin, then the x border
+        ys = torch.arange(y0 - 1, y1, device=dev)
+        gap = torch.where(ys == 0, neg, _border(ys, params))
+        top = torch.stack([torch.where(ys == 0, zero, neg), gap, gap],
+                          dim=1).expand(B, -1, -1)
+    else:
+        top = halo
+    if y0 == 1:               # column 0: the y border
+        gap = _border(x[0, 1:], params)
+        left = torch.stack([neg.expand(n), gap, gap], dim=1).expand(B, -1, -1)
+    else:
+        left = carry.clone()
+    # the (l1, l2) cell's lane and diagonal, where it lies in the tile
+    at_tile = ((l1 >= row0) & (l1 < row0 + n) & (l2 >= y0) & (l2 < y1))
+    corner_lane = (l1 - row0 + 1).clamp(0, n)
+    corner_e = corner_lane + l2 - y0 + 1
+    halo_out = torch.empty((B, w + 1, 3), dtype=f32, device=dev)
+    prev = prev2 = [torch.zeros((B, n + 1), dtype=f32, device=dev)] * 3
+    for e in range(n + w + 1):
+        yl = e - xl
+        y = y0 - 1 + yl
+        ry = reads_i.index_select(1, (y[0] - 1).clamp(0, reads.shape[1] - 1))
+        ms = _match_score(rx, ry, "both", params[0], params[1], params[2])
+        gm = torch.where((x == l1) | (y == l2), params[5], one)
+        cells = _cell([_shift_down(p) for p in prev2],
+                      [_shift_down(p) for p in prev], prev, ms,
+                      params[4] * gm, params, tie_order="ref", local=False,
+                      zero=zero, neg=neg)
+        interior = ((xl >= 1) & (yl >= 1) & (yl <= w) & (x <= l1)
+                    & (y <= l2))
+        cur = [torch.where(interior, v, zero) for v, _d in cells]
+        for z in range(3):
+            if e <= w:            # lane 0: the top row at column y0-1+e
+                cur[z][:, 0] = top[:, e, z]
+            if 1 <= e <= n:       # lane e: the left column at row row0-1+e
+                cur[z][:, e] = left[:, e - 1, z]
+        lo, hi = max(1, e - w), min(n, e - 1)   # lanes with 1 <= yl <= w
+        if lo <= hi:
+            lanes = torch.arange(lo, hi + 1, device=dev)
+            rows, cols = lanes - 1, y0 - 2 + e - lanes
+            byte = (cells[0][1] | (cells[1][1] << 2)
+                    | (cells[2][1] << 4))[:, lo:hi + 1]
+            tb[:, rows, cols] = torch.where(interior[:, lo:hi + 1], byte,
+                                            tb[:, rows, cols])
+        col = torch.cat([torch.gather(v, 1, corner_lane) for v in cur], dim=1)
+        corner.copy_(torch.where(at_tile & (corner_e == e), col, corner))
+        if e >= n:                # lane n: the halo at column y0-1+e-n
+            halo_out[:, e - n] = torch.stack([v[:, n] for v in cur], dim=1)
+        if w < e <= w + n:        # lane e-w at column y1-1
+            carry[:, e - w - 1] = torch.stack([v[:, e - w] for v in cur],
+                                              dim=1)
+        prev2, prev = prev, cur
+    return halo_out
+
+
+def walk_segment_reference(tb, corner, ref_lens, read_lens, params, state,
+                           ops, *, row0: int, n1: int, n2: int):
+    """Plain walk of one part of a row-split alignment over its traceback
+    tb [B, n, n2-1] (fill_segment_reference's; corner its corner planes),
+    with walk_reference's semantics. state i32 [B, 4] (x, y, plane, score
+    bits) comes from the part below and is updated in place: an alignment
+    whose corner (l1, l2) lies in rows row0..row0+n-1 (l1 == 0: the first
+    part) starts here from its corner's argmax plane; one that enters with
+    x > 0 and y > 0 goes on from there; either walks until its path leaves
+    the part upward (its state is then the cell it reached) or reaches
+    row 0 or column 0, where the border run is added and the state becomes
+    (0, 0, plane, score bits). Any other state (-1: not started, or done)
+    passes through. ops u8 [B, n1+n2-1] (in place, OP_DONE where no part
+    wrote): the op of the step from cell (x, y) at [x + y], as
+    walk_reference's ops_d, so the parts' ops join by position."""
+    _check_lens(ref_lens, read_lens, n1, n2)
+    dev = tb.device
+    B, n = tb.shape[0], tb.shape[1]
+    i64 = torch.int64
+    l1, l2 = ref_lens.to(i64), read_lens.to(i64)
+    own = ((l1 >= row0) & (l1 < row0 + n)) | ((l1 == 0) & (row0 == 1))
+    neg = torch.full((B,), MAX_NEG_SCORE, dtype=torch.float32, device=dev)
+    origin = (l1 == 0) & (l2 == 0)
+    gap = torch.where(origin, neg, _border(l1 + l2, params))
+    closed = torch.stack([torch.where(origin, 0.0, neg), gap, gap], dim=1)
+    z0, score = corner_to_z0_score(
+        torch.where(((l1 == 0) | (l2 == 0))[:, None], closed, corner))
+    x = torch.where(own, l1, state[:, 0].to(i64))
+    y = torch.where(own, l2, state[:, 1].to(i64))
+    z = torch.where(own, z0.to(i64), state[:, 2].to(i64))
+    sb = torch.where(own, score.view(torch.int32), state[:, 3])
+    b = torch.arange(B, device=dev)
+    while True:
+        step = (x >= row0) & (y > 0)
+        if not bool(step.any()):
+            break
+        byte = tb[b, (x - row0).clamp(0, n - 1),
+                  (y - 1).clamp(0, n2 - 2)].to(i64)
+        ops[b[step], (x + y)[step]] = z[step].to(torch.uint8)
+        direction = (byte >> (2 * z)) & 3
+        x = x - (step & (z != 2)).to(i64)
+        y = y - (step & (z != 1)).to(i64)
+        z = torch.where(step, direction, z)
+    j = torch.arange(ops.shape[1], device=dev)[None, :]
+    dels = ((y == 0) & (x > 0))[:, None] & (j >= 1) & (j <= x[:, None])
+    ins = ((x == 0) & (y > 0))[:, None] & (j >= 1) & (j <= y[:, None])
+    ops[dels] = OP_DEL
+    ops[ins] = OP_INS
+    done = (x == 0) | (y == 0)
+    state[:, 0] = torch.where(done, 0, x).to(torch.int32)
+    state[:, 1] = torch.where(done, 0, y).to(torch.int32)
+    state[:, 2] = z.to(torch.int32)
+    state[:, 3] = sb
+
+
+def segment_wavefront_to_rows(wave, ref_lens, read_lens, *, row0: int,
+                              n: int, n1: int, n2: int, cols=None):
+    """A part's traceback in the segment kernel's layout [B,
+    traceback_bytes(n + 1, n2)] (rows row0..row0+n-1 as rows 1..n of the
+    dp_align layout) laid out as fill_segment_reference's [B, n, n2-1]:
+    interior cells from the kernel, _TB_FRESH elsewhere (and throughout
+    rows whose lengths lie outside the bucket). cols=(y0, y1) keeps the
+    columns y0..y1-1 only: [B, n, y1-y0]."""
+    y0, y1 = cols or (1, n2)
+    dev = wave.device
+    x = torch.arange(1, n + 1, device=dev)[None, :, None]
+    y = torch.arange(y0, y1, device=dev)[None, None, :]
+    off = wavefront_offset(x, y, n1=n + 1, n2=n2).reshape(-1)
+    l1 = ref_lens.to(torch.int64)[:, None, None]
+    l2 = read_lens.to(torch.int64)[:, None, None]
+    ok = (l1 >= 0) & (l1 <= n1 - 1) & (l2 >= 0) & (l2 <= n2 - 1)
+    interior = ok & (row0 - 1 + x <= l1) & (y <= l2)
+    vals = wave[:, off].reshape(wave.shape[0], n, y1 - y0)
+    return torch.where(interior, vals, torch.tensor(_TB_FRESH,
+                                                    dtype=torch.uint8,
+                                                    device=dev))
 
 
 def align_batch(refs, reads, ref_lens, read_lens, params, *, n1: int,

@@ -7,7 +7,13 @@ Pallas fill (`_fill_kernel` via `pallas_fill`), the banded, keep-last and
 `special_mode="none"` branches of the XLA scan, and the XLA walk, epilogue
 and result fusion that follow a global fill, in one kernel;
 `dp_align_local` the scan's Waterman-Eggert branch and the walk, epilogue
-and fusion of `_finish_local`, in another.
+and fusion of `_finish_local`, in another. `fill_segment` and
+`walk_segment` (csrc/dp_align_split.cu) are the two halves of one
+alignment whose rows are split into parts
+(parallel/mesh.py::length_sharded_align, where the JAX package shards the
+scan's lanes over its mesh): one column tile of one part's rows with the
+row above it handed in and its last row handed on, and the walk over one
+part's rows from the state the part below handed on.
 
 On CUDA tensors each wrapper checks its inputs, allocates its outputs with
 torch.empty, launches its kernel on the given stream (default: the current
@@ -27,6 +33,8 @@ fused rows back, and BatchAligner calls it on every group it pulls.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from clique_tpu_torch.align import batch as _batch
@@ -34,10 +42,11 @@ from clique_tpu_torch.align import batch as _batch
 align_launches = 0
 align_local_launches = 0
 # launches by mode: dp_align's with a partial band, keep-last ties,
-# special_mode "none" and more than one band of rows (n1 - 1 > 384), and
-# dp_align_local's with more than one band, on the warps of its CTA
+# special_mode "none" and more than one band of rows (n1 - 1 > 384),
+# dp_align_local's with more than one band, on the warps of its CTA, and
+# the row-split fill's and walk's (fill_segment, walk_segment)
 FILL_MODES = ("banded", "tie_last", "special_none", "row_bands",
-              "local_row_bands")
+              "local_row_bands", "row_split", "row_split_walk")
 fill_mode_launches = dict.fromkeys(FILL_MODES, 0)
 _SPECIAL_CODES = {"none": 0, "ref_n_only": 1, "both": 2}
 # shared memory an H100 block may use (dynamic + static)
@@ -253,3 +262,161 @@ def dp_align_local(refs, reads, ref_lens, read_lens, params, *, n1: int,
     if scratch is not None:
         fill_mode_launches["local_row_bands"] += 1
     return fused, (tb if return_traceback else None)
+
+
+class SegmentBuffers(NamedTuple):
+    """What one part of a row-split alignment keeps between its launches
+    (rows row0..row0+n-1 of B alignments, n2 columns)."""
+
+    tb: torch.Tensor       # its rows' traceback: on the card u8 [B,
+    #                        batch.traceback_bytes(n + 1, n2)] (dp_align's
+    #                        layout of rows 1..n), on the CPU u8 [B, n,
+    #                        n2 - 1] (fill_segment_reference's)
+    carry: torch.Tensor    # f32 [B, n, 3]: its rows at the last column filled
+    corner: torch.Tensor   # f32 [B, 3]: the (l1, l2) planes it owns
+
+
+def segment_buffers(B: int, n: int, n2: int, device) -> SegmentBuffers:
+    """The buffers of one part of n rows on `device`."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        tb = torch.full((B, n, n2 - 1), _batch._TB_FRESH, dtype=torch.uint8)
+    else:
+        tb = torch.empty((B, _batch.traceback_bytes(n + 1, n2)),
+                         dtype=torch.uint8, device=dev)
+    return SegmentBuffers(
+        tb, torch.zeros((B, n, 3), dtype=torch.float32, device=dev),
+        torch.zeros((B, 3), dtype=torch.float32, device=dev))
+
+
+def _check_segment(bufs, ref_lens, read_lens, params, dev, B, row0, n1, n2):
+    """Check one part's buffers, lens and params; returns its rows n."""
+    _check(bufs.carry, "carry", torch.float32, 3, dev)
+    n = bufs.carry.shape[1]
+    _check(bufs.corner, "corner", torch.float32, 2, dev)
+    _check(bufs.tb, "tb", torch.uint8, 3 if dev.type == "cpu" else 2, dev)
+    _check(ref_lens, "ref_lens", torch.int32, 1, dev)
+    _check(read_lens, "read_lens", torch.int32, 1, dev)
+    _check(params, "params", torch.float32, 1, dev)
+    tb_shape = ((B, n, n2 - 1) if dev.type == "cpu"
+                else (B, _batch.traceback_bytes(n + 1, n2)))
+    if (tuple(bufs.carry.shape) != (B, n, 3)
+            or tuple(bufs.corner.shape) != (B, 3)
+            or tuple(bufs.tb.shape) != tb_shape):
+        raise ValueError(f"the part's buffers must be tb {list(tb_shape)}, "
+                         f"carry [{B}, {n}, 3] and corner [{B}, 3]")
+    if ref_lens.shape[0] != B or read_lens.shape[0] != B:
+        raise ValueError("ref_lens/read_lens must have one entry per read")
+    if params.shape[0] != 6:
+        raise ValueError("params must have 6 entries")
+    if n < 1 or row0 < 1 or row0 + n > n1 or n2 < 2:
+        raise ValueError(f"rows {row0}..{row0 + n - 1} do not lie in "
+                         f"1..{n1 - 1}")
+    return n
+
+
+def fill_segment(refs, reads, ref_lens, read_lens, params, halo,
+                 bufs: SegmentBuffers, *, row0: int, n1: int, n2: int,
+                 y0: int, y1: int, hand_on: bool = True, stream=None):
+    """One column tile of one part of a row-split alignment: the cells of
+    rows row0..row0+n-1 (n = bufs.carry.shape[1]) and columns y0..y1-1 of
+    B alignments (full band, special mode "both", tie order up > left >
+    diag). refs [B, >= n] u8 holds the part's own reference bytes (row
+    row0 + j scores refs[:, j]); reads [B, >= n2-1] u8; lens [B] i32
+    (lengths of the whole alignments); params [6] f32; halo f32
+    [B, y1-y0+1, 3], row row0-1's planes at columns y0-1..y1-1 from the
+    part above (None for row0 == 1). Writes the tile's traceback, the
+    carry column and the corner into bufs; returns the halo this part
+    hands on (row row0+n-1 at columns y0-1..y1-1, [B, y1-y0+1, 3] f32), or
+    None without hand_on (the last part). Semantics of
+    batch.fill_segment_reference, which runs on CPU tensors."""
+    dev = _device_of(reads)
+    _check(reads, "reads", torch.uint8, 2, dev)
+    _check(refs, "refs", torch.uint8, 2, dev)
+    B = reads.shape[0]
+    n = _check_segment(bufs, ref_lens, read_lens, params, dev, B, row0, n1,
+                       n2)
+    if refs.shape[0] != B or refs.shape[1] < n or reads.shape[1] < n2 - 1:
+        raise ValueError(f"refs/reads must be [{B}, >= {n}] / [{B}, >= "
+                         f"{n2 - 1}], got {list(refs.shape)} / "
+                         f"{list(reads.shape)}")
+    if not 1 <= y0 < y1 <= n2:
+        raise ValueError(f"the tile's columns [{y0}, {y1}) must lie in "
+                         f"[1, {n2})")
+    if (halo is None) != (row0 == 1):
+        raise ValueError("a halo comes in exactly when row0 > 1")
+    if halo is not None:
+        _check(halo, "halo", torch.float32, 3, dev)
+        if tuple(halo.shape) != (B, y1 - y0 + 1, 3):
+            raise ValueError(f"halo must be [{B}, {y1 - y0 + 1}, 3], got "
+                             f"{list(halo.shape)}")
+    if dev.type == "cpu":
+        out = _batch.fill_segment_reference(
+            refs, reads, ref_lens, read_lens, params, halo, bufs.tb,
+            bufs.carry, bufs.corner, row0=row0, n1=n1, n2=n2, y0=y0, y1=y1)
+        return out if hand_on else None
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    if lib.clique_dp_segment_smem_bytes(y1 - y0) > _SMEM_LIMIT:
+        raise ValueError(f"a tile of {y1 - y0} columns needs more shared "
+                         "memory than an H100 block has")
+    s = _launch_stream(stream, dev, [t for t in (
+        refs, reads, ref_lens, read_lens, params, halo, *bufs)
+        if t is not None])
+    with torch.cuda.stream(s):
+        out = torch.empty((B, y1 - y0 + 1, 3), dtype=torch.float32,
+                          device=dev) if hand_on else None
+    with torch.cuda.device(dev):
+        err = lib.clique_dp_segment_fill(
+            refs.data_ptr(), refs.shape[1], reads.data_ptr(), reads.shape[1],
+            ref_lens.data_ptr(), read_lens.data_ptr(), params.data_ptr(),
+            halo.data_ptr() if halo is not None else None,
+            out.data_ptr() if out is not None else None,
+            bufs.carry.data_ptr(), bufs.tb.data_ptr(),
+            bufs.corner.data_ptr(), B, n1, n2, row0, n, y0, y1,
+            s.cuda_stream)
+    _raise_on(err, "fill_segment")
+    fill_mode_launches["row_split"] += 1
+    return out
+
+
+def walk_segment(bufs: SegmentBuffers, ref_lens, read_lens, params, state,
+                 ops, *, row0: int, n1: int, n2: int, stream=None):
+    """The walk over one part of a row-split alignment (rows
+    row0..row0+n-1, n = bufs.carry.shape[1]) after all its tiles were
+    filled: state i32 [B, 4] (x, y, plane, score bits; -1 not started)
+    from the part below and ops u8 [B, n1+n2-1] (the op of the step from
+    cell (x, y) at [x + y], OP_DONE elsewhere), both updated in place.
+    Semantics of batch.walk_segment_reference, which runs on CPU tensors;
+    where that raises for lengths outside the bucket, the kernel sets the
+    row's state to (-2, -2, 0, NaN bits) and writes no op."""
+    dev = _device_of(ref_lens)
+    B = ref_lens.shape[0]
+    _check_segment(bufs, ref_lens, read_lens, params, dev, B, row0, n1, n2)
+    _check(state, "state", torch.int32, 2, dev)
+    _check(ops, "ops", torch.uint8, 2, dev)
+    if (tuple(state.shape) != (B, 4)
+            or tuple(ops.shape) != (B, n1 + n2 - 1)):
+        raise ValueError(f"state and ops must be [{B}, 4] and [{B}, "
+                         f"{n1 + n2 - 1}]")
+    if dev.type == "cpu":
+        _batch.walk_segment_reference(bufs.tb, bufs.corner, ref_lens,
+                                      read_lens, params, state, ops,
+                                      row0=row0, n1=n1, n2=n2)
+        return
+
+    from clique_tpu_torch import _build
+
+    lib = _build.load()
+    s = _launch_stream(stream, dev, [ref_lens, read_lens, params, state,
+                                     ops, *bufs])
+    with torch.cuda.device(dev):
+        err = lib.clique_dp_segment_walk(
+            bufs.tb.data_ptr(), bufs.corner.data_ptr(), ref_lens.data_ptr(),
+            read_lens.data_ptr(), params.data_ptr(), state.data_ptr(),
+            ops.data_ptr(), B, n1, n2, row0, bufs.carry.shape[1],
+            s.cuda_stream)
+    _raise_on(err, "walk_segment")
+    fill_mode_launches["row_split_walk"] += 1

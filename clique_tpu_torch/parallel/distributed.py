@@ -40,7 +40,8 @@ What differs from the JAX module:
   count), set as the current device before anything is built or launched.
 - Each process logs one summary line ("distributed <verb> summary" and a
   JSON object: rank, world, device, backend, reads, kernel launches,
-  wall, and on rank 0 the merge wall).
+  wall, on rank 0 the merge wall, and for collapse each correction
+  level's psum_histogram seconds).
 
 Run one process per rank with identical arguments plus a distinct
 process_id; num_processes=1 needs no coordinator and reduces to the
@@ -384,13 +385,15 @@ def _merge_level_counts(level_dir: str, num_processes: int
 def _exchange_correction_maps(local_counts: Dict[Tuple, Counter], tag,
                               known_lists, mesh, level_dir: str,
                               process_id: int, num_processes: int,
-                              n_buckets: int, device="cuda"
+                              n_buckets: int, device="cuda",
+                              psum_s: Optional[List[float]] = None
                               ) -> Dict[Tuple, Dict]:
     """The cross-process core of one correction level: publish local tag
     counters (shared-FS payload), sum the bin-bucket histogram over the
     group for deterministic load-balanced ownership, owners build
     correction maps over the GLOBAL counts with the device kernels on
-    `device`, and the merged maps are returned on every process."""
+    `device`, and the merged maps are returned on every process. The
+    psum_histogram's seconds are appended to psum_s when it is given."""
     from clique_tpu_torch.collapse.pipeline import _known_correction
     from clique_tpu_torch.config.layout import UMISortType
     from clique_tpu_torch.parallel.groupby import (assign_bucket_owners,
@@ -408,7 +411,10 @@ def _exchange_correction_maps(local_counts: Dict[Tuple, Counter], tag,
         local_hist[tag_bucket(pickle.dumps(bin_key, protocol=4),
                               n_buckets)] += sum(counter.values())
     _barrier(f"counts-level-{tag.order}", num_processes)
+    t_psum = time.perf_counter()
     hist = psum_histogram(mesh, local_hist)
+    if psum_s is not None:
+        psum_s.append(time.perf_counter() - t_psum)
     owner = assign_bucket_owners(hist, num_processes)
 
     merged = _merge_level_counts(level_dir, num_processes)
@@ -444,17 +450,18 @@ def _exchange_correction_maps(local_counts: Dict[Tuple, Counter], tag,
 def distributed_sort_level(reads: List, tag, known_lists, mesh,
                            level_dir: str, process_id: int,
                            num_processes: int,
-                           n_buckets: int = 256, device="cuda") -> List:
+                           n_buckets: int = 256, device="cuda",
+                           psum_s: Optional[List[float]] = None) -> List:
     """One correction level across processes (in-RAM local reads): count
     locally, exchange maps, apply. Returns this process's corrected
-    reads."""
+    reads; the level's psum_histogram seconds go to psum_s if given."""
     from clique_tpu_torch.collapse.pipeline import (_apply_correction_one,
                                                     _gate_tag)
 
     local_counts = _local_bin_counts(reads, tag)
     maps = _exchange_correction_maps(local_counts, tag, known_lists, mesh,
                                      level_dir, process_id, num_processes,
-                                     n_buckets, device)
+                                     n_buckets, device, psum_s)
     out: List = []
     for read in reads:
         if _gate_tag(read, tag) is None:
@@ -473,12 +480,14 @@ def distributed_sort_level_spill(in_dir: str, tag, known_lists, mesh,
                                  process_id: int, num_processes: int,
                                  n_buckets: int = 256,
                                  n_shards: int = 32,
-                                 device="cuda") -> Tuple[int, int]:
+                                 device="cuda",
+                                 psum_s: Optional[List[float]] = None
+                                 ) -> Tuple[int, int]:
     """Out-of-core distributed level: two streaming passes over this
     process's LOCAL spill shards (per-bin resident reads O(1), honoring
     maximum_subsequences exactly like sort_level_spill), with the same
     cross-process count/map exchange as the in-RAM path. Returns local
-    (reads_in, reads_out)."""
+    (reads_in, reads_out); psum_s as distributed_sort_level's."""
     from clique_tpu_torch.collapse.pipeline import (_apply_correction_one,
                                                     _gate_tag)
     from clique_tpu_torch.collapse.shards import ShardWriter, iter_items
@@ -494,7 +503,7 @@ def distributed_sort_level_spill(in_dir: str, tag, known_lists, mesh,
 
     maps = _exchange_correction_maps(local_counts, tag, known_lists, mesh,
                                      level_dir, process_id, num_processes,
-                                     n_buckets, device)
+                                     n_buckets, device, psum_s)
     n_out = 0
     with ShardWriter(out_dir, n_shards=n_shards) as out_writer:
         for _key, read in iter_items(in_dir):
@@ -555,6 +564,7 @@ def collapse_distributed(output_path: str, layout, input_bam: str,
     known_lists = load_known_lists(layout)
     stats = CollapseStats()
     t0 = time.time()
+    psum_s: List[float] = []
     launches0 = (distance.match_hits_launches,
                  distance.edit_distance_launches,
                  distance.edit_hits_launches)
@@ -601,7 +611,7 @@ def collapse_distributed(output_path: str, layout, input_bam: str,
                     distributed_sort_level_spill(
                         in_dir, tag, known_lists, mesh, level_dir, out_dir,
                         process_id, num_processes, n_buckets=n_buckets,
-                        n_shards=n_shards, device=dev)
+                        n_shards=n_shards, device=dev, psum_s=psum_s)
                     shutil.rmtree(in_dir, ignore_errors=True)
                     in_dir = out_dir
                 for _key, r in iter_items(in_dir):
@@ -618,7 +628,8 @@ def collapse_distributed(output_path: str, layout, input_bam: str,
                 level_dir = os.path.join(work_dir, f"{safe}.l{lvl}")
                 reads = distributed_sort_level(
                     reads, tag, known_lists, mesh, level_dir, process_id,
-                    num_processes, n_buckets=n_buckets, device=dev)
+                    num_processes, n_buckets=n_buckets, device=dev,
+                    psum_s=psum_s)
             reads_by_ref[ref.name] = reads
 
         with ShardWriter(spill_dir, n_shards=n_shards) as sw:
@@ -689,5 +700,5 @@ def collapse_distributed(output_path: str, layout, input_bam: str,
              launches=dict(zip(("match_hits", "edit_distance", "edit_hits"),
                                (b - a for a, b in zip(launches0, now)))),
              ingest_levels_s=t_levels, merge_s=merge_s,
-             wall_s=time.time() - t0)
+             psum_s=psum_s, wall_s=time.time() - t0)
     return stats

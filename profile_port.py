@@ -8,6 +8,8 @@ in turns.
     python3 profile_port.py hmm [--reps 5] [ROOT ...]
     python3 profile_port.py wfa [--reps 5] [--shapes WORD,...] [ROOT ...]
     python3 profile_port.py edit [--reps 5] [ROOT ...]
+    python3 profile_port.py dp [--reps 5] [ROOT ...]
+    python3 profile_port.py split [--reps 5] [ROOT ...]
 
 Each ROOT (default: this checkout) is the root of a checkout of the repo;
 its clique_tpu_torch is imported and its kernels built in a process of its
@@ -80,6 +82,19 @@ results must agree between roots. Imports no jax. The workloads:
   (rows up, distances back), host clock, in turns (host, card, card,
   host): why every call on a CUDA device takes the card. Distances must agree
   between the routes and the roots.
+- dp: dp_align (the fused global fill + walk) at the bench shape (B=1,024,
+  n1=n2=384, special mode ref_n_only) and keep-last with special mode
+  none at B=64, n1=n2=3328 (the inversion path's fill), each on one
+  reference row and reads cut from it with 5% substitutions of 0 to
+  n2 - 1 bases (local's inputs), CUDA events around `--reps` calls after
+  one warm-up call. The fused rows must agree.
+- split: parallel/mesh.py's length_sharded_align at B=2, n1=n2=16,385
+  (chip_smoke.py's full-width inputs: 16,384-base references, reads with
+  5% substitutions, seed 16) over [cuda:0] * k for k = 1, 4 and 8 parts
+  and tiles of 128 to 2,048 columns: the call's wall by CUDA events and
+  its fill and walk times (the function's own events), each the mean of
+  `--reps` calls after one warm-up call; the results must agree across
+  tiles, parts and roots.
 """
 
 import argparse
@@ -280,6 +295,99 @@ def run_local(root, args):
         del inputs
         torch.cuda.empty_cache()
     return {"times": times, "check": digests}
+
+
+def run_dp(root, args):
+    """dp_align at the bench shape and at the keep-last shape, CUDA
+    events."""
+    import torch
+
+    from clique_tpu_torch.align import dp_kernels
+    from clique_tpu_torch.align.batch import scoring_to_params
+    from clique_tpu_torch.align.scoring import AffineScoring
+
+    dev = torch.device("cuda", 0)
+    params = scoring_to_params(AffineScoring.aligner_default(), dev)
+    times, digests = {}, []
+    for B, n, kw in ((1024, 384, dict(special_mode="ref_n_only")),
+                     (64, 3328, dict(special_mode="none",
+                                     tie_order="last"))):
+        inputs = [torch.from_numpy(a).to(dev) for a in _local_inputs(B, n)]
+
+        def call():
+            return dp_kernels.dp_align(*inputs, params, n1=n, n2=n, **kw)[0]
+
+        key = f"B={B} n1=n2={n} {kw} ms"
+        times[key] = [_event_ms(call, args.reps)]
+        fused = call().cpu().numpy()
+        digests.append(hashlib.sha256(fused.tobytes()).hexdigest()[:16])
+        print(f"{key}: {times[key][0]}, fused rows {digests[-1]}")
+        del inputs
+        torch.cuda.empty_cache()
+    return {"times": times, "check": digests}
+
+
+def run_split(root, args):
+    """length_sharded_align's tile widths and part counts, CUDA events."""
+    import numpy as np
+    import torch
+
+    from clique_tpu_torch.align.batch import scoring_to_params
+    from clique_tpu_torch.align.scoring import AffineScoring
+    from clique_tpu_torch.parallel import length_sharded_align
+
+    dev = torch.device("cuda", 0)
+    params = scoring_to_params(AffineScoring.aligner_default(), "cpu")
+    L = 16_384
+    rng = np.random.default_rng(16)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs = rng.choice(bases, (2, L)).astype(np.uint8)
+    reads = refs.copy()
+    subs = rng.random(reads.shape) < 0.05
+    reads[subs] = rng.choice(bases, int(subs.sum()))
+    lens = np.full(2, L, dtype=np.int32)
+    times, digests = {}, set()
+    for tile in (128, 256, 512, 1024, 2048):
+        for k in (1, 4, 8):
+            def call():
+                return length_sharded_align(
+                    [dev] * k, refs, reads, lens, lens, params, n1=L + 1,
+                    n2=L + 1, tile=tile, return_parts=True)
+
+            call()
+            walls, fills, walks = [], [], []
+            for _ in range(args.reps):
+                out, ms = _event_ms_one(call)
+                walls.append(ms)
+                fills.append(out[4]["fill_ms"])
+                walks.append(out[4]["walk_ms"])
+                digests.add(hashlib.sha256(b"".join(
+                    t.numpy().tobytes() for t in out[:3])).hexdigest()[:16])
+                del out
+            for name, v in (("wall", walls), ("fill", fills),
+                            ("walk", walks)):
+                times[f"tile={tile} k={k} {name} ms"] = [sum(v) / len(v)]
+            print(f"tile {tile} k {k}: wall {sum(walls) / len(walls):.3f} "
+                  f"ms, fill {sum(fills) / len(fills):.3f} ms, walk "
+                  f"{sum(walks) / len(walks):.3f} ms", flush=True)
+    if len(digests) != 1:
+        raise SystemExit(f"length_sharded_align's results differ between "
+                         f"tiles and parts: {digests}")
+    return {"times": times, "check": sorted(digests)}
+
+
+def _event_ms_one(fn):
+    """fn() and its time in ms, by CUDA events around the one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def run_hmm(root, args):
@@ -547,7 +655,8 @@ def run_edit(root, args):
 
 
 WORKLOADS = {"align": run_align, "hamming": run_hamming, "local": run_local,
-             "hmm": run_hmm, "wfa": run_wfa, "edit": run_edit}
+             "hmm": run_hmm, "wfa": run_wfa, "edit": run_edit, "dp": run_dp,
+             "split": run_split}
 
 
 def child(root, args):
@@ -577,8 +686,8 @@ def main():
     ap.add_argument("--shapes", default="", help="wfa: words of the shapes "
                     "to run (comma-separated; default all)")
     ap.add_argument("--reps", type=int, default=None,
-                    help="hamming (default 3), local, hmm, wfa and edit "
-                         "(default 5)")
+                    help="hamming (default 3), local, hmm, wfa, edit, dp "
+                         "and split (default 5)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("roots", nargs="*", default=[HERE])
     args = ap.parse_intermixed_args()

@@ -6,6 +6,7 @@ GPU, beside profile_port.py's `wfa` workload (the same launch shapes).
     python3 profile_wfa.py cycles
     python3 profile_wfa.py variant zero|mid512|cta32 DST
     python3 profile_wfa.py sass ROOT ROOT [ROOT ...] [--out DIR]
+        [--source FILE]
 
 - plans: each shape under forced launch plans (wfa_kernels.wfa_plan with
   cluster=C: C CTAs a pair, 0 the rings in a global workspace; the
@@ -26,10 +27,11 @@ GPU, beside profile_port.py's `wfa` workload (the same launch shapes).
   (no warp path: a wfa_score launch of K <= 128 runs the CTA kernel as
   one-warp CTAs, one a pair, under launch bounds of its own, 32 threads
   and 32 CTAs an SM: the warp path's 32 warps an SM).
-- sass: compiles each ROOT's csrc/wfa_align.cu to a cubin with the
-  build's flags (all at once) and prints, for every wfa_kernel and
-  wfa_score_warp_kernel instantiation, its registers, spills and SASS
-  instruction count in each root, and whether the SASS of the
+- sass: compiles each ROOT's csrc/wfa_align.cu (or csrc/FILE, e.g.
+  --source dp_align.cu) to a cubin with the build's flags (all at once)
+  and prints, for every wfa_kernel and wfa_score_warp_kernel
+  instantiation (every kernel of another FILE), its registers, spills
+  and SASS instruction count in each root, and whether the SASS of the
   instantiations every root has is the same, instruction for
   instruction; where a root's differs from the first root's, the unified
   diff goes to DIR (default chiprun_out/wfa_sass).
@@ -204,12 +206,12 @@ def run_plans(words):
               flush=True)
 
 
-def _sass_of(root, out_dir):
-    """(cubin path, the running nvcc) of root's csrc/wfa_align.cu compiled
+def _sass_of(root, out_dir, source="wfa_align.cu"):
+    """(cubin path, the running nvcc) of root's csrc/<source> compiled
     with the build's flags into out_dir."""
     from clique_tpu_torch import _build
 
-    src = os.path.join(root, "clique_tpu_torch", "csrc", "wfa_align.cu")
+    src = os.path.join(root, "clique_tpu_torch", "csrc", source)
     cubin = os.path.join(out_dir, hashlib.sha256(
         os.path.abspath(root).encode()).hexdigest()[:12] + ".cubin")
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler",
@@ -227,10 +229,10 @@ def _plain(name):
     return re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", name)
 
 
-def _read_sass(cubin, log):
+def _read_sass(cubin, log, every=False):
     """{function: (registers, spill bytes, [instructions])} of the
-    wfa_kernel and wfa_score_warp_kernel instantiations in the cubin (log:
-    its nvcc's -Xptxas -v output)."""
+    wfa_kernel and wfa_score_warp_kernel instantiations in the cubin (of
+    every function with `every`; log: its nvcc's -Xptxas -v output)."""
     import re
 
     from clique_tpu_torch import _build
@@ -254,8 +256,8 @@ def _read_sass(cubin, log):
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = _plain(m.group(1)) if ("wfa_kernel" in m.group(1) or
-                                         "wfa_score_warp_kernel" in
+            cur = _plain(m.group(1)) if (every or "wfa_kernel" in m.group(1)
+                                         or "wfa_score_warp_kernel" in
                                          m.group(1)) else None
             if cur:
                 out[cur] = (*usage.get(cur, (None, None)), [])
@@ -266,17 +268,17 @@ def _read_sass(cubin, log):
     return out
 
 
-def run_sass(roots, out_dir):
+def run_sass(roots, out_dir, source="wfa_align.cu"):
     import difflib
 
     os.makedirs(out_dir, exist_ok=True)
-    jobs = [_sass_of(r, out_dir) for r in roots]
+    jobs = [_sass_of(r, out_dir, source) for r in roots]
     found = []
     for root, (cubin, proc) in zip(roots, jobs):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {root}:\n{log[-3000:]}")
-        found.append(_read_sass(cubin, log))
+        found.append(_read_sass(cubin, log, source != "wfa_align.cu"))
     names = sorted(set().union(*found))
     for i, name in enumerate(names):
         cols = []
@@ -352,6 +354,8 @@ def main():
     ap.add_argument("args", nargs="*")
     ap.add_argument("--out", default=os.path.join("chiprun_out", "wfa_sass"),
                     help="sass: where the diffs go")
+    ap.add_argument("--source", default="wfa_align.cu",
+                    help="sass: the csrc/ file to compile")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     if args.what == "plans":
@@ -362,7 +366,7 @@ def main():
         if len(args.args) < 2:
             raise SystemExit("sass needs two roots or more")
         run_sass([os.path.abspath(r) for r in args.args],
-                 os.path.abspath(args.out))
+                 os.path.abspath(args.out), args.source)
     else:
         kind, dst = args.args
         cu = _copy(os.path.abspath(dst))

@@ -1347,3 +1347,49 @@ def test_align_engine_golden_on_cuda(cuda, engine, tmp_path):
     assert wk.wfa_align_launches > n
     assert _inflate_bgzf(out) == _inflate_bgzf(
         os.path.join(gd, f"aligned_{engine}.bam"))
+
+
+@pytest.mark.parametrize("bounds,tile", [
+    ([1, 3, 10, 400, 401, 420, 513], 7),       # a part of two bands
+    ([1, 385, 513], 100),                      # dp_align's band boundary
+    ([1, 513], 480)], ids=["uneven", "banded", "one-part"])
+def test_length_sharded_align_kernels_match_plain(cuda, bounds, tile):
+    """length_sharded_align over [cuda:0] * k (segment_fill and
+    segment_walk, launched and counted) against the plain versions over
+    [cpu] * k on the same inputs: results, and each part's traceback
+    relaid as the plain fill's; ragged lengths with corners on every part,
+    and a row marked for lengths outside the bucket."""
+    from clique_tpu_torch.parallel import length_sharded_align
+
+    rng = np.random.default_rng(len(bounds) + tile)
+    B, n1, n2 = 7, 513, 481
+    refs, reads, ref_lens, read_lens = _inputs(len(bounds), B, n1, n2, False)
+    ref_lens[2:5] = [bounds[1] - 1, min(bounds[1], n1 - 1), bounds[-2]]
+    read_lens[4] = 0
+    reads[5, :200] = refs[5, 100:300]
+    ref_lens[5], read_lens[5] = 480, 200
+    ref_lens[6] = int(rng.integers(1, n1))
+    params = tbatch.scoring_to_params(AffineScoring.aligner_default(), "cpu")
+    kw = dict(n1=n1, n2=n2, bounds=bounds, tile=tile, return_parts=True)
+    k = len(bounds) - 1
+    fills, walks = (dp_kernels.fill_mode_launches[m]
+                    for m in ("row_split", "row_split_walk"))
+    got = length_sharded_align([cuda] * k, refs, reads, ref_lens, read_lens,
+                               params, **kw)
+    assert dp_kernels.fill_mode_launches["row_split"] - fills == sum(
+        p["fills"] for p in got[3])
+    assert dp_kernels.fill_mode_launches["row_split_walk"] - walks == k
+    want = length_sharded_align(["cpu"] * k, refs, reads, ref_lens,
+                                read_lens, params, **kw)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    lens = [torch.from_numpy(a).to(cuda) for a in (ref_lens, read_lens)]
+    for g, w in zip(got[3], want[3]):
+        lo, hi = g["rows"]
+        relaid = tbatch.segment_wavefront_to_rows(
+            g["traceback"], *lens, row0=lo, n=hi - lo, n1=n1, n2=n2)
+        assert torch.equal(relaid.cpu(), w["traceback"])
+    ref_lens[3] = n1                      # outside the bucket: marked
+    with pytest.raises(ValueError):
+        length_sharded_align([cuda] * k, refs, reads, ref_lens, read_lens,
+                             params, n1=n1, n2=n2, bounds=bounds, tile=tile)

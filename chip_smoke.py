@@ -98,8 +98,10 @@ before and read just after:
   rank's bucket count (torch.bincount) at a level's size;
 - length-sharded: parallel/mesh.py's length_sharded_align, one
   alignment's DP rows split into parts on their own streams (a
-  segment_fill launch a part and column tile, the row above handed down;
-  a segment_walk launch a part, climbing from the corner's part): the
+  segment_fill launch a part and column tile, the row above handed down,
+  the part's bands on a thread-block cluster by segment_plan; a
+  segment_walk launch a part, climbing from the corner's part, its
+  windows fetched ahead; the kernels' ptxas lines and each plan): the
   JAX test's inputs (B=2, LR=512, LD=480) over [cuda:0] * 8 with an
   uneven split equal the plain versions over [cpu] * 8, part by part;
   then B=2 reads of 16,384 bases against their 16,384-base references
@@ -4166,10 +4168,11 @@ def phase_length_sharded():
        call (dp_align, k = 1, 2, 4, 4, 2, 1, dp_align): scores, n_ops and
        ops equal dp_align's, each part's traceback equal to dp_align's
        bands of its rows, each part holding only its rows' traceback.
-    3. One segment_fill launch (an inner part's second tile at k = 4) and
-       one segment_walk launch (the corner's part) of that run recorded,
-       re-launched and timed by CUDA events, and held against their plain
-       versions on the card on the same inputs, timed once.
+    3. One segment_fill launch (an inner part's second tile at k = 4,
+       with its launch plan; also timed cut to 512 columns, the first
+       port's tile) and one segment_walk launch (the corner's part) of that
+       run recorded, re-launched and timed by CUDA events, and held against
+       their plain versions on the card on the same inputs, timed once.
     Returns (launches, max abs errs, the kernels line's timings)."""
     import numpy as np
     import torch
@@ -4183,6 +4186,7 @@ def phase_length_sharded():
     dev = torch.device("cuda", 0)
     params = tbatch.scoring_to_params(AffineScoring.aligner_default(), "cpu")
     err = {"segment_fill": 0, "segment_walk": 0}
+    say(f"[length-sharded] ptxas: {_segment_ptxas()}")
 
     # 1. the JAX test's shape, uneven, against the plain versions
     B, LR, LD = LS_JAX_SHAPE
@@ -4293,14 +4297,21 @@ def phase_length_sharded():
             check(same_tb and p["traceback_bytes"] == want_bytes,
                   f"k={k}: part {p['rows']}'s traceback differs from "
                   "dp_align's bands of its rows")
-            lines.append(f"rows {lo}..{hi - 1}: {p['fills']} fills, "
+            pl = p["plan"]
+            lines.append(f"rows {lo}..{hi - 1}: {p['fills']} fills, plan "
+                         f"C={pl.C} W={pl.W} R={pl.R} ({pl.bands} bands, "
+                         f"{pl.smem} B of shared memory a CTA), "
                          f"traceback {p['traceback_bytes']} B "
                          f"({p['traceback_bytes'] / (2 * tb_one):.3f} of "
                          f"dp_align's), halo {p['halo_bytes']} B handed "
                          f"in{' (copied)' if p['copied'] else ''}")
+        tile = out[3][0]["tile"]
+        tallest = max(p["rows"][1] - p["rows"][0] for p in out[3])
         say(f"[length-sharded] k={k} over [cuda:0] * {k}, tiles of "
-            f"{tmesh.SPLIT_TILE} ({-(-(n2 - 1) // tmesh.SPLIT_TILE)} a "
-            f"part): scores, n_ops and ops equal dp_align's; launches "
+            f"{tile} ({-(-(n2 - 1) // tile)} a part; split_tile "
+            f"{tmesh.split_tile(n2, tallest, k)}), segment_fill "
+            f"{dp_kernels.segment_fill_regs()} registers a thread: scores, "
+            f"n_ops and ops equal dp_align's; launches "
             f"{n['segment_fill']} segment_fill + {n['segment_walk']} "
             f"segment_walk; " + "; ".join(lines) + "; each part's traceback "
             "equals dp_align's bands of its rows")
@@ -4333,8 +4344,16 @@ def phase_length_sharded():
     again_bufs = dp_kernels.SegmentBuffers(*(t.clone() for t in fill_in[6]))
     k_ms = _time_ms(lambda: dp_kernels.fill_segment(*again, again_bufs,
                                                     **fill_kw), 3)
-    del again, again_bufs
     row0, y0, y1 = fill_kw["row0"], fill_kw["y0"], fill_kw["y1"]
+    # the same launch cut to 512 columns: the first port's shape (its
+    # halo in is the recorded one's first 513 entries)
+    cut = dict(fill_kw, y1=y0 + 512)
+    again[5] = again[5][:, :513].contiguous()
+    cut_ms = _time_ms(lambda: dp_kernels.fill_segment(*again, again_bufs,
+                                                      **cut), 3)
+    cut_plan = dp_kernels.segment_plan(again_bufs.carry.shape[1], 512,
+                                       dp_kernels.segment_fill_regs())
+    del again, again_bufs
     n = fill_in[6].carry.shape[1]
     rows_tb = torch.full((2, n, n2 - 1), tbatch._TB_FRESH, dtype=torch.uint8,
                          device=dev)
@@ -4356,12 +4375,17 @@ def phase_length_sharded():
     nbytes = (2 * n + 2 * (y1 - y0) + 16 + 24 + 2 * 2 * (y1 - y0 + 1) * 12
               + 2 * 2 * n * 12 + cells)
     b = bound(nbytes, OPS_GLOBAL_CELL * cells)
+    b512 = bound(nbytes * 512 // (y1 - y0), OPS_GLOBAL_CELL * 2 * n * 512)
+    pl = dp_kernels.segment_plan(n, y1 - y0, dp_kernels.segment_fill_regs())
     say(f"[length-sharded] segment_fill at k=4, rows {row0}..{row0 + n - 1}, "
-        f"columns {y0}..{y1 - 1} (B=2): tile traceback, carry and halo "
+        f"columns {y0}..{y1 - 1} (B=2, plan C={pl.C} W={pl.W} R={pl.R}, "
+        f"{pl.bands} bands): tile traceback, carry and halo "
         f"{'equal' if e == 0 else 'DIFFER from'} the plain version's on the "
         f"card (max abs err {e}); kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; "
         f"bound {b[0]:.5f} ms by {b[1]} ({cells} cells), the kernel at "
-        f"{b[0] / k_ms:.4f} of it")
+        f"{b[0] / k_ms:.4f} of it; the same launch at 512 columns (plan "
+        f"C={cut_plan.C} W={cut_plan.W} R={cut_plan.R}) {cut_ms:.4f} ms, "
+        f"bound {b512[0]:.5f} ms ({b512[0] / cut_ms:.4f} of it)")
     check(e == 0, "segment_fill differs from its plain version")
     times["segment_fill"] = _timing(k_ms, p_ms, b)
     del rows_tb, relaid
@@ -4394,6 +4418,23 @@ def phase_length_sharded():
     check(e == 0, "segment_walk differs from its plain version")
     times["segment_walk"] = _timing(k_ms, p_ms, b)
     return launches, err, times
+
+
+def _segment_ptxas():
+    """The segment kernels' ptxas lines (registers, stack, spills) from the
+    build's log."""
+    from clique_tpu_torch import _build
+
+    lines = _build.build_info().log.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        for entry, name in (("split_fill_kernel", "segment_fill"),
+                            ("split_walk_kernel", "segment_walk")):
+            if "Compiling entry function" in line and entry in line:
+                out[name] = "; ".join(
+                    x.strip().removeprefix("ptxas info    : ")
+                    for x in lines[i + 2:i + 4])
+    return out
 
 
 @contextlib.contextmanager

@@ -157,11 +157,13 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [ci, ci]
         lib.clique_dp_align_local_warps.restype = ci
         lib.clique_dp_align_local_warps.argtypes = [ci]
+        lib.clique_dp_segment_fill_regs.restype = ci
+        lib.clique_dp_segment_fill_regs.argtypes = []
         lib.clique_dp_segment_smem_bytes.restype = ci
-        lib.clique_dp_segment_smem_bytes.argtypes = [ci]
+        lib.clique_dp_segment_smem_bytes.argtypes = [ci, ci, ci]
         lib.clique_dp_segment_fill.restype = ci
         lib.clique_dp_segment_fill.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp,
-                                               vp, vp, vp, vp] + [ci] * 7 + \
+                                               vp, vp, vp, vp] + [ci] * 10 + \
             [vp]
         lib.clique_dp_segment_walk.restype = ci
         lib.clique_dp_segment_walk.argtypes = [vp] * 7 + [ci] * 5 + [vp]

@@ -276,6 +276,91 @@ class SegmentBuffers(NamedTuple):
     corner: torch.Tensor   # f32 [B, 3]: the (l1, l2) planes it owns
 
 
+# the fill kernel's constants (csrc/dp_align_split.cu), which its C entry
+# re-checks: warps a CTA at most (its launch bounds), CTAs a cluster at
+# most (the portable size), ring entries between progress counts, and the
+# ring entries a warp gets where every band of the part is in flight
+SEGMENT_MAX_WARPS = 12
+SEGMENT_MAX_CLUSTER = 8
+SEGMENT_RING_CHUNK = 16
+SEGMENT_RING_ENTRIES = 256
+# the walk kernel's windows: steps a window, windows it holds (one walked,
+# the others fetched ahead)
+SEGMENT_WALK_STEPS = 32
+SEGMENT_WALK_SLOTS = 4
+
+
+class SegmentPlan(NamedTuple):
+    """How segment_fill runs one part's tile: a cluster of C CTAs of W
+    warps an alignment, band j of the part on warp j mod (C * W) (warp g
+    is warp g mod W of CTA g // W), each warp's ring of R entries."""
+
+    C: int
+    W: int
+    R: int
+    smem: int      # dynamic shared memory of a CTA (bytes)
+    bands: int     # the part's 384-row bands
+    regs: int      # the kernel's registers a thread (ptxas)
+
+
+def segment_smem_bytes(w: int, W: int, R: int) -> int:
+    """Shared memory of a fill CTA (csrc/dp_align_split.cu's
+    split_smem_bytes): the tile's read bytes, W rings of R 16-byte
+    entries, W produced and W consumed counts."""
+    return -(-w // 16) * 16 + W * R * 16 + 8 * W
+
+
+def segment_plan(n: int, w: int, regs: int, *,
+                 max_warps: int = SEGMENT_MAX_WARPS,
+                 max_cluster: int = SEGMENT_MAX_CLUSTER) -> SegmentPlan:
+    """The launch of segment_fill for a part of n rows and a tile of w
+    columns, for a kernel of `regs` registers a thread: W warps a CTA, at
+    most what an SM's 65,536 registers hold (allocated 8 a thread at a
+    time) and max_warps, and C <= max_cluster CTAs (smaller limits: tests
+    of the schedule). Every band of the part is in flight at once where
+    max_cluster CTAs of those warps hold them, spread over as many CTAs as
+    the cluster may have (fewer warps an SM step faster: PERF.md §6):
+    W = ceil(bands / max_cluster), C = ceil(bands / W). Each warp's ring
+    then holds SEGMENT_RING_ENTRIES entries. Where warps must take bands
+    in turn, the ring holds a whole row of the tile (w + 1 entries, so
+    that every wait is on a lower band), and W shrinks until the rings fit
+    the shared memory. Raises ValueError when no plan fits. The kernel's C
+    entry refuses a plan that breaks these rules."""
+    if n < 1 or w < 1 or regs < 1:
+        raise ValueError("a plan needs n, w and regs >= 1")
+    bands = -(-n // (_batch.BAND_STRIPS * _batch.STRIP_ROWS))
+    wmax = min(max_warps, SEGMENT_MAX_WARPS,
+               65536 // (32 * (-(-regs // 8) * 8)))
+    if wmax < 1 or not 1 <= max_cluster <= SEGMENT_MAX_CLUSTER:
+        raise ValueError(f"no warp of {regs} registers a thread fits a "
+                         f"CTA of at most {max_warps} warps in clusters of "
+                         f"at most {max_cluster}")
+    W = min(wmax, -(-bands // max_cluster))
+    C = min(max_cluster, -(-bands // W))
+    entries = w + 1 if bands > C * W else min(w + 1, SEGMENT_RING_ENTRIES)
+    R = max(2 * SEGMENT_RING_CHUNK, 1 << (entries - 1).bit_length())
+    while W > 1 and segment_smem_bytes(w, W, R) > _SMEM_LIMIT:
+        W -= 1
+    smem = segment_smem_bytes(w, W, R)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a tile of {w} columns over a part of {bands} "
+                         f"bands needs rings of {R} entries, more shared "
+                         "memory than an H100 block has: use narrower "
+                         "tiles")
+    return SegmentPlan(C, W, R, smem, bands, regs)
+
+
+def segment_fill_regs() -> int:
+    """The fill kernel's registers a thread (ptxas's count, read from the
+    loaded library)."""
+    from clique_tpu_torch import _build
+
+    regs = _build.load().clique_dp_segment_fill_regs()
+    if regs <= 0:
+        raise RuntimeError("cannot read segment_fill's register count")
+    return regs
+
+
 def segment_buffers(B: int, n: int, n2: int, device) -> SegmentBuffers:
     """The buffers of one part of n rows on `device`."""
     dev = torch.device(device)
@@ -329,7 +414,9 @@ def fill_segment(refs, reads, ref_lens, read_lens, params, halo,
     carry column and the corner into bufs; returns the halo this part
     hands on (row row0+n-1 at columns y0-1..y1-1, [B, y1-y0+1, 3] f32), or
     None without hand_on (the last part). Semantics of
-    batch.fill_segment_reference, which runs on CPU tensors."""
+    batch.fill_segment_reference, which runs on CPU tensors. On the card
+    the launch follows segment_plan for this part and tile; a plan the
+    card cannot run raises."""
     dev = _device_of(reads)
     _check(reads, "reads", torch.uint8, 2, dev)
     _check(refs, "refs", torch.uint8, 2, dev)
@@ -359,9 +446,11 @@ def fill_segment(refs, reads, ref_lens, read_lens, params, halo,
     from clique_tpu_torch import _build
 
     lib = _build.load()
-    if lib.clique_dp_segment_smem_bytes(y1 - y0) > _SMEM_LIMIT:
-        raise ValueError(f"a tile of {y1 - y0} columns needs more shared "
-                         "memory than an H100 block has")
+    plan = segment_plan(n, y1 - y0, segment_fill_regs())
+    if lib.clique_dp_segment_smem_bytes(y1 - y0, plan.W,
+                                        plan.R) != plan.smem:
+        raise RuntimeError("the fill kernel's shared memory and "
+                           "segment_plan's differ")
     s = _launch_stream(stream, dev, [t for t in (
         refs, reads, ref_lens, read_lens, params, halo, *bufs)
         if t is not None])
@@ -375,9 +464,9 @@ def fill_segment(refs, reads, ref_lens, read_lens, params, halo,
             halo.data_ptr() if halo is not None else None,
             out.data_ptr() if out is not None else None,
             bufs.carry.data_ptr(), bufs.tb.data_ptr(),
-            bufs.corner.data_ptr(), B, n1, n2, row0, n, y0, y1,
-            s.cuda_stream)
-    _raise_on(err, "fill_segment")
+            bufs.corner.data_ptr(), B, n1, n2, row0, n, y0, y1, plan.C,
+            plan.W, plan.R, s.cuda_stream)
+    _raise_on(err, f"fill_segment ({plan})")
     fill_mode_launches["row_split"] += 1
     return out
 

@@ -22,6 +22,7 @@ device may repeat), and both of its steps are ported:
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import List, Optional
 
@@ -85,8 +86,23 @@ def sharded_align_step(mesh: List[torch.device], refs, reads, ref_lens,
             torch.from_numpy(n_ops.copy()))
 
 
-# columns a part fills a launch (chosen on the card: PERF.md §6)
-SPLIT_TILE = 512
+def split_tile(n2: int, part_rows: int, parts: int) -> int:
+    """Default columns a part fills a launch. A launch of a part of b
+    bands takes about w + ramp steps for a tile of w columns, ramp = 31 +
+    (b - 1) (31 + SEGMENT_RING_CHUNK) (each band starts once the band above
+    has handed it a chunk); k parts in a skewed pipeline take (n2 - 1) / w
+    + k - 1 launches in turn, so the fill is least near w = sqrt((n2 - 1)
+    ramp / (k - 1)), here the nearest power of two; one part takes the
+    whole row in one launch. Chosen from the walls of a sweep of tiles at
+    k = 1, 2, 4, 8 on an H100 (PERF.md §6)."""
+    cols = n2 - 1
+    if parts == 1:
+        return cols
+    band = dbatch.BAND_STRIPS * dbatch.STRIP_ROWS
+    bands = -(-part_rows // band)
+    ramp = 31 + (bands - 1) * (31 + dp_kernels.SEGMENT_RING_CHUNK)
+    w = math.sqrt(cols * ramp / (parts - 1))
+    return max(1, min(cols, 1 << round(math.log2(max(w, 1.0)))))
 
 
 def split_rows(n1: int, parts: int, on_card: bool) -> np.ndarray:
@@ -162,7 +178,7 @@ def _elapsed_ms(a, b):
 
 def length_sharded_align(mesh: List[torch.device], refs, reads, ref_lens,
                          read_lens, params, *, n1: int, n2: int,
-                         bounds=None, tile: int = SPLIT_TILE,
+                         bounds=None, tile: Optional[int] = None,
                          return_parts: bool = False):
     """One batch of alignments with each alignment's DP rows split over the
     devices of `mesh`: part i owns rows [bounds[i], bounds[i + 1]) of
@@ -174,8 +190,9 @@ def length_sharded_align(mesh: List[torch.device], refs, reads, ref_lens,
     kernels) or all CPU devices (their plain versions); a device may
     repeat.
 
-    Fill: the columns are cut into tiles of `tile` columns;
-    at step s part i fills tile s - i, once part i - 1 has handed it that
+    Fill: the columns are cut into tiles of `tile` columns (default:
+    split_tile for the tallest part, halved on the card while a part's
+    segment_plan does not fit); at step s part i fills tile s - i, once part i - 1 has handed it that
     tile's halo (its last row at the tile's columns and the one before),
     each part on a CUDA stream of its own, the halo copied to the next
     part's device (peer to peer between GPUs) and ordered by CUDA events.
@@ -186,7 +203,9 @@ def length_sharded_align(mesh: List[torch.device], refs, reads, ref_lens,
     Returns (scores [B] f32, ops [B, n1 + n2] u8, n_ops [B] i32) as CPU
     tensors in batch order. With return_parts also a list of one dict a
     part (device, rows, its traceback and its bytes, the halo bytes handed
-    to it and whether they crossed devices, its fill launches)
+    to it and whether they crossed devices, its fill launches, the
+    segment_plan of its full tiles on the card, None on the CPU, and the
+    tile width)
     and the times {"fill_ms": the longest part's fill, "walk_ms": the
     walk launches' sum} (CUDA events on a CUDA mesh, the host clock on the
     CPU). Lengths outside the bucket raise ValueError: on the CPU from the
@@ -208,6 +227,15 @@ def length_sharded_align(mesh: List[torch.device], refs, reads, ref_lens,
             or any(a >= b for a, b in zip(bounds, bounds[1:]))):
         raise ValueError(f"bounds must rise from 1 to {n1} in {k} steps, "
                          f"got {bounds}")
+    rows = [b - a for a, b in zip(bounds, bounds[1:])]
+    regs = dp_kernels.segment_fill_regs() if cuda else None
+    if tile is None:
+        tile = split_tile(n2, max(rows), k)
+        while cuda and tile > 1 and not all(
+                _plan_fits(n, tile, regs) for n in rows):
+            tile //= 2
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
     tiles = [(y0, min(y0 + tile, n2)) for y0 in range(1, n2, tile)]
 
     parts = []
@@ -219,9 +247,11 @@ def length_sharded_align(mesh: List[torch.device], refs, reads, ref_lens,
                                           reads, ref_lens, read_lens,
                                           params)]
             bufs = dp_kernels.segment_buffers(B, hi - lo, n2, dev)
+        plan = (dp_kernels.segment_plan(hi - lo, min(tile, n2 - 1), regs)
+                if cuda else None)
         parts.append(dict(device=dev, row0=lo, n=hi - lo, stream=stream,
                           inputs=inputs, bufs=bufs, halo_bytes=0,
-                          copied=False, fills=0))
+                          copied=False, fills=0, plan=plan))
     streams = [p["stream"] for p in parts]
 
     fill0 = _marks(streams)
@@ -291,10 +321,18 @@ def length_sharded_align(mesh: List[torch.device], refs, reads, ref_lens,
                                                 p["row0"] + p["n"]),
                  traceback=p["bufs"].tb, traceback_bytes=p["bufs"].tb.numel(),
                  halo_bytes=p["halo_bytes"], copied=p["copied"],
-                 fills=p["fills"]) for p in parts]
+                 fills=p["fills"], plan=p["plan"], tile=tile) for p in parts]
     times = {"fill_ms": max(_elapsed_ms(fill0, fill1)),
              "walk_ms": sum(_elapsed_ms(a, b)[0] for a, b in walks)}
     return (*out, info, times)
+
+
+def _plan_fits(n: int, w: int, regs: int) -> bool:
+    try:
+        dp_kernels.segment_plan(n, w, regs)
+    except ValueError:
+        return False
+    return True
 
 
 def _event(stream):

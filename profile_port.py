@@ -90,11 +90,14 @@ results must agree between roots. Imports no jax. The workloads:
   one warm-up call. The fused rows must agree.
 - split: parallel/mesh.py's length_sharded_align at B=2, n1=n2=16,385
   (chip_smoke.py's full-width inputs: 16,384-base references, reads with
-  5% substitutions, seed 16) over [cuda:0] * k for k = 1, 4 and 8 parts
-  and tiles of 128 to 2,048 columns: the call's wall by CUDA events and
-  its fill and walk times (the function's own events), each the mean of
-  `--reps` calls after one warm-up call; the results must agree across
-  tiles, parts and roots.
+  5% substitutions, seed 16) over [cuda:0] * k for k = 1, 2, 4 and 8
+  parts and tiles of 512 to 16,384 columns and the default
+  (mesh.split_tile): the call's wall by CUDA events and its fill and walk
+  times (the function's own events), each the mean of `--reps` calls after
+  one warm-up call, and each part's launch plan (segment_plan: C, W, ring
+  entries, shared memory, bands, registers) where the root has one; a
+  width a root refuses (the first port's shared memory) is reported and
+  skipped; the results must agree across tiles, parts and roots.
 """
 
 import argparse
@@ -332,6 +335,7 @@ def run_split(root, args):
     import numpy as np
     import torch
 
+    from clique_tpu_torch.align import dp_kernels
     from clique_tpu_torch.align.batch import scoring_to_params
     from clique_tpu_torch.align.scoring import AffineScoring
     from clique_tpu_torch.parallel import length_sharded_align
@@ -346,15 +350,29 @@ def run_split(root, args):
     subs = rng.random(reads.shape) < 0.05
     reads[subs] = rng.choice(bases, int(subs.sum()))
     lens = np.full(2, L, dtype=np.int32)
+    planned = hasattr(dp_kernels, "segment_plan")   # the cluster fill's roots
+    if planned:
+        print(f"segment_fill: {dp_kernels.segment_fill_regs()} registers "
+              "a thread", flush=True)
     times, digests = {}, set()
-    for tile in (128, 256, 512, 1024, 2048):
-        for k in (1, 4, 8):
+    for k in (1, 2, 4, 8):
+        for tile in (512, 1024, 2048, 4096, 8192, 16384, None):
+            kw = {} if tile is None else {"tile": tile}
+
             def call():
                 return length_sharded_align(
                     [dev] * k, refs, reads, lens, lens, params, n1=L + 1,
-                    n2=L + 1, tile=tile, return_parts=True)
+                    n2=L + 1, return_parts=True, **kw)
 
-            call()
+            try:
+                out = call()
+            except ValueError as e:       # a width the root refuses
+                print(f"k {k} tile {tile}: refused ({e})", flush=True)
+                continue
+            width = out[3][0].get("tile", tile)
+            plans = sorted({tuple(p["plan"]) for p in out[3]
+                            if p.get("plan") is not None})
+            del out
             walls, fills, walks = [], [], []
             for _ in range(args.reps):
                 out, ms = _event_ms_one(call)
@@ -364,12 +382,16 @@ def run_split(root, args):
                 digests.add(hashlib.sha256(b"".join(
                     t.numpy().tobytes() for t in out[:3])).hexdigest()[:16])
                 del out
-            for name, v in (("wall", walls), ("fill", fills),
+            name = f"k={k} tile={'default' if tile is None else tile}"
+            for what, v in (("wall", walls), ("fill", fills),
                             ("walk", walks)):
-                times[f"tile={tile} k={k} {name} ms"] = [sum(v) / len(v)]
-            print(f"tile {tile} k {k}: wall {sum(walls) / len(walls):.3f} "
-                  f"ms, fill {sum(fills) / len(fills):.3f} ms, walk "
-                  f"{sum(walks) / len(walks):.3f} ms", flush=True)
+                times[f"{name} {what} ms"] = [sum(v) / len(v)]
+            print(f"{name} (width {width}): wall "
+                  f"{sum(walls) / len(walls):.3f} ms, fill "
+                  f"{sum(fills) / len(fills):.3f} ms, walk "
+                  f"{sum(walks) / len(walks):.3f} ms"
+                  + (f"; plans (C, W, R, smem, bands, regs) {plans}"
+                     if planned else ""), flush=True)
     if len(digests) != 1:
         raise SystemExit(f"length_sharded_align's results differ between "
                          f"tiles and parts: {digests}")

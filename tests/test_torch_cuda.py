@@ -1349,20 +1349,38 @@ def test_align_engine_golden_on_cuda(cuda, engine, tmp_path):
         os.path.join(gd, f"aligned_{engine}.bam"))
 
 
-@pytest.mark.parametrize("bounds,tile", [
-    ([1, 3, 10, 400, 401, 420, 513], 7),       # a part of two bands
-    ([1, 385, 513], 100),                      # dp_align's band boundary
-    ([1, 513], 480)], ids=["uneven", "banded", "one-part"])
-def test_length_sharded_align_kernels_match_plain(cuda, bounds, tile):
+@pytest.mark.parametrize("n1,bounds,tile,limits", [
+    (513, [1, 3, 10, 400, 401, 420, 513], 7, None),   # a part of two bands
+    (513, [1, 385, 513], 100, None),           # dp_align's band boundary
+    (513, [1, 513], 480, None),                # one part, C = 1
+    (513, [1, 513], 480, (1, 1)),              # two bands on one warp
+    (1201, [1, 1201], 100, (1, 3)),            # four bands on three CTAs
+    (1201, [1, 385, 1201], 33, (2, 1)),        # bands in turn, two parts
+    (3073, [1, 3073], 480, (1, 8))],           # eight CTAs, a band each
+    ids=["uneven", "banded", "one-part", "in-turn", "in-turn-cluster",
+         "in-turn-parts", "cluster-8"])
+def test_length_sharded_align_kernels_match_plain(cuda, monkeypatch, n1,
+                                                  bounds, tile, limits):
     """length_sharded_align over [cuda:0] * k (segment_fill and
     segment_walk, launched and counted) against the plain versions over
     [cpu] * k on the same inputs: results, and each part's traceback
     relaid as the plain fill's; ragged lengths with corners on every part,
-    and a row marked for lengths outside the bucket."""
+    and a row marked for lengths outside the bucket. `limits` (warps a
+    CTA, CTAs a cluster) shrink segment_plan's so that a part has more
+    bands than the cluster has warps (the warps take them in turn) or its
+    bands span C CTAs."""
+    import functools
+
     from clique_tpu_torch.parallel import length_sharded_align
 
+    if limits is not None:
+        monkeypatch.setattr(dp_kernels, "segment_plan", functools.partial(
+            dp_kernels.segment_plan, max_warps=limits[0],
+            max_cluster=limits[1]))
+        plan = dp_kernels.segment_plan(bounds[-1] - bounds[-2], tile, 168)
+        assert plan[:2] == (limits[1], limits[0])
     rng = np.random.default_rng(len(bounds) + tile)
-    B, n1, n2 = 7, 513, 481
+    B, n2 = 7, 481
     refs, reads, ref_lens, read_lens = _inputs(len(bounds), B, n1, n2, False)
     ref_lens[2:5] = [bounds[1] - 1, min(bounds[1], n1 - 1), bounds[-2]]
     read_lens[4] = 0
@@ -1393,3 +1411,37 @@ def test_length_sharded_align_kernels_match_plain(cuda, bounds, tile):
     with pytest.raises(ValueError):
         length_sharded_align([cuda] * k, refs, reads, ref_lens, read_lens,
                              params, n1=n1, n2=n2, bounds=bounds, tile=tile)
+
+
+def test_length_sharded_align_largest_cluster_matches_dp_align(cuda):
+    """One part of 86 bands (n1 = 33,001): segment_plan's largest cluster
+    (C = 8 CTAs of up to 12 warps), B = 40 alignments, more clusters than
+    the card holds at once; results equal one dp_align call's on the card
+    and the part's traceback equals dp_align's, ragged rows included."""
+    from clique_tpu_torch.parallel import length_sharded_align
+
+    B, n1, n2 = 40, 33001, 41
+    refs, reads, ref_lens, read_lens = _inputs(86, B, n1, n2, False)
+    ref_lens[2:6] = n1 - 1
+    read_lens[2:4] = n2 - 1
+    plan = dp_kernels.segment_plan(n1 - 1, n2 - 1,
+                                   dp_kernels.segment_fill_regs())
+    assert plan.C == 8 and plan.bands == 86 and B > 132 // plan.C
+    params = tbatch.scoring_to_params(AffineScoring.aligner_default(), "cpu")
+    got = length_sharded_align([cuda], refs, reads, ref_lens, read_lens,
+                               params, n1=n1, n2=n2, return_parts=True)
+    args = [torch.from_numpy(a).to(cuda) for a in (refs, reads, ref_lens,
+                                                   read_lens)]
+    fused, wave = dp_kernels.dp_align(*args, params.to(cuda), n1=n1, n2=n2,
+                                      special_mode="both",
+                                      return_traceback=True)
+    packed, n_ops, score = tbatch.unfuse_result(fused.cpu().numpy())
+    assert np.array_equal(got[0].numpy(), score)
+    assert np.array_equal(got[2].numpy(), n_ops)
+    assert np.array_equal(got[1].numpy(), tbatch.unpack_ops(
+        np.ascontiguousarray(packed), n1 + n2))
+    kw = dict(row0=1, n=n1 - 1, n1=n1, n2=n2)
+    assert torch.equal(
+        tbatch.segment_wavefront_to_rows(got[3][0]["traceback"], *args[2:],
+                                         **kw),
+        tbatch.segment_wavefront_to_rows(wave, *args[2:], **kw))

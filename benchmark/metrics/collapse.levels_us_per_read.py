@@ -1,0 +1,7 @@
+"""Collapse's correction levels (`collapse.level`), a read aligned (us)."""
+
+from benchlib import program_spans
+
+
+def read(ctx):
+    return program_spans.us_per_read(ctx, "collapse.level", "s")

@@ -42,6 +42,7 @@ import torch
 
 from clique_tpu_torch.align.dp_kernels import (_check, _device_of,
                                                _launch_stream, _raise_on)
+from clique_tpu_torch.utils.trace import span
 
 NEG = -1e30
 
@@ -274,7 +275,10 @@ class HmmRouter:
             reads_d.index_select(0, qi).contiguous(),
             self._ref_lens.index_select(0, ri).contiguous(),
             lens_d.index_select(0, qi).contiguous(),
-            self._params).cpu().numpy()
+            self._params)
+        # the synchronising copy: the host waits here for the card
+        with span("router.wait"):
+            ll = ll.cpu().numpy()
         return read_idx, ref_idx, ll
 
     def route(self, reads: Sequence[bytes],
@@ -286,14 +290,15 @@ class HmmRouter:
         reference in candidate order wins, as in the JAX package."""
         n = len(reads)
         out: List[Tuple[int, float]] = [(-1, float("-inf"))] * n
-        read_idx, ref_idx, ll = self.pair_lls(reads, candidates)
-        # the first pair of a read (in candidate order) whose LL is the
-        # read's largest: the JAX loop's strict `ll > best` from -inf
-        llm = np.where(np.isnan(ll), -np.inf, ll)
-        best = np.full(n, -np.inf, dtype=np.float32)
-        np.maximum.at(best, read_idx, llm)
-        hit = np.flatnonzero((llm == best[read_idx]) & (llm > -np.inf))
-        won, first = np.unique(read_idx[hit], return_index=True)
-        for i, j in zip(won.tolist(), hit[first].tolist()):
-            out[i] = (int(ref_idx[j]), float(ll[j]))
+        with span("router.route"):
+            read_idx, ref_idx, ll = self.pair_lls(reads, candidates)
+            # the first pair of a read (in candidate order) whose LL is the
+            # read's largest: the JAX loop's strict `ll > best` from -inf
+            llm = np.where(np.isnan(ll), -np.inf, ll)
+            best = np.full(n, -np.inf, dtype=np.float32)
+            np.maximum.at(best, read_idx, llm)
+            hit = np.flatnonzero((llm == best[read_idx]) & (llm > -np.inf))
+            won, first = np.unique(read_idx[hit], return_index=True)
+            for i, j in zip(won.tolist(), hit[first].tolist()):
+                out[i] = (int(ref_idx[j]), float(ll[j]))
         return out

@@ -39,6 +39,7 @@ rm = reference alignment rate, as/rs = alignment score.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -61,7 +62,9 @@ from clique_tpu_torch.extract.extractor import (
 from clique_tpu_torch.io.fastq import ReadIterator
 from clique_tpu_torch.io.sam import SamRecord, open_alignment_writer
 from clique_tpu_torch.reference.manager import ReferenceManager, orient_by_longest_segment
+from clique_tpu_torch.utils import trace
 from clique_tpu_torch.utils.seq import GAP, reverse_complement
+from clique_tpu_torch.utils.trace import span
 from clique_tpu_torch.align import batch as dbatch
 from clique_tpu_torch.align import dp_kernels, hmm, wfa_kernels
 from clique_tpu_torch.align.wavefront import (WfaAligner,
@@ -195,7 +198,8 @@ class BatchAligner:
             self.stream = torch.cuda.Stream(self.device)
             # the params were written on the current stream
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        self.device_seconds = 0.0   # dispatch + wait time
+        # a host clock of dispatches and event waits, not device time
+        self.device_seconds = 0.0
         self.post_seconds = 0.0     # host-side expansion
         # dispatch runs on the main thread while pulls/expansion run on
         # the drain thread: the timing counters need a lock or the
@@ -252,15 +256,14 @@ class BatchAligner:
             # lazy per-group pulls: align_pairs_raw expands one entry
             # while the next group's copy completes
             for entry in inflight:
-                t1 = time.time()
                 *head, host, event = entry
-                if event is not None:
-                    event.synchronize()
-                fused_np = host.numpy() if isinstance(host, torch.Tensor) \
-                    else host
-                dt = time.time() - t1
+                with span("align.pull") as pull:
+                    if event is not None:
+                        event.synchronize()
+                    fused_np = host.numpy() \
+                        if isinstance(host, torch.Tensor) else host
                 with self._t_lock:
-                    self.device_seconds += dt
+                    self.device_seconds += pull.seconds
                 yield tuple(head) + (fused_np,)
         return pulls()
 
@@ -520,469 +523,458 @@ def _align_reads_impl(
 
     profiler = _start_profiler(profile_dir, aligner.device)
 
-    references = [(r.name, len(r.sequence)) for r in rm.references.values()]
-    writer = open_alignment_writer(output_path, references)
-    start = time.time()
+    with trace.recording(tracing=profiler is not None) as recorder, \
+            span("align.run"):
+        references = [(r.name, len(r.sequence))
+                      for r in rm.references.values()]
+        writer = open_alignment_writer(output_path, references)
+        start = time.time()
 
-    # wall-clock phase accounting (written to metrics JSON): where the
-    # align stage's non-device time goes on the main thread, plus busy
-    # time of the build/writer pipeline threads
-    phase = {"reader_wall": 0.0, "flush_wall": 0.0, "drain_wall": 0.0,
-             "tail_wall": 0.0, "join_wall": 0.0}
+        # two-stage writer pipeline: a BUILD thread does record construction
+        # (numpy-heavy), feeding a WRITER thread doing BAM encode + BGZF
+        # compression (C paths that release the GIL). Both overlap the main
+        # thread's parse/dispatch, and construction of flush N overlaps
+        # compression of flush N-1 instead of serializing on one thread.
+        import queue
+        import threading
 
-    # two-stage writer pipeline: a BUILD thread does record construction
-    # (numpy-heavy), feeding a WRITER thread doing BAM encode + BGZF
-    # compression (C paths that release the GIL). Both overlap the main
-    # thread's parse/dispatch, and construction of flush N overlaps
-    # compression of flush N-1 instead of serializing on one thread.
-    import queue
-    import threading
+        write_queue: "queue.Queue" = queue.Queue(maxsize=8)
+        encode_queue: "queue.Queue" = queue.Queue(maxsize=8)
+        writer_error: List[BaseException] = []
+        bam_ref_idx = {rid: i for i, rid in enumerate(rm.references.keys())}
+        writer_encoded_ok = hasattr(writer, "write_encoded")
 
-    write_queue: "queue.Queue" = queue.Queue(maxsize=8)
-    encode_queue: "queue.Queue" = queue.Queue(maxsize=8)
-    writer_error: List[BaseException] = []
-    bam_ref_idx = {rid: i for i, rid in enumerate(rm.references.keys())}
-    writer_encoded_ok = hasattr(writer, "write_encoded")
+        # collapse ingestion (sink) on its own thread, fed by the build thread:
+        # one FIFO consumer, so the sink sees flushes in BAM record order and
+        # its state is touched only by this thread until the join
+        sink_queue: "queue.Queue" = queue.Queue(maxsize=8)
 
-    # collapse ingestion (sink) on its own thread, fed by the build thread:
-    # one FIFO consumer, so the sink sees flushes in BAM record order and
-    # its state is touched only by this thread until the join
-    sink_queue: "queue.Queue" = queue.Queue(maxsize=8)
+        def _sink_loop():
+            while True:
+                item = sink_queue.get()
+                if item is None:
+                    return
+                with span("align.sink"):
+                    try:
+                        if item[0] == "flush":
+                            _t, raws_, pend_, recs_, caps_, cig_, slen_ = item
+                            sink.consume_flush(raws_, pend_, recs_,
+                                               caps=caps_, cigars_by_k=cig_,
+                                               seq_len_by_k=slen_)
+                        else:          # ("aligned", aligned_out, recs)
+                            sink.consume_aligned(item[1], item[2])
+                    except BaseException as exc:  # surfaced on close
+                        writer_error.append(exc)
 
-    def _sink_loop():
-        while True:
-            item = sink_queue.get()
-            if item is None:
-                return
-            t_s = time.time()
-            try:
-                if item[0] == "flush":
-                    _t, raws_, pend_, recs_, caps_, cig_, slen_ = item
-                    sink.consume_flush(raws_, pend_, recs_, caps=caps_,
-                                       cigars_by_k=cig_,
-                                       seq_len_by_k=slen_)
-                else:          # ("aligned", aligned_out, recs)
-                    sink.consume_aligned(item[1], item[2])
-            except BaseException as exc:  # surfaced on close
-                writer_error.append(exc)
-            phase["sink_busy"] = phase.get("sink_busy", 0.0) + \
-                (time.time() - t_s)
+        def _to_sink(item):
+            # a full sink queue blocks the build thread: its own span, so
+            # align.build's self time is the build work alone
+            with span("align.build_put"):
+                sink_queue.put(item)
 
-    def _build_loop():
-        while True:
-            item = write_queue.get()
-            if item is None:
-                encode_queue.put(None)
-                return
-            t_b = time.time()
-            try:
-                if item[0] == "raw":
-                    # deferred record construction, two forms. Fast path:
-                    # the native assembler builds the flush's BAM record
-                    # bytes straight from the batch blobs (no SamRecord
-                    # objects / tags dicts / per-record encode loop).
-                    # Falls back to per-record python construction for
-                    # extractor-zone symbols, mixed symbol orders, or no
-                    # C compiler.
-                    _tag, raws, pend = item
-                    fast = None
-                    if writer_encoded_ok:
-                        syms = _flush_fastpath_syms(pend, layout, rm)
-                        if syms is not None:
-                            fast = _encode_flush_fastpath(
-                                raws, pend, layout, rm, report_zero_score,
-                                bam_ref_idx, syms,
-                                for_sink=sink is not None)
-                    if fast is not None:
-                        # native-encoder path: no SamRecords exist, the
-                        # sink takes the cigars and sequence lengths
-                        data, caps_g, cig_by_k, slen_by_k = fast
-                        if sink is not None:
-                            sink_queue.put(("flush", raws, pend, None,
-                                            caps_g, cig_by_k, slen_by_k))
-                        phase["build_busy"] = \
-                            phase.get("build_busy", 0.0) + \
-                            (time.time() - t_b)
-                        encode_queue.put(("encoded", data, len(pend)))
-                        continue
-                    recs: List = [None] * len(pend)
-                    caps: Optional[List] = [] if sink is not None else None
-                    for raw in raws:
-                        _fill_records_from_raw(raw, pend, recs, layout,
-                                               rm, report_zero_score,
-                                               out_caps=caps)
+        def _build_one(item):
+            """The writer thread's item for one drained item."""
+            if item[0] == "raw":
+                # deferred record construction, two forms. Fast path: the
+                # native assembler builds the flush's BAM record bytes
+                # straight from the batch blobs (no SamRecord objects /
+                # tags dicts / per-record encode loop). Falls back to
+                # per-record python construction for extractor-zone
+                # symbols, mixed symbol orders, or no C compiler.
+                _tag, raws, pend = item
+                fast = None
+                if writer_encoded_ok:
+                    syms = _flush_fastpath_syms(pend, layout, rm)
+                    if syms is not None:
+                        fast = _encode_flush_fastpath(
+                            raws, pend, layout, rm, report_zero_score,
+                            bam_ref_idx, syms, for_sink=sink is not None)
+                if fast is not None:
+                    # native-encoder path: no SamRecords exist, the sink
+                    # takes the cigars and sequence lengths
+                    data, caps_g, cig_by_k, slen_by_k = fast
                     if sink is not None:
-                        sink_queue.put(("flush", raws, pend, recs, caps,
-                                        None, None))
-                    item = recs
-                else:          # ("aligned", [AlignedRead]): exhaustive search
-                    recs = [_make_record(alr, layout) for alr in item[1]]
-                    if sink is not None:
-                        sink_queue.put(("aligned", item[1], recs))
-                    item = recs
-            except BaseException as exc:  # surfaced on close
-                writer_error.append(exc)
-                item = []
-            phase["build_busy"] = phase.get("build_busy", 0.0) + \
-                (time.time() - t_b)
-            encode_queue.put(item)
+                        _to_sink(("flush", raws, pend, None, caps_g,
+                                  cig_by_k, slen_by_k))
+                    return ("encoded", data, len(pend))
+                recs: List = [None] * len(pend)
+                caps: Optional[List] = [] if sink is not None else None
+                for raw in raws:
+                    _fill_records_from_raw(raw, pend, recs, layout, rm,
+                                           report_zero_score, out_caps=caps)
+                if sink is not None:
+                    _to_sink(("flush", raws, pend, recs, caps, None, None))
+                return recs
+            # ("aligned", [AlignedRead]): exhaustive search
+            recs = [_make_record(alr, layout) for alr in item[1]]
+            if sink is not None:
+                _to_sink(("aligned", item[1], recs))
+            return recs
 
-    def _writer_loop():
-        while True:
-            item = encode_queue.get()
-            if item is None:
+        def _build_loop():
+            while True:
+                item = write_queue.get()
+                if item is None:
+                    encode_queue.put(None)
+                    return
+                with span("align.build"):
+                    try:
+                        item = _build_one(item)
+                    except BaseException as exc:  # surfaced on close
+                        writer_error.append(exc)
+                        item = []
+                encode_queue.put(item)
+
+        def _writer_loop():
+            while True:
+                item = encode_queue.get()
+                if item is None:
+                    return
+                with span("align.write"):
+                    try:
+                        if isinstance(item, tuple) and item and \
+                                item[0] == "encoded":
+                            writer.write_encoded(item[1], item[2])
+                        elif hasattr(writer, "write_batch"):
+                            writer.write_batch(item)
+                        else:
+                            for rec in item:
+                                writer.write(rec)
+                    except BaseException as exc:  # surfaced on close
+                        writer_error.append(exc)
+
+        # third pipeline stage: a DRAIN thread pulls device results (event
+        # waits) and runs the numpy expansion (expand_entry) off the main
+        # thread, so expansion overlaps the next chunk's parse + dispatch. A
+        # single FIFO queue preserves output record order; maxsize bounds
+        # undrained flushes (fused result buffers in flight).
+        drain_queue: "queue.Queue" = queue.Queue(maxsize=4)
+
+        def _drain_loop():
+            while True:
+                item = drain_queue.get()
+                if item is None:
+                    write_queue.put(None)
+                    return
+                with span("align.drain"):
+                    try:
+                        if item[0] == "entries":
+                            _tag, entries, pend = item
+                            raws = []
+                            for entry in entries:
+                                raws.extend(aligner.expand_entry(entry))
+                            write_queue.put(("raw", raws, pend))
+                        else:          # ("fwd", payload): ordered passthrough
+                            write_queue.put(item[1])
+                    except BaseException as exc:  # surfaced on close
+                        writer_error.append(exc)
+
+        threads = [threading.Thread(target=recorder.bind(fn), daemon=True)
+                   for fn in (_build_loop, _writer_loop, _drain_loop)]
+        sink_thread = threading.Thread(target=recorder.bind(_sink_loop),
+                                       daemon=True) \
+            if sink is not None else None
+        for t in threads + ([sink_thread] if sink_thread else []):
+            t.start()
+
+        def emit_aligned(aligned_out):
+            """Emit AlignedReads; record construction runs on the build thread,
+            after every earlier flush (the drain queue keeps input order)."""
+            drain_queue.put(("fwd", ("aligned", aligned_out)))
+
+        reader = ReadIterator(read1, read2, index1, index2)
+        needs_align_merge = layout.merge == MergeStrategy.ALIGN
+
+        anchored_state: List = [None]
+        n_anchored = [0]
+
+        def _anchored_aligner():
+            if anchored_state[0] is None:
+                from clique_tpu_torch.align.anchored import AnchoredBatchAligner
+
+                anchored_state[0] = AnchoredBatchAligner(
+                    BatchAligner(scoring, batch_size, device=device), scoring)
+            return anchored_state[0]
+
+        def flush(pending: List[_Pending]):
+            if not pending:
                 return
-            t_w = time.time()
-            try:
-                if isinstance(item, tuple) and item and \
-                        item[0] == "encoded":
-                    writer.write_encoded(item[1], item[2])
-                elif hasattr(writer, "write_batch"):
-                    writer.write_batch(item)
-                else:
-                    for rec in item:
-                        writer.write(rec)
-            except BaseException as exc:  # surfaced on close
-                writer_error.append(exc)
-            phase["write_busy"] = phase.get("write_busy", 0.0) + \
-                (time.time() - t_w)
+            with span("align.flush"):
+                _flush_inner(pending)
 
-    # third pipeline stage: a DRAIN thread pulls device results (event
-    # waits) and runs the numpy expansion (expand_entry) off the main
-    # thread, so expansion overlaps the next chunk's parse + dispatch. A
-    # single FIFO queue preserves output record order; maxsize bounds
-    # undrained flushes (fused result buffers in flight).
-    drain_queue: "queue.Queue" = queue.Queue(maxsize=4)
-
-    def _drain_loop():
-        while True:
-            item = drain_queue.get()
-            if item is None:
-                write_queue.put(None)
-                return
-            t_d = time.time()
-            try:
-                if item[0] == "entries":
-                    _tag, entries, pend = item
-                    raws = []
-                    for entry in entries:
-                        raws.extend(aligner.expand_entry(entry))
-                    write_queue.put(("raw", raws, pend))
-                else:          # ("fwd", payload): ordered passthrough
-                    write_queue.put(item[1])
-            except BaseException as exc:  # surfaced on close
-                writer_error.append(exc)
-            phase["drain_busy"] = phase.get("drain_busy", 0.0) + \
-                (time.time() - t_d)
-
-    threads = [threading.Thread(target=fn, daemon=True)
-               for fn in (_build_loop, _writer_loop, _drain_loop)]
-    sink_thread = threading.Thread(target=_sink_loop, daemon=True) \
-        if sink is not None else None
-    for t in threads + ([sink_thread] if sink_thread else []):
-        t.start()
-
-    def emit_aligned(aligned_out):
-        """Emit AlignedReads; record construction runs on the build thread,
-        after every earlier flush (the drain queue keeps input order)."""
-        drain_queue.put(("fwd", ("aligned", aligned_out)))
-
-    reader = ReadIterator(read1, read2, index1, index2)
-    needs_align_merge = layout.merge == MergeStrategy.ALIGN
-
-    anchored_state: List = [None]
-    n_anchored = [0]
-
-    def _anchored_aligner():
-        if anchored_state[0] is None:
-            from clique_tpu_torch.align.anchored import AnchoredBatchAligner
-
-            anchored_state[0] = AnchoredBatchAligner(
-                BatchAligner(scoring, batch_size, device=device), scoring)
-        return anchored_state[0]
-
-    def flush(pending: List[_Pending]):
-        if not pending:
-            return
-        t_f = time.time()
-        _flush_inner(pending)
-        phase["flush_wall"] += time.time() - t_f
-
-    def _flush_inner(pending: List[_Pending]):
-        long_pending = []
-        if not isinstance(aligner, WfaAligner):
-            long_pending = [p for p in pending
-                            if len(p.seq) >= anchored_min_length]
+        def _flush_inner(pending: List[_Pending]):
+            long_pending = []
+            if not isinstance(aligner, WfaAligner):
+                long_pending = [p for p in pending
+                                if len(p.seq) >= anchored_min_length]
+                if long_pending:
+                    pending = [p for p in pending
+                               if len(p.seq) < anchored_min_length]
+            if pending and isinstance(aligner, WfaAligner):
+                out = zip(pending, aligner.align_pairs(
+                    [rm.references[p.ref_id].sequence for p in pending],
+                    [p.seq for p in pending]))
+                emit_aligned([AlignedRead(
+                    read_name=p.name,
+                    reference_name=rm.references[p.ref_id].name,
+                    reference_aligned=a1, read_aligned=a2, quals=p.quals,
+                    cigar=cigar, score=0.0 if report_zero_score else score,
+                ) for p, (a1, a2, cigar, score) in out])
+                stats.aligned += len(pending)
+            elif pending:
+                refs = [rm.references[p.ref_id].sequence for p in pending]
+                reads = [p.seq for p in pending]
+                # dispatch here (align_pairs_entries is eager about dispatch +
+                # the async device->host copy, lazy about pulls), then hand the
+                # pulls to the drain thread: event waits AND numpy expansion
+                # leave the main thread. A full queue is backpressure (4
+                # undrained flushes in flight), its own span
+                entries = aligner.align_pairs_entries(refs, reads)
+                stats.aligned += len(pending)
+                with span("align.drain_put"):
+                    drain_queue.put(("entries", entries, list(pending)))
             if long_pending:
-                pending = [p for p in pending
-                           if len(p.seq) < anchored_min_length]
-        if pending and isinstance(aligner, WfaAligner):
-            out = zip(pending, aligner.align_pairs(
-                [rm.references[p.ref_id].sequence for p in pending],
-                [p.seq for p in pending]))
-            emit_aligned([AlignedRead(
-                read_name=p.name,
-                reference_name=rm.references[p.ref_id].name,
-                reference_aligned=a1, read_aligned=a2, quals=p.quals,
-                cigar=cigar, score=0.0 if report_zero_score else score,
-            ) for p, (a1, a2, cigar, score) in out])
-            stats.aligned += len(pending)
-        elif pending:
-            refs = [rm.references[p.ref_id].sequence for p in pending]
-            reads = [p.seq for p in pending]
-            # dispatch here (align_pairs_entries is eager about dispatch +
-            # the async device->host copy, lazy about pulls), then hand the
-            # pulls to the drain thread: event waits AND numpy expansion
-            # leave the main thread. A full queue is backpressure (4
-            # undrained flushes in flight); the wait is charged to
-            # drain_wall
-            entries = aligner.align_pairs_entries(refs, reads)
-            stats.aligned += len(pending)
-            t_d = time.time()
-            drain_queue.put(("entries", entries, list(pending)))
-            phase["drain_wall"] += time.time() - t_d
-        if long_pending:
-            out = zip(long_pending, _anchored_aligner().align_pairs(
-                [rm.references[p.ref_id].sequence for p in long_pending],
-                [p.seq for p in long_pending],
-                indexes=[rm.references[p.ref_id].index
-                         for p in long_pending]))
-            # after the flush's other reads: the drain queue keeps order,
-            # so the BAM holds the fast part, then the anchored part
-            emit_aligned([AlignedRead(
-                read_name=p.name,
-                reference_name=rm.references[p.ref_id].name,
-                reference_aligned=a1, read_aligned=a2, quals=p.quals,
-                cigar=cigar, score=0.0 if report_zero_score else score,
-            ) for p, (a1, a2, cigar, score) in out])
-            stats.aligned += len(long_pending)
-            n_anchored[0] += len(long_pending)
-        if stats.aligned % 1_000_000 < len(pending) + len(long_pending):
-            log.info("Time elapsed in aligning reads (%d) is: %.1fs",
-                     stats.aligned, time.time() - start)
+                out = zip(long_pending, _anchored_aligner().align_pairs(
+                    [rm.references[p.ref_id].sequence for p in long_pending],
+                    [p.seq for p in long_pending],
+                    indexes=[rm.references[p.ref_id].index
+                             for p in long_pending]))
+                # after the flush's other reads: the drain queue keeps order,
+                # so the BAM holds the fast part, then the anchored part
+                emit_aligned([AlignedRead(
+                    read_name=p.name,
+                    reference_name=rm.references[p.ref_id].name,
+                    reference_aligned=a1, read_aligned=a2, quals=p.quals,
+                    cigar=cigar, score=0.0 if report_zero_score else score,
+                ) for p, (a1, a2, cigar, score) in out])
+                stats.aligned += len(long_pending)
+                n_anchored[0] += len(long_pending)
+            if stats.aligned % 1_000_000 < len(pending) + len(long_pending):
+                log.info("Time elapsed in aligning reads (%d) is: %.1fs",
+                         stats.aligned, time.time() - start)
 
-    pending: List[_Pending] = []
-    merge_pending: List[Tuple[str, bytes, bytes, bytes, bytes]] = []
-    exh_pending: List[Tuple[str, bytes, bytes, List[int]]] = []
-    n_screened = [0]       # reads whose candidates the wavefront screen ranked
-    route_pending: List[Tuple[str, bytes, bytes]] = []
+        pending: List[_Pending] = []
+        merge_pending: List[Tuple[str, bytes, bytes, bytes, bytes]] = []
+        exh_pending: List[Tuple[str, bytes, bytes, List[int]]] = []
+        n_screened = [0]       # reads whose candidates the wavefront screen ranked
+        route_pending: List[Tuple[str, bytes, bytes]] = []
 
-    def flush_exhaustive():
-        """Batched exhaustive search: every (candidate ref, read) pair of every
-        queued read goes through ONE align_pairs call; per read the best score
-        wins, Rust max_by keeping the LAST maximum on ties
-        (exhaustive_alignment_search).
+        def flush_exhaustive():
+            """Batched exhaustive search: every (candidate ref, read) pair of every
+            queued read goes through ONE align_pairs call; per read the best score
+            wins, Rust max_by keeping the LAST maximum on ties
+            (exhaustive_alignment_search).
 
-        On the wavefront engines every candidate is first screened by its
-        penalty (wfa_screen_candidates, the score-only kernel), and only
-        each read's winner (the last minimum) is aligned with traceback."""
-        if not exh_pending:
-            return
-        refs: List[bytes] = []
-        reads: List[bytes] = []
-        spans: List[Tuple[int, int]] = []  # (start, count) into outs per read
-        for _name, seq, _quals, cands in exh_pending:
-            spans.append((len(refs), len(cands)))
-            refs.extend(rm.references[i].sequence for i in cands)
-            reads.extend([seq] * len(cands))
+            On the wavefront engines every candidate is first screened by its
+            penalty (wfa_screen_candidates, the score-only kernel), and only
+            each read's winner (the last minimum) is aligned with traceback."""
+            if not exh_pending:
+                return
+            refs: List[bytes] = []
+            reads: List[bytes] = []
+            spans: List[Tuple[int, int]] = []  # (start, count) into outs per read
+            for _name, seq, _quals, cands in exh_pending:
+                spans.append((len(refs), len(cands)))
+                refs.extend(rm.references[i].sequence for i in cands)
+                reads.extend([seq] * len(cands))
 
-        if isinstance(aligner, WfaAligner):
-            pens = wfa_screen_candidates(
-                refs, reads, x=aligner.x, o=aligner.o, e=aligner.e,
-                model=aligner.model, o2=aligner.o2, e2=aligner.e2,
-                device=aligner.device)
-            n_screened[0] += len(exh_pending)
-            winners = []
-            for (_name, seq, _quals, _cands), (start, count) in zip(
+            if isinstance(aligner, WfaAligner):
+                pens = wfa_screen_candidates(
+                    refs, reads, x=aligner.x, o=aligner.o, e=aligner.e,
+                    model=aligner.model, o2=aligner.o2, e2=aligner.e2,
+                    device=aligner.device)
+                n_screened[0] += len(exh_pending)
+                winners = []
+                for (_name, seq, _quals, _cands), (start, count) in zip(
+                        exh_pending, spans):
+                    best = 0
+                    for i in range(count):
+                        if pens[start + i] <= pens[start + best]:
+                            best = i  # last minimum = last maximum of -penalty
+                    winners.append(best)
+                outs_w = aligner.align_pairs(
+                    [refs[start + best] for (start, _c), best in
+                     zip(spans, winners)], [e[1] for e in exh_pending])
+                emit_aligned([AlignedRead(
+                    read_name=name,
+                    reference_name=rm.references[cands[best]].name,
+                    reference_aligned=a1, read_aligned=a2, quals=quals,
+                    cigar=cigar, score=score)
+                    for (name, _seq, quals, cands), best, (a1, a2, cigar, score)
+                    in zip(exh_pending, winners, outs_w)])
+                stats.aligned += len(exh_pending)
+                exh_pending.clear()
+                return
+
+            outs = aligner.align_pairs(refs, reads)
+            aligned_out = []
+            for (name, seq, quals, cands), (start, count) in zip(
                     exh_pending, spans):
                 best = 0
                 for i in range(count):
-                    if pens[start + i] <= pens[start + best]:
-                        best = i  # last minimum = last maximum of -penalty
-                winners.append(best)
-            outs_w = aligner.align_pairs(
-                [refs[start + best] for (start, _c), best in
-                 zip(spans, winners)], [e[1] for e in exh_pending])
-            emit_aligned([AlignedRead(
-                read_name=name,
-                reference_name=rm.references[cands[best]].name,
-                reference_aligned=a1, read_aligned=a2, quals=quals,
-                cigar=cigar, score=score)
-                for (name, _seq, quals, cands), best, (a1, a2, cigar, score)
-                in zip(exh_pending, winners, outs_w)])
+                    if outs[start + i][3] >= outs[start + best][3]:
+                        best = i
+                a1, a2, cigar, score = outs[start + best]
+                aligned_out.append(AlignedRead(
+                    read_name=name,
+                    reference_name=rm.references[cands[best]].name,
+                    reference_aligned=a1, read_aligned=a2,
+                    quals=quals, cigar=cigar,
+                    score=score))
+            emit_aligned(aligned_out)
             stats.aligned += len(exh_pending)
             exh_pending.clear()
-            return
 
-        outs = aligner.align_pairs(refs, reads)
-        aligned_out = []
-        for (name, seq, quals, cands), (start, count) in zip(
-                exh_pending, spans):
-            best = 0
-            for i in range(count):
-                if outs[start + i][3] >= outs[start + best][3]:
-                    best = i
-            a1, a2, cigar, score = outs[start + best]
-            aligned_out.append(AlignedRead(
-                read_name=name,
-                reference_name=rm.references[cands[best]].name,
-                reference_aligned=a1, read_aligned=a2,
-                quals=quals, cigar=cigar,
-                score=score))
-        emit_aligned(aligned_out)
-        stats.aligned += len(exh_pending)
-        exh_pending.clear()
+        def flush_routes():
+            if not route_pending:
+                return
+            routed = hmm_router.route([seq for _n, seq, _q in route_pending])
+            for (name, seq, quals), (ref_id, _ll) in zip(route_pending, routed):
+                if ref_id < 0:
+                    stats.failed += 1
+                    continue
+                pending.append(_Pending(name, seq, quals, ref_id))
+            route_pending.clear()
+            if len(pending) >= batch_size * flush_factor:
+                flush(pending)
+                pending.clear()
 
-    def flush_routes():
-        if not route_pending:
-            return
-        routed = hmm_router.route([seq for _n, seq, _q in route_pending])
-        for (name, seq, quals), (ref_id, _ll) in zip(route_pending, routed):
-            if ref_id < 0:
+        def process_merged(name: str, seq: bytes, quals: bytes):
+            if len(seq) >= max_read_size:
+                log.warning(
+                    "Dropped read %s as its length %d exceeds %dx the reference "
+                    "length %d", name, len(seq), max_reference_multiplier,
+                    rm.longest_ref)
+                stats.dropped_length += 1
+                return
+            if len(seq) < min_read_length:
+                # the reference parses --min-read-length (main.rs:183-185) but
+                # binds it `_min_read_length` and never gates on it
+                # (alignment_functions.rs:532) - we enforce the documented
+                # intent and drop short reads
+                log.warning(
+                    "Dropped read %s as its length %d is below the minimum "
+                    "read length %d", name, len(seq), min_read_length)
+                stats.dropped_short += 1
+                return
+            if hmm_router is not None:
+                route_pending.append((name, seq, quals))
+                if len(route_pending) >= batch_size * 4:
+                    flush_routes()
+                return
+            ref_id = _choose_reference(rm, layout, seq, quick_match_threshold)
+            if ref_id is None:
                 stats.failed += 1
-                continue
+                return
+            if isinstance(ref_id, list):
+                # exhaustive search: batched below - align against every candidate,
+                # best score wins (see flush_exhaustive)
+                exh_pending.append((name, seq, quals, ref_id))
+                if sum(len(e[3]) for e in exh_pending) >= \
+                        batch_size * flush_factor:
+                    flush_exhaustive()
+                return
+            # orientation for single reference without known strand
+            if single_ref and not layout.known_strand:
+                ref = rm.references[ref_id]
+                fwd, _f, _r = orient_by_longest_segment(
+                    seq, ref.sequence, ref.index)
+                if not fwd:
+                    seq = reverse_complement(seq)
+                    quals = quals[::-1]
             pending.append(_Pending(name, seq, quals, ref_id))
-        route_pending.clear()
-        if len(pending) >= batch_size * flush_factor:
-            flush(pending)
-            pending.clear()
+            # accumulate several device batches so align_pairs can keep multiple
+            # dispatches in flight (overlapping transfer with compute)
+            if len(pending) >= batch_size * flush_factor:
+                flush(pending)
+                pending.clear()
 
-    def process_merged(name: str, seq: bytes, quals: bytes):
-        if len(seq) >= max_read_size:
-            log.warning(
-                "Dropped read %s as its length %d exceeds %dx the reference "
-                "length %d", name, len(seq), max_reference_multiplier,
-                rm.longest_ref)
-            stats.dropped_length += 1
-            return
-        if len(seq) < min_read_length:
-            # the reference parses --min-read-length (main.rs:183-185) but
-            # binds it `_min_read_length` and never gates on it
-            # (alignment_functions.rs:532) - we enforce the documented
-            # intent and drop short reads
-            log.warning(
-                "Dropped read %s as its length %d is below the minimum "
-                "read length %d", name, len(seq), min_read_length)
-            stats.dropped_short += 1
-            return
-        if hmm_router is not None:
-            route_pending.append((name, seq, quals))
-            if len(route_pending) >= batch_size * 4:
-                flush_routes()
-            return
-        ref_id = _choose_reference(rm, layout, seq, quick_match_threshold)
-        if ref_id is None:
-            stats.failed += 1
-            return
-        if isinstance(ref_id, list):
-            # exhaustive search: batched below - align against every candidate,
-            # best score wins (see flush_exhaustive)
-            exh_pending.append((name, seq, quals, ref_id))
-            if sum(len(e[3]) for e in exh_pending) >= \
-                    batch_size * flush_factor:
-                flush_exhaustive()
-            return
-        # orientation for single reference without known strand
-        if single_ref and not layout.known_strand:
-            ref = rm.references[ref_id]
-            fwd, _f, _r = orient_by_longest_segment(
-                seq, ref.sequence, ref.index)
-            if not fwd:
-                seq = reverse_complement(seq)
-                quals = quals[::-1]
-        pending.append(_Pending(name, seq, quals, ref_id))
-        # accumulate several device batches so align_pairs can keep multiple
-        # dispatches in flight (overlapping transfer with compute)
-        if len(pending) >= batch_size * flush_factor:
-            flush(pending)
-            pending.clear()
+        def flush_merges():
+            if not merge_pending:
+                return
+            r1s = [m[1] for m in merge_pending]
+            r2s = [m[3] for m in merge_pending]
+            out = merge_aligner.align_pairs(r1s, r2s)
+            for (name, _r1, q1, _r2, q2), (a1, a2, _cigar, _score) in zip(
+                    merge_pending, out):
+                seq, quals = alignment_rate_and_consensus(a1, q1, a2, q2)
+                process_merged(name, seq, quals)
+            merge_pending.clear()
 
-    def flush_merges():
-        if not merge_pending:
-            return
-        r1s = [m[1] for m in merge_pending]
-        r2s = [m[3] for m in merge_pending]
-        out = merge_aligner.align_pairs(r1s, r2s)
-        for (name, _r1, q1, _r2, q2), (a1, a2, _cigar, _score) in zip(
-                merge_pending, out):
-            seq, quals = alignment_rate_and_consensus(a1, q1, a2, q2)
-            process_merged(name, seq, quals)
-        merge_pending.clear()
+        # Fast path: with only a read1 stream, unify_read reduces to an
+        # orientation passthrough unless the layout concatenates Read1 with
+        # Spacers (merger.rs:278-294); for Forward orientation the container +
+        # decision-tree hop per read is pure overhead, so feed the records
+        # straight into process_merged. Semantics identical to the general
+        # loop (quals are NOT reversed in the R1-only branch either way).
+        declared_kinds = {p.kind for p in layout.reads if p.kind != "Spacer"}
+        concat_single = (layout.merge in (MergeStrategy.CONCATENATE,
+                                          MergeStrategy.CONCATENATE_BOTH_FORWARD)
+                         and declared_kinds <= {"Read1"})
+        r1_orientation = next(
+            (p.orientation for p in layout.reads if p.kind == "Read1"),
+            AlignedReadOrientation.FORWARD)
 
-    # Fast path: with only a read1 stream, unify_read reduces to an
-    # orientation passthrough unless the layout concatenates Read1 with
-    # Spacers (merger.rs:278-294); for Forward orientation the container +
-    # decision-tree hop per read is pure overhead, so feed the records
-    # straight into process_merged. Semantics identical to the general
-    # loop (quals are NOT reversed in the R1-only branch either way).
-    declared_kinds = {p.kind for p in layout.reads if p.kind != "Spacer"}
-    concat_single = (layout.merge in (MergeStrategy.CONCATENATE,
-                                      MergeStrategy.CONCATENATE_BOTH_FORWARD)
-                     and declared_kinds <= {"Read1"})
-    r1_orientation = next(
-        (p.orientation for p in layout.reads if p.kind == "Read1"),
-        AlignedReadOrientation.FORWARD)
+        def _shard_filter(it):
+            """Yield only this rank's read chunks (see read_shard docstring)."""
+            if read_shard is None:
+                return it
+            rank, world = read_shard
 
-    def _shard_filter(it):
-        """Yield only this rank's read chunks (see read_shard docstring)."""
-        if read_shard is None:
-            return it
-        rank, world = read_shard
+            def gen():
+                for i, item in enumerate(it):
+                    if (i // _SHARD_CHUNK) % world == rank:
+                        yield item
+            return gen()
 
-        def gen():
-            for i, item in enumerate(it):
-                if (i // _SHARD_CHUNK) % world == rank:
-                    yield item
-        return gen()
-
-    t_reader = time.time()
-    if (reader.single_stream and "Read1" in declared_kinds
-            and not concat_single
-            and r1_orientation == AlignedReadOrientation.FORWARD):
-        for rec in _shard_filter(reader.read_one_records()):
-            stats.total += 1
-            process_merged(rec.name, rec.seq, rec.qual)
-    else:
-        for rsc in _shard_filter(reader):
-            stats.total += 1
-            merged = unify_read(rsc, layout,
-                                defer_align_merge=needs_align_merge)
-            if merged.pending_pair is not None:
-                r1, q1, r2, q2 = merged.pending_pair
-                merge_pending.append((merged.name, r1, q1, r2, q2))
-                if len(merge_pending) >= batch_size * flush_factor:
-                    flush_merges()
+        # the parse loop: its self time is the reader (parse, length gates,
+        # batching), its children the route calls and the flushes
+        with span("align.read"):
+            if (reader.single_stream and "Read1" in declared_kinds
+                    and not concat_single
+                    and r1_orientation == AlignedReadOrientation.FORWARD):
+                for rec in _shard_filter(reader.read_one_records()):
+                    stats.total += 1
+                    process_merged(rec.name, rec.seq, rec.qual)
             else:
-                process_merged(merged.name, merged.seq, merged.quals)
-    phase["reader_wall"] = time.time() - t_reader
+                for rsc in _shard_filter(reader):
+                    stats.total += 1
+                    merged = unify_read(rsc, layout,
+                                        defer_align_merge=needs_align_merge)
+                    if merged.pending_pair is not None:
+                        r1, q1, r2, q2 = merged.pending_pair
+                        merge_pending.append((merged.name, r1, q1, r2, q2))
+                        if len(merge_pending) >= batch_size * flush_factor:
+                            flush_merges()
+                    else:
+                        process_merged(merged.name, merged.seq, merged.quals)
 
-    t_tail = time.time()
-    flush_merges()
-    if hmm_router is not None:
-        flush_routes()
-    flush_exhaustive()
-    flush(pending)
-    phase["tail_wall"] = time.time() - t_tail
-    t_join = time.time()
-    # the drain thread forwards the None to the build thread, which
-    # forwards it to the writer thread
-    drain_queue.put(None)
-    for t in threads:
-        t.join()
-    if sink_thread is not None:
-        # the build thread has exited: every sink item is enqueued
-        sink_queue.put(None)
-        sink_thread.join()
-    if writer_error:
-        raise writer_error[0]
-    writer.close()
-    phase["join_wall"] = time.time() - t_join
-    if hasattr(writer, "chunk_offsets"):
-        # chunk-index sidecar: lets distributed collapse deal byte ranges
-        # of this BAM (each process inflates only its share)
-        from clique_tpu_torch.io.sam import write_cqi
+        with span("align.tail"):
+            flush_merges()
+            if hmm_router is not None:
+                flush_routes()
+            flush_exhaustive()
+            flush(pending)
+        with span("align.join"):
+            # the drain thread forwards the None to the build thread, which
+            # forwards it to the writer thread
+            drain_queue.put(None)
+            for t in threads:
+                t.join()
+            if sink_thread is not None:
+                # the build thread has exited: every sink item is enqueued
+                sink_queue.put(None)
+                sink_thread.join()
+                sink.seconds = recorder.seconds("align.sink")
+            if writer_error:
+                raise writer_error[0]
+            writer.close()
+        if hasattr(writer, "chunk_offsets"):
+            # chunk-index sidecar: lets distributed collapse deal byte ranges
+            # of this BAM (each process inflates only its share)
+            from clique_tpu_torch.io.sam import write_cqi
 
-        write_cqi(output_path, writer.chunk_offsets)
+            write_cqi(output_path, writer.chunk_offsets)
     if profiler is not None:
         _stop_profiler(profiler, profile_dir)
     elapsed = time.time() - start
@@ -991,6 +983,7 @@ def _align_reads_impl(
     if metrics_path:
         import json
 
+        spans = recorder.tallies()
         inner = anchored_state[0].inner if anchored_state[0] else None
         with open(metrics_path, "w") as fh:
             json.dump({
@@ -1008,13 +1001,15 @@ def _align_reads_impl(
                 "elapsed_s": round(elapsed, 3),
                 "reads_per_s": round(stats.aligned / elapsed, 1)
                 if elapsed else None,
+                # a host clock of the main aligner's dispatches and event
+                # waits, not device time (the card's time is the
+                # profiler's)
                 "device_seconds": round(aligner.device_seconds, 3),
                 "host_post_seconds": round(aligner.post_seconds, 3),
-                # main-thread walls: reader_wall = parse loop incl. nested
-                # flushes; flush_wall = inside flush(); drain_wall = waits
-                # for room in the drain queue; tail/join = post-loop flush
-                # + pipeline-thread join; *_busy = each thread's busy time
-                "phase_walls": {k: round(v, 3) for k, v in phase.items()},
+                # views of the spans below (_PHASE_SPANS)
+                "phase_walls": _phase_walls(spans),
+                # per span name: count, seconds, self seconds
+                "spans": spans,
                 "wfa_phase_seconds": {
                     k: round(v, 3) for k, v in aligner.phase_seconds.items()}
                 if isinstance(aligner, WfaAligner) else None,
@@ -1023,9 +1018,6 @@ def _align_reads_impl(
                 "wfa_screened_reads": n_screened[0],
                 "pairs_aligned": aligner.pairs_aligned,
                 "dp_cells_filled": aligner.cells_filled,
-                "dp_cells_per_s": round(
-                    aligner.cells_filled / aligner.device_seconds)
-                if aligner.device_seconds else None,
                 "device": torch.cuda.get_device_name(aligner.device)
                 if aligner.device.type == "cuda" else "cpu",
                 "bam_codec": bam_codec(),
@@ -1062,9 +1054,39 @@ def _align_reads_impl(
     return stats
 
 
+# the metrics JSON's phase walls as views of the run's spans: (key, span,
+# self time). reader_wall: the parse loop with its nested route calls and
+# flushes; flush_wall: inside flush(); drain_wall: waits for room in the
+# drain queue; tail/join: the post-loop flushes and the threads' join;
+# *_busy: each thread's items (build_busy without its waits for room in
+# the sink queue), present when the thread had any
+_PHASE_SPANS = (("reader_wall", "align.read", False),
+                ("flush_wall", "align.flush", False),
+                ("drain_wall", "align.drain_put", False),
+                ("tail_wall", "align.tail", False),
+                ("join_wall", "align.join", False),
+                ("drain_busy", "align.drain", False),
+                ("build_busy", "align.build", True),
+                ("write_busy", "align.write", False),
+                ("sink_busy", "align.sink", False))
+
+
+def _phase_walls(spans: Dict[str, Dict[str, float]]) -> Dict[str, float]:
+    """The metrics JSON's `phase_walls` from its `spans`."""
+    out = {}
+    for key, name, self_time in _PHASE_SPANS:
+        t = spans.get(name)
+        if t is not None or key.endswith("_wall"):
+            out[key] = round(t["self_s" if self_time else "s"], 3) \
+                if t is not None else 0.0
+    return out
+
+
 def _start_profiler(profile_dir: Optional[str], device: torch.device):
-    """A running torch.profiler over the CPU and, on a CUDA device, the
-    card (the JAX package's jax.profiler.trace span), or None."""
+    """A running torch.profiler over the CPU of every thread and, on a CUDA
+    device, the card (the JAX package's jax.profiler.trace span), or None.
+    A torch without the all-threads option traces the starting thread
+    alone, and the pipeline threads' spans are missing from the trace."""
     if not profile_dir:
         return None
     from torch.profiler import ProfilerActivity, profile
@@ -1073,9 +1095,23 @@ def _start_profiler(profile_dir: Optional[str], device: torch.device):
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   experimental_config=all_threads_config())
     prof.start()
     return prof
+
+
+@functools.lru_cache(maxsize=1)
+def all_threads_config():
+    """The profiler's config that records every thread's ranges, or None
+    (logged once) where this torch has no such option."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        log.warning("this torch cannot profile every thread: traces miss "
+                    "the drain, build, write and sink spans")
+        return None
 
 
 def _stop_profiler(prof, profile_dir: str) -> None:

@@ -32,6 +32,7 @@ from clique_tpu_torch.extract.extractor import (
     extract_tagged_sequences,
 )
 from clique_tpu_torch.reference.manager import ReferenceManager
+from clique_tpu_torch.utils import trace
 from clique_tpu_torch.utils.seq import FASTA_N
 
 GAP_B = ord("-")
@@ -72,6 +73,8 @@ class CollapseSink:
             name: all(u.symbol.isdigit() for u in umis)
             for name, umis in self._ordered_umis.items()}
         self._ordinal = 0
+        # ingestion's seconds: align_reads sets it from its align.sink
+        # spans once the sink thread has joined
         self.seconds = 0.0
 
     # -- consumption (align writer thread) --------------------------------
@@ -89,7 +92,6 @@ class CollapseSink:
         (recs order), not device group order."""
         import numpy as np
 
-        t0 = time.time()
         staged: List[Optional[SortingRead]] = [None] * len(pend)
         # failed_filter[k]: row k was tag-valid but failed AlignmentCheck
         # (precomputed below on the [G, T] matrices — same math as
@@ -226,17 +228,14 @@ class CollapseSink:
                     unsorted_keys=deque(ordered),
                 )
         self._push_filtered(staged, failed_filter)
-        self.seconds += time.time() - t0
 
     def consume_aligned(self, aligned_out, recs) -> None:
         """AlignedRead outputs (WFA / anchored / merge engines): the gapped
         pair is carried on the object already."""
-        t0 = time.time()
         staged = [self._build(self.rm.name_to_id[alr.reference_name], rec,
                               alr.reference_aligned, alr.read_aligned)
                   for alr, rec in zip(aligned_out, recs)]
         self._push_filtered(staged)
-        self.seconds += time.time() - t0
 
     def _build(self, ref_id: int, rec, reference_aligned: bytes,
                read_aligned: bytes) -> Optional[SortingRead]:
@@ -348,25 +347,23 @@ def collapse_from_reads(output_path: str, layout: SequenceLayout,
         writer = open_alignment_writer(output_path, references)
         metrics = {"references": {}, "started": time.time(),
                    "ingest_s": round(ingest_seconds, 3)}
-        t_levels = time.time()
-        outputs_seconds = [0.0]
 
-        for ref in rm.references.values():
-            reads = reads_by_ref.get(ref.name, [])
-            ref_metrics = {"passing_reads": (n_passing or {}).get(
-                ref.name, len(reads)), "levels": []}
-            metrics["references"][ref.name] = ref_metrics
-            run_ref_levels_and_outputs(
-                reads, ref.name, layout, rm, writer, known_lists,
-                correct_only, downsample_cap, gap_call_threshold,
-                ref_metrics, outputs_seconds, record_tap=record_tap,
-                log_suffix=" (fused chain)", device=dev)
+        with trace.recording() as recorder:
+            for ref in rm.references.values():
+                reads = reads_by_ref.get(ref.name, [])
+                ref_metrics = {"passing_reads": (n_passing or {}).get(
+                    ref.name, len(reads)), "levels": []}
+                metrics["references"][ref.name] = ref_metrics
+                run_ref_levels_and_outputs(
+                    reads, ref.name, layout, rm, writer, known_lists,
+                    correct_only, downsample_cap, gap_call_threshold,
+                    ref_metrics, record_tap=record_tap,
+                    log_suffix=" (fused chain)", device=dev)
 
-        writer.close()
-        add_device_metrics(metrics, dev, launches0)
-        finish_collapse_metrics(metrics, stats, t_levels,
-                                outputs_seconds[0], metrics_path,
-                                output_path)
+            writer.close()
+            add_device_metrics(metrics, dev, launches0)
+            finish_collapse_metrics(metrics, stats, recorder, metrics_path,
+                                    output_path)
         return stats
 
 

@@ -57,7 +57,9 @@ from clique_tpu_torch.extract.extractor import (
 )
 from clique_tpu_torch.io.sam import BamReader, SamRecord, open_alignment_writer
 from clique_tpu_torch.reference.manager import ReferenceManager
+from clique_tpu_torch.utils import trace
 from clique_tpu_torch.utils.seq import FASTA_N, GAP, normalize_tag
+from clique_tpu_torch.utils.trace import span
 
 log = logging.getLogger(__name__)
 
@@ -485,40 +487,31 @@ def write_outputs(reads: List[SortingRead], writer, rm: ReferenceManager,
                   phase_out: Optional[dict] = None) -> int:
     """write_consensus_reads / write_corrected_reads
     (consensus_builders.rs:34-165). phase_out (optional dict) receives a
-    wall breakdown: group/sort, batched consensus precompute, the record
-    loop, and the encode-thread join."""
-    t0 = time.time()
+    wall breakdown, each from its span: group/sort (collapse.group_sort),
+    batched consensus precompute (collapse.consensus), the record loop
+    (collapse.records), and the encode-thread join
+    (collapse.encode_join)."""
     ref_seqs = ref_seq_map(rm)
     # group by the level-threaded gid class in O(n), then sort only the
     # GROUP keys (G << N) by (reference, corrected key tuple) — the same
     # record order as sorting every read (the old per-read tuple sort was
     # the growing term at >40k reads), with members in scan order exactly
     # as the stable sort kept them
-    grouped: Dict[Tuple[str, int], List[SortingRead]] = {}
-    for r in reads:
-        grouped.setdefault((r.reference_name, r.gid), []).append(r)
-    gs = sorted(grouped.values(),
-                key=lambda g: (g[0].reference_name, g[0].key_tuple()))
-    if correct_only:
-        groups: List[List[SortingRead]] = [[r] for g in gs for r in g]
-    else:
-        groups = gs
+    with span("collapse.group_sort") as sp_sort:
+        grouped: Dict[Tuple[str, int], List[SortingRead]] = {}
+        for r in reads:
+            grouped.setdefault((r.reference_name, r.gid), []).append(r)
+        gs = sorted(grouped.values(),
+                    key=lambda g: (g[0].reference_name, g[0].key_tuple()))
+        if correct_only:
+            groups: List[List[SortingRead]] = [[r] for g in gs for r in g]
+        else:
+            groups = gs
 
-    t1 = time.time()
-    precomputed = _precompute_group_consensus(groups, ref_seqs,
-                                              gap_call_threshold) \
-        if not correct_only else {}
-    t2 = time.time()
-
-    # batch the singleton groups' alignment rates (one padded pass
-    # instead of a numpy round trip per record)
-    single_gis = [gi for gi, g in enumerate(groups) if len(g) == 1]
-    single_rates: Dict[int, float] = {}
-    if single_gis:
-        rates = _batch_alignment_rates(
-            [(groups[gi][0].reference_aligned, groups[gi][0].read_aligned)
-             for gi in single_gis])
-        single_rates = dict(zip(single_gis, rates))
+    with span("collapse.consensus") as sp_cons:
+        precomputed = _precompute_group_consensus(groups, ref_seqs,
+                                                  gap_call_threshold) \
+            if not correct_only else {}
 
     # record construction streams to an encode thread in chunks: the BAM
     # codec's C encode/deflate paths release the GIL, so BGZF compression
@@ -549,38 +542,49 @@ def write_outputs(reads: List[SortingRead], writer, rm: ReferenceManager,
 
     written = 0
     records = []
+    sp_recs = span("collapse.records")
     try:
-        for gi, group in enumerate(groups):
-            rec = _consensus_record(group, ref_seqs,
-                                    downsample_cap if not correct_only
-                                    else 0, gap_call_threshold,
-                                    precomputed.get(gi),
-                                    rate=single_rates.get(gi))
-            if rec is not None:
-                records.append(rec)
-                written += 1
-            if len(records) >= 2048:
-                if record_tap is not None:
-                    record_tap.extend(records)
-                out_q.put(records)
-                records = []
-        if record_tap is not None:
-            record_tap.extend(records)
-        out_q.put(records)
+        with sp_recs:
+            # batch the singleton groups' alignment rates (one padded
+            # pass instead of a numpy round trip per record)
+            single_gis = [gi for gi, g in enumerate(groups) if len(g) == 1]
+            single_rates: Dict[int, float] = {}
+            if single_gis:
+                rates = _batch_alignment_rates(
+                    [(groups[gi][0].reference_aligned,
+                      groups[gi][0].read_aligned) for gi in single_gis])
+                single_rates = dict(zip(single_gis, rates))
+            for gi, group in enumerate(groups):
+                rec = _consensus_record(group, ref_seqs,
+                                        downsample_cap if not correct_only
+                                        else 0, gap_call_threshold,
+                                        precomputed.get(gi),
+                                        rate=single_rates.get(gi))
+                if rec is not None:
+                    records.append(rec)
+                    written += 1
+                if len(records) >= 2048:
+                    if record_tap is not None:
+                        record_tap.extend(records)
+                    out_q.put(records)
+                    records = []
+            if record_tap is not None:
+                record_tap.extend(records)
+            out_q.put(records)
     finally:
         # always poison + join, even when a group's consensus raises:
         # a leaked encoder thread still holds the writer and can
         # interleave a mid-flight write_batch with the caller's cleanup
         out_q.put(None)
-        t3 = time.time()
-        encoder.join()
+        with span("collapse.encode_join") as sp_join:
+            encoder.join()
     if errors:
         raise errors[0]
     if phase_out is not None:
-        phase_out["group_sort_s"] = round(t1 - t0, 3)
-        phase_out["consensus_precompute_s"] = round(t2 - t1, 3)
-        phase_out["record_loop_s"] = round(t3 - t2, 3)
-        phase_out["encode_join_s"] = round(time.time() - t3, 3)
+        phase_out["group_sort_s"] = round(sp_sort.seconds, 3)
+        phase_out["consensus_precompute_s"] = round(sp_cons.seconds, 3)
+        phase_out["record_loop_s"] = round(sp_recs.seconds, 3)
+        phase_out["encode_join_s"] = round(sp_join.seconds, 3)
     return written
 
 
@@ -792,15 +796,17 @@ def _load_checkpoint(path: str) -> Optional[List[SortingRead]]:
     return payload[1]
 
 
-def finish_collapse_metrics(metrics: dict, stats, t_levels: float,
-                            outputs_s: float,
+def finish_collapse_metrics(metrics: dict, stats, recorder,
                             metrics_path: Optional[str],
                             output_path: str) -> None:
-    """Shared metrics-JSON tail for collapse() / collapse_from_reads."""
+    """Shared metrics-JSON tail for collapse() / collapse_from_reads:
+    `levels_s` and `outputs_s` are views of the run's collapse.level and
+    collapse.outputs spans, and `spans` holds every span's tally."""
     import json
 
-    metrics["levels_s"] = round(time.time() - t_levels - outputs_s, 3)
-    metrics["outputs_s"] = round(outputs_s, 3)
+    metrics["levels_s"] = round(recorder.seconds("collapse.level"), 3)
+    metrics["outputs_s"] = round(recorder.seconds("collapse.outputs"), 3)
+    metrics["spans"] = recorder.tallies()
     metrics["elapsed_s"] = round(time.time() - metrics["started"], 3)
     metrics["read_stats"] = {
         "total": stats.total_reads, "unmapped": stats.unmapped,
@@ -1046,134 +1052,136 @@ def _collapse_impl(output_path: str, layout: SequenceLayout, input_bam: str,
         return collapse_parallel(output_path, layout, input_bam, **kw)
     launches0 = launch_counts()
 
-    rm = ReferenceManager.from_layout(layout)
-    known_lists = load_known_lists(layout)
-    references = [(r.name, len(r.sequence)) for r in rm.references.values()]
-    writer = open_alignment_writer(output_path, references)
-    stats = CollapseStats()
-    metrics = {"input_bam": input_bam, "references": {},
-               "started": time.time()}
+    with trace.recording() as recorder:
+        rm = ReferenceManager.from_layout(layout)
+        known_lists = load_known_lists(layout)
+        references = [(r.name, len(r.sequence)) for r in rm.references.values()]
+        writer = open_alignment_writer(output_path, references)
+        stats = CollapseStats()
+        metrics = {"input_bam": input_bam, "references": {},
+                   "started": time.time()}
 
-    try:
-        bam_bytes = os.path.getsize(input_bam)
-    except OSError:
-        bam_bytes = 0
-    if not out_of_core:
-        if bam_bytes > 4 << 30:
-            # BGZF ~3-4x expands in RAM as SortingReads; beyond a few GB
-            # the spill path is the safe default
-            log.info("input BAM is %.1f GB; enabling out-of-core collapse",
-                     bam_bytes / 2**30)
-            out_of_core = True
-        elif any(cfg.maximum_subsequences is not None
-                 for ref in layout.references.values()
-                 for cfg in ref.umi_configurations.values()):
-            # maximum_subsequences caps per-bin RESIDENT reads; the in-RAM
-            # path keeps everything resident, so honoring the cap means
-            # the streaming path, whose per-bin residency is O(1) - unless
-            # the BAM's chunk index proves the whole file holds no more
-            # records than the smallest cap
-            from clique_tpu_torch.io.sam import read_cqi
-
-            min_cap = min(cfg.maximum_subsequences
-                          for ref in layout.references.values()
-                          for cfg in ref.umi_configurations.values()
-                          if cfg.maximum_subsequences is not None)
-            cqi = read_cqi(input_bam)
-            total = cqi[-1][1] if cqi else None
-            if total is not None and total <= min_cap:
-                log.info("maximum_subsequences set but the BAM holds %d "
-                         "records <= the smallest cap %d; the cap cannot "
-                         "bind - staying in RAM", total, min_cap)
-            else:
-                log.info("maximum_subsequences set; enabling out-of-core "
-                         "collapse to honor the per-bin resident cap")
+        try:
+            bam_bytes = os.path.getsize(input_bam)
+        except OSError:
+            bam_bytes = 0
+        if not out_of_core:
+            if bam_bytes > 4 << 30:
+                # BGZF ~3-4x expands in RAM as SortingReads; beyond a few GB
+                # the spill path is the safe default
+                log.info("input BAM is %.1f GB; enabling out-of-core collapse",
+                         bam_bytes / 2**30)
                 out_of_core = True
+            elif any(cfg.maximum_subsequences is not None
+                     for ref in layout.references.values()
+                     for cfg in ref.umi_configurations.values()):
+                # maximum_subsequences caps per-bin RESIDENT reads; the in-RAM
+                # path keeps everything resident, so honoring the cap means
+                # the streaming path, whose per-bin residency is O(1) - unless
+                # the BAM's chunk index proves the whole file holds no more
+                # records than the smallest cap
+                from clique_tpu_torch.io.sam import read_cqi
 
-    spill_root = None
-    n_shards = shards or 32
-    if out_of_core:
-        spill_root = tempfile.mkdtemp(prefix="clique_spill.", dir=temp_dir)
-        # final consensus grouping materializes one shard at a time; size
-        # shards so ~4x-expanded records stay around <=256MB per shard
-        if shards is None:
-            n_shards = max(32, int(4 * bam_bytes / (256 << 20)) + 1)
+                min_cap = min(cfg.maximum_subsequences
+                              for ref in layout.references.values()
+                              for cfg in ref.umi_configurations.values()
+                              if cfg.maximum_subsequences is not None)
+                cqi = read_cqi(input_bam)
+                total = cqi[-1][1] if cqi else None
+                if total is not None and total <= min_cap:
+                    log.info("maximum_subsequences set but the BAM holds %d "
+                             "records <= the smallest cap %d; the cap cannot "
+                             "bind - staying in RAM", total, min_cap)
+                else:
+                    log.info("maximum_subsequences set; enabling out-of-core "
+                             "collapse to honor the per-bin resident cap")
+                    out_of_core = True
 
-    from clique_tpu_torch.collapse.shards import ShardWriter
-
-    ingests: Dict[str, _RefIngest] = {}
-    spill_dirs: Dict[str, str] = {}
-    spill_writers: List[ShardWriter] = []
-    for ref in rm.references.values():
-        sw = None
+        spill_root = None
+        n_shards = shards or 32
         if out_of_core:
-            safe = "".join(c if c.isalnum() else "_" for c in ref.name)
-            level_dir = os.path.join(spill_root, f"{safe}.l0")
-            sw = ShardWriter(level_dir, n_shards=n_shards)
-            spill_dirs[ref.name] = level_dir
-            spill_writers.append(sw)
-        ingests[ref.name] = _RefIngest(
-            ref.name, rm, layout, spill=sw,
-            min_aligned_bases=min_aligned_bases,
-            min_identical=min_identical)
-    log.info("processing reads from input BAM file: %s "
-             "(%d references, single pass)", input_bam, len(ingests))
-    t_ingest = time.time()
-    reads_by_ref = ingest_bam_single_pass(input_bam, ingests, stats)
-    for sw in spill_writers:
-        sw.close()
-    metrics["ingest_s"] = round(time.time() - t_ingest, 3)
-    t_levels = time.time()
-    outputs_seconds = [0.0]
+            spill_root = tempfile.mkdtemp(prefix="clique_spill.", dir=temp_dir)
+            # final consensus grouping materializes one shard at a time; size
+            # shards so ~4x-expanded records stay around <=256MB per shard
+            if shards is None:
+                n_shards = max(32, int(4 * bam_bytes / (256 << 20)) + 1)
 
-    for ref in rm.references.values():
-        ing = ingests[ref.name]
-        if out_of_core:
-            safe = "".join(c if c.isalnum() else "_" for c in ref.name)
-            level_dir = spill_dirs[ref.name]
-            ref_metrics = {"passing_reads": ing.n_passing, "levels": []}
-            if ing.n_passing == 0:
-                log.warning("No valid reads found for reference %s",
-                            ref.name)
-                metrics["references"][ref.name] = ref_metrics
-                continue
-            configs = layout.get_sorted_umi_configurations(ref.name)
-            for lvl, tag in enumerate(configs):
-                next_dir = os.path.join(spill_root, f"{safe}.l{lvl + 1}")
-                n_in, n_out = sort_level_spill(level_dir, tag, known_lists,
-                                               next_dir, n_shards=n_shards,
-                                               device=dev)
-                ref_metrics["levels"].append({
-                    "symbol": tag.symbol, "sort_type": tag.sort_type.value,
-                    "reads_in": n_in, "reads_out": n_out})
+        from clique_tpu_torch.collapse.shards import ShardWriter
+
+        ingests: Dict[str, _RefIngest] = {}
+        spill_dirs: Dict[str, str] = {}
+        spill_writers: List[ShardWriter] = []
+        for ref in rm.references.values():
+            sw = None
+            if out_of_core:
+                safe = "".join(c if c.isalnum() else "_" for c in ref.name)
+                level_dir = os.path.join(spill_root, f"{safe}.l0")
+                sw = ShardWriter(level_dir, n_shards=n_shards)
+                spill_dirs[ref.name] = level_dir
+                spill_writers.append(sw)
+            ingests[ref.name] = _RefIngest(
+                ref.name, rm, layout, spill=sw,
+                min_aligned_bases=min_aligned_bases,
+                min_identical=min_identical)
+        log.info("processing reads from input BAM file: %s "
+                 "(%d references, single pass)", input_bam, len(ingests))
+        t_ingest = time.time()
+        reads_by_ref = ingest_bam_single_pass(input_bam, ingests, stats)
+        for sw in spill_writers:
+            sw.close()
+        metrics["ingest_s"] = round(time.time() - t_ingest, 3)
+
+        for ref in rm.references.values():
+            ing = ingests[ref.name]
+            if out_of_core:
+                safe = "".join(c if c.isalnum() else "_" for c in ref.name)
+                level_dir = spill_dirs[ref.name]
+                ref_metrics = {"passing_reads": ing.n_passing, "levels": []}
+                if ing.n_passing == 0:
+                    log.warning("No valid reads found for reference %s",
+                                ref.name)
+                    metrics["references"][ref.name] = ref_metrics
+                    continue
+                configs = layout.get_sorted_umi_configurations(ref.name)
+                for lvl, tag in enumerate(configs):
+                    next_dir = os.path.join(spill_root,
+                                            f"{safe}.l{lvl + 1}")
+                    with span("collapse.level"):
+                        n_in, n_out = sort_level_spill(
+                            level_dir, tag, known_lists, next_dir,
+                            n_shards=n_shards, device=dev)
+                        ref_metrics["levels"].append({
+                            "symbol": tag.symbol,
+                            "sort_type": tag.sort_type.value,
+                            "reads_in": n_in, "reads_out": n_out})
+                        shutil.rmtree(level_dir)
+                    level_dir = next_dir
+                with span("collapse.outputs"):
+                    written = write_outputs_spill(level_dir, writer, rm,
+                                                  correct_only,
+                                                  downsample_cap,
+                                                  gap_call_threshold)
                 shutil.rmtree(level_dir)
-                level_dir = next_dir
-            t_out = time.time()
-            written = write_outputs_spill(level_dir, writer, rm,
-                                          correct_only, downsample_cap,
-                                          gap_call_threshold)
-            outputs_seconds[0] += time.time() - t_out
-            shutil.rmtree(level_dir)
-            ref_metrics["output_records"] = written
+                ref_metrics["output_records"] = written
+                metrics["references"][ref.name] = ref_metrics
+                log.info("reference %s: wrote %d records (out-of-core)",
+                         ref.name, written)
+                continue
+            reads = reads_by_ref[ref.name]
+            ref_metrics = {"passing_reads": ing.n_passing, "levels": []}
             metrics["references"][ref.name] = ref_metrics
-            log.info("reference %s: wrote %d records (out-of-core)",
-                     ref.name, written)
-            continue
-        reads = reads_by_ref[ref.name]
-        ref_metrics = {"passing_reads": ing.n_passing, "levels": []}
-        metrics["references"][ref.name] = ref_metrics
-        run_ref_levels_and_outputs(
-            reads, ref.name, layout, rm, writer, known_lists, correct_only,
-            downsample_cap, gap_call_threshold, ref_metrics,
-            outputs_seconds,
-            checkpoint_dir=temp_dir if checkpoint else None, device=dev)
+            run_ref_levels_and_outputs(
+                reads, ref.name, layout, rm, writer, known_lists,
+                correct_only, downsample_cap, gap_call_threshold,
+                ref_metrics, checkpoint_dir=temp_dir if checkpoint else None,
+                device=dev)
 
-    writer.close()
-    if spill_root is not None:
-        shutil.rmtree(spill_root, ignore_errors=True)
-    add_device_metrics(metrics, dev, launches0)
-    finish_collapse_metrics(metrics, stats, t_levels, outputs_seconds[0],
-                            metrics_path, output_path)
+        writer.close()
+        if spill_root is not None:
+            shutil.rmtree(spill_root, ignore_errors=True)
+        add_device_metrics(metrics, dev, launches0)
+        finish_collapse_metrics(metrics, stats, recorder, metrics_path,
+                                output_path)
     return stats
 
 
@@ -1209,7 +1217,6 @@ def run_ref_levels_and_outputs(reads: List[SortingRead], ref_name: str,
                                downsample_cap: int,
                                gap_call_threshold: float,
                                ref_metrics: dict,
-                               outputs_seconds: List[float],
                                checkpoint_dir: Optional[str] = None,
                                record_tap: Optional[list] = None,
                                log_suffix: str = "",
@@ -1217,7 +1224,8 @@ def run_ref_levels_and_outputs(reads: List[SortingRead], ref_name: str,
     """Per-reference in-RAM correction levels + consensus outputs: the one
     implementation behind collapse() and the fused chain's
     collapse_from_reads. Appends per-level rows and output records/phases
-    to ref_metrics; adds the outputs wall to outputs_seconds[0]. Mirrors
+    to ref_metrics; each level is a collapse.level span, the outputs a
+    collapse.outputs span. Mirrors
     clique_tpu/collapse/pipeline.py:1271-1325."""
     if not reads:
         log.warning("No valid reads found for reference %s", ref_name)
@@ -1239,19 +1247,20 @@ def run_ref_levels_and_outputs(reads: List[SortingRead], ref_name: str,
         if lvl < start_level:
             continue
         n_in = len(reads)
-        reads = sort_level(reads, tag, known_lists, device=device)
-        ref_metrics["levels"].append({
-            "symbol": tag.symbol, "sort_type": tag.sort_type.value,
-            "reads_in": n_in, "reads_out": len(reads)})
-        if checkpoint_dir:
-            _save_checkpoint(
-                _checkpoint_path(checkpoint_dir, ref_name, lvl + 1), reads)
-    t_out = time.time()
+        with span("collapse.level"):
+            reads = sort_level(reads, tag, known_lists, device=device)
+            ref_metrics["levels"].append({
+                "symbol": tag.symbol, "sort_type": tag.sort_type.value,
+                "reads_in": n_in, "reads_out": len(reads)})
+            if checkpoint_dir:
+                _save_checkpoint(
+                    _checkpoint_path(checkpoint_dir, ref_name, lvl + 1),
+                    reads)
     out_phases: dict = {}
-    written = write_outputs(reads, writer, rm, correct_only,
-                            downsample_cap, gap_call_threshold,
-                            record_tap=record_tap, phase_out=out_phases)
-    outputs_seconds[0] += time.time() - t_out
+    with span("collapse.outputs"):
+        written = write_outputs(reads, writer, rm, correct_only,
+                                downsample_cap, gap_call_threshold,
+                                record_tap=record_tap, phase_out=out_phases)
     ref_metrics["output_records"] = written
     ref_metrics["output_phases"] = out_phases
     log.info("reference %s: wrote %d records%s", ref_name, written,

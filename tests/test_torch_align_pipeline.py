@@ -343,8 +343,12 @@ def _trace_files(d):
 
 def test_profile_dir_writes_a_trace(tmp_path):
     """profile_dir: a torch.profiler Chrome trace of the run appears there
-    (CPU activity on a CPU device), the BAM still equals the pin."""
+    (CPU activity on a CPU device), with the main thread's spans and,
+    where torch profiles every thread, the pipeline threads' spans; the
+    BAM still equals the pin."""
     import json
+
+    from clique_tpu_torch.align.pipeline import all_threads_config
 
     mg = _load_make_golden()
     gd, layout, rm, r1, _r2 = _golden_inputs(mg, "golden", tmp_path)
@@ -356,6 +360,10 @@ def test_profile_dir_writes_a_trace(tmp_path):
     with open(trace / files[0]) as fh:
         events = json.load(fh)["traceEvents"]
     assert any(e.get("ph") == "X" for e in events)
+    names = {e.get("name") for e in events}
+    assert {"align.run", "align.read", "align.flush"} <= names
+    if all_threads_config() is not None:
+        assert {"align.build", "align.write"} & names
     assert _inflate_bgzf(out) == _inflate_bgzf(os.path.join(gd, "aligned.bam"))
 
 

@@ -33,6 +33,7 @@ six parameters, and both versions take them from there.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import List, Optional, Sequence, Tuple
@@ -232,10 +233,21 @@ def _byte_rows(seqs: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
 class HmmRouter:
     """Route reads to the best reference in a panel by forward LL
     (clique_tpu/align/hmm.py:150-204). device: where the forward
-    recurrence runs ("cuda", "cuda:N" or "cpu")."""
+    recurrence runs ("cuda", "cuda:N" or "cpu"); stream: the CUDA stream
+    its calls go out on (None: one of its own).
+
+    A route call can be put in flight: `launch(reads)` prepares it and
+    enqueues its forward pass on the router's stream, with the LLs' copy
+    to pinned host memory behind it, and returns; `pair_lls` (or
+    `route`) on that same `reads` list later waits on that call's event
+    alone, so the host can launch the next call and work while this one
+    runs. Without a launch, `pair_lls` does the whole call in place.
+    `calls` counts the forward passes, `calls_overlapped` those launched
+    while an earlier call's LLs were still uncollected."""
 
     def __init__(self, references: Sequence[bytes],
-                 params: Optional[np.ndarray] = None, device="cuda"):
+                 params: Optional[np.ndarray] = None, device="cuda",
+                 stream: Optional[torch.cuda.Stream] = None):
         self.references = list(references)
         self.params = params if params is not None else default_hmm_params()
         self.device = torch.device(device)
@@ -245,13 +257,37 @@ class HmmRouter:
         self._refs = torch.from_numpy(refs).to(self.device)
         self._ref_lens = torch.from_numpy(lens).to(self.device)
         self._params = torch.as_tensor(np.asarray(self.params, np.float32))
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = stream if stream is not None \
+                else torch.cuda.Stream(self.device)
+            # the panel's rows were written on the current stream
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        # (reads, candidates, call) of the launched calls not collected yet
+        self._inflight: List[tuple] = []
+        self.calls = 0
+        self.calls_overlapped = 0
 
-    def pair_lls(self, reads: Sequence[bytes],
-                 candidates: Optional[List[List[int]]] = None
-                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(read index, reference index, LL) of every (read, candidate
-        reference) pair, read by read in candidate order (the whole panel
-        without candidates), scored in one hmm_forward_batch call."""
+    def launch(self, reads: Sequence[bytes],
+               candidates: Optional[List[List[int]]] = None) -> None:
+        """Prepare the call on `reads` and enqueue its forward pass without
+        waiting for it; `pair_lls(reads, candidates)` with the same list
+        collects it. A launch error raises here."""
+        with span("router.route"):
+            call = self._start(reads, candidates)
+        self._inflight.append((reads, candidates, call))
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.stream is None:
+            return t
+        # pinned: a copy from pageable memory would hold the host until the
+        # stream's earlier work (the call in flight) is done
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _start(self, reads, candidates):
+        """Enqueue one call: (read index, reference index, the LLs on the
+        host, the event after their copy or None)."""
         n = len(reads)
         R = len(self.references)
         if candidates is None:
@@ -263,23 +299,48 @@ class HmmRouter:
             ref_idx = np.fromiter((r for i in range(n) for r in candidates[i]),
                                   dtype=np.int64, count=sum(counts))
         if not len(read_idx):
-            return read_idx, ref_idx, np.zeros(0, np.float32)
+            return read_idx, ref_idx, torch.zeros(0), None
         read_mat, read_lens = _byte_rows(reads)
-        dev = self.device
-        ri = torch.from_numpy(ref_idx).to(dev)
-        qi = torch.from_numpy(read_idx).to(dev)
-        reads_d = torch.from_numpy(read_mat).to(dev)
-        lens_d = torch.from_numpy(read_lens).to(dev)
-        ll = hmm_forward_batch(
-            self._refs.index_select(0, ri).contiguous(),
-            reads_d.index_select(0, qi).contiguous(),
-            self._ref_lens.index_select(0, ri).contiguous(),
-            lens_d.index_select(0, qi).contiguous(),
-            self._params)
-        # the synchronising copy: the host waits here for the card
+        self.calls_overlapped += bool(self._inflight)
+        self.calls += 1
+        with (torch.cuda.stream(self.stream) if self.stream is not None
+              else contextlib.nullcontext()):
+            ri, qi, reads_d, lens_d = (self._to_device(a) for a in (
+                ref_idx, read_idx, read_mat, read_lens))
+            ll = hmm_forward_batch(
+                self._refs.index_select(0, ri).contiguous(),
+                reads_d.index_select(0, qi).contiguous(),
+                self._ref_lens.index_select(0, ri).contiguous(),
+                lens_d.index_select(0, qi).contiguous(),
+                self._params, stream=self.stream)
+            if self.stream is None:
+                return read_idx, ref_idx, ll, None
+            host = torch.empty(ll.shape, dtype=torch.float32,
+                               pin_memory=True)
+            host.copy_(ll, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return read_idx, ref_idx, host, event
+
+    def pair_lls(self, reads: Sequence[bytes],
+                 candidates: Optional[List[List[int]]] = None
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(read index, reference index, LL) of every (read, candidate
+        reference) pair, read by read in candidate order (the whole panel
+        without candidates), scored in one hmm_forward_batch call: the one
+        `launch` put in flight for this `reads` list, else one made here."""
+        for k, (r, c, call) in enumerate(self._inflight):
+            if r is reads and c is candidates:
+                del self._inflight[k]
+                break
+        else:
+            call = self._start(reads, candidates)
+        read_idx, ref_idx, host, event = call
+        # the host waits here for this call's forward pass and copy
         with span("router.wait"):
-            ll = ll.cpu().numpy()
-        return read_idx, ref_idx, ll
+            if event is not None:
+                event.synchronize()
+        return read_idx, ref_idx, host.numpy()
 
     def route(self, reads: Sequence[bytes],
               candidates: Optional[List[List[int]]] = None

@@ -15,10 +15,11 @@ that a diff between the two reads easily. What differs:
   hand-written kernel) with the kmer router (single reference, kmer vote,
   exhaustive search, screened by the score-only wavefront kernel on the
   wavefront engines) or the pair-HMM router (align/hmm.py, its forward
-  recurrence a hand-written kernel), a full or partial band, the anchored
-  seed-and-extend path for long reads, and a torch.profiler trace
-  (profile_dir), and read_shard: one process's stripe of the read chunks
-  (the multi-process align of parallel/distributed.py).
+  recurrence a hand-written kernel, one route call kept in flight while
+  the reads before it are picked and flushed), a full or partial band,
+  the anchored seed-and-extend path for long reads, and a torch.profiler
+  trace (profile_dir), and read_shard: one process's stripe of the read
+  chunks (the multi-process align of parallel/distributed.py).
 - BatchAligner splits a length bucket into groups whose traceback stays
   within batch.MAX_TRACEBACK_BYTES (the JAX package pads groups up
   instead); outputs do not change.
@@ -180,11 +181,18 @@ class BatchAligner:
     bandwidth: the half-width of a partial band around the f64 band
     centers (perform_affine_alignment_bandwidth, alignment_matrix.rs
     :376-425); each group then sends its [B] widths and [B, n1] centers
-    table. None is the full band."""
+    table. None is the full band.
+
+    pinned_inputs: copy each group's inputs from pinned memory, so that a
+    dispatch does not wait for work queued ahead of it on the stream (the
+    HMM router's forward passes share it in align_reads). Else the copies
+    are pageable, which costs the host less where only this aligner's own
+    kernels are queued."""
 
     def __init__(self, scoring: AffineScoring, batch_size: int = 128,
                  length_quantum: int = 128, special_mode: str = "both",
-                 device="cuda", bandwidth: Optional[int] = None):
+                 device="cuda", bandwidth: Optional[int] = None,
+                 pinned_inputs: bool = False):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -193,6 +201,7 @@ class BatchAligner:
         self.quantum = length_quantum
         self.special_mode = special_mode
         self.bandwidth = bandwidth
+        self.pinned_inputs = pinned_inputs
         self.stream = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
@@ -368,15 +377,20 @@ class BatchAligner:
             return "single", group, refs_arr, reads_arr, T, fused.numpy(), \
                 None
         with torch.cuda.stream(self.stream):
-            fused = self._launch(
-                [torch.from_numpy(a).to(self.device, non_blocking=True)
-                 for a in host_args], n1, n2)
+            fused = self._launch([self._to_device(a) for a in host_args],
+                                 n1, n2)
             host = torch.empty(fused.shape, dtype=torch.uint8,
                                pin_memory=True)
             host.copy_(fused, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.stream)
         return "single", group, refs_arr, reads_arr, T, host, event
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.pinned_inputs:
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _launch(self, args, n1, n2):
         """align_batch on (refs, reads, ref_lens, read_lens[, bandwidth,
@@ -490,14 +504,11 @@ def _align_reads_impl(
     if scoring is None:
         scoring = AffineScoring.hifi_default() if mode == "hifi" \
             else AffineScoring.aligner_default()
-    hmm_router = None
-    if router == "hmm" and len(rm.references) > 1:
-        hmm_router = hmm.HmmRouter(
-            [r.sequence for r in rm.references.values()], device=device)
     stats = AlignStats()
     flush_factor = FLUSH_FACTOR
     max_read_size = (rm.longest_ref + 1) * max_reference_multiplier
     single_ref = len(rm.references) == 1
+    use_hmm = router == "hmm" and not single_ref
 
     if single_ref and not single_ref_native and engine == "dp":
         aligner = BatchAligner(RUST_BIO_COMPAT, batch_size,
@@ -506,7 +517,7 @@ def _align_reads_impl(
         report_zero_score = True   # the reference reports 0.0 here (:579)
     else:
         aligner = BatchAligner(scoring, batch_size, device=device,
-                               bandwidth=bandwidth)
+                               bandwidth=bandwidth, pinned_inputs=use_hmm)
         report_zero_score = False
     dp_fallback = None
     if engine in ("wfa", "convex"):
@@ -516,6 +527,13 @@ def _align_reads_impl(
             model="affine2p" if engine == "convex" else "affine",
             device=device)
     merge_aligner = BatchAligner(MERGE_SCORING, batch_size, device=device)
+    hmm_router = None
+    if use_hmm:
+        # on the aligner's stream: a flush's DP kernels queue behind the
+        # route call launched before it instead of sharing the card with it
+        hmm_router = hmm.HmmRouter(
+            [r.sequence for r in rm.references.values()], device=device,
+            stream=aligner.stream)
     launches0 = (dp_kernels.align_launches,
                  dict(dp_kernels.fill_mode_launches),
                  hmm.hmm_forward_launches, wfa_kernels.wfa_align_launches,
@@ -825,16 +843,31 @@ def _align_reads_impl(
             stats.aligned += len(exh_pending)
             exh_pending.clear()
 
+        # the route call in flight: (its reads, their sequences)
+        route_inflight: List[Tuple[list, List[bytes]]] = []
+
         def flush_routes():
+            """Launch the batched reads' route call, then collect the call
+            before it: its forward pass ran while this thread parsed and
+            prepared, and this call's runs while it picks and flushes."""
             if not route_pending:
                 return
-            routed = hmm_router.route([seq for _n, seq, _q in route_pending])
-            for (name, seq, quals), (ref_id, _ll) in zip(route_pending, routed):
+            seqs = [seq for _n, seq, _q in route_pending]
+            hmm_router.launch(seqs)
+            collect_routes()
+            route_inflight.append((list(route_pending), seqs))
+            route_pending.clear()
+
+        def collect_routes():
+            if not route_inflight:
+                return
+            batch, seqs = route_inflight.pop()
+            routed = hmm_router.route(seqs)
+            for (name, seq, quals), (ref_id, _ll) in zip(batch, routed):
                 if ref_id < 0:
                     stats.failed += 1
                     continue
                 pending.append(_Pending(name, seq, quals, ref_id))
-            route_pending.clear()
             if len(pending) >= batch_size * flush_factor:
                 flush(pending)
                 pending.clear()
@@ -953,6 +986,7 @@ def _align_reads_impl(
             flush_merges()
             if hmm_router is not None:
                 flush_routes()
+                collect_routes()
             flush_exhaustive()
             flush(pending)
         with span("align.join"):
@@ -1040,6 +1074,11 @@ def _align_reads_impl(
                     "wfa_mid": wfa_kernels.wfa_mid_launches
                     - launches0[5]},
                 "router": "hmm" if hmm_router is not None else "kmer",
+                # the router's forward passes, and those launched while the
+                # call before was still in flight
+                "route_calls": hmm_router.calls if hmm_router else 0,
+                "route_calls_overlapped": hmm_router.calls_overlapped
+                if hmm_router else 0,
                 "bandwidth": bandwidth,
                 # the anchored path: its reads, their inter-anchor sub-DPs,
                 # the DP cells those filled and its aligner's device wait

@@ -322,6 +322,148 @@ def test_hmm_router_over_several_references_matches_jax(tmp_path):
     assert _inflate_bgzf(out_t) == _inflate_bgzf(out_j)
 
 
+def _guide_panel(tmp_path, n_refs, n_reads, seed=2121):
+    """A guide-library panel: n_refs references one 20 bp guide apart on a
+    60 bp backbone, then a 10 bp UMI; n_reads reads dealt round the panel
+    at 5% substitutions, every 16th cut to 40 bp (dropped as short)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    backbone = rng.choice(bases, 60)
+    cores = []
+    for _ in range(n_refs):
+        core = backbone.copy()
+        core[20:40] = rng.choice(bases, 20)
+        cores.append(core)
+    umi = """    umi_configurations:
+      umi: {symbol: '0', sort_type: "DegenerateTag", length: 10, order: 0, max_distance: 2}"""
+    refs_yaml = "\n".join(f"""  guide{i}:
+    sequence: "{core.tobytes().decode()}{'0' * 10}"
+    targets: []
+    target_types: []
+{umi}""" for i, core in enumerate(cores))
+    layout_path = tmp_path / "panel.yaml"
+    layout_path.write_text(f"""
+known_strand: true
+reads:
+  - !Read1
+    orientation: Forward
+references:
+{refs_yaml}
+""")
+    fq = tmp_path / "panel.fastq"
+    with open(fq, "w") as fh:
+        for i in range(n_reads):
+            read = np.concatenate([cores[i % n_refs], rng.choice(bases, 10)])
+            subs = rng.random(len(read)) < 0.05
+            read[subs] = rng.choice(bases, int(subs.sum()))
+            seq = read.tobytes().decode()[:40 if i % 16 == 15 else None]
+            fh.write(f"@g{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    return (*load_layout(layout_path), str(fq))
+
+
+def test_hmm_route_calls_in_flight_equal_routing_each_read_alone(
+        tmp_path, monkeypatch):
+    """176 reads at batch 8 over five references: six route calls of 32
+    reads (the last of 5), each launched before the one before it is
+    picked. The same stats and SAM bytes as the kmer path with each read
+    sent to the reference that HmmRouter.route picks for it alone."""
+    from clique_tpu_torch.align import hmm, pipeline
+
+    layout, rm, fq = _guide_panel(tmp_path, 5, 176)
+    out = tmp_path / "inflight.sam"
+    stats = align_reads(layout, rm, str(out), read1=fq, batch_size=8,
+                        router="hmm", device="cpu")
+    router = hmm.HmmRouter([r.sequence for r in rm.references.values()],
+                           device="cpu")
+    monkeypatch.setattr(pipeline, "_choose_reference",
+                        lambda _rm, _layout, seq, _t:
+                        router.route([seq])[0][0])
+    alone = tmp_path / "alone.sam"
+    stats_alone = align_reads(layout, rm, str(alone), read1=fq,
+                              batch_size=8, device="cpu")
+    assert router.calls == 165
+    assert dataclasses.asdict(stats) == dataclasses.asdict(stats_alone)
+    assert (stats.aligned, stats.dropped_short) == (165, 11)
+    assert out.read_bytes() == alone.read_bytes()
+
+
+@pytest.mark.parametrize("n_reads,calls", [(176, 6), (24, 1)])
+def test_hmm_route_calls_pass_pair_lls_in_input_order(tmp_path, monkeypatch,
+                                                      n_reads, calls):
+    """A tap on HmmRouter.pair_lls with the benchmark's signature sees
+    every routed read once, in input order, with an LL per reference; the
+    metrics count the route calls, all but the first launched while the
+    one before was in flight."""
+    import json
+
+    from clique_tpu_torch.align import hmm
+
+    layout, rm, fq = _guide_panel(tmp_path, 5, n_reads)
+    real = hmm.HmmRouter.pair_lls
+    taps = []
+
+    def tapped(self, reads, candidates=None):
+        out = real(self, reads, candidates)
+        taps.append((reads, candidates, out[2]))
+        return out
+
+    monkeypatch.setattr(hmm.HmmRouter, "pair_lls", tapped)
+    mpath = tmp_path / "m.json"
+    stats = align_reads(layout, rm, str(tmp_path / "t.sam"), read1=fq,
+                        batch_size=8, router="hmm", device="cpu",
+                        metrics_path=str(mpath))
+    with open(fq) as fh:
+        seqs = [ln.strip().encode() for k, ln in enumerate(fh) if k % 4 == 1]
+    routed = [s for s in seqs if len(s) >= 50]
+    assert [r for reads, _c, _ll in taps for r in reads] == routed
+    assert all(c is None and np.asarray(ll).shape == (5 * len(reads),)
+               for reads, c, ll in taps)
+    assert len(taps) == calls and stats.aligned == len(routed)
+    m = json.loads(mpath.read_text())
+    assert (m["route_calls"], m["route_calls_overlapped"]) == \
+        (calls, calls - 1)
+
+
+class _FaultyEvent:
+    def synchronize(self):
+        raise RuntimeError("planted kernel fault")
+
+
+@pytest.mark.parametrize("where", ["launch", "collect"])
+def test_hmm_route_call_error_surfaces_from_align_reads(tmp_path,
+                                                        monkeypatch, where):
+    """The third of six route calls fails: as its launch raises, or as its
+    forward pass fails while in flight and the wait on it raises (a
+    kernel fault on the card). Either error leaves align_reads."""
+    from clique_tpu_torch.align import hmm
+
+    layout, rm, fq = _guide_panel(tmp_path, 5, 176)
+    n = [0]
+    if where == "launch":
+        real = hmm.hmm_forward_batch
+
+        def forward(*args, **kwargs):
+            n[0] += 1
+            if n[0] == 3:
+                raise RuntimeError("planted launch fault")
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(hmm, "hmm_forward_batch", forward)
+    else:
+        real = hmm.HmmRouter._start
+
+        def start(self, reads, candidates):
+            n[0] += 1
+            call = real(self, reads, candidates)
+            return call[:3] + (_FaultyEvent(),) if n[0] == 3 else call
+
+        monkeypatch.setattr(hmm.HmmRouter, "_start", start)
+    with pytest.raises(RuntimeError, match=f"planted "):
+        align_reads(layout, rm, str(tmp_path / "t.sam"), read1=fq,
+                    batch_size=8, router="hmm", device="cpu")
+    assert n[0] == 3 if where == "launch" else n[0] >= 3
+
+
 def test_cli_align_router_hmm_two_references(tmp_path):
     """`align --router hmm` on a two-reference layout exits 0 and writes
     the library call's bytes."""

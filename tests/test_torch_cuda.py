@@ -854,6 +854,50 @@ def test_align_router_hmm_on_cuda_equals_cpu(cuda, tmp_path):
     assert outs["cuda"] == outs["cpu"]
 
 
+def test_hmm_route_calls_in_flight_on_cuda(cuda, tmp_path):
+    """A 20-reference guide panel through align_reads(router="hmm") at
+    batch 16: four route calls, each launched while the one before was in
+    flight, and the CPU's BAM. Then two calls in flight on the router's
+    stream: collecting the first returns while the second's forward pass
+    still runs, with the LLs of each call made alone."""
+    import json
+
+    from test_torch_align_pipeline import _guide_panel, _inflate_bgzf
+
+    from clique_tpu_torch.align import hmm as thmm
+    from clique_tpu_torch.align.pipeline import align_reads
+
+    layout, rm, fq = _guide_panel(tmp_path, 20, 240)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.bam")
+        mpath = tmp_path / f"{device}.json"
+        align_reads(layout, rm, out, read1=fq, batch_size=16, router="hmm",
+                    device=device, metrics_path=str(mpath))
+        m = json.loads(mpath.read_text())
+        assert (m["route_calls"], m["route_calls_overlapped"]) == (4, 3)
+        outs[device] = _inflate_bgzf(out)
+    assert outs["cuda"] == outs["cpu"]
+
+    refs = [r.sequence for r in rm.references.values()]
+    rng = np.random.default_rng(5)
+    reads = [rng.choice(np.frombuffer(b"ACGT", np.uint8), 150).tobytes()
+             for _ in range(16384)]
+    first, second = reads[:1024], reads
+    router = thmm.HmmRouter(refs, device="cuda")
+    want = [router.pair_lls(r)[2].copy() for r in (first, second)]
+    router.launch(first)
+    router.launch(second)
+    second_done = router._inflight[1][2][3]
+    got_first = router.pair_lls(first)[2]
+    assert not second_done.query()
+    got_second = router.pair_lls(second)[2]
+    assert second_done.query()
+    assert (router.calls, router.calls_overlapped) == (4, 1)
+    assert np.array_equal(got_first, want[0])
+    assert np.array_equal(got_second, want[1])
+
+
 def test_collapse_workers_on_cuda(cuda, tmp_path):
     """collapse with two workers on the card: the pin's bytes, the
     corrections launched in the main process, no worker with CUDA."""

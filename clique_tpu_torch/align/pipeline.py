@@ -1044,8 +1044,10 @@ def _align_reads_impl(
                 "phase_walls": _phase_walls(spans),
                 # per span name: count, seconds, self seconds
                 "spans": spans,
+                # views of the wavefront engine's spans (_WFA_PHASE_SPANS)
                 "wfa_phase_seconds": {
-                    k: round(v, 3) for k, v in aligner.phase_seconds.items()}
+                    key: round(spans[name]["s"], 3) if name in spans else 0.0
+                    for key, name in _WFA_PHASE_SPANS}
                 if isinstance(aligner, WfaAligner) else None,
                 # reads of the exhaustive search that the wavefront screen
                 # ranked (the score-only kernel's reads)
@@ -1079,6 +1081,13 @@ def _align_reads_impl(
                 "route_calls": hmm_router.calls if hmm_router else 0,
                 "route_calls_overlapped": hmm_router.calls_overlapped
                 if hmm_router else 0,
+                # the wavefront engine's lanes launched on its rung ladder
+                # and those of them censored, the bialign engine's split
+                # levels and the segments it sent to leaf chunks
+                **{f"wfa_{k}": getattr(aligner, k)
+                   if isinstance(aligner, WfaAligner) else None
+                   for k in ("rung_lanes", "rung_lanes_censored",
+                             "mid_levels", "leaf_pairs")},
                 "bandwidth": bandwidth,
                 # the anchored path: its reads, their inter-anchor sub-DPs,
                 # the DP cells those filled and its aligner's device wait
@@ -1108,6 +1117,15 @@ _PHASE_SPANS = (("reader_wall", "align.read", False),
                 ("build_busy", "align.build", True),
                 ("write_busy", "align.write", False),
                 ("sink_busy", "align.sink", False))
+
+
+# wfa_phase_seconds' keys and the spans they read: dispatch = host prep and
+# kernel enqueue; score_sync = waits for a chunk's results; window_pull =
+# skeleton decode; host_walk = CIGAR replay on the host; bialign = the
+# bialign engine's runs, splits and leaves
+_WFA_PHASE_SPANS = (("dispatch", "wfa.round"), ("score_sync", "wfa.wait"),
+                    ("window_pull", "wfa.decode"),
+                    ("host_walk", "wfa.replay"), ("bialign", "wfa.bialign"))
 
 
 def _phase_walls(spans: Dict[str, Dict[str, float]]) -> Dict[str, float]:

@@ -39,6 +39,7 @@ import torch
 
 from clique_tpu_torch.align import wfa_kernels
 from clique_tpu_torch.align.wfa_kernels import MID_ENC
+from clique_tpu_torch.utils.trace import span
 
 
 def _wild(c: int) -> bool:
@@ -480,13 +481,10 @@ class WfaAligner:
         self.fallbacks = 0
         self.bialign_pairs = 0          # pairs finished by the bialign engine
         self.dispatches = 0             # wfa_align launches (or plain runs)
-        # per-phase wall: dispatch = host prep + kernel enqueue;
-        # score_sync = waits for a chunk's results; window_pull = skeleton
-        # decode; host_walk = CIGAR replay on the host; bialign = the
-        # bialign engine's runs, splits and leaves
-        self.phase_seconds = {"dispatch": 0.0, "score_sync": 0.0,
-                              "window_pull": 0.0, "host_walk": 0.0,
-                              "bialign": 0.0}
+        self.rung_lanes = 0             # lanes launched on the rung ladder
+        self.rung_lanes_censored = 0    # of them, lanes censored there
+        self.mid_levels = 0             # the bialign engine's split levels
+        self.leaf_pairs = 0             # segments sent to its leaf chunks
 
     def _kmax(self, L: int, smax: int, kband: Optional[int]) -> int:
         """The kernel's diagonal half-width for [B, L] rows at smax."""
@@ -566,7 +564,16 @@ class WfaAligner:
     def align_pairs(self, refs, reads):
         """Per retry round, every chunk of every length bucket of a wave is
         dispatched before any result is waited for; then each chunk's
-        skeletons are decoded and its CIGARs replayed on the host."""
+        skeletons are decoded and its CIGARs replayed on the host.
+
+        Spans: `wfa.align_pairs` the call; inside it `wfa.round` a wave of a
+        rung round's dispatches, `wfa.wait` a chunk's wait for its results,
+        `wfa.walk` its skeleton decode (`wfa.decode`) and CIGAR replay
+        (`wfa.replay`), and `wfa.bialign` the bialign engine's run."""
+        with span("wfa.align_pairs"):
+            return self._align_pairs(refs, reads)
+
+    def _align_pairs(self, refs, reads):
         results = [None] * len(refs)
         t0 = time.time()
         fallback: list = []
@@ -625,43 +632,30 @@ class WfaAligner:
             censored: dict = {}        # (L, smax) -> [indices]
             pos = 0
             while pos < len(chunks):
-                t_a = time.time()
                 disp = []
                 used = 0
-                while pos < len(chunks):
-                    L, smax, chunk, kband, adaptive, cap = chunks[pos]
-                    nbytes = self._chunk_bytes(cap, L, smax, kband)
-                    if disp and used + nbytes > wave_budget:
-                        break
-                    used += nbytes
-                    pos += 1
-                    a, b, la, lb = _pad_pairs(
-                        [refs[k] for k in chunk], [reads[k] for k in chunk],
-                        len(chunk), L)
-                    disp.append((chunk, L, smax, self._dispatch(
-                        a, b, la, lb, L=L, smax=smax, kband=kband,
-                        adaptive=adaptive)))
-                self.phase_seconds["dispatch"] += time.time() - t_a
+                with span("wfa.round"):
+                    while pos < len(chunks):
+                        L, smax, chunk, kband, adaptive, cap = chunks[pos]
+                        nbytes = self._chunk_bytes(cap, L, smax, kband)
+                        if disp and used + nbytes > wave_budget:
+                            break
+                        used += nbytes
+                        pos += 1
+                        a, b, la, lb = _pad_pairs(
+                            [refs[k] for k in chunk],
+                            [reads[k] for k in chunk], len(chunk), L)
+                        disp.append((chunk, L, smax, self._dispatch(
+                            a, b, la, lb, L=L, smax=smax, kband=kband,
+                            adaptive=adaptive)))
+                        self.rung_lanes += len(chunk)
                 for (chunk, L, smax, launch) in disp:
-                    t_c = time.time()
-                    sc, ops_np, fin_np = launch.wait()
-                    self.phase_seconds["score_sync"] += time.time() - t_c
-                    t_d = time.time()
-                    skeletons = self._decode_walk(ops_np, fin_np, len(chunk))
-                    self.phase_seconds["window_pull"] += time.time() - t_d
-                    t_w = time.time()
-                    miss = censored.setdefault((L, smax), [])
-                    for j, k in enumerate(chunk):
-                        if skeletons[j] is None:
-                            miss.append(k)
-                            continue
-                        cig = wfa_replay_cigar(refs[k], reads[k],
-                                               skeletons[j],
-                                               wildcards=self.wildcards)
-                        ra, da = cigar_to_aligned(refs[k], reads[k], cig)
-                        results[k] = (ra, da, cig, -float(sc[j]))
-                        self.cells_filled += len(refs[k]) * len(reads[k])
-                    self.phase_seconds["host_walk"] += time.time() - t_w
+                    with span("wfa.wait"):
+                        sc, ops_np, fin_np = launch.wait()
+                    with span("wfa.walk"):
+                        self._walk_chunk(chunk, sc, ops_np, fin_np, refs,
+                                         reads, results,
+                                         censored.setdefault((L, smax), []))
                 del disp
             # next round: censored pairs retry at 2x the ceiling, without
             # the heuristic band and trim
@@ -687,20 +681,38 @@ class WfaAligner:
             self._dp_fallback_fill(fallback, refs, reads, results)
         return results
 
+    def _walk_chunk(self, chunk, sc, ops_np, fin_np, refs, reads, results,
+                    miss):
+        """A rung chunk's results: each lane's skeleton decoded and its
+        CIGAR replayed into `results`; censored lanes appended to
+        `miss`."""
+        with span("wfa.decode"):
+            skeletons = self._decode_walk(ops_np, fin_np, len(chunk))
+        with span("wfa.replay"):
+            for j, k in enumerate(chunk):
+                if skeletons[j] is None:
+                    miss.append(k)
+                    self.rung_lanes_censored += 1
+                    continue
+                cig = wfa_replay_cigar(refs[k], reads[k], skeletons[j],
+                                       wildcards=self.wildcards)
+                ra, da = cigar_to_aligned(refs[k], reads[k], cig)
+                results[k] = (ra, da, cig, -float(sc[j]))
+                self.cells_filled += len(refs[k]) * len(reads[k])
+
     def _bialign_fill(self, idxs, refs, reads, results):
         """The pairs idxs on the bialign engine (wavefront.py:2031-2039,
         :2117-2125): score the negated penalty."""
-        t0 = time.time()
-        outs = wfa_bialign_affine_pairs(
-            [refs[k] for k in idxs], [reads[k] for k in idxs], x=self.x,
-            o=self.o, e=self.e, wildcards=self.wildcards,
-            device=self.device)
-        for k, (pen, cig) in zip(idxs, outs):
-            ra, da = cigar_to_aligned(refs[k], reads[k], cig)
-            results[k] = (ra, da, cig, -float(pen))
-            self.cells_filled += len(refs[k]) * len(reads[k])
+        with span("wfa.bialign"):
+            outs = wfa_bialign_affine_pairs(
+                [refs[k] for k in idxs], [reads[k] for k in idxs], x=self.x,
+                o=self.o, e=self.e, wildcards=self.wildcards,
+                device=self.device, stats=self)
+            for k, (pen, cig) in zip(idxs, outs):
+                ra, da = cigar_to_aligned(refs[k], reads[k], cig)
+                results[k] = (ra, da, cig, -float(pen))
+                self.cells_filled += len(refs[k]) * len(reads[k])
         self.bialign_pairs += len(idxs)
-        self.phase_seconds["bialign"] += time.time() - t0
 
     def _dp_fallback_fill(self, remaining, refs, reads, results):
         """Pairs beyond the WFA score cap. affine2p pairs rerun the affine2p
@@ -799,12 +811,15 @@ def _mid_split_batch(pairs, *, x: int, o: int, e: int, wildcards: bool,
     smax = min(s0, hard)
     dev = _device(device)
     while pending:
-        host = _pad_pairs([pairs[i][0] for i in pending],
-                          [pairs[i][1] for i in pending], len(pending), L)
-        pen, pay = wfa_kernels.wfa_mid(
-            *(torch.from_numpy(t).to(dev) for t in host), smax=smax, x=x,
-            o=o, e=e, wildcards=wildcards)
-        pen, pay = pen.cpu().numpy(), pay.cpu().numpy()
+        with span("wfa.mid"):
+            host = _pad_pairs([pairs[i][0] for i in pending],
+                              [pairs[i][1] for i in pending], len(pending),
+                              L)
+            pen, pay = wfa_kernels.wfa_mid(
+                *(torch.from_numpy(t).to(dev) for t in host), smax=smax,
+                x=x, o=o, e=e, wildcards=wildcards)
+        with span("wfa.mid_wait"):
+            pen, pay = pen.cpu().numpy(), pay.cpu().numpy()
         still = []
         for i, idx in enumerate(pending):
             if pen[i] <= smax and pay[i] >= 0:
@@ -822,7 +837,7 @@ def _mid_split_batch(pairs, *, x: int, o: int, e: int, wildcards: bool,
 def wfa_bialign_affine_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
                              e: int = 2, wildcards: bool = False,
                              leaf: int = 512, s0: Optional[int] = None,
-                             device="cuda"):
+                             device="cuda", stats=None):
     """O(s)-memory batched gap-affine alignment with traceback, the JAX
     package's bialign engine (wavefront.py:1431-1527; WFA2-lib's
     wavefront_bialign.o). Each level runs one midpoint sweep
@@ -834,7 +849,11 @@ def wfa_bialign_affine_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
     at its full length.
 
     Returns [(penalty, cigar)] per pair: cigars merge adjacent runs, and
-    the penalty is the top-level midpoint fill's optimum."""
+    the penalty is the top-level midpoint fill's optimum. `stats`, where
+    given, counts the split levels on its `mid_levels` and the segments
+    sent to leaf chunks on its `leaf_pairs`. Spans: `wfa.mid` a level's
+    rung launch and `wfa.mid_wait` its copy back (_mid_split_batch),
+    `wfa.leaves` a leaf chunk."""
     n = len(pairs_a)
     results: list = [None] * n
     top_pen = [None] * n
@@ -855,6 +874,8 @@ def wfa_bialign_affine_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
                 split_jobs.append(seg)
         if not split_jobs:
             break
+        if stats is not None:
+            stats.mid_levels += 1
         outs = _mid_split_batch([(s[2], s[3]) for s in split_jobs],
                                 x=x, o=o, e=e, wildcards=wildcards, s0=s0,
                                 device=device)
@@ -886,10 +907,13 @@ def wfa_bialign_affine_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
     # chunked leaf batches: the direct kernel's op store is O(smax*B*K)
     for lo in range(0, len(tb_jobs), 64):
         sl_jobs = tb_jobs[lo:lo + 64]
-        outs = wfa_affine_align_pairs([j[2] for j in sl_jobs],
-                                      [j[3] for j in sl_jobs],
-                                      x=x, o=o, e=e, wildcards=wildcards,
-                                      device=device)
+        with span("wfa.leaves"):
+            outs = wfa_affine_align_pairs([j[2] for j in sl_jobs],
+                                          [j[3] for j in sl_jobs],
+                                          x=x, o=o, e=e, wildcards=wildcards,
+                                          device=device)
+        if stats is not None:
+            stats.leaf_pairs += len(sl_jobs)
         for (i, path, a, b), (pen, cig) in zip(sl_jobs, outs):
             if cig is None:  # unreachable: full-bound smax never censors
                 raise RuntimeError("bialign leaf censored at full bound")

@@ -24,6 +24,8 @@ from clique_tpu_torch.reference.manager import ReferenceManager
 
 from test_torch_align_pipeline import (_golden_inputs, _inflate_bgzf,
                                        _load_make_golden)
+from test_torch_wfa_ont import BUDGET as WFA_BUDGET
+from test_torch_wfa_ont import ont_run
 
 # the spans of the dp engine's align path, the sink's and the router's
 ALIGN_SPANS = {"align.run", "align.read", "align.flush", "align.drain_put",
@@ -34,6 +36,17 @@ ROUTER_SPANS = {"router.route", "router.wait"}
 COLLAPSE_SPANS = {"collapse.level", "collapse.outputs", "collapse.group_sort",
                   "collapse.consensus", "collapse.records",
                   "collapse.encode_join"}
+# the wavefront engine's spans: its call, the rung ladder's rounds, waits
+# and walks (a decode and a replay each), and the bialign engine with its
+# levels and leaf chunks
+WFA_SPANS = {"wfa.align_pairs", "wfa.round", "wfa.wait", "wfa.walk",
+             "wfa.decode", "wfa.replay", "wfa.bialign", "wfa.mid",
+             "wfa.mid_wait", "wfa.leaves"}
+WFA_PARENTS = {"wfa.round": "wfa.align_pairs", "wfa.wait": "wfa.align_pairs",
+               "wfa.walk": "wfa.align_pairs", "wfa.decode": "wfa.walk",
+               "wfa.replay": "wfa.walk",
+               "wfa.bialign": "wfa.align_pairs", "wfa.mid": "wfa.bialign",
+               "wfa.mid_wait": "wfa.bialign", "wfa.leaves": "wfa.bialign"}
 PHASE_WALLS = {"reader_wall", "flush_wall", "drain_wall", "tail_wall",
                "join_wall", "drain_busy", "build_busy", "write_busy"}
 
@@ -261,6 +274,69 @@ def test_bam_equal_with_and_without_a_profiler(golden):
                     device="cpu")
     assert _inflate_bgzf(traced) == _inflate_bgzf(plain) == \
         _inflate_bgzf(os.path.join(gd, "aligned.bam"))
+
+
+def test_wfa_engine_writes_its_spans_and_counters(tmp_path, monkeypatch):
+    """align_reads(engine="wfa") with reads past the rungs the op-store
+    budget allows: the wavefront spans, self time as the nesting gives
+    it, the four counters, and wfa_phase_seconds as views of the spans."""
+    monkeypatch.setenv("CLIQUE_WFA_MEM_BUDGET", str(WFA_BUDGET))
+    _ref, reads, _out, m = ont_run(str(tmp_path))
+    spans = m["spans"]
+    assert WFA_SPANS <= set(spans)
+    assert spans["wfa.align_pairs"]["n"] == spans["wfa.bialign"]["n"] == 1
+    # two rounds of one chunk each (the 256 and 512 rungs)
+    assert spans["wfa.round"]["n"] == spans["wfa.wait"]["n"] == \
+        spans["wfa.walk"]["n"] == spans["wfa.decode"]["n"] == \
+        spans["wfa.replay"]["n"] == 2
+    assert spans["wfa.walk"]["self_s"] == pytest.approx(
+        spans["wfa.walk"]["s"] - spans["wfa.decode"]["s"]
+        - spans["wfa.replay"]["s"], abs=1e-5)
+    assert spans["wfa.mid"]["n"] == spans["wfa.mid_wait"]["n"] >= \
+        m["wfa_mid_levels"] >= 1
+    assert spans["wfa.leaves"]["n"] == -(-m["wfa_leaf_pairs"] // 64)
+    kids = sum(spans[k]["s"] for k in ("wfa.mid", "wfa.mid_wait",
+                                        "wfa.leaves"))
+    assert spans["wfa.bialign"]["self_s"] == pytest.approx(
+        spans["wfa.bialign"]["s"] - kids, abs=1e-5)
+    kids = sum(spans[k]["s"] for k in ("wfa.round", "wfa.wait", "wfa.walk",
+                                        "wfa.bialign"))
+    assert spans["wfa.align_pairs"]["self_s"] == pytest.approx(
+        spans["wfa.align_pairs"]["s"] - kids, abs=1e-5)
+    assert spans["align.flush"]["s"] >= spans["wfa.align_pairs"]["s"]
+    assert m["wfa_rung_lanes"] == m["wfa_rung_lanes_censored"] == \
+        2 * len(reads)
+    assert m["wfa_leaf_pairs"] >= 2 * len(reads)
+    assert m["wfa_phase_seconds"] == {
+        key: round(spans[name]["s"], 3) for key, name in (
+            ("dispatch", "wfa.round"), ("score_sync", "wfa.wait"),
+            ("window_pull", "wfa.decode"), ("host_walk", "wfa.replay"),
+            ("bialign", "wfa.bialign"))}
+
+
+def test_wfa_spans_nest_as_profiler_ranges(tmp_path, monkeypatch):
+    """Under a profiler the wavefront spans are ranges, each inside its
+    parent's, and the BAM is the bytes of the run without one."""
+    monkeypatch.setenv("CLIQUE_WFA_MEM_BUDGET", str(WFA_BUDGET))
+    (tmp_path / "plain").mkdir()
+    (tmp_path / "traced").mkdir()
+    _r, _q, plain, _m = ont_run(str(tmp_path / "plain"))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _r, _q, traced, _m = ont_run(str(tmp_path / "traced"))
+    assert _inflate_bgzf(traced) == _inflate_bgzf(plain)
+    ranges = {}
+    # the profiler's raw events: its event list of the plain fills' ~10^6
+    # operations takes minutes to build
+    for k in prof.profiler.kineto_results.events():
+        if k.name() in WFA_SPANS:
+            ranges.setdefault(k.name(), []).append(
+                (k.start_ns(), k.start_ns() + k.duration_ns()))
+    assert set(ranges) == WFA_SPANS
+    for child, parent in WFA_PARENTS.items():
+        for s, t in ranges[child]:
+            assert any(ps <= s and t <= pt for ps, pt in ranges[parent]), \
+                (child, parent)
 
 
 def test_run_chain_writes_align_and_collapse_spans(golden):

@@ -3189,16 +3189,24 @@ def _wfa_check(label, args, kw, traceback, reps=20):
     B, n1 = args[0].shape
     model = kw.get("model", "affine")
     if traceback:
-        pen, ops, fwd, fin = wk.wfa_align(*args, **kw)
+        pen, ops, fwd, fin, runs = wk.wfa_align(*args, **kw)
         p_pen, p_ops = wk.wfa_fill_reference(*args, **kw)
         walk_kw = {k: kw[k] for k in ("model", "x", "o", "e", "o2", "e2")
                    if k in kw}
         p_fwd, p_fin = wk.wfa_walk_reference(p_ops, p_pen, args[2] - args[3],
                                              **walk_kw)
+        p_runs = wk.wfa_runs_reference(
+            *args, p_fwd, p_fin, width=runs.shape[1],
+            wildcards=kw.get("wildcards", False))
+        # each walked lane's words up to its 0; the rest are not defined
+        upto = torch.arange(runs.shape[1], device=runs.device)[None, :] <= \
+            torch.where(p_fin[:, None] == -1,
+                        (p_runs == 0).int().argmax(1, keepdim=True), 0)
         rows = torch.arange(kw["smax"] + 1,
                             device=pen.device)[:, None] <= p_pen[None]
         same = (torch.equal(pen, p_pen) and torch.equal(fwd, p_fwd)
                 and torch.equal(fin, p_fin)
+                and bool(((runs == p_runs) | ~upto).all())
                 and bool(((ops == p_ops) | ~rows[:, :, None]).all()))
         err = max(int((pen - p_pen).abs().max()),
                   int((fwd.int() - p_fwd.int()).abs().max()),
@@ -3210,9 +3218,12 @@ def _wfa_check(label, args, kw, traceback, reps=20):
 
         def plain():
             pp, po = wk.wfa_fill_reference(*args, **kw)
-            return wk.wfa_walk_reference(po, pp, args[2] - args[3],
-                                         **walk_kw)
-        what = "penalties, op-store rows, skeletons and end rows"
+            pf, pn = wk.wfa_walk_reference(po, pp, args[2] - args[3],
+                                           **walk_kw)
+            return wk.wfa_runs_reference(
+                *args, pf, pn, width=runs.shape[1],
+                wildcards=kw.get("wildcards", False))
+        what = "penalties, op-store rows, skeletons, end rows and runs"
     else:
         pen = wk.wfa_score(*args, **kw)
         p_pen = wk.wfa_fill_reference(*args, traceback=False, **kw)[0]

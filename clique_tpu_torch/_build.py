@@ -189,7 +189,7 @@ def load() -> ctypes.CDLL:
                                            vp]
         lib.clique_wfa_align.restype = ci
         lib.clique_wfa_align.argtypes = [vp, ci, vp, ci, vp, vp] + \
-            [ci] * 18 + [ll] + [vp] * 6
+            [ci] * 18 + [ll] + [vp] * 6 + [ci, vp]
         lib.clique_wfa_score.restype = ci
         lib.clique_wfa_score.argtypes = [vp, ci, vp, ci, vp, vp] + \
             [ci] * 18 + [ll] + [vp] * 3

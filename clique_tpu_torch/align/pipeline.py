@@ -1083,11 +1083,14 @@ def _align_reads_impl(
                 if hmm_router else 0,
                 # the wavefront engine's lanes launched on its rung ladder
                 # and those of them censored, the bialign engine's split
-                # levels and the segments it sent to leaf chunks
+                # levels and the segments it sent to leaf chunks, and the
+                # CIGARs of its wfa_align lanes built on the card or by the
+                # plain host replay
                 **{f"wfa_{k}": getattr(aligner, k)
                    if isinstance(aligner, WfaAligner) else None
                    for k in ("rung_lanes", "rung_lanes_censored",
-                             "mid_levels", "leaf_pairs")},
+                             "mid_levels", "leaf_pairs", "cigars_from_card",
+                             "cigars_replayed")},
                 "bandwidth": bandwidth,
                 # the anchored path: its reads, their inter-anchor sub-DPs,
                 # the DP cells those filled and its aligner's device wait

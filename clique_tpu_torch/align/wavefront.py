@@ -15,9 +15,10 @@ the host side:
 - `WfaAligner`, the JAX class with an explicit device: the same length
   buckets, penalty-aware ceilings, chunk caps, waves, 2x escalation and
   fallbacks, so every pair takes the same route and gets the same CIGAR
-  and score. Each chunk is one `wfa_align` launch whose walk runs on the
-  card after the fill; only the penalties, skeletons and end rows come
-  back to the host;
+  and score. Each chunk is one `wfa_align` launch whose walk and CIGAR
+  replay run on the card after the fill; only the penalties, end rows and
+  run words come back to the host (`_decode_runs` makes the CIGAR lists;
+  on the CPU the plain version's runs come from `wfa_replay_cigar`);
 - the bialign engine, `wfa_bialign_affine_pairs` over `_mid_split_batch`
   (one `wfa_mid` launch a rung of a split level), for the pairs whose op
   store would pass the memory budget, as in the JAX class;
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from clique_tpu_torch.align import wfa_kernels
-from clique_tpu_torch.align.wfa_kernels import MID_ENC
+from clique_tpu_torch.align.wfa_kernels import MID_ENC, RUN_FAULT, RUN_OPS
 from clique_tpu_torch.utils.trace import span
 
 
@@ -398,19 +399,61 @@ def _ceil_pow2(n: int, lo: int = 32) -> int:
     return b
 
 
+def _decode_runs(runs_np, fin_np, lens) -> list:
+    """The CIGARs [(count, op)] of the first len(lens) lanes of a
+    wfa_align launch from its run words and end rows (None where
+    censored), lens their (l1, l2). Raises RuntimeError where a walk did
+    not converge, and wfa_replay_cigar's ValueError where a replay did not
+    end at (l1, l2). One pass of numpy over the rows, then one list of
+    (count, op) pairs cut into the lanes' CIGARs: no loop over ops."""
+    n = len(lens)
+    fins = fin_np[:n].tolist()
+    rows = runs_np[:n]
+    # each walked lane's words up to its 0; none of the others'
+    ends = np.where(fin_np[:n] == -1, (rows == 0).argmax(1), 0)
+    for b, f in enumerate(fins):
+        if f not in (-1, -2):
+            raise RuntimeError(f"wfa device walk failed to converge (lane "
+                               f"{b}, fin={f})")
+        if ends[b] and rows[b, 0] & 3 == RUN_FAULT:
+            raise ValueError(
+                f"wfa replay did not consume both sequences: "
+                f"({rows[b, 0] >> 2},{rows[b, 1] >> 2}) vs "
+                f"({lens[b][0]},{lens[b][1]})")
+    flat = rows[np.arange(rows.shape[1])[None, :] < ends[:, None]]
+    runs = list(zip((flat >> 2).tolist(),
+                    map(RUN_OPS.__getitem__, (flat & 3).tolist())))
+    out, lo = [], 0
+    for f, k in zip(fins, ends.tolist()):
+        out.append(runs[lo:lo + k] if f == -1 else None)
+        lo += k
+    return out
+
+
+def _tally_cigars(stats, dev, n: int) -> None:
+    """Count n CIGARs that came from wfa_align's runs on `stats`: built on
+    the card where dev is a CUDA device, else by the plain replay."""
+    if stats is None:
+        return
+    if dev.type == "cuda":
+        stats.cigars_from_card += n
+    else:
+        stats.cigars_replayed += n
+
+
 class _Launch:
-    """One dispatched wfa_align chunk: its penalties, skeletons and end
+    """One dispatched wfa_align chunk: its penalties, run words and end
     rows on their way to the host, and the event that says they are
     there."""
 
-    def __init__(self, pen, ops_fwd, fin, stream):
+    def __init__(self, pen, runs, fin, stream):
         if stream is None:
-            self.host = (pen.numpy(), ops_fwd.numpy(), fin.numpy())
+            self.host = (pen.numpy(), runs.numpy(), fin.numpy())
             self.event = None
             return
         with torch.cuda.stream(stream):
             host = []
-            for t in (pen, ops_fwd, fin):
+            for t in (pen, runs, fin):
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
                 host.append(h)
@@ -440,10 +483,14 @@ class WfaAligner:
     guaranteed-sufficient one.
 
     On a CUDA device every chunk goes out on one explicit stream: its H2D
-    copies, the wfa_align kernel (fill, then the walk on the card) and
-    non-blocking copies of the penalties, skeletons and end rows into
-    pinned host memory, followed by an event. On a CPU device the plain
-    versions run at dispatch."""
+    copies, the wfa_align kernel (fill, then the walk and the CIGAR's
+    replay on the card) and non-blocking copies of the penalties, run
+    words and end rows into pinned host memory, followed by an event. On a
+    CPU device the plain versions run at dispatch.
+
+    `cigars_from_card` and `cigars_replayed` count the CIGARs of its rung,
+    rerun, fallback and bialign leaf lanes by where they were built: on
+    the card, or by the plain version's host replay."""
 
     def __init__(self, x: int = 4, o: int = 6, e: int = 2,
                  batch_size: int = 512, length_quantum: int = 128,
@@ -485,6 +532,8 @@ class WfaAligner:
         self.rung_lanes_censored = 0    # of them, lanes censored there
         self.mid_levels = 0             # the bialign engine's split levels
         self.leaf_pairs = 0             # segments sent to its leaf chunks
+        self.cigars_from_card = 0       # CIGARs built by wfa_align's replay
+        self.cigars_replayed = 0        # CIGARs of the plain host replay
 
     def _kmax(self, L: int, smax: int, kband: Optional[int]) -> int:
         """The kernel's diagonal half-width for [B, L] rows at smax."""
@@ -503,20 +552,21 @@ class WfaAligner:
                 model=self.model, x=self.x, o=self.o, e=self.e, o2=self.o2,
                 e2=self.e2, wildcards=self.wildcards, kband=kband,
                 adaptive=adaptive)
-            return _Launch(out[0], out[2], out[3], None)
+            return _Launch(out[0], out[4], out[3], None)
         with torch.cuda.stream(self.stream):
             args = [torch.from_numpy(t).to(dev, non_blocking=True)
                     for t in host]
-            pen, _ops, ops_fwd, fin = wfa_kernels.wfa_align(
+            pen, _ops, _fwd, fin, runs = wfa_kernels.wfa_align(
                 *args, smax=smax, model=self.model, x=self.x, o=self.o,
                 e=self.e, o2=self.o2, e2=self.e2, wildcards=self.wildcards,
                 kband=kband, adaptive=adaptive, stream=self.stream)
-            return _Launch(pen, ops_fwd, fin, self.stream)
+            return _Launch(pen, runs, fin, self.stream)
 
     @staticmethod
     def _decode_walk(ops_np, fin_np, n: int) -> list:
         """The first n lanes' skeleton lists from a walk's (ops_fwd, fin)
-        (None where censored)."""
+        (None where censored): the plain replay's input
+        (wfa_kernels.wfa_runs_reference)."""
         out = []
         for b in range(n):
             if fin_np[b] == -2:
@@ -563,13 +613,14 @@ class WfaAligner:
 
     def align_pairs(self, refs, reads):
         """Per retry round, every chunk of every length bucket of a wave is
-        dispatched before any result is waited for; then each chunk's
-        skeletons are decoded and its CIGARs replayed on the host.
+        dispatched before any result is waited for; then each chunk's run
+        words are decoded into CIGARs on the host.
 
         Spans: `wfa.align_pairs` the call; inside it `wfa.round` a wave of a
         rung round's dispatches, `wfa.wait` a chunk's wait for its results,
-        `wfa.walk` its skeleton decode (`wfa.decode`) and CIGAR replay
-        (`wfa.replay`), and `wfa.bialign` the bialign engine's run."""
+        `wfa.walk` its run words' decode (`wfa.decode`) and its lanes'
+        results (`wfa.replay`), and `wfa.bialign` the bialign engine's
+        run."""
         with span("wfa.align_pairs"):
             return self._align_pairs(refs, reads)
 
@@ -651,9 +702,9 @@ class WfaAligner:
                         self.rung_lanes += len(chunk)
                 for (chunk, L, smax, launch) in disp:
                     with span("wfa.wait"):
-                        sc, ops_np, fin_np = launch.wait()
+                        sc, runs_np, fin_np = launch.wait()
                     with span("wfa.walk"):
-                        self._walk_chunk(chunk, sc, ops_np, fin_np, refs,
+                        self._walk_chunk(chunk, sc, runs_np, fin_np, refs,
                                          reads, results,
                                          censored.setdefault((L, smax), []))
                 del disp
@@ -681,24 +732,27 @@ class WfaAligner:
             self._dp_fallback_fill(fallback, refs, reads, results)
         return results
 
-    def _walk_chunk(self, chunk, sc, ops_np, fin_np, refs, reads, results,
+    def _walk_chunk(self, chunk, sc, runs_np, fin_np, refs, reads, results,
                     miss):
-        """A rung chunk's results: each lane's skeleton decoded and its
-        CIGAR replayed into `results`; censored lanes appended to
-        `miss`."""
+        """A rung chunk's results: its lanes' CIGARs decoded from their run
+        words, then each walked lane's result into `results`; censored
+        lanes appended to `miss`."""
         with span("wfa.decode"):
-            skeletons = self._decode_walk(ops_np, fin_np, len(chunk))
+            cigars = _decode_runs(runs_np, fin_np,
+                                  [(len(refs[k]), len(reads[k]))
+                                   for k in chunk])
         with span("wfa.replay"):
             for j, k in enumerate(chunk):
-                if skeletons[j] is None:
+                cig = cigars[j]
+                if cig is None:
                     miss.append(k)
                     self.rung_lanes_censored += 1
                     continue
-                cig = wfa_replay_cigar(refs[k], reads[k], skeletons[j],
-                                       wildcards=self.wildcards)
                 ra, da = cigar_to_aligned(refs[k], reads[k], cig)
                 results[k] = (ra, da, cig, -float(sc[j]))
                 self.cells_filled += len(refs[k]) * len(reads[k])
+            _tally_cigars(self, self.device,
+                          sum(c is not None for c in cigars))
 
     def _bialign_fill(self, idxs, refs, reads, results):
         """The pairs idxs on the bialign engine (wavefront.py:2031-2039,
@@ -745,12 +799,13 @@ class WfaAligner:
                     a, b, la, lb = _pad_pairs(
                         [refs[k] for k in chunk], [reads[k] for k in chunk],
                         32, L)
-                    sc, ops_np, fin_np = self._dispatch(
+                    sc, runs_np, fin_np = self._dispatch(
                         a, b, la, lb, L=L, smax=smax).wait()
-                    skels = self._decode_walk(ops_np, fin_np, len(chunk))
-                    for j, k in enumerate(chunk):
-                        cig = wfa_replay_cigar(refs[k], reads[k], skels[j],
-                                               wildcards=self.wildcards)
+                    cigars = _decode_runs(runs_np, fin_np,
+                                          [(len(refs[k]), len(reads[k]))
+                                           for k in chunk])
+                    _tally_cigars(self, self.device, len(chunk))
+                    for j, (k, cig) in enumerate(zip(chunk, cigars)):
                         ra, da = cigar_to_aligned(refs[k], reads[k], cig)
                         results[k] = (ra, da, cig, -float(sc[j]))
                         self.cells_filled += len(refs[k]) * len(reads[k])
@@ -773,6 +828,7 @@ class WfaAligner:
                 (pen, cig), = wfa_affine_align_pairs(
                     [refs[k]], [reads[k]], x=self.x, o=self.o, e=self.e,
                     wildcards=self.wildcards, device=self.device)
+                _tally_cigars(self, self.device, 1)
                 ra, da = cigar_to_aligned(refs[k], reads[k], cig)
                 results[k] = (ra, da, cig, -float(pen))
                 self.cells_filled += len(refs[k]) * len(reads[k])
@@ -850,10 +906,11 @@ def wfa_bialign_affine_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
 
     Returns [(penalty, cigar)] per pair: cigars merge adjacent runs, and
     the penalty is the top-level midpoint fill's optimum. `stats`, where
-    given, counts the split levels on its `mid_levels` and the segments
-    sent to leaf chunks on its `leaf_pairs`. Spans: `wfa.mid` a level's
-    rung launch and `wfa.mid_wait` its copy back (_mid_split_batch),
-    `wfa.leaves` a leaf chunk."""
+    given, counts the split levels on its `mid_levels`, the segments sent
+    to leaf chunks on its `leaf_pairs` and their CIGARs on its
+    `cigars_from_card` or `cigars_replayed` (_tally_cigars). Spans:
+    `wfa.mid` a level's rung launch and `wfa.mid_wait` its copy back
+    (_mid_split_batch), `wfa.leaves` a leaf chunk."""
     n = len(pairs_a)
     results: list = [None] * n
     top_pen = [None] * n
@@ -914,6 +971,7 @@ def wfa_bialign_affine_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
                                           device=device)
         if stats is not None:
             stats.leaf_pairs += len(sl_jobs)
+            _tally_cigars(stats, _device(device), len(sl_jobs))
         for (i, path, a, b), (pen, cig) in zip(sl_jobs, outs):
             if cig is None:  # unreachable: full-bound smax never censors
                 raise RuntimeError("bialign leaf censored at full bound")
@@ -943,7 +1001,9 @@ def wfa_affine_align_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
                            pad_to: int = 64, device="cuda"):
     """Batched gap-affine WFA with traceback over byte pairs
     (wavefront.py:1334-1372): [(penalty, cigar)] per pair, cigar None
-    where the pair was censored at smax (penalty smax + 1)."""
+    where the pair was censored at smax (penalty smax + 1). One wfa_align
+    launch; its penalties, end rows and run words come back in pinned
+    memory behind one event."""
     if not pairs_a:
         return []
     L = max(pad_to, max(max(len(a) for a in pairs_a),
@@ -953,21 +1013,14 @@ def wfa_affine_align_pairs(pairs_a, pairs_b, *, x: int = 4, o: int = 6,
     if smax is None:
         smax = x + o + e * L  # worst case bound: all-gap then mismatches
     dev = _device(device)
-    pen, _ops, ops_fwd, fin = wfa_kernels.wfa_align(
+    pen, _ops, _fwd, fin, runs = wfa_kernels.wfa_align(
         *(torch.from_numpy(t).to(dev) for t in (a, b, la, lb)), smax=smax,
         model="affine", x=x, o=o, e=e, wildcards=wildcards)
-    pen = pen.cpu().numpy()
-    skeletons = WfaAligner._decode_walk(ops_fwd.cpu().numpy(),
-                                        fin.cpu().numpy(), P)
-    out = []
-    for i in range(P):
-        if skeletons[i] is None:
-            out.append((int(pen[i]), None))
-            continue
-        cig = wfa_replay_cigar(pairs_a[i], pairs_b[i], skeletons[i],
-                               wildcards=wildcards)
-        out.append((int(pen[i]), cig))
-    return out
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    pen, runs, fin = _Launch(pen, runs, fin, stream).wait()
+    cigars = _decode_runs(runs, fin, [(len(pa), len(pb))
+                                      for pa, pb in zip(pairs_a, pairs_b)])
+    return list(zip(pen[:P].tolist(), cigars))
 
 
 def wfa_screen_candidates(refs, reads, *, x: int = 4, o: int = 6,

@@ -8,7 +8,9 @@ Counterpart of the device functions of clique_tpu/align/wavefront.py that
 - `wfa_align` replaces wfa_affine_tb_batch (:726) and
   wfa_affine2p_tb_batch (:878), and wfa_walk_device (:1156) fused after
   them: per pair the penalty, the [smax+1, B, K] u8 op store and the
-  walk's forward op skeleton with its end row;
+  walk's forward op skeleton with its end row; and after the walk, the
+  CIGAR the host helper wfa_replay_cigar (wavefront.py:1243) rebuilds from
+  that skeleton, as run-length words (`runs`);
 - `wfa_score` replaces the score-only wfa_affine_batch (:319) and
   wfa_affine2p_batch (:615) of the exhaustive-search screen, and under the
   "linear" model wfa_linear_batch (:232) and with it wfa_edit_batch
@@ -21,9 +23,10 @@ Counterpart of the device functions of clique_tpu/align/wavefront.py that
 indel base: the M plane alone, the kernel's G = 0); `wfa_mid` is
 gap-affine only. Each runs its hand-written kernel of csrc/wfa_align.cu on
 CUDA tensors, its plain PyTorch version below on CPU tensors
-(wfa_fill_reference, wfa_linear_reference, wfa_mid_reference); any other
-device raises. `wfa_align_launches`, `wfa_score_launches` (the affine
-models), `wfa_linear_launches` (wfa_score under "linear") and
+(wfa_fill_reference, wfa_walk_reference, wfa_runs_reference,
+wfa_linear_reference, wfa_mid_reference); any other device raises.
+`wfa_align_launches`, `wfa_score_launches` (the affine models),
+`wfa_linear_launches` (wfa_score under "linear") and
 `wfa_mid_launches` count kernel launches and nothing else. `wfa_plan` lays a launch out on the
 card (each plane's ring rows, the CTAs a pair, where the rings live); the
 kernel checks what it is given.
@@ -43,6 +46,12 @@ extend; affine2p, bits 0-2 the M source (0 none, 1 mismatch, 2 I1, 3 D1,
 penalty hold whatever the fill left there (the kernel stops a pair at its
 own penalty, the batched plain version at the batch's last one): only
 rows up to each lane's penalty are defined.
+
+A run word: count << 2 | op, op 0 M, 1 I, 2 D (RUN_OPS). A lane's row of
+`runs` holds its CIGAR's runs in order, then a 0; a censored or unwalked
+lane's row starts with the 0. The kernel marks a lane whose replay does
+not end at (l1, l2) with h << 2 | 3, v << 2 | 3 (where it ended), then
+the 0; the plain version raises there.
 """
 
 from __future__ import annotations
@@ -61,6 +70,10 @@ NEG = -(1 << 30)
 MODELS = ("affine", "affine2p")
 # the midpoint payload's encoding, h * MID_ENC + v (lengths below 32,768)
 MID_ENC = 1 << 16
+# a run word's op (count << 2 | op), and the op of the two words that mark
+# a replay that did not end at (l1, l2)
+RUN_OPS = ("M", "I", "D")
+RUN_FAULT = 3
 
 wfa_align_launches = 0
 wfa_score_launches = 0
@@ -708,6 +721,53 @@ def wfa_walk_reference(ops, scores, k_targets, *, model: str, x: int, o: int,
     return rows_out.gather(1, order), s.to(i32)
 
 
+def runs_width(model: str, smax: int, x: int, e: int, e2: int) -> int:
+    """Words of a lane's row of `runs`. Each skeleton op takes at least
+    min(x, e[, e2]) off a converged walk's penalty (<= smax), so a lane has
+    at most n = smax // that ops and its CIGAR at most 2n + 1 runs; one
+    word more for the 0 and one so that a replay fault's three words
+    always fit."""
+    least = min([x, e] + ([e2] if model == "affine2p" else []))
+    return 2 * (smax // max(least, 1)) + 3
+
+
+def run_words(cigar) -> list:
+    """The run words of a [(count, op)] CIGAR."""
+    return [n << 2 | RUN_OPS.index(op) for n, op in cigar]
+
+
+def wfa_runs_reference(refs, reads, ref_lens, read_lens, ops_fwd, fin, *,
+                       width: int, wildcards: bool = False):
+    """The plain version of wfa_align's runs: [B, width] i32, each walked
+    lane's skeleton (ops_fwd, fin -1) replayed by the host helper
+    wfa_replay_cigar over its bytes; 0s where fin is not -1 (censored or
+    unwalked lanes). A replay that does not end at (l1, l2) raises
+    wfa_replay_cigar's ValueError."""
+    import numpy as np
+
+    from clique_tpu_torch.align.wavefront import (WfaAligner,
+                                                  wfa_replay_cigar)
+
+    B = ops_fwd.shape[0]
+    out = np.zeros((B, width), dtype=np.int32)
+    walked = fin.cpu().numpy() == -1
+    skeletons = WfaAligner._decode_walk(ops_fwd.cpu().numpy(),
+                                        np.where(walked, -1, -2), B)
+    a_np, b_np = refs.cpu().numpy(), reads.cpu().numpy()
+    la, lb = ref_lens.tolist(), read_lens.tolist()
+    for j, skeleton in enumerate(skeletons):
+        if skeleton is None:
+            continue
+        a, b = a_np[j, :la[j]].tobytes(), b_np[j, :lb[j]].tobytes()
+        words = run_words(wfa_replay_cigar(a, b, skeleton,
+                                           wildcards=wildcards))
+        if len(words) >= width:
+            raise ValueError(f"lane {j}: {len(words)} runs do not fit a "
+                             f"row of {width}")
+        out[j, :len(words)] = words
+    return torch.from_numpy(out).to(ops_fwd.device)
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -741,8 +801,9 @@ def _layout_args(plan):
 def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
             wildcards, kband, adaptive, traceback, stream):
     """Allocate the outputs, launch csrc/wfa_align.cu's wfa_align (with
-    traceback) or wfa_score and return (pen, ops, ops_fwd, fin), the last
-    three None without traceback. Counts a launch where it makes one."""
+    traceback) or wfa_score and return (pen, ops, ops_fwd, fin, runs), the
+    last four None without traceback. Counts a launch where it makes
+    one."""
     global wfa_align_launches, wfa_score_launches, wfa_global_ring_launches
     global wfa_score_warp_launches, wfa_linear_launches
     from clique_tpu_torch import _build
@@ -763,16 +824,18 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
     s = _launch_stream(stream, dev, (refs, reads, ref_lens, read_lens))
     with torch.cuda.stream(s):
         pen = torch.empty(B, dtype=torch.int32, device=dev)
-        ops = ops_fwd = fin = None
+        ops = ops_fwd = fin = runs = None
         if traceback:
+            width = runs_width(model, smax, x, e, e2_)
             ops = torch.empty((smax + 1, B, K), dtype=torch.uint8,
                               device=dev)
             ops_fwd = torch.empty((B, smax + 1), dtype=torch.uint8,
                                   device=dev)
             fin = torch.empty(B, dtype=torch.int32, device=dev)
+            runs = torch.empty((B, width), dtype=torch.int32, device=dev)
         ring = _workspace(plan, dev) if B else None
     if B == 0:
-        return pen, ops, ops_fwd, fin
+        return pen, ops, ops_fwd, fin, runs
     steps, hm, he1, he2, C, grid, ring_global = _layout_args(plan)
     head = (refs.data_ptr(), n1w, reads.data_ptr(), n2w, ref_lens.data_ptr(),
             read_lens.data_ptr(), B, G, smax, Kmax, x, o, e, o2_, e2_,
@@ -784,7 +847,7 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
                 *head, -1 if adaptive is None else int(adaptive), steps, hm,
                 he1, he2, C, grid, ring_global, plan.ws_ints, ring_ptr,
                 pen.data_ptr(), ops.data_ptr(), ops_fwd.data_ptr(),
-                fin.data_ptr(), s.cuda_stream)
+                fin.data_ptr(), runs.data_ptr(), width, s.cuda_stream)
         else:
             err = lib.clique_wfa_score(
                 *head, steps, hm, he1, he2, C, plan.wp, grid, ring_global,
@@ -799,7 +862,7 @@ def _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e, o2, e2,
         wfa_score_warp_launches += plan.wp > 0
     if plan.ring_global:
         wfa_global_ring_launches += 1
-    return pen, ops, ops_fwd, fin
+    return pen, ops, ops_fwd, fin, runs
 
 
 def wfa_align(refs, reads, ref_lens, read_lens, *, smax: int,
@@ -810,10 +873,13 @@ def wfa_align(refs, reads, ref_lens, read_lens, *, smax: int,
     """Wavefront fill with its op store and the backtrace walk, fused:
     refs [B, n1] u8, reads [B, n2] u8 (row-padded), lengths [B] i32 ->
     (penalty [B] i32, smax + 1 censored; op store [smax+1, B, K] u8;
-    ops_fwd [B, smax+1] u8; fin [B] i32), as wfa_fill_reference followed
-    by wfa_walk_reference with k_targets = ref_lens - read_lens. The
-    kernel marks a pair whose lengths lie outside the rows with penalty
-    -1 and fin -3 (the plain version raises ValueError)."""
+    ops_fwd [B, smax+1] u8; fin [B] i32; runs [B, runs_width(...)] i32),
+    as wfa_fill_reference followed by wfa_walk_reference with k_targets =
+    ref_lens - read_lens and wfa_runs_reference over that walk. On CUDA
+    tensors the kernel replays each walked skeleton itself, a warp a pair;
+    on the CPU the runs come from the host replay. The kernel marks a pair
+    whose lengths lie outside the rows with penalty -1, fin -3 and no runs
+    (the plain version raises ValueError)."""
     if model not in MODELS:
         raise ValueError(f"unknown WFA penalties model for the op store: "
                          f"{model!r} (the gap-linear model is "
@@ -828,7 +894,10 @@ def wfa_align(refs, reads, ref_lens, read_lens, *, smax: int,
         ops_fwd, fin = wfa_walk_reference(
             ops, pen, ref_lens - read_lens, model=model, x=x, o=o, e=e,
             o2=o2, e2=e2)
-        return pen, ops, ops_fwd, fin
+        runs = wfa_runs_reference(
+            refs, reads, ref_lens, read_lens, ops_fwd, fin,
+            width=runs_width(model, smax, x, e, e2), wildcards=wildcards)
+        return pen, ops, ops_fwd, fin, runs
     return _launch(refs, reads, ref_lens, read_lens, model, smax, x, o, e,
                    o2, e2, wildcards, kband, adaptive, True, stream)
 

@@ -13,7 +13,8 @@
 // lax.while_loop that advances the whole batch one score step an
 // iteration as [B, K] vector ops, until every lane is done. The plain
 // versions are align/wfa_kernels.py::wfa_fill_reference,
-// wfa_linear_reference, wfa_walk_reference and wfa_mid_reference.
+// wfa_linear_reference, wfa_walk_reference, wfa_runs_reference (the
+// replay) and wfa_mid_reference.
 //
 // G, the gap classes of a model: 1 gap-affine (M, I, D planes), 2
 // dual-affine (M, I1, D1, I2, D2), 0 gap-linear (the M plane alone: the
@@ -98,6 +99,13 @@
 //   step at the same row), into shared memory over the dead rings, and
 //   every thread writes the skeleton row [smax+1] forwards (0-padded),
 //   and the end row into fin: -1 a converged walk, -2 a censored pair.
+// - Then warp 0 replays a converged skeleton forwards over the pair's
+//   bytes in shared memory, as the host helper wfa_replay_cigar does, and
+//   writes the CIGAR as run words (count << 2 | op) to runs [B, rmax]:
+//   each greedy match run is found 128 bytes a step, four a lane, the
+//   first stop by a warp minimum. The ops are few (one a skeleton op), so
+//   the replay costs the launch little and spares the host a Python loop
+//   over every op.
 //
 // Exactness: integers only. The recurrence, its clamp order (affine clamps
 // I and D after taking M's maximum, affine2p before), its tie orders
@@ -135,7 +143,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // by the parity of the barrier interval (a thread that reads interval i's
 // word after its barrier cannot see interval i + 1's write), [4] wfa_mid's
 // payload at the done step, [5] the walk's ops, [6] the pair (persistent
-// grid)
+// grid), [7] the walk's end row
 constexpr int kCtrlInts = 8;
 constexpr int kCounterInts = 4;     // the workspace's pair counter
 constexpr int kMidEnc = 1 << 16;    // wfa_mid's payload: h * kMidEnc + v
@@ -158,6 +166,7 @@ struct Params {
   // > 0: wfa_score's warp path, wp pairs (warps) a CTA; last, so that the
   // CTA path's kernels read every other field where they did without it
   int wp;
+  int rmax;          // words of a pair's row of runs (wfa_align)
 };
 
 struct Bufs {
@@ -171,6 +180,7 @@ struct Bufs {
   uint8_t* ops_fwd;
   int* fin;
   int* pay;
+  int* runs;
 };
 
 // Bytes a sequence row takes in shared memory: whole words and one spare
@@ -400,6 +410,87 @@ __device__ int walk(const uint8_t* ops, const Params& p, int b, int score,
   return s;
 }
 
+// The greedy match run from ref[h], read[v], at most n bytes, found by a
+// whole warp: each step's 32 lanes test four bytes each, 128 in all, and
+// the warp's least stop (n where a lane's bytes all match) ends it. Every
+// lane calls it with the same arguments and gets the same length; 0 where
+// n <= 0.
+__device__ int warp_run(const uint8_t* ref, const uint8_t* read, int h,
+                        int v, int n, bool wildcards) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < n; base += 128) {
+    const int i = base + 4 * lane;
+    int stop = n;
+    if (i < n) {
+      const uint32_t x =
+          differ4(load4(ref, h + i), load4(read, v + i), wildcards);
+      if (x) stop = min(n, i + (__ffs(x) - 1) / 8);
+    }
+    stop = __reduce_min_sync(kFull, stop);
+    if (stop < n) return stop;
+  }
+  return max(n, 0);
+}
+
+// The CIGAR of a converged walk, as the host helper wfa_replay_cigar
+// rebuilds it from the skeleton rev[n - 1] .. rev[0] (first op first): the
+// greedy match run before each X, I and D (an i or d extends an open gap,
+// with no matches before it), one more after the last op; X adds an M, I
+// and i an I, D and d a D; a run of the op before grows, an empty one is
+// not emitted. Run by one whole warp, each lane with the same arguments;
+// lane 0 writes the run words (count << 2 | op: M 0, I 1, D 2) to out,
+// then a 0. A replay that does not end at (l1, l2) writes h << 2 | 3,
+// v << 2 | 3 and a 0 instead. rmax bounds the words (2n + 3 hold them).
+__device__ void replay(const uint8_t* ref, const uint8_t* read, int l1,
+                       int l2, const uint8_t* rev, int n, bool wildcards,
+                       int* out, int rmax) {
+  const bool lead = (threadIdx.x & 31) == 0;
+  int h = 0, v = 0, nr = 0, op = -1, count = 0;
+  auto put = [&](int w) {
+    if (lead && nr < rmax) out[nr] = w;
+    ++nr;
+  };
+  auto emit = [&](int o, int c) {
+    if (c <= 0) return;
+    if (o == op) {
+      count += c;
+      return;
+    }
+    if (op >= 0) put(count << 2 | op);
+    op = o;
+    count = c;
+  };
+  auto match = [&] {
+    const int r = warp_run(ref, read, h, v, min(l1 - h, l2 - v), wildcards);
+    h += r;
+    v += r;
+    emit(0, r);
+  };
+  for (int j = n - 1; j >= 0; --j) {
+    const int c = rev[j];
+    if (c == 'X' || c == 'I' || c == 'D') match();
+    if (c == 'X') {
+      emit(0, 1);
+      ++h;
+      ++v;
+    } else if (c == 'I' || c == 'i') {
+      emit(1, 1);
+      ++v;
+    } else {
+      emit(2, 1);
+      ++h;
+    }
+  }
+  match();
+  if (op >= 0) put(count << 2 | op);
+  if (h != l1 || v != l2) {
+    nr = 0;
+    put(h << 2 | 3);
+    put(v << 2 | 3);
+  }
+  if (lead) out[min(nr, rmax - 1)] = 0;
+}
+
 // A pair's ring planes in a CTA: M, I and D of each class (RT: int, or
 // int16_t with -32768 its NEG), wfa_mid's payload planes PM, PI, PD
 // (int); rw values a row: the CTA's cw diagonals between two halo
@@ -515,8 +606,10 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
         if (kTb) g.fin[b] = -3;
         if (kMid) g.pay[b] = -1;
       }
-      if (kTb)
+      if (kTb) {
         for (int i = tid; i < S1; i += nt) g.ops_fwd[(size_t)b * S1 + i] = 0;
+        if (tid == 0) g.runs[(size_t)b * p.rmax] = 0;
+      }
     }
     return;
   }
@@ -740,19 +833,28 @@ __device__ void run_pair(const Bufs& g, const Params& p, int b,
 
   // the walk, once: thread 0 walks backwards into shared memory past the
   // control words (over the rings, dead now), every thread writes the
-  // skeleton row forwards and clears the rest of it
+  // skeleton row forwards and clears the rest of it; warp 0 replays a
+  // converged walk's skeleton into the pair's row of runs
   uint8_t* rev = reinterpret_cast<uint8_t*>(ctrl + kCtrlInts);
   if (tid == 0) {
     int n = 0;
     int s_end = -2;
     if (score < S1) s_end = walk<G>(g.ops, p, b, score, k_target, rev, &n);
     ctrl[5] = n;
+    ctrl[7] = s_end;
     g.fin[b] = s_end;
   }
   __syncthreads();
   const int n = ctrl[5];
   uint8_t* out = g.ops_fwd + (size_t)b * S1;
   for (int i = tid; i < S1; i += nt) out[i] = i < n ? rev[n - 1 - i] : 0;
+  if (tid < 32) {
+    int* row = g.runs + (size_t)b * p.rmax;
+    if (ctrl[7] == -1)
+      replay(sref, sread, l1, l2, rev, n, wild, row, p.rmax);
+    else if (tid == 0)
+      row[0] = 0;
+  }
 }
 
 // kTb: with the op store and the walk (wfa_align). kMid (G = 1, no kTb):
@@ -898,7 +1000,7 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
         int C, int wp, int grid, int ring_global, long long ws_ints,
         void* ring_ws,
         void* pen, void* ops, void* ops_fwd, void* fin, void* pay,
-        void* stream) {
+        void* runs, int rmax, void* stream) {
   if (B <= 0 || n1 < 1 || n2 < 1 || smax < 0 || kmax < 0 ||
       G < 0 || G > 2 || x < 1 || o1 < 0 || e1 < 1)
     return cudaErrorInvalidValue;
@@ -934,11 +1036,12 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
     return cudaErrorInvalidValue;
   // wfa_mid's int16 rings hold offsets below 32,767
   if (mid && (n1 >= 32767 || n2 >= 32767)) return cudaErrorInvalidValue;
-  if (tb && (!ops || !ops_fwd || !fin)) return cudaErrorInvalidValue;
+  if (tb && (!ops || !ops_fwd || !fin || !runs || rmax < 3))
+    return cudaErrorInvalidValue;
   if (mid && (tb || G != 1 || !pay)) return cudaErrorInvalidValue;
   const Params p{n1, n2, B, smax, kmax, K, x, o1, e1, o2, e2, hm, he1, he2,
                  wildcards, adaptive, C, (K + C - 1) / C, grid,
-                 ring_global, ws_ints, wp};
+                 ring_global, ws_ints, wp, rmax};
   if (grid && ws_ints < cta_ws_ints(p, G, mid)) return cudaErrorInvalidValue;
   const Bufs g{static_cast<const uint8_t*>(refs),
                static_cast<const uint8_t*>(reads),
@@ -946,7 +1049,8 @@ int run(bool tb, bool mid, const void* refs, int n1, const void* reads,
                static_cast<const int*>(read_lens),
                static_cast<int*>(ring_ws), static_cast<int*>(pen),
                static_cast<uint8_t*>(ops), static_cast<uint8_t*>(ops_fwd),
-               static_cast<int*>(fin), static_cast<int*>(pay)};
+               static_cast<int*>(fin), static_cast<int*>(pay),
+               static_cast<int*>(runs)};
   auto s = static_cast<cudaStream_t>(stream);
   if (mid) return launch_steps<1, false, true, int16_t>(g, p, steps, s);
   if (G == 0) return launch_steps<0, false, false, int>(g, p, steps, s);
@@ -1070,10 +1174,11 @@ extern "C" __global__ void clique_wfa_word_probe(const uint32_t* in,
 // persistent grid of at most grid CTAs with ws_ints ints of the workspace
 // ring_ws each ([4 + grid * ws_ints] i32), the rings there when
 // ring_global (else in shared memory); ring_ws null when grid is 0. pen
-// [B] i32, ops [smax+1, B, K] u8, ops_fwd [B, smax+1] u8, fin [B] i32. A
-// pair whose lengths lie outside its rows gets pen -1 and fin -3. Returns
-// the CUDA error of the launch (a cluster the card cannot hold is
-// refused).
+// [B] i32, ops [smax+1, B, K] u8, ops_fwd [B, smax+1] u8, fin [B] i32,
+// runs [B, rmax] i32 (rmax >= 3; wfa_kernels.runs_width holds any
+// converged walk's CIGAR). A pair whose lengths lie outside its rows gets
+// pen -1, fin -3 and no runs. Returns the CUDA error of the launch (a
+// cluster the card cannot hold is refused).
 extern "C" int clique_wfa_align(const void* refs, int n1, const void* reads,
                                 int n2, const void* ref_lens,
                                 const void* read_lens, int B, int G, int smax,
@@ -1082,12 +1187,13 @@ extern "C" int clique_wfa_align(const void* refs, int n1, const void* reads,
                                 int hm, int he1, int he2, int C, int grid,
                                 int ring_global, long long ws_ints,
                                 void* ring_ws, void* pen, void* ops,
-                                void* ops_fwd, void* fin, void* stream) {
+                                void* ops_fwd, void* fin, void* runs,
+                                int rmax, void* stream) {
   return clique_wfa::run(true, false, refs, n1, reads, n2, ref_lens,
                          read_lens, B, G, smax, kmax, x, o1, e1, o2, e2,
                          wildcards, adaptive, steps, hm, he1, he2, C, 0, grid,
                          ring_global, ws_ints, ring_ws, pen, ops, ops_fwd,
-                         fin, nullptr, stream);
+                         fin, nullptr, runs, rmax, stream);
 }
 
 // Launch wfa_score: the arguments of clique_wfa_align without the trim and
@@ -1107,7 +1213,7 @@ extern "C" int clique_wfa_score(const void* refs, int n1, const void* reads,
                          read_lens, B, G, smax, kmax, x, o1, e1, o2, e2,
                          wildcards, -1, steps, hm, he1, he2, C, wp, grid,
                          ring_global, ws_ints, ring_ws, pen, nullptr, nullptr,
-                         nullptr, nullptr, stream);
+                         nullptr, nullptr, nullptr, 0, stream);
 }
 
 // Launch wfa_mid, the gap-affine midpoint fill of the bialign engine:
@@ -1130,5 +1236,5 @@ extern "C" int clique_wfa_mid(const void* refs, int n1, const void* reads,
                          read_lens, B, 1, smax, kmax, x, o, e, 0, 0,
                          wildcards, -1, steps, hm, he, 0, 1, 0, grid,
                          ring_global, ws_ints, ring_ws, pen, nullptr,
-                         nullptr, nullptr, pay, stream);
+                         nullptr, nullptr, pay, nullptr, 0, stream);
 }

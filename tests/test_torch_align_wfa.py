@@ -91,6 +91,32 @@ def _arrays(pairs, B, W):
     return a, b, la, lb
 
 
+def _replayed(host, fwd, fin, wildcards):
+    """The JAX package's replay of each walked lane's skeleton (None where
+    the walk did not converge), the oracle of wfa_align's runs."""
+    a, b, la, lb = host
+    skels = tw.WfaAligner._decode_walk(np.asarray(fwd),
+                                       np.where(np.asarray(fin) == -1, -1,
+                                                -2), len(la))
+    return [None if sk is None else
+            jw.wfa_replay_cigar(a[i, :la[i]].tobytes(), b[i, :lb[i]].tobytes(),
+                                sk, wildcards=wildcards)
+            for i, sk in enumerate(skels)]
+
+
+def _decoded(host, runs, fin):
+    """wfa_align's runs decoded as the engine decodes them, for every lane
+    whose walk converged or was censored."""
+    fin = fin.numpy()
+    keep = np.flatnonzero((fin == -1) | (fin == -2))
+    lens = list(zip(host[2][keep].tolist(), host[3][keep].tolist()))
+    got = tw._decode_runs(runs.numpy()[keep], fin[keep], lens)
+    out = [None] * len(fin)
+    for i, cig in zip(keep, got):
+        out[i] = cig
+    return out
+
+
 def _jax_fill(model, host, W, smax, wildcards, kband, adaptive, tb=True):
     kw = dict(n1=W, n2=W, smax=smax, x=4, wildcards=wildcards, kband=kband)
     if model == "affine":
@@ -132,14 +158,18 @@ def test_plain_fill_and_walk_match_jax(model, option):
                                       e2=1)
     args = [torch.from_numpy(v) for v in host]
     n = tk.wfa_align_launches
-    pen, ops, fwd, fin = tk.wfa_align(*args, smax=smax, model=model,
-                                      **PEN, **opt)
+    pen, ops, fwd, fin, runs = tk.wfa_align(*args, smax=smax, model=model,
+                                            **PEN, **opt)
     assert tk.wfa_align_launches == n       # the CPU runs no kernel
     assert np.array_equal(pen.numpy(), np.asarray(j_pen))
     assert np.array_equal(ops.numpy(), np.asarray(j_ops))
     assert np.array_equal(fwd.numpy(), np.asarray(j_fwd))
     assert np.array_equal(fin.numpy(), np.asarray(j_fin))
     assert (pen.numpy() > smax).any()
+    # the runs: the JAX package's replay of its own walk, lane for lane
+    assert runs.shape == (32, tk.runs_width(model, smax, 4, 2, 1))
+    assert _decoded(host, runs, fin) == _replayed(host, j_fwd, j_fin,
+                                                  wildcards)
     if adaptive is None:
         j_sc = _jax_fill(model, host, W, smax, wildcards, kband, None,
                          tb=False)
@@ -155,7 +185,8 @@ def test_plain_walk_matches_host_walkers(model):
     W = 64
     host = _arrays(_pairs(5), 32, W)
     args = [torch.from_numpy(v) for v in host]
-    pen, ops, fwd, fin = tk.wfa_align(*args, smax=96, model=model, **PEN)
+    pen, ops, fwd, fin, _runs = tk.wfa_align(*args, smax=96, model=model,
+                                             **PEN)
     n = 29
     kt = (host[2] - host[3])[:n]
     if model == "affine":
@@ -181,14 +212,16 @@ def test_host_helpers_match_jax():
     pairs = _pairs(7, n=14, hi=30)[:-1]
     for wild in (False, True):
         host = _arrays(pairs, 16, 30)
-        pen, _ops, fwd, fin = tk.wfa_align(
+        pen, _ops, fwd, fin, runs = tk.wfa_align(
             *(torch.from_numpy(v) for v in host), smax=200, wildcards=wild,
             **PEN)
         skels = tw.WfaAligner._decode_walk(fwd.numpy(), fin.numpy(),
                                            len(pairs))
-        for (a, b), p, sk in zip(pairs, pen.tolist(), skels):
+        cigars = _decoded(host, runs, fin)
+        for (a, b), p, sk, got in zip(pairs, pen.tolist(), skels, cigars):
             cig = tw.wfa_replay_cigar(a, b, sk, wildcards=wild)
             assert cig == jw.wfa_replay_cigar(a, b, sk, wildcards=wild)
+            assert got == cig
             assert tw.cigar_penalty(cig, a, b, x=4, o=6, e=2,
                                     wildcards=wild) == p
             assert p == tw.affine_penalty_golden(a, b, x=4, o=6, e=2,
@@ -258,16 +291,90 @@ def test_affine2p_traceback_is_optimal():
     5-plane golden; a long deletion stays one gap."""
     pairs = _pairs(13, n=20, hi=48)
     host = _arrays(pairs, 32, 48)
-    pen, _ops, fwd, fin = tk.wfa_align(
+    pen, _ops, fwd, fin, runs = tk.wfa_align(
         *(torch.from_numpy(v) for v in host), smax=300, model="affine2p",
         **PEN)
     skels = tw.WfaAligner._decode_walk(fwd.numpy(), fin.numpy(), len(pairs))
-    for (a, b), p, sk in zip(pairs, pen.tolist(), skels):
+    cigars = _decoded(host, runs, fin)
+    for (a, b), p, sk, got in zip(pairs, pen.tolist(), skels, cigars):
         want = tw.affine2p_penalty_golden(a, b, x=4, o1=6, e1=2, o2=24, e2=1)
         assert p == want
         cig = tw.wfa_replay_cigar(a, b, sk)
+        assert got == cig
         assert tw.cigar_penalty_2p(cig, a, b, x=4, o1=6, e1=2, o2=24,
                                    e2=1) == want
+
+
+def _run_cases():
+    rng = np.random.default_rng(17)
+    row = rng.choice(BASES, 4224).tobytes()
+    a = rng.choice(BASES, 40).tobytes()
+    return {
+        # M runs as long as a rung's row, whole and split by one op
+        "rows_of_4224": ([(row, row), (row, row[:2000] + b"T" + row[2001:]),
+                          (row, row[:3000] + row[3007:])], 64),
+        # skeletons that start or end with a gap
+        "gaps_at_the_ends": ([(a, a[7:]), (a, a + b"ACGTAC"), (a[5:], a),
+                              (a + b"TTT", a), (b"ACGT" + a, a + b"GG")], 96),
+        # pairs of length 0 and 1
+        "short": ([(b"", b"A"), (b"A", b""), (b"A", b"A"), (b"A", b"C"),
+                   (b"", b""), (b"AC", b"")], 32),
+    }
+
+
+RUN_CASES = _run_cases()
+
+
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("model", tk.MODELS)
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_plain_runs_decode_to_the_replay(case, model, wild):
+    """wfa_align's runs on the CPU decode (as the engine decodes them) to
+    the JAX package's replay of the walk's skeletons, lane for lane."""
+    pairs, smax = RUN_CASES[case]
+    W = max(1, max(max(len(a), len(b)) for a, b in pairs))
+    host = _arrays(pairs, len(pairs), W)
+    pen, _ops, fwd, fin, runs = tk.wfa_align(
+        *(torch.from_numpy(v) for v in host), smax=smax, model=model,
+        wildcards=wild, **PEN)
+    assert (fin.numpy() == -1).all()
+    got = _decoded(host, runs, fin)
+    assert got == _replayed(host, fwd, fin, wild)
+    for (a, b), cig in zip(pairs, got):
+        assert sum(n for n, op in cig if op in "MD") == len(a)
+        assert sum(n for n, op in cig if op in "MI") == len(b)
+
+
+def test_decode_runs_raises_as_the_replay():
+    """A lane whose replay did not end at (l1, l2) raises wfa_replay_cigar's
+    ValueError: in the plain version, and when the kernel's fault words
+    are decoded; a walk that did not converge raises RuntimeError."""
+    a = b"ACGT"
+    with pytest.raises(ValueError) as want:
+        tw.wfa_replay_cigar(a, a, ["X"])
+    host = [torch.from_numpy(v) for v in _arrays([(a, a), (a, a)], 2, 4)]
+    fwd = torch.zeros((2, 9), dtype=torch.uint8)
+    fin = torch.tensor([-1, -1], dtype=torch.int32)
+    assert tk.wfa_runs_reference(*host, fwd, fin, width=9)[:, :2].tolist() \
+        == [[4 << 2, 0]] * 2
+    fwd[0, 0] = ord("X")
+    with pytest.raises(ValueError) as plain:
+        tk.wfa_runs_reference(*host, fwd, fin, width=9)
+    assert str(plain.value) == str(want.value)
+    # the kernel's words for that lane: where its replay ended, then the 0
+    runs = np.zeros((2, 9), np.int32)
+    runs[0, :2] = 5 << 2 | tk.RUN_FAULT
+    runs[1, 0] = 4 << 2
+    lens = [(4, 4), (4, 4)]
+    with pytest.raises(ValueError) as got:
+        tw._decode_runs(runs, fin.numpy(), lens)
+    assert str(got.value) == str(want.value)
+    assert tw._decode_runs(runs[1:], fin.numpy()[1:], lens[1:]) == \
+        [[(4, "M")]]
+    assert tw._decode_runs(runs, np.array([-2, -1]), lens) == \
+        [None, [(4, "M")]]
+    with pytest.raises(RuntimeError, match="failed to converge"):
+        tw._decode_runs(runs, np.array([-2, 3]), lens)
 
 
 def _aligner_pairs(seed, n, L, sv_every=0):
@@ -318,6 +425,10 @@ def test_aligner_matches_jax(case, monkeypatch):
     want = jw.WfaAligner(**kw).align_pairs(refs, reads)
     assert got == want
     assert port.dispatches > 0 and port.fallbacks == 0
+    # on the CPU every CIGAR comes from the plain replay, one a walked lane
+    assert port.cigars_from_card == 0
+    assert port.cigars_replayed == port.rung_lanes \
+        - port.rung_lanes_censored + port.leaf_pairs
 
 
 def test_aligner_dp_fallback_matches_jax():
@@ -527,6 +638,10 @@ def test_golden_engine_bam_pinned(golden_engine_runs, engine):
     m = json.loads(metrics.read_text())
     assert m["wfa_phase_seconds"]["dispatch"] >= 0
     assert m["kernel_launches"]["wfa_align"] == 0      # the CPU's plain run
+    # every CIGAR from the plain host replay, one a walked lane
+    assert m["wfa_cigars_from_card"] == 0
+    assert m["wfa_cigars_replayed"] == m["wfa_rung_lanes"] \
+        - m["wfa_rung_lanes_censored"] + m["wfa_leaf_pairs"] > 0
 
 
 @pytest.mark.parametrize("engine", ["wfa", "convex"])

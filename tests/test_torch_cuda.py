@@ -957,15 +957,16 @@ WFA_PEN = dict(x=4, o=6, e=2, o2=24, e2=1)
 
 
 def _check_wfa(args, smax, model, pen=None, **kw):
-    """wfa_align and wfa_score on the card against the plain fill and
-    walk: penalties, op-store rows up to each pair's penalty, skeletons,
-    end rows, score-only penalties."""
+    """wfa_align and wfa_score on the card against the plain fill, walk and
+    replay: penalties, op-store rows up to each pair's penalty, skeletons,
+    end rows, run words (the host replay's CIGARs, lane for lane),
+    score-only penalties."""
     from clique_tpu_torch.align import wfa_kernels as wk
 
     pen = dict(WFA_PEN, **(pen or {}))
     n = (wk.wfa_align_launches, wk.wfa_score_launches)
-    pen_, ops, fwd, fin = wk.wfa_align(*args, smax=smax, model=model, **pen,
-                                       **kw)
+    pen_, ops, fwd, fin, runs = wk.wfa_align(*args, smax=smax, model=model,
+                                             **pen, **kw)
     adaptive = kw.pop("adaptive", None)
     sc = wk.wfa_score(*args, smax=smax, model=model, **pen, **kw)
     torch.cuda.synchronize()
@@ -979,9 +980,24 @@ def _check_wfa(args, smax, model, pen=None, **kw):
     rows = torch.arange(smax + 1, device=pen_.device)[:, None] <= p_pen[None]
     assert bool(((ops == p_ops) | ~rows[:, :, None]).all())
     assert torch.equal(fwd, p_fwd) and torch.equal(fin, p_fin)
+    p_runs = wk.wfa_runs_reference(
+        *args, p_fwd, p_fin, wildcards=kw.get("wildcards", False),
+        width=wk.runs_width(model, smax, pen["x"], pen["e"], pen["e2"]))
+    _same_runs(runs, p_runs, fin)
     if adaptive is None:
         assert torch.equal(sc, p_pen)
     return pen_
+
+
+def _same_runs(runs, p_runs, fin):
+    """The card's run words equal the plain version's up to each walked
+    lane's 0 (the words past it are not defined); other lanes' rows start
+    with the 0."""
+    assert runs.shape == p_runs.shape
+    runs, p_runs = runs.cpu().numpy(), p_runs.cpu().numpy()
+    for j, f in enumerate(fin.tolist()):
+        k = int((p_runs[j] == 0).argmax()) if f == -1 else 0
+        assert (runs[j, :k + 1] == p_runs[j, :k + 1]).all(), j
 
 
 def _force_plan(monkeypatch, kinds=("align", "score"), **force):
@@ -1232,8 +1248,9 @@ def test_wfa_kernels_mark_bad_lengths_in_a_cluster(cuda, monkeypatch):
     for C in (2, 8, 0):
         _force_plan(monkeypatch, kinds=("align", "mid") if C == 0 else
                     ("align",), cluster=C)
-        pen, _ops, fwd, fin = wk.wfa_align(t, t, l1, l2, smax=16)
+        pen, _ops, fwd, fin, runs = wk.wfa_align(t, t, l1, l2, smax=16)
         assert pen.tolist() == [p_pen[0], -1, -1, p_pen[1]]
+        assert runs[1:3, 0].tolist() == [0, 0]
         assert fin.tolist() == [p_fin[0], -3, -3, p_fin[1]]
         assert int(fwd[1:3].sum()) == 0 and torch.equal(fwd[good], p_fwd)
         pen, pay = wk.wfa_mid(t, t, l1, l2, smax=16)
@@ -1248,9 +1265,10 @@ def test_wfa_kernel_marks_bad_lengths(cuda):
     t = torch.full((3, 20), ord("A"), dtype=torch.uint8, device=cuda)
     l1 = torch.tensor([5, 21, 4], dtype=torch.int32, device=cuda)
     l2 = torch.tensor([5, 3, -1], dtype=torch.int32, device=cuda)
-    pen, _ops, fwd, fin = wk.wfa_align(t, t, l1, l2, smax=16)
+    pen, _ops, fwd, fin, runs = wk.wfa_align(t, t, l1, l2, smax=16)
     assert pen.tolist() == [0, -1, -1] and fin.tolist() == [-1, -3, -3]
     assert int(fwd.sum()) == 0
+    assert runs[:, 0].tolist() == [5 << 2, 0, 0] and int(runs[0, 1]) == 0
 
 
 def test_wfa_kernels_empty_batch_counts_no_launch(cuda):
@@ -1260,11 +1278,145 @@ def test_wfa_kernels_empty_batch_counts_no_launch(cuda):
     t = torch.zeros((0, 16), dtype=torch.uint8, device=cuda)
     n = torch.zeros(0, dtype=torch.int32, device=cuda)
     before = (wk.wfa_align_launches, wk.wfa_score_launches)
-    pen, ops, fwd, fin = wk.wfa_align(t, t, n, n, smax=8)
+    pen, ops, fwd, fin, runs = wk.wfa_align(t, t, n, n, smax=8)
     sc = wk.wfa_score(t, t, n, n, smax=8)
     assert (wk.wfa_align_launches, wk.wfa_score_launches) == before
     assert pen.shape == sc.shape == fin.shape == (0,)
     assert ops.shape[1] == 0 and fwd.shape == (0, 9)
+    assert runs.shape == (0, wk.runs_width("affine", 8, 4, 2, 1))
+
+
+def _ont_raw(rng, ref):
+    """A read of ref at the ONT raw-read model of the ont_raw_4kb
+    configuration: 10% errors, substitutions, insertions and deletions
+    23:31:46, one base each."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    out, i = [], 0
+    while i < len(ref):
+        u = rng.random()
+        if u < 0.023:
+            out.append(bases[(np.flatnonzero(bases == ref[i])[0]
+                              + rng.integers(1, 4)) % 4])
+        elif u < 0.054:
+            out.extend((rng.choice(bases), ref[i]))
+        elif u >= 0.1:
+            out.append(ref[i])
+        i += 1
+    return np.array(out, np.uint8)
+
+
+def _ont_pairs(rng, ref, B, W):
+    """B ONT raw reads of `ref` (_ont_raw) as [B, W] rows with their
+    lengths, the reference beside each."""
+    a = np.zeros((B, W), np.uint8)
+    b = np.zeros((B, W), np.uint8)
+    lb = np.zeros(B, np.int32)
+    for i in range(B):
+        read = _ont_raw(rng, ref)[:W]
+        a[i, :len(ref)], b[i, :len(read)] = ref, read
+        lb[i] = len(read)
+    return a, b, np.full(B, len(ref), np.int32), lb
+
+
+@pytest.mark.parametrize("wildcards", [False, True])
+@pytest.mark.parametrize("model", ["affine", "affine2p"])
+def test_wfa_runs_short_pairs(cuda, model, wildcards):
+    """The replay on the card over pairs of length 0 and 1 (empty
+    skeletons, gap-only ones, one mismatch), beside longer pairs that
+    start and end with a gap."""
+    rng = np.random.default_rng(31)
+    s = rng.choice(np.frombuffer(b"ACGTN", np.uint8), 60).tobytes()
+    pairs = [(b"", b""), (b"", b"A"), (b"A", b""), (b"A", b"A"), (b"A", b"C"),
+             (b"AC", b""), (b"", b"ACG"), (b"N", b"A"), (s, s[9:]),
+             (s, s + b"ACGTA"), (s[4:], s), (s + b"TT", s)]
+    W = 70
+    a = np.zeros((len(pairs), W), np.uint8)
+    b = np.zeros((len(pairs), W), np.uint8)
+    for i, (x, y) in enumerate(pairs):
+        a[i, :len(x)] = np.frombuffer(x, np.uint8)
+        b[i, :len(y)] = np.frombuffer(y, np.uint8)
+    la = np.array([len(x) for x, _ in pairs], np.int32)
+    lb = np.array([len(y) for _, y in pairs], np.int32)
+    args = [torch.from_numpy(v).to(cuda) for v in (a, b, la, lb)]
+    pen = _check_wfa(args, 96, model, wildcards=wildcards)
+    assert bool((pen <= 96).all())
+
+
+def test_wfa_runs_leaf_shape(cuda):
+    """A bialign leaf chunk's launch: B = 64, L = 512, smax x + o + e * L,
+    ONT-like pairs of ~450 bases (10% errors, 23:31:46), with and without
+    wildcards: every lane walked, its runs the host replay's."""
+    rng = np.random.default_rng(41)
+    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), 450)
+    host = _ont_pairs(rng, ref, 64, 512)
+    args = [torch.from_numpy(v).to(cuda) for v in host]
+    for wildcards in (False, True):
+        pen = _check_wfa(args, 4 + 6 + 2 * 512, "affine",
+                         wildcards=wildcards)
+        assert bool((pen <= 4 + 6 + 2 * 512).all())
+
+
+def test_wfa_runs_rung_shape(cuda):
+    """A rung chunk of 4 kb reads that converge (2% substitutions and
+    1 bp indels: M runs of hundreds of bases): B = 32, L = 4,096 at the
+    1,024 rung, and two lanes censored there."""
+    rng = np.random.default_rng(43)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.choice(bases, 4000)
+    B, W = 32, 4096
+    a = np.zeros((B, W), np.uint8)
+    b = np.zeros((B, W), np.uint8)
+    lb = np.zeros(B, np.int32)
+    for i in range(B):
+        read = ref.copy()
+        if i < B - 2:
+            sub = rng.random(4000) < 0.02
+            read[sub] = rng.choice(bases, int(sub.sum()))
+            for p in sorted(rng.choice(3990, 6, replace=False))[::-1]:
+                read = np.delete(read, p) if p % 2 else np.insert(read, p, 65)
+        else:
+            read = rng.choice(bases, 3000)           # censored at 1,024
+        a[i, :4000], b[i, :len(read)] = ref, read
+        lb[i] = len(read)
+    args = [torch.from_numpy(v).to(cuda)
+            for v in (a, b, np.full(B, 4000, np.int32), lb)]
+    pen = _check_wfa(args, 1024, "affine", wildcards=True)
+    assert int((pen > 1024).sum()) == 2
+
+
+def test_wfa_bialign_runs_equal_the_host_replay(cuda, monkeypatch):
+    """wfa_bialign_affine_pairs on ONT-like 3.6 kb pairs gives the same
+    penalties and CIGARs with the runs of the card as with the card's
+    fill and walk followed by the host replay (wfa_runs_reference over
+    each leaf launch's skeletons)."""
+    from clique_tpu_torch.align import wavefront as twf
+    from clique_tpu_torch.align import wfa_kernels as wk
+
+    rng = np.random.default_rng(47)
+    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), 3600)
+    refs = [ref.tobytes()] * 4
+    reads = [_ont_raw(rng, ref).tobytes() for _ in range(4)]
+    stats = twf.WfaAligner(device="cuda")
+    got = twf.wfa_bialign_affine_pairs(refs, reads, wildcards=True,
+                                       device="cuda", stats=stats)
+    assert stats.cigars_from_card == stats.leaf_pairs > 8
+    real = wk.wfa_align
+
+    def replayed(*args, **kw):
+        pen, ops, fwd, fin, _runs = real(*args, **kw)
+        runs = wk.wfa_runs_reference(
+            *args, fwd, fin, wildcards=kw.get("wildcards", False),
+            width=wk.runs_width("affine", kw["smax"], kw.get("x", 4),
+                                kw.get("e", 2), 0))
+        return pen, ops, fwd, fin, runs
+
+    monkeypatch.setattr(wk, "wfa_align", replayed)
+    want = twf.wfa_bialign_affine_pairs(refs, reads, wildcards=True,
+                                        device="cuda")
+    assert got == want
+    for (a, b), (pen, cig) in zip(zip(refs, reads), got):
+        assert twf.cigar_penalty(cig, a, b, x=4, o=6, e=2,
+                                 wildcards=True) == pen
 
 
 def _check_mid(args, **kw):
@@ -1362,11 +1514,15 @@ def test_wfa_aligner_and_screen_on_cuda_equal_cpu(cuda, model):
 
     fb = {d: BatchAligner(AffineScoring.aligner_default(), 16, device=d)
           for d in ("cuda", "cpu")}
-    got = twf.WfaAligner(model=model, device="cuda",
-                         dp_fallback=fb["cuda"]).align_pairs(refs, reads)
-    want = twf.WfaAligner(model=model, device="cpu",
-                          dp_fallback=fb["cpu"]).align_pairs(refs, reads)
+    card = twf.WfaAligner(model=model, device="cuda", dp_fallback=fb["cuda"])
+    host = twf.WfaAligner(model=model, device="cpu", dp_fallback=fb["cpu"])
+    got = card.align_pairs(refs, reads)
+    want = host.align_pairs(refs, reads)
     assert got == want
+    # the same lanes walked; their CIGARs built on the card, or replayed
+    assert (card.cigars_from_card, card.cigars_replayed) == \
+        (host.cigars_replayed, 0)
+    assert host.cigars_from_card == 0 and card.cigars_from_card > 0
     s_got = twf.wfa_screen_candidates(refs, reads, model=model,
                                       device="cuda")
     s_want = twf.wfa_screen_candidates(refs, reads, model=model,

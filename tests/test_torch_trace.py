@@ -279,7 +279,7 @@ def test_bam_equal_with_and_without_a_profiler(golden):
 def test_wfa_engine_writes_its_spans_and_counters(tmp_path, monkeypatch):
     """align_reads(engine="wfa") with reads past the rungs the op-store
     budget allows: the wavefront spans, self time as the nesting gives
-    it, the four counters, and wfa_phase_seconds as views of the spans."""
+    it, the counters, and wfa_phase_seconds as views of the spans."""
     monkeypatch.setenv("CLIQUE_WFA_MEM_BUDGET", str(WFA_BUDGET))
     _ref, reads, _out, m = ont_run(str(tmp_path))
     spans = m["spans"]
@@ -307,6 +307,8 @@ def test_wfa_engine_writes_its_spans_and_counters(tmp_path, monkeypatch):
     assert m["wfa_rung_lanes"] == m["wfa_rung_lanes_censored"] == \
         2 * len(reads)
     assert m["wfa_leaf_pairs"] >= 2 * len(reads)
+    assert (m["wfa_cigars_from_card"], m["wfa_cigars_replayed"]) == \
+        (0, m["wfa_leaf_pairs"])
     assert m["wfa_phase_seconds"] == {
         key: round(spans[name]["s"], 3) for key, name in (
             ("dispatch", "wfa.round"), ("score_sync", "wfa.wait"),

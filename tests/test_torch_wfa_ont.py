@@ -96,6 +96,9 @@ def test_engine_penalties_equal_the_plain_optimum(tmp_path, monkeypatch):
         2 * len(reads)
     assert m["wfa_mid_levels"] >= 1 and m["wfa_leaf_pairs"] >= 2 * len(reads)
     assert m["wfa_dp_fallbacks"] == 0
+    # every CIGAR a leaf's, from the plain host replay on the CPU
+    assert m["wfa_cigars_replayed"] == m["wfa_leaf_pairs"]
+    assert m["wfa_cigars_from_card"] == 0
 
 
 def _brute(a: bytes, b: bytes, x, o, e):
